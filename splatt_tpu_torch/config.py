@@ -2,7 +2,9 @@
 
 Counterpart of ``splatt_tpu/config.py``, cut to the fields the single-device
 CPD-ALS path reads.  The defaults are the same (≙ splatt_default_opts,
-SPLATT's opts.c).  No field is read from the environment.
+SPLATT's opts.c).  No field is read from the environment; a field left
+None (``engine_fallback``) defers to the env default its consumer reads
+(``utils/env.py``).
 """
 
 from __future__ import annotations
@@ -72,6 +74,9 @@ class Options:
     onehot_cap: int = 1024
     # compute dtype of values and factors; None = float32
     val_dtype: Optional[object] = None
+    # runtime MTTKRP engine fallback (a failing engine is demoted and the
+    # next one in the chain runs); None = SPLATT_ENGINE_FALLBACK
+    engine_fallback: Optional[bool] = None
 
     def validate(self) -> "Options":
         if self.tolerance < 0:

@@ -20,6 +20,7 @@ from typing import List, Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
+from splatt_tpu_torch import resilience
 from splatt_tpu_torch.blocked import BlockedSparse
 from splatt_tpu_torch.config import (Options, Verbosity, acc_dtype,
                                      default_opts, resolve_device,
@@ -28,7 +29,7 @@ from splatt_tpu_torch.coo import SparseTensor
 from splatt_tpu_torch.kruskal import KruskalTensor, post_process
 from splatt_tpu_torch.ops.linalg import (form_normal_lhs, gram,
                                          normalize_columns, solve_normals)
-from splatt_tpu_torch.ops.mttkrp import mttkrp
+from splatt_tpu_torch.ops.mttkrp import describe_plan, mttkrp
 
 
 def init_factors(dims: Sequence[int], rank: int, generator: torch.Generator,
@@ -59,13 +60,13 @@ def _fit(xnormsq: float, znormsq: torch.Tensor,
     return 1.0 - residual / np.sqrt(xnormsq)
 
 
-def _sweep(X, factors, grams, first: bool, reg: float):
+def _sweep(X, factors, grams, first: bool, reg: float, fallback: bool):
     """One ALS sweep over every mode; updates `factors` and `grams` in
     place and returns (λ, ⟨Z,Z⟩, ⟨X,Z⟩)."""
     nmodes = len(factors)
     lam = M = None
     for m in range(nmodes):
-        M = mttkrp(X, factors, m)
+        M = mttkrp(X, factors, m, fallback=fallback)
         U = solve_normals(form_normal_lhs(grams, m, reg), M)
         U, lam = normalize_columns(U, "2" if first else "max")
         factors[m] = U.to(factors[m].dtype)
@@ -83,7 +84,9 @@ def cpd_als(X: Union[SparseTensor, BlockedSparse], rank: int,
     elsewhere) or a COO tensor, which takes the stream MTTKRP.  `init`
     is a list of numpy arrays or tensors; without it the factors come
     from a generator seeded by ``opts.random_seed``.  `device` defaults
-    to the card and raises where there is none.
+    to the card and raises where there is none.  ``opts.engine_fallback``
+    (else SPLATT_ENGINE_FALLBACK) decides whether a failing MTTKRP engine
+    is demoted for the next one in its chain or the error propagates.
     """
     opts = (opts or default_opts()).validate()
     dev = resolve_device(device)
@@ -101,6 +104,14 @@ def cpd_als(X: Union[SparseTensor, BlockedSparse], rank: int,
         gen = torch.Generator().manual_seed(opts.seed())
         factors = init_factors(X.dims, rank, gen, dtype=dtype, device=dev)
     grams = [gram(U) for U in factors]
+    fallback = (resilience.fallback_enabled()
+                if opts.engine_fallback is None else opts.engine_fallback)
+    if opts.verbosity >= Verbosity.LOW:
+        if isinstance(X, BlockedSparse):
+            print(f"  {describe_plan(X, factors)}")
+        else:
+            print(f"  engine plan: impl={dev.type} mode*=stream "
+                  f"(COO oracle)")
 
     lam = torch.ones(rank, dtype=dtype, device=dev)
     fit_prev = 0.0
@@ -109,7 +120,7 @@ def cpd_als(X: Union[SparseTensor, BlockedSparse], rank: int,
     for it in range(opts.max_iterations):
         t0 = time.perf_counter()
         lam, znormsq, inner = _sweep(X, factors, grams, it == 0,
-                                     opts.regularization)
+                                     opts.regularization, fallback)
         # fetching the fit waits for the sweep: the iteration's time ends here
         fitval = float(_fit(xnormsq, znormsq, inner))
         fits.append(fitval)

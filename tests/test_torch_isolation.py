@@ -1,5 +1,6 @@
-"""The port stands alone: it loads neither JAX nor the JAX package, and its
-entry points run on the card unless the caller asks for the CPU."""
+"""The port stands alone: no module of it loads JAX or the JAX package
+(each is imported in a fresh interpreter), and its entry points run on the
+card unless the caller asks for the CPU."""
 
 import subprocess
 import sys
@@ -14,8 +15,17 @@ from splatt_tpu_torch.cpd import cpd_als
 from tests import gen
 
 PROBE = """
-import sys
-import splatt_tpu_torch, splatt_tpu_torch.cli
+import importlib, pkgutil, sys
+import splatt_tpu_torch
+names = [m.name for m in pkgutil.walk_packages(splatt_tpu_torch.__path__,
+                                                "splatt_tpu_torch.")]
+for name in names:
+    importlib.import_module(name)
+print("IMPORTED", len(names), names)
+if not {"splatt_tpu_torch.cli", "splatt_tpu_torch.ops.kernels",
+        "splatt_tpu_torch.resilience",
+        "splatt_tpu_torch.utils.faults"} <= set(names):
+    sys.exit(2)
 bad = sorted(m for m in sys.modules
              if m in ("jax", "jaxlib", "splatt_tpu")
              or m.startswith(("jax.", "jaxlib.", "splatt_tpu.")))

@@ -1,9 +1,6 @@
 """fused_mttkrp_t: the port's plain version against the JAX Pallas kernel
-(interpret mode), and on a card the CUDA kernel against the plain version.
-
-Tolerances: 1e-10 in f64 on the CPU (the repo's TOL); on the card, f32 with
-atomics in a run-dependent order, 1e-5 of the largest output.  The card
-test: ``python -m pytest -m gpu tests/test_torch_kernels.py``.
+(interpret mode), in f64 at 1e-10 (the repo's TOL).  The CUDA kernels
+against their plain versions on a card: tests/test_torch_kernels_gpu.py.
 """
 
 import numpy as np
@@ -13,10 +10,9 @@ import torch
 from splatt_tpu.blocked import build_layout
 from splatt_tpu.ops.pallas_kernels import fused_mttkrp_t
 from splatt_tpu_torch import state
-from splatt_tpu_torch.blocked import build_layout as port_build_layout
-from splatt_tpu_torch.coo import SparseTensor
 from splatt_tpu_torch.ops import kernels
 from tests import gen
+from tests.test_torch_kernels_gpu import contracts
 from tests.test_mttkrp import TOL, make_factors
 
 
@@ -25,14 +21,6 @@ def port_layout(lay):
         np.asarray(lay.inds), np.asarray(lay.vals), np.asarray(lay.row_start),
         mode=lay.mode, dim=lay.dim, block=lay.block,
         seg_width=lay.seg_width, nnz=lay.nnz, device="cpu")
-
-
-def contracts(lays, dims):
-    """(layout, mode, width, accumulate) for both contracts of each mode:
-    sorted on the mode's own layout, accumulate on the next mode's."""
-    for m, d in enumerate(dims):
-        yield lays[m], m, lays[m].seg_width, False
-        yield lays[(m + 1) % len(dims)], m, -(-(d + 1) // 8) * 8, True
 
 
 @pytest.mark.parametrize("accumulate", [False, True])
@@ -54,36 +42,3 @@ def test_plain_matches_pallas_interpret(name, block, rank, accumulate):
         assert got.dtype == torch.float64
         np.testing.assert_allclose(got.numpy(), want, atol=TOL, rtol=0,
                                    err_msg=f"{name} mode={m} acc={acc}")
-
-
-@pytest.mark.gpu
-def test_cuda_kernel_matches_plain():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card")
-    rng = np.random.default_rng(5)
-    skewed = (30, 24, 36, 20)
-    wide = (4000, 6, 7)   # blocks of 512 span ~1000 rows: tile > smem
-    cases = [(skewed, 3000, 128, 8), (skewed, 3000, 256, 50),
-             (skewed, 3000, 512, 33), (skewed, 3000, 128, 256),
-             (wide, 2048, 512, 64)]
-    for dims, nnz, block, rank in cases:
-        inds = np.stack([rng.zipf(1.5, size=nnz) % d for d in dims])
-        if dims == wide:
-            inds[0] = rng.integers(0, dims[0], size=nnz)
-        X = SparseTensor(inds, rng.random(nnz), dims).deduplicate()
-        lays = [port_build_layout(X, m, block=block, device="cuda")
-                for m in range(len(dims))]
-        tf = [torch.from_numpy(rng.random((d, rank), dtype=np.float32))
-              .cuda() for d in dims]
-        for lay, m, width, acc in contracts(lays, dims):
-            before = kernels.fused_mttkrp_t.launches
-            got = kernels.fused_mttkrp_t(lay, tf, m, width, acc)
-            assert kernels.fused_mttkrp_t.launches == before + 1
-            want = kernels.fused_mttkrp_t_plain(lay, tf, m, width, acc)
-            torch.cuda.synchronize()
-            scale = float(want.abs().max())
-            assert float((got - want).abs().max()) <= 1e-5 * scale, \
-                f"block={block} rank={rank} mode={m} accumulate={acc}"
-    with pytest.raises(TypeError):
-        kernels.fused_mttkrp_t(lays[0], [U.double() for U in tf], 0,
-                               lays[0].seg_width, False)

@@ -44,7 +44,20 @@ Phases, each fatal on failure:
 8. rank 512 at full width: ``cpd_als`` on the phase-3 layouts, 3
    iterations, no fault: the plan reads ``fused_tg`` on every mode, no
    demotion, ``fused_mttkrp_tg`` launched 9 times, the fit finite in
-   (0, 1].
+   (0, 1];
+9. the compact format v2 and bf16 storage: the phase-3 layouts re-encoded
+   (``reencode_layout``, no second host sort) under ``auto``, ``u8``,
+   ``delta`` and ``rle``, each mode's ``format_desc`` and
+   ``storage_bytes`` beside v1's; ``fused_mttkrp_v2`` against its plain
+   version (<= 1e-4 of max|plain|) for each encoding and contract, timed
+   beside its bound, with ``fused_mttkrp_t`` on the v1 layout timed in
+   turns beside it; rows 1-5 and ``fused_mttkrp_v2`` with bf16 values,
+   tables and products against their plain versions, timed; ``cpd_als``
+   at full width on the ``auto`` layouts from phase 5's seed, 5
+   iterations, fallback off: the plan reads ``fused_v2`` on every mode,
+   no demotion, 15 launches, fits within 1e-4 of phase 5's at every
+   iteration; ``cpd_als`` with bf16 storage on phase 4's planted tensor,
+   10 iterations: fit above 0.97 and within 0.03 of the f32 run's.
 
 The line before the last is the ``{"kernels": [...]}`` record; the last is
 ``{"ok": true, "device": {...}}``.
@@ -69,6 +82,10 @@ CHAIN_ITERS = 3
 BIG_RANK = 512
 BIG_RANK_NNZ = 2_000_000
 PARITY_RANK = 16
+ENCODINGS = ("auto", "u8", "delta", "rle")
+BF16_ITERS = 10
+BF16_MIN_FIT = 0.97    # the planted tensor's bf16 fit
+BF16_FIT_GAP = 0.03    # bf16 against f32 (≙ tests/test_format.py:251-252)
 PARITY_TOL = 1e-4      # f32 on the card against f64 on the CPU
 KERNEL_TOL = 1e-4      # relative to max|plain|, f32 with atomics
 LAMBDA_TOL = 1e-4      # λ of a faulted CPD against the unfaulted, relative
@@ -326,7 +343,8 @@ def phase_main_path(bs, rank: int) -> dict:
         raise AssertionError(f"fused_mttkrp_t launched {launches} times, "
                              f"expected {bs.nmodes * ITERS}")
     parts = sweep_phases(bs, out.factors, steady, "[cpd]")
-    return {"launches": launches, "sec_per_iter": steady, "phases": parts}
+    return {"launches": launches, "sec_per_iter": steady, "phases": parts,
+            "fits": list(out.fits)}
 
 
 def sweep_phases(bs, U, steady: float, tag: str) -> dict:
@@ -716,6 +734,209 @@ def phase_rank512(bs) -> dict:
             "kernel": kernel, "phases": parts}
 
 
+def v2_bound(layout, factors, mode: int, out) -> tuple:
+    """Least time in ms for one fused_mttkrp_v2 call: the encoded streams,
+    bases and values read once, the gathered tables read once and the
+    output written once, against nmodes x R FLOP per real nonzero."""
+    moved = nbytes(*layout.inds, *layout.base, layout.vals, out)
+    moved += nbytes(*(U for k, U in enumerate(factors) if k != mode))
+    return least_ms(moved, layout.nmodes * int(factors[0].shape[1])
+                    * layout.nnz)
+
+
+def phase_format(bs, rank: int, main_fits: list, seed: int = 1) -> dict:
+    """Phase 9: the v2 encodings and bf16 storage at full width."""
+    import dataclasses
+
+    import torch
+
+    from splatt_tpu_torch import BlockedSparse, Options, cpd_als, resilience
+    from splatt_tpu_torch.blocked import reencode_layout
+    from splatt_tpu_torch.config import BlockAlloc, LayoutFormat, Verbosity
+    from splatt_tpu_torch.ops import kernels
+    from splatt_tpu_torch.ops.mttkrp import _gather_prod, describe_plan
+
+    factors = random_factors(bs, rank, seed)
+    storage = {"v1": {f"mode{lay.mode}": lay.storage_bytes()
+                      for lay in bs.layouts}}
+    encoded = {}
+    for idx in ENCODINGS:
+        t0 = time.perf_counter()
+        lays = [reencode_layout(lay, LayoutFormat(idx=idx))
+                for lay in bs.layouts]
+        torch.cuda.synchronize()
+        if any(lay.encoding != "v2" for lay in lays):
+            raise AssertionError(f"{idx}: a layout fell back to v1")
+        encoded[idx] = dataclasses.replace(bs, layouts=lays)
+        storage[idx] = {f"mode{lay.mode}": lay.storage_bytes()
+                        for lay in lays}
+        log(f"[format] {idx}: re-encoded in {time.perf_counter() - t0:.2f} "
+            f"s; " + " ".join(f"mode{lay.mode}={lay.format_desc()} "
+                              f"{lay.storage_bytes()} B" for lay in lays))
+    log(f"[format] v1: " + " ".join(
+        f"mode{lay.mode}={lay.format_desc()} {lay.storage_bytes()} B"
+        for lay in bs.layouts))
+
+    # fused_mttkrp_v2 against its plain version, every encoding and contract
+    v2_rows = []
+    for idx in ENCODINGS:
+        for contract, lay, width, acc, m in contracts(encoded[idx]):
+            got, row = compare(
+                lambda: kernels.fused_mttkrp_v2(lay, factors, m, width, acc),
+                lambda: kernels.fused_mttkrp_v2_plain(lay, factors, m, width,
+                                                      acc),
+                f"fused_mttkrp_v2 {idx} {contract} mode {m}")
+            row.update(encoding=idx, contract=contract, mode=m,
+                       layout_mode=lay.mode, width=width,
+                       format=lay.format_desc())
+            row["bound_ms"], row["bound_by"] = v2_bound(lay, factors, m, got)
+            log(f"[format] fused_mttkrp_v2 {json.dumps(row)}")
+            v2_rows.append(row)
+            del got
+        torch.cuda.empty_cache()
+    # fused_mttkrp_t on the v1 layout and fused_v2 on auto, in turns
+    turns = []
+    for m in range(bs.nmodes):
+        v1, auto = bs.layout_for(m), encoded["auto"].layout_for(m)
+
+        def t_v1():
+            return kernels.fused_mttkrp_t(v1, factors, m, v1.seg_width,
+                                          False)
+
+        def v2_auto():
+            return kernels.fused_mttkrp_v2(auto, factors, m, auto.seg_width,
+                                           False)
+
+        ms = [time_ms(fn, reps=20, warmup=2)
+              for fn in (t_v1, v2_auto, v2_auto, t_v1)]
+        turns.append(dict(mode=m, fused_t_v1_ms=(ms[0] + ms[3]) / 2,
+                          fused_v2_auto_ms=(ms[1] + ms[2]) / 2, order=ms))
+    log(f"[format] sorted launch in turns (t, v2, v2, t) {json.dumps(turns)}")
+
+    # bf16 values, tables and products through rows 1-6
+    bf16 = {}
+    fac16 = [U.to(torch.bfloat16) for U in factors]
+    lays16 = [reencode_layout(lay, LayoutFormat(val="bf16"),
+                              val_dtype=torch.bfloat16)
+              for lay in bs.layouts]
+    bs16 = dataclasses.replace(bs, layouts=lays16)
+    auto16 = dataclasses.replace(bs, layouts=[
+        reencode_layout(lay, LayoutFormat(idx="auto", val="bf16"),
+                        val_dtype=torch.bfloat16) for lay in bs.layouts])
+    fused = (("fused_mttkrp_t", kernels.fused_mttkrp_t,
+              kernels.fused_mttkrp_t_plain, bs16),
+             ("fused_mttkrp_tg", kernels.fused_mttkrp_tg,
+              kernels.fused_mttkrp_tg_plain, bs16),
+             ("fused_mttkrp", kernels.fused_mttkrp,
+              kernels.fused_mttkrp_plain, bs16),
+             ("fused_mttkrp_v2", kernels.fused_mttkrp_v2,
+              kernels.fused_mttkrp_v2_plain, auto16))
+    for name, fn, plain, X in fused:
+        bf16[name] = []
+        for contract, lay, width, acc, m in contracts(X):
+            if contract != "sorted":
+                continue
+            got, row = compare(lambda: fn(lay, fac16, m, width, acc),
+                               lambda: plain(lay, fac16, m, width, acc),
+                               f"{name} bf16 {contract} mode {m}")
+            bound_fn = v2_bound if name == "fused_mttkrp_v2" else bound
+            row["bound_ms"], row["bound_by"] = bound_fn(lay, fac16, m, got)
+            row.update(contract=contract, mode=m)
+            log(f"[format] {name} bf16 {json.dumps(row)}")
+            bf16[name].append(row)
+            del got
+    for contract, lay, width, acc, m in contracts(bs16):
+        nb, B = lay.nblocks, lay.block
+        prod = _gather_prod(lay.inds, lay.vals, fac16, m).reshape(nb, B,
+                                                                   rank)
+        if acc:
+            name, fn, plain = ("onehot_reduce_full",
+                               kernels.onehot_reduce_full,
+                               kernels.onehot_reduce_full_plain)
+            ids = lay.mode_ids(m).reshape(nb, B)
+        else:
+            name, fn, plain = ("onehot_reduce_sorted",
+                               kernels.onehot_reduce_sorted,
+                               kernels.onehot_reduce_sorted_plain)
+            ids = lay.blocked_locals()
+        got, row = compare(lambda: fn(ids, prod, width),
+                           lambda: plain(ids, prod, width),
+                           f"{name} bf16 {contract} mode {m}")
+        row["bound_ms"], row["bound_by"] = reduce_bound(ids, prod, got,
+                                                        lay.nnz)
+        row.update(contract=contract, mode=m)
+        log(f"[format] {name} bf16 {json.dumps(row)}")
+        bf16.setdefault(name, []).append(row)
+        del prod, got, ids
+    del bs16, auto16, lays16
+    torch.cuda.empty_cache()
+
+    # the full-width CPD on the auto layouts, from phase 5's seed
+    X = encoded["auto"]
+    plan = describe_plan(X, factors)
+    log(f"[format] {plan}")
+    if plan.count("sorted_onehot/fused_v2") != bs.nmodes:
+        raise AssertionError(f"auto plan is not fused_v2: {plan}")
+    opts = Options(block_alloc=BlockAlloc.ALLMODE, max_iterations=ITERS,
+                   tolerance=0.0, random_seed=0, engine_fallback=False,
+                   verbosity=Verbosity.NONE)
+    resilience.reset_demotions()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    out = cpd_als(X, rank, opts)
+    torch.cuda.synchronize()
+    launches = {k.__name__: k.launches for k in kernels.KERNELS}
+    peak = torch.cuda.max_memory_allocated()
+    steady = sum(out.iter_seconds[1:]) / (len(out.iter_seconds) - 1)
+    fit_diff = max(abs(a - b) for a, b in zip(out.fits, main_fits))
+    log(f"[format] auto cpd fits {list(out.fits)} (phase 5 {main_fits}); "
+        f"max |difference| {fit_diff:.3e}; iteration seconds "
+        f"{list(out.iter_seconds)}; {steady:.5f} s/iteration; peak "
+        f"{peak / 2**30:.2f} GiB; launches {launches}")
+    if resilience.demotions():
+        raise AssertionError(f"demotions on the v2 path: "
+                             f"{resilience.demotions()}")
+    want = {k.__name__: 0 for k in kernels.KERNELS}
+    want["fused_mttkrp_v2"] = bs.nmodes * ITERS
+    if launches != want:
+        raise AssertionError(f"v2 launches {launches}, expected {want}")
+    if len(out.fits) != ITERS or not fit_diff <= PARITY_TOL:
+        raise AssertionError(f"v2 fits {out.fits} against {main_fits}")
+    parts = sweep_phases(X, out.factors, steady, "[format]")
+    del encoded, X
+    torch.cuda.empty_cache()
+
+    # bf16 storage on the planted tensor of phase 4
+    tt = planted_tensor(NELL2, clusters=8, side=30, seed=3)
+    init = [np.random.default_rng(4).random((d, PARITY_RANK))
+            for d in tt.dims]
+    planted = {}
+    for vs in ("f32", "bf16"):
+        popts = Options(max_iterations=BF16_ITERS, tolerance=0.0,
+                        idx_width="auto", val_storage=vs,
+                        engine_fallback=False, verbosity=Verbosity.NONE)
+        pbs = BlockedSparse.from_coo(tt, popts)
+        res = cpd_als(pbs, PARITY_RANK, popts, init=init)
+        planted[vs] = dict(fits=list(res.fits),
+                           factor_dtype=str(res.factors[0].dtype),
+                           sec_per_iter=sum(res.iter_seconds[1:])
+                           / (len(res.iter_seconds) - 1))
+    log(f"[format] planted rank-8 tensor, rank {PARITY_RANK}: "
+        f"{json.dumps(planted)}")
+    f16, f32 = planted["bf16"]["fits"][-1], planted["f32"]["fits"][-1]
+    if planted["bf16"]["factor_dtype"] != "torch.bfloat16":
+        raise AssertionError("the bf16 run's factors are not bf16")
+    if not (f16 > BF16_MIN_FIT and abs(f16 - f32) < BF16_FIT_GAP):
+        raise AssertionError(f"bf16 fit {f16} against f32 {f32}")
+    return {"v2_rows": v2_rows, "turns": turns, "bf16": bf16,
+            "storage_bytes": storage, "launches": launches,
+            "cpd": dict(fits=list(out.fits), max_fit_diff=fit_diff,
+                        sec_per_iter=steady, peak_gib=peak / 2**30,
+                        sweep_phase_ms=parts),
+            "planted_bf16": planted}
+
+
 def _record_row(name: str, source: str, replaces: str, launches: int,
                 rows: list, library, **extra) -> dict:
     """One kernel's entry of the kernels line: ms, plain, bound and
@@ -732,6 +953,16 @@ def _record_row(name: str, source: str, replaces: str, launches: int,
                 bound_ms=mean("bound_ms"), bound_by=rows[0]["bound_by"],
                 library_ms=None if library is None else mean(library),
                 **extra)
+
+
+def _bf16_summary(rows: list) -> dict:
+    """Phase 9's bf16 rows of one kernel: means over the modes."""
+    n = len(rows)
+    return dict(ms=sum(r["ms"] for r in rows) / n,
+                plain_ms=sum(r["plain_ms"] for r in rows) / n,
+                bound_ms=sum(r["bound_ms"] for r in rows) / n,
+                max_rel_err=max(r["max_rel_err"] for r in rows),
+                contract=rows[0]["contract"], rows=rows)
 
 
 def main() -> int:
@@ -767,6 +998,8 @@ def main() -> int:
     big_rows = phase_big_rank()
     chain = phase_chain(bs, RANK)
     big = phase_rank512(bs)
+    fmt = phase_format(bs, RANK, main_path["fits"])
+    bf16 = {k: _bf16_summary(v) for k, v in fmt["bf16"].items()}
 
     def main_rows(rs):
         """The rows of the contract the main path runs: sorted."""
@@ -776,6 +1009,7 @@ def main() -> int:
         return chain[label]["launches"][kernel]
 
     fused_src = "splatt_tpu_torch/csrc/fused_mttkrp.cu"
+    v2_src = "splatt_tpu_torch/csrc/fused_mttkrp_v2.cu"
     reduce_src = "splatt_tpu_torch/csrc/onehot_reduce.cu"
     pk = "splatt_tpu/ops/pallas_kernels.py"
     note = ("ms/plain_ms/bound_ms: mean per launch over the 3 modes at rank "
@@ -786,13 +1020,15 @@ def main() -> int:
                     main_path["launches"], main_rows(rows), None,
                     note=note + " (phase 5, the main path)", contracts=rows,
                     cpd_sec_per_iter=main_path["sec_per_iter"],
-                    sweep_phase_ms=main_path["phases"]),
+                    sweep_phase_ms=main_path["phases"],
+                    bf16=bf16["fused_mttkrp_t"]),
         _record_row("fused_mttkrp_tg", fused_src, f"{pk}:507",
                     launches("fused_t faulted", "fused_mttkrp_tg"),
                     main_rows(new_rows["fused_mttkrp_tg"]), None,
                     note=note + " (phase 7, fused_t faulted); rank512: "
                     "phase 8's CPD, where it is the head of the chain",
                     contracts=new_rows["fused_mttkrp_tg"],
+                    bf16=bf16["fused_mttkrp_tg"],
                     rank512=dict(launches=big["launches"],
                                  sorted_20m=big["kernel"],
                                  contracts_2m=big_rows,
@@ -804,13 +1040,15 @@ def main() -> int:
                              "fused_mttkrp"),
                     main_rows(new_rows["fused_mttkrp"]), None,
                     note=note + " (phase 7, SPLATT_EXPERIMENTAL_FUSED=1)",
-                    contracts=new_rows["fused_mttkrp"]),
+                    contracts=new_rows["fused_mttkrp"],
+                    bf16=bf16["fused_mttkrp"]),
         _record_row("onehot_reduce_sorted", reduce_src, f"{pk}:148",
                     launches("fused_t, fused_tg faulted",
                              "onehot_reduce_sorted"),
                     new_rows["onehot_reduce_sorted"], "library_ms",
                     note=note + " (phase 7); library: one index_add_",
-                    contracts=new_rows["onehot_reduce_sorted"]),
+                    contracts=new_rows["onehot_reduce_sorted"],
+                    bf16=bf16["onehot_reduce_sorted"]),
         _record_row("onehot_reduce_full", reduce_src, f"{pk}:1415",
                     launches("fused_t, fused_tg faulted, mode 0 privatized",
                              "onehot_reduce_full"),
@@ -819,7 +1057,22 @@ def main() -> int:
                                       "modes, accumulate contract")
                     + " (phase 7, mode 0 privatized); library: one "
                       "index_add_",
-                    contracts=new_rows["onehot_reduce_full"]),
+                    contracts=new_rows["onehot_reduce_full"],
+                    bf16=bf16["onehot_reduce_full"]),
+        _record_row("fused_mttkrp_v2", v2_src, f"{pk}:702",
+                    fmt["launches"]["fused_mttkrp_v2"],
+                    [r for r in fmt["v2_rows"] if r["encoding"] == "auto"
+                     and r["contract"] == "sorted"], None,
+                    note=note.replace("20M nonzeros", "20M nonzeros, "
+                                      "idx_width auto, sorted contract")
+                    + " (phase 9, the auto CPD); library: none, no single "
+                      "PyTorch call computes it",
+                    max_rel_err_all=max(r["max_rel_err"]
+                                        for r in fmt["v2_rows"]),
+                    contracts=fmt["v2_rows"], turns=fmt["turns"],
+                    storage_bytes=fmt["storage_bytes"], cpd=fmt["cpd"],
+                    planted_bf16=fmt["planted_bf16"],
+                    bf16=bf16["fused_mttkrp_v2"]),
     ], "chain": chain, "power": dev["smi"]}
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {

@@ -1,26 +1,51 @@
-"""Blocked sparse layouts, v1 ``fixed`` packing (≙ src/csf.c).
+"""Blocked sparse layouts, ``fixed`` packing, v1 and the compact v2
+encodings (≙ src/csf.c).
 
 Counterpart of ``splatt_tpu/blocked.py``.  A layout holds the nonzeros
 sorted by one output mode, cut into fixed blocks of ``block`` nonzeros and
 padded to a whole number of blocks with sentinel entries (id ``dim`` in the
 sorted mode, 0 elsewhere, value 0).  Each block records the first output row
 it touches (``row_start``); ``seg_width`` is the widest row span of any
-block, rounded up to 8.  Sorting and blocking run on the host in numpy; the
-finished arrays move to the device once.
+block, rounded up to 8.  Sorting, blocking and encoding run on the host in
+numpy; the finished arrays move to the device once.
+
+Two encodings share :class:`ModeLayout` (docs/format.md):
+
+- v1: ``inds`` is one ``(nmodes, nnz_pad)`` int32 tensor of global ids.
+- v2: ``inds`` is a tuple of per-mode streams of local ids at the narrowest
+  width that fits, with per-block int32 ``base`` offsets (global = local +
+  base); the sorted mode's base is ``row_start``, so its stream holds
+  segment ids.  ``idx_width`` names the variant: "auto"/"u16", "u8"
+  (uint8 segment ids), "delta" (the gather modes as within-block
+  differences), "rle" (the sorted mode as per-block run-length counts).
+
+Every consumer reads a layout through the stream vocabulary below
+(:func:`decode_gather_ids`, :func:`decode_segment_ids`,
+:func:`decode_global_ids`, :func:`rle_expand`), as in the JAX package.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 
-from splatt_tpu_torch.config import (BlockAlloc, ModeOrder, Options,
-                                     default_opts, resolve_device,
-                                     resolve_dtype)
+from splatt_tpu_torch.config import (BlockAlloc, LayoutFormat, ModeOrder,
+                                     Options, Verbosity, default_opts,
+                                     layout_format, resolve_device,
+                                     resolve_dtype, resolve_storage_dtype)
 from splatt_tpu_torch.coo import SparseTensor
+
+#: short dtype names for format descriptions ("mode0=u16/seg/bf16")
+_DTYPE_SHORT = {torch.float32: "f32", torch.float64: "f64",
+                torch.bfloat16: "bf16", torch.float16: "f16"}
+
+#: short integer-dtype names for achieved index widths (signed widths
+#: appear under the "delta" encoding)
+_IDX_SHORT = {torch.uint8: "u8", torch.uint16: "u16", torch.int8: "i8",
+              torch.int16: "i16", torch.int32: "i32", torch.int64: "i64"}
 
 
 def ceil_to(x: int, mult: int) -> int:
@@ -28,18 +53,109 @@ def ceil_to(x: int, mult: int) -> int:
     return ((x + mult - 1) // mult) * mult
 
 
+# -- the stream vocabulary (≙ splatt_tpu/blocked.py:65-163) -----------------
+
+#: per-mode stream-encoding kinds:
+#:   "glob"  — global int32 ids (v1; no base)
+#:   "loc"   — narrow local ids; global = local + base[block]
+#:   "seg"   — the sorted mode's within-block segment ids (base is
+#:             row_start); global = seg + base[block]
+#:   "delta" — within-block first differences of "loc"; decode is an
+#:             exact integer cumulative sum, then + base
+#:   "rle"   — per-block (seg_width,) run-length counts in place of the
+#:             sorted mode's per-nonzero stream
+STREAM_ENCODINGS = ("glob", "loc", "seg", "delta", "rle")
+
+
+class ModeStreams(NamedTuple):
+    """A layout's raw encoded per-mode streams, their per-block bases
+    (None for v1) and their :data:`STREAM_ENCODINGS` kinds."""
+
+    streams: tuple
+    bases: Optional[tuple]
+    encs: Tuple[str, ...]
+
+
+def stream_encodings(idx_width: str, mode: int,
+                     nmodes: int) -> Tuple[str, ...]:
+    """Per-mode encoding kinds of a layout sorted by `mode` and built
+    under `idx_width`."""
+    if idx_width == "i32":
+        return ("glob",) * nmodes
+    out = []
+    for k in range(nmodes):
+        if k == mode:
+            out.append("rle" if idx_width == "rle" else "seg")
+        else:
+            out.append("delta" if idx_width == "delta" else "loc")
+    return tuple(out)
+
+
+def widen_ids(arr: torch.Tensor) -> torch.Tensor:
+    """A stored index stream at the int32 the compute reads."""
+    return arr.to(torch.int32)
+
+
+def decode_gather_ids(arr: torch.Tensor, base, enc: str) -> torch.Tensor:
+    """Decode a gather-mode chunk ``(..., B)`` to global int32 ids.
+    `base` broadcasts against the stream (None for "glob"); "delta"
+    sums along the last axis, which is the block axis."""
+    ids = widen_ids(arr)
+    if enc == "glob":
+        return ids
+    if enc == "delta":
+        ids = torch.cumsum(ids, dim=-1, dtype=torch.int32)
+    return ids + base
+
+
+def rle_expand(counts: torch.Tensor, block: int) -> torch.Tensor:
+    """Per-block run-length counts ``(..., S)`` → the nondecreasing
+    within-block segment ids ``(..., block)`` they encode: entry j's id
+    is the number of run ends at or before j."""
+    ends = torch.cumsum(widen_ids(counts), dim=-1, dtype=torch.int32)
+    iota = torch.arange(block, dtype=torch.int32, device=counts.device)
+    iota = iota.expand(*ends.shape[:-1], block).contiguous()
+    return torch.searchsorted(ends.contiguous(), iota, right=True,
+                              out_int32=True)
+
+
+def decode_segment_ids(arr: torch.Tensor, enc: str, block: int,
+                       row_start=None) -> torch.Tensor:
+    """Decode the sorted mode's chunk to within-block segment ids
+    ``(..., block)``: "seg" widens, "rle" expands the counts, "glob"
+    subtracts the block's run start `row_start`."""
+    if enc == "rle":
+        return rle_expand(arr, block)
+    if enc == "glob":
+        return widen_ids(arr) - row_start
+    return widen_ids(arr)
+
+
+def decode_global_ids(arr: torch.Tensor, base, enc: str,
+                      block: int) -> torch.Tensor:
+    """Decode a chunk of any kind to global int32 ids, e.g. the sorted
+    mode's segment or RLE stream read as a gather stream."""
+    if enc in ("seg", "rle"):
+        return decode_segment_ids(arr, enc, block) + base
+    return decode_gather_ids(arr, base, enc)
+
+
 @dataclasses.dataclass
 class ModeLayout:
     """One sorted and blocked copy of the nonzeros (≙ one splatt_csf).
 
-    inds: (nmodes, nnz_pad) int32 global coordinates sorted by ``mode``.
-    vals: (nnz_pad,) values, zero-padded.
+    inds: v1 ``(nmodes, nnz_pad)`` int32 global ids sorted by ``mode``;
+      v2 a tuple of per-mode encoded streams (``(nnz_pad,)``, or
+      ``(nblocks, seg_width)`` counts for an RLE sorted mode).
+    vals: (nnz_pad,) values at the storage dtype, zero-padded.
     row_start: (nblocks,) int32 first output row of each block (``dim``
       for an all-padding block).
+    base: v2 per-mode (nblocks,) int32 block offsets; None for v1.
     mode, dim, block, seg_width, nnz: as in the JAX package.
+    idx_width / val_storage: the requested format policy.
     """
 
-    inds: torch.Tensor
+    inds: Union[torch.Tensor, Tuple[torch.Tensor, ...]]
     vals: torch.Tensor
     row_start: torch.Tensor
     mode: int
@@ -47,6 +163,9 @@ class ModeLayout:
     block: int
     seg_width: int
     nnz: int
+    base: Optional[Tuple[torch.Tensor, ...]] = None
+    idx_width: str = "i32"
+    val_storage: str = "auto"
 
     @property
     def nnz_pad(self) -> int:
@@ -58,23 +177,103 @@ class ModeLayout:
 
     @property
     def nmodes(self) -> int:
-        return int(self.inds.shape[0])
+        # len() covers the v1 (nmodes, nnz_pad) tensor and the v2 tuple
+        return len(self.inds)
 
     @property
     def device(self) -> torch.device:
         return self.vals.device
 
+    @property
+    def encoding(self) -> str:
+        """"v1" (global int32) or "v2" (local narrow + base)."""
+        return "v1" if self.base is None else "v2"
+
+    def stream_encs(self) -> Tuple[str, ...]:
+        """Per-mode :data:`STREAM_ENCODINGS` kinds."""
+        return stream_encodings(self.idx_width if self.base is not None
+                                else "i32", self.mode, self.nmodes)
+
     def mode_ids(self, k: int) -> torch.Tensor:
-        """(nnz_pad,) int32 global ids of mode `k`."""
-        return self.inds[k]
+        """(nnz_pad,) int32 global ids of mode `k`, decoded per block
+        from a v2 stream."""
+        enc = self.stream_encs()[k]
+        if enc == "glob":
+            return widen_ids(self.inds[k])
+        return decode_global_ids(
+            self.inds[k].reshape(self.nblocks, -1),
+            self.base[k][:, None], enc, self.block).reshape(-1)
 
     def blocked_locals(self) -> torch.Tensor:
         """(nblocks, block) int32 within-block ids of the sorted mode."""
-        rows = self.inds[self.mode].reshape(self.nblocks, self.block)
-        return rows - self.row_start[:, None]
+        enc = self.stream_encs()[self.mode]
+        return decode_segment_ids(
+            self.inds[self.mode].reshape(self.nblocks, -1), enc,
+            self.block, row_start=(self.row_start[:, None]
+                                   if enc == "glob" else None))
+
+    def mode_streams(self) -> ModeStreams:
+        """The raw encoded streams, bases and kinds, for consumers that
+        decode per chunk or inside a kernel."""
+        return ModeStreams(
+            streams=tuple(self.inds[k] for k in range(self.nmodes)),
+            bases=None if self.base is None else tuple(self.base),
+            encs=self.stream_encs())
+
+    def real_mask(self) -> np.ndarray:
+        """(nblocks, block) bool host mask of real entries: the fixed
+        packing's reals are the first ``nnz`` positions."""
+        real = np.zeros(self.nblocks * self.block, dtype=bool)
+        real[:self.nnz] = True
+        return real.reshape(self.nblocks, self.block)
+
+    def idx_widths(self) -> List[str]:
+        """Per-mode stored index width ("u8"/"u16"/"i8"/"i16"/"i32")."""
+        return [_IDX_SHORT.get(self.inds[k].dtype, "i32")
+                for k in range(self.nmodes)]
+
+    def format_desc(self) -> str:
+        """Achieved format, e.g. ``u16/seg/bf16`` (v2) or ``i32/glob/f32``
+        (v1): index width(s) / sorted-mode encoding / value dtype."""
+        widths = sorted(set(self.idx_widths()))
+        idx = widths[0] if len(widths) == 1 else "+".join(widths)
+        if self.base is None:
+            enc = "glob"
+        else:
+            enc = {"delta": "dlt", "rle": "rle"}.get(self.idx_width, "seg")
+        val = _DTYPE_SHORT.get(self.vals.dtype,
+                               str(self.vals.dtype).replace("torch.", ""))
+        return f"{idx}/{enc}/{val}"
+
+    def storage_bytes(self) -> int:
+        """≙ csf_storage (src/csf.c:729-767): the encoded bytes of the
+        stored streams, bases, values and run starts."""
+
+        def nbytes(t):
+            return t.numel() * t.element_size()
+
+        if self.base is None:
+            idx = nbytes(self.inds)
+        else:
+            idx = sum(nbytes(a) for a in self.inds)
+            idx += sum(nbytes(b) for b in self.base)
+        return idx + nbytes(self.vals) + nbytes(self.row_start)
+
+    def __repr__(self) -> str:
+        return (f"ModeLayout(mode={self.mode}, dim={self.dim}, "
+                f"block={self.block}, seg_width={self.seg_width}, "
+                f"nnz={self.nnz}, nnz_pad={self.nnz_pad}, "
+                f"nblocks={self.nblocks}, enc={self.encoding}"
+                f"[{self.format_desc()}])")
 
     def to(self, device) -> "ModeLayout":
-        return dataclasses.replace(self, inds=self.inds.to(device),
+        if self.base is None:
+            inds = self.inds.to(device)
+            base = None
+        else:
+            inds = tuple(s.to(device) for s in self.inds)
+            base = tuple(b.to(device) for b in self.base)
+        return dataclasses.replace(self, inds=inds, base=base,
                                    vals=self.vals.to(device),
                                    row_start=self.row_start.to(device))
 
@@ -113,13 +312,162 @@ def check_int32_dims(dims) -> None:
             f"(max dim must be < {limit}); relabel/split the mode first")
 
 
+# -- the v2 encoders (≙ splatt_tpu/blocked.py:559-699), numpy on the host ---
+
+
+def _delta_width(delta: np.ndarray):
+    """Narrowest signed numpy dtype holding every within-block delta."""
+    lo = int(delta.min()) if delta.size else 0
+    hi = int(delta.max()) if delta.size else 0
+    for width in (np.int8, np.int16):
+        info = np.iinfo(width)
+        if info.min <= lo and hi <= info.max:
+            return width
+    return np.int32
+
+
+def _encode_rle(loc: np.ndarray, seg_width: int, block: int) -> np.ndarray:
+    """The sorted mode's (nblocks, block) segment ids as per-block
+    (seg_width,) counts.  Ids must be nondecreasing within each block,
+    and a seg_width above the block would invert the compression: both
+    are encode errors, which the callers degrade to v1."""
+    nb = loc.shape[0]
+    if seg_width > block:
+        raise ValueError(
+            f"idx_width=rle would invert compression: seg_width "
+            f"{seg_width} exceeds the block size {block}; use "
+            f"idx_width=auto for wide-span layouts")
+    if loc.size and np.any(np.diff(loc, axis=1) < 0):
+        raise ValueError(
+            "idx_width=rle requires nondecreasing within-block segment "
+            "ids; the sorted-mode stream is not monotone")
+    offs = loc.astype(np.int64) + np.arange(nb, dtype=np.int64)[:, None] \
+        * seg_width
+    counts = np.bincount(offs.ravel(),
+                         minlength=nb * seg_width).reshape(nb, seg_width)
+    width = np.uint16 if block <= np.iinfo(np.uint16).max else np.int32
+    return counts.astype(width)
+
+
+def _encode_v2(inds: np.ndarray, row_start: np.ndarray, mode: int,
+               block: int, nnz: int, fmt: LayoutFormat,
+               real: Optional[np.ndarray] = None,
+               seg_width: Optional[int] = None):
+    """Sorted, padded global (nmodes, nnz_pad) int32 ids → the v2
+    per-mode streams and per-block int32 bases.
+
+    Gather modes: local ids against the block's smallest real id, at
+    uint16 where the mode's largest extent fits, else int32 ("u16"
+    makes a misfit an error); "delta" stores their within-block
+    differences at the narrowest signed width.  The sorted mode: segment
+    ids against ``row_start``, uint8 under "u8" (a span above 255 is an
+    error), per-block counts under "rle" (`seg_width` needed).  Pads:
+    the sorted mode's take the block's last real segment id (0 in an
+    all-pad block, whose base is the sentinel ``dim``), the others 0.
+    """
+    nmodes, nnz_pad = inds.shape
+    nb = nnz_pad // block
+    u8_max = int(np.iinfo(np.uint8).max)
+    u16_max = int(np.iinfo(np.uint16).max)
+    if real is None:
+        real = np.zeros(nnz_pad, dtype=bool)
+        real[:nnz] = True
+        real = real.reshape(nb, block)
+    else:
+        real = np.asarray(real, dtype=bool).reshape(nb, block)
+    any_pad = not real.all()
+    locs, bases = [], []
+    for k in range(nmodes):
+        rows = inds[k].reshape(nb, block)
+        if k == mode:
+            base = row_start.astype(np.int32).copy()
+        else:
+            masked = np.where(real, rows, np.iinfo(np.int32).max)
+            base = masked.min(axis=1)
+            base[base == np.iinfo(np.int32).max] = 0
+            base = base.astype(np.int32)
+        loc = rows - base[:, None]
+        if any_pad:
+            if k == mode:
+                maxloc = np.where(real, loc, 0).max(axis=1)
+                loc = np.where(real, loc, maxloc[:, None])
+            else:
+                loc = np.where(real, loc, 0)
+        if k == mode and fmt.idx == "rle":
+            if seg_width is None:
+                raise ValueError("idx_width=rle requires the layout's "
+                                 "seg_width at encode time")
+            locs.append(_encode_rle(loc, int(seg_width), block))
+            bases.append(base)
+            continue
+        if k != mode and fmt.idx == "delta":
+            delta = np.diff(loc, axis=1, prepend=0)
+            locs.append(delta.reshape(-1).astype(_delta_width(delta)))
+            bases.append(base)
+            continue
+        extent = int(loc.max()) if loc.size else 0
+        if fmt.idx == "u16" and extent > u16_max:
+            raise ValueError(
+                f"idx_width=u16 requested but mode {k}'s maximum "
+                f"per-block extent {extent} exceeds uint16; use "
+                f"idx_width=auto (which falls back to int32 per mode)")
+        if fmt.idx == "u8" and k == mode and extent > u8_max:
+            raise ValueError(
+                f"idx_width=u8 requested but the sorted mode's maximum "
+                f"block span {extent} exceeds uint8; use idx_width=auto "
+                f"(u16/i32 segment ids)")
+        if fmt.idx == "u8" and k == mode:
+            width = np.uint8
+        else:
+            width = np.uint16 if extent <= u16_max else np.int32
+        locs.append(loc.reshape(-1).astype(width))
+        bases.append(base)
+    return locs, bases
+
+
+def _format_fallback(mode: int, fmt: LayoutFormat, e: Exception,
+                     verbose: bool) -> None:
+    """Record a v2 encode that degraded to v1 (``format_fallback``)."""
+    from splatt_tpu_torch import resilience
+
+    cls = resilience.classify_failure(e)
+    resilience.run_report().add(
+        "format_fallback", mode=mode, idx_width=fmt.idx,
+        failure_class=cls.value,
+        error=resilience.failure_message(e)[:200])
+    if verbose:
+        print(f"  layout mode{mode}: v2 ({fmt.idx}) encode failed "
+              f"({cls.value}); falling back to the v1 i32 encoding")
+
+
+def _encoded(locs, bases, dev) -> dict:
+    return dict(inds=tuple(torch.from_numpy(np.ascontiguousarray(s)).to(dev)
+                           for s in locs),
+                base=tuple(torch.from_numpy(b).to(dev) for b in bases))
+
+
+# -- the builders -------------------------------------------------------------
+
+
 def build_layout(tt: SparseTensor, mode: int, block: int = 4096,
                  val_dtype=torch.float32, mode_order=None,
-                 mode_order_custom=None, device=None) -> ModeLayout:
+                 mode_order_custom=None, device=None,
+                 fmt: Optional[LayoutFormat] = None,
+                 verbose: bool = False) -> ModeLayout:
     """Sort, block and pad the tensor for output mode `mode`
-    (≙ csf_alloc's sort + fiber build, src/csf.c:613-726)."""
+    (≙ csf_alloc's sort + fiber build, src/csf.c:613-726).
+
+    `fmt` picks the encoding: v1 global int32 by default, or v2.  A v2
+    encode that fails (an armed ``format.encode`` fault, a u16/u8/RLE
+    overflow) degrades to v1 with a ``format_fallback`` event.  A
+    requested block cut to the tensor's size leaves a ``block_clamp``
+    event."""
+    from splatt_tpu_torch import resilience
+    from splatt_tpu_torch.utils import faults
+
     nmodes, nnz = tt.nmodes, tt.nnz
     check_int32_dims(tt.dims)
+    fmt = (fmt or LayoutFormat()).validate()
     dev = resolve_device(device)
     order = [mode] + secondary_order(tt.dims, mode, mode_order,
                                      mode_order_custom)
@@ -128,7 +476,16 @@ def build_layout(tt: SparseTensor, mode: int, block: int = 4096,
 
     # the block never dwarfs a small tensor: clamp to the nnz count
     # padded to 128
-    block = max(128, min(int(block), ceil_to(max(nnz, 1), 128)))
+    requested = int(block)
+    block = max(128, min(requested, ceil_to(max(nnz, 1), 128)))
+    if block != requested:
+        resilience.run_report().add("block_clamp", mode=mode,
+                                    requested=requested, effective=block,
+                                    nnz=nnz, idx_width=fmt.idx,
+                                    val_storage=fmt.val)
+        if verbose:
+            print(f"  layout mode{mode} [{fmt.idx}/{fmt.val}]: requested "
+                  f"nnz_block {requested} clamped to {block} (nnz={nnz})")
     nnz_pad = max(block, ceil_to(nnz, block))
     nblocks = nnz_pad // block
     inds = np.zeros((nmodes, nnz_pad), dtype=np.int32)
@@ -142,11 +499,65 @@ def build_layout(tt: SparseTensor, mode: int, block: int = 4096,
     # sentinels in the last real block can inflate its span: clamp to the
     # widest span real rows can have
     seg_width = ceil_to(min(span, dim if dim > 0 else 1), 8)
-    return ModeLayout(inds=torch.from_numpy(inds).to(dev),
-                      vals=vals.to(dev),
-                      row_start=torch.from_numpy(row_start).to(dev),
-                      mode=mode, dim=dim, block=block, seg_width=seg_width,
-                      nnz=nnz)
+    statics = dict(vals=vals.to(dev),
+                   row_start=torch.from_numpy(row_start).to(dev),
+                   mode=mode, dim=dim, block=block, seg_width=seg_width,
+                   nnz=nnz, val_storage=fmt.val)
+    if fmt.v2:
+        try:
+            faults.maybe_fail("format.encode")
+            locs, bases = _encode_v2(inds, row_start, mode, block, nnz,
+                                     fmt, seg_width=seg_width)
+            return ModeLayout(**_encoded(locs, bases, dev),
+                              idx_width=fmt.idx, **statics)
+        except Exception as e:
+            # a failed v2 encode degrades the build, classified, to the
+            # v1 encoding every engine reads
+            _format_fallback(mode, fmt, e, verbose)
+    return ModeLayout(inds=torch.from_numpy(inds).to(dev), idx_width="i32",
+                      **statics)
+
+
+def reencode_layout(layout: ModeLayout, fmt: LayoutFormat,
+                    val_dtype=None) -> ModeLayout:
+    """Re-encode a v1 layout under `fmt` (and optionally another value
+    dtype) without sorting again.  A failed v2 encode returns the v1
+    layout with a ``format_fallback`` event, as :func:`build_layout`
+    does."""
+    from splatt_tpu_torch.utils import faults
+
+    fmt = fmt.validate()
+    if layout.encoding != "v1":
+        raise ValueError("reencode_layout expects a v1 source layout")
+    vals = layout.vals if val_dtype is None else layout.vals.to(val_dtype)
+    v1 = dataclasses.replace(layout, vals=vals, idx_width="i32",
+                             val_storage=fmt.val)
+    if not fmt.v2:
+        return v1
+    try:
+        faults.maybe_fail("format.encode")
+        locs, bases = _encode_v2(layout.inds.cpu().numpy(),
+                                 layout.row_start.cpu().numpy(),
+                                 layout.mode, layout.block, layout.nnz,
+                                 fmt, real=layout.real_mask(),
+                                 seg_width=layout.seg_width)
+        return dataclasses.replace(v1, idx_width=fmt.idx,
+                                   **_encoded(locs, bases, layout.device))
+    except Exception as e:
+        _format_fallback(layout.mode, fmt, e, False)
+        return v1
+
+
+def decode_to_v1(layout: ModeLayout) -> ModeLayout:
+    """A compact layout's global-int32 v1 form, decoded on its device
+    through :meth:`ModeLayout.mode_ids`: what ``SPLATT_DECODE=prep``,
+    the ``format.decode`` degradation and the prep-decoding kernel
+    engines read."""
+    if layout.encoding == "v1":
+        return layout
+    inds = torch.stack([layout.mode_ids(k) for k in range(layout.nmodes)])
+    return dataclasses.replace(layout, inds=inds, base=None,
+                               idx_width="i32")
 
 
 def alloc_build_modes(dims: Sequence[int], opts: Options) -> List[int]:
@@ -190,24 +601,49 @@ class BlockedSparse:
         return dataclasses.replace(
             self, layouts=[lay.to(device) for lay in self.layouts])
 
+    def storage_bytes(self) -> int:
+        return sum(lay.storage_bytes() for lay in self.layouts)
+
+    def format_summary(self) -> str:
+        """One achieved format per layout, e.g.
+        ``mode0=u16/seg/bf16 mode1=u16/seg/bf16``."""
+        return " ".join(f"mode{lay.mode}={lay.format_desc()}"
+                        for lay in self.layouts)
+
     @staticmethod
     def from_coo(tt: SparseTensor, opts: Optional[Options] = None,
                  device=None) -> "BlockedSparse":
         """Build the layouts the alloc policy asks for; a mode without
-        its own layout maps to the first one."""
+        its own layout maps to the first one.  The format comes from
+        ``opts`` else the env (:func:`layout_format`); every layout
+        stores its values at one dtype, so the CPD derives one factor
+        dtype from them.  A non-default format leaves a ``format_v2``
+        event and, at verbosity LOW, a ``format:`` line."""
+        from splatt_tpu_torch import resilience
+
         opts = (opts or default_opts()).validate()
         dev = resolve_device(device)
+        fmt = layout_format(opts)
+        storage = resolve_storage_dtype(fmt.val, resolve_dtype(opts))
+        verbose = opts.verbosity >= Verbosity.LOW
         build_modes = alloc_build_modes(tt.dims, opts)
-        dtype = resolve_dtype(opts)
-        layouts = [build_layout(tt, m, block=opts.nnz_block, val_dtype=dtype,
+        layouts = [build_layout(tt, m, block=opts.nnz_block,
+                                val_dtype=storage,
                                 mode_order=opts.mode_order,
                                 mode_order_custom=opts.mode_order_custom,
-                                device=dev)
+                                device=dev, fmt=fmt, verbose=verbose)
                    for m in build_modes]
         mode_map = {m: build_modes.index(m) if m in build_modes else 0
                     for m in range(tt.nmodes)}
-        return BlockedSparse(layouts=layouts, mode_map=mode_map,
-                             dims=tt.dims, nnz=tt.nnz, opts=opts)
+        bs = BlockedSparse(layouts=layouts, mode_map=mode_map,
+                           dims=tt.dims, nnz=tt.nnz, opts=opts)
+        if any(lay.encoding == "v2" for lay in layouts) or fmt.val != "auto":
+            resilience.run_report().add(
+                "format_v2",
+                modes={str(lay.mode): lay.format_desc() for lay in layouts})
+            if verbose:
+                print(f"  format: {bs.format_summary()}")
+        return bs
 
     def frobsq(self) -> float:
         """Squared Frobenius norm, accumulated in f64 on the host

@@ -5,9 +5,13 @@
         [--engine-fallback on|off] [--json] [-o DIR]
 
 prints the MTTKRP engine plan, one fit line per iteration and the
-resilience events of the run (engine demotions, transient retries), and
-writes ``mode<N>.mat`` and ``lambda.mat`` into DIR.  ``--json`` adds one
-line ``{"fit": ..., "events": [...], "demotions": [...]}``.
+resilience events of the run (engine demotions, transient retries, format
+fallbacks), and writes ``mode<N>.mat`` and ``lambda.mat`` into DIR.
+``--json`` adds one line ``{"fit": ..., "events": [...], "demotions":
+[...]}``.  The layout format comes from the environment, as in the JAX
+CLI: ``SPLATT_IDX_WIDTH`` (i32|auto|u16|u8|delta|rle),
+``SPLATT_VAL_STORAGE`` (auto|f32|bf16) and ``SPLATT_DECODE``
+(kernel|prep); a non-default format prints a ``format:`` line.
 """
 
 from __future__ import annotations

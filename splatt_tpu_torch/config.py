@@ -3,8 +3,8 @@
 Counterpart of ``splatt_tpu/config.py``, cut to the fields the single-device
 CPD-ALS path reads.  The defaults are the same (≙ splatt_default_opts,
 SPLATT's opts.c).  No field is read from the environment; a field left
-None (``engine_fallback``) defers to the env default its consumer reads
-(``utils/env.py``).
+None (``engine_fallback``, ``idx_width``, ``val_storage``) defers to the
+env default its consumer reads (``utils/env.py``).
 """
 
 from __future__ import annotations
@@ -51,6 +51,99 @@ class Verbosity(enum.IntEnum):
     MAX = 3
 
 
+# -- compact blocked format v2 (≙ splatt_tpu/config.py:122-354) -------------
+#
+# "i32" keeps the v1 global-int32 layout; every other index width is the
+# v2 encoding: per-block local ids at the narrowest width that fits, plus
+# per-block int32 bases, the sorted mode's stream holding segment ids.
+# "u8" narrows the sorted mode's segment ids to uint8, "delta" stores the
+# gather modes as within-block differences, "rle" replaces the sorted
+# mode's stream with per-block run-length counts.  Value storage "bf16"
+# stores the values, and so the factors, in bfloat16 with f32
+# accumulation.
+
+#: legal index-width policies (SPLATT_IDX_WIDTH / Options.idx_width)
+IDX_WIDTHS = ("i32", "auto", "u16", "u8", "delta", "rle")
+
+#: legal decode-placement policies (SPLATT_DECODE): "kernel" lets the
+#: fused_v2 engine read the encoded streams; "prep" decodes to global
+#: int32 before any engine runs
+DECODES = ("kernel", "prep")
+
+#: legal value-storage policies (SPLATT_VAL_STORAGE /
+#: Options.val_storage); "auto" = the resolved compute dtype
+VAL_STORAGES = ("auto", "f32", "bf16")
+
+
+def resolve_decode() -> str:
+    """The decode-placement policy from SPLATT_DECODE (default
+    "kernel"); "prep" makes dispatch decode a compact layout to v1
+    before the chain, and fused_v2 leaves it."""
+    from splatt_tpu_torch.utils.env import read_env
+
+    pol = str(read_env("SPLATT_DECODE"))
+    if pol not in DECODES:
+        raise ValueError(
+            f"SPLATT_DECODE must be one of {DECODES}, got {pol!r}")
+    return pol
+
+
+@dataclasses.dataclass(frozen=True)
+class LayoutFormat:
+    """One blocked-layout encoding request: index width x value
+    storage.  ``idx`` "i32" is the v1 global encoding; "auto" encodes v2
+    local ids at the narrowest width that fits each mode (uint16 where
+    possible, int32 otherwise); "u16" requires uint16 everywhere (a mode
+    that does not fit is an encode failure, degraded to v1).  ``val``
+    picks the stored value dtype ("auto" = compute dtype)."""
+
+    idx: str = "i32"
+    val: str = "auto"
+
+    def validate(self) -> "LayoutFormat":
+        if self.idx not in IDX_WIDTHS:
+            raise ValueError(
+                f"idx_width must be one of {IDX_WIDTHS}, got {self.idx!r}")
+        if self.val not in VAL_STORAGES:
+            raise ValueError(
+                f"val_storage must be one of {VAL_STORAGES}, "
+                f"got {self.val!r}")
+        return self
+
+    @property
+    def v2(self) -> bool:
+        return self.idx != "i32"
+
+
+def layout_format(opts: "Options") -> LayoutFormat:
+    """The layout format of a run: the Options fields win, else the
+    SPLATT_IDX_WIDTH / SPLATT_VAL_STORAGE env defaults (v1 i32 ids,
+    compute-dtype values)."""
+    from splatt_tpu_torch.utils.env import read_env
+
+    idx = opts.idx_width if opts.idx_width is not None \
+        else str(read_env("SPLATT_IDX_WIDTH"))
+    val = opts.val_storage if opts.val_storage is not None \
+        else str(read_env("SPLATT_VAL_STORAGE"))
+    return LayoutFormat(idx=idx, val=val).validate()
+
+
+def resolve_storage_dtype(val_storage: str, compute_dtype) -> torch.dtype:
+    """The dtype layout values are stored at: "auto" keeps the compute
+    dtype, "f32"/"bf16" pin it."""
+    if val_storage == "bf16":
+        return torch.bfloat16
+    if val_storage == "f32":
+        return torch.float32
+    return torch_dtype(compute_dtype)
+
+
+def fit_dtype() -> torch.dtype:
+    """The dtype of λ and the fit: f32 even under bf16 storage (the
+    MTTKRP, the solve and the normalization accumulate in f32)."""
+    return torch.float32
+
+
 @dataclasses.dataclass
 class Options:
     """Run-time options (≙ splatt_default_opts)."""
@@ -77,6 +170,10 @@ class Options:
     # runtime MTTKRP engine fallback (a failing engine is demoted and the
     # next one in the chain runs); None = SPLATT_ENGINE_FALLBACK
     engine_fallback: Optional[bool] = None
+    # compact blocked format v2: index width (IDX_WIDTHS) and value
+    # storage (VAL_STORAGES); None = SPLATT_IDX_WIDTH / SPLATT_VAL_STORAGE
+    idx_width: Optional[str] = None
+    val_storage: Optional[str] = None
 
     def validate(self) -> "Options":
         if self.tolerance < 0:
@@ -92,6 +189,15 @@ class Options:
         if self.priv_threshold < 0:
             raise ValueError(
                 f"priv_threshold must be >= 0, got {self.priv_threshold}")
+        if self.idx_width is not None and self.idx_width not in IDX_WIDTHS:
+            raise ValueError(
+                f"idx_width must be one of {IDX_WIDTHS}, "
+                f"got {self.idx_width!r}")
+        if (self.val_storage is not None
+                and self.val_storage not in VAL_STORAGES):
+            raise ValueError(
+                f"val_storage must be one of {VAL_STORAGES}, "
+                f"got {self.val_storage!r}")
         if self.val_dtype is not None and not torch_dtype(
                 self.val_dtype).is_floating_point:
             raise ValueError(

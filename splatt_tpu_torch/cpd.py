@@ -10,6 +10,11 @@ mode in turn::
 and the fit is 1 − √(⟨X,X⟩ + ⟨Z,Z⟩ − 2⟨X,Z⟩)/√⟨X,X⟩, with ⟨Z,Z⟩ =
 λᵀ(⊛ Grams)λ and ⟨X,Z⟩ from the last mode's MTTKRP.  The run stops when
 the fit moves by less than the tolerance (src/cpd.c:368-370).
+
+Under bf16 value storage the factors are bf16 (their dtype comes from the
+layouts' values); the MTTKRP, the Grams, the solve and the normalization
+accumulate in f32, each updated factor is cast back to bf16, and λ and the
+fit stay f32 (≙ splatt_tpu/cpd.py:107-115, :601-605).
 """
 
 from __future__ import annotations
@@ -23,8 +28,8 @@ import torch
 from splatt_tpu_torch import resilience
 from splatt_tpu_torch.blocked import BlockedSparse
 from splatt_tpu_torch.config import (Options, Verbosity, acc_dtype,
-                                     default_opts, resolve_device,
-                                     resolve_dtype)
+                                     default_opts, fit_dtype,
+                                     resolve_device, resolve_dtype)
 from splatt_tpu_torch.coo import SparseTensor
 from splatt_tpu_torch.kruskal import KruskalTensor, post_process
 from splatt_tpu_torch.ops.linalg import (form_normal_lhs, gram,
@@ -35,9 +40,11 @@ from splatt_tpu_torch.ops.mttkrp import describe_plan, mttkrp
 def init_factors(dims: Sequence[int], rank: int, generator: torch.Generator,
                  dtype=torch.float32, device=None) -> List[torch.Tensor]:
     """Uniform [0, 1) factors drawn mode by mode from `generator` on the
-    host, so every device starts from the same numbers (≙ mat_rand)."""
+    host, so every device starts from the same numbers (≙ mat_rand).  A
+    bf16 or f16 dtype draws in f32 and rounds."""
+    draw = acc_dtype(dtype)
     return [torch.rand((d, rank), generator=generator,
-                       dtype=dtype).to(device)
+                       dtype=draw).to(device, dtype)
             for d in dims]
 
 
@@ -69,6 +76,7 @@ def _sweep(X, factors, grams, first: bool, reg: float, fallback: bool):
         M = mttkrp(X, factors, m, fallback=fallback)
         U = solve_normals(form_normal_lhs(grams, m, reg), M)
         U, lam = normalize_columns(U, "2" if first else "max")
+        # back to the storage dtype; the solve ran in the f32 accumulator
         factors[m] = U.to(factors[m].dtype)
         grams[m] = gram(factors[m])
     znormsq, inner = _zz_inner(lam, grams, M, factors[nmodes - 1])
@@ -113,7 +121,8 @@ def cpd_als(X: Union[SparseTensor, BlockedSparse], rank: int,
             print(f"  engine plan: impl={dev.type} mode*=stream "
                   f"(COO oracle)")
 
-    lam = torch.ones(rank, dtype=dtype, device=dev)
+    lam = torch.ones(rank, dtype=torch.promote_types(dtype, fit_dtype()),
+                     device=dev)
     fit_prev = 0.0
     fits: List[float] = []
     seconds: List[float] = []

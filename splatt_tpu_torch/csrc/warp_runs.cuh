@@ -17,13 +17,20 @@
 // run, and unsorted ids still give the right sum.
 //
 // A "source" supplies the entries:
-//   void load(int j, bool ok)   lane loads entry j (ok: j < n)
+//   void load(int j, bool ok)   lane loads entry j (ok: j < n); every lane
+//                               of the warp calls it, with j rising by 32
+//                               from call to call over the warp's run
 //   int row(int t)              entry t of the 32 loaded (warp-uniform)
 //   void product<NR>(int t, int j, int lane, float (&p)[NR])
 //                               entry t's vector, which is entry j
+//
+// Tables may be float or bf16 (T below).  A bf16 product is rounded to
+// bf16 after each multiply, as PyTorch's bf16 `prod * rows` rounds it;
+// only the running row sums are f32.
 
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -31,8 +38,55 @@ namespace splatt {
 
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int kMaxOther = 7;   // MAX_NMODES - 1
+constexpr int kMaxModes = kMaxOther + 1;
 constexpr int kWarps = 8;
 constexpr int kThreads = kWarps * 32;
+
+// CTAs per SM a kernel is built for: its __launch_bounds__ minimum, which
+// caps registers at 65536 / (kThreads * n).  These kernels wait on gathers
+// or streamed loads, so their time follows the warps in flight; left to
+// itself, nvcc gave near-identical bodies anywhere from 40 to 62 registers.
+constexpr int gather_min_blocks(int nr) {
+  return nr <= 2 ? 6 : nr <= 3 ? 5 : 4;
+}
+constexpr int stream_min_blocks(int nr) { return nr <= 3 ? 8 : 4; }
+
+// Element `i` of a float or bf16 array, as float (read-only cache).
+__device__ __forceinline__ float ld(const float* p, long long i) {
+  return __ldg(p + i);
+}
+__device__ __forceinline__ float ld(const __nv_bfloat16* p, long long i) {
+  const unsigned short bits =
+      __ldg(reinterpret_cast<const unsigned short*>(p) + i);
+  return __uint_as_float(static_cast<unsigned>(bits) << 16);
+}
+
+// x rounded to the table type T (round to nearest even for bf16).
+template <class T>
+__device__ __forceinline__ float to_t(float x) {
+  return x;
+}
+template <>
+__device__ __forceinline__ float to_t<__nv_bfloat16>(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+
+// A value of a float or bf16 value stream, rounded to the table type T.
+template <class T>
+__device__ __forceinline__ float load_val(const void* vals, int vals_bf16,
+                                          long long i) {
+  return to_t<T>(vals_bf16 ? ld(static_cast<const __nv_bfloat16*>(vals), i)
+                           : ld(static_cast<const float*>(vals), i));
+}
+
+// The contiguous run [j0, j1) of a block's n entries that warp `warp`
+// walks.
+__device__ __forceinline__ void warp_range(int n, int warp, int& j0,
+                                           int& j1) {
+  const int per = (n + kWarps - 1) / kWarps;
+  j0 = min(warp * per, n);
+  j1 = min(j0 + per, n);
+}
 
 template <int NR>
 __device__ __forceinline__ void flush_row(float* dst, long long ld, int row,
@@ -51,10 +105,8 @@ __device__ __forceinline__ void warp_runs(Src& src, int n, float* dst,
                                           long long ld, int width,
                                           int cols) {
   const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int per = (n + kWarps - 1) / kWarps;
-  const int j0 = warp * per;
-  const int j1 = min(j0 + per, n);
+  int j0, j1;
+  warp_range(n, threadIdx.x >> 5, j0, j1);
 
   float acc[NR];
 #pragma unroll

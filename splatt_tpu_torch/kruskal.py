@@ -9,6 +9,7 @@ from typing import List, Tuple
 import numpy as np
 import torch
 
+from splatt_tpu_torch.config import acc_dtype
 from splatt_tpu_torch.io import write_matrix, write_vector
 
 
@@ -40,10 +41,11 @@ class KruskalTensor:
         return tuple(int(f.shape[0]) for f in self.factors)
 
     def save(self, directory: str, stem: str = "") -> None:
-        """Write ``mode<N>.mat`` and ``lambda.mat`` (≙ cmd_cpd.c:206-233)."""
+        """Write ``mode<N>.mat`` and ``lambda.mat`` (≙ cmd_cpd.c:206-233);
+        bf16 factors are written at f32, which holds them exactly."""
         os.makedirs(directory, exist_ok=True)
         for m, U in enumerate(self.factors):
-            write_matrix(U.cpu().numpy(),
+            write_matrix(U.to(acc_dtype(U.dtype)).cpu().numpy(),
                          os.path.join(directory, f"{stem}mode{m + 1}.mat"))
         write_vector(np.asarray(self.lam.cpu()),
                      os.path.join(directory, f"{stem}lambda.mat"))

@@ -6,14 +6,21 @@ each source with ``nvcc`` for ``sm_90a`` into its own shared library with a
 plain C interface under ``splatt_tpu_torch/_build/`` (one ``nvcc`` per
 source, started together) and loads them with ``ctypes``.
 
-Five wrappers, one per TPU kernel:
+Six wrappers, one per TPU kernel:
 
 - :func:`fused_mttkrp_t`, :func:`fused_mttkrp_tg`, :func:`fused_mttkrp`
-  (``csrc/fused_mttkrp.cu``): gather + Hadamard + row reduce over a
+  (``csrc/fused_mttkrp.cu``): gather + Hadamard + row reduce over a v1
   blocked layout, in the sorted (block partials) or accumulate (totals)
   contract;
+- :func:`fused_mttkrp_v2` (``csrc/fused_mttkrp_v2.cu``): the same over a
+  compact v2 layout, decoding its encoded streams in registers;
 - :func:`onehot_reduce_sorted`, :func:`onehot_reduce_full`
   (``csrc/onehot_reduce.cu``): the same reduction of precomputed products.
+
+On a card the kernels take f32 or bf16 values, tables and products and
+write f32.  A bf16 product is rounded to bf16 after each multiply, as the
+plain versions' bf16 ``prod * rows`` is, so a kernel and its plain
+version differ only in the order of their f32 sums.
 
 A wrapper runs its plain version for tensors that lie on the CPU.  For CUDA
 tensors it launches the kernel on the current stream or raises: a launch
@@ -41,15 +48,20 @@ from splatt_tpu_torch.config import MAX_NMODES, acc_dtype
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("fused_mttkrp.cu", "onehot_reduce.cu")
+SOURCES = ("fused_mttkrp.cu", "fused_mttkrp_v2.cu", "onehot_reduce.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 
-#: largest rank fused_mttkrp_t and fused_mttkrp hold in registers
-#: (32 lanes x 8 sums); fused_mttkrp_tg and the reductions tile any rank
+#: largest rank fused_mttkrp_t, fused_mttkrp and fused_mttkrp_v2 hold in
+#: registers (32 lanes x 8 sums); fused_mttkrp_tg and the reductions tile
+#: any rank
 MAX_RANK = 256
-#: largest (width, cols) f32 tile a CTA keeps in shared memory (227 KB)
+#: shared memory a CTA may use (227 KB): the sorted contract's (width,
+#: cols) f32 tile and the scratch before it
 SMEM_TILE_BYTES = 232448
+#: the scratch of csrc/fused_mttkrp.cu before its tile: each warp's gather
+#: ids, [7 modes][32 entries] int32 (kIdsInts)
+FUSED_SCRATCH_BYTES = 8 * 7 * 32 * 4
 #: columns of the rank tile of fused_mttkrp_tg and the reductions
 #: (csrc/*.cu: 32 * min(4, ceil(R / 32)))
 RANK_TILE = 128
@@ -129,20 +141,36 @@ def build(verbose: bool = False) -> dict:
 
 # C entry → (source, argument types); P pointer, I int, LL long long
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-_FUSED_ARGS = [_P, _P, _P, _P, _P, _I, _I, _LL, _I, _I, _I, _I, _I, _I]
+_FUSED_ARGS = [_P, _P, _I, _P, _P, _P, _I, _I, _I, _LL, _I, _I, _I, _I, _I,
+               _I]
 _ENTRIES = {
-    "splatt_fused_mttkrp_t_f32": ("fused_mttkrp.cu",
-                                  _FUSED_ARGS + [_P, _P]),
-    "splatt_fused_mttkrp_tg_f32": ("fused_mttkrp.cu",
-                                   _FUSED_ARGS + [_P, _P]),
-    "splatt_fused_mttkrp_f32": ("fused_mttkrp.cu",
-                                _FUSED_ARGS + [_I, _P, _P]),
-    "splatt_onehot_reduce_sorted_f32": ("onehot_reduce.cu",
-                                        [_P, _P, _I, _I, _I, _I, _I, _P,
-                                         _P]),
-    "splatt_onehot_reduce_full_f32": ("onehot_reduce.cu",
-                                      [_P, _P, _I, _I, _I, _I, _P, _P]),
+    "splatt_fused_mttkrp_t": ("fused_mttkrp.cu", _FUSED_ARGS + [_P, _P]),
+    "splatt_fused_mttkrp_tg": ("fused_mttkrp.cu", _FUSED_ARGS + [_P, _P]),
+    "splatt_fused_mttkrp": ("fused_mttkrp.cu",
+                            _FUSED_ARGS + [_I, _P, _P]),
+    "splatt_fused_mttkrp_v2": ("fused_mttkrp_v2.cu",
+                               [_P, _P, _P, _P, _I, _P, _P, _I, _I, _I, _I,
+                                _I, _I, _I, _I, _I, _I, _P, _P]),
+    "splatt_onehot_reduce_sorted": ("onehot_reduce.cu",
+                                    [_P, _P, _I, _I, _I, _I, _I, _I, _P,
+                                     _P]),
+    "splatt_onehot_reduce_full": ("onehot_reduce.cu",
+                                  [_P, _P, _I, _I, _I, _I, _I, _P, _P]),
 }
+
+#: the value, table and product dtypes the kernels take on a card
+CARD_FLOATS = (torch.float32, torch.bfloat16)
+
+#: stream dtypes fused_mttkrp_v2 reads → its IdType code
+#: (csrc/fused_mttkrp_v2.cu)
+V2_ID_TYPES = {torch.uint8: 0, torch.uint16: 1, torch.int8: 2,
+               torch.int16: 3, torch.int32: 4}
+#: stream encodings fused_mttkrp_v2 reads → its Enc code
+V2_ENCODINGS = {"loc": 0, "seg": 1, "delta": 2, "rle": 3}
+#: ints of shared memory fused_mttkrp_v2 takes before its tile, beside the
+#: S run ends of an RLE stream (kPrologueInts of csrc/fused_mttkrp_v2.cu:
+#: per-warp delta sums and carries, bases, per-warp decoded ids)
+V2_PROLOGUE_INTS = 8 * 8 + 8 + 8 + 8 * 8 + 8 * 8 * 32
 
 
 def load_library() -> Dict[str, ctypes._CFuncPtr]:
@@ -185,13 +213,32 @@ def reset_launches() -> None:
 # -- operand contracts -------------------------------------------------------
 
 
+def _check_tensor(name: str, t: torch.Tensor, dev, dtypes, shape,
+                  strict: bool) -> None:
+    if t.device != dev:
+        raise ValueError(f"{name} is on {t.device}, the layout on {dev}")
+    if t.dtype not in dtypes:
+        want = dtypes[0] if len(dtypes) == 1 else " or ".join(
+            str(d) for d in dtypes)
+        raise TypeError(f"{name} is {t.dtype}; expected {want}")
+    if tuple(t.shape) != shape:
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected "
+                         f"{shape}")
+    if strict and not t.is_contiguous():
+        raise ValueError(f"{name} is not contiguous")
+
+
 def check_operands(layout, factors: Sequence[torch.Tensor], mode: int,
                    kernels: bool = True) -> None:
     """The caller's contract of a blocked MTTKRP: every operand on the
-    layout's device, int32 ids and factor shapes ``(d_k, R)`` that match
-    the layout, floating values and one floating dtype for the factors;
-    on a card, when a kernel may run (`kernels`), what the kernels take:
-    f32 and contiguous.  Raises ValueError or TypeError."""
+    layout's device; the index streams of a v1 layout (int32 ``(nmodes,
+    nnz_pad)``) or of a v2 one (per mode a :data:`V2_ID_TYPES` stream of
+    ``(nnz_pad,)`` ids or ``(nb, seg_width)`` RLE counts, and an int32
+    ``(nb,)`` base); factor shapes ``(d_k, R)`` that match the layout,
+    floating values and one floating dtype for the factors.  On a card,
+    when a kernel may run (`kernels`), also what the kernels take: values
+    and factors in :data:`CARD_FLOATS`, contiguous.  Raises ValueError or
+    TypeError."""
     dev = layout.vals.device
     strict = dev.type == "cuda" and kernels
     if layout.nmodes != len(factors) or not 2 <= len(factors) <= MAX_NMODES:
@@ -202,42 +249,49 @@ def check_operands(layout, factors: Sequence[torch.Tensor], mode: int,
     R = int(factors[0].shape[1]) if factors[0].dim() == 2 else -1
     if R < 1:
         raise ValueError("factors must be (rows, R) with R >= 1")
-    dtype = torch.float32 if strict else factors[0].dtype
+    dtype = factors[0].dtype
     if not dtype.is_floating_point:
         raise TypeError(f"factors are {dtype}; a floating dtype is needed")
-    named = [("inds", layout.inds, torch.int32,
-              (layout.nmodes, layout.nblocks * layout.block)),
-             ("vals", layout.vals,
-              torch.float32 if strict else layout.vals.dtype,
-              (layout.nblocks * layout.block,)),
-             ("row_start", layout.row_start, torch.int32, (layout.nblocks,))]
-    named += [(f"factors[{k}]", U, dtype, (int(U.shape[0]), R))
-              for k, U in enumerate(factors)]
-    for name, t, want, shape in named:
-        if t.device != dev:
-            raise ValueError(f"{name} is on {t.device}, the layout on {dev}")
-        if t.dtype != want:
-            raise TypeError(f"{name} is {t.dtype}; expected {want}")
-        if tuple(t.shape) != shape:
-            raise ValueError(f"{name} has shape {tuple(t.shape)}, expected "
-                             f"{shape}")
-        if strict and not t.is_contiguous():
-            raise ValueError(f"{name} is not contiguous")
     if not layout.vals.dtype.is_floating_point:
         raise TypeError(f"vals are {layout.vals.dtype}; a floating dtype "
                         f"is needed")
+    floats = CARD_FLOATS if strict else (layout.vals.dtype,)
+    nb, B = layout.nblocks, layout.block
+    named = [("vals", layout.vals, floats, (nb * B,)),
+             ("row_start", layout.row_start, (torch.int32,), (nb,))]
+    if layout.base is None:
+        named.append(("inds", layout.inds, (torch.int32,),
+                      (layout.nmodes, nb * B)))
+    else:
+        ids = tuple(V2_ID_TYPES)
+        for k, enc in enumerate(layout.stream_encs()):
+            shape = (nb, layout.seg_width) if enc == "rle" else (nb * B,)
+            named += [(f"inds[{k}]", layout.inds[k], ids, shape),
+                      (f"base[{k}]", layout.base[k], (torch.int32,), (nb,))]
+    if strict and dtype not in CARD_FLOATS:
+        raise TypeError(f"factors are {dtype}; the CUDA kernels take "
+                        f"{CARD_FLOATS}")
+    named += [(f"factors[{k}]", U, (dtype,), (int(U.shape[0]), R))
+              for k, U in enumerate(factors)]
+    for name, t, dtypes, shape in named:
+        _check_tensor(name, t, dev, dtypes, shape, strict)
     if any(int(U.shape[0]) < 1 for U in factors):
         raise ValueError("every factor needs at least one row")
 
 
 def _check_fused(layout, factors, mode: int, width: int,
-                 max_rank: Optional[int]) -> None:
+                 max_rank: Optional[int], v2: bool = False) -> None:
     check_operands(layout, factors, mode)
     R = int(factors[0].shape[1])
     if max_rank is not None and R > max_rank:
         raise ValueError(f"rank {R} above the kernel's {max_rank}")
     if width < 1:
         raise ValueError(f"width must be >= 1, got {width}")
+    if (layout.base is not None) != v2:
+        raise ValueError(
+            "fused_mttkrp_v2 reads a compact v2 layout's encoded streams"
+            if v2 else "this kernel reads a v1 layout; decode a v2 layout "
+            "with blocked.decode_to_v1 first")
 
 
 def _check_reduce(local: torch.Tensor, prod: torch.Tensor,
@@ -252,11 +306,28 @@ def _check_reduce(local: torch.Tensor, prod: torch.Tensor,
     if local.device != prod.device:
         raise ValueError(f"ids on {local.device}, products on "
                          f"{prod.device}")
-    if local.dtype != torch.int32 or prod.dtype != torch.float32:
+    if local.dtype != torch.int32 or prod.dtype not in CARD_FLOATS:
         raise TypeError(f"ids {local.dtype}, products {prod.dtype}; the "
-                        f"CUDA kernel takes int32 and float32")
+                        f"CUDA kernel takes int32 and float32 or bfloat16")
     if not (local.is_contiguous() and prod.is_contiguous()):
         raise ValueError("ids and products must be contiguous")
+
+
+def _is_bf16(t: torch.Tensor) -> int:
+    return int(t.dtype == torch.bfloat16)
+
+
+def _pointers(tensors) -> tuple:
+    """A host array of the tensors' device pointers: (the argument, the
+    array, which the caller keeps alive across the launch)."""
+    arr = (ctypes.c_void_p * len(tensors))(*(t.data_ptr() for t in tensors))
+    return ctypes.cast(arr, ctypes.c_void_p), arr
+
+
+def _ints(values) -> tuple:
+    """A host int array: (the argument, the array), as :func:`_pointers`."""
+    arr = (ctypes.c_int * len(values))(*values)
+    return ctypes.cast(arr, ctypes.c_void_p), arr
 
 
 # -- fused gather + Hadamard + row reduce ------------------------------------
@@ -267,16 +338,16 @@ def fused_mttkrp_t_plain(layout, factors: Sequence[torch.Tensor], mode: int,
     """Plain PyTorch version of :func:`fused_mttkrp_t`: the gather
     product, then ``index_add_`` at ``b·width + local`` (or at the global
     id with `accumulate`), with ids outside ``[0, width)`` sent to a
-    dropped spill row."""
-    from splatt_tpu_torch.ops.mttkrp import _gather_prod
+    dropped spill row.  It reads v1 and v2 layouts alike, through the
+    layout's decode (``mode_ids``, ``blocked_locals``)."""
+    from splatt_tpu_torch.ops.mttkrp import _gather_prod_layout
 
     nb, B = layout.nblocks, layout.block
-    prod = _gather_prod(layout.inds, layout.vals, factors, mode)
-    ids = (layout.mode_ids(mode).reshape(nb, B) if accumulate
-           else layout.blocked_locals())
+    prod = _gather_prod_layout(layout, factors, mode).reshape(nb, B, -1)
     if accumulate:
-        return onehot_reduce_full_plain(ids, prod.reshape(nb, B, -1), width)
-    return onehot_reduce_sorted_plain(ids, prod.reshape(nb, B, -1), width)
+        return onehot_reduce_full_plain(
+            layout.mode_ids(mode).reshape(nb, B), prod, width)
+    return onehot_reduce_sorted_plain(layout.blocked_locals(), prod, width)
 
 
 #: fused_mttkrp_tg computes fused_mttkrp_t's function at any rank
@@ -293,23 +364,39 @@ def fused_mttkrp_plain(layout, factors: Sequence[torch.Tensor], mode: int,
     return fused_mttkrp_t_plain(layout, factors, mode, width, accumulate)
 
 
+def fused_mttkrp_v2_plain(layout, factors: Sequence[torch.Tensor],
+                          mode: int, width: int,
+                          accumulate: bool) -> torch.Tensor:
+    """Plain PyTorch version of :func:`fused_mttkrp_v2`: each stream
+    decoded through the stream vocabulary (``mode_ids``: global ids;
+    ``blocked_locals``: the sorted mode's segment ids), the gather
+    product, then :func:`onehot_reduce_sorted_plain` or
+    :func:`onehot_reduce_full_plain`."""
+    if layout.base is None:
+        raise ValueError("fused_mttkrp_v2 reads a compact v2 layout's "
+                         "encoded streams")
+    if not accumulate and mode != layout.mode:
+        raise ValueError("the sorted contract needs the layout's own mode")
+    return fused_mttkrp_t_plain(layout, factors, mode, width, accumulate)
+
+
 def _fused_launch(name: str, layout, factors: List[torch.Tensor], mode: int,
                   width: int, accumulate: bool, rtile: int,
                   *extra) -> torch.Tensor:
     nb, R = layout.nblocks, int(factors[0].shape[1])
     shape = (width, R) if accumulate else (nb, width, R)
-    use_smem = not accumulate and width * min(rtile, R) * 4 <= SMEM_TILE_BYTES
+    use_smem = (not accumulate and FUSED_SCRATCH_BYTES
+                + width * min(rtile, R) * 4 <= SMEM_TILE_BYTES)
     # every row the kernel does not write must read 0: zero the output
     # unless each CTA writes its whole tile from shared memory
     alloc = torch.empty if use_smem else torch.zeros
     out = alloc(shape, dtype=torch.float32, device=layout.vals.device)
-    ptrs = (ctypes.c_void_p * len(factors))(*(U.data_ptr() for U in factors))
-    dims = (ctypes.c_int * len(factors))(*(int(U.shape[0]) for U in factors))
+    ptrs, _keep = _pointers(factors)
+    dims, _keep2 = _ints([int(U.shape[0]) for U in factors])
     with torch.cuda.device(layout.vals.device):
         _launch(name, layout.inds.data_ptr(), layout.vals.data_ptr(),
-                layout.row_start.data_ptr(),
-                ctypes.cast(ptrs, ctypes.c_void_p),
-                ctypes.cast(dims, ctypes.c_void_p), len(factors), mode,
+                _is_bf16(layout.vals), layout.row_start.data_ptr(), ptrs,
+                dims, _is_bf16(factors[0]), len(factors), mode,
                 layout.nblocks * layout.block, nb, layout.block, R, width,
                 int(accumulate), int(use_smem), *extra, out.data_ptr())
     return out
@@ -323,14 +410,14 @@ def fused_mttkrp_t(layout, factors: Sequence[torch.Tensor], mode: int,
     Output: ``(nb, width, R)`` block partials at within-block ids, or
     with `accumulate` the ``(width, R)`` totals at global ids, in the
     accumulator dtype.  CPU tensors take :func:`fused_mttkrp_t_plain`;
-    CUDA tensors launch ``csrc/fused_mttkrp.cu`` (f32 values and
-    factors, int32 ids, contiguous) or raise.
+    CUDA tensors launch ``csrc/fused_mttkrp.cu`` (a v1 layout, int32 ids,
+    f32 or bf16 values and factors, contiguous) or raise.
     """
     factors = list(factors)
     if layout.vals.device.type == "cpu":
         return fused_mttkrp_t_plain(layout, factors, mode, width, accumulate)
     _check_fused(layout, factors, mode, width, MAX_RANK)
-    out = _fused_launch("splatt_fused_mttkrp_t_f32", layout, factors, mode,
+    out = _fused_launch("splatt_fused_mttkrp_t", layout, factors, mode,
                         width, accumulate, MAX_RANK)
     fused_mttkrp_t.launches += 1
     return out
@@ -349,7 +436,7 @@ def fused_mttkrp_tg(layout, factors: Sequence[torch.Tensor], mode: int,
         return fused_mttkrp_tg_plain(layout, factors, mode, width,
                                      accumulate)
     _check_fused(layout, factors, mode, width, None)
-    out = _fused_launch("splatt_fused_mttkrp_tg_f32", layout, factors, mode,
+    out = _fused_launch("splatt_fused_mttkrp_tg", layout, factors, mode,
                         width, accumulate, RANK_TILE)
     fused_mttkrp_tg.launches += 1
     return out
@@ -370,9 +457,59 @@ def fused_mttkrp(layout, factors: Sequence[torch.Tensor], mode: int,
         return fused_mttkrp_plain(layout, factors, mode, width, accumulate,
                                   chunk)
     _check_fused(layout, factors, mode, width, MAX_RANK)
-    out = _fused_launch("splatt_fused_mttkrp_f32", layout, factors, mode,
+    out = _fused_launch("splatt_fused_mttkrp", layout, factors, mode,
                         width, accumulate, MAX_RANK, int(chunk))
     fused_mttkrp.launches += 1
+    return out
+
+
+def _v2_prologue_bytes(layout) -> int:
+    """Shared bytes fused_mttkrp_v2 takes before its tile: the delta
+    carries and, for an RLE stream, its S run ends, rounded to 16."""
+    rle = "rle" in layout.stream_encs()
+    ints = V2_PROLOGUE_INTS + (layout.seg_width if rle else 0)
+    return -(-ints * 4 // 16) * 16
+
+
+def fused_mttkrp_v2(layout, factors: Sequence[torch.Tensor], mode: int,
+                    width: int, accumulate: bool) -> torch.Tensor:
+    """Fused MTTKRP over a compact v2 layout, decoding its encoded
+    streams in registers (≙ splatt_tpu.ops.pallas_kernels.
+    fused_mttkrp_v2), R ≤ :data:`MAX_RANK`.  The contract of
+    :func:`fused_mttkrp_t`: ``(nb, width, R)`` block partials at the
+    sorted mode's segment ids (`mode` must be the layout's own), or with
+    `accumulate` the ``(width, R)`` totals at the global ids of `mode`.
+    CPU tensors take :func:`fused_mttkrp_v2_plain`; CUDA tensors launch
+    ``csrc/fused_mttkrp_v2.cu`` or raise."""
+    factors = list(factors)
+    if layout.vals.device.type == "cpu":
+        return fused_mttkrp_v2_plain(layout, factors, mode, width,
+                                     accumulate)
+    _check_fused(layout, factors, mode, width, MAX_RANK, v2=True)
+    if not accumulate and mode != layout.mode:
+        raise ValueError("the sorted contract needs the layout's own mode")
+    nb, R = layout.nblocks, int(factors[0].shape[1])
+    encs = layout.stream_encs()
+    shape = (width, R) if accumulate else (nb, width, R)
+    use_smem = (not accumulate and _v2_prologue_bytes(layout) + width * R * 4
+                <= SMEM_TILE_BYTES)
+    alloc = torch.empty if use_smem else torch.zeros
+    out = alloc(shape, dtype=torch.float32, device=layout.vals.device)
+    streams, _k1 = _pointers(layout.inds)
+    bases, _k2 = _pointers(layout.base)
+    ptrs, _k3 = _pointers(factors)
+    codes, _k4 = _ints([c for k in range(layout.nmodes)
+                        for c in (V2_ID_TYPES[layout.inds[k].dtype],
+                                  V2_ENCODINGS[encs[k]])])
+    dims, _k5 = _ints([int(U.shape[0]) for U in factors])
+    scols = layout.seg_width if "rle" in encs else 0
+    with torch.cuda.device(layout.vals.device):
+        _launch("splatt_fused_mttkrp_v2", streams, codes, bases,
+                layout.vals.data_ptr(), _is_bf16(layout.vals), ptrs, dims,
+                _is_bf16(factors[0]), layout.nmodes, mode, nb, layout.block,
+                scols, R, width, int(accumulate), int(use_smem),
+                out.data_ptr())
+    fused_mttkrp_v2.launches += 1
     return out
 
 
@@ -415,7 +552,8 @@ def onehot_reduce_sorted(local: torch.Tensor, prod: torch.Tensor,
     """(nb, B) in-block ids + (nb, B, R) products → (nb, S, R) block
     partials (≙ splatt_tpu.ops.pallas_kernels.onehot_reduce_sorted); ids
     outside ``[0, S)`` add nothing.  CPU tensors take the plain version;
-    CUDA tensors launch ``csrc/onehot_reduce.cu`` or raise."""
+    CUDA tensors (int32 ids, f32 or bf16 products) launch
+    ``csrc/onehot_reduce.cu`` or raise."""
     if local.device.type == "cpu":
         return onehot_reduce_sorted_plain(local, prod, seg_width)
     _check_reduce(local, prod, seg_width)
@@ -424,9 +562,9 @@ def onehot_reduce_sorted(local: torch.Tensor, prod: torch.Tensor,
     alloc = torch.empty if use_smem else torch.zeros
     out = alloc((nb, seg_width, R), dtype=torch.float32, device=prod.device)
     with torch.cuda.device(prod.device):
-        _launch("splatt_onehot_reduce_sorted_f32", local.data_ptr(),
-                prod.data_ptr(), nb, B, R, seg_width, int(use_smem),
-                out.data_ptr())
+        _launch("splatt_onehot_reduce_sorted", local.data_ptr(),
+                prod.data_ptr(), _is_bf16(prod), nb, B, R, seg_width,
+                int(use_smem), out.data_ptr())
     onehot_reduce_sorted.launches += 1
     return out
 
@@ -443,12 +581,13 @@ def onehot_reduce_full(local: torch.Tensor, prod: torch.Tensor,
     nb, B, R = prod.shape
     out = torch.zeros((width, R), dtype=torch.float32, device=prod.device)
     with torch.cuda.device(prod.device):
-        _launch("splatt_onehot_reduce_full_f32", local.data_ptr(),
-                prod.data_ptr(), nb, B, R, width, out.data_ptr())
+        _launch("splatt_onehot_reduce_full", local.data_ptr(),
+                prod.data_ptr(), _is_bf16(prod), nb, B, R, width,
+                out.data_ptr())
     onehot_reduce_full.launches += 1
     return out
 
 
-KERNELS = (fused_mttkrp_t, fused_mttkrp_tg, fused_mttkrp,
+KERNELS = (fused_mttkrp_t, fused_mttkrp_tg, fused_mttkrp, fused_mttkrp_v2,
            onehot_reduce_sorted, onehot_reduce_full)
 reset_launches()

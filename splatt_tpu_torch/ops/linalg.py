@@ -3,7 +3,10 @@
 Counterpart of ``splatt_tpu/ops/linalg.py``.  The rank×rank and dim×rank
 dense math is plain ``torch.matmul``/``torch.linalg``, as the JAX package
 leaves it to XLA.  TF32 is switched off for float32 matmuls so the normal
-equations keep full float32 precision.
+equations keep full float32 precision.  bf16 operands are cast to f32
+before any product (a bf16 ``torch.matmul`` returns bf16): Gram, solve and
+normalization accumulate in f32 (≙ splatt_tpu/ops/linalg.py:33-36,
+:74-83, :101-114).
 """
 
 from __future__ import annotations
@@ -47,14 +50,14 @@ def solve_normals(lhs: torch.Tensor, rhs: torch.Tensor) -> torch.Tensor:
     not SPD (≙ splatt_tpu/ops/linalg.py:53-86).  ``torch.linalg.eigh``
     itself reads its solver status on the host.
     """
+    rhs = rhs.to(acc_dtype(rhs.dtype))
     L, info = torch.linalg.cholesky_ex(lhs)
     x_chol = torch.cholesky_solve(rhs.T, L).T
 
-    acc = acc_dtype(rhs.dtype)
     w, v = torch.linalg.eigh(lhs)
     tol = torch.finfo(lhs.dtype).eps ** 0.5 * w.abs().max()
     w_inv = torch.where(w.abs() > tol, 1.0 / w, torch.zeros_like(w))
-    x_pinv = (rhs.to(acc) @ (v * w_inv)) @ v.T
+    x_pinv = (rhs @ (v * w_inv)) @ v.T
 
     spd = (info == 0) & (w.min() > tol) & torch.isfinite(x_chol).all()
     return torch.where(spd, x_chol, x_pinv)

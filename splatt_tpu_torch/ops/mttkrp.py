@@ -19,6 +19,9 @@ Paths (the algorithm, chosen by :func:`_choose_path_bs`):
 Engines (who computes ``sorted_onehot`` and ``privatized``), in the order
 :func:`engine_chain` tries them, with the JAX package's names:
 
+- ``fused_v2`` — :func:`kernels.fused_mttkrp_v2`, R ≤ 256, only on a
+  compact v2 layout under ``SPLATT_DECODE=kernel``: it reads the encoded
+  streams and decodes in registers;
 - ``fused_t`` — :func:`kernels.fused_mttkrp_t`, R ≤ 256;
 - ``fused_tg`` — :func:`kernels.fused_mttkrp_tg`, any R;
 - ``fused`` — :func:`kernels.fused_mttkrp`, only with
@@ -29,6 +32,13 @@ Engines (who computes ``sorted_onehot`` and ``privatized``), in the order
   product never exists whole (CPU tensors only);
 - ``xla`` — the terminal: plain-torch gather and ``index_add_`` (CPU
   tensors only, and the scatter paths on every device).
+
+Over a v2 layout, ``fused_v2``, ``xla_scan`` and ``xla`` read the encoded
+streams (:data:`STREAM_NATIVE_ENGINES`); the other kernel engines read the
+layout decoded to v1 first (prep decode, ``blocked.decode_to_v1``).
+``SPLATT_DECODE=prep`` decodes before the chain, so every engine runs the
+v1 dataflow; an armed ``format.decode`` fault does the same for one call
+and leaves a ``format_fallback`` event.
 
 :func:`mttkrp_blocked` walks the chain.  An engine's own failure (an armed
 fault, a launch the card refused, an out-of-memory) demotes it in the
@@ -45,8 +55,10 @@ from typing import List, NamedTuple, Optional, Sequence, Union
 
 import torch
 
-from splatt_tpu_torch.blocked import BlockedSparse, ModeLayout
-from splatt_tpu_torch.config import Options, acc_dtype
+from splatt_tpu_torch.blocked import (BlockedSparse, ModeLayout,
+                                      decode_global_ids, decode_segment_ids,
+                                      decode_to_v1)
+from splatt_tpu_torch.config import Options, acc_dtype, resolve_decode
 from splatt_tpu_torch.coo import SparseTensor
 from splatt_tpu_torch.ops import kernels
 
@@ -63,17 +75,42 @@ FUSED_CHUNK = 1
 #: (≙ _unfused_hbm_ok's 6 GiB, at the real R: the card pads no lanes)
 UNFUSED_BUDGET_BYTES = 6 << 30
 
+#: engines that read a compact layout's encoded streams themselves
+#: (fused_v2 in the kernel, xla_scan per chunk, xla through mode_ids);
+#: the others read it decoded to v1 (≙ splatt_tpu.ops.mttkrp)
+STREAM_NATIVE_ENGINES = ("fused_v2", "xla_scan", "xla")
 
-def _gather_prod(inds: torch.Tensor, vals: torch.Tensor,
-                 factors: Sequence[torch.Tensor], mode: int) -> torch.Tensor:
-    """(nnz, R) partial products val · ⊛_{k≠mode} U_k[ind_k]; ids clamp
-    into range (sentinel entries carry value 0)."""
+#: (engine, shape key) pairs whose first dispatch over a compact layout
+#: left its format_decode event
+_DECODE_NOTED: set = set()
+
+
+def _hadamard(vals: torch.Tensor, factors: Sequence[torch.Tensor],
+              mode: int, ids_of) -> torch.Tensor:
+    """(n, R) partial products val · ⊛_{k≠mode} U_k[ids_of(k)], formed
+    in the factor dtype; ids clamp into range (sentinel entries carry
+    value 0)."""
     prod = vals.to(factors[0].dtype)[:, None]
     for k, U in enumerate(factors):
         if k != mode:
-            idx = inds[k].clamp(0, U.shape[0] - 1)
+            idx = ids_of(k).clamp(0, U.shape[0] - 1)
             prod = prod * U.index_select(0, idx)
     return prod
+
+
+def _gather_prod(inds: torch.Tensor, vals: torch.Tensor,
+                 factors: Sequence[torch.Tensor], mode: int) -> torch.Tensor:
+    """(nnz, R) partial products over global ids ``inds[k]``."""
+    return _hadamard(vals, factors, mode, lambda k: inds[k])
+
+
+def _gather_prod_layout(layout: ModeLayout, factors: Sequence[torch.Tensor],
+                        mode: int) -> torch.Tensor:
+    """(nnz_pad, R) partial products over a layout of either encoding:
+    each mode's ids decoded through ``mode_ids``, bf16-stored values
+    cast to the factor dtype (≙ splatt_tpu.ops.mttkrp.
+    _gather_prod_layout)."""
+    return _hadamard(layout.vals, factors, mode, layout.mode_ids)
 
 
 def mttkrp_stream(inds: torch.Tensor, vals: torch.Tensor,
@@ -93,16 +130,20 @@ def _scan_fused(layout: ModeLayout, factors: Sequence[torch.Tensor],
                 mode: int, width: int, accumulate: bool,
                 target_elems: int = SCAN_TARGET_ELEMS) -> torch.Tensor:
     """The ``xla_scan`` engine (≙ _scan_fused, splatt_tpu/ops/
-    mttkrp.py:264-376) in plain torch: gather, Hadamard and the row
-    reduce one chunk of C blocks at a time, so only a (C·B, R) product
-    exists at once.  Output as :func:`kernels.fused_mttkrp_t`."""
+    mttkrp.py:264-376) in plain torch: decode, gather, Hadamard and the
+    row reduce one chunk of C blocks at a time, so only a (C·B, R)
+    product and the chunk's decoded ids exist at once.  Each stream
+    decodes per chunk through the stream vocabulary; a chunk boundary is
+    a block boundary, so a delta or RLE stream needs no carry.  The last
+    chunk is ragged rather than padded, so no pad blocks (and no RLE pad
+    count vectors) are made.  Output as :func:`kernels.fused_mttkrp_t`."""
     nb, B = layout.nblocks, layout.block
     R = int(factors[0].shape[1])
     C = max(1, min(nb, target_elems // max(B * R, 1)))
     acc = acc_dtype(factors[0].dtype)
     dev = layout.vals.device
-    ids = (layout.mode_ids(mode).reshape(nb, B) if accumulate
-           else layout.blocked_locals())
+    streams, bases, encs = layout.mode_streams()
+    blocked = [st.reshape(nb, -1) for st in streams]
     if accumulate:
         out = torch.zeros((width, R), dtype=acc, device=dev)
     else:
@@ -110,26 +151,39 @@ def _scan_fused(layout: ModeLayout, factors: Sequence[torch.Tensor],
     for b0 in range(0, nb, C):
         b1 = min(b0 + C, nb)
         lo, hi = b0 * B, b1 * B
-        prod = _gather_prod(layout.inds[:, lo:hi], layout.vals[lo:hi],
-                            factors, mode).reshape(b1 - b0, B, R)
+
+        def ids_of(k, sl=slice(b0, b1)):
+            base = None if bases is None else bases[k][sl, None]
+            return decode_global_ids(blocked[k][sl], base, encs[k], B)
+
+        prod = _hadamard(layout.vals[lo:hi], factors, mode,
+                         lambda k: ids_of(k).reshape(-1)).reshape(
+                             b1 - b0, B, R)
         if accumulate:
-            out += kernels.onehot_reduce_full_plain(ids[b0:b1], prod, width)
+            out += kernels.onehot_reduce_full_plain(ids_of(mode), prod,
+                                                    width)
         else:
-            out[b0:b1] = kernels.onehot_reduce_sorted_plain(ids[b0:b1], prod,
-                                                            width)
+            ids = decode_segment_ids(blocked[mode][b0:b1], encs[mode], B,
+                                     row_start=layout.row_start[b0:b1, None])
+            out[b0:b1] = kernels.onehot_reduce_sorted_plain(ids, prod, width)
     return out
 
 
 def _run_engine(engine: str, layout: ModeLayout,
                 factors: Sequence[torch.Tensor], mode: int,
                 path: str) -> torch.Tensor:
-    """MTTKRP of one layout along `path` with `engine`; ``(dim, R)``."""
+    """MTTKRP of one layout along `path` with `engine`; ``(dim, R)``.
+    An engine outside :data:`STREAM_NATIVE_ENGINES` reads a v2 layout
+    decoded to v1."""
     dim = int(factors[mode].shape[0])
     R = int(factors[mode].shape[1])
+    if engine not in STREAM_NATIVE_ENGINES:
+        layout = decode_to_v1(layout)
     if engine == "xla":
         # the stream formulation over the layout's arrays: any mode, no
-        # kernel; the sorted mode's sentinels carry id dim (a spill row)
-        prod = _gather_prod(layout.inds, layout.vals, factors, mode)
+        # kernel; the sorted mode's pads carry id dim (a spill row) in v1,
+        # the block's last row with value 0 in v2
+        prod = _gather_prod_layout(layout, factors, mode)
         acc = acc_dtype(prod.dtype)
         nseg = dim + 1 if mode == layout.mode else dim
         out = torch.zeros((nseg, R), dtype=acc, device=prod.device)
@@ -139,7 +193,10 @@ def _run_engine(engine: str, layout: ModeLayout,
     accumulate = path == "privatized"
     # the privatized accumulator has a row for the sentinel id dim
     width = -(-(dim + 1) // 8) * 8 if accumulate else layout.seg_width
-    if engine == "fused_t":
+    if engine == "fused_v2":
+        parts = kernels.fused_mttkrp_v2(layout, factors, mode, width,
+                                        accumulate)
+    elif engine == "fused_t":
         parts = kernels.fused_mttkrp_t(layout, factors, mode, width,
                                        accumulate)
     elif engine == "fused_tg":
@@ -149,8 +206,7 @@ def _run_engine(engine: str, layout: ModeLayout,
         parts = kernels.fused_mttkrp(layout, factors, mode, width,
                                      accumulate, chunk=FUSED_CHUNK)
     elif engine == "unfused_pallas":
-        prod = _gather_prod(layout.inds, layout.vals, factors,
-                            mode).reshape(nb, B, R)
+        prod = _gather_prod_layout(layout, factors, mode).reshape(nb, B, R)
         if accumulate:
             parts = kernels.onehot_reduce_full(
                 layout.mode_ids(mode).reshape(nb, B), prod, width)
@@ -178,9 +234,15 @@ def _engine_shape_key(layout: ModeLayout, factors: Sequence[torch.Tensor],
                       mode: int) -> str:
     """Demotion scope of RESOURCE failures: ``r{R rounded up to the
     32-lane rank tile}:b{block}``, so an out-of-memory at one shape
-    never demotes the engine for shapes that fit."""
+    never demotes the engine for shapes that fit; a compact layout adds
+    ``:v2``, so an out-of-memory under v2 leaves v1 alone (and the
+    reverse)."""
     R = int(factors[0].shape[1])
-    return f"r{-(-R // 32) * 32}:b{layout.block}"
+    key = f"r{-(-R // 32) * 32}:b{layout.block}"
+    # getattr: chain tests pass stand-in layouts
+    if getattr(layout, "encoding", "v1") != "v1":
+        key += ":v2"
+    return key
 
 
 def _unfused_fits(layout: ModeLayout, R: int, itemsize: int) -> bool:
@@ -194,7 +256,9 @@ def engine_chain(layout: ModeLayout, factors: Sequence[torch.Tensor],
                  shape_key: Optional[str] = None) -> List[str]:
     """The ordered engine chain of this call: every engine whose static
     gate passes and that is not demoted, best first
-    (≙ splatt_tpu.ops.mttkrp.engine_chain).  Gates: ``fused_t`` and
+    (≙ splatt_tpu.ops.mttkrp.engine_chain).  Gates: ``fused_v2`` a
+    compact v2 layout, ``SPLATT_DECODE=kernel`` and R ≤
+    :data:`kernels.MAX_RANK`; ``fused_t`` and
     ``fused`` R ≤ :data:`kernels.MAX_RANK` (register budget);
     ``fused_tg`` any R; ``fused`` only with SPLATT_EXPERIMENTAL_FUSED=1;
     ``unfused_pallas`` the (nnz_pad, R) product within
@@ -216,6 +280,10 @@ def engine_chain(layout: ModeLayout, factors: Sequence[torch.Tensor],
         return not resilience.is_demoted(name, shape_key)
 
     chain = []
+    if (getattr(layout, "encoding", "v1") != "v1"
+            and resolve_decode() == "kernel" and live("fused_v2")
+            and R <= kernels.MAX_RANK):
+        chain.append("fused_v2")
     if live("fused_t") and R <= kernels.MAX_RANK:
         chain.append("fused_t")
     if live("fused_tg"):
@@ -253,7 +321,12 @@ def mttkrp_blocked(layout: ModeLayout, factors: Sequence[torch.Tensor],
     The caller's contract (device, dtype, contiguity, shapes) is checked
     once before anything runs, and on a card the kernels are built and
     loaded first: a wrong operand or a failed build raises and is never
-    demoted.  Then the :func:`engine_chain` is walked: each attempt runs
+    demoted.  A compact layout is decoded to v1 first under
+    ``SPLATT_DECODE=prep``, or when an armed ``format.decode`` fault
+    fires (a classified ``format_fallback`` event with ``site="decode"``,
+    as in the JAX package).  Then the :func:`engine_chain` is walked; an
+    engine's first dispatch over a compact layout leaves a
+    ``format_decode`` event naming where its decode runs.  Each attempt runs
     under ``faults.maybe_fail(f"engine.{engine}")`` and is retried in
     place on TRANSIENT failures.  With `fallback` (default
     ``resilience.fallback_enabled()``) an engine's own failure
@@ -276,10 +349,25 @@ def mttkrp_blocked(layout: ModeLayout, factors: Sequence[torch.Tensor],
     factors = list(factors)
     if fallback is None:
         fallback = resilience.fallback_enabled()
-    shape_key = _engine_shape_key(layout, factors, mode)
-    chain = engine_chain(layout, factors, mode, path, shape_key=shape_key)
     uses_kernels = path in ("sorted_onehot", "privatized")
     kernels.check_operands(layout, factors, mode, kernels=uses_kernels)
+    if layout.encoding != "v1":
+        if resolve_decode() == "prep":
+            layout = decode_to_v1(layout)
+        else:
+            try:
+                faults.maybe_fail("format.decode")
+            except Exception as e:
+                # a failed stream read degrades the call, classified, to
+                # the decoded v1 layout every engine reads
+                cls = resilience.classify_failure(e)
+                resilience.run_report().add(
+                    "format_fallback", mode=int(mode), site="decode",
+                    idx_width=layout.idx_width, failure_class=cls.value,
+                    error=resilience.failure_message(e)[:200])
+                layout = decode_to_v1(layout)
+    shape_key = _engine_shape_key(layout, factors, mode)
+    chain = engine_chain(layout, factors, mode, path, shape_key=shape_key)
     if not chain:
         raise RuntimeError(
             f"no kernel engine left for {path} mode {mode} at "
@@ -292,6 +380,14 @@ def mttkrp_blocked(layout: ModeLayout, factors: Sequence[torch.Tensor],
 
         def attempt(engine=engine):
             faults.maybe_fail(f"engine.{engine}")
+            if (layout.encoding != "v1"
+                    and (engine, shape_key) not in _DECODE_NOTED):
+                _DECODE_NOTED.add((engine, shape_key))
+                resilience.run_report().add(
+                    "format_decode", engine=engine, mode=int(mode),
+                    enc=layout.format_desc(),
+                    strategy=("kernel" if engine in STREAM_NATIVE_ENGINES
+                              else "prep"))
             out = _run_engine(engine, layout, factors, mode, path)
             return faults.poison(f"engine.{engine}", out)
 

@@ -11,8 +11,12 @@ chain needs).
 - :func:`demote_engine` / :func:`is_demoted` — the registry the engine
   chain (:func:`splatt_tpu_torch.ops.mttkrp.engine_chain`) prunes by.
   RESOURCE and TIMEOUT failures demote per shape, the rest process-wide.
-- :func:`run_report` — the event log (``engine_demotion``,
-  ``transient_retry``) the CLI prints after a run.
+- :func:`run_report` — the event log the CLI prints after a run:
+  ``engine_demotion``, ``transient_retry``, and the compact format's
+  ``format_v2`` (the achieved per-mode encodings), ``format_fallback``
+  (an encode, or with ``site="decode"`` a dispatch, degraded to v1),
+  ``format_decode`` (where an engine's decode ran) and ``block_clamp``
+  (a requested nnz block cut to the tensor's size).
 
 The state is process-wide, as outside any job scope in the JAX package.
 """
@@ -130,6 +134,19 @@ class RunReport:
                      else "this process")
             lines.append(f"  engine {e['engine']} demoted for {scope} "
                          f"({e['failure_class']}: {e['error'][:80]})")
+        for e in self.events("format_fallback"):
+            if e.get("site") == "decode":
+                lines.append(f"  compact-format decode failed at "
+                             f"dispatch for mode {e.get('mode')} "
+                             f"({e['failure_class']}: "
+                             f"{e['error'][:80]}); degraded to the "
+                             f"materialized v1 i32 path")
+            else:
+                lines.append(f"  compact-format encode failed for mode "
+                             f"{e.get('mode')} "
+                             f"(requested {e.get('idx_width')}; "
+                             f"{e['failure_class']}: {e['error'][:80]}); "
+                             f"degraded to the v1 i32 encoding")
         return lines
 
 

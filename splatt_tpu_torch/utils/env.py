@@ -29,6 +29,30 @@ ENV_VARS = {
     "SPLATT_FAULTS": EnvVar("", "comma-separated fault-arming specs "
                             "site[:kind][:modifier]... for the fault-"
                             "injection harness (utils/faults.py)"),
+    "SPLATT_IDX_WIDTH": EnvVar("i32", "blocked-layout index width: i32 = "
+                               "v1 global int32 ids; auto = compact v2 "
+                               "(per-block local ids, uint16 where each "
+                               "mode's block extent fits, int32 "
+                               "otherwise, plus int32 per-block bases); "
+                               "u16 = v2 requiring uint16 everywhere; "
+                               "u8 = v2 with the sorted mode's segment "
+                               "ids at uint8 (every block span must fit "
+                               "255); delta = v2 with the gather modes "
+                               "as within-block differences at the "
+                               "narrowest signed width; rle = v2 with "
+                               "the sorted mode as per-block run-length "
+                               "counts.  Encode failures degrade to v1"),
+    "SPLATT_DECODE": EnvVar("kernel", "decode placement for compact "
+                            "layouts: kernel = the fused_v2 engine reads "
+                            "the encoded streams and decodes in "
+                            "registers; prep = decode to global int32 "
+                            "before the engine chain (fused_v2 leaves "
+                            "it)"),
+    "SPLATT_VAL_STORAGE": EnvVar("auto", "blocked-layout value storage: "
+                                 "auto = the compute dtype; f32/bf16 pin "
+                                 "it.  bf16 stores the values, and the "
+                                 "factors derived from them, in bfloat16 "
+                                 "with f32 accumulation"),
 }
 
 

@@ -1,5 +1,5 @@
 """Fault injection: the test hook points of the resilience layer
-(≙ splatt_tpu/utils/faults.py, cut to the engine sites).
+(≙ splatt_tpu/utils/faults.py, cut to the engine and format sites).
 
 Production call sites call :func:`maybe_fail` / :func:`poison` with a
 site name; tests (or an operator, via env var) arm faults against those
@@ -68,6 +68,15 @@ SITES = {
                 "engine.fused_t / engine.xla_scan (ops/mttkrp.py); "
                 "poison-armed specs corrupt the engine's OUTPUT "
                 "instead of raising",
+    "format.encode": "the compact-format v2 encode of one blocked layout "
+                     "(blocked.py build_layout/reencode_layout); a raised "
+                     "fault degrades the build to the v1 int32 encoding "
+                     "(format_fallback event), never fails it",
+    "format.decode": "the compact layout's stream consumption at MTTKRP "
+                     "dispatch (ops/mttkrp.py mttkrp_blocked); a raised "
+                     "fault degrades the dispatch to the decoded v1 "
+                     "layout (blocked.decode_to_v1, format_fallback event "
+                     "with site=decode), never fails it",
 }
 
 

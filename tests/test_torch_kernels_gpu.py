@@ -8,7 +8,8 @@ without them; there, skip the repo's conftest (which sets up JAX):
         tests/test_torch_kernels_gpu.py
 
 Tolerance: f32 with atomics in a run-dependent order, 1e-5 of the largest
-output.
+output, for bf16 operands too: a kernel rounds each bf16 product as its
+plain version does, so only the order of the f32 sums differs.
 """
 
 import numpy as np
@@ -17,6 +18,8 @@ import torch
 
 from splatt_tpu_torch import state
 from splatt_tpu_torch.blocked import build_layout as port_build_layout
+from splatt_tpu_torch.blocked import reencode_layout
+from splatt_tpu_torch.config import LayoutFormat
 from splatt_tpu_torch.coo import SparseTensor
 from splatt_tpu_torch.ops import kernels
 
@@ -151,3 +154,98 @@ def test_cuda_onehot_reductions_match_plain():
                "full " + what)
     with pytest.raises(TypeError):
         kernels.onehot_reduce_full(ids.long(), prod, S)
+
+
+def _tensor(rng, dims, nnz, wide):
+    inds = np.stack([rng.zipf(1.5, size=nnz) % d for d in dims])
+    if wide:
+        inds[0] = rng.integers(0, dims[0], size=nnz)
+    return SparseTensor(inds, rng.random(nnz), dims).deduplicate()
+
+
+@pytest.mark.gpu
+def test_cuda_fused_v2_matches_plain():
+    """fused_mttkrp_v2 against its plain version for every encoding, both
+    contracts, f32 and bf16, with an all-padding last block (base dim in
+    the sorted mode) and a tile wider than shared memory."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    rng = np.random.default_rng(8)
+    skewed = (30, 24, 36, 20)
+    wide = (4000, 6, 70000)   # blocks of 512 span ~1000 rows; an i32 mode
+    cases = [(skewed, 3000, 128, 8), (skewed, 3000, 256, 50),
+             (skewed, 3000, 512, 256), (wide, 2048, 512, 33)]
+    launched = 0
+    for dims, nnz, block, rank in cases:
+        X = _tensor(rng, dims, nnz, dims == wide)
+        v1 = [_pad_block(port_build_layout(X, m, block=block,
+                                           device="cuda"))
+              for m in range(len(dims))]
+        for dtype in (torch.float32, torch.bfloat16):
+            tf = [torch.from_numpy(rng.random((d, rank), dtype=np.float32))
+                  .cuda().to(dtype) for d in dims]
+            for idx in ("auto", "u8", "delta", "rle"):
+                lays = [reencode_layout(lay, LayoutFormat(idx=idx),
+                                        val_dtype=dtype) for lay in v1]
+                for lay, m, width, acc in contracts(lays, dims):
+                    if lay.encoding != "v2":
+                        continue   # u8/rle overflow on the wide tensor
+                    what = (f"dims={dims} rank={rank} {idx} {dtype} "
+                            f"mode={m} accumulate={acc}")
+                    before = kernels.fused_mttkrp_v2.launches
+                    _close(kernels.fused_mttkrp_v2(lay, tf, m, width, acc),
+                           kernels.fused_mttkrp_v2_plain(lay, tf, m, width,
+                                                         acc), what)
+                    assert kernels.fused_mttkrp_v2.launches == before + 1
+                    launched += 1
+    assert launched >= 60
+    with pytest.raises(ValueError, match="v2"):
+        kernels.fused_mttkrp_v2(v1[0], tf, 0, v1[0].seg_width, False)
+    auto = reencode_layout(v1[0], LayoutFormat(idx="auto"))
+    with pytest.raises(ValueError, match="decode_to_v1"):
+        kernels.fused_mttkrp_t(auto, tf, 0, auto.seg_width, False)
+
+
+@pytest.mark.gpu
+def test_cuda_kernels_take_bf16():
+    """The v1 kernels with bf16 values and tables, and the reductions with
+    bf16 products, against their plain versions."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    rng = np.random.default_rng(9)
+    dims = (30, 24, 36, 20)
+    for nnz, block, rank in [(3000, 128, 8), (3000, 256, 50),
+                             (3000, 512, 300)]:
+        X = _tensor(rng, dims, nnz, False)
+        lays = [_pad_block(port_build_layout(X, m, block=block,
+                                             device="cuda"))
+                for m in range(len(dims))]
+        lays = [reencode_layout(lay, LayoutFormat(val="bf16"),
+                                val_dtype=torch.bfloat16) for lay in lays]
+        tf = [torch.from_numpy(rng.random((d, rank), dtype=np.float32))
+              .cuda().to(torch.bfloat16) for d in dims]
+        for lay, m, width, acc in contracts(lays, dims):
+            what = f"rank={rank} mode={m} accumulate={acc}"
+            want = kernels.fused_mttkrp_t_plain(lay, tf, m, width, acc)
+            assert want.dtype == torch.float32
+            _close(kernels.fused_mttkrp_tg(lay, tf, m, width, acc), want,
+                   "tg " + what)
+            if rank <= kernels.MAX_RANK:
+                _close(kernels.fused_mttkrp_t(lay, tf, m, width, acc),
+                       want, "t " + what)
+                _close(kernels.fused_mttkrp(lay, tf, m, width, acc),
+                       want, "row-major " + what)
+        nb = lays[0].nblocks
+        local_t = lays[0].blocked_locals().contiguous()
+        prod = torch.from_numpy(rng.random((nb, block, rank),
+                                           dtype=np.float32)).cuda().to(
+                                               torch.bfloat16)
+        S = lays[0].seg_width
+        _close(kernels.onehot_reduce_sorted(local_t, prod, S),
+               kernels.onehot_reduce_sorted_plain(local_t, prod, S),
+               f"sorted bf16 rank={rank}")
+        ids = lays[1].mode_ids(0).reshape(nb, block)
+        W = -(-(dims[0] + 1) // 8) * 8
+        _close(kernels.onehot_reduce_full(ids.contiguous(), prod, W),
+               kernels.onehot_reduce_full_plain(ids, prod, W),
+               f"full bf16 rank={rank}")

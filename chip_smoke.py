@@ -57,7 +57,25 @@ Phases, each fatal on failure:
    iterations, fallback off: the plan reads ``fused_v2`` on every mode,
    no demotion, 15 launches, fits within 1e-4 of phase 5's at every
    iteration; ``cpd_als`` with bf16 storage on phase 4's planted tensor,
-   10 iterations: fit above 0.97 and within 0.03 of the f32 run's.
+   10 iterations: fit above 0.97 and within 0.03 of the f32 run's;
+10. dense mode at full width: bench.py's ``densemode`` scenario with
+   every dim scaled by 4 (96 x 1024 x 2048, 20M nonzeros, rank 50, f32,
+   TWOMODE), ``Options(dense="auto")`` at threshold 0.05, so every mode
+   gets a dense tile layout.  The host build (all sparse, hybrid, one
+   dense layout alone), each mode's ``format_desc`` and
+   ``storage_bytes`` (index bytes 0); ``fused_dense`` against its plain
+   version per mode in f32 and bf16 (<= 1e-4 of max|plain|), timed beside
+   its bound, the plain version and the library matmul (TF32 off, on a
+   materialized Khatri-Rao operand whose build is timed apart);
+   ``cpd_als``, 5 iterations, fallback off, counters at 0 just before:
+   ``dense/fused_dense`` on every mode, no demotion, 15 ``fused_dense``
+   launches, a ``dense_dispatch`` event per mode, then the sweep phases;
+   the all-sparse CPD (``dense="off"``) from the same init, fits within
+   1e-4 at every iteration; ``format.dense`` armed (fires once) under
+   ONEMODE: a ``format_fallback`` event with ``site="dense"`` for mode 0,
+   whose plan is then ``sorted_onehot/fused_t`` beside two dense modes,
+   and a 2-iteration CPD within 1e-4 of the dense one; with
+   ``engine.fused_dense`` armed ``cpd_als`` raises, fallback on or off.
 
 The line before the last is the ``{"kernels": [...]}`` record; the last is
 ``{"ok": true, "device": {...}}``.
@@ -84,6 +102,12 @@ BIG_RANK_NNZ = 2_000_000
 PARITY_RANK = 16
 ENCODINGS = ("auto", "u8", "delta", "rle")
 BF16_ITERS = 10
+# phase 10: bench.py's densemode scenario (24, 256, 512) with every dim
+# scaled by 4, 20M nonzeros: every mode's padded density is ~0.1
+DENSE_DIMS = (96, 1024, 2048)
+DENSE_NNZ = 20_000_000
+DENSE_THRESHOLD = 0.05
+DRILL_ITERS = 2
 BF16_MIN_FIT = 0.97    # the planted tensor's bf16 fit
 BF16_FIT_GAP = 0.03    # bf16 against f32 (≙ tests/test_format.py:251-252)
 PARITY_TOL = 1e-4      # f32 on the card against f64 on the CPU
@@ -93,6 +117,8 @@ LAMBDA_TOL = 1e-4      # λ of a faulted CPD against the unfaulted, relative
 # the tensor cores
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
+# dense bf16 on the tensor cores, the rate of fused_dense's bf16 products
+BF16_TC_FLOP_PER_S = 989e12
 
 
 def log(msg: str) -> None:
@@ -133,11 +159,12 @@ def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
-def least_ms(moved: int, flops: int) -> tuple:
+def least_ms(moved: int, flops: int, flop_rate: float = F32_FLOP_PER_S
+             ) -> tuple:
     """(ms, "bytes" or "operations"): the larger of `moved` bytes over the
-    HBM rate and `flops` over the f32 rate."""
+    HBM rate and `flops` over `flop_rate` (the f32 rate by default)."""
     t_bytes = moved / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / F32_FLOP_PER_S * 1e3
+    t_ops = flops / flop_rate * 1e3
     return ((t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations"))
 
 
@@ -937,6 +964,251 @@ def phase_format(bs, rank: int, main_fits: list, seed: int = 1) -> dict:
             "planted_bf16": planted}
 
 
+def dense_bound(lay, factors, mode: int, out, flop_rate: float) -> tuple:
+    """Least time in ms for one fused_dense call: the value tiles, the
+    other modes' factors read once and the output written once over the
+    HBM rate, against 2 R operations per tile cell (and R per Khatri-Rao
+    entry) over `flop_rate`."""
+    R = int(factors[0].shape[1])
+    moved = nbytes(lay.tiles, out)
+    moved += nbytes(*(U for k, U in enumerate(factors) if k != mode))
+    return least_ms(moved, (2 * lay.tiles.numel() + lay.span) * R,
+                    flop_rate)
+
+
+def _cpd_launches(bs, rank: int, init, iters: int, fallback: bool = False):
+    """cpd_als with every launch counter at 0 just before: (the result,
+    the launches of each kernel, peak device memory in GiB)."""
+    import torch
+
+    from splatt_tpu_torch import Options, cpd_als, resilience
+    from splatt_tpu_torch.config import Verbosity
+    from splatt_tpu_torch.ops import kernels
+
+    opts = Options(max_iterations=iters, tolerance=0.0,
+                   engine_fallback=fallback, verbosity=Verbosity.NONE)
+    resilience.reset_demotions()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    out = cpd_als(bs, rank, opts, init=init)
+    torch.cuda.synchronize()
+    launches = {k.__name__: k.launches for k in kernels.KERNELS}
+    if resilience.demotions():
+        raise AssertionError(f"demotions: {resilience.demotions()}")
+    return out, launches, torch.cuda.max_memory_allocated() / 2**30
+
+
+def phase_dense(rank: int, seed: int = 1) -> dict:
+    """Phase 10: dense mode at full width (see the module docstring)."""
+    import dataclasses
+
+    import torch
+
+    from splatt_tpu_torch import BlockedSparse, Options, cpd_als, resilience
+    from splatt_tpu_torch.blocked import (build_dense_layout,
+                                          padded_mode_density)
+    from splatt_tpu_torch.config import BlockAlloc, Verbosity
+    from splatt_tpu_torch.ops import kernels
+    from splatt_tpu_torch.ops.mttkrp import dense_operands, describe_plan
+    from splatt_tpu_torch.utils import faults
+
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    tt = synthetic_tensor(DENSE_DIMS, DENSE_NNZ, seed=0)
+    log(f"[dense] {DENSE_DIMS} nnz={tt.nnz}: generated in "
+        f"{time.perf_counter() - t0:.2f} s")
+    build = {}
+    t0 = time.perf_counter()
+    sparse = BlockedSparse.from_coo(tt, Options(dense="off",
+                                                verbosity=Verbosity.NONE))
+    torch.cuda.synchronize()
+    build["sparse_s"] = time.perf_counter() - t0
+    resilience.run_report().clear()
+    t0 = time.perf_counter()
+    bs = BlockedSparse.from_coo(tt, Options(dense="auto",
+                                            dense_threshold=DENSE_THRESHOLD,
+                                            verbosity=Verbosity.NONE))
+    torch.cuda.synchronize()
+    build["hybrid_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    build_dense_layout(tt, 0, device=bs.device)
+    torch.cuda.synchronize()
+    build["dense_mode0_s"] = time.perf_counter() - t0
+    log(f"[dense] host build: {json.dumps(build)} (sparse: the TWOMODE "
+        f"sorts; hybrid: the same sorts and the 3 dense layouts)")
+    layouts = {}
+    for m in range(bs.nmodes):
+        lay = bs.layout_for(m)
+        if lay.encoding != "dense":
+            raise AssertionError(f"mode {m} is not dense: {lay!r}")
+        if lay.index_bytes() != 0:
+            raise AssertionError(f"mode {m} has index bytes")
+        layouts[f"mode{m}"] = dict(
+            format=lay.format_desc(), storage_bytes=lay.storage_bytes(),
+            index_bytes=lay.index_bytes(), ntiles=lay.ntiles,
+            tile=lay.tile, span=lay.span, cells=lay.tiles.numel(),
+            padded_density=padded_mode_density(tt.dims, m, tt.nnz),
+            bucket=lay.density_bucket)
+    log(f"[dense] layouts {json.dumps(layouts)}; sparse layouts "
+        + " ".join(f"mode{lay.mode}={lay.format_desc()} "
+                   f"{lay.storage_bytes()} B" for lay in sparse.layouts))
+
+    # fused_dense against its plain version per mode, f32 and bf16, timed
+    # beside its bound, the plain version and the library matmul
+    factors = random_factors(bs, rank, seed)
+    rows = {"f32": [], "bf16": []}
+    for name, fac, cast in (("f32", factors, None),
+                            ("bf16", [U.to(torch.bfloat16) for U in factors],
+                             torch.bfloat16)):
+        for m in range(bs.nmodes):
+            lay = bs.layout_for(m)
+            if cast is not None:
+                lay = dataclasses.replace(lay, tiles=lay.tiles.to(cast),
+                                          val_storage="bf16")
+            got, row = compare(
+                lambda: kernels.fused_dense(lay, fac, m),
+                lambda: kernels.fused_dense_plain(lay, fac, m),
+                f"fused_dense {name} mode {m}")
+            rate = BF16_TC_FLOP_PER_S if cast is not None else F32_FLOP_PER_S
+            row["bound_ms"], row["bound_by"] = dense_bound(lay, fac, m, got,
+                                                           rate)
+            row["ffma_bound_ms"] = dense_bound(lay, fac, m, got,
+                                               F32_FLOP_PER_S)[0]
+            w, u = dense_operands(lay, fac, m)
+            R = int(w.shape[1])
+
+            def make_kr():
+                return (w[:, None, :] * u[None, :, :]).reshape(-1, R)
+
+            kr = make_kr()
+            flat = lay.tiles.view(-1, lay.span)
+            row["kr_build_ms"] = time_ms(make_kr, reps=5)
+            with kernels.ieee_matmul():
+                row["library_ms"] = time_ms(lambda: torch.matmul(flat, kr),
+                                            reps=5)
+            row.update(contract="dense", mode=m, dtype=name, tile=lay.tile,
+                       span=lay.span, ntiles=lay.ntiles)
+            log(f"[dense] fused_dense {json.dumps(row)}")
+            rows[name].append(row)
+            del got, kr, flat, w, u, lay
+            torch.cuda.empty_cache()
+
+    # the dense CPD: every mode on fused_dense, fallback off
+    rng = np.random.default_rng(13)
+    init = [rng.random((d, rank)) for d in tt.dims]
+    plan = describe_plan(bs, factors)
+    log(f"[dense] {plan}")
+    if plan.count("=dense/fused_dense") != bs.nmodes:
+        raise AssertionError(f"the dense plan is not fused_dense: {plan}")
+    resilience.run_report().clear()
+    out, launches, peak = _cpd_launches(bs, rank, init, ITERS)
+    steady = sum(out.iter_seconds[1:]) / (len(out.iter_seconds) - 1)
+    events = resilience.run_report().events("dense_dispatch")
+    log(f"[dense] cpd fits {list(out.fits)}; iteration seconds "
+        f"{list(out.iter_seconds)}; {steady:.5f} s/iteration; peak "
+        f"{peak:.2f} GiB; launches {launches}; dense_dispatch "
+        f"{[(e['engine'], e['mode'], e['tile'], e['span']) for e in events]}")
+    want = {k.__name__: 0 for k in kernels.KERNELS}
+    want["fused_dense"] = bs.nmodes * ITERS
+    if launches != want:
+        raise AssertionError(f"dense launches {launches}, expected {want}")
+    if sorted(e["mode"] for e in events) != list(range(bs.nmodes)):
+        raise AssertionError(f"dense_dispatch events {events}")
+    if not all(math.isfinite(f) and 0.0 < f <= 1.0 for f in out.fits):
+        raise AssertionError(f"dense fits {out.fits}")
+    parts = sweep_phases(bs, out.factors, steady, "[dense]")
+    dense_cpd = dict(fits=list(out.fits), sec_per_iter=steady,
+                     iter_seconds=list(out.iter_seconds), peak_gib=peak,
+                     launches=launches, sweep_phase_ms=parts, plan=plan)
+
+    # the same tensor all sparse, from the same init
+    splan = describe_plan(sparse, factors)
+    sout, slaunches, speak = _cpd_launches(sparse, rank, init, ITERS)
+    ssteady = sum(sout.iter_seconds[1:]) / (len(sout.iter_seconds) - 1)
+    diff = max(abs(a - b) for a, b in zip(out.fits, sout.fits))
+    log(f"[dense] all-sparse {splan}; fits {list(sout.fits)}; max |fit "
+        f"difference| {diff:.3e}; {ssteady:.5f} s/iteration; peak "
+        f"{speak:.2f} GiB; launches {slaunches}")
+    if len(sout.fits) != ITERS or not diff <= PARITY_TOL:
+        raise AssertionError(f"dense fits {out.fits} against all-sparse "
+                             f"{sout.fits}")
+    sparse_parts = sweep_phases(sparse, sout.factors, ssteady,
+                                "[dense/all-sparse]")
+    sparse_cpd = dict(fits=list(sout.fits), sec_per_iter=ssteady,
+                      peak_gib=speak, launches=slaunches, plan=splan,
+                      max_fit_diff=diff, sweep_phase_ms=sparse_parts)
+    del sparse, sout
+    torch.cuda.empty_cache()
+
+    # format.dense armed (SPLATT_FAULTS grammar, fires once): the first
+    # mode's dense build degrades to its sparse layout, the others stay
+    # dense; ONEMODE keeps it to one host sort
+    resilience.run_report().clear()
+    faults.reset()
+    for site, spec in faults.parse_schedule("format.dense:runtime").items():
+        faults.arm(site, spec)
+    try:
+        drill = BlockedSparse.from_coo(tt, Options(
+            dense="auto", block_alloc=BlockAlloc.ONEMODE,
+            verbosity=Verbosity.NONE))
+    finally:
+        faults.reset()
+    fallbacks = resilience.run_report().events("format_fallback")
+    dplan = describe_plan(drill, factors)
+    dout, dlaunches, _ = _cpd_launches(drill, rank, init, DRILL_ITERS)
+    ddiff = max(abs(a - b) for a, b in zip(dout.fits, out.fits))
+    log(f"[dense] format.dense armed: events {json.dumps(fallbacks)}; "
+        f"{dplan}; fits {list(dout.fits)} (max |difference| from the "
+        f"dense CPD {ddiff:.3e}); launches {dlaunches}")
+    if [(e["site"], e["mode"]) for e in fallbacks] != [("dense", 0)]:
+        raise AssertionError(f"format.dense drill events {fallbacks}")
+    if "mode0=sorted_onehot/fused_t" not in dplan or \
+            dplan.count("=dense/fused_dense") != bs.nmodes - 1:
+        raise AssertionError(f"format.dense drill plan {dplan}")
+    if (dlaunches["fused_mttkrp_t"] != DRILL_ITERS
+            or dlaunches["fused_dense"] != (bs.nmodes - 1) * DRILL_ITERS
+            or not ddiff <= PARITY_TOL):
+        raise AssertionError("format.dense drill CPD")
+    drill_row = dict(events=fallbacks, plan=dplan, fits=list(dout.fits),
+                     launches=dlaunches, max_fit_diff=ddiff)
+    del drill, dout
+
+    # engine.fused_dense armed: on the card the dense chain holds only the
+    # kernel, so cpd_als raises, fallback on or off
+    raised = {}
+    for fallback in (True, False):
+        for site, spec in faults.parse_schedule(
+                "engine.fused_dense:runtime").items():
+            faults.arm(site, spec)
+        kernels.reset_launches()
+        try:
+            cpd_als(bs, rank, Options(max_iterations=1, tolerance=0.0,
+                                      engine_fallback=fallback,
+                                      verbosity=Verbosity.NONE), init=init)
+        except RuntimeError as e:
+            raised[str(fallback)] = repr(e)
+        else:
+            raise AssertionError(f"engine.fused_dense armed, fallback "
+                                 f"{fallback}: cpd_als did not raise")
+        finally:
+            faults.reset()
+        if "engine.fused_dense" not in raised[str(fallback)] or \
+                kernels.fused_dense.launches or resilience.demotions():
+            raise AssertionError(f"engine.fused_dense armed: {raised}")
+    log(f"[dense] engine.fused_dense armed: cpd_als raised {raised}")
+    resilience.reset_demotions()
+    resilience.run_report().clear()
+    seconds = time.perf_counter() - t_phase
+    log(f"[dense] phase 10 took {seconds:.1f} s")
+    del bs
+    torch.cuda.empty_cache()
+    return {"rows": rows, "layouts": layouts, "build": build,
+            "cpd": dense_cpd, "all_sparse": sparse_cpd,
+            "drill": drill_row,
+            "raised": raised, "seconds": seconds}
+
+
 def _record_row(name: str, source: str, replaces: str, launches: int,
                 rows: list, library, **extra) -> dict:
     """One kernel's entry of the kernels line: ms, plain, bound and
@@ -956,7 +1228,8 @@ def _record_row(name: str, source: str, replaces: str, launches: int,
 
 
 def _bf16_summary(rows: list) -> dict:
-    """Phase 9's bf16 rows of one kernel: means over the modes."""
+    """Phase 9's (or 10's) bf16 rows of one kernel: means over the
+    modes."""
     n = len(rows)
     return dict(ms=sum(r["ms"] for r in rows) / n,
                 plain_ms=sum(r["plain_ms"] for r in rows) / n,
@@ -1000,6 +1273,9 @@ def main() -> int:
     big = phase_rank512(bs)
     fmt = phase_format(bs, RANK, main_path["fits"])
     bf16 = {k: _bf16_summary(v) for k, v in fmt["bf16"].items()}
+    del bs
+    dense = phase_dense(RANK)
+    bf16["fused_dense"] = _bf16_summary(dense["rows"]["bf16"])
 
     def main_rows(rs):
         """The rows of the contract the main path runs: sorted."""
@@ -1009,6 +1285,7 @@ def main() -> int:
         return chain[label]["launches"][kernel]
 
     fused_src = "splatt_tpu_torch/csrc/fused_mttkrp.cu"
+    dense_src = "splatt_tpu_torch/csrc/fused_dense.cu"
     v2_src = "splatt_tpu_torch/csrc/fused_mttkrp_v2.cu"
     reduce_src = "splatt_tpu_torch/csrc/onehot_reduce.cu"
     pk = "splatt_tpu/ops/pallas_kernels.py"
@@ -1073,6 +1350,22 @@ def main() -> int:
                     storage_bytes=fmt["storage_bytes"], cpd=fmt["cpd"],
                     planted_bf16=fmt["planted_bf16"],
                     bf16=bf16["fused_mttkrp_v2"]),
+        _record_row("fused_dense", dense_src, f"{pk}:1483",
+                    dense["cpd"]["launches"]["fused_dense"],
+                    dense["rows"]["f32"], "library_ms",
+                    note=f"ms/plain_ms/bound_ms/library_ms: mean per launch "
+                    f"over the 3 modes of {DENSE_DIMS}, 20M nonzeros, rank "
+                    f"{RANK}, f32 tiles (bound: f32 FFMA rate); launches: "
+                    f"phase 10's dense CPD; library: one torch.matmul of "
+                    f"the tiles with a materialized Khatri-Rao operand, "
+                    f"TF32 off (its build in kr_build_ms); bf16: bound at "
+                    f"the bf16 tensor-core rate, ffma_bound_ms at the FFMA "
+                    f"rate",
+                    contracts=dense["rows"]["f32"], bf16=bf16["fused_dense"],
+                    layouts=dense["layouts"], build=dense["build"],
+                    cpd=dense["cpd"], all_sparse=dense["all_sparse"],
+                    drill=dense["drill"], raised=dense["raised"],
+                    phase_seconds=dense["seconds"]),
     ], "chain": chain, "power": dev["smi"]}
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {

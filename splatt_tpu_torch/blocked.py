@@ -22,6 +22,12 @@ Two encodings share :class:`ModeLayout` (docs/format.md):
 Every consumer reads a layout through the stream vocabulary below
 (:func:`decode_gather_ids`, :func:`decode_segment_ids`,
 :func:`decode_global_ids`, :func:`rle_expand`), as in the JAX package.
+
+A mode dense enough for the dense verdict (``SPLATT_DENSE``,
+docs/dense.md) gets a :class:`DenseModeLayout` instead: its unfolding as
+``(ntiles, tile, span)`` value tiles and no index streams at all.
+:meth:`BlockedSparse.from_coo` appends such layouts after the sparse ones
+and remaps those modes to them (the hybrid per-mode dispatch).
 """
 
 from __future__ import annotations
@@ -34,8 +40,10 @@ import torch
 
 from splatt_tpu_torch.config import (BlockAlloc, LayoutFormat, ModeOrder,
                                      Options, Verbosity, default_opts,
-                                     layout_format, resolve_device,
-                                     resolve_dtype, resolve_storage_dtype)
+                                     layout_format, resolve_dense,
+                                     resolve_dense_threshold, resolve_device,
+                                     resolve_dtype, resolve_storage_dtype,
+                                     torch_dtype)
 from splatt_tpu_torch.coo import SparseTensor
 
 #: short dtype names for format descriptions ("mode0=u16/seg/bf16")
@@ -453,7 +461,8 @@ def build_layout(tt: SparseTensor, mode: int, block: int = 4096,
                  val_dtype=torch.float32, mode_order=None,
                  mode_order_custom=None, device=None,
                  fmt: Optional[LayoutFormat] = None,
-                 verbose: bool = False) -> ModeLayout:
+                 verbose: bool = False, dense: Optional[bool] = None
+                 ) -> Union[ModeLayout, "DenseModeLayout"]:
     """Sort, block and pad the tensor for output mode `mode`
     (≙ csf_alloc's sort + fiber build, src/csf.c:613-726).
 
@@ -461,7 +470,13 @@ def build_layout(tt: SparseTensor, mode: int, block: int = 4096,
     encode that fails (an armed ``format.encode`` fault, a u16/u8/RLE
     overflow) degrades to v1 with a ``format_fallback`` event.  A
     requested block cut to the tensor's size leaves a ``block_clamp``
-    event."""
+    event.
+
+    `dense` picks the dense tile layout: True forces it, False forbids
+    it, None reads the SPLATT_DENSE policy and :func:`dense_mode_verdict`.
+    A dense build that fails (an armed ``format.dense`` fault, a blowup
+    past the cap) degrades to this sparse build with a
+    ``format_fallback`` event carrying ``site="dense"``."""
     from splatt_tpu_torch import resilience
     from splatt_tpu_torch.utils import faults
 
@@ -469,6 +484,13 @@ def build_layout(tt: SparseTensor, mode: int, block: int = 4096,
     check_int32_dims(tt.dims)
     fmt = (fmt or LayoutFormat()).validate()
     dev = resolve_device(device)
+    if dense is None:
+        dense = _wants_dense(tt.dims, mode, nnz, Options())
+    if dense:
+        lay = _dense_or_degrade(mode, verbose, lambda: build_dense_layout(
+            tt, mode, val_dtype=val_dtype, device=dev, verbose=verbose))
+        if lay is not None:
+            return lay
     order = [mode] + secondary_order(tt.dims, mode, mode_order,
                                      mode_order_custom)
     perm = tt.sort_order(order)
@@ -519,16 +541,28 @@ def build_layout(tt: SparseTensor, mode: int, block: int = 4096,
 
 
 def reencode_layout(layout: ModeLayout, fmt: LayoutFormat,
-                    val_dtype=None) -> ModeLayout:
+                    val_dtype=None, dense: bool = False,
+                    dims: Optional[Sequence[int]] = None
+                    ) -> Union[ModeLayout, "DenseModeLayout"]:
     """Re-encode a v1 layout under `fmt` (and optionally another value
     dtype) without sorting again.  A failed v2 encode returns the v1
     layout with a ``format_fallback`` event, as :func:`build_layout`
-    does."""
+    does.  `dense` re-encodes to the dense tile layout instead
+    (:func:`densify_layout`; `dims` gives the other modes' extents); a
+    failed dense tiling degrades to the `fmt` re-encode with a
+    ``format_fallback`` event carrying ``site="dense"``."""
     from splatt_tpu_torch.utils import faults
 
     fmt = fmt.validate()
     if layout.encoding != "v1":
         raise ValueError("reencode_layout expects a v1 source layout")
+    if dense:
+        if dims is None:
+            raise ValueError("dense re-encode needs the tensor dims")
+        lay = _dense_or_degrade(layout.mode, False, lambda: densify_layout(
+            layout, dims, val_dtype=val_dtype))
+        if lay is not None:
+            return lay
     vals = layout.vals if val_dtype is None else layout.vals.to(val_dtype)
     v1 = dataclasses.replace(layout, vals=vals, idx_width="i32",
                              val_storage=fmt.val)
@@ -560,6 +594,306 @@ def decode_to_v1(layout: ModeLayout) -> ModeLayout:
                                idx_width="i32")
 
 
+# -- the dense-mode tile layout (≙ splatt_tpu/blocked.py:1057-1355) ----------
+#
+# A dense mode's unfolding X_(m) is stored as (tile, span) value tiles and
+# its MTTKRP is the matmul X_(m) @ KR(other factors).  Column c of the
+# unfolding linearizes the non-output modes row-major in ascending mode
+# order, the last one fastest; that inner mode's extent is padded to a
+# multiple of 128, and the pad columns hold zero values and meet the zero
+# rows of the padded inner factor (ops/mttkrp.py dense_operands), so no
+# mask is read on the hot path.
+
+#: a dense tiling whose padded cells exceed this multiple of nnz is
+#: refused, even under dense="on"
+DENSE_BLOWUP_CAP = 64
+
+
+class DenseGeometry(NamedTuple):
+    """Tile geometry of one mode's dense unfolding, derived from (dims,
+    mode) and never stored."""
+
+    others: Tuple[int, ...]   # non-output modes, ascending
+    inner: int                # the fastest-varying (last) other mode
+    n_outer: int              # product of the remaining other dims (>= 1)
+    inner_pad: int            # dims[inner] padded to a multiple of 128
+    tile: int                 # output rows per tile (a multiple of 8)
+    ntiles: int               # row tiles (ntiles * tile >= dim)
+    span: int                 # columns per tile = n_outer * inner_pad
+    cells: int                # padded cells = ntiles * tile * span
+
+
+def dense_tile_geometry(dims: Sequence[int],
+                        mode: int) -> Optional[DenseGeometry]:
+    """The geometry of mode `mode`'s dense unfolding, or None when it
+    cannot be tiled (fewer than two modes, or an empty dim)."""
+    dims = tuple(int(d) for d in dims)
+    others = tuple(k for k in range(len(dims)) if k != mode)
+    if not others or min(dims, default=0) < 1:
+        return None
+    inner = others[-1]
+    n_outer = 1
+    for k in others[:-1]:
+        n_outer *= dims[k]
+    inner_pad = ceil_to(dims[inner], 128)
+    dim = dims[mode]
+    tile = min(ceil_to(dim, 8), 256)
+    ntiles = -(-dim // tile)
+    span = n_outer * inner_pad
+    return DenseGeometry(others=others, inner=inner, n_outer=n_outer,
+                         inner_pad=inner_pad, tile=tile, ntiles=ntiles,
+                         span=span, cells=ntiles * tile * span)
+
+
+def mode_density(dims: Sequence[int], mode: int, nnz: int) -> float:
+    """nnz over the product of all dims: the fill of the unfolding."""
+    total = 1
+    for d in dims:
+        total *= max(int(d), 1)
+    return float(nnz) / float(max(total, 1))
+
+
+def padded_mode_density(dims: Sequence[int], mode: int, nnz: int) -> float:
+    """nnz over the padded tile cells, which the dense verdict judges: the
+    padding of the inner mode is the blowup a tiling would pay."""
+    geo = dense_tile_geometry(dims, mode)
+    if geo is None:
+        return 0.0
+    return float(nnz) / float(max(geo.cells, 1))
+
+
+def mode_density_bucket(dims: Sequence[int], mode: int, nnz: int) -> str:
+    """``dn<n>``, n the bit length of 1 / padded density (dn1 more than
+    half full, dn5 about 5%); "" at or below 1/32 or without a
+    geometry."""
+    pd = padded_mode_density(dims, mode, nnz)
+    if pd <= 1.0 / 32.0:
+        return ""
+    return f"dn{int(1.0 / pd).bit_length()}"
+
+
+def dense_mode_verdict(dims: Sequence[int], mode: int, nnz: int,
+                       threshold: float, force: bool = False) -> bool:
+    """Whether mode `mode` is stored as dense tiles: a feasible geometry
+    whose padded cells stay within :data:`DENSE_BLOWUP_CAP` x nnz, and a
+    padded density at or above `threshold` (`force`, the "on" policy,
+    skips only the threshold)."""
+    geo = dense_tile_geometry(dims, mode)
+    if geo is None or nnz < 1:
+        return False
+    if geo.cells > DENSE_BLOWUP_CAP * nnz:
+        return False
+    return force or padded_mode_density(dims, mode, nnz) >= threshold
+
+
+@dataclasses.dataclass
+class DenseModeLayout:
+    """The dense tile layout of one mode (≙ splatt_tpu.blocked.
+    DenseModeLayout).
+
+    tiles: ``(ntiles, tile, span)`` values at the storage dtype, zero in
+      the pad rows and columns.
+    mask: ``(span,)`` bool, True at the real unfolding columns (False at
+      the inner mode's pad columns); no engine reads it.
+
+    It carries :class:`ModeLayout`'s plan-matching surface (``encoding``
+    and ``idx_width`` read "dense", ``block`` is the row tile), so the
+    demotion keys and the format lines treat it like any layout.
+    """
+
+    tiles: torch.Tensor
+    mask: torch.Tensor
+    mode: int
+    dims: Tuple[int, ...]
+    nnz: int
+    val_storage: str = "auto"
+
+    @property
+    def dim(self) -> int:
+        return int(self.dims[self.mode])
+
+    @property
+    def nmodes(self) -> int:
+        return len(self.dims)
+
+    @property
+    def geometry(self) -> DenseGeometry:
+        return dense_tile_geometry(self.dims, self.mode)
+
+    @property
+    def ntiles(self) -> int:
+        return int(self.tiles.shape[0])
+
+    @property
+    def tile(self) -> int:
+        return int(self.tiles.shape[1])
+
+    @property
+    def span(self) -> int:
+        return int(self.tiles.shape[2])
+
+    @property
+    def device(self) -> torch.device:
+        return self.tiles.device
+
+    @property
+    def encoding(self) -> str:
+        return "dense"
+
+    @property
+    def idx_width(self) -> str:
+        return "dense"
+
+    @property
+    def block(self) -> int:
+        """The row tile, in nnz_block's place in the demotion keys."""
+        return self.tile
+
+    @property
+    def packing(self) -> str:
+        return "fixed"
+
+    @property
+    def skew(self) -> str:
+        return ""
+
+    @property
+    def density_bucket(self) -> str:
+        return mode_density_bucket(self.dims, self.mode, self.nnz)
+
+    def density(self) -> float:
+        return mode_density(self.dims, self.mode, self.nnz)
+
+    def index_bytes(self) -> int:
+        """Zero: the point of the format."""
+        return 0
+
+    def value_bytes(self) -> int:
+        return self.tiles.numel() * self.tiles.element_size()
+
+    def storage_bytes(self) -> int:
+        mask = self.mask.numel() * self.mask.element_size()
+        return self.value_bytes() + mask
+
+    def format_desc(self) -> str:
+        val = _DTYPE_SHORT.get(self.tiles.dtype,
+                               str(self.tiles.dtype).replace("torch.", ""))
+        return f"dense/t{self.tile}/{val}"
+
+    def __repr__(self) -> str:
+        return (f"DenseModeLayout(mode={self.mode}, dim={self.dim}, "
+                f"tile={self.tile}x{self.span}, ntiles={self.ntiles}, "
+                f"nnz={self.nnz}, density={self.density():.3g})")
+
+    def to(self, device) -> "DenseModeLayout":
+        return dataclasses.replace(self, tiles=self.tiles.to(device),
+                                   mask=self.mask.to(device))
+
+
+def _wants_dense(dims: Sequence[int], mode: int, nnz: int,
+                 opts: Options) -> bool:
+    """Whether the dense policy of `opts` (else SPLATT_DENSE and
+    SPLATT_DENSE_THRESHOLD) gives mode `mode` a dense layout."""
+    pol = resolve_dense(opts)
+    return pol != "off" and dense_mode_verdict(
+        dims, mode, nnz, resolve_dense_threshold(opts), force=pol == "on")
+
+
+def _dense_or_degrade(mode: int, verbose: bool, build):
+    """`build()`'s dense layout under the ``format.dense`` fault site, or
+    None when it fails: the failure is classified into a
+    ``format_fallback`` event with ``site="dense"`` and the caller keeps
+    the sparse encoding."""
+    from splatt_tpu_torch import resilience
+    from splatt_tpu_torch.utils import faults
+
+    try:
+        faults.maybe_fail("format.dense")
+        return build()
+    except Exception as e:
+        cls = resilience.classify_failure(e)
+        resilience.run_report().add(
+            "format_fallback", mode=mode, site="dense", idx_width="dense",
+            failure_class=cls.value,
+            error=resilience.failure_message(e)[:200])
+        if verbose:
+            print(f"  layout mode{mode}: dense tiling failed "
+                  f"({cls.value}); the mode keeps the sparse encoding")
+        return None
+
+
+def build_dense_layout(tt: SparseTensor, mode: int, val_dtype=None,
+                       device=None, verbose: bool = False
+                       ) -> DenseModeLayout:
+    """Mode `mode`'s unfolding as dense value tiles, built on the host
+    and moved to `device` once.  Raises on an infeasible geometry or a
+    blowup past :data:`DENSE_BLOWUP_CAP`; the callers degrade.  Duplicate
+    coordinates accumulate (``np.add.at`` in the staging dtype, in entry
+    order, as the JAX package adds them)."""
+    check_int32_dims(tt.dims)
+    val_dtype = torch_dtype(torch.float32 if val_dtype is None
+                            else val_dtype)
+    dev = resolve_device(device)
+    geo = dense_tile_geometry(tt.dims, mode)
+    if geo is None:
+        raise ValueError(
+            f"mode {mode} of dims {tuple(tt.dims)} cannot be dense-tiled "
+            f"(need two+ nonempty modes)")
+    if geo.cells > DENSE_BLOWUP_CAP * max(tt.nnz, 1):
+        raise ValueError(
+            f"dense tiling of mode {mode} would materialize {geo.cells} "
+            f"padded cells for {tt.nnz} nonzeros (> {DENSE_BLOWUP_CAP}x "
+            f"blowup); keeping the sparse encoding")
+    # numpy has no bfloat16: bf16 stages through f32 and rounds once
+    stage = (np.dtype(np.float32) if val_dtype == torch.bfloat16
+             else torch.empty(0, dtype=val_dtype).numpy().dtype)
+    arr = np.zeros(geo.cells, dtype=stage)
+    if tt.nnz:
+        inds = tt.inds.astype(np.int64, copy=False)
+        if len(geo.others) > 1:
+            outer = np.ravel_multi_index(
+                [inds[k] for k in geo.others[:-1]],
+                [tt.dims[k] for k in geo.others[:-1]])
+        else:
+            outer = np.zeros(tt.nnz, dtype=np.int64)
+        flat = np.ravel_multi_index(
+            (inds[mode], outer, inds[geo.inner]),
+            (geo.ntiles * geo.tile, geo.n_outer, geo.inner_pad))
+        np.add.at(arr, flat, np.asarray(tt.vals, dtype=stage))
+    mask = np.zeros((geo.n_outer, geo.inner_pad), dtype=bool)
+    mask[:, :tt.dims[geo.inner]] = True
+    tiles = torch.from_numpy(arr.reshape(geo.ntiles, geo.tile, geo.span))
+    lay = DenseModeLayout(
+        tiles=tiles.to(dev).to(val_dtype),
+        mask=torch.from_numpy(mask.reshape(-1)).to(dev),
+        mode=mode, dims=tuple(int(d) for d in tt.dims), nnz=tt.nnz,
+        val_storage="bf16" if val_dtype == torch.bfloat16 else "auto")
+    if verbose:
+        print(f"  layout mode{mode}: dense tiles {geo.ntiles}x{geo.tile}"
+              f"x{geo.span} (density {lay.density():.3g}, zero index "
+              f"bytes)")
+    return lay
+
+
+def densify_layout(layout: ModeLayout, dims: Sequence[int],
+                   val_dtype=None) -> DenseModeLayout:
+    """The dense tiles of a sorted layout's mode without sorting the COO
+    again: the real entries are recovered through ``mode_ids`` and
+    ``real_mask``, so the result equals :func:`build_dense_layout` of
+    the same tensor.  `dims` gives the other modes' extents."""
+    real = torch.from_numpy(layout.real_mask().reshape(-1)).to(
+        layout.device)
+    inds = torch.stack([layout.mode_ids(k)
+                        for k in range(layout.nmodes)])[:, real]
+    vals = layout.vals[real].to(torch.float64)
+    tt = SparseTensor(inds.cpu().numpy().astype(np.int64),
+                      vals.cpu().numpy(), tuple(int(d) for d in dims))
+    return build_dense_layout(
+        tt, layout.mode,
+        val_dtype=layout.vals.dtype if val_dtype is None else val_dtype,
+        device=layout.device)
+
+
 def alloc_build_modes(dims: Sequence[int], opts: Options) -> List[int]:
     """Which modes get their own sorted layout (≙ splatt_csf_alloc,
     src/csf.c:770-814): ONEMODE the smallest mode, TWOMODE the smallest
@@ -580,7 +914,7 @@ def alloc_build_modes(dims: Sequence[int], opts: Options) -> List[int]:
 class BlockedSparse:
     """Per-mode layouts and the mode -> layout map (≙ splatt_csf[])."""
 
-    layouts: List[ModeLayout]
+    layouts: List[Union[ModeLayout, DenseModeLayout]]
     mode_map: Dict[int, int]
     dims: Tuple[int, ...]
     nnz: int
@@ -617,8 +951,18 @@ class BlockedSparse:
         its own layout maps to the first one.  The format comes from
         ``opts`` else the env (:func:`layout_format`); every layout
         stores its values at one dtype, so the CPD derives one factor
-        dtype from them.  A non-default format leaves a ``format_v2``
-        event and, at verbosity LOW, a ``format:`` line."""
+        dtype from them.
+
+        The hybrid per-mode dispatch: under the dense policy
+        (``opts.dense`` else SPLATT_DENSE) each mode that passes
+        :func:`dense_mode_verdict` gets a :class:`DenseModeLayout`
+        appended after the sparse layouts and its ``mode_map`` entry
+        remapped to it.  ``layouts[0]`` stays a sparse layout, which
+        :meth:`frobsq` and the CPD's dtype read.  A failed dense build
+        (an armed ``format.dense`` fault, a blowup past the cap) leaves
+        the mode on its sparse layout, with a ``format_fallback`` event
+        carrying ``site="dense"``.  A non-default format leaves a
+        ``format_v2`` event and, at verbosity LOW, a ``format:`` line."""
         from splatt_tpu_torch import resilience
 
         opts = (opts or default_opts()).validate()
@@ -631,13 +975,24 @@ class BlockedSparse:
                                 val_dtype=storage,
                                 mode_order=opts.mode_order,
                                 mode_order_custom=opts.mode_order_custom,
-                                device=dev, fmt=fmt, verbose=verbose)
+                                device=dev, fmt=fmt, verbose=verbose,
+                                dense=False)
                    for m in build_modes]
         mode_map = {m: build_modes.index(m) if m in build_modes else 0
                     for m in range(tt.nmodes)}
+        for m in range(tt.nmodes):
+            if not _wants_dense(tt.dims, m, tt.nnz, opts):
+                continue
+            dense = _dense_or_degrade(m, verbose, lambda m=m: (
+                build_dense_layout(tt, m, val_dtype=storage, device=dev,
+                                   verbose=verbose)))
+            if dense is not None:
+                mode_map[m] = len(layouts)
+                layouts.append(dense)
         bs = BlockedSparse(layouts=layouts, mode_map=mode_map,
                            dims=tt.dims, nnz=tt.nnz, opts=opts)
-        if any(lay.encoding == "v2" for lay in layouts) or fmt.val != "auto":
+        if (any(lay.encoding in ("v2", "dense") for lay in layouts)
+                or fmt.val != "auto"):
             resilience.run_report().add(
                 "format_v2",
                 modes={str(lay.mode): lay.format_desc() for lay in layouts})
@@ -646,7 +1001,8 @@ class BlockedSparse:
         return bs
 
     def frobsq(self) -> float:
-        """Squared Frobenius norm, accumulated in f64 on the host
+        """Squared Frobenius norm of the first layout's values, which is
+        always a sparse one, accumulated in f64 on the host
         (≙ csf_frobsq, src/csf.c:828-851)."""
         v = self.layouts[0].vals.to("cpu", torch.float64)
         return float(torch.dot(v, v))

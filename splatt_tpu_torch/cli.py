@@ -11,7 +11,10 @@ fallbacks), and writes ``mode<N>.mat`` and ``lambda.mat`` into DIR.
 [...]}``.  The layout format comes from the environment, as in the JAX
 CLI: ``SPLATT_IDX_WIDTH`` (i32|auto|u16|u8|delta|rle),
 ``SPLATT_VAL_STORAGE`` (auto|f32|bf16) and ``SPLATT_DECODE``
-(kernel|prep); a non-default format prints a ``format:`` line.
+(kernel|prep); a non-default format prints a ``format:`` line.  So does
+dense mode: ``SPLATT_DENSE`` (off|auto|on) with ``SPLATT_DENSE_THRESHOLD``
+(default 0.05) gives each mode whose padded fiber density meets the
+threshold a dense tile layout and the ``dense/fused_dense`` plan.
 """
 
 from __future__ import annotations

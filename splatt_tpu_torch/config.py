@@ -3,8 +3,9 @@
 Counterpart of ``splatt_tpu/config.py``, cut to the fields the single-device
 CPD-ALS path reads.  The defaults are the same (≙ splatt_default_opts,
 SPLATT's opts.c).  No field is read from the environment; a field left
-None (``engine_fallback``, ``idx_width``, ``val_storage``) defers to the
-env default its consumer reads (``utils/env.py``).
+None (``engine_fallback``, ``idx_width``, ``val_storage``, ``dense``,
+``dense_threshold``) defers to the env default its consumer reads
+(``utils/env.py``).
 """
 
 from __future__ import annotations
@@ -138,6 +139,45 @@ def resolve_storage_dtype(val_storage: str, compute_dtype) -> torch.dtype:
     return torch_dtype(compute_dtype)
 
 
+#: legal dense-mode policies (SPLATT_DENSE / Options.dense, docs/dense.md):
+#: "off" keeps every mode on the sparse blocked encodings (the default);
+#: "auto" switches a mode to the dense tile layout when its padded fiber
+#: density meets the threshold; "on" forces it for every mode that is
+#: feasible to tile (the blowup cap still applies)
+DENSE_POLICIES = ("off", "auto", "on")
+
+#: default padded-density threshold of the dense-mode verdict
+#: (SPLATT_DENSE_THRESHOLD / Options.dense_threshold)
+DENSE_THRESHOLD_DEFAULT = 0.05
+
+
+def resolve_dense(opts: "Options") -> str:
+    """The dense-mode policy: the Options field wins, else SPLATT_DENSE
+    (default "off": dense tiling is opt-in)."""
+    from splatt_tpu_torch.utils.env import read_env
+
+    pol = (opts.dense if opts.dense is not None
+           else str(read_env("SPLATT_DENSE")))
+    if pol not in DENSE_POLICIES:
+        raise ValueError(
+            f"dense must be one of {DENSE_POLICIES}, got {pol!r}")
+    return pol
+
+
+def resolve_dense_threshold(opts: "Options") -> float:
+    """The dense verdict's padded-density threshold: the Options field
+    wins, else SPLATT_DENSE_THRESHOLD (default
+    :data:`DENSE_THRESHOLD_DEFAULT`)."""
+    from splatt_tpu_torch.utils.env import read_env_float
+
+    thr = (opts.dense_threshold if opts.dense_threshold is not None
+           else read_env_float("SPLATT_DENSE_THRESHOLD"))
+    if not 0.0 < thr <= 1.0:
+        raise ValueError(
+            f"dense_threshold must lie in (0, 1], got {thr!r}")
+    return thr
+
+
 def fit_dtype() -> torch.dtype:
     """The dtype of λ and the fit: f32 even under bf16 storage (the
     MTTKRP, the solve and the normalization accumulate in f32)."""
@@ -174,6 +214,11 @@ class Options:
     # storage (VAL_STORAGES); None = SPLATT_IDX_WIDTH / SPLATT_VAL_STORAGE
     idx_width: Optional[str] = None
     val_storage: Optional[str] = None
+    # dense-mode tile layouts (DENSE_POLICIES) and the padded-density
+    # threshold of their verdict; None = SPLATT_DENSE /
+    # SPLATT_DENSE_THRESHOLD
+    dense: Optional[str] = None
+    dense_threshold: Optional[float] = None
 
     def validate(self) -> "Options":
         if self.tolerance < 0:
@@ -198,6 +243,14 @@ class Options:
             raise ValueError(
                 f"val_storage must be one of {VAL_STORAGES}, "
                 f"got {self.val_storage!r}")
+        if self.dense is not None and self.dense not in DENSE_POLICIES:
+            raise ValueError(
+                f"dense must be one of {DENSE_POLICIES}, got {self.dense!r}")
+        if (self.dense_threshold is not None
+                and not 0.0 < self.dense_threshold <= 1.0):
+            raise ValueError(
+                f"dense_threshold must lie in (0, 1], "
+                f"got {self.dense_threshold!r}")
         if self.val_dtype is not None and not torch_dtype(
                 self.val_dtype).is_floating_point:
             raise ValueError(

@@ -6,7 +6,7 @@ each source with ``nvcc`` for ``sm_90a`` into its own shared library with a
 plain C interface under ``splatt_tpu_torch/_build/`` (one ``nvcc`` per
 source, started together) and loads them with ``ctypes``.
 
-Six wrappers, one per TPU kernel:
+Seven wrappers, one per TPU kernel:
 
 - :func:`fused_mttkrp_t`, :func:`fused_mttkrp_tg`, :func:`fused_mttkrp`
   (``csrc/fused_mttkrp.cu``): gather + Hadamard + row reduce over a v1
@@ -15,7 +15,9 @@ Six wrappers, one per TPU kernel:
 - :func:`fused_mttkrp_v2` (``csrc/fused_mttkrp_v2.cu``): the same over a
   compact v2 layout, decoding its encoded streams in registers;
 - :func:`onehot_reduce_sorted`, :func:`onehot_reduce_full`
-  (``csrc/onehot_reduce.cu``): the same reduction of precomputed products.
+  (``csrc/onehot_reduce.cu``): the same reduction of precomputed products;
+- :func:`fused_dense` (``csrc/fused_dense.cu``): a dense mode's value
+  tiles times the Khatri-Rao operand it generates.
 
 On a card the kernels take f32 or bf16 values, tables and products and
 write f32.  A bf16 product is rounded to bf16 after each multiply, as the
@@ -31,6 +33,7 @@ kernel does not take.  Each wrapper's ``.launches`` counts its launches.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -48,7 +51,8 @@ from splatt_tpu_torch.config import MAX_NMODES, acc_dtype
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("fused_mttkrp.cu", "fused_mttkrp_v2.cu", "onehot_reduce.cu")
+SOURCES = ("fused_mttkrp.cu", "fused_mttkrp_v2.cu", "onehot_reduce.cu",
+           "fused_dense.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 
@@ -65,6 +69,17 @@ FUSED_SCRATCH_BYTES = 8 * 7 * 32 * 4
 #: columns of the rank tile of fused_mttkrp_tg and the reductions
 #: (csrc/*.cu: 32 * min(4, ceil(R / 32)))
 RANK_TILE = 128
+#: csrc/fused_dense.cu's CTA tile: output rows, rank columns, span
+#: columns per chunk (BM, BN, BK)
+DENSE_TILE = (64, 64, 32)
+#: fused_dense's one static limit: the rank tiles run on grid.y, at most
+#: 65535 of them.  It needs no residency limit: a CTA holds one (64, 32)
+#: value sub-tile and one (32, 64) Khatri-Rao sub-tile, whatever the span
+DENSE_MAX_RANK = 65535 * DENSE_TILE[1]
+#: CTAs per SM the split of the span aims at: 4 fit on an SM at the f32
+#: instantiations' 64 registers, 3 at the bf16 ones' 79, so the grid runs
+#: in 2 or 2.7 waves
+DENSE_CTAS_PER_SM = 8
 
 #: cudaError_t codes of a launch the card refused (bad configuration, too
 #: many resources, an allocation): the kernel never ran and the context is
@@ -156,6 +171,9 @@ _ENTRIES = {
                                      _P]),
     "splatt_onehot_reduce_full": ("onehot_reduce.cu",
                                   [_P, _P, _I, _I, _I, _I, _I, _P, _P]),
+    "splatt_fused_dense": ("fused_dense.cu",
+                           [_P, _I, _P, _P, _I, _LL, _LL, _I, _I, _I, _I,
+                            _LL, _P, _P]),
 }
 
 #: the value, table and product dtypes the kernels take on a card
@@ -234,12 +252,15 @@ def check_operands(layout, factors: Sequence[torch.Tensor], mode: int,
     layout's device; the index streams of a v1 layout (int32 ``(nmodes,
     nnz_pad)``) or of a v2 one (per mode a :data:`V2_ID_TYPES` stream of
     ``(nnz_pad,)`` ids or ``(nb, seg_width)`` RLE counts, and an int32
-    ``(nb,)`` base); factor shapes ``(d_k, R)`` that match the layout,
-    floating values and one floating dtype for the factors.  On a card,
-    when a kernel may run (`kernels`), also what the kernels take: values
-    and factors in :data:`CARD_FLOATS`, contiguous.  Raises ValueError or
-    TypeError."""
-    dev = layout.vals.device
+    ``(nb,)`` base), or of a dense layout (``(ntiles, tile, span)`` value
+    tiles and a ``(span,)`` bool mask matching its geometry, serving only
+    its own mode, each factor ``(dims[k], R)``); factor shapes ``(d_k,
+    R)`` that match the layout, floating values and one floating dtype
+    for the factors.  On a card, when a kernel may run (`kernels`), also
+    what the kernels take: values and factors in :data:`CARD_FLOATS`,
+    contiguous.  Raises ValueError or TypeError."""
+    dense = layout.encoding == "dense"
+    dev = layout.device
     strict = dev.type == "cuda" and kernels
     if layout.nmodes != len(factors) or not 2 <= len(factors) <= MAX_NMODES:
         raise ValueError(f"{len(factors)} factors for a {layout.nmodes}-mode "
@@ -252,26 +273,40 @@ def check_operands(layout, factors: Sequence[torch.Tensor], mode: int,
     dtype = factors[0].dtype
     if not dtype.is_floating_point:
         raise TypeError(f"factors are {dtype}; a floating dtype is needed")
-    if not layout.vals.dtype.is_floating_point:
-        raise TypeError(f"vals are {layout.vals.dtype}; a floating dtype "
+    values = layout.tiles if dense else layout.vals
+    if not values.dtype.is_floating_point:
+        raise TypeError(f"values are {values.dtype}; a floating dtype "
                         f"is needed")
-    floats = CARD_FLOATS if strict else (layout.vals.dtype,)
-    nb, B = layout.nblocks, layout.block
-    named = [("vals", layout.vals, floats, (nb * B,)),
-             ("row_start", layout.row_start, (torch.int32,), (nb,))]
-    if layout.base is None:
-        named.append(("inds", layout.inds, (torch.int32,),
-                      (layout.nmodes, nb * B)))
+    floats = CARD_FLOATS if strict else (values.dtype,)
+    if dense:
+        if mode != layout.mode:
+            raise ValueError(f"a dense layout of mode {layout.mode} serves "
+                             f"only its own mode, not mode {mode}")
+        geo = layout.geometry
+        named = [("tiles", layout.tiles, floats,
+                  (geo.ntiles, geo.tile, geo.span)),
+                 ("mask", layout.mask, (torch.bool,), (geo.span,))]
+        rows = layout.dims
     else:
-        ids = tuple(V2_ID_TYPES)
-        for k, enc in enumerate(layout.stream_encs()):
-            shape = (nb, layout.seg_width) if enc == "rle" else (nb * B,)
-            named += [(f"inds[{k}]", layout.inds[k], ids, shape),
-                      (f"base[{k}]", layout.base[k], (torch.int32,), (nb,))]
+        nb, B = layout.nblocks, layout.block
+        named = [("vals", layout.vals, floats, (nb * B,)),
+                 ("row_start", layout.row_start, (torch.int32,), (nb,))]
+        rows = [int(U.shape[0]) for U in factors]
+        if layout.base is None:
+            named.append(("inds", layout.inds, (torch.int32,),
+                          (layout.nmodes, nb * B)))
+        else:
+            ids = tuple(V2_ID_TYPES)
+            for k, enc in enumerate(layout.stream_encs()):
+                shape = ((nb, layout.seg_width) if enc == "rle"
+                         else (nb * B,))
+                named += [(f"inds[{k}]", layout.inds[k], ids, shape),
+                          (f"base[{k}]", layout.base[k], (torch.int32,),
+                           (nb,))]
     if strict and dtype not in CARD_FLOATS:
         raise TypeError(f"factors are {dtype}; the CUDA kernels take "
                         f"{CARD_FLOATS}")
-    named += [(f"factors[{k}]", U, (dtype,), (int(U.shape[0]), R))
+    named += [(f"factors[{k}]", U, (dtype,), (int(rows[k]), R))
               for k, U in enumerate(factors)]
     for name, t, dtypes, shape in named:
         _check_tensor(name, t, dev, dtypes, shape, strict)
@@ -282,6 +317,8 @@ def check_operands(layout, factors: Sequence[torch.Tensor], mode: int,
 def _check_fused(layout, factors, mode: int, width: int,
                  max_rank: Optional[int], v2: bool = False) -> None:
     check_operands(layout, factors, mode)
+    if layout.encoding == "dense":
+        raise ValueError("a dense layout runs fused_dense")
     R = int(factors[0].shape[1])
     if max_rank is not None and R > max_rank:
         raise ValueError(f"rank {R} above the kernel's {max_rank}")
@@ -588,6 +625,99 @@ def onehot_reduce_full(local: torch.Tensor, prod: torch.Tensor,
     return out
 
 
+# -- the dense-mode matmul ---------------------------------------------------
+
+
+@contextlib.contextmanager
+def ieee_matmul():
+    """f32 matrix products in full f32 on the card while the block runs:
+    cuBLAS may not fall to TF32 (the CPU ignores the flag)."""
+    flag = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = flag
+
+
+def fused_dense_plain(layout, factors: Sequence[torch.Tensor],
+                      mode: int) -> torch.Tensor:
+    """Plain PyTorch version of :func:`fused_dense`: the ``(span, R)``
+    Khatri-Rao operand ``w ⊙ u`` formed in the factor dtype, then each
+    ``(tile, span)`` value tile (cast to the factor dtype) times it in
+    the accumulator dtype, IEEE f32 on the card, trimmed to ``dim``
+    rows."""
+    from splatt_tpu_torch.ops.mttkrp import dense_operands
+
+    if mode != layout.mode:
+        raise ValueError("fused_dense requires the layout's own mode")
+    factors = list(factors)
+    dtype = factors[0].dtype
+    acc = acc_dtype(dtype)
+    R = int(factors[0].shape[1])
+    w, u = dense_operands(layout, factors, mode)
+    kr = (w[:, None, :] * u[None, :, :]).reshape(-1, R).to(acc)
+    with ieee_matmul():
+        out = torch.matmul(layout.tiles.to(dtype).to(acc), kr)
+    return out.reshape(-1, R)[:layout.dim]
+
+
+def dense_grid(rows: int, span: int, R: int, sms: int) -> tuple:
+    """(row blocks, splits, chunks per split) of csrc/fused_dense.cu: the
+    span's chunks of :data:`DENSE_TILE` [2] columns are split so the grid
+    holds about :data:`DENSE_CTAS_PER_SM` CTAs per SM (a mode with one
+    row tile still fills the card), each split a whole number of
+    chunks."""
+    bm, bn, bk = DENSE_TILE
+    row_blocks = -(-rows // bm)
+    rank_tiles = -(-R // bn)
+    chunks = span // bk
+    want = -(-DENSE_CTAS_PER_SM * sms // (row_blocks * rank_tiles))
+    per = -(-chunks // max(1, min(want, chunks)))
+    return row_blocks, -(-chunks // per), per
+
+
+def fused_dense(layout, factors: Sequence[torch.Tensor],
+                mode: int) -> torch.Tensor:
+    """Dense-mode MTTKRP over a :class:`blocked.DenseModeLayout`
+    (≙ splatt_tpu.ops.pallas_kernels.fused_dense): the mode's value tiles
+    times the Khatri-Rao operand of the other factors, ``(dim, R)`` in
+    the accumulator dtype.  ``w`` and ``u`` come from
+    ``ops.mttkrp.dense_operands``, built outside the kernel as the JAX
+    entry builds them outside its pallas_call.  CPU tensors take
+    :func:`fused_dense_plain`; CUDA tensors (f32 or bf16 tiles and
+    factors, R ≤ :data:`DENSE_MAX_RANK`) launch ``csrc/fused_dense.cu``
+    or raise."""
+    from splatt_tpu_torch.ops.mttkrp import dense_operands
+
+    factors = list(factors)
+    if layout.device.type == "cpu":
+        return fused_dense_plain(layout, factors, mode)
+    if layout.encoding != "dense":
+        raise ValueError("fused_dense reads a dense layout's value tiles")
+    check_operands(layout, factors, mode)
+    R = int(factors[0].shape[1])
+    if R > DENSE_MAX_RANK:
+        raise ValueError(f"rank {R} above fused_dense's {DENSE_MAX_RANK}")
+    if layout.tiles.data_ptr() % 16:
+        raise ValueError("the value tiles must be 16-byte aligned")
+    w, u = (t.contiguous() for t in dense_operands(layout, factors, mode))
+    dev = layout.device
+    rows, span = layout.dim, layout.span
+    row_blocks, splits, per = dense_grid(
+        rows, span, R,
+        torch.cuda.get_device_properties(dev).multi_processor_count)
+    out = torch.zeros((rows, R), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        _launch("splatt_fused_dense", layout.tiles.data_ptr(),
+                _is_bf16(layout.tiles), w.data_ptr(), u.data_ptr(),
+                _is_bf16(factors[0]), rows, span,
+                layout.geometry.inner_pad, R, row_blocks, splits, per,
+                out.data_ptr())
+    fused_dense.launches += 1
+    return out
+
+
 KERNELS = (fused_mttkrp_t, fused_mttkrp_tg, fused_mttkrp, fused_mttkrp_v2,
-           onehot_reduce_sorted, onehot_reduce_full)
+           onehot_reduce_sorted, onehot_reduce_full, fused_dense)
 reset_launches()

@@ -14,7 +14,9 @@ Paths (the algorithm, chosen by :func:`_choose_path_bs`):
 - ``privatized``: a short mode without its own layout; an engine sums all
   blocks into one ``(ceil8(dim+1), R)`` accumulator.
 - ``scatter`` / ``sorted_scatter``: the gather product fed to
-  ``index_add_`` in plain torch, as the JAX package leaves it to XLA.
+  ``index_add_`` in plain torch, as the JAX package leaves it to XLA;
+- ``dense``: a dense tile layout's own mode, the matmul of its value
+  tiles with the Khatri-Rao operand of the other factors (docs/dense.md).
 
 Engines (who computes ``sorted_onehot`` and ``privatized``), in the order
 :func:`engine_chain` tries them, with the JAX package's names:
@@ -32,6 +34,10 @@ Engines (who computes ``sorted_onehot`` and ``privatized``), in the order
   product never exists whole (CPU tensors only);
 - ``xla`` — the terminal: plain-torch gather and ``index_add_`` (CPU
   tensors only, and the scatter paths on every device).
+
+The ``dense`` path has its own chain: ``fused_dense``
+(:func:`kernels.fused_dense`), then, on a CPU tensor only, the plain-torch
+``dense_xla`` (:func:`dense_mttkrp`).
 
 Over a v2 layout, ``fused_v2``, ``xla_scan`` and ``xla`` read the encoded
 streams (:data:`STREAM_NATIVE_ENGINES`); the other kernel engines read the
@@ -83,6 +89,10 @@ STREAM_NATIVE_ENGINES = ("fused_v2", "xla_scan", "xla")
 #: (engine, shape key) pairs whose first dispatch over a compact layout
 #: left its format_decode event
 _DECODE_NOTED: set = set()
+#: (engine, shape key, mode) triples whose first dispatch over a dense
+#: layout left its dense_dispatch event; the JAX package keys on (engine,
+#: shape key) alone, which leaves silent a second mode of the same row tile
+_DENSE_NOTED: set = set()
 
 
 def _hadamard(vals: torch.Tensor, factors: Sequence[torch.Tensor],
@@ -121,6 +131,43 @@ def mttkrp_stream(inds: torch.Tensor, vals: torch.Tensor,
     acc = acc_dtype(prod.dtype)
     out = torch.zeros((dim, prod.shape[1]), dtype=acc, device=prod.device)
     return out.index_add_(0, inds[mode].long(), prod.to(acc))
+
+
+# -- the dense path (docs/dense.md) -----------------------------------------
+
+
+def dense_operands(layout, factors: Sequence[torch.Tensor], mode: int):
+    """The two Khatri-Rao operands of the dense-mode matmul
+    (≙ splatt_tpu.ops.mttkrp.dense_operands): ``w``, the chained
+    Khatri-Rao product of the outer factors ``(n_outer, R)`` (all ones
+    when the mode has one other), and ``u``, the inner factor zero-padded
+    to ``(inner_pad, R)``, so the value tiles' pad columns meet exact
+    zeros.  Column c of the unfolding is ``outer · inner_pad + inner``,
+    the row order of ``(w[:, None, :] * u[None, :, :]).reshape(span,
+    R)``.  Both are formed in the factor dtype; the kernel and its plain
+    version share them."""
+    geo = layout.geometry
+    dtype = factors[0].dtype
+    R = int(factors[0].shape[1])
+    dev = factors[0].device
+    w = torch.ones((1, R), dtype=dtype, device=dev)
+    for k in geo.others[:-1]:
+        w = (w[:, None, :] * factors[k][None, :, :]).reshape(-1, R)
+    u = factors[geo.inner]
+    pad = geo.inner_pad - int(u.shape[0])
+    if pad:
+        u = torch.nn.functional.pad(u, (0, 0, 0, pad))
+    return w, u
+
+
+def dense_mttkrp(layout, factors: Sequence[torch.Tensor],
+                 mode: int) -> torch.Tensor:
+    """The ``dense_xla`` engine (≙ splatt_tpu.ops.mttkrp.dense_mttkrp):
+    the value tiles contracted against the Khatri-Rao operand in one
+    batched matmul, no index streams, gathers or scatter.  It closes the
+    dense chain on a CPU tensor and computes what
+    :func:`kernels.fused_dense_plain` computes, which it calls."""
+    return kernels.fused_dense_plain(layout, factors, mode)
 
 
 # -- engines -----------------------------------------------------------------
@@ -175,6 +222,10 @@ def _run_engine(engine: str, layout: ModeLayout,
     """MTTKRP of one layout along `path` with `engine`; ``(dim, R)``.
     An engine outside :data:`STREAM_NATIVE_ENGINES` reads a v2 layout
     decoded to v1."""
+    if engine == "fused_dense":
+        return kernels.fused_dense(layout, factors, mode)
+    if engine == "dense_xla":
+        return dense_mttkrp(layout, factors, mode)
     dim = int(factors[mode].shape[0])
     R = int(factors[mode].shape[1])
     if engine not in STREAM_NATIVE_ENGINES:
@@ -236,11 +287,14 @@ def _engine_shape_key(layout: ModeLayout, factors: Sequence[torch.Tensor],
     32-lane rank tile}:b{block}``, so an out-of-memory at one shape
     never demotes the engine for shapes that fit; a compact layout adds
     ``:v2``, so an out-of-memory under v2 leaves v1 alone (and the
-    reverse)."""
+    reverse); a dense layout adds ``:dn`` (its block is the row tile)."""
     R = int(factors[0].shape[1])
     key = f"r{-(-R // 32) * 32}:b{layout.block}"
     # getattr: chain tests pass stand-in layouts
-    if getattr(layout, "encoding", "v1") != "v1":
+    enc = getattr(layout, "encoding", "v1")
+    if enc == "dense":
+        key += ":dn"
+    elif enc != "v1":
         key += ":v2"
     return key
 
@@ -265,7 +319,13 @@ def engine_chain(layout: ModeLayout, factors: Sequence[torch.Tensor],
     :data:`UNFUSED_BUDGET_BYTES`.  On a CPU tensor the chain goes on to
     ``xla_scan`` and ends in the terminal ``xla`` engine, which has no
     gate and cannot be demoted out, as in the JAX package.  On a card it
-    holds only kernel engines, and is empty once all are demoted."""
+    holds only kernel engines, and is empty once all are demoted.
+
+    A dense layout has its own chain:
+    ``fused_dense`` (gate R ≤ :data:`kernels.DENSE_MAX_RANK`; the JAX
+    gate, a VMEM residency plan, has no counterpart since the kernel
+    tiles both the span and the rank), then on a CPU tensor the terminal
+    ``dense_xla``."""
     from splatt_tpu_torch import resilience
     from splatt_tpu_torch.utils.env import read_env
 
@@ -279,6 +339,13 @@ def engine_chain(layout: ModeLayout, factors: Sequence[torch.Tensor],
     def live(name):
         return not resilience.is_demoted(name, shape_key)
 
+    if getattr(layout, "encoding", "v1") == "dense":
+        chain = []
+        if live("fused_dense") and R <= kernels.DENSE_MAX_RANK:
+            chain.append("fused_dense")
+        if layout.device.type != "cuda":
+            chain.append("dense_xla")
+        return chain
     chain = []
     if (getattr(layout, "encoding", "v1") != "v1"
             and resolve_decode() == "kernel" and live("fused_v2")
@@ -337,21 +404,30 @@ def mttkrp_blocked(layout: ModeLayout, factors: Sequence[torch.Tensor],
     all demoted raises before it runs.  Nothing here synchronises the
     card: an error left sticky by a kernel surfaces at a later sync and
     propagates from there.
+
+    A dense layout takes the ``dense`` path whatever `path` says, skips
+    the decode machinery (it has no streams), and its engine's first
+    dispatch per shape and mode leaves a ``dense_dispatch`` event.
     """
     from splatt_tpu_torch import resilience
     from splatt_tpu_torch.utils import faults
 
+    dense = layout.encoding == "dense"
+    if dense:
+        path = "dense"
     if path not in ("sorted_onehot", "privatized", "scatter",
-                    "sorted_scatter"):
+                    "sorted_scatter", "dense"):
         raise ValueError(f"unknown path {path!r}")
+    if path == "dense" and not dense:
+        raise ValueError("the dense path needs a dense layout")
     if path in ("sorted_onehot", "sorted_scatter") and mode != layout.mode:
         raise ValueError(f"{path} requires the layout's own mode")
     factors = list(factors)
     if fallback is None:
         fallback = resilience.fallback_enabled()
-    uses_kernels = path in ("sorted_onehot", "privatized")
+    uses_kernels = path in ("sorted_onehot", "privatized", "dense")
     kernels.check_operands(layout, factors, mode, kernels=uses_kernels)
-    if layout.encoding != "v1":
+    if layout.encoding not in ("v1", "dense"):
         if resolve_decode() == "prep":
             layout = decode_to_v1(layout)
         else:
@@ -371,16 +447,23 @@ def mttkrp_blocked(layout: ModeLayout, factors: Sequence[torch.Tensor],
     if not chain:
         raise RuntimeError(
             f"no kernel engine left for {path} mode {mode} at "
-            f"{shape_key} on {layout.vals.device}: demoted "
+            f"{shape_key} on {layout.device}: demoted "
             f"{[d.engine for d in resilience.demotions()]}")
-    if uses_kernels and layout.vals.device.type == "cuda":
+    if uses_kernels and layout.device.type == "cuda":
         kernels.load_library()
     last = len(chain) - 1
     for i, engine in enumerate(chain):
 
         def attempt(engine=engine):
             faults.maybe_fail(f"engine.{engine}")
-            if (layout.encoding != "v1"
+            if dense:
+                if (engine, shape_key, mode) not in _DENSE_NOTED:
+                    _DENSE_NOTED.add((engine, shape_key, mode))
+                    resilience.run_report().add(
+                        "dense_dispatch", engine=engine, mode=int(mode),
+                        tile=layout.tile, span=layout.span,
+                        density_bucket=layout.density_bucket)
+            elif (layout.encoding != "v1"
                     and (engine, shape_key) not in _DECODE_NOTED):
                 _DECODE_NOTED.add((engine, shape_key))
                 resilience.run_report().add(
@@ -460,8 +543,11 @@ def choose_path(layout: ModeLayout, mode: int, opts: Options) -> str:
     runs: the kernel reduces a sorted block without the one-hot's
     redundant multiply-adds, so the sorted path is taken whenever the
     block row span fits ``onehot_cap``.  (The JAX package takes it only
-    on a TPU, where a matrix unit executes those multiply-adds.)
+    on a TPU, where a matrix unit executes those multiply-adds.)  A
+    dense layout takes the ``dense`` path.
     """
+    if layout.encoding == "dense":
+        return "dense"
     if mode == layout.mode:
         if layout.seg_width <= opts.onehot_cap:
             return "sorted_onehot"
@@ -471,7 +557,9 @@ def choose_path(layout: ModeLayout, mode: int, opts: Options) -> str:
 
 def _choose_path_bs(bs: BlockedSparse, mode: int) -> str:
     """As :func:`choose_path`, plus the privatized path for a short mode
-    without its own layout (≙ p_is_privatized, src/mttkrp.c:221-236)."""
+    without its own layout (≙ p_is_privatized, src/mttkrp.c:221-236).
+    The hybrid per-mode dispatch: a mode mapped to a dense layout takes
+    the ``dense`` path, every other mode its sparse one."""
     layout = bs.layout_for(mode)
     dim = bs.dims[mode]
     if (mode != layout.mode and dim + 16 <= bs.opts.priv_cap

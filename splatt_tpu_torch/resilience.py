@@ -141,12 +141,24 @@ class RunReport:
                              f"({e['failure_class']}: "
                              f"{e['error'][:80]}); degraded to the "
                              f"materialized v1 i32 path")
+            elif e.get("site") == "dense":
+                lines.append(f"  dense tile-layout build failed for "
+                             f"mode {e.get('mode')} "
+                             f"({e['failure_class']}: "
+                             f"{e['error'][:80]}); mode keeps the "
+                             f"sparse blocked encoding")
             else:
                 lines.append(f"  compact-format encode failed for mode "
                              f"{e.get('mode')} "
                              f"(requested {e.get('idx_width')}; "
                              f"{e['failure_class']}: {e['error'][:80]}); "
                              f"degraded to the v1 i32 encoding")
+        for e in self.events("dense_dispatch"):
+            lines.append(f"  dense-mode dispatch [{e.get('engine')}]: "
+                         f"mode {e.get('mode')} as "
+                         f"{e.get('tile')}x{e.get('span')} value tiles "
+                         f"({e.get('density_bucket') or 'dense'}; zero "
+                         f"index bytes)")
         return lines
 
 

@@ -1,11 +1,12 @@
 """Carry state across from the JAX package as numpy arrays.
 
 The two packages share no objects: a caller hands this module the numpy
-arrays of a JAX-built layout (v1, or v2 with its per-mode streams and
-bases) or of a factorization, and gets the port's objects on a given
-device.  :func:`to_numpy` goes the other way.  numpy has no bfloat16 of
-its own: a bf16 array (``dtype.name == "bfloat16"``) stages through f32,
-which holds every bf16 value exactly, and narrows back on the device.
+arrays of a JAX-built layout (v1, v2 with its per-mode streams and bases,
+or a dense mode's value tiles) or of a factorization, and gets the port's
+objects on a given device.  :func:`to_numpy` goes the other way.  numpy
+has no bfloat16 of its own: a bf16 array (``dtype.name == "bfloat16"``)
+stages through f32, which holds every bf16 value exactly, and narrows
+back on the device.
 """
 
 from __future__ import annotations
@@ -16,7 +17,7 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
-from splatt_tpu_torch.blocked import ModeLayout
+from splatt_tpu_torch.blocked import DenseModeLayout, ModeLayout
 from splatt_tpu_torch.config import resolve_device
 from splatt_tpu_torch.kruskal import KruskalTensor
 
@@ -81,8 +82,28 @@ def layout_from_numpy(inds, vals: np.ndarray, row_start: np.ndarray, *,
                       idx_width=idx_width, val_storage=val_storage)
 
 
+def dense_layout_from_numpy(tiles, mask, *, mode: int, dims: Sequence[int],
+                            nnz: int, val_storage: str = "auto",
+                            device=None) -> DenseModeLayout:
+    """A dense layout's ``(ntiles, tile, span)`` value tiles, its
+    ``(span,)`` mask and metadata → DenseModeLayout on `device` (default:
+    the card); bf16 tiles stage through f32, and tiles under
+    ``val_storage="bf16"`` are stored in bf16."""
+    device = resolve_device(device)
+    tiles = tensor_from_numpy(tiles, device)
+    if val_storage == "bf16":
+        tiles = tiles.to(torch.bfloat16)
+    mask = torch.from_numpy(np.array(mask, dtype=bool, order="C")).to(device)
+    if tiles.dim() != 3 or tuple(mask.shape) != (tiles.shape[2],):
+        raise ValueError(f"tiles {tuple(tiles.shape)} and mask "
+                         f"{tuple(mask.shape)} disagree")
+    return DenseModeLayout(tiles=tiles, mask=mask, mode=int(mode),
+                           dims=tuple(int(d) for d in dims), nnz=int(nnz),
+                           val_storage=val_storage)
+
+
 def to_numpy(x):
-    """Tensors, lists of them, KruskalTensors and ModeLayouts → numpy
+    """Tensors, lists of them, KruskalTensors and layouts → numpy
     (dataclasses become dicts of their fields; bf16 widens to f32)."""
     if torch.is_tensor(x):
         if x.dtype == torch.bfloat16:

@@ -8,6 +8,7 @@ doc) with the JAX package's default, and read through :func:`read_env`.
 from __future__ import annotations
 
 import os
+import sys
 from typing import NamedTuple, Optional
 
 
@@ -53,6 +54,23 @@ ENV_VARS = {
                                  "it.  bf16 stores the values, and the "
                                  "factors derived from them, in bfloat16 "
                                  "with f32 accumulation"),
+    "SPLATT_DENSE": EnvVar("off", "dense-mode tile layout policy "
+                           "(docs/dense.md): off = every mode keeps "
+                           "the sparse blocked encoding; auto = a "
+                           "mode whose padded fiber density crosses "
+                           "SPLATT_DENSE_THRESHOLD (and whose dense "
+                           "cells stay within the blowup cap) gets a "
+                           "dense tile layout and the dense matmul "
+                           "engines; on = force the dense tiling for "
+                           "every geometrically feasible mode.  Any "
+                           "dense build failure degrades classified "
+                           "to the sparse encoding (format_fallback, "
+                           "site=dense)"),
+    "SPLATT_DENSE_THRESHOLD": EnvVar("0.05", "padded per-mode density "
+                                     "(nnz / dense tile cells) at or "
+                                     "above which SPLATT_DENSE=auto "
+                                     "elects the dense tile layout "
+                                     "(docs/dense.md)"),
 }
 
 
@@ -67,3 +85,16 @@ def read_env(name: str) -> Optional[object]:
             f"doc string) before reading it")
     raw = os.environ.get(name)
     return spec.default if raw is None else raw
+
+
+def read_env_float(name: str) -> float:
+    """:func:`read_env` parsed as a float; a malformed value falls back
+    to the registered default with one line on stderr
+    (≙ splatt_tpu.utils.env.read_env_float)."""
+    val = read_env(name)
+    try:
+        return float(val)
+    except (TypeError, ValueError):
+        print(f"splatt-tpu: bad {name}={val!r} (want a float); using the "
+              f"default", file=sys.stderr)
+        return float(ENV_VARS[name].default)

@@ -72,6 +72,11 @@ SITES = {
                      "(blocked.py build_layout/reencode_layout); a raised "
                      "fault degrades the build to the v1 int32 encoding "
                      "(format_fallback event), never fails it",
+    "format.dense": "the dense tile-layout build of one mode (blocked.py "
+                    "build_layout/from_coo/reencode_layout); a raised "
+                    "fault degrades the build to the sparse blocked "
+                    "encoding (format_fallback event with site=dense), "
+                    "never fails it",
     "format.decode": "the compact layout's stream consumption at MTTKRP "
                      "dispatch (ops/mttkrp.py mttkrp_blocked); a raised "
                      "fault degrades the dispatch to the decoded v1 "

@@ -249,3 +249,55 @@ def test_cuda_kernels_take_bf16():
         _close(kernels.onehot_reduce_full(ids.contiguous(), prod, W),
                kernels.onehot_reduce_full_plain(ids, prod, W),
                f"full bf16 rank={rank}")
+
+
+@pytest.mark.gpu
+def test_cuda_fused_dense_matches_plain():
+    """fused_dense against its plain version (IEEE f32 matmul) on 3- and
+    4-mode tensors, a mode above one 64-row block with pad rows, ranks
+    across the 64-column rank tile, f32 and bf16 tiles and factors, and
+    f32 tiles meeting bf16 factors; then the dispatch on a card: the
+    chain is fused_dense alone, so its armed fault raises."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from splatt_tpu_torch.blocked import build_dense_layout
+    from splatt_tpu_torch.ops.mttkrp import mttkrp_blocked
+    from splatt_tpu_torch.utils import faults
+
+    rng = np.random.default_rng(10)
+    cases = [((16, 32, 120), 4000, (1, 50)), ((5, 6, 7, 9), 1200, (3, 64)),
+             ((300, 8, 128), 100000, (50, 130))]
+    launched = 0
+    for dims, nnz, ranks in cases:
+        lin = rng.choice(int(np.prod(dims)), size=nnz, replace=False)
+        inds = np.stack(np.unravel_index(lin, dims))
+        X = SparseTensor(inds, rng.random(nnz) + 0.1, dims)
+        for rank in ranks:
+            f32 = [torch.from_numpy(rng.random((d, rank), dtype=np.float32))
+                   .cuda() for d in dims]
+            for vdt, fdt in ((torch.float32, torch.float32),
+                             (torch.bfloat16, torch.bfloat16),
+                             (torch.float32, torch.bfloat16)):
+                tf = [U.to(fdt) for U in f32]
+                for m in range(len(dims)):
+                    lay = build_dense_layout(X, m, val_dtype=vdt,
+                                             device="cuda")
+                    before = kernels.fused_dense.launches
+                    got = kernels.fused_dense(lay, tf, m)
+                    assert kernels.fused_dense.launches == before + 1
+                    assert got.dtype == torch.float32
+                    _close(got, kernels.fused_dense_plain(lay, tf, m),
+                           f"dims={dims} rank={rank} {vdt}/{fdt} mode={m}")
+                    launched += 1
+    assert launched == 60
+    # a dense layout takes the dense path whatever the caller's path
+    before = kernels.fused_dense.launches
+    for path in ("sorted_onehot", "dense"):
+        _close(mttkrp_blocked(lay, tf, m, path),
+               kernels.fused_dense_plain(lay, tf, m), path)
+    assert kernels.fused_dense.launches == before + 2
+    with faults.inject("engine.fused_dense", "runtime"):
+        with pytest.raises(RuntimeError, match="injected"):
+            mttkrp_blocked(lay, tf, m, fallback=True)
+    with pytest.raises(ValueError, match="own mode"):
+        kernels.fused_dense(lay, tf, (m + 1) % len(dims))

@@ -108,6 +108,10 @@ DENSE_DIMS = (96, 1024, 2048)
 DENSE_NNZ = 20_000_000
 DENSE_THRESHOLD = 0.05
 DRILL_ITERS = 2
+# phase 11: the FINE CPD over the ring kernels, 5 iterations; with one
+# card its ranks are virtual ranks sharing it
+RING_ITERS = 5
+RING_VIRTUAL_RANKS = 4
 BF16_MIN_FIT = 0.97    # the planted tensor's bf16 fit
 BF16_FIT_GAP = 0.03    # bf16 against f32 (≙ tests/test_format.py:251-252)
 PARITY_TOL = 1e-4      # f32 on the card against f64 on the CPU
@@ -369,14 +373,26 @@ def phase_main_path(bs, rank: int) -> dict:
     if launches != bs.nmodes * ITERS:
         raise AssertionError(f"fused_mttkrp_t launched {launches} times, "
                              f"expected {bs.nmodes * ITERS}")
-    parts = sweep_phases(bs, out.factors, steady, "[cpd]")
+    parts = sweep_phases(bs, out.factors, steady, "[cpd]", cholesky=True)
     return {"launches": launches, "sec_per_iter": steady, "phases": parts,
             "fits": list(out.fits)}
 
 
-def sweep_phases(bs, U, steady: float, tag: str) -> dict:
+def cholesky_solve_only(lhs, rhs):
+    """The dense solve's Cholesky branch alone: no eigh, so no read of
+    its solver status on the host."""
+    import torch
+
+    L, _ = torch.linalg.cholesky_ex(lhs)
+    return torch.cholesky_solve(rhs.T, L).T
+
+
+def sweep_phases(bs, U, steady: float, tag: str,
+                 cholesky: bool = False) -> dict:
     """Where a sweep's time goes: each phase timed alone on factors `U`,
-    summed over modes."""
+    summed over modes.  With `cholesky`, the solve is also timed with its
+    Cholesky branch alone (key ``solve_cholesky_only``): the difference
+    is the eigh fallback and its host sync."""
     from splatt_tpu_torch import mttkrp
     from splatt_tpu_torch.ops.linalg import (form_normal_lhs, gram,
                                              normalize_columns,
@@ -384,17 +400,25 @@ def sweep_phases(bs, U, steady: float, tag: str) -> dict:
 
     grams = [gram(u) for u in U]
     parts = {"mttkrp": 0.0, "solve": 0.0, "normalize+gram": 0.0}
+    chol = 0.0
     for m in range(bs.nmodes):
         M = mttkrp(bs, U, m)
         lhs = form_normal_lhs(grams, m)
         parts["mttkrp"] += time_ms(lambda: mttkrp(bs, U, m), reps=5)
         parts["solve"] += time_ms(lambda: solve_normals(lhs, M), reps=5)
+        if cholesky:
+            chol += time_ms(lambda: cholesky_solve_only(lhs, M), reps=5)
         parts["normalize+gram"] += time_ms(
             lambda: gram(normalize_columns(M, "max")[0]), reps=5)
     log(f"{tag} sweep phases, ms summed over modes: "
         + ", ".join(f"{k} {v:.3f}" for k, v in parts.items())
         + f"; MTTKRP share of a steady iteration "
           f"{parts['mttkrp'] / 1e3 / steady:.1%}")
+    if cholesky:
+        log(f"{tag} solve with the Cholesky branch alone {chol:.3f} ms "
+            f"summed over modes, against {parts['solve']:.3f} ms with the "
+            f"eigh fallback and its host sync")
+        parts["solve_cholesky_only"] = chol
     return parts
 
 
@@ -1209,6 +1233,363 @@ def phase_dense(rank: int, seed: int = 1) -> dict:
             "raised": raised, "seconds": seconds}
 
 
+# -- phase 11: the distributed FINE CPD over the ring kernels ---------------
+
+
+def mesh_time_ms(fn, mesh, reps: int, warmup: int = 1) -> float:
+    """Mean milliseconds per call of `fn` on a mesh: CUDA events on one
+    card, the host clock between syncs of every card on several."""
+    from splatt_tpu_torch.parallel.sharded import sync_mesh as mesh_sync
+
+    if len(mesh.cards) == 1:
+        return time_ms(fn, reps=reps, warmup=warmup)
+    for _ in range(warmup):
+        fn()
+    mesh_sync(mesh)
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    mesh_sync(mesh)
+    return (time.perf_counter() - t0) / reps * 1e3
+
+
+def peer_copy_rate(mesh) -> dict:
+    """Bytes per second of one large copy_ from rank 0's card to rank 1's
+    (a copy within the card when they share it, the hop between virtual
+    ranks)."""
+    import torch
+
+    from splatt_tpu_torch.parallel.sharded import sync_mesh as mesh_sync
+
+    a, b = mesh.devices[0], mesh.devices[1 % mesh.ndev]
+    src = torch.empty(1 << 28, dtype=torch.float32, device=a)
+    dst = torch.empty(1 << 28, dtype=torch.float32, device=b)
+    dst.copy_(src)
+    mesh_sync(mesh)
+    ms = mesh_time_ms(lambda: dst.copy_(src), mesh, reps=10)
+    moved = src.numel() * src.element_size()
+    del src, dst
+    torch.cuda.empty_cache()
+    return {"from": str(a), "to": str(b), "bytes": moved, "ms": ms,
+            "bytes_per_s": moved / (ms / 1e3)}
+
+
+def ring_bound(mesh, hbm: list, hop: list, flops: list,
+               peer: dict) -> tuple:
+    """Least ms of a ring launch: per card, the largest of its ranks' HBM
+    bytes (each input read once, each output written once) over the HBM
+    rate, their hop bytes over the measured copy rate and their additions
+    over the f32 rate; the slowest card bounds the launch."""
+    best, by = 0.0, "bytes"
+    for card in mesh.cards:
+        ranks = mesh.ranks_on(card)
+        t_hbm = sum(hbm[d] for d in ranks) / HBM_BYTES_PER_S * 1e3
+        t_hop = sum(hop[d] for d in ranks) / peer["bytes_per_s"] * 1e3
+        t_ops = sum(flops[d] for d in ranks) / F32_FLOP_PER_S * 1e3
+        if max(t_hbm, t_hop) > best:
+            best, by = max(t_hbm, t_hop), "bytes"
+        if t_ops > best:
+            best, by = t_ops, "operations"
+    return best, by
+
+
+def ring_library(kind: str, mesh, mats, idx, block: int, dim_pad: int):
+    """One library call set computing a ring kernel's function: on
+    distinct cards NCCL in one process (torch.cuda.nccl.all_gather, then
+    index_select; index_add_, then torch.cuda.nccl.reduce_scatter); with
+    virtual ranks on one card, where NCCL cannot run, the all-gather is a
+    torch.cat and the reduce-scatter a sum of the ranks' slices.  Returns
+    (fn, label)."""
+    import torch
+
+    ndev = mesh.ndev
+    R = int(mats[0].shape[1])
+    if not mesh.virtual:
+        import torch.cuda.nccl as nccl
+
+        if kind == "gather":
+            full = [torch.empty((block * ndev, R), dtype=mats[0].dtype,
+                                device=dev) for dev in mesh.devices]
+
+            def fn():
+                nccl.all_gather(list(mats), full)
+                return [f.index_select(0, i) for f, i in zip(full, idx)]
+        else:
+            out = [torch.empty((block, R), dtype=torch.float32, device=dev)
+                   for dev in mesh.devices]
+
+            def fn():
+                parts = [torch.zeros((dim_pad, R), dtype=torch.float32,
+                                     device=p.device)
+                         .index_add_(0, i, p.float())
+                         for p, i in zip(mats, idx)]
+                nccl.reduce_scatter(parts, out)
+                return out
+        label = ("nccl.all_gather + index_select" if kind == "gather"
+                 else "index_add_ + nccl.reduce_scatter")
+        return fn, label
+    if kind == "gather":
+        def fn():
+            full = torch.cat(list(mats))
+            return [full.index_select(0, i) for i in idx]
+        return fn, "torch.cat + index_select (one card: no NCCL)"
+
+    def fn():
+        parts = [torch.zeros((dim_pad, R), dtype=torch.float32,
+                             device=p.device).index_add_(0, i, p.float())
+                 for p, i in zip(mats, idx)]
+        tot = parts[0]
+        for q in parts[1:]:
+            tot = tot + q
+        return list(tot.split(block))
+    return fn, "index_add_ + sum of the ranks' partials (one card: no NCCL)"
+
+
+def _peaks(mesh) -> dict:
+    import torch
+
+    return {str(c): round(torch.cuda.max_memory_allocated(c) / 2**30, 3)
+            for c in mesh.cards}
+
+
+def _reset_peaks(mesh) -> None:
+    import torch
+
+    for c in mesh.cards:
+        torch.cuda.reset_peak_memory_stats(c)
+
+
+def phase_distributed(tt, rank: int, seed: int = 11) -> dict:
+    """Phase 11: the FINE CPD over the ring kernels on phase 3's tensor."""
+    import torch
+
+    from splatt_tpu_torch import Options, cpd_als, resilience
+    from splatt_tpu_torch.config import CommPattern
+    from splatt_tpu_torch.parallel import ring, ring_kernels
+    from splatt_tpu_torch.parallel.mesh import make_mesh
+    from splatt_tpu_torch.parallel.sharded import (shard_factors, shard_nnz,
+                                                   sharded_cpd_als)
+    from splatt_tpu_torch.parallel.sharded import sync_mesh as mesh_sync
+    from splatt_tpu_torch.utils import faults
+
+    t_phase = time.perf_counter()
+    ncards = torch.cuda.device_count()
+    nranks = ncards if ncards > 1 else RING_VIRTUAL_RANKS
+    mesh = make_mesh(n_devices=nranks)
+    log(f"[ring] phase 11: {nranks} ranks on {len(mesh.cards)} card(s)"
+        + (f": {nranks} virtual ranks share one card, one launch holds "
+           f"them all" if mesh.virtual else ": one rank per card"))
+    peers = []
+    for r in range(nranks):
+        a, b = mesh.devices[r], mesh.devices[(r + 1) % nranks]
+        if a != b:
+            ok = torch.cuda.can_device_access_peer(a.index, b.index)
+            peers.append({"pair": [str(a), str(b)], "peer_access": ok})
+            log(f"[ring] can_device_access_peer({a.index}, {b.index}) = {ok}")
+    peer = peer_copy_rate(mesh)
+    log(f"[ring] copy rate {peer['from']} -> {peer['to']}: "
+        f"{peer['bytes_per_s'] / 1e9:.1f} GB/s ({peer['bytes']} bytes in "
+        f"{peer['ms']:.3f} ms)")
+    ndev = mesh.ndev
+    dims_pad = tuple(-(-d // ndev) * ndev for d in tt.dims)
+    inds, vals = shard_nnz(tt, mesh, dtype=torch.float32)
+    rng = np.random.default_rng(seed)
+    init = [rng.random((d, rank)) for d in tt.dims]
+    facs = shard_factors(init, tt.dims, mesh, dtype=torch.float32)
+    mesh_sync(mesh)
+
+    # 1. each kernel against its plain version on the real shards
+    rows_out = {"ring_gather": [], "ring_reduce": []}
+    for m in range(tt.nmodes):
+        prod = [v[:, None].clone() for v in vals]
+        for k in range(tt.nmodes):
+            if k == m:
+                continue
+            U_l, idx = facs[k], [i[k] for i in inds]
+            block = dims_pad[k] // ndev
+            got = ring_kernels.ring_gather(U_l, idx, mesh)
+            want = ring.gather_hops(U_l, idx, mesh)
+            mesh_sync(mesh)
+            ring_kernels.check_errors()
+            err = max(float((g - w).abs().max()) for g, w in zip(got, want))
+            if err != 0.0:
+                raise AssertionError(f"ring_gather mode {k} for mode {m}: "
+                                     f"max error {err}, expected exact")
+            prod = [p * w for p, w in zip(prod, want)]
+            del got, want
+            lib, label = ring_library("gather", mesh, U_l, idx, block,
+                                      dims_pad[k])
+            hbm = [4 * int(i.shape[0]) + U.numel() * U.element_size()
+                   + int(i.shape[0]) * rank * U.element_size()
+                   for U, i in zip(U_l, idx)]
+            hop = [(ndev - 1) * U.numel() * U.element_size() for U in U_l]
+            b_ms, b_by = ring_bound(mesh, hbm, hop, [0] * ndev, peer)
+            row = dict(leg=f"mode {m}: gather factor {k}", mode=m, factor=k,
+                       block=block, max_abs_err=err, max_rel_err=err,
+                       ms=mesh_time_ms(lambda: ring_kernels.ring_gather(
+                           U_l, idx, mesh), mesh, reps=10, warmup=2),
+                       plain_ms=mesh_time_ms(lambda: ring.gather_hops(
+                           U_l, idx, mesh), mesh, reps=3),
+                       library_ms=mesh_time_ms(lib, mesh, reps=10),
+                       library=label, bound_ms=b_ms, bound_by=b_by,
+                       hbm_bytes=sum(hbm), hop_bytes=sum(hop))
+            ring_kernels.check_errors()
+            log(f"[ring] {json.dumps(row)}")
+            rows_out["ring_gather"].append(row)
+        idx = [i[m] for i in inds]
+        block = dims_pad[m] // ndev
+        got = ring_kernels.ring_reduce(prod, idx, mesh, block)
+        want = ring.blockwise_reduce_rows(prod, idx, mesh, block)
+        mesh_sync(mesh)
+        ring_kernels.check_errors()
+        err = max(float((g - w).abs().max()) for g, w in zip(got, want))
+        scale = max(float(w.abs().max()) for w in want)
+        rel = err / scale if scale > 0 else err
+        if not rel <= KERNEL_TOL:
+            raise AssertionError(f"ring_reduce mode {m}: relative error "
+                                 f"{rel:.3e} > {KERNEL_TOL}")
+        del got, want
+        lib, label = ring_library("reduce", mesh, prod, idx, block,
+                                  dims_pad[m])
+        hbm = [p.numel() * p.element_size() + 4 * int(i.shape[0])
+               + block * rank * 4 for p, i in zip(prod, idx)]
+        hop = [(ndev - 1) * block * rank * 4 for _ in prod]
+        b_ms, b_by = ring_bound(mesh, hbm, hop, [p.numel() for p in prod],
+                                peer)
+        row = dict(leg=f"mode {m}: reduce", mode=m, block=block,
+                   max_abs_err=err, max_rel_err=rel,
+                   ms=mesh_time_ms(lambda: ring_kernels.ring_reduce(
+                       prod, idx, mesh, block), mesh, reps=10, warmup=2),
+                   plain_ms=mesh_time_ms(lambda: ring.blockwise_reduce_rows(
+                       prod, idx, mesh, block), mesh, reps=3),
+                   library_ms=mesh_time_ms(lib, mesh, reps=10),
+                   library=label, bound_ms=b_ms, bound_by=b_by,
+                   hbm_bytes=sum(hbm), hop_bytes=sum(hop))
+        ring_kernels.check_errors()
+        log(f"[ring] {json.dumps(row)}")
+        rows_out["ring_reduce"].append(row)
+        del prod
+        torch.cuda.empty_cache()
+    del facs
+
+    def opts(comm, **kw):
+        return Options(max_iterations=RING_ITERS, tolerance=0.0,
+                       random_seed=0, comm_pattern=comm, **kw)
+
+    # 2. the ASYNC_RING CPD, counters at 0 just before
+    resilience.reset_demotions()
+    resilience.run_report().clear()
+    mesh_sync(mesh)
+    _reset_peaks(mesh)
+    ring_kernels.reset_launches()
+    out = sharded_cpd_als(tt, rank, mesh=mesh, init=init,
+                          opts=opts(CommPattern.ASYNC_RING,
+                                    engine_fallback=False),
+                          measure_overlap=False)
+    mesh_sync(mesh)
+    launches = {"ring_gather": ring_kernels.ring_gather.launches,
+                "ring_reduce": ring_kernels.ring_reduce.launches}
+    ring_peaks = _peaks(mesh)
+    fallbacks = resilience.run_report().events("comm_fallback")
+    steady = sum(out.iter_seconds[1:]) / (len(out.iter_seconds) - 1)
+    ncards_used = len(mesh.cards)
+    want_g = 2 * tt.nmodes * RING_ITERS * ncards_used
+    want_r = tt.nmodes * RING_ITERS * ncards_used
+    log(f"[ring] async_ring cpd fits {list(out.fits)}")
+    log(f"[ring] async_ring cpd {steady:.5f} s/iteration (iterations "
+        f"2..{RING_ITERS}); launches {launches} (expected {want_g} and "
+        f"{want_r}: {ncards_used} card(s)); comm_fallback events "
+        f"{len(fallbacks)}; peak GiB per card {ring_peaks}")
+    if launches != {"ring_gather": want_g, "ring_reduce": want_r}:
+        raise AssertionError(f"ring launches {launches}, expected "
+                             f"{want_g} and {want_r}")
+    if fallbacks:
+        raise AssertionError(f"comm_fallback events: {fallbacks}")
+    if not all(math.isfinite(f) for f in out.fits):
+        raise AssertionError(f"fits {out.fits} are not finite")
+
+    # the achieved overlap, from a second run with the probe on
+    resilience.run_report().clear()
+    o = Options(max_iterations=1, tolerance=0.0, random_seed=0,
+                comm_pattern=CommPattern.ASYNC_RING, engine_fallback=False)
+    sharded_cpd_als(tt, rank, mesh=mesh, init=init, opts=o,
+                    measure_overlap=True)
+    ov = resilience.run_report().events("ring_overlap")
+    if len(ov) != 1:
+        raise AssertionError(f"ring_overlap events: {ov}")
+    overlap = {k: v for k, v in ov[0].items() if k not in ("kind", "ts")}
+    log(f"[ring] ring_overlap {json.dumps(overlap)}")
+
+    # the single-card COO oracle from the same init
+    coo = cpd_als(tt, rank, opts(None), init=init, device=mesh.devices[0])
+    diff = max(abs(a - b) for a, b in zip(out.fits, coo.fits))
+    lam_rel = float((out.lam - coo.lam.cpu()).abs().max()
+                    / coo.lam.abs().max())
+    log(f"[ring] single-card COO cpd fits {list(coo.fits)}; max |fit "
+        f"difference| {diff:.3e} (tolerance {PARITY_TOL}); λ relative "
+        f"difference {lam_rel:.3e}")
+    if len(coo.fits) != len(out.fits) or not diff <= PARITY_TOL:
+        raise AssertionError("the async_ring CPD's fits leave the COO "
+                             "CPD's")
+
+    # 3. the same CPD under ALL2ALL
+    mesh_sync(mesh)
+    _reset_peaks(mesh)
+    a2a = sharded_cpd_als(tt, rank, mesh=mesh, init=init,
+                          opts=opts(CommPattern.ALL2ALL,
+                                    engine_fallback=False))
+    mesh_sync(mesh)
+    a2a_peaks = _peaks(mesh)
+    a2a_steady = sum(a2a.iter_seconds[1:]) / (len(a2a.iter_seconds) - 1)
+    a2a_diff = max(abs(a - b) for a, b in zip(out.fits, a2a.fits))
+    log(f"[ring] all2all cpd {a2a_steady:.5f} s/iteration; fits "
+        f"{list(a2a.fits)}; max |fit difference| against async_ring "
+        f"{a2a_diff:.3e}; peak GiB per card {a2a_peaks}")
+    if not a2a_diff <= PARITY_TOL:
+        raise AssertionError("the all2all CPD's fits leave the async_ring "
+                             "CPD's")
+
+    # 4. the drill: an armed ring exchange raises, fallback on or off
+    drill = []
+    for fallback in (True, False):
+        resilience.reset_demotions()
+        faults.reset()
+        faults.arm(*next(iter(faults.parse_schedule(
+            "comm.ring_exchange:runtime").items())))
+        err = None
+        try:
+            sharded_cpd_als(tt, rank, mesh=mesh, init=init,
+                            opts=Options(max_iterations=1, random_seed=0,
+                                         comm_pattern=CommPattern.ASYNC_RING,
+                                         engine_fallback=fallback),
+                            measure_overlap=False)
+        except Exception as e:
+            err = e
+        finally:
+            faults.reset()
+        mesh_sync(mesh)
+        if err is None or "injected" not in str(err):
+            raise AssertionError(f"the comm.ring_exchange drill (fallback "
+                                 f"{fallback}) did not raise: {err!r}")
+        drill.append({"fallback": fallback, "raised": repr(err)[:160]})
+        log(f"[ring] drill fallback={fallback}: raised {err!r}")
+    resilience.reset_demotions()
+    resilience.run_report().clear()
+    seconds = time.perf_counter() - t_phase
+    log(f"[ring] phase 11 took {seconds:.1f} s")
+    return {"rows": rows_out, "launches": launches, "ranks": nranks,
+            "cards": ncards_used, "virtual": mesh.virtual, "peers": peers,
+            "copy_rate": peer,
+            "cpd": {"sec_per_iter": steady, "fits": list(out.fits),
+                    "iter_seconds": list(out.iter_seconds),
+                    "peak_gib": ring_peaks, "coo_fits": list(coo.fits),
+                    "coo_fit_diff": diff, "lam_rel_diff": lam_rel},
+            "overlap": overlap,
+            "all2all": {"sec_per_iter": a2a_steady, "fits": list(a2a.fits),
+                        "fit_diff": a2a_diff, "peak_gib": a2a_peaks},
+            "drill": drill, "seconds": seconds}
+
+
 def _record_row(name: str, source: str, replaces: str, launches: int,
                 rows: list, library, **extra) -> dict:
     """One kernel's entry of the kernels line: ms, plain, bound and
@@ -1225,6 +1606,27 @@ def _record_row(name: str, source: str, replaces: str, launches: int,
                 bound_ms=mean("bound_ms"), bound_by=rows[0]["bound_by"],
                 library_ms=None if library is None else mean(library),
                 **extra)
+
+
+def _ring_row(name: str, replaces: str, dist: dict, per: str) -> dict:
+    """Row 8 or 9 of the kernels line: phase 11's means over the legs."""
+    rows = dist["rows"][name]
+    row = _record_row(name, "splatt_tpu_torch/csrc/ring.cu", replaces,
+                      dist["launches"][name], rows, "library_ms",
+                      note=f"ms/plain_ms/bound_ms/library_ms: mean per "
+                      f"launch over phase 11's legs, NELL-2 shape, 20M "
+                      f"nonzeros, rank {RANK}, f32, {dist['ranks']} ranks "
+                      f"on {dist['cards']} card(s); launches: the "
+                      f"async_ring CPD, {RING_ITERS} iterations ({per}); "
+                      f"bound: HBM bytes or hop bytes over the measured "
+                      f"copy rate; library: {rows[0]['library']}",
+                      contracts=rows)
+    if name == "ring_gather":
+        row.update(copy_rate=dist["copy_rate"], peers=dist["peers"],
+                   cpd=dist["cpd"], overlap=dist["overlap"],
+                   all2all=dist["all2all"], drill=dist["drill"],
+                   phase_seconds=dist["seconds"])
+    return row
 
 
 def _bf16_summary(rows: list) -> dict:
@@ -1262,7 +1664,6 @@ def main() -> int:
     log(f"[layout] " + " ".join(
         f"mode{lay.mode}: nblocks={lay.nblocks} seg_width={lay.seg_width}"
         for lay in bs.layouts))
-    del tt
 
     rows = phase_kernels(bs, RANK)
     phase_parity()
@@ -1276,6 +1677,8 @@ def main() -> int:
     del bs
     dense = phase_dense(RANK)
     bf16["fused_dense"] = _bf16_summary(dense["rows"]["bf16"])
+    dist = phase_distributed(tt, RANK)
+    del tt
 
     def main_rows(rs):
         """The rows of the contract the main path runs: sorted."""
@@ -1366,6 +1769,10 @@ def main() -> int:
                     cpd=dense["cpd"], all_sparse=dense["all_sparse"],
                     drill=dense["drill"], raised=dense["raised"],
                     phase_seconds=dense["seconds"]),
+        _ring_row("ring_gather", "splatt_tpu/parallel/ring_kernels.py:152",
+                  dist, "2 x nmodes x iterations per card"),
+        _ring_row("ring_reduce", "splatt_tpu/parallel/ring_kernels.py:260",
+                  dist, "nmodes x iterations per card"),
     ], "chain": chain, "power": dev["smi"]}
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {

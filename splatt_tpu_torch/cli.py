@@ -3,6 +3,8 @@
     python -m splatt_tpu_torch.cli cpd T.tns -r R [-i ITERS] [--tol TOL]
         [--seed SEED] [--alloc onemode|twomode|allmode] [--device cuda|cpu]
         [--engine-fallback on|off] [--json] [-o DIR]
+        [--decomp medium|coarse|fine] [--comm all2all|point2point|async_ring]
+        [--rowdist greedy|balanced] [-p PARTITION] [--ndev N]
 
 prints the MTTKRP engine plan, one fit line per iteration and the
 resilience events of the run (engine demotions, transient retries, format
@@ -15,6 +17,14 @@ CLI: ``SPLATT_IDX_WIDTH`` (i32|auto|u16|u8|delta|rle),
 dense mode: ``SPLATT_DENSE`` (off|auto|on) with ``SPLATT_DENSE_THRESHOLD``
 (default 0.05) gives each mode whose padded fiber density meets the
 threshold a dense tile layout and the ``dense/fused_dense`` plan.
+
+``--decomp``, ``--comm``, ``--rowdist`` or ``-p`` run the distributed CPD
+over a mesh of ``--ndev`` ranks (default: every card, or 8 virtual ranks
+with ``--device cpu``) and print a ``DISTRIBUTED decomp=...`` line, with
+the JAX CLI's implications: ``--comm``, ``--rowdist`` and ``-p`` imply
+FINE, the only decomposition ported (MEDIUM and COARSE raise).  ``--json``
+ring runs carry the ``ring_overlap`` event, and every distributed run the
+``layout_imbalance`` event.
 """
 
 from __future__ import annotations
@@ -44,11 +54,15 @@ def cmd_cpd(args) -> int:
     tt = load(args.tensor)
     print(f"Tensor {args.tensor}: dims={'x'.join(map(str, tt.dims))} "
           f"nnz={tt.nnz} ({time.perf_counter() - t0:.3f}s)")
-    t0 = time.perf_counter()
-    bs = BlockedSparse.from_coo(tt, opts, device=args.device)
-    print(f"Layouts: {len(bs.layouts)} on {bs.device} "
-          f"({time.perf_counter() - t0:.3f}s)")
-    out = cpd_als(bs, rank=args.rank, opts=opts, device=args.device)
+    if (args.decomp is not None or args.partition is not None
+            or args.comm is not None or args.rowdist is not None):
+        out = _distributed(args, opts, tt)
+    else:
+        t0 = time.perf_counter()
+        bs = BlockedSparse.from_coo(tt, opts, device=args.device)
+        print(f"Layouts: {len(bs.layouts)} on {bs.device} "
+              f"({time.perf_counter() - t0:.3f}s)")
+        out = cpd_als(bs, rank=args.rank, opts=opts, device=args.device)
     print(f"Final fit: {out.fit:0.5f}")
     report = resilience.run_report()
     lines = report.summary()
@@ -60,6 +74,42 @@ def cmd_cpd(args) -> int:
         print(json.dumps(_resilience_record(report, fit=float(out.fit))))
     out.save(args.outdir)
     return 0
+
+
+def _distributed(args, opts, tt):
+    """The distributed CPD of the cpd verb (≙ splatt_tpu.cli.cmd_cpd's
+    distributed branch)."""
+    from splatt_tpu_torch.config import CommPattern, Decomposition
+    from splatt_tpu_torch.io import read_permutation
+    from splatt_tpu_torch.parallel import distributed_cpd_als, make_mesh
+
+    if args.comm:
+        opts.comm_pattern = CommPattern(args.comm)
+    if args.decomp:
+        opts.decomposition = Decomposition(args.decomp)
+    else:
+        # comm patterns, partitions and row distribution are
+        # fine-decomposition concepts
+        opts.decomposition = Decomposition.FINE
+    if args.partition and opts.decomposition is not Decomposition.FINE:
+        raise ValueError(
+            "-p/--partition is a FINE-decomposition input; combine it "
+            f"with --decomp fine, not {opts.decomposition.value}")
+    if (args.comm in ("point2point", "async_ring")
+            and opts.decomposition is not Decomposition.FINE):
+        raise ValueError(f"--comm {args.comm} (ring) applies to the fine "
+                         f"decomposition only")
+    partition = (read_permutation(args.partition) if args.partition
+                 else None)
+    mesh = make_mesh(n_devices=args.ndev, device=args.device)
+    print(f"DISTRIBUTED decomp={opts.decomposition.value} "
+          f"devices={mesh.ndev}"
+          + (" (virtual ranks)" if mesh.virtual else ""))
+    # --json ring runs always carry the achieved-overlap metric
+    return distributed_cpd_als(tt, rank=args.rank, opts=opts,
+                               partition=partition,
+                               row_distribute=args.rowdist, mesh=mesh,
+                               measure_overlap=True if args.json else None)
 
 
 def _resilience_record(report, **extra) -> dict:
@@ -101,6 +151,25 @@ def build_parser() -> argparse.ArgumentParser:
                    help="print one JSON line with the fit, the resilience "
                         "events and the engine demotions")
     c.add_argument("-o", "--outdir", default=".")
+    c.add_argument("--decomp", choices=["medium", "coarse", "fine"],
+                   help="run distributed over a mesh with this "
+                        "decomposition (only fine is ported)")
+    c.add_argument("-p", "--partition", metavar="FILE",
+                   help="per-nonzero partition file (fine decomposition)")
+    c.add_argument("--comm", choices=["all2all", "point2point",
+                                      "async_ring"],
+                   help="row-exchange pattern for --decomp fine (default: "
+                        "$SPLATT_COMM, else all2all): point2point = the "
+                        "sync ring, memory-lean; async_ring = the ring "
+                        "kernels, one launch per ring phase")
+    c.add_argument("--rowdist", choices=["greedy", "balanced"],
+                   help="factor-row distribution: greedy = comm-"
+                        "minimizing row claiming; balanced = nnz-"
+                        "weighted fences")
+    c.add_argument("--ndev", type=int, default=None,
+                   help="ranks of the distributed mesh (default: every "
+                        "card; 8 virtual ranks with --device cpu); ranks "
+                        "share cards round-robin when there are fewer")
     c.set_defaults(func=cmd_cpd)
     return p
 

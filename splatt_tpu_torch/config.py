@@ -1,11 +1,11 @@
 """Run-time options and the dtype and device policy of the PyTorch port.
 
 Counterpart of ``splatt_tpu/config.py``, cut to the fields the single-device
-CPD-ALS path reads.  The defaults are the same (≙ splatt_default_opts,
-SPLATT's opts.c).  No field is read from the environment; a field left
-None (``engine_fallback``, ``idx_width``, ``val_storage``, ``dense``,
-``dense_threshold``) defers to the env default its consumer reads
-(``utils/env.py``).
+CPD-ALS path and the FINE distributed path read.  The defaults are the
+same (≙ splatt_default_opts, SPLATT's opts.c).  No field is read from the
+environment; a field left None (``engine_fallback``, ``idx_width``,
+``val_storage``, ``dense``, ``dense_threshold``, ``comm_pattern``) defers
+to the env default its consumer reads (``utils/env.py``).
 """
 
 from __future__ import annotations
@@ -41,6 +41,51 @@ class ModeOrder(enum.Enum):
     INORDER_MINUSONE = "inorder_minusone"
     SORTED_MINUSONE = "sorted_minusone"
     CUSTOM = "custom"
+
+
+class Decomposition(enum.Enum):
+    """Distributed decomposition (≙ types_config.h:179-190).  The port
+    runs FINE; MEDIUM and COARSE are queued (ROADMAP.md slice 5 item 5)."""
+
+    COARSE = "coarse"   # 1-D per mode
+    MEDIUM = "medium"   # n-D cartesian grid (the default)
+    FINE = "fine"       # nonzero-level partition
+
+
+class CommPattern(enum.Enum):
+    """Row-exchange pattern of the FINE decomposition
+    (≙ types_config.h:197-201).
+
+    ALL2ALL (default): every rank gathers whole factors and reduces a
+    whole (dim_pad, R) partial.  POINT2POINT: the sync ring
+    (``parallel/ring.py``), factor blocks travel rank to rank, so no rank
+    holds a whole factor.  ASYNC_RING: the same ring as one kernel
+    launch per ring phase on the card (``parallel/ring_kernels.py``),
+    the next block landing in a neighbour's double buffer while the
+    current one is consumed.
+    """
+
+    ALL2ALL = "all2all"
+    POINT2POINT = "point2point"
+    ASYNC_RING = "async_ring"
+
+
+def resolve_comm_pattern(opts: "Options") -> CommPattern:
+    """The comm strategy of a distributed run: ``Options.comm_pattern``
+    wins, else the ``SPLATT_COMM`` env default, else ALL2ALL."""
+    from splatt_tpu_torch.utils.env import read_env
+
+    if opts.comm_pattern is not None:
+        return opts.comm_pattern
+    env = str(read_env("SPLATT_COMM") or "").strip().lower()
+    if env:
+        try:
+            return CommPattern(env)
+        except ValueError:
+            raise ValueError(
+                f"SPLATT_COMM must be one of "
+                f"{[c.value for c in CommPattern]}, got {env!r}")
+    return CommPattern.ALL2ALL
 
 
 class Verbosity(enum.IntEnum):
@@ -219,6 +264,10 @@ class Options:
     # SPLATT_DENSE_THRESHOLD
     dense: Optional[str] = None
     dense_threshold: Optional[float] = None
+    # distributed decomposition, and the FINE row-exchange strategy
+    # (None = SPLATT_COMM, else ALL2ALL; resolve_comm_pattern)
+    decomposition: Decomposition = Decomposition.MEDIUM
+    comm_pattern: Optional[CommPattern] = None
 
     def validate(self) -> "Options":
         if self.tolerance < 0:
@@ -251,6 +300,13 @@ class Options:
             raise ValueError(
                 f"dense_threshold must lie in (0, 1], "
                 f"got {self.dense_threshold!r}")
+        if not isinstance(self.decomposition, Decomposition):
+            raise TypeError(f"decomposition must be a Decomposition, got "
+                            f"{self.decomposition!r}")
+        if (self.comm_pattern is not None
+                and not isinstance(self.comm_pattern, CommPattern)):
+            raise TypeError(f"comm_pattern must be a CommPattern or None, "
+                            f"got {self.comm_pattern!r}")
         if self.val_dtype is not None and not torch_dtype(
                 self.val_dtype).is_floating_point:
             raise ValueError(

@@ -34,7 +34,7 @@ from splatt_tpu_torch.coo import SparseTensor
 from splatt_tpu_torch.kruskal import KruskalTensor, post_process
 from splatt_tpu_torch.ops.linalg import (form_normal_lhs, gram,
                                          normalize_columns, solve_normals)
-from splatt_tpu_torch.ops.mttkrp import describe_plan, mttkrp
+from splatt_tpu_torch.ops.mttkrp import describe_plan, mttkrp, mttkrp_stream
 
 
 def init_factors(dims: Sequence[int], rank: int, generator: torch.Generator,
@@ -67,13 +67,30 @@ def _fit(xnormsq: float, znormsq: torch.Tensor,
     return 1.0 - residual / np.sqrt(xnormsq)
 
 
-def _sweep(X, factors, grams, first: bool, reg: float, fallback: bool):
+def _mttkrp_closure(X, dev, dtype, fallback: bool):
+    """The run's MTTKRP (≙ splatt_tpu/cpd.py:56-68): a COO tensor's
+    indices and values are copied to `dev` once per run, the values in
+    the compute dtype, and every sweep reads those copies."""
+    if isinstance(X, SparseTensor):
+        inds = torch.from_numpy(X.inds).to(dev)
+        vals = torch.from_numpy(X.vals).to(dev, dtype)
+        dims = X.dims
+
+        def do_mttkrp(factors, m):
+            return mttkrp_stream(inds, vals, factors, m, dims[m])
+    else:
+        def do_mttkrp(factors, m):
+            return mttkrp(X, factors, m, fallback=fallback)
+    return do_mttkrp
+
+
+def _sweep(do_mttkrp, factors, grams, first: bool, reg: float):
     """One ALS sweep over every mode; updates `factors` and `grams` in
     place and returns (λ, ⟨Z,Z⟩, ⟨X,Z⟩)."""
     nmodes = len(factors)
     lam = M = None
     for m in range(nmodes):
-        M = mttkrp(X, factors, m, fallback=fallback)
+        M = do_mttkrp(factors, m)
         U = solve_normals(form_normal_lhs(grams, m, reg), M)
         U, lam = normalize_columns(U, "2" if first else "max")
         # back to the storage dtype; the solve ran in the f32 accumulator
@@ -114,6 +131,7 @@ def cpd_als(X: Union[SparseTensor, BlockedSparse], rank: int,
     grams = [gram(U) for U in factors]
     fallback = (resilience.fallback_enabled()
                 if opts.engine_fallback is None else opts.engine_fallback)
+    do_mttkrp = _mttkrp_closure(X, dev, dtype, fallback)
     if opts.verbosity >= Verbosity.LOW:
         if isinstance(X, BlockedSparse):
             print(f"  {describe_plan(X, factors)}")
@@ -128,8 +146,8 @@ def cpd_als(X: Union[SparseTensor, BlockedSparse], rank: int,
     seconds: List[float] = []
     for it in range(opts.max_iterations):
         t0 = time.perf_counter()
-        lam, znormsq, inner = _sweep(X, factors, grams, it == 0,
-                                     opts.regularization, fallback)
+        lam, znormsq, inner = _sweep(do_mttkrp, factors, grams, it == 0,
+                                     opts.regularization)
         # fetching the fit waits for the sweep: the iteration's time ends here
         fitval = float(_fit(xnormsq, znormsq, inner))
         fits.append(fitval)

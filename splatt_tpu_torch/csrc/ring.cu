@@ -1,0 +1,432 @@
+// The two ring kernels of the FINE distributed CPD, for Hopper (sm_90a).
+//
+// Replaces the TPU kernels of splatt_tpu/parallel/ring_kernels.py
+//   _ring_gather_kernel (:152-257; entries _gather_pallas :434,
+//       async_ring_gather_rows :507)        -> splatt_ring_gather
+//   _ring_reduce_kernel (:260-400; entries _reduce_pallas :465,
+//       async_blockwise_reduce_rows :529)   -> splatt_ring_reduce
+// and keeps their contract.  A mesh has ndev ranks; rank d holds a
+// (block, R) shard of a row-sharded factor and nnz_d nonzeros with int32
+// global ids idx_d.
+//
+//   gather: rows_d[n] = U_{idx_d[n] / block}[idx_d[n] % block], in U's
+//           dtype (a pure copy: exact).  The shards travel right: at step
+//           s rank d holds shard (d - s) mod ndev and writes the rows of
+//           the nonzeros that shard owns.  An id outside [0, ndev*block)
+//           (a pad with owner -1) matches no shard and gives a zero row.
+//   reduce: out_d = sum over every rank e and nonzero n of e with
+//           idx_e[n] / block == d of prod_e[n] at row idx_e[n] % block,
+//           (block, R) f32.  The partial of block j starts at rank j+1 and
+//           travels right; each holder adds its local sum of block j
+//           (f32 atomics), and after ndev-1 hops the owner holds its
+//           rows.  The schedule of ring_kernels.py:323-326; rounding
+//           follows hop order.
+//
+// One launch per card per ring phase holds the whole ndev-step loop, as the
+// Pallas kernel's grid=(ndev,) does.  Every rank of a card runs in that one
+// launch (rank slot = blockIdx.y), so virtual ranks sharing a card work as
+// cards do.  The launch is cooperative: the card refuses a grid whose CTAs
+// cannot all be resident, and a grid-wide barrier ends each step.
+//
+// The exchange.  Each rank owns a (2, block, R) landing zone.  A step's
+// outgoing block is written by the kernel's own stores straight into the
+// right neighbour's slot (s+1)&1, through a CUDA peer pointer when the
+// neighbour is another card; the gather's stores fly while the same CTAs
+// pick rows from slot s&1, the reduce's while they add the next block's
+// local sum.  The credit-before-send protocol of docs/ring.md becomes two
+// 64-bit flag words in each rank's memory, written by its neighbours with
+// st.release.sys and polled locally with ld.acquire.sys:
+//   ready  (written by the left neighbour)  = the step whose block landed;
+//   credit (written by the right neighbour) = the steps it has finished,
+//          so the slot it last read is free again.
+// A flag holds gen * 2^16 + step, gen being a launch generation the
+// wrapper increments, so a late flag of launch k never satisfies a wait of
+// launch k+1, and the flags need no reset between launches.  Every spin
+// has a time bound: when it runs out the CTA writes an error word in
+// mapped host memory (shared by every rank and card, so the other ranks
+// stop waiting too), keeps taking part in the barriers, and the wrapper
+// raises at the next check.  A hang is never an outcome.
+//
+// What bounds them on this card: bytes.  The gather writes nnz_d * R
+// elements per rank and reads its ids ndev times; the reduce reads nnz_d *
+// R products and adds them into an L2-resident (block, R) accumulator.
+// The hops move (ndev-1) * block * R elements per rank over NVLink (or,
+// between virtual ranks, within the card's memory).  The design: warps scan
+// 32 nonzeros at a time, a ballot picks the ones the step's shard owns, and
+// the warp copies (or adds) each picked row with lanes over r.  No one-hot
+// matmul: each row is picked or added directly.
+
+#include <cooperative_groups.h>
+#include <cuda_runtime.h>
+
+#include <cstdint>
+
+namespace cg = cooperative_groups;
+
+namespace {
+
+constexpr int kThreads = 256;
+constexpr int kMaxLocal = 16;      // ranks of one card in one launch
+constexpr int kReady = 0;          // flag words, 128 bytes apart
+constexpr int kCredit = 16;
+constexpr int kMaxCtasPerSm = 4;
+
+struct RankPtrs {
+  const void* in;                  // gather: U shard (block, R);
+                                   // reduce: products (nnz, R)
+  const int* idx;                  // (nnz,) global ids
+  void* out;                       // gather: rows (nnz, R);
+                                   // reduce: (block, R) f32
+  float* acc;                      // reduce: (2, block, R) f32, zero
+  void* lz;                        // own landing zone (2, block, R)
+  void* lz_right;                  // the right neighbour's landing zone
+  unsigned long long* flags;       // own flag words
+  unsigned long long* flags_right;
+  unsigned long long* flags_left;
+  long long nnz;
+  long long rank;
+};
+
+struct RingArgs {
+  RankPtrs r[kMaxLocal];
+  long long block;
+  long long R;
+  unsigned long long base;         // gen << 16
+  long long timeout_ns;
+  volatile int* err;               // mapped host word
+  int ndev;
+  int exchange;                    // 0: compute only (the overlap probe)
+};
+
+__device__ __forceinline__ unsigned long long ld_acquire_sys(
+    const unsigned long long* p) {
+  unsigned long long v;
+  asm volatile("ld.acquire.sys.global.u64 %0, [%1];"
+               : "=l"(v) : "l"(p) : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void st_release_sys(unsigned long long* p,
+                                               unsigned long long v) {
+  asm volatile("st.release.sys.global.u64 [%0], %1;"
+               :: "l"(p), "l"(v) : "memory");
+}
+
+__device__ __forceinline__ unsigned long long globaltimer() {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
+
+// Spin until *p >= want: 0, or 1 when the time bound ran out, or 2 when
+// another rank reported an error.
+__device__ int wait_geq(const unsigned long long* p, unsigned long long want,
+                        const RingArgs& a) {
+  unsigned long long t0 = globaltimer();
+  for (unsigned it = 0;; ++it) {
+    if (ld_acquire_sys(p) >= want) return 0;
+    if ((it & 255) == 255) {
+      if (*a.err != 0) return 2;
+      if ((long long)(globaltimer() - t0) > a.timeout_ns) return 1;
+    }
+    __nanosleep(64);
+  }
+}
+
+// Thread 0 of each CTA waits for the step's flags; the CTA then goes on.
+// After an error the CTA stops waiting but keeps its place in every
+// barrier, so no CTA of any rank is left waiting on it.
+__device__ void step_wait(const RingArgs& a, const RankPtrs& me, int s,
+                          bool need_ready, bool need_credit, int* aborted) {
+  if (threadIdx.x == 0 && !*aborted) {
+    int rc = 0;
+    int kind = 0;
+    if (need_ready) {
+      rc = wait_geq(me.flags + kReady, a.base + s, a);
+      kind = 1;
+    }
+    if (rc == 0 && need_credit) {
+      rc = wait_geq(me.flags + kCredit, a.base + s, a);
+      kind = 2;
+    }
+    if (rc != 0) {
+      *aborted = 1;
+      if (rc == 1) {
+        *a.err = kind * 1000000 + (int)me.rank * 1000 + s;
+        __threadfence_system();
+      }
+    }
+    __threadfence();
+  }
+  __syncthreads();
+}
+
+template <class T>
+__device__ __forceinline__ T load_cg(const T* p) {
+  return __ldcg(p);
+}
+
+__device__ __forceinline__ float to_float(float v) { return v; }
+__device__ __forceinline__ float to_float(unsigned short v) {
+  return __uint_as_float(static_cast<unsigned>(v) << 16);
+}
+
+// T: an unsigned integer of the element's size (the gather only copies).
+template <class T>
+__global__ void __launch_bounds__(kThreads)
+    ring_gather_kernel(const __grid_constant__ RingArgs a) {
+  cg::grid_group grid = cg::this_grid();
+  __shared__ int s_abort;
+  const RankPtrs me = a.r[blockIdx.y];
+  const int ndev = a.ndev;
+  const int d = static_cast<int>(me.rank);
+  const long long blk = a.block;
+  const long long R = a.R;
+  const long long shard_elems = blk * R;
+  const T* own = static_cast<const T*>(me.in);
+  const T* lz = static_cast<const T*>(me.lz);
+  T* rows = static_cast<T*>(me.out);
+  const int lane = threadIdx.x & 31;
+  const long long tid = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  const long long nthreads = (long long)gridDim.x * blockDim.x;
+  const long long warp = tid >> 5;
+  const long long nwarps = nthreads >> 5;
+  const bool ex = a.exchange != 0;
+  if (threadIdx.x == 0) {
+    s_abort = 0;
+    // entering this launch frees both of my landing slots
+    if (ex && blockIdx.x == 0) st_release_sys(me.flags_left + kCredit, a.base);
+  }
+  __syncthreads();
+  for (int s = 0; s < ndev; ++s) {
+    const bool send = ex && s <= ndev - 2;
+    const T* src = (!ex || s == 0) ? own : lz + (s & 1) * shard_elems;
+    step_wait(a, me, s, ex && s >= 1, send, &s_abort);
+    if (send) {
+      // my CTA's share of the hop: the block into the right neighbour's
+      // slot (s+1)&1; the stores fly while the rows below are picked
+      T* dst = static_cast<T*>(me.lz_right) + ((s + 1) & 1) * shard_elems;
+      for (long long e = tid; e < shard_elems; e += nthreads)
+        dst[e] = load_cg(src + e);
+    }
+    const long long shard = (d - s + ndev) % ndev;
+    for (long long n0 = warp * 32; n0 < me.nnz; n0 += nwarps * 32) {
+      const long long n = n0 + lane;
+      const int id = n < me.nnz ? me.idx[n] : 0;
+      const long long owner = id >= 0 ? id / blk : -1;
+      const bool mine = n < me.nnz && owner == shard;
+      const bool none = s == 0 && n < me.nnz && (owner < 0 || owner >= ndev);
+      unsigned pick = __ballot_sync(0xffffffffu, mine || none);
+      while (pick) {
+        const int l = __ffs(pick) - 1;
+        pick &= pick - 1;
+        const int idl = __shfl_sync(0xffffffffu, id, l);
+        const bool zero = __shfl_sync(0xffffffffu, none, l);
+        T* orow = rows + (n0 + l) * R;
+        if (zero) {
+          for (long long r = lane; r < R; r += 32) orow[r] = T(0);
+        } else {
+          const T* srow = src + (idl % blk) * R;
+          for (long long r = lane; r < R; r += 32) orow[r] = load_cg(srow + r);
+        }
+      }
+    }
+    if (send) __threadfence_system();
+    grid.sync();
+    if (ex && blockIdx.x == 0 && threadIdx.x == 0) {
+      if (send) st_release_sys(me.flags_right + kReady, a.base + s + 1);
+      st_release_sys(me.flags_left + kCredit, a.base + s + 1);
+    }
+  }
+}
+
+// P: float or unsigned short (bf16 bits).
+template <class P>
+__global__ void __launch_bounds__(kThreads)
+    ring_reduce_kernel(const __grid_constant__ RingArgs a) {
+  cg::grid_group grid = cg::this_grid();
+  __shared__ int s_abort;
+  const RankPtrs me = a.r[blockIdx.y];
+  const int ndev = a.ndev;
+  const int d = static_cast<int>(me.rank);
+  const long long blk = a.block;
+  const long long R = a.R;
+  const long long shard_elems = blk * R;
+  const P* prod = static_cast<const P*>(me.in);
+  const float* lz = static_cast<const float*>(me.lz);
+  const int lane = threadIdx.x & 31;
+  const long long tid = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  const long long nthreads = (long long)gridDim.x * blockDim.x;
+  const long long warp = tid >> 5;
+  const long long nwarps = nthreads >> 5;
+  const bool ex = a.exchange != 0;
+  if (threadIdx.x == 0) {
+    s_abort = 0;
+    if (ex && blockIdx.x == 0) st_release_sys(me.flags_left + kCredit, a.base);
+  }
+  __syncthreads();
+  for (int s = 0; s < ndev; ++s) {
+    const long long j = (d - 1 - s + 2 * ndev) % ndev;
+    float* acc = me.acc + (s & 1) * shard_elems;
+    // my local sum of block j; the previous step's outgoing stores fly
+    for (long long n0 = warp * 32; n0 < me.nnz; n0 += nwarps * 32) {
+      const long long n = n0 + lane;
+      const int id = n < me.nnz ? me.idx[n] : -1;
+      const bool mine = id >= 0 && id / blk == j;
+      unsigned pick = __ballot_sync(0xffffffffu, mine);
+      while (pick) {
+        const int l = __ffs(pick) - 1;
+        pick &= pick - 1;
+        const int idl = __shfl_sync(0xffffffffu, id, l);
+        const P* prow = prod + (n0 + l) * R;
+        float* arow = acc + (idl % blk) * R;
+        for (long long r = lane; r < R; r += 32)
+          atomicAdd(arow + r, to_float(prow[r]));
+      }
+    }
+    if (ex && s >= 1) __threadfence_system();
+    grid.sync();
+    if (ex && s >= 1 && blockIdx.x == 0 && threadIdx.x == 0) {
+      // step s-1's block has landed on the right; my slot (s-1)&1 is free
+      st_release_sys(me.flags_right + kReady, a.base + s);
+      st_release_sys(me.flags_left + kCredit, a.base + s);
+    }
+    const bool send = ex && s <= ndev - 2;
+    step_wait(a, me, s, ex && s >= 1, send, &s_abort);
+    // the travelling partial: my sum plus the one that arrived, to the
+    // right neighbour's slot (s+1)&1, or at the last step into my output
+    const float* in = lz + (s & 1) * shard_elems;
+    float* dst = send ? static_cast<float*>(me.lz_right)
+                            + ((s + 1) & 1) * shard_elems
+                      : static_cast<float*>(me.out);
+    for (long long e = tid; e < shard_elems; e += nthreads) {
+      float v = load_cg(acc + e);
+      if (ex && s >= 1) v += load_cg(in + e);
+      acc[e] = 0.0f;
+      dst[e] = v;
+    }
+  }
+}
+
+template <class K>
+int launch(K kernel, int dev, const RingArgs& args, int nlocal,
+           void* stream) {
+  int prev = 0;
+  cudaGetDevice(&prev);
+  cudaError_t err = cudaSetDevice(dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  int sms = 0;
+  int per_sm = 0;
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &per_sm, kernel, kThreads, 0);
+  if (err == cudaSuccess) {
+    if (per_sm > kMaxCtasPerSm) per_sm = kMaxCtasPerSm;
+    const int ctas = per_sm * sms / nlocal;
+    if (ctas < 1) {
+      err = cudaErrorCooperativeLaunchTooLarge;
+    } else {
+      RingArgs a = args;
+      void* params[] = {&a};
+      err = cudaLaunchCooperativeKernel(
+          reinterpret_cast<const void*>(kernel), dim3(ctas, nlocal),
+          dim3(kThreads), params, 0,
+          static_cast<cudaStream_t>(stream));
+    }
+  }
+  cudaSetDevice(prev);
+  return static_cast<int>(err);
+}
+
+int fill(RingArgs* a, const void* ranks, int nlocal, int ndev,
+         long long block, long long R, long long gen, void* err,
+         long long timeout_ns, int exchange) {
+  if (nlocal < 1 || nlocal > kMaxLocal || ndev < 1 || block < 1 || R < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  for (int i = 0; i < nlocal; ++i)
+    a->r[i] = static_cast<const RankPtrs*>(ranks)[i];
+  a->block = block;
+  a->R = R;
+  a->base = static_cast<unsigned long long>(gen) << 16;
+  a->timeout_ns = timeout_ns;
+  a->err = static_cast<volatile int*>(err);
+  a->ndev = ndev;
+  a->exchange = exchange;
+  return 0;
+}
+
+}  // namespace
+
+extern "C" {
+
+// Each launch entry returns the cudaError_t of its launch (0 on success),
+// launches on `stream` of card `dev`, does not synchronise and allocates
+// nothing.  `ranks` is an array of the card's ranks' RankPtrs (a type
+// local to this file, so the C interface takes it untyped); `err` is the
+// device address of a mapped host word (splatt_ring_alloc_host).
+
+int splatt_ring_gather(int dev, const void* ranks, int nlocal, int ndev,
+                       long long block, long long R, int esize, long long gen,
+                       void* err, long long timeout_ns, int exchange,
+                       void* stream) {
+  RingArgs a;
+  int rc = fill(&a, ranks, nlocal, ndev, block, R, gen, err, timeout_ns,
+                exchange);
+  if (rc != 0) return rc;
+  if (esize == 2)
+    return launch(ring_gather_kernel<unsigned short>, dev, a, nlocal, stream);
+  if (esize == 4)
+    return launch(ring_gather_kernel<unsigned int>, dev, a, nlocal, stream);
+  if (esize == 8)
+    return launch(ring_gather_kernel<unsigned long long>, dev, a, nlocal,
+                  stream);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// prod_bf16: the products are bf16, else f32; the output is f32.
+int splatt_ring_reduce(int dev, const void* ranks, int nlocal, int ndev,
+                       long long block, long long R, int prod_bf16,
+                       long long gen, void* err, long long timeout_ns,
+                       int exchange, void* stream) {
+  RingArgs a;
+  int rc = fill(&a, ranks, nlocal, ndev, block, R, gen, err, timeout_ns,
+                exchange);
+  if (rc != 0) return rc;
+  if (prod_bf16)
+    return launch(ring_reduce_kernel<unsigned short>, dev, a, nlocal, stream);
+  return launch(ring_reduce_kernel<float>, dev, a, nlocal, stream);
+}
+
+// Enable access from card `dev` to card `peer`'s memory: 0, or -1 when the
+// pair has no peer access, or the cudaError_t.
+int splatt_ring_enable_peer(int dev, int peer) {
+  int can = 0;
+  cudaError_t err = cudaDeviceCanAccessPeer(&can, dev, peer);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (!can) return -1;
+  int prev = 0;
+  cudaGetDevice(&prev);
+  err = cudaSetDevice(dev);
+  if (err == cudaSuccess) {
+    err = cudaDeviceEnablePeerAccess(peer, 0);
+    if (err == cudaErrorPeerAccessAlreadyEnabled) {
+      cudaGetLastError();
+      err = cudaSuccess;
+    }
+  }
+  cudaSetDevice(prev);
+  return static_cast<int>(err);
+}
+
+// `bytes` of zeroed host memory mapped into every card's address space:
+// its host address in *host and its device address in *device.
+int splatt_ring_alloc_host(long long bytes, void** host, void** device) {
+  cudaError_t err = cudaHostAlloc(
+      host, static_cast<size_t>(bytes),
+      cudaHostAllocMapped | cudaHostAllocPortable);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  for (long long i = 0; i < bytes; ++i) static_cast<char*>(*host)[i] = 0;
+  return static_cast<int>(cudaHostGetDevicePointer(device, *host, 0));
+}
+
+}  // extern "C"

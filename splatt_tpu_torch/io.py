@@ -1,8 +1,8 @@
 """Tensor and matrix file IO (≙ src/io.c), text formats only.
 
 Counterpart of ``splatt_tpu/io.py``: coordinate ``.tns`` files with ``#``
-comments and 0/1-index autodetection, and the dense matrix and vector
-writers of the CPD outputs.  Binary ``.bin`` tensors are not read yet.
+comments and 0/1-index autodetection, the dense matrix and vector
+writers of the CPD outputs, and the permutation (partition) reader.  Binary ``.bin`` tensors are not read yet.
 """
 
 from __future__ import annotations
@@ -98,3 +98,11 @@ def write_vector(vec: np.ndarray, path: str) -> None:
     with open(path, "w") as f:
         for v in np.asarray(vec).ravel():
             f.write(f"{v:.17g}\n")
+
+
+def read_permutation(path: str) -> np.ndarray:
+    """A whitespace-separated integer vector, one entry per line as the
+    writer of the JAX package puts it (a per-nonzero partition of the
+    FINE decomposition)."""
+    with open(path) as f:
+        return np.asarray([int(x) for x in f.read().split()], dtype=np.int64)

@@ -6,7 +6,8 @@ each source with ``nvcc`` for ``sm_90a`` into its own shared library with a
 plain C interface under ``splatt_tpu_torch/_build/`` (one ``nvcc`` per
 source, started together) and loads them with ``ctypes``.
 
-Seven wrappers, one per TPU kernel:
+Seven wrappers here, one per single-card TPU kernel (the two ring
+kernels of ``csrc/ring.cu`` have theirs in ``parallel/ring_kernels.py``):
 
 - :func:`fused_mttkrp_t`, :func:`fused_mttkrp_tg`, :func:`fused_mttkrp`
   (``csrc/fused_mttkrp.cu``): gather + Hadamard + row reduce over a v1
@@ -52,7 +53,7 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 SOURCES = ("fused_mttkrp.cu", "fused_mttkrp_v2.cu", "onehot_reduce.cu",
-           "fused_dense.cu")
+           "fused_dense.cu", "ring.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 
@@ -174,6 +175,12 @@ _ENTRIES = {
     "splatt_fused_dense": ("fused_dense.cu",
                            [_P, _I, _P, _P, _I, _LL, _LL, _I, _I, _I, _I,
                             _LL, _P, _P]),
+    "splatt_ring_gather": ("ring.cu", [_I, _P, _I, _I, _LL, _LL, _I, _LL,
+                                       _P, _LL, _I, _P]),
+    "splatt_ring_reduce": ("ring.cu", [_I, _P, _I, _I, _LL, _LL, _I, _LL,
+                                       _P, _LL, _I, _P]),
+    "splatt_ring_enable_peer": ("ring.cu", [_I, _I]),
+    "splatt_ring_alloc_host": ("ring.cu", [_LL, _P, _P]),
 }
 
 #: the value, table and product dtypes the kernels take on a card

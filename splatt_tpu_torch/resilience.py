@@ -15,8 +15,11 @@ chain needs).
   ``engine_demotion``, ``transient_retry``, and the compact format's
   ``format_v2`` (the achieved per-mode encodings), ``format_fallback``
   (an encode, or with ``site="decode"`` a dispatch, degraded to v1),
-  ``format_decode`` (where an engine's decode ran) and ``block_clamp``
-  (a requested nnz block cut to the tensor's size).
+  ``format_decode`` (where an engine's decode ran), ``block_clamp``
+  (a requested nnz block cut to the tensor's size), and the distributed
+  path's ``layout_imbalance`` (the nnz balance of a sharding),
+  ``comm_fallback`` (a comm strategy degraded down its chain) and
+  ``ring_overlap`` (a ring sweep's exchange time hidden under compute).
 
 The state is process-wide, as outside any job scope in the JAX package.
 """
@@ -159,6 +162,25 @@ class RunReport:
                          f"{e.get('tile')}x{e.get('span')} value tiles "
                          f"({e.get('density_bucket') or 'dense'}; zero "
                          f"index bytes)")
+        for e in self.events("layout_imbalance"):
+            # only imbalanced shardings are worth a line; the full stats
+            # always ride in the --json events
+            worst = e.get("shard_max_mean", 1.0) or 1.0
+            if worst > 1.5:
+                lines.append(f"  load imbalance at "
+                             f"{e.get('scope', 'sharding')} "
+                             f"[{e.get('policy', '?')}]: max/mean {worst} "
+                             f"(seg_width -, work x-/nnz)")
+        for e in self.events("comm_fallback"):
+            lines.append(f"  comm engine {e['strategy']} degraded to "
+                         f"{e['fallback_to']} ({e['failure_class']}: "
+                         f"{e['error'][:80]})")
+        for e in self.events("ring_overlap"):
+            lines.append(f"  ring overlap [{e.get('engine')}]: "
+                         f"{100 * e.get('overlap_frac', 0):.0f}% of "
+                         f"{e.get('exchange_s')}s exchange hidden under "
+                         f"compute ({e.get('model_mb_per_device')}MB/dev "
+                         f"modeled)")
         return lines
 
 

@@ -71,6 +71,14 @@ ENV_VARS = {
                                      "above which SPLATT_DENSE=auto "
                                      "elects the dense tile layout "
                                      "(docs/dense.md)"),
+    "SPLATT_COMM": EnvVar(None, "default row-exchange strategy of "
+                          "FINE distributed runs: all2all (whole-factor "
+                          "gathers and reduces), point2point (the sync "
+                          "ring), async_ring (the ring kernels, one "
+                          "launch per ring phase; on the CPU it "
+                          "degrades classified point2point -> all2all "
+                          "on failure); an explicit "
+                          "Options.comm_pattern / --comm wins"),
 }
 
 

@@ -1,5 +1,5 @@
 """Fault injection: the test hook points of the resilience layer
-(≙ splatt_tpu/utils/faults.py, cut to the engine and format sites).
+(≙ splatt_tpu/utils/faults.py, cut to the engine, format and comm sites).
 
 Production call sites call :func:`maybe_fail` / :func:`poison` with a
 site name; tests (or an operator, via env var) arm faults against those
@@ -82,6 +82,14 @@ SITES = {
                      "fault degrades the dispatch to the decoded v1 "
                      "layout (blocked.decode_to_v1, format_fallback event "
                      "with site=decode), never fails it",
+    "comm.ring_exchange": "the ring row-exchange of a distributed sweep "
+                          "(parallel/ring_kernels.py and parallel/ring.py: "
+                          "the ring kernels and the sync ring); on a CPU "
+                          "mesh a raised fault degrades the sweep down "
+                          "the comm chain, async_ring -> ring -> all2all "
+                          "(comm_fallback events); on a CUDA mesh the "
+                          "async_ring chain is the kernel alone, so it "
+                          "raises",
 }
 
 

@@ -301,3 +301,97 @@ def test_cuda_fused_dense_matches_plain():
             mttkrp_blocked(lay, tf, m, fallback=True)
     with pytest.raises(ValueError, match="own mode"):
         kernels.fused_dense(lay, tf, (m + 1) % len(dims))
+
+
+def _ring_mesh(ndev):
+    """`ndev` ranks over the visible cards (virtual ranks when fewer)."""
+    from splatt_tpu_torch.parallel.mesh import make_mesh
+
+    return make_mesh(n_devices=ndev)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_ring_kernels_match_plain(dtype):
+    """ring_gather equals the sync ring's gather exactly (ids of no shard
+    give zero rows), ring_reduce its reduce within 1e-5 of the largest
+    output, for 1-4 ranks, twice in a row on the kept landing zones."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from splatt_tpu_torch.parallel import ring, ring_kernels
+
+    rng = np.random.default_rng(7)
+    for ndev in (1, 2, 3, 4):
+        mesh = _ring_mesh(ndev)
+        for block, R, nnz in ((37, 5, 300), (250, 50, 4000), (9, 70, 1)):
+            U = [torch.from_numpy(rng.random((block, R))).to(dev, dtype)
+                 for dev in mesh.devices]
+            ids = []
+            for dev in mesh.devices:
+                i = rng.integers(0, ndev * block, size=nnz).astype(np.int32)
+                i[:min(2, nnz)] = -1
+                ids.append(torch.from_numpy(i).to(dev))
+            prod = [torch.from_numpy(rng.random((nnz, R))).to(dev, dtype)
+                    for dev in mesh.devices]
+            for _ in range(2):
+                before = ring_kernels.ring_gather.launches
+                got = ring_kernels.ring_gather(U, ids, mesh)
+                assert ring_kernels.ring_gather.launches \
+                    == before + len(mesh.cards)
+                want = ring.gather_hops(U, ids, mesh)
+                red = ring_kernels.ring_reduce(prod, ids, mesh, block)
+                red_want = ring.blockwise_reduce_rows(prod, ids, mesh, block)
+                for c in mesh.cards:
+                    torch.cuda.synchronize(c)
+                ring_kernels.check_errors()
+                for g, w in zip(got, want):
+                    assert torch.equal(g.cpu(), w.cpu())
+                for g, w in zip(red, red_want):
+                    assert g.dtype == torch.float32
+                    scale = max(float(w.abs().max()), 1e-30)
+                    assert float((g - w).abs().max()) <= 1e-5 * scale
+
+
+@pytest.mark.gpu
+def test_cuda_async_ring_cpd_is_the_kernels_alone():
+    """On a CUDA mesh the ASYNC_RING chain is the kernel alone: the CPD
+    launches each ring kernel once per card per leg, its fits follow the
+    CPU's f64 run within 1e-4, and an armed comm.ring_exchange raises
+    with fallback on and off."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from splatt_tpu_torch import resilience
+    from splatt_tpu_torch.config import CommPattern, Options, Verbosity
+    from splatt_tpu_torch.parallel import ring_kernels, sharded_cpd_als
+    from splatt_tpu_torch.parallel.mesh import make_mesh
+    from splatt_tpu_torch.parallel.sharded import comm_chain
+    from splatt_tpu_torch.utils import faults
+
+    mesh = _ring_mesh(4)
+    assert comm_chain(CommPattern.ASYNC_RING, mesh) == ("async_ring",)
+    rng = np.random.default_rng(3)
+    dims, rank, iters = (61, 47, 83), 8, 3
+    X = SparseTensor(np.stack([rng.integers(0, d, size=5000) for d in dims]),
+                     rng.random(5000), dims).deduplicate()
+    init = [rng.random((d, rank)) for d in dims]
+
+    def run(m, dtype, **kw):
+        opts = Options(max_iterations=iters, tolerance=0.0, val_dtype=dtype,
+                       comm_pattern=CommPattern.ASYNC_RING,
+                       verbosity=Verbosity.NONE, **kw)
+        return sharded_cpd_als(X, rank, mesh=m, opts=opts, init=init,
+                               measure_overlap=False)
+
+    ring_kernels.reset_launches()
+    got = run(mesh, torch.float32, engine_fallback=False)
+    assert ring_kernels.ring_gather.launches == 2 * 3 * iters * len(mesh.cards)
+    assert ring_kernels.ring_reduce.launches == 3 * iters * len(mesh.cards)
+    want = run(make_mesh(n_devices=4, device="cpu"), torch.float64)
+    assert max(abs(a - b) for a, b in zip(got.fits, want.fits)) <= 1e-4
+    for fallback in (True, False):
+        resilience.reset_demotions()
+        with faults.inject("comm.ring_exchange", "runtime", times=1):
+            with pytest.raises(RuntimeError, match="injected"):
+                run(mesh, torch.float32, engine_fallback=fallback)
+    resilience.reset_demotions()
+    resilience.run_report().clear()

@@ -21,8 +21,19 @@ Phases, each fatal on failure:
 5. main path at full width: ``cpd_als`` on the phase-3 tensor for 5
    iterations with engine fallback off and every launch counter set to 0
    just before; the fit must be finite in (0, 1], no engine demoted and
-   the kernel launched nmodes x iterations times; then each phase of a
-   sweep is timed alone;
+   ``fused_mttkrp_t`` and the eigensolver ``sym_eig`` each launched
+   nmodes x iterations times; then each phase of a sweep is timed alone
+   (the solve as run, with ``torch.linalg.eigh`` in the kernel's place
+   and with its Cholesky branch alone, beside the steady iteration), one
+   sweep runs under ``torch.cuda.set_sync_debug_mode("error")``, and
+   ``sym_eig`` on each mode's normal-equations matrix, f32 and f64, is
+   held against its plain version and the matrix's f64 eigh (w within
+   1e-5 / 1e-12 of max|w|, the pseudo-inverse operator within 1e-4 /
+   1e-10), timed beside its bound and ``torch.linalg.eigh``, and both
+   timed per call on random SPD matrices from R = 16 to the kernel's
+   shared-memory limit of 168; last ``cpd_als`` at ranks 50 to 168 with
+   the kernel and with ``torch.linalg.eigh`` in the solve, in turns
+   (fits within 1e-4), beside where the solve's rank gate sends each;
 6. the other four kernels against their plain versions on the phase-3
    layouts: ``fused_mttkrp_tg`` and ``fused_mttkrp`` in both contracts on
    every mode (the phase-3 cases), ``onehot_reduce_sorted`` on each mode's
@@ -44,7 +55,8 @@ Phases, each fatal on failure:
 8. rank 512 at full width: ``cpd_als`` on the phase-3 layouts, 3
    iterations, no fault: the plan reads ``fused_tg`` on every mode, no
    demotion, ``fused_mttkrp_tg`` launched 9 times, the fit finite in
-   (0, 1];
+   (0, 1]; the eigensolver's gate is printed (R = 512 keeps
+   ``torch.linalg.eigh``) and the sweep phases timed as in phase 5;
 9. the compact format v2 and bf16 storage: the phase-3 layouts re-encoded
    (``reencode_layout``, no second host sort) under ``auto``, ``u8``,
    ``delta`` and ``rle``, each mode's ``format_desc`` and
@@ -75,14 +87,27 @@ Phases, each fatal on failure:
    ONEMODE: a ``format_fallback`` event with ``site="dense"`` for mode 0,
    whose plan is then ``sorted_onehot/fused_t`` beside two dense modes,
    and a 2-iteration CPD within 1e-4 of the dense one; with
-   ``engine.fused_dense`` armed ``cpd_als`` raises, fallback on or off.
+   ``engine.fused_dense`` armed ``cpd_als`` raises, fallback on or off;
+   the dense sweep also runs under the sync-debug check;
+11. the FINE distributed CPD on phase 3's tensor over every card, or 4
+   virtual ranks sharing the one card: the gather plans built once per
+   mode, ``ring_gather`` per gather leg exact against its plain walk and
+   the sync ring, ``ring_reduce`` per mode within 1e-4, each timed beside
+   its bound, its plain version and the library; the ``ASYNC_RING`` CPD
+   (30 + 15 ring launches per card, one plan per mode per rank, 0
+   ``comm_fallback``), the overlap probe, the single-card COO CPD and
+   ``ALL2ALL`` (fits within 1e-4) and the ``comm.ring_exchange`` drill.
 
-The line before the last is the ``{"kernels": [...]}`` record; the last is
-``{"ok": true, "device": {...}}``.
+The line before the last is the ``{"kernels": [...]}`` record (the nine
+TPU kernels' counterparts and ``sym_eig``); the last is
+``{"ok": true, "device": {...}}``.  ``python3 chip_smoke.py --ring`` runs
+phases 1-3's set-up and phase 11 alone (for a call with several cards)
+and prints the two ring kernels' entries.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import re
@@ -342,7 +367,7 @@ def phase_main_path(bs, rank: int) -> dict:
 
     from splatt_tpu_torch import Options, cpd_als, resilience
     from splatt_tpu_torch.config import BlockAlloc
-    from splatt_tpu_torch.ops import kernels
+    from splatt_tpu_torch.ops import kernels, linalg
 
     # fallback off: no rescue can hide a broken kernel
     opts = Options(block_alloc=BlockAlloc.ALLMODE, max_iterations=ITERS,
@@ -351,11 +376,13 @@ def phase_main_path(bs, rank: int) -> dict:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launches()
+    linalg.sym_eig.launches = 0
     t0 = time.perf_counter()
     out = cpd_als(bs, rank, opts)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     launches = kernels.fused_mttkrp_t.launches
+    eig_launches = linalg.sym_eig.launches
     if resilience.demotions():
         raise AssertionError(f"demotions on the main path: "
                              f"{resilience.demotions()}")
@@ -367,32 +394,118 @@ def phase_main_path(bs, rank: int) -> dict:
     log(f"[cpd] {steady:.5f} s/iteration (iterations 2..{ITERS}); whole "
         f"call {seconds:.3f} s with init, norm and post-processing; peak "
         f"device memory {peak / 2**30:.2f} GiB; fused_mttkrp_t launches "
-        f"{launches}")
+        f"{launches}; sym_eig launches {eig_launches}")
     if not (math.isfinite(fit) and 0.0 < fit <= 1.0):
         raise AssertionError(f"fit {fit} is not finite in (0, 1]")
-    if launches != bs.nmodes * ITERS:
-        raise AssertionError(f"fused_mttkrp_t launched {launches} times, "
-                             f"expected {bs.nmodes * ITERS}")
-    parts = sweep_phases(bs, out.factors, steady, "[cpd]", cholesky=True)
-    return {"launches": launches, "sec_per_iter": steady, "phases": parts,
-            "fits": list(out.fits)}
+    if launches != bs.nmodes * ITERS or eig_launches != bs.nmodes * ITERS:
+        raise AssertionError(f"fused_mttkrp_t launched {launches} times and "
+                             f"sym_eig {eig_launches}, expected "
+                             f"{bs.nmodes * ITERS} each")
+    parts = sweep_phases(bs, out.factors, steady, "[cpd]")
+    log(f"[cpd] an earlier run of this script with torch.linalg.eigh in "
+        f"the solve (H100 80GB HBM3, 700 W, another run): solve "
+        f"{EIGH_SOLVE_MS} ms, iteration {EIGH_ITER_MS} ms; this run: solve "
+        f"{parts['solve']:.3f} ms, iteration {steady * 1e3:.3f} ms")
+    host_ms = sweep_without_sync(bs, out.factors, "[cpd]")
+    eig = phase_sym_eig(bs, out.factors)
+    return {"launches": launches, "sym_eig_launches": eig_launches,
+            "sec_per_iter": steady, "phases": parts, "fits": list(out.fits),
+            "sweep_enqueue_ms": host_ms, "sym_eig": eig,
+            "sym_eig_scaling": sym_eig_scaling(),
+            "solve_crossover": solve_crossover(bs)}
+
+
+#: ranks at which phase 5 runs the CPD with each eigensolver in the solve
+CROSSOVER_RANKS = (50, 64, 80, 96, 112, 128, 168)
+#: the two routes' fits at one rank, both f32 on the same layouts
+CROSSOVER_FIT_TOL = 1e-4
+
+
+def solve_crossover(bs) -> list:
+    """cpd_als on the phase-3 layouts at each of CROSSOVER_RANKS with the
+    solve's eigendecomposition the sym_eig kernel or torch.linalg.eigh
+    (put in linalg.eigh's place, whatever the gate), after an untimed
+    2-iteration run of each, in turns kernel, eigh, eigh, kernel: each
+    route's steady ms per iteration, the same run's pair, and where the
+    gate (linalg.solve_takes_sym_eig) sends the rank."""
+    import torch
+
+    from splatt_tpu_torch import Options, cpd_als
+    from splatt_tpu_torch.config import BlockAlloc, Verbosity
+    from splatt_tpu_torch.ops import linalg
+
+    opts = Options(block_alloc=BlockAlloc.ALLMODE, max_iterations=ITERS,
+                   tolerance=0.0, random_seed=0, engine_fallback=False,
+                   verbosity=Verbosity.NONE)
+    routes = {"sym_eig": linalg.sym_eig, "eigh": torch.linalg.eigh}
+    real = linalg.eigh
+    rows = []
+    try:
+        for R in CROSSOVER_RANKS:
+            for fn in routes.values():
+                linalg.eigh = fn
+                cpd_als(bs, R, dataclasses.replace(opts, max_iterations=2))
+            ms = {k: [] for k in routes}
+            fits = {}
+            for name in ("sym_eig", "eigh", "eigh", "sym_eig"):
+                linalg.eigh = routes[name]
+                out = cpd_als(bs, R, opts)
+                ms[name].append(sum(out.iter_seconds[1:]) * 1e3
+                                / (len(out.iter_seconds) - 1))
+                fits[name] = list(out.fits)
+            diff = max(abs(a - b) for a, b in zip(fits["sym_eig"],
+                                                  fits["eigh"]))
+            if not diff <= CROSSOVER_FIT_TOL:
+                raise AssertionError(f"rank {R}: fits {fits} differ by "
+                                     f"{diff:.3e} between the routes")
+            row = dict(R=R, sym_eig_ms=sum(ms["sym_eig"]) / 2,
+                       eigh_ms=sum(ms["eigh"]) / 2, runs_ms=ms,
+                       fit_diff=diff,
+                       gate=linalg.solve_takes_sym_eig(R, torch.float32))
+            row["kernel_faster"] = row["sym_eig_ms"] < row["eigh_ms"]
+            log(f"[crossover] {json.dumps(row)}")
+            rows.append(row)
+    finally:
+        linalg.eigh = real
+    return rows
 
 
 def cholesky_solve_only(lhs, rhs):
-    """The dense solve's Cholesky branch alone: no eigh, so no read of
-    its solver status on the host."""
+    """The dense solve's Cholesky branch alone: no eigendecomposition."""
     import torch
 
     L, _ = torch.linalg.cholesky_ex(lhs)
     return torch.cholesky_solve(rhs.T, L).T
 
 
-def sweep_phases(bs, U, steady: float, tag: str,
-                 cholesky: bool = False) -> dict:
+def solve_with_eigh(lhs, rhs):
+    """The solve with torch.linalg.eigh in the eigensolver's place (the
+    port's solve before the eigensolver kernel), which reads its solver
+    status on the host:
+    the library yardstick of the sym_eig kernel, never called by the
+    port on a card within the kernel's gate."""
+    import torch
+
+    from splatt_tpu_torch.config import acc_dtype
+
+    rhs = rhs.to(acc_dtype(rhs.dtype))
+    L, info = torch.linalg.cholesky_ex(lhs)
+    x_chol = torch.cholesky_solve(rhs.T, L).T
+    w, v = torch.linalg.eigh(lhs)
+    tol = torch.finfo(lhs.dtype).eps ** 0.5 * w.abs().max()
+    w_inv = torch.where(w.abs() > tol, 1.0 / w, torch.zeros_like(w))
+    x_pinv = (rhs @ (v * w_inv)) @ v.T
+    spd = (info == 0) & (w.min() > tol) & torch.isfinite(x_chol).all()
+    return torch.where(spd, x_chol, x_pinv)
+
+
+def sweep_phases(bs, U, steady: float, tag: str) -> dict:
     """Where a sweep's time goes: each phase timed alone on factors `U`,
-    summed over modes.  With `cholesky`, the solve is also timed with its
-    Cholesky branch alone (key ``solve_cholesky_only``): the difference
-    is the eigh fallback and its host sync."""
+    summed over modes, beside the steady iteration (host clock): the rest
+    is launch and host time between the phases.  The solve is timed as
+    the port runs it (the sym_eig kernel within its gate), with
+    torch.linalg.eigh in the kernel's place (key ``solve_eigh``) and with
+    its Cholesky branch alone (``solve_cholesky_only``)."""
     from splatt_tpu_torch import mttkrp
     from splatt_tpu_torch.ops.linalg import (form_normal_lhs, gram,
                                              normalize_columns,
@@ -400,26 +513,227 @@ def sweep_phases(bs, U, steady: float, tag: str,
 
     grams = [gram(u) for u in U]
     parts = {"mttkrp": 0.0, "solve": 0.0, "normalize+gram": 0.0}
-    chol = 0.0
+    alt = {"solve_eigh": 0.0, "solve_cholesky_only": 0.0}
     for m in range(bs.nmodes):
         M = mttkrp(bs, U, m)
         lhs = form_normal_lhs(grams, m)
         parts["mttkrp"] += time_ms(lambda: mttkrp(bs, U, m), reps=5)
         parts["solve"] += time_ms(lambda: solve_normals(lhs, M), reps=5)
-        if cholesky:
-            chol += time_ms(lambda: cholesky_solve_only(lhs, M), reps=5)
+        alt["solve_eigh"] += time_ms(lambda: solve_with_eigh(lhs, M), reps=5)
+        alt["solve_cholesky_only"] += time_ms(
+            lambda: cholesky_solve_only(lhs, M), reps=5)
         parts["normalize+gram"] += time_ms(
             lambda: gram(normalize_columns(M, "max")[0]), reps=5)
+    rest = steady * 1e3 - sum(parts.values())
     log(f"{tag} sweep phases, ms summed over modes: "
         + ", ".join(f"{k} {v:.3f}" for k, v in parts.items())
-        + f"; MTTKRP share of a steady iteration "
-          f"{parts['mttkrp'] / 1e3 / steady:.1%}")
-    if cholesky:
-        log(f"{tag} solve with the Cholesky branch alone {chol:.3f} ms "
-            f"summed over modes, against {parts['solve']:.3f} ms with the "
-            f"eigh fallback and its host sync")
-        parts["solve_cholesky_only"] = chol
+        + f"; steady iteration {steady * 1e3:.3f} ms, of which "
+          f"{rest:.3f} ms outside the phases (launches, host, fit read); "
+          f"MTTKRP share {parts['mttkrp'] / 1e3 / steady:.1%}")
+    log(f"{tag} solve summed over modes: {parts['solve']:.3f} ms as run, "
+        f"{alt['solve_eigh']:.3f} ms with torch.linalg.eigh (host sync), "
+        f"{alt['solve_cholesky_only']:.3f} ms with the Cholesky branch "
+        f"alone")
+    parts.update(alt, outside_phases=rest)
     return parts
+
+
+def sweep_without_sync(bs, U, tag: str) -> float:
+    """One ALS sweep of cpd.py on factors `U` under
+    torch.cuda.set_sync_debug_mode("error"): it raises if anything in the
+    sweep waits on the host.  Returns the host ms to enqueue it."""
+    import torch
+
+    from splatt_tpu_torch.cpd import _mttkrp_closure, _sweep
+    from splatt_tpu_torch.ops.linalg import check_solver, gram
+
+    do_mttkrp = _mttkrp_closure(bs, bs.device, U[0].dtype, False)
+
+    def run():
+        facs = [u.clone() for u in U]
+        return _sweep(do_mttkrp, facs, [gram(u) for u in facs], False, 0.0)
+
+    run()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        t0 = time.perf_counter()
+        run()
+        host_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    check_solver()
+    log(f"{tag} one sweep under set_sync_debug_mode('error'): no host "
+        f"sync; enqueued in {host_ms:.3f} ms")
+    return host_ms
+
+
+#: f64 outside the tensor cores (NVIDIA H100 SXM data sheet), the rate of
+#: sym_eig's f64 instantiation
+F64_FLOP_PER_S = 34e12
+#: the sym_eig kernel's tolerances against its plain version and eigh,
+#: relative to the largest entry: (w, the pseudo-inverse operator)
+EIG_TOL = {"float32": (1e-5, 1e-4), "float64": (1e-12, 1e-10)}
+#: the NELL-2 solve summed over modes, and the iteration, with
+#: torch.linalg.eigh in the solve (this script's phase 5 on an H100 80GB
+#: HBM3 at 700 W, before the eigensolver kernel)
+EIGH_SOLVE_MS = 4.901
+EIGH_ITER_MS = 17.01
+#: ring_gather per launch when every step scanned all of a rank's ids
+#: (phase 11's mean over the legs in an earlier run of this script, same
+#: card model, before the owner buckets): printed in the log for
+#: comparison, never in the kernels line
+SCAN_GATHER_MS = 5.0062
+
+
+def _flop_rate(dtype) -> float:
+    return (F32_FLOP_PER_S if str(dtype).endswith("float32")
+            else F64_FLOP_PER_S)
+
+
+def eig_bound(A) -> tuple:
+    """(ms, by) least time of the symmetric eigendecomposition with
+    vectors of the (R, R) `A` on the whole card: A read once and (w, V)
+    written once over the HBM rate, against the 9 R^3 operations of
+    tridiagonalisation and the symmetric QR algorithm with vectors (Golub
+    and Van Loan) over the dtype's peak rate outside the tensor cores."""
+    R = int(A.shape[0])
+    return least_ms((2 * R * R + R) * A.element_size(), 9 * R ** 3,
+                    _flop_rate(A.dtype))
+
+
+def eig_algo_sm_ms(R: int, sweeps: int, dtype, sms: int) -> float:
+    """Least ms of the Jacobi sweeps this matrix needed in one CTA: 9 n^2
+    operations per round (6 per element of A, 3 per element of V) over
+    n - 1 rounds, at one SM's share of the dtype's peak rate.  A bound of
+    the kernel's algorithm on its one SM, not of the function."""
+    n = R + (R & 1)
+    ops = sweeps * (n - 1) * 9 * n * n
+    return ops / (_flop_rate(dtype) / sms) * 1e3
+
+
+def phase_sym_eig(bs, U, tag: str = "[eig]") -> list:
+    """The sym_eig kernel on each mode's normal-equations matrix of the
+    final factors `U`, f32 (as the sweep runs it) and f64: against its
+    plain version and torch.linalg.eigh of the matrix in f64 (sorted w
+    and the pseudo-inverse operator within EIG_TOL; the distance to
+    cuSOLVER's eigh in the matrix's own dtype is recorded beside, as
+    ``eigh_same_dtype_rel_err``), timed beside its bound, the plain
+    version and the library call (eigh in the matrix's dtype, its host
+    sync included)."""
+    import torch
+
+    from splatt_tpu_torch.ops import linalg
+
+    sms = torch.cuda.get_device_properties(bs.device).multi_processor_count
+    grams = [linalg.gram(u) for u in U]
+
+    def op(w, v, dtype):
+        """V diag(w_inv) Vᵀ with the cut of the solve in `dtype`."""
+        tol = torch.finfo(dtype).eps ** 0.5 * w.abs().max()
+        return (v * torch.where(w.abs() > tol, 1.0 / w,
+                                torch.zeros_like(w))) @ v.T
+
+    def rel(a, b):
+        return float((a - b).abs().max() / b.abs().max())
+
+    rows = []
+    for dtype in (torch.float32, torch.float64):
+        w_tol, op_tol = EIG_TOL[str(dtype).replace("torch.", "")]
+        for m in range(bs.nmodes):
+            A = linalg.form_normal_lhs(grams, m).to(dtype)
+            R = int(A.shape[0])
+            w, v, sweeps = linalg.sym_eig(A, return_sweeps=True)
+            wp, vp, sweeps_plain = linalg.sym_eig_plain(A)
+            we, ve = torch.linalg.eigh(A.double())
+            w_same = torch.linalg.eigh(A)[0]
+            torch.cuda.synchronize()
+            linalg.check_solver()
+            row = dict(mode=m, dtype=str(dtype), R=R, sweeps=int(sweeps),
+                       sweeps_plain=sweeps_plain,
+                       max_abs_err=float((w - wp).abs().max()),
+                       max_rel_err=rel(w, wp),
+                       op_rel_err=rel(op(w, v, dtype), op(wp, vp, dtype)),
+                       eigh_rel_err=rel(w.double(), we),
+                       eigh_op_rel_err=rel(op(w, v, dtype).double(),
+                                           op(we, ve, dtype)),
+                       eigh_same_dtype_rel_err=rel(w, w_same),
+                       eigh_same_dtype_exact_rel_err=rel(w_same.double(),
+                                                         we))
+            if not (row["max_rel_err"] <= w_tol and row["eigh_rel_err"]
+                    <= w_tol and row["op_rel_err"] <= op_tol
+                    and row["eigh_op_rel_err"] <= op_tol):
+                raise AssertionError(f"sym_eig mode {m} {dtype}: {row}")
+            row.update(ms=time_ms(lambda: linalg.sym_eig(A), reps=20,
+                                  warmup=2),
+                       plain_ms=time_ms(lambda: linalg.sym_eig_plain(A),
+                                        reps=1),
+                       library_ms=time_ms(lambda: torch.linalg.eigh(A),
+                                          reps=20, warmup=2),
+                       algo_sm_bound_ms=eig_algo_sm_ms(R, int(sweeps),
+                                                       dtype, sms))
+            row["bound_ms"], row["bound_by"] = eig_bound(A)
+            log(f"{tag} sym_eig {json.dumps(row)}")
+            rows.append(row)
+    return rows
+
+
+#: ranks of the eigensolver's scaling probe, up to the gate's f32 limit
+EIG_SCALING_RANKS = (16, 32, 64, 96, 128, 168)
+
+
+def sym_eig_scaling(seed: int = 21) -> list:
+    """sym_eig against torch.linalg.eigh per call on a random SPD f32
+    matrix (eigenvalues in [1, 10]) at each of EIG_SCALING_RANKS, the
+    kernel held to the matrix's f64 eigh as in phase_sym_eig."""
+    import torch
+
+    from splatt_tpu_torch.ops import linalg
+
+    rng = np.random.default_rng(seed)
+    rows = []
+    for R in EIG_SCALING_RANKS:
+        Q, _ = np.linalg.qr(rng.standard_normal((R, R)))
+        A = torch.from_numpy((Q * rng.uniform(1.0, 10.0, R)) @ Q.T).to(
+            "cuda", torch.float32)
+        A = (A + A.T) / 2
+        w, _, sweeps = linalg.sym_eig(A, return_sweeps=True)
+        exact = torch.linalg.eigh(A.double())[0]
+        torch.cuda.synchronize()
+        linalg.check_solver()
+        err = float((w.double() - exact).abs().max() / exact.abs().max())
+        if not err <= EIG_TOL["float32"][0]:
+            raise AssertionError(f"sym_eig at R = {R}: w off by {err:.3e}")
+        row = dict(R=R, sweeps=int(sweeps), rel_err=err,
+                   threads=linalg.sym_eig_threads(R),
+                   ms=time_ms(lambda: linalg.sym_eig(A), reps=20, warmup=2),
+                   eigh_ms=time_ms(lambda: torch.linalg.eigh(A), reps=20,
+                                   warmup=2))
+        rows.append(row)
+    log(f"[eig] sym_eig and eigh per call by rank, f32: {json.dumps(rows)}")
+    return rows
+
+
+def eig_gate(R: int) -> dict:
+    """The eigensolver's static gate at rank R in f32, printed."""
+    import torch
+
+    from splatt_tpu_torch.ops import kernels, linalg
+
+    fits = linalg.sym_eig_fits(R, torch.float32)
+    takes = linalg.solve_takes_sym_eig(R, torch.float32)
+    gate = dict(R=R, dtype="float32", fits=fits, solve_takes_sym_eig=takes,
+                solve_max_rank=linalg.SYM_EIG_SOLVE_MAX_RANK,
+                smem_bytes=linalg.sym_eig_smem_bytes(R, 4),
+                smem_limit=kernels.SMEM_TILE_BYTES)
+    log(f"[eig] gate at R = {R}: {json.dumps(gate)}; "
+        + ("the sym_eig kernel runs" if takes else
+           "the solve keeps torch.linalg.eigh and its host sync "
+           "(ROADMAP.md, queue C): "
+           + ("above the rank where the kernel stops winning" if fits else
+              "A and V do not fit one CTA's shared memory")))
+    return gate
 
 
 def phase_new_kernels(bs, rank: int, seed: int = 1) -> dict:
@@ -779,8 +1093,9 @@ def phase_rank512(bs) -> dict:
         del got
     log(f"[rank{BIG_RANK}] fused_mttkrp_tg per sorted launch by mode "
         f"{json.dumps(kernel)}")
+    gate = eig_gate(BIG_RANK)
     parts = sweep_phases(bs, out.factors, steady, f"[rank{BIG_RANK}]")
-    return {"launches": launches, "sec_per_iter": steady,
+    return {"launches": launches, "sec_per_iter": steady, "eig_gate": gate,
             "peak_gib": peak / 2**30, "fits": list(out.fits),
             "kernel": kernel, "phases": parts}
 
@@ -1142,9 +1457,11 @@ def phase_dense(rank: int, seed: int = 1) -> dict:
     if not all(math.isfinite(f) and 0.0 < f <= 1.0 for f in out.fits):
         raise AssertionError(f"dense fits {out.fits}")
     parts = sweep_phases(bs, out.factors, steady, "[dense]")
+    host_ms = sweep_without_sync(bs, out.factors, "[dense]")
     dense_cpd = dict(fits=list(out.fits), sec_per_iter=steady,
                      iter_seconds=list(out.iter_seconds), peak_gib=peak,
-                     launches=launches, sweep_phase_ms=parts, plan=plan)
+                     launches=launches, sweep_phase_ms=parts, plan=plan,
+                     sweep_enqueue_ms=host_ms)
 
     # the same tensor all sparse, from the same init
     splan = describe_plan(sparse, factors)
@@ -1345,6 +1662,44 @@ def ring_library(kind: str, mesh, mats, idx, block: int, dim_pad: int):
     return fn, "index_add_ + sum of the ranks' partials (one card: no NCCL)"
 
 
+def gather_pitch_probe(mesh, U_l, idx, plans, peer) -> dict:
+    """ring_gather on one leg with its rows packed (R * esize bytes
+    apart) against the burst-aligned pitch it runs with, and with bf16
+    shards (exact against the sync ring), each timed."""
+    import torch
+
+    from splatt_tpu_torch.parallel import ring, ring_kernels
+
+    out = {}
+    aligned = ring_kernels.ROW_PITCH_ALIGN
+    try:
+        for label, align in (("packed_ms", U_l[0].element_size()),
+                             ("pitch_ms", aligned)):
+            ring_kernels.ROW_PITCH_ALIGN = align
+            out[label] = mesh_time_ms(lambda: ring_kernels.ring_gather(
+                U_l, idx, mesh, plans=plans), mesh, reps=10, warmup=2)
+    finally:
+        ring_kernels.ROW_PITCH_ALIGN = aligned
+    U_b = [u.to(torch.bfloat16) for u in U_l]
+    got = ring_kernels.ring_gather(U_b, idx, mesh, plans=plans)
+    want = ring.gather_hops(U_b, idx, mesh)
+    if not all(torch.equal(g, w) for g, w in zip(got, want)):
+        raise AssertionError("bf16 ring_gather differs from the sync ring")
+    del got, want
+    R = int(U_b[0].shape[1])
+    hbm = [4 * int(i.shape[0]) + nbytes(U) + int(i.shape[0]) * R * 2
+           for U, i in zip(U_b, idx)]
+    hop = [(mesh.ndev - 1) * nbytes(U) for U in U_b]
+    out["bf16_ms"] = mesh_time_ms(lambda: ring_kernels.ring_gather(
+        U_b, idx, mesh, plans=plans), mesh, reps=10, warmup=2)
+    out["bf16_bound_ms"] = ring_bound(mesh, hbm, hop, [0] * mesh.ndev,
+                                      peer)[0]
+    out["pitch_align"] = aligned
+    log(f"[ring] ring_gather pitch probe (mode 0's first leg): "
+        f"{json.dumps(out)}")
+    return out
+
+
 def _peaks(mesh) -> dict:
     import torch
 
@@ -1398,7 +1753,18 @@ def phase_distributed(tt, rank: int, seed: int = 11) -> dict:
     facs = shard_factors(init, tt.dims, mesh, dtype=torch.float32)
     mesh_sync(mesh)
 
-    # 1. each kernel against its plain version on the real shards
+    # 1. each kernel against its plain version on the real shards; the
+    # gather's plans built once per mode, as the CPD builds them
+    t0 = time.perf_counter()
+    plans = {k: ring_kernels.build_gather_plans(
+        [i[k] for i in inds], mesh, dims_pad[k] // ndev)
+        for k in range(tt.nmodes)}
+    mesh_sync(mesh)
+    plan_s = time.perf_counter() - t0
+    plan_bytes = sum(nbytes(p.pos, p.loc, p.offsets)
+                     for ps in plans.values() for p in ps)
+    log(f"[ring] gather plans: {tt.nmodes} modes x {ndev} ranks built in "
+        f"{plan_s:.3f} s, {plan_bytes} bytes on the card(s)")
     rows_out = {"ring_gather": [], "ring_reduce": []}
     for m in range(tt.nmodes):
         prod = [v[:, None].clone() for v in vals]
@@ -1407,16 +1773,22 @@ def phase_distributed(tt, rank: int, seed: int = 11) -> dict:
                 continue
             U_l, idx = facs[k], [i[k] for i in inds]
             block = dims_pad[k] // ndev
-            got = ring_kernels.ring_gather(U_l, idx, mesh)
+            got = ring_kernels.ring_gather(U_l, idx, mesh, plans=plans[k])
             want = ring.gather_hops(U_l, idx, mesh)
+            plain = ring_kernels.ring_gather_plain(U_l, plans[k], mesh)
             mesh_sync(mesh)
             ring_kernels.check_errors()
-            err = max(float((g - w).abs().max()) for g, w in zip(got, want))
-            if err != 0.0:
+            err = max(float((g - w).abs().max())
+                      for g, w in zip(got, want))
+            err_plain = max(float((g - w).abs().max())
+                            for g, w in zip(got, plain))
+            if err != 0.0 or err_plain != 0.0:
                 raise AssertionError(f"ring_gather mode {k} for mode {m}: "
-                                     f"max error {err}, expected exact")
+                                     f"max error {err} against the sync "
+                                     f"ring, {err_plain} against the plain "
+                                     f"walk, expected exact")
             prod = [p * w for p, w in zip(prod, want)]
-            del got, want
+            del got, want, plain
             lib, label = ring_library("gather", mesh, U_l, idx, block,
                                       dims_pad[k])
             hbm = [4 * int(i.shape[0]) + U.numel() * U.element_size()
@@ -1427,8 +1799,12 @@ def phase_distributed(tt, rank: int, seed: int = 11) -> dict:
             row = dict(leg=f"mode {m}: gather factor {k}", mode=m, factor=k,
                        block=block, max_abs_err=err, max_rel_err=err,
                        ms=mesh_time_ms(lambda: ring_kernels.ring_gather(
-                           U_l, idx, mesh), mesh, reps=10, warmup=2),
-                       plain_ms=mesh_time_ms(lambda: ring.gather_hops(
+                           U_l, idx, mesh, plans=plans[k]), mesh, reps=10,
+                           warmup=2),
+                       plain_ms=mesh_time_ms(
+                           lambda: ring_kernels.ring_gather_plain(
+                               U_l, plans[k], mesh), mesh, reps=3),
+                       sync_ring_ms=mesh_time_ms(lambda: ring.gather_hops(
                            U_l, idx, mesh), mesh, reps=3),
                        library_ms=mesh_time_ms(lib, mesh, reps=10),
                        library=label, bound_ms=b_ms, bound_by=b_by,
@@ -1470,6 +1846,8 @@ def phase_distributed(tt, rank: int, seed: int = 11) -> dict:
         rows_out["ring_reduce"].append(row)
         del prod
         torch.cuda.empty_cache()
+    pitch = gather_pitch_probe(mesh, facs[1], [i[1] for i in inds], plans[1],
+                               peer)
     del facs
 
     def opts(comm, **kw):
@@ -1489,6 +1867,7 @@ def phase_distributed(tt, rank: int, seed: int = 11) -> dict:
     mesh_sync(mesh)
     launches = {"ring_gather": ring_kernels.ring_gather.launches,
                 "ring_reduce": ring_kernels.ring_reduce.launches}
+    builds = ring_kernels.build_gather_plans.builds
     ring_peaks = _peaks(mesh)
     fallbacks = resilience.run_report().events("comm_fallback")
     steady = sum(out.iter_seconds[1:]) / (len(out.iter_seconds) - 1)
@@ -1498,11 +1877,27 @@ def phase_distributed(tt, rank: int, seed: int = 11) -> dict:
     log(f"[ring] async_ring cpd fits {list(out.fits)}")
     log(f"[ring] async_ring cpd {steady:.5f} s/iteration (iterations "
         f"2..{RING_ITERS}); launches {launches} (expected {want_g} and "
-        f"{want_r}: {ncards_used} card(s)); comm_fallback events "
-        f"{len(fallbacks)}; peak GiB per card {ring_peaks}")
+        f"{want_r}: {ncards_used} card(s)); gather plans built {builds} "
+        f"(expected {tt.nmodes * ndev}: one per mode per rank); "
+        f"comm_fallback events {len(fallbacks)}; peak GiB per card "
+        f"{ring_peaks}")
+    gather_ms = sum(r["ms"] for r in rows_out["ring_gather"]) / len(
+        rows_out["ring_gather"])
+    gather_lib = sum(r["library_ms"] for r in rows_out["ring_gather"]) / len(
+        rows_out["ring_gather"])
+    gather_bound = sum(r["bound_ms"] for r in rows_out["ring_gather"]) / len(
+        rows_out["ring_gather"])
+    log(f"[ring] ring_gather {gather_ms:.4f} ms per launch (mean over the "
+        f"legs) beside its bound {gather_bound:.4f} ms, the library "
+        f"{gather_lib:.4f} ms; the all-ids scan design read "
+        f"{SCAN_GATHER_MS} ms in an earlier run of this script (H100 80GB "
+        f"HBM3, 700 W), not this one")
     if launches != {"ring_gather": want_g, "ring_reduce": want_r}:
         raise AssertionError(f"ring launches {launches}, expected "
                              f"{want_g} and {want_r}")
+    if builds != tt.nmodes * ndev:
+        raise AssertionError(f"{builds} gather plans built, expected "
+                             f"{tt.nmodes * ndev}")
     if fallbacks:
         raise AssertionError(f"comm_fallback events: {fallbacks}")
     if not all(math.isfinite(f) for f in out.fits):
@@ -1579,7 +1974,8 @@ def phase_distributed(tt, rank: int, seed: int = 11) -> dict:
     log(f"[ring] phase 11 took {seconds:.1f} s")
     return {"rows": rows_out, "launches": launches, "ranks": nranks,
             "cards": ncards_used, "virtual": mesh.virtual, "peers": peers,
-            "copy_rate": peer,
+            "copy_rate": peer, "plan_builds": builds, "pitch_probe": pitch,
+            "plan_bytes": plan_bytes, "plan_build_s": plan_s,
             "cpd": {"sec_per_iter": steady, "fits": list(out.fits),
                     "iter_seconds": list(out.iter_seconds),
                     "peak_gib": ring_peaks, "coo_fits": list(coo.fits),
@@ -1625,7 +2021,44 @@ def _ring_row(name: str, replaces: str, dist: dict, per: str) -> dict:
         row.update(copy_rate=dist["copy_rate"], peers=dist["peers"],
                    cpd=dist["cpd"], overlap=dist["overlap"],
                    all2all=dist["all2all"], drill=dist["drill"],
-                   phase_seconds=dist["seconds"])
+                   phase_seconds=dist["seconds"],
+                   sync_ring_ms=sum(r["sync_ring_ms"] for r in rows)
+                   / len(rows), plan_builds=dist["plan_builds"],
+                   plan_bytes=dist["plan_bytes"],
+                   pitch_probe=dist["pitch_probe"])
+    return row
+
+
+def _eig_row(main_path: dict, big: dict, dense: dict) -> dict:
+    """The eigensolver's entry of the kernels line: phase 5's f32 rows
+    (the main path's dtype), its launches on the main path, the f64 rows,
+    and the gate at rank 512."""
+    rows = [r for r in main_path["sym_eig"] if r["dtype"] == "torch.float32"]
+    f64 = [r for r in main_path["sym_eig"] if r["dtype"] == "torch.float64"]
+    row = _record_row(
+        "sym_eig", "splatt_tpu_torch/csrc/sym_eig.cu",
+        "torch.linalg.eigh in the solve (splatt_tpu_torch/ops/linalg.py "
+        "solve_normals; its JAX counterpart jnp.linalg.eigh, "
+        "splatt_tpu/ops/linalg.py:78): a library call, not a TPU kernel",
+        main_path["sym_eig_launches"], rows, "library_ms",
+        note=f"ms/plain_ms/bound_ms/library_ms: mean per call over the 3 "
+        f"modes' normal-equations matrices of phase 5's final factors, "
+        f"R = {RANK}, f32; bound: A read and (w, V) written over the HBM "
+        f"rate against 9 R^3 operations over the f32 peak, the whole "
+        f"card; algo_sm_bound_ms: the Jacobi sweeps the matrix needed at "
+        f"one SM's share of that peak; library: torch.linalg.eigh, "
+        f"its host sync included; launches: phase 5's CPD",
+        contracts=main_path["sym_eig"],
+        algo_sm_bound_ms=sum(r["algo_sm_bound_ms"] for r in rows)
+        / len(rows),
+        f64={k: sum(r[k] for r in f64) / len(f64)
+             for k in ("ms", "plain_ms", "bound_ms", "algo_sm_bound_ms",
+                       "library_ms")},
+        solve_ms=dict(main=main_path["phases"], dense=dense["cpd"][
+            "sweep_phase_ms"], rank512=big["phases"]),
+        gate_rank512=big["eig_gate"], scaling=main_path["sym_eig_scaling"],
+        crossover=main_path["solve_crossover"])
+    row["max_rel_err"] = max(r["op_rel_err"] for r in rows)
     return row
 
 
@@ -1656,6 +2089,17 @@ def main() -> int:
     tt = synthetic_tensor(NELL2, NNZ, seed=0)
     log(f"[data] NELL-2-shaped {NELL2} nnz={tt.nnz}: generated in "
         f"{time.perf_counter() - t0:.2f} s")
+    if "--ring" in sys.argv[1:]:
+        dist = phase_distributed(tt, RANK)
+        print(json.dumps({"kernels": [
+            _ring_row("ring_gather", "splatt_tpu/parallel/ring_kernels.py:152",
+                      dist, "2 x nmodes x iterations per card"),
+            _ring_row("ring_reduce", "splatt_tpu/parallel/ring_kernels.py:260",
+                      dist, "nmodes x iterations per card")],
+            "power": dev["smi"]}))
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": dev["kind"], "count": dev["count"]}}))
+        return 0
     t0 = time.perf_counter()
     bs = BlockedSparse.from_coo(tt, Options(block_alloc=BlockAlloc.ALLMODE))
     torch.cuda.synchronize()
@@ -1773,6 +2217,7 @@ def main() -> int:
                   dist, "2 x nmodes x iterations per card"),
         _ring_row("ring_reduce", "splatt_tpu/parallel/ring_kernels.py:260",
                   dist, "nmodes x iterations per card"),
+        _eig_row(main_path, big, dense),
     ], "chain": chain, "power": dev["smi"]}
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {

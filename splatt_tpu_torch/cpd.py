@@ -32,8 +32,9 @@ from splatt_tpu_torch.config import (Options, Verbosity, acc_dtype,
                                      resolve_device, resolve_dtype)
 from splatt_tpu_torch.coo import SparseTensor
 from splatt_tpu_torch.kruskal import KruskalTensor, post_process
-from splatt_tpu_torch.ops.linalg import (form_normal_lhs, gram,
-                                         normalize_columns, solve_normals)
+from splatt_tpu_torch.ops.linalg import (check_solver, form_normal_lhs,
+                                         gram, normalize_columns,
+                                         solve_normals)
 from splatt_tpu_torch.ops.mttkrp import describe_plan, mttkrp, mttkrp_stream
 
 
@@ -148,8 +149,10 @@ def cpd_als(X: Union[SparseTensor, BlockedSparse], rank: int,
         t0 = time.perf_counter()
         lam, znormsq, inner = _sweep(do_mttkrp, factors, grams, it == 0,
                                      opts.regularization)
-        # fetching the fit waits for the sweep: the iteration's time ends here
+        # fetching the fit waits for the sweep: the iteration's time ends
+        # here, and the eigensolver's status word is read after it
         fitval = float(_fit(xnormsq, znormsq, inner))
+        check_solver()
         fits.append(fitval)
         seconds.append(time.perf_counter() - t0)
         if opts.verbosity >= Verbosity.LOW:

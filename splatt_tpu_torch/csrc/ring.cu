@@ -14,6 +14,11 @@
 //           s rank d holds shard (d - s) mod ndev and writes the rows of
 //           the nonzeros that shard owns.  An id outside [0, ndev*block)
 //           (a pad with owner -1) matches no shard and gives a zero row.
+//           The kernel reads no id: it walks rank d's gather plan
+//           (parallel/ring_kernels.py, build_gather_plans, made on the card
+//           once per id tensor), the nonzero positions stable-sorted by
+//           owner (pos), each one's within-block row (loc) and the ndev + 2
+//           offsets of the owner buckets, ids of no shard in the last.
 //   reduce: out_d = sum over every rank e and nonzero n of e with
 //           idx_e[n] / block == d of prod_e[n] at row idx_e[n] % block,
 //           (block, R) f32.  The partial of block j starts at rank j+1 and
@@ -28,7 +33,8 @@
 // cards do.  The launch is cooperative: the card refuses a grid whose CTAs
 // cannot all be resident, and a grid-wide barrier ends each step.
 //
-// The exchange.  Each rank owns a (2, block, R) landing zone.  A step's
+// The exchange.  Each rank owns a (2, block, R) landing zone (the
+// gather's two slots `slot` bytes apart, 256-byte aligned).  A step's
 // outgoing block is written by the kernel's own stores straight into the
 // right neighbour's slot (s+1)&1, through a CUDA peer pointer when the
 // neighbour is another card; the gather's stores fly while the same CTAs
@@ -48,13 +54,30 @@
 // raises at the next check.  A hang is never an outcome.
 //
 // What bounds them on this card: bytes.  The gather writes nnz_d * R
-// elements per rank and reads its ids ndev times; the reduce reads nnz_d *
-// R products and adds them into an L2-resident (block, R) accumulator.
-// The hops move (ndev-1) * block * R elements per rank over NVLink (or,
-// between virtual ranks, within the card's memory).  The design: warps scan
-// 32 nonzeros at a time, a ballot picks the ones the step's shard owns, and
-// the warp copies (or adds) each picked row with lanes over r.  No one-hot
-// matmul: each row is picked or added directly.
+// elements per rank and reads its plan (8 bytes per nonzero) once; the
+// reduce reads nnz_d * R products and adds them into an L2-resident
+// (block, R) accumulator.  The hops move (ndev-1) * block * R elements per
+// rank over NVLink (or, between virtual ranks, within the card's memory).
+//
+// The gather's design: at step s rank d's warps visit only bucket
+// (d - s) mod ndev of its plan, a 1/ndev share, with no integer division;
+// the bucket of ids of no shard is zero-filled at step 0.  A warp copies
+// several rows at once, 2^log2g lanes per row, each lane a vector of the
+// widest size the row bytes and the pointers allow (8 bytes at R = 50 in
+// f32, 16 when R * 4 is a multiple of 16), and issues all kUnroll rows'
+// loads (ld.global.cg: a landing slot is written by another rank) before
+// their stores.  A step writes about every ndev-th row, so a row that
+// ends inside a 64-byte DRAM burst shares it with rows of other steps,
+// which the card then reads back to merge: the output rows are `pitch`
+// bytes apart, a multiple of 64 (the wrapper returns the (nnz, R) view of
+// that buffer), and the kernel writes the pad as zeros so each burst is
+// written whole, once (on an H100 at R = 50 in f32 this halved the
+// gather's time; PERF.md).  Registers are capped so 4 CTAs of 256 threads
+// fit an SM.  The hop copies the shard in 16-byte vectors.
+//
+// The reduce: warps scan 32 nonzeros at a time, a ballot picks the ones of
+// the step's block, and the warp adds each picked row with lanes over r.
+// No one-hot matmul: each row is copied or added directly.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -70,6 +93,7 @@ constexpr int kMaxLocal = 16;      // ranks of one card in one launch
 constexpr int kReady = 0;          // flag words, 128 bytes apart
 constexpr int kCredit = 16;
 constexpr int kMaxCtasPerSm = 4;
+constexpr int kUnroll = 8;         // gather rows in flight per lane
 
 struct RankPtrs {
   const void* in;                  // gather: U shard (block, R);
@@ -85,6 +109,9 @@ struct RankPtrs {
   unsigned long long* flags_left;
   long long nnz;
   long long rank;
+  const int* pos;                  // gather plan: nonzero positions by owner
+  const int* loc;                  // gather plan: within-block row of each
+  const int* off;                  // gather plan: ndev + 2 bucket offsets
 };
 
 struct RingArgs {
@@ -96,6 +123,11 @@ struct RingArgs {
   volatile int* err;               // mapped host word
   int ndev;
   int exchange;                    // 0: compute only (the overlap probe)
+  long long slot;                  // gather: bytes between landing slots
+  long long row_bytes;             // gather: R * element size
+  int row_vecs;                    // gather: vectors per row
+  int pitch_vecs;                  // gather: vectors per output row
+  int log2g;                       // gather: log2 of the lanes per row
 };
 
 __device__ __forceinline__ unsigned long long ld_acquire_sys(
@@ -171,21 +203,94 @@ __device__ __forceinline__ float to_float(unsigned short v) {
   return __uint_as_float(static_cast<unsigned>(v) << 16);
 }
 
-// T: an unsigned integer of the element's size (the gather only copies).
-template <class T>
-__global__ void __launch_bounds__(kThreads)
+// The hop of a gather step: `bytes` of the shard into the right
+// neighbour's landing slot, in the widest vector both addresses allow
+// (16 bytes: the slots are 256-byte aligned), the tail byte by byte.
+template <class W>
+__device__ __forceinline__ void copy_span(char* dst, const char* src,
+                                          long long bytes, long long tid,
+                                          long long nthreads) {
+  const long long nv = bytes / (long long)sizeof(W);
+  W* d = reinterpret_cast<W*>(dst);
+  const W* s = reinterpret_cast<const W*>(src);
+  for (long long i = tid; i < nv; i += nthreads) d[i] = __ldcg(s + i);
+  for (long long i = nv * (long long)sizeof(W) + tid; i < bytes;
+       i += nthreads)
+    dst[i] = __ldcg(src + i);
+}
+
+__device__ __forceinline__ void copy_shard(char* dst, const char* src,
+                                           long long bytes, long long tid,
+                                           long long nthreads) {
+  const unsigned long long al = reinterpret_cast<unsigned long long>(dst) |
+                                reinterpret_cast<unsigned long long>(src);
+  if (!(al & 15))
+    copy_span<uint4>(dst, src, bytes, tid, nthreads);
+  else if (!(al & 7))
+    copy_span<uint2>(dst, src, bytes, tid, nthreads);
+  else if (!(al & 3))
+    copy_span<unsigned int>(dst, src, bytes, tid, nthreads);
+  else if (!(al & 1))
+    copy_span<unsigned short>(dst, src, bytes, tid, nthreads);
+  else
+    copy_span<unsigned char>(dst, src, bytes, tid, nthreads);
+}
+
+// One bucket's rows: entry e in [b0, b1) of the plan copies source row
+// loc[e] to output row pos[e] (kZero: writes a zero row).  A warp takes
+// kUnroll * (32 >> log2g) entries per pass: 2^log2g lanes per row, each
+// lane a V vector of the row at a time, and the kUnroll rows' loads are
+// issued before any store, so each lane keeps kUnroll loads in flight.
+template <class V, bool kZero>
+__device__ __forceinline__ void move_rows(V* rows, const V* src,
+                                          const int* pos, const int* loc,
+                                          long long b0, long long b1,
+                                          int vpr, int pitch, int log2g,
+                                          long long warp, long long nwarps,
+                                          int lane) {
+  const int g = 1 << log2g;
+  const int sub = lane >> log2g;
+  const int k0 = lane & (g - 1);
+  const int per = 32 >> log2g;
+  const long long chunk = (long long)per * kUnroll;
+  for (long long e0 = b0 + warp * chunk; e0 < b1; e0 += nwarps * chunk) {
+    int dst[kUnroll];
+    int from[kUnroll];
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const long long e = e0 + u * per + sub;
+      dst[u] = e < b1 ? __ldg(pos + e) : -1;
+      from[u] = (!kZero && e < b1) ? __ldg(loc + e) : 0;
+    }
+    // the output row is `pitch` vectors: the row's own, then zeros up to
+    // a whole number of 64-byte bursts, so no burst is written in part
+    for (int k = k0; k < pitch; k += g) {
+      V v[kUnroll];
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u)
+        v[u] = (!kZero && dst[u] >= 0 && k < vpr)
+                   ? __ldcg(src + (long long)from[u] * vpr + k)
+                   : V{};
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u)
+        if (dst[u] >= 0) rows[(long long)dst[u] * pitch + k] = v[u];
+    }
+  }
+}
+
+// V: the row copy's vector (2, 4, 8 or 16 bytes; the gather only copies).
+template <class V>
+__global__ void __launch_bounds__(kThreads, kMaxCtasPerSm)
     ring_gather_kernel(const __grid_constant__ RingArgs a) {
   cg::grid_group grid = cg::this_grid();
   __shared__ int s_abort;
   const RankPtrs me = a.r[blockIdx.y];
   const int ndev = a.ndev;
   const int d = static_cast<int>(me.rank);
-  const long long blk = a.block;
-  const long long R = a.R;
-  const long long shard_elems = blk * R;
-  const T* own = static_cast<const T*>(me.in);
-  const T* lz = static_cast<const T*>(me.lz);
-  T* rows = static_cast<T*>(me.out);
+  const long long shard_bytes = a.block * a.row_bytes;
+  const char* own = static_cast<const char*>(me.in);
+  const char* lz = static_cast<const char*>(me.lz);
+  V* rows = static_cast<V*>(me.out);
   const int lane = threadIdx.x & 31;
   const long long tid = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   const long long nthreads = (long long)gridDim.x * blockDim.x;
@@ -200,37 +305,23 @@ __global__ void __launch_bounds__(kThreads)
   __syncthreads();
   for (int s = 0; s < ndev; ++s) {
     const bool send = ex && s <= ndev - 2;
-    const T* src = (!ex || s == 0) ? own : lz + (s & 1) * shard_elems;
+    const char* src = (!ex || s == 0) ? own : lz + (s & 1) * a.slot;
     step_wait(a, me, s, ex && s >= 1, send, &s_abort);
     if (send) {
       // my CTA's share of the hop: the block into the right neighbour's
-      // slot (s+1)&1; the stores fly while the rows below are picked
-      T* dst = static_cast<T*>(me.lz_right) + ((s + 1) & 1) * shard_elems;
-      for (long long e = tid; e < shard_elems; e += nthreads)
-        dst[e] = load_cg(src + e);
+      // slot (s+1)&1; the stores fly while the rows below are copied
+      char* dst = static_cast<char*>(me.lz_right) + ((s + 1) & 1) * a.slot;
+      copy_shard(dst, src, shard_bytes, tid, nthreads);
     }
-    const long long shard = (d - s + ndev) % ndev;
-    for (long long n0 = warp * 32; n0 < me.nnz; n0 += nwarps * 32) {
-      const long long n = n0 + lane;
-      const int id = n < me.nnz ? me.idx[n] : 0;
-      const long long owner = id >= 0 ? id / blk : -1;
-      const bool mine = n < me.nnz && owner == shard;
-      const bool none = s == 0 && n < me.nnz && (owner < 0 || owner >= ndev);
-      unsigned pick = __ballot_sync(0xffffffffu, mine || none);
-      while (pick) {
-        const int l = __ffs(pick) - 1;
-        pick &= pick - 1;
-        const int idl = __shfl_sync(0xffffffffu, id, l);
-        const bool zero = __shfl_sync(0xffffffffu, none, l);
-        T* orow = rows + (n0 + l) * R;
-        if (zero) {
-          for (long long r = lane; r < R; r += 32) orow[r] = T(0);
-        } else {
-          const T* srow = src + (idl % blk) * R;
-          for (long long r = lane; r < R; r += 32) orow[r] = load_cg(srow + r);
-        }
-      }
-    }
+    // the bucket of the shard I hold: no scan of the other ranks' ids
+    const int b = (d - s + ndev) % ndev;
+    move_rows<V, false>(rows, reinterpret_cast<const V*>(src), me.pos,
+                        me.loc, me.off[b], me.off[b + 1], a.row_vecs,
+                        a.pitch_vecs, a.log2g, warp, nwarps, lane);
+    if (s == 0)   // ids of no shard: zero rows, once
+      move_rows<V, true>(rows, nullptr, me.pos, me.loc, me.off[ndev],
+                         me.off[ndev + 1], a.row_vecs, a.pitch_vecs,
+                         a.log2g, warp, nwarps, lane);
     if (send) __threadfence_system();
     grid.sync();
     if (ex && blockIdx.x == 0 && threadIdx.x == 0) {
@@ -352,6 +443,11 @@ int fill(RingArgs* a, const void* ranks, int nlocal, int ndev,
   a->err = static_cast<volatile int*>(err);
   a->ndev = ndev;
   a->exchange = exchange;
+  a->slot = 0;
+  a->row_bytes = 0;
+  a->row_vecs = 0;
+  a->pitch_vecs = 0;
+  a->log2g = 0;
   return 0;
 }
 
@@ -363,24 +459,52 @@ extern "C" {
 // launches on `stream` of card `dev`, does not synchronise and allocates
 // nothing.  `ranks` is an array of the card's ranks' RankPtrs (a type
 // local to this file, so the C interface takes it untyped); `err` is the
-// device address of a mapped host word (splatt_ring_alloc_host).
+// device address of a mapped host word (splatt_ring_alloc_host).  The
+// gather reads each rank's plan (pos, loc, off) and not its ids; `slot` is
+// the byte offset of its landing zone's second slot, `pitch` the bytes
+// between output rows (at least R * esize; the bytes past a row are
+// written as zeros).
 
 int splatt_ring_gather(int dev, const void* ranks, int nlocal, int ndev,
                        long long block, long long R, int esize, long long gen,
                        void* err, long long timeout_ns, int exchange,
-                       void* stream) {
+                       long long slot, long long pitch, void* stream) {
   RingArgs a;
   int rc = fill(&a, ranks, nlocal, ndev, block, R, gen, err, timeout_ns,
                 exchange);
   if (rc != 0) return rc;
-  if (esize == 2)
+  if (esize != 2 && esize != 4 && esize != 8)
+    return static_cast<int>(cudaErrorInvalidValue);
+  // the widest vector that the row bytes, the slot stride and every
+  // rank's shard, output and landing zones are aligned to
+  const long long row_bytes = R * esize;
+  if (pitch < row_bytes) return static_cast<int>(cudaErrorInvalidValue);
+  int vb = 16;
+  for (; vb > esize; vb /= 2) {
+    unsigned long long al =
+        static_cast<unsigned long long>(row_bytes | slot | pitch);
+    for (int i = 0; i < nlocal; ++i)
+      al |= reinterpret_cast<unsigned long long>(a.r[i].in) |
+            reinterpret_cast<unsigned long long>(a.r[i].out) |
+            reinterpret_cast<unsigned long long>(a.r[i].lz) |
+            reinterpret_cast<unsigned long long>(a.r[i].lz_right);
+    if (al % vb == 0) break;
+  }
+  const long long vpr = row_bytes / vb;
+  const long long pv = pitch / vb;
+  int log2g = 0;
+  while (log2g < 5 && (1LL << log2g) < pv) ++log2g;
+  a.slot = slot;
+  a.row_bytes = row_bytes;
+  a.row_vecs = static_cast<int>(vpr);
+  a.pitch_vecs = static_cast<int>(pv);
+  a.log2g = log2g;
+  if (vb == 2)
     return launch(ring_gather_kernel<unsigned short>, dev, a, nlocal, stream);
-  if (esize == 4)
+  if (vb == 4)
     return launch(ring_gather_kernel<unsigned int>, dev, a, nlocal, stream);
-  if (esize == 8)
-    return launch(ring_gather_kernel<unsigned long long>, dev, a, nlocal,
-                  stream);
-  return static_cast<int>(cudaErrorInvalidValue);
+  if (vb == 8) return launch(ring_gather_kernel<uint2>, dev, a, nlocal, stream);
+  return launch(ring_gather_kernel<uint4>, dev, a, nlocal, stream);
 }
 
 // prod_bf16: the products are bf16, else f32; the output is f32.

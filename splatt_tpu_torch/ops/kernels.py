@@ -7,7 +7,9 @@ plain C interface under ``splatt_tpu_torch/_build/`` (one ``nvcc`` per
 source, started together) and loads them with ``ctypes``.
 
 Seven wrappers here, one per single-card TPU kernel (the two ring
-kernels of ``csrc/ring.cu`` have theirs in ``parallel/ring_kernels.py``):
+kernels of ``csrc/ring.cu`` have theirs in ``parallel/ring_kernels.py``,
+and the eigensolver of ``csrc/sym_eig.cu``, which replaces a library call,
+has its wrapper in ``ops/linalg.py``):
 
 - :func:`fused_mttkrp_t`, :func:`fused_mttkrp_tg`, :func:`fused_mttkrp`
   (``csrc/fused_mttkrp.cu``): gather + Hadamard + row reduce over a v1
@@ -53,7 +55,7 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 SOURCES = ("fused_mttkrp.cu", "fused_mttkrp_v2.cu", "onehot_reduce.cu",
-           "fused_dense.cu", "ring.cu")
+           "fused_dense.cu", "ring.cu", "sym_eig.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 
@@ -176,11 +178,13 @@ _ENTRIES = {
                            [_P, _I, _P, _P, _I, _LL, _LL, _I, _I, _I, _I,
                             _LL, _P, _P]),
     "splatt_ring_gather": ("ring.cu", [_I, _P, _I, _I, _LL, _LL, _I, _LL,
-                                       _P, _LL, _I, _P]),
+                                       _P, _LL, _I, _LL, _LL, _P]),
     "splatt_ring_reduce": ("ring.cu", [_I, _P, _I, _I, _LL, _LL, _I, _LL,
                                        _P, _LL, _I, _P]),
     "splatt_ring_enable_peer": ("ring.cu", [_I, _I]),
     "splatt_ring_alloc_host": ("ring.cu", [_LL, _P, _P]),
+    "splatt_sym_eig": ("sym_eig.cu", [_P, _I, _I, _I, _I, _P, _P, _P, _P]),
+    "splatt_sym_eig_alloc_host": ("sym_eig.cu", [_LL, _P, _P]),
 }
 
 #: the value, table and product dtypes the kernels take on a card

@@ -2,22 +2,37 @@
 
 Counterpart of ``splatt_tpu/ops/linalg.py``.  The rank×rank and dim×rank
 dense math is plain ``torch.matmul``/``torch.linalg``, as the JAX package
-leaves it to XLA.  TF32 is switched off for float32 matmuls so the normal
-equations keep full float32 precision.  bf16 operands are cast to f32
-before any product (a bf16 ``torch.matmul`` returns bf16): Gram, solve and
-normalization accumulate in f32 (≙ splatt_tpu/ops/linalg.py:33-36,
-:74-83, :101-114).
+leaves it to XLA, but for the symmetric eigendecomposition of the solve:
+on a card that is :func:`sym_eig`, the hand-written Jacobi kernel of
+``csrc/sym_eig.cu``, because ``torch.linalg.eigh`` reads its solver status
+on the host once per call and the JAX sweep never waits on the host.
+TF32 is switched off for float32 matmuls so the normal equations keep full
+float32 precision.  bf16 operands are cast to f32 before any product (a
+bf16 ``torch.matmul`` returns bf16): Gram, solve and normalization
+accumulate in f32 (≙ splatt_tpu/ops/linalg.py:33-36, :74-83, :101-114).
 """
 
 from __future__ import annotations
 
-from typing import Sequence
+import ctypes
+import threading
+from typing import List, Sequence, Tuple
 
 import torch
 
 from splatt_tpu_torch.config import acc_dtype
+from splatt_tpu_torch.ops import kernels
 
 torch.backends.cuda.matmul.allow_tf32 = False
+
+#: sweeps :func:`sym_eig` runs before it gives up and sets its status word
+SYM_EIG_MAX_SWEEPS = 40
+#: the dtypes csrc/sym_eig.cu takes
+SYM_EIG_FLOATS = (torch.float32, torch.float64)
+
+
+class SolverError(RuntimeError):
+    """The eigensolver did not converge within its sweep cap."""
 
 
 def gram(U: torch.Tensor) -> torch.Tensor:
@@ -41,22 +56,248 @@ def form_normal_lhs(grams: Sequence[torch.Tensor], mode: int,
     return out
 
 
+# -- the symmetric eigensolver -----------------------------------------------
+
+
+def sym_eig_smem_bytes(R: int, itemsize: int) -> int:
+    """Shared bytes of csrc/sym_eig.cu's CTA for rank R (its smem_bytes):
+    A and V at an odd row stride, the rotations, 32 reduction slots, the
+    pairs and the sort ranks."""
+    n = R + (R & 1)
+    h = n // 2
+    return (2 * n * (n + 1) + 2 * h + 32) * itemsize + (2 * h + n + 4) * 4
+
+
+def sym_eig_fits(R: int, dtype: torch.dtype) -> bool:
+    """What the kernel takes: a dtype of :data:`SYM_EIG_FLOATS` and an R
+    whose A and V fit one CTA's shared memory (f32 up to R = 168, f64 up
+    to 118).  The solve's gate, :func:`solve_takes_sym_eig`, is
+    narrower."""
+    if dtype not in SYM_EIG_FLOATS:
+        return False
+    itemsize = torch.empty(0, dtype=dtype).element_size()
+    return sym_eig_smem_bytes(R, itemsize) <= kernels.SMEM_TILE_BYTES
+
+
+#: the largest rank at which the solve takes :func:`sym_eig`.  Above it
+#: the one-CTA kernel loses to ``torch.linalg.eigh`` even with eigh's host
+#: sync counted: on an H100, the NELL-2-shaped CPD of chip_smoke.py's
+#: phase 5 ran at least as fast per iteration with the kernel up to
+#: R = 96 and faster with eigh from R = 112 (ROADMAP.md, queue C)
+SYM_EIG_SOLVE_MAX_RANK = 96
+
+
+def solve_takes_sym_eig(R: int, dtype: torch.dtype) -> bool:
+    """The solve's static gate on a card: the kernel takes rank R in
+    `dtype` (:func:`sym_eig_fits`) and R is at most
+    :data:`SYM_EIG_SOLVE_MAX_RANK`."""
+    return sym_eig_fits(R, dtype) and R <= SYM_EIG_SOLVE_MAX_RANK
+
+
+def sym_eig_threads(R: int) -> int:
+    """Threads of the kernel's one CTA: 256 up to R = 32, else 1024 (a
+    round's updates are latency-bound, and from R = 50 up more warps hide
+    more of it; on an H100, 1024 threads ran R = 50 faster than 256, and
+    256 were the faster at R = 17)."""
+    return 256 if R <= 32 else 1024
+
+
+def jacobi_round(n: int, k: int) -> Tuple[List[int], List[int]]:
+    """Round k of a sweep over the even size n, the kernel's round-robin
+    order: index 0 stays and 1..n-1 turn, so the n/2 pairs (p < q) are
+    disjoint and n - 1 rounds visit every pair once."""
+    m = n - 1
+    ps, qs = [], []
+    for i in range(n // 2):
+        x, y = (0, 1 + k) if i == 0 else (1 + (k + i) % m,
+                                          1 + (k - i + m) % m)
+        ps.append(min(x, y))
+        qs.append(max(x, y))
+    return ps, qs
+
+
+def sym_eig_plain(A: torch.Tensor, max_sweeps: int = SYM_EIG_MAX_SWEEPS
+                  ) -> Tuple[torch.Tensor, torch.Tensor, int]:
+    """Plain PyTorch version of :func:`sym_eig`, the kernel's schedule
+    transcribed: the padding to an even n, the power-of-two scale, the
+    round-robin pair order, the skip threshold eps·‖A‖_F/n, the stop at
+    off(A) ≤ eps·‖A‖_F and the sort.  Returns (w ascending, V, sweeps);
+    a non-finite A gives NaN, and the sweep cap raises
+    :class:`SolverError`."""
+    R = int(A.shape[0])
+    dt, dev = A.dtype, A.device
+    if not bool(torch.isfinite(A).all()):
+        nan = float("nan")
+        return (torch.full((R,), nan, dtype=dt, device=dev),
+                torch.full((R, R), nan, dtype=dt, device=dev), 0)
+    n = R + (R & 1)
+    eps = torch.finfo(dt).eps
+    M = torch.zeros((n, n), dtype=dt, device=dev)
+    M[:R, :R] = A
+    V = torch.eye(n, dtype=dt, device=dev)
+    amax = M.abs().max()
+    e = int(torch.frexp(amax).exponent) if float(amax) > 0 else 0
+    M = M * 2.0 ** -e
+    tol_off = eps * torch.sqrt((M * M).sum())
+    thresh = tol_off / n
+    offdiag = 1 - torch.eye(n, dtype=dt, device=dev)
+    upper = torch.ones((n // 2, n // 2), dtype=torch.bool,
+                       device=dev).triu(1)
+    sweeps = 0
+    while True:
+        off = M * offdiag
+        if bool((off * off).sum() <= tol_off * tol_off):
+            break
+        if sweeps == max_sweeps:
+            raise SolverError(f"sym_eig: no convergence in {max_sweeps} "
+                              f"sweeps at R = {R}")
+        for k in range(n - 1):
+            ps, qs = jacobi_round(n, k)
+            P = torch.tensor(ps, device=dev)
+            Q = torch.tensor(qs, device=dev)
+            apq, app, aqq = M[P, Q], M[P, P], M[Q, Q]
+            rot = apq.abs() > thresh
+            if not bool(rot.any()):
+                continue
+            theta = (aqq - app) / (2 * torch.where(rot, apq,
+                                                   torch.ones_like(apq)))
+            t = torch.copysign(torch.ones_like(theta), theta) / (
+                theta.abs() + torch.sqrt(theta * theta + 1))
+            c = torch.where(rot, 1 / torch.sqrt(t * t + 1),
+                            torch.ones_like(t))
+            s = torch.where(rot, t * c, torch.zeros_like(t))
+            # each block between pairs i and j: Z = Ji^T X Jj
+            Pr, Pc, Qr, Qc = P[:, None], P[None, :], Q[:, None], Q[None, :]
+            xpp, xpq, xqp, xqq = M[Pr, Pc], M[Pr, Qc], M[Qr, Pc], M[Qr, Qc]
+            ci, si, cj, sj = c[:, None], s[:, None], c[None, :], s[None, :]
+            ypp, ypq = cj * xpp - sj * xpq, sj * xpp + cj * xpq
+            yqp, yqq = cj * xqp - sj * xqq, sj * xqp + cj * xqq
+            zpp, zqp = ci * ypp - si * yqp, si * ypp + ci * yqp
+            zpq, zqq = ci * ypq - si * yqq, si * ypq + ci * yqq
+            # the blocks i < j and their transposes: A stays symmetric
+            npp = torch.where(upper, zpp, zpp.T)
+            npq = torch.where(upper, zpq, zqp.T)
+            nqp = torch.where(upper, zqp, zpq.T)
+            nqq = torch.where(upper, zqq, zqq.T)
+            # each pair's own block: diagonal where it rotated
+            d = torch.arange(n // 2, device=dev)
+            npp[d, d] = torch.where(rot, app - t * apq, app)
+            nqq[d, d] = torch.where(rot, aqq + t * apq, aqq)
+            npq[d, d] = torch.where(rot, torch.zeros_like(apq), apq)
+            nqp[d, d] = npq[d, d]
+            M[Pr, Pc], M[Pr, Qc], M[Qr, Pc], M[Qr, Qc] = npp, npq, nqp, nqq
+            vp, vq = V[:, P], V[:, Q]
+            V[:, P], V[:, Q] = c * vp - s * vq, s * vp + c * vq
+        sweeps += 1
+    w, order = torch.sort(torch.diagonal(M)[:R], stable=True)
+    return torch.ldexp(w, torch.tensor(e, device=dev)), \
+        V[:R, :R][:, order], sweeps
+
+
+_LOCK = threading.Lock()
+_STATUS: List[int] = []        # [host address, device address]
+
+
+def _status_word() -> int:
+    """The device address of the mapped host word the kernel sets when
+    it hits its sweep cap."""
+    with _LOCK:
+        if not _STATUS:
+            host, dev = ctypes.c_void_p(), ctypes.c_void_p()
+            err = kernels.load_library()["splatt_sym_eig_alloc_host"](
+                64, ctypes.byref(host), ctypes.byref(dev))
+            if err != 0:
+                raise RuntimeError(f"splatt_sym_eig_alloc_host: CUDA error "
+                                   f"{err}")
+            _STATUS[:] = [host.value, dev.value]
+        return _STATUS[1]
+
+
+def check_solver() -> None:
+    """Raise :class:`SolverError` when a :func:`sym_eig` launch hit its
+    sweep cap.  The word lies in mapped host memory: reading it is no
+    CUDA call, so the caller reads it after a sync it already makes (the
+    iteration's fit read).  The word is cleared."""
+    if not _STATUS:
+        return
+    word = ctypes.c_int.from_address(_STATUS[0])
+    if word.value == 0:
+        return
+    word.value = 0
+    raise SolverError(f"sym_eig: the Jacobi sweeps did not converge within "
+                      f"{SYM_EIG_MAX_SWEEPS} sweeps")
+
+
+def sym_eig(A: torch.Tensor, return_sweeps: bool = False):
+    """(w ascending, V) of the symmetric (R, R) `A`, ``A = V diag(w) Vᵀ``,
+    in A's dtype, as ``torch.linalg.eigh`` returns them.  CPU tensors take
+    :func:`sym_eig_plain`; CUDA tensors (f32 or f64, contiguous, within
+    :func:`sym_eig_fits`) launch ``csrc/sym_eig.cu`` on the current stream
+    with no sync, or raise.  A run that hits the sweep cap sets the status
+    word that :func:`check_solver` reads.  With `return_sweeps`, a third
+    value: the sweeps run (an int32 tensor of one element on a card)."""
+    if A.dim() != 2 or A.shape[0] != A.shape[1] or A.shape[0] < 1:
+        raise ValueError(f"sym_eig takes a square matrix, got "
+                         f"{tuple(A.shape)}")
+    if A.device.type == "cpu":
+        w, v, sweeps = sym_eig_plain(A)
+        return (w, v, sweeps) if return_sweeps else (w, v)
+    R = int(A.shape[0])
+    if not sym_eig_fits(R, A.dtype):
+        raise ValueError(f"sym_eig takes f32 up to R = 168 and f64 up to "
+                         f"118, got {A.dtype} at R = {R}")
+    A = A.contiguous()
+    w = torch.empty(R, dtype=A.dtype, device=A.device)
+    v = torch.empty((R, R), dtype=A.dtype, device=A.device)
+    sweeps = (torch.empty(1, dtype=torch.int32, device=A.device)
+              if return_sweeps else None)
+    status = _status_word()
+    with torch.cuda.device(A.device):
+        kernels._launch("splatt_sym_eig", A.data_ptr(),
+                        int(A.dtype == torch.float64), R, SYM_EIG_MAX_SWEEPS,
+                        sym_eig_threads(R), w.data_ptr(), v.data_ptr(),
+                        None if sweeps is None else sweeps.data_ptr(),
+                        status)
+    sym_eig.launches += 1
+    return (w, v, sweeps) if return_sweeps else (w, v)
+
+
+sym_eig.launches = 0
+
+
+def eigh(lhs: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The solve's eigendecomposition: :func:`sym_eig` on a card within
+    its static gate (:func:`solve_takes_sym_eig`), ``torch.linalg.eigh``
+    on the CPU (no host sync to remove there) and above the gate.  Never
+    a fallback on failure: a failed build, load or launch raises."""
+    if lhs.device.type == "cuda" and solve_takes_sym_eig(
+            int(lhs.shape[0]), lhs.dtype):
+        return sym_eig(lhs)
+    return torch.linalg.eigh(lhs)
+
+
+def pinv_parts(lhs: torch.Tensor):
+    """(w, V, tol, w_inv) of the pseudo-inverse solve: eigenvalues below
+    √eps·max|w| are cut (≙ splatt_tpu/ops/linalg.py:60-84)."""
+    w, v = eigh(lhs)
+    tol = torch.finfo(lhs.dtype).eps ** 0.5 * w.abs().max()
+    w_inv = torch.where(w.abs() > tol, 1.0 / w, torch.zeros_like(w))
+    return w, v, tol, w_inv
+
+
 def solve_normals(lhs: torch.Tensor, rhs: torch.Tensor) -> torch.Tensor:
     """Solve ``X · lhs = rhs`` for X (≙ mat_solve_normals).
 
     Both a Cholesky solve and an eigh pseudo-inverse solve (eigenvalues
     below √eps·max|w| cut) are computed, and ``torch.where`` picks one on
-    the SPD test: no Python branch and no exception on a matrix that is
-    not SPD (≙ splatt_tpu/ops/linalg.py:53-86).  ``torch.linalg.eigh``
-    itself reads its solver status on the host.
+    the SPD test: no Python branch, no exception on a matrix that is not
+    SPD, and on a card no host sync (≙ splatt_tpu/ops/linalg.py:53-86).
     """
     rhs = rhs.to(acc_dtype(rhs.dtype))
     L, info = torch.linalg.cholesky_ex(lhs)
     x_chol = torch.cholesky_solve(rhs.T, L).T
 
-    w, v = torch.linalg.eigh(lhs)
-    tol = torch.finfo(lhs.dtype).eps ** 0.5 * w.abs().max()
-    w_inv = torch.where(w.abs() > tol, 1.0 / w, torch.zeros_like(w))
+    w, v, tol, w_inv = pinv_parts(lhs)
     x_pinv = (rhs @ (v * w_inv)) @ v.T
 
     spd = (info == 0) & (w.min() > tol) & torch.isfinite(x_chol).all()

@@ -297,13 +297,14 @@ def mode_update_tail(M_l: Sequence[torch.Tensor], grams, m: int, reg: float,
 def solve_normals_many(lhs: torch.Tensor, rhs: Sequence[torch.Tensor]
                        ) -> List[torch.Tensor]:
     """:func:`splatt_tpu_torch.ops.linalg.solve_normals` of one `lhs`
-    against each rank's `rhs`: the Cholesky and eigh factors of `lhs` are
-    computed once and copied to each rank's device, and each rank picks
-    the Cholesky or the pseudo-inverse solve on the same SPD test."""
+    against each rank's `rhs`: the Cholesky and eigen factors of `lhs`
+    are computed once (on a card by the eigensolver kernel, no host sync)
+    and copied to each rank's device, and each rank picks the Cholesky or
+    the pseudo-inverse solve on the same SPD test."""
+    from splatt_tpu_torch.ops.linalg import pinv_parts
+
     L, info = torch.linalg.cholesky_ex(lhs)
-    w, v = torch.linalg.eigh(lhs)
-    tol = torch.finfo(lhs.dtype).eps ** 0.5 * w.abs().max()
-    w_inv = torch.where(w.abs() > tol, 1.0 / w, torch.zeros_like(w))
+    w, v, tol, w_inv = pinv_parts(lhs)
     spd_lhs = (info == 0) & (w.min() > tol)
     pinv_op = v * w_inv
     ops = {}
@@ -371,12 +372,14 @@ def run_distributed_als(step: Callable, factors, grams, rank: int,
 
     ``step(factors, grams, first) -> (factors, grams, λ, ⟨Z,Z⟩, ⟨X,Z⟩)``
     with factors and Grams as per-rank lists.  Reading the fit is the
-    iteration's one host sync; `after_fit` runs right after it (the ring
-    kernels' error check).  The factors come back to the host, in the
-    original row order (`row_select[m]` maps an original row to its
-    placement), and are renormalized into λ (≙ cpd_post_process).
+    iteration's one host sync; the eigensolver's status word is read
+    right after it, then `after_fit` runs (the ring kernels' error
+    check).  The factors come back to the host, in the original row
+    order (`row_select[m]` maps an original row to its placement), and
+    are renormalized into λ (≙ cpd_post_process).
     """
     from splatt_tpu_torch.config import fit_dtype
+    from splatt_tpu_torch.ops.linalg import check_solver
 
     fit_prev = 0.0
     fits: List[float] = []
@@ -387,6 +390,7 @@ def run_distributed_als(step: Callable, factors, grams, rank: int,
         t0 = time.perf_counter()
         factors, grams, lam, znormsq, inner = step(factors, grams, it == 0)
         fitval = float(_fit(xnormsq, znormsq, inner))
+        check_solver()
         if after_fit is not None:
             after_fit()
         fits.append(fitval)

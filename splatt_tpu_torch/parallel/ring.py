@@ -8,8 +8,9 @@ block, O(dim/ndev · R).
 
 Both functions take one tensor per rank (each on its rank's device) and a
 mesh, and every hop is a ``Tensor.to`` onto the next rank's device.  They
-are the plain versions of the ring kernels (``parallel/ring_kernels.py``)
-and the ``ring`` comm variant:
+are the ``ring`` comm variant and the references the ring kernels
+(``parallel/ring_kernels.py``) are held to; the reduce is also the
+reduce kernel's plain version:
 
 - :func:`ring_gather_rows` (≙ mpi_update_rows): the factor blocks travel
   right; at step s rank d holds block (d - s) mod ndev and picks the rows
@@ -46,7 +47,9 @@ def ring_gather_rows(U_l: Sequence[torch.Tensor],
 
 def gather_hops(U_l: Sequence[torch.Tensor], idx: Sequence[torch.Tensor],
                 mesh) -> List[torch.Tensor]:
-    """The sync ring's gather, the plain version of ``ring_gather``.
+    """The sync ring's gather, the reference ``ring_gather`` is held to
+    (its plain version, ``ring_kernels.ring_gather_plain``, walks the
+    kernel's owner buckets instead).
 
     U_l[d]: (block, R) rank d's shard; idx[d]: (nnz_d,) global ids.
     Returns rank d's (nnz_d, R) rows in U's dtype.  Ids of no shard (a

@@ -13,14 +13,20 @@ semaphores (``csrc/ring.cu`` has the protocol).
 
 - :func:`ring_gather` (≙ ``_ring_gather_kernel``): each rank's ``(nnz_d,
   R)`` rows of a row-sharded factor at its nonzeros' global ids, exact.
+  It walks a :class:`GatherPlan` per rank (:func:`build_gather_plans`):
+  the nonzeros bucketed by owner once per id tensor, as the TPU kernel
+  takes each nonzero's owner and within-block row precomputed
+  (``idx_div_ref``/``idx_loc_ref``, ring_kernels.py:152-160), so a step
+  visits only the bucket of the shard it holds.
 - :func:`ring_reduce` (≙ ``_ring_reduce_kernel``): the ring
   reduce-scatter of the MTTKRP products into each rank's ``(block, R)``
   rows, f32; rounding follows hop order.
 
-Their plain versions are the sync ring's dataflow
-(:func:`splatt_tpu_torch.parallel.ring.gather_hops`,
-:func:`~splatt_tpu_torch.parallel.ring.blockwise_reduce_rows`).  A wrapper runs the
-plain version for CPU tensors; for CUDA tensors it launches the kernel on
+Their plain versions: :func:`ring_gather_plain` (the kernel's walk over
+the plan's buckets, bit for bit the sync ring's
+:func:`~splatt_tpu_torch.parallel.ring.gather_hops`) and the sync ring's
+:func:`~splatt_tpu_torch.parallel.ring.blockwise_reduce_rows`.  A wrapper
+runs the sync ring for CPU tensors; for CUDA tensors it launches the kernel on
 every card of the mesh, one launch per card holding all of that card's
 ranks, or raises.  It launches every card's kernel before it waits on any
 and never synchronizes: a spin that ran out writes an error word that
@@ -40,8 +46,9 @@ On a CUDA mesh they launch the kernels, and the comm chain of
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import threading
-from typing import Dict, List, Sequence
+from typing import Dict, List, Optional, Sequence
 
 import torch
 
@@ -57,6 +64,12 @@ FLAG_WORDS = 32
 CARD_FLOATS = (torch.float32, torch.bfloat16)
 #: a cooperative launch the card refused beside ops/kernels.LAUNCH_REFUSED
 COOPERATIVE_TOO_LARGE = 720
+#: alignment of the gather's landing slots, so the hop moves 16-byte vectors
+SLOT_ALIGN = 256
+#: the gathered rows' pitch in bytes is a multiple of this, a DRAM burst,
+#: so the kernel's interleaved row stores never share a burst
+#: (csrc/ring.cu)
+ROW_PITCH_ALIGN = 64
 
 _LOCK = threading.Lock()
 
@@ -73,21 +86,29 @@ class _RankPtrs(ctypes.Structure):
                 ("lz", ctypes.c_void_p), ("lz_right", ctypes.c_void_p),
                 ("flags", ctypes.c_void_p), ("flags_right", ctypes.c_void_p),
                 ("flags_left", ctypes.c_void_p), ("nnz", ctypes.c_longlong),
-                ("rank", ctypes.c_longlong)]
+                ("rank", ctypes.c_longlong), ("pos", ctypes.c_void_p),
+                ("loc", ctypes.c_void_p), ("off", ctypes.c_void_p)]
 
 
 class _RingState:
     """What one ring kind keeps across launches at one (mesh, block, R,
-    dtype): each rank's double-buffered landing zone, its f32 accumulators
-    (the reduce's, zero between launches) and its flag words (zero at
-    first, then only ever raised), and the launch generation."""
+    dtype): each rank's double-buffered landing zone (the gather's two
+    slots ``slot`` bytes apart, a multiple of :data:`SLOT_ALIGN`), its f32
+    accumulators (the reduce's, zero between launches) and its flag words
+    (zero at first, then only ever raised), and the launch generation."""
 
     def __init__(self, mesh, block: int, R: int, dtype: torch.dtype,
                  reduce: bool):
         for a, b in _neighbour_pairs(mesh):
             enable_peer_access(a, b)
-        self.lz = [torch.zeros((2, block, R), dtype=dtype, device=dev)
-                   for dev in mesh.devices]
+        esize = torch.empty(0, dtype=dtype).element_size()
+        if reduce:
+            self.lz = [torch.zeros((2, block, R), dtype=dtype, device=dev)
+                       for dev in mesh.devices]
+        else:
+            self.slot = -(-block * R * esize // SLOT_ALIGN) * SLOT_ALIGN
+            self.lz = [torch.zeros(2 * self.slot // esize, dtype=dtype,
+                                   device=dev) for dev in mesh.devices]
         self.acc = ([torch.zeros((2, block, R), dtype=torch.float32,
                                  device=dev) for dev in mesh.devices]
                     if reduce else None)
@@ -229,8 +250,9 @@ def _state(kind: str, mesh, block: int, R: int, dtype) -> _RingState:
 
 
 def _run(wrapper, entry: str, mesh, st: _RingState, ranks, block: int,
-         R: int, flag: int, exchange: bool) -> None:
-    """Launch `entry` once per card, every card before any wait."""
+         R: int, flag: int, exchange: bool, *extra) -> None:
+    """Launch `entry` once per card, every card before any wait.  A rank
+    is (source, ids, output, nnz, plan or None)."""
     fn = _lib()[entry]
     err_dev = _error_word()[1]
     st.gen += 1
@@ -241,16 +263,19 @@ def _run(wrapper, entry: str, mesh, st: _RingState, ranks, block: int,
         arr = (_RankPtrs * len(mine))()
         for slot, d in enumerate(mine):
             right, left = (d + 1) % n, (d - 1) % n
-            src, ids, out, nnz = ranks[d]
+            src, ids, out, nnz, plan = ranks[d]
             arr[slot] = _RankPtrs(
                 src, ids, out, st.acc[d].data_ptr() if st.acc else None,
                 st.lz[d].data_ptr(), st.lz[right].data_ptr(),
                 st.flags[d].data_ptr(), st.flags[right].data_ptr(),
-                st.flags[left].data_ptr(), nnz, d)
+                st.flags[left].data_ptr(), nnz, d,
+                *((plan.pos.data_ptr(), plan.loc.data_ptr(),
+                   plan.offsets.data_ptr()) if plan is not None
+                  else (None, None, None)))
         with torch.cuda.device(card):
             err = fn(card.index, ctypes.cast(arr, ctypes.c_void_p),
                      len(mine), n, block, R, flag, st.gen, err_dev,
-                     int(SPIN_TIMEOUT_S * 1e9), int(exchange),
+                     int(SPIN_TIMEOUT_S * 1e9), int(exchange), *extra,
                      torch.cuda.current_stream(card).cuda_stream)
         if err != 0:
             # the cards already launched wait on this one until their spin
@@ -271,28 +296,116 @@ def _run(wrapper, entry: str, mesh, st: _RingState, ranks, block: int,
         wrapper.launches += 1
 
 
+@dataclasses.dataclass(frozen=True)
+class GatherPlan:
+    """One rank's owner buckets for :func:`ring_gather`, built once per id
+    tensor (8 bytes per nonzero): ``pos`` the nonzero positions stably
+    sorted by owner shard (ids of no shard, owner ndev, last), ``loc``
+    each one's row within its owner's block (0 for ids of no shard), both
+    int32, and ``offsets`` the ``ndev + 2`` int32 bucket bounds."""
+
+    pos: torch.Tensor
+    loc: torch.Tensor
+    offsets: torch.Tensor
+    block: int
+
+
+def build_gather_plans(idx: Sequence[torch.Tensor], mesh,
+                       block: int) -> List[GatherPlan]:
+    """Each rank's :class:`GatherPlan` for global ids ``idx[d]`` over
+    shards of `block` rows, built on the ids' device with no host sync
+    (a stable sort by owner, the bucket counts by ``scatter_add_``).
+    ``build_gather_plans.builds`` counts the plans built, one per rank."""
+    ndev = mesh.ndev
+    plans = []
+    for ids in idx:
+        if ids.dim() != 1 or int(ids.shape[0]) >= 2**31:
+            raise ValueError(f"gather plan: ids of shape {tuple(ids.shape)}; "
+                             f"a 1-D tensor below 2^31 entries is needed")
+        ids = ids.long()
+        owner = torch.div(ids, block, rounding_mode="floor")
+        owner = torch.where((ids >= 0) & (owner < ndev), owner,
+                            torch.full_like(owner, ndev))
+        order = torch.sort(owner, stable=True).indices
+        ordered = owner[order]
+        loc = torch.where(ordered < ndev, ids[order] - ordered * block,
+                          torch.zeros_like(ordered))
+        counts = torch.zeros(ndev + 1, dtype=torch.int64, device=ids.device)
+        counts.scatter_add_(0, owner, torch.ones_like(owner))
+        offsets = torch.cat([torch.zeros(1, dtype=torch.int64,
+                                         device=ids.device),
+                             torch.cumsum(counts, 0)])
+        plans.append(GatherPlan(order.int(), loc.int(), offsets.int(),
+                                block))
+        build_gather_plans.builds += 1
+    return plans
+
+
+def ring_gather_plain(U_l: Sequence[torch.Tensor],
+                      plans: Sequence[GatherPlan], mesh
+                      ) -> List[torch.Tensor]:
+    """Plain PyTorch version of :func:`ring_gather`, the kernel's walk:
+    at step s rank d copies the rows of its plan's bucket (d - s) mod ndev
+    from the shard it holds then, and the bucket of ids of no shard gets
+    zero rows.  Bit for bit the sync ring's rows."""
+    ndev = mesh.ndev
+    R = int(U_l[0].shape[1])
+    out = []
+    for d, plan in enumerate(plans):
+        dev = mesh.devices[d]
+        off = plan.offsets.tolist()
+        pos, loc = plan.pos.long(), plan.loc.long()
+        rows = torch.empty((int(pos.shape[0]), R), dtype=U_l[0].dtype,
+                           device=dev)
+        for s in range(ndev):
+            b = (d - s) % ndev
+            held = U_l[b].to(dev)
+            rows[pos[off[b]:off[b + 1]]] = held[loc[off[b]:off[b + 1]]]
+        rows[pos[off[ndev]:off[ndev + 1]]] = 0
+        out.append(rows)
+    return out
+
+
 def ring_gather(U_l: Sequence[torch.Tensor], idx: Sequence[torch.Tensor],
-                mesh, exchange: bool = True) -> List[torch.Tensor]:
+                mesh, exchange: bool = True,
+                plans: Optional[Sequence[GatherPlan]] = None
+                ) -> List[torch.Tensor]:
     """Rank d's ``(nnz_d, R)`` rows of the row-sharded factor ``U_l``
     (``U_l[d]``: rank d's ``(block, R)`` shard) at its global ids
-    ``idx[d]``, in U's dtype; an id of no shard gives a zero row.  With
-    `exchange` off (the overlap probe's compute-only run) the blocks do
-    not travel and the result is wrong by design."""
+    ``idx[d]``, in U's dtype; an id of no shard gives a zero row.  On a
+    card each result is the ``(nnz_d, R)`` view of a buffer whose rows are
+    padded to :data:`ROW_PITCH_ALIGN` bytes.  `plans` are the ids'
+    :class:`GatherPlan`s; without them they are built here (a caller that
+    gathers at the same ids again builds them once with
+    :func:`build_gather_plans`).  CPU tensors take the sync ring's
+    :func:`~splatt_tpu_torch.parallel.ring.gather_hops`.  With `exchange`
+    off (the overlap probe's compute-only run) the blocks do not travel
+    and the result is wrong by design."""
     from splatt_tpu_torch.parallel.ring import gather_hops
 
     if U_l[0].device.type == "cpu":
         return gather_hops(U_l, idx, mesh)
     block = int(U_l[0].shape[0])
+    if plans is None:
+        plans = build_gather_plans(idx, mesh, block)
     _check("ring_gather", U_l, idx, mesh, lambda d: block)
+    for d, (plan, i) in enumerate(zip(plans, idx)):
+        if plan.block != block or plan.pos.shape != i.shape \
+                or plan.pos.device != i.device:
+            raise ValueError(f"ring_gather: rank {d}'s plan does not match "
+                             f"its ids and shards")
     check_errors()
     R = int(U_l[0].shape[1])
     st = _state("gather", mesh, block, R, U_l[0].dtype)
-    rows = [torch.empty((int(i.shape[0]), R), dtype=U.dtype, device=U.device)
+    esize = U_l[0].element_size()
+    pitch = -(-R * esize // ROW_PITCH_ALIGN) * ROW_PITCH_ALIGN
+    rows = [torch.empty((int(i.shape[0]), pitch // esize), dtype=U.dtype,
+                        device=U.device)[:, :R]
             for U, i in zip(U_l, idx)]
-    ranks = [(U.data_ptr(), i.data_ptr(), r.data_ptr(), int(i.shape[0]))
-             for U, i, r in zip(U_l, idx, rows)]
+    ranks = [(U.data_ptr(), i.data_ptr(), r.data_ptr(), int(i.shape[0]), p)
+             for U, i, r, p in zip(U_l, idx, rows, plans)]
     _run(ring_gather, "splatt_ring_gather", mesh, st, ranks, block, R,
-         U_l[0].element_size(), exchange)
+         esize, exchange, st.slot, pitch)
     return rows
 
 
@@ -315,8 +428,8 @@ def ring_reduce(prod: Sequence[torch.Tensor], idx: Sequence[torch.Tensor],
     st = _state("reduce", mesh, block, R, torch.float32)
     out = [torch.empty((block, R), dtype=torch.float32, device=p.device)
            for p in prod]
-    ranks = [(p.data_ptr(), i.data_ptr(), o.data_ptr(), int(i.shape[0]))
-             for p, i, o in zip(prod, idx, out)]
+    ranks = [(p.data_ptr(), i.data_ptr(), o.data_ptr(), int(i.shape[0]),
+              None) for p, i, o in zip(prod, idx, out)]
     _run(ring_reduce, "splatt_ring_reduce", mesh, st, ranks, block, R,
          int(prod[0].dtype == torch.bfloat16), exchange)
     return out
@@ -326,9 +439,11 @@ RING_KERNELS = (ring_gather, ring_reduce)
 
 
 def reset_launches() -> None:
-    """Set both ring wrappers' launch counts to 0."""
+    """Set both ring wrappers' launch counts and the count of gather
+    plans built to 0."""
     for k in RING_KERNELS:
         k.launches = 0
+    build_gather_plans.builds = 0
 
 
 reset_launches()
@@ -338,17 +453,19 @@ reset_launches()
 
 
 def async_ring_gather_rows(U_l: Sequence[torch.Tensor],
-                           idx: Sequence[torch.Tensor], mesh
+                           idx: Sequence[torch.Tensor], mesh,
+                           plans: Optional[Sequence[GatherPlan]] = None
                            ) -> List[torch.Tensor]:
     """Rows of a row-sharded factor at each rank's global ids through the
-    ring kernel (≙ splatt_tpu async_ring_gather_rows); on a CPU mesh the
-    sync ring, bit for bit."""
+    ring kernel (≙ splatt_tpu async_ring_gather_rows), over the ids'
+    `plans` when given.  On a CPU mesh the sync ring, which needs no
+    plan."""
     faults.maybe_fail("comm.ring_exchange")
     if U_l[0].device.type == "cpu":
         from splatt_tpu_torch.parallel.ring import ring_gather_rows
 
         return ring_gather_rows(U_l, idx, mesh)
-    return ring_gather(U_l, idx, mesh)
+    return ring_gather(U_l, idx, mesh, plans=plans)
 
 
 def async_blockwise_reduce_rows(prod: Sequence[torch.Tensor],

@@ -112,18 +112,23 @@ def shard_factors(factors: Sequence, dims: Tuple[int, ...], mesh,
     return out
 
 
-def _exchanges(mesh, dims_pad, variant: str):
+def _exchanges(mesh, dims_pad, variant: str, plans=None):
     """(gather_rows, reduce_rows) of a comm variant: ``gather_rows(U_l,
-    idx)`` gives each rank's rows of a row-sharded factor at its ids;
-    ``reduce_rows(prod, idx, m)`` each rank's reduced (block, R) rows of
-    mode m's MTTKRP, in the accumulator dtype."""
+    idx, k)`` gives each rank's rows of mode k's row-sharded factor at its
+    ids; ``reduce_rows(prod, idx, m)`` each rank's reduced (block, R) rows
+    of mode m's MTTKRP, in the accumulator dtype.  `plans[k]`, when given,
+    are the ring kernel's gather plans of mode k's ids
+    (``ring_kernels.build_gather_plans``), built once per run."""
     ndev = mesh.ndev
+
+    def plans_of(k):
+        return None if plans is None else plans[k]
 
     if variant == "ring":
         from splatt_tpu_torch.parallel.ring import (blockwise_reduce_rows,
                                                     ring_gather_rows)
 
-        def gather_rows(U_l, idx):
+        def gather_rows(U_l, idx, k):
             return ring_gather_rows(U_l, idx, mesh)
 
         def reduce_rows(prod, idx, m):
@@ -133,8 +138,8 @@ def _exchanges(mesh, dims_pad, variant: str):
         from splatt_tpu_torch.parallel.ring_kernels import (
             async_blockwise_reduce_rows, async_ring_gather_rows)
 
-        def gather_rows(U_l, idx):
-            return async_ring_gather_rows(U_l, idx, mesh)
+        def gather_rows(U_l, idx, k):
+            return async_ring_gather_rows(U_l, idx, mesh, plans_of(k))
 
         def reduce_rows(prod, idx, m):
             return async_blockwise_reduce_rows(prod, idx, mesh,
@@ -144,8 +149,9 @@ def _exchanges(mesh, dims_pad, variant: str):
         from splatt_tpu_torch.parallel.ring_kernels import (ring_gather,
                                                             ring_reduce)
 
-        def gather_rows(U_l, idx):
-            return ring_gather(U_l, idx, mesh, exchange=False)
+        def gather_rows(U_l, idx, k):
+            return ring_gather(U_l, idx, mesh, exchange=False,
+                               plans=plans_of(k))
 
         def reduce_rows(prod, idx, m):
             return ring_reduce(prod, idx, mesh, dims_pad[m] // ndev,
@@ -153,7 +159,7 @@ def _exchanges(mesh, dims_pad, variant: str):
     elif variant == "local_stub":
         from splatt_tpu_torch.parallel.ring import local_block_sum
 
-        def gather_rows(U_l, idx):
+        def gather_rows(U_l, idx, k):
             block = int(U_l[0].shape[0])
             out = []
             for d, (U, ids) in enumerate(zip(U_l, idx)):
@@ -181,7 +187,7 @@ def _exchanges(mesh, dims_pad, variant: str):
                 out.append(keep)
             return out
     elif variant == "all2all":
-        def gather_rows(U_l, idx):
+        def gather_rows(U_l, idx, k):
             # ≙ mpi_update_rows: every rank fetches each whole factor
             full = {dev: torch.cat([u.to(dev) for u in U_l])
                     for dev in mesh.cards}
@@ -223,19 +229,21 @@ def sharded_mttkrp(inds: Sequence[torch.Tensor],
     prod = [v[:, None].to(dtype) for v in vals]
     for k in range(len(factors)):
         if k != mode:
-            rows = gather_rows(factors[k], [i[k] for i in inds])
+            rows = gather_rows(factors[k], [i[k] for i in inds], k)
             prod = [p * r for p, r in zip(prod, rows)]
     return reduce_rows(prod, [i[mode] for i in inds], mode)
 
 
 def make_sharded_sweep(mesh, nmodes: int, reg: float,
-                       dims_pad: Tuple[int, ...], variant: str = "all2all"):
+                       dims_pad: Tuple[int, ...], variant: str = "all2all",
+                       plans=None):
     """One ALS iteration over the mesh, as ``sweep(inds, vals, factors,
     grams, first) -> (factors, grams, λ, ⟨Z,Z⟩, ⟨X,Z⟩)``: per-rank
     lists in, new per-rank lists out (the inputs are not modified, so a
     probe's result can be thrown away).  `first` selects the 2-norm
-    (iteration 0) over the max-norm (≙ src/cpd.c:343-347)."""
-    gather_rows, reduce_rows = _exchanges(mesh, dims_pad, variant)
+    (iteration 0) over the max-norm (≙ src/cpd.c:343-347).  `plans`: the
+    gather plans of each mode's ids (:func:`_exchanges`)."""
+    gather_rows, reduce_rows = _exchanges(mesh, dims_pad, variant, plans)
 
     def sweep(inds, vals, factors, grams, first: bool):
         factors = [list(f) for f in factors]
@@ -246,7 +254,8 @@ def make_sharded_sweep(mesh, nmodes: int, reg: float,
             prod = [v[:, None].to(dtype) for v in vals]
             for k in range(nmodes):
                 if k != m:
-                    rows = gather_rows(factors[k], [i[k] for i in inds])
+                    rows = gather_rows(factors[k], [i[k] for i in inds],
+                                       k)
                     prod = [p * r for p, r in zip(prod, rows)]
                     del rows
             M = reduce_rows(prod, [i[m] for i in inds], m)
@@ -299,7 +308,7 @@ def sync_mesh(mesh) -> None:
 
 
 def _select_comm_sweep(chain, mesh, nmodes, reg, dims_pad, inds, vals,
-                       factors, grams, dtype, opts):
+                       factors, grams, dtype, opts, plans=None):
     """The sweep on the best live comm strategy: each strategy but the
     last is probed with one discarded step; a probe failure demotes
     ``comm.<variant>`` under the comm shape key (per shape for RESOURCE
@@ -318,7 +327,7 @@ def _select_comm_sweep(chain, mesh, nmodes, reg, dims_pad, inds, vals,
             or not resilience.is_demoted(f"comm.{v}", ckey)]
     for i, variant in enumerate(live):
         sweep = make_sharded_sweep(mesh, nmodes, reg, dims_pad,
-                                   variant=variant)
+                                   variant=variant, plans=plans)
 
         def step(f, g, first, sweep=sweep):
             return sweep(inds, vals, f, g, first)
@@ -376,7 +385,7 @@ def _make_exchange_only(mesh, nmodes, dims_pad, rank, dtype, hops: int):
 
 def measure_ring_overlap(mesh, nmodes, reg, dims_pad, axis, variant,
                          inds, vals, factors, grams, dtype,
-                         reps: int = 3, step_fn=None) -> dict:
+                         reps: int = 3, step_fn=None, plans=None) -> dict:
     """The achieved comm/compute overlap of a ring sweep (docs/ring.md):
 
         exchange_s  the sweep's ring traffic alone, fully exposed
@@ -399,12 +408,12 @@ def measure_ring_overlap(mesh, nmodes, reg, dims_pad, axis, variant,
     rank = int(factors[0][0].shape[1])
     if step_fn is None:
         sweep = make_sharded_sweep(mesh, nmodes, reg, dims_pad,
-                                   variant=variant)
+                                   variant=variant, plans=plans)
 
         def step_fn(f, g, first):
             return sweep(inds, vals, f, g, first)
     stub = make_sharded_sweep(mesh, nmodes, reg, dims_pad,
-                              variant="local_stub")
+                              variant="local_stub", plans=plans)
     exchange = _make_exchange_only(mesh, nmodes, dims_pad, rank, dtype,
                                    hops=max(ndev - 1, 0))
 
@@ -536,6 +545,14 @@ def sharded_cpd_als(tt, rank: int, mesh=None,
 
         prepare(mesh, dtype)
     inds, vals = shard_nnz(tt, mesh, dtype=dtype, partition=partition)
+    plans = None
+    if "async_ring" in chain:
+        # the ring kernel's owner buckets of each mode's ids: once per run
+        from splatt_tpu_torch.parallel.ring_kernels import build_gather_plans
+
+        plans = [build_gather_plans([i[k] for i in inds], mesh,
+                                    dims_pad[k] // ndev)
+                 for k in range(nmodes)]
     if init is None:
         from splatt_tpu_torch.cpd import init_factors
 
@@ -577,7 +594,8 @@ def sharded_cpd_als(tt, rank: int, mesh=None,
 
     variant, step = _select_comm_sweep(chain, mesh, nmodes,
                                        opts.regularization, dims_pad, inds,
-                                       vals, factors, grams, dtype, opts)
+                                       vals, factors, grams, dtype, opts,
+                                       plans)
     if opts.verbosity >= Verbosity.HIGH:
         for line in comm_volume_report(
                 dims_pad, rank, torch.empty(0, dtype=dtype).element_size(),
@@ -589,7 +607,8 @@ def sharded_cpd_als(tt, rank: int, mesh=None,
         try:
             ov = measure_ring_overlap(mesh, nmodes, opts.regularization,
                                       dims_pad, axis, variant, inds, vals,
-                                      factors, grams, dtype, step_fn=step)
+                                      factors, grams, dtype, step_fn=step,
+                                      plans=plans)
             resilience.run_report().add("ring_overlap", **ov)
             if opts.verbosity >= Verbosity.LOW:
                 print(f"  ring overlap [{ov['engine']}]: "

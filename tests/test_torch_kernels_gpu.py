@@ -12,6 +12,8 @@ output, for bf16 operands too: a kernel rounds each bf16 product as its
 plain version does, so only the order of the f32 sums differs.
 """
 
+import math
+
 import numpy as np
 import pytest
 import torch
@@ -22,6 +24,41 @@ from splatt_tpu_torch.blocked import reencode_layout
 from splatt_tpu_torch.config import LayoutFormat
 from splatt_tpu_torch.coo import SparseTensor
 from splatt_tpu_torch.ops import kernels
+
+
+#: the matrices the eigensolver tests use (tests/test_torch_sym_eig.py too)
+SPECTRA = ("spd", "rank_deficient", "repeated", "indefinite",
+           "nonfinite_chol")
+
+
+def spectrum(kind: str, R: int, seed: int) -> np.ndarray:
+    """A symmetric (R, R) float64 matrix: "spd" eigenvalues in [1, 10];
+    "rank_deficient" the Gram of a (4R, R) normal matrix with a
+    duplicated column (a zero column at R = 1), so the pseudo-inverse
+    branch runs; "repeated" eigenvalues 2 and 5 each about R/2 times;
+    "indefinite" eigenvalues of both signs; "nonfinite_chol" all ones,
+    whose Cholesky meets a zero pivot and solves to non-finite values."""
+    rng = np.random.default_rng(seed)
+    if kind == "rank_deficient":
+        X = rng.standard_normal((4 * R, R))
+        if R > 1:
+            X[:, -1] = X[:, 0]
+        else:
+            X[:, 0] = 0.0
+        return X.T @ X
+    if kind == "nonfinite_chol":
+        return np.ones((R, R))
+    Q, _ = np.linalg.qr(rng.standard_normal((R, R)))
+    if kind == "spd":
+        lam = rng.uniform(1.0, 10.0, R)
+    elif kind == "repeated":
+        lam = np.where(np.arange(R) % 2 == 0, 2.0, 5.0)
+    elif kind == "indefinite":
+        lam = rng.uniform(1.0, 5.0, R) * np.where(np.arange(R) % 2, -1, 1)
+    else:
+        raise ValueError(kind)
+    A = (Q * lam) @ Q.T
+    return (A + A.T) / 2
 
 
 def contracts(lays, dims):
@@ -395,3 +432,176 @@ def test_cuda_async_ring_cpd_is_the_kernels_alone():
                 run(mesh, torch.float32, engine_fallback=fallback)
     resilience.reset_demotions()
     resilience.run_report().clear()
+
+
+def _rel(got, want) -> float:
+    got, want = got.double().cpu(), want.double().cpu()
+    return float((got - want).abs().max()) / max(float(want.abs().max()),
+                                                  1e-300)
+
+
+def _pinv_op(w, v, dtype):
+    """V diag(w_inv) Vᵀ with the cut of the solve in `dtype`."""
+    tol = torch.finfo(dtype).eps ** 0.5 * w.abs().max()
+    w_inv = torch.where(w.abs() > tol, 1.0 / w, torch.zeros_like(w))
+    return (v * w_inv) @ v.T
+
+
+@pytest.mark.gpu
+def test_cuda_sym_eig_matches_plain_and_eigh():
+    """csrc/sym_eig.cu against its plain version and torch.linalg.eigh on
+    the card, on every spectrum, f32 and f64, up to the gate's largest
+    rank: sorted w within 1e-5 (f32) / 1e-12 (f64) of max|w|, the
+    pseudo-inverse operator within 1e-4 / 1e-10, V orthonormal.  The
+    eigh reference is the matrix's eigh in f64: on an H100, cuSOLVER's
+    f32 eigh is itself about 1e-5 of max|w| from it at R >= 50, while the
+    kernel and its plain version sit well inside that."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from splatt_tpu_torch.ops import linalg
+
+    tols = {torch.float32: (1e-5, 1e-4), torch.float64: (1e-12, 1e-10)}
+    for dtype, top in ((torch.float32, 168), (torch.float64, 118)):
+        w_tol, op_tol = tols[dtype]
+        for R in (1, 2, 3, 17, 50, 64, top):
+            for kind in SPECTRA:
+                A = torch.from_numpy(spectrum(kind, R, seed=R)).to(
+                    "cuda", dtype)
+                what = f"{dtype} R={R} {kind}"
+                before = linalg.sym_eig.launches
+                w, v, sweeps = linalg.sym_eig(A, return_sweeps=True)
+                assert linalg.sym_eig.launches == before + 1
+                wp, vp, sp = linalg.sym_eig_plain(A)
+                we, ve = torch.linalg.eigh(A.double())
+                torch.cuda.synchronize()
+                linalg.check_solver()
+                assert 0 <= int(sweeps) < linalg.SYM_EIG_MAX_SWEEPS, what
+                assert bool((w[1:] >= w[:-1]).all()), what
+                for ref_w, ref_v in ((wp, vp), (we, ve)):
+                    assert _rel(w, ref_w) <= w_tol, what
+                    assert _rel(_pinv_op(w, v, dtype),
+                                _pinv_op(ref_w, ref_v, dtype)) <= op_tol, what
+                eye = torch.eye(R, dtype=dtype, device="cuda")
+                assert float((v.T @ v - eye).abs().max()) \
+                    <= 100 * torch.finfo(dtype).eps * R, what
+
+
+@pytest.mark.gpu
+def test_cuda_solve_and_sweep_have_no_host_sync():
+    """solve_normals, solve_normals_many and one cpd sweep run under
+    torch.cuda.set_sync_debug_mode("error"): the eigensolver kernel took
+    torch.linalg.eigh's place and nothing waits on the host."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from splatt_tpu_torch import BlockedSparse, Options
+    from splatt_tpu_torch.cpd import _mttkrp_closure, _sweep
+    from splatt_tpu_torch.ops import linalg
+    from splatt_tpu_torch.parallel.common import solve_normals_many
+
+    rng = np.random.default_rng(11)
+    dims, rank = (40, 30, 50), 12
+    X = _tensor(rng, dims, 4000, False)
+    bs = BlockedSparse.from_coo(X, Options(), device="cuda")
+    factors = [torch.from_numpy(rng.random((d, rank), dtype=np.float32))
+               .cuda() for d in dims]
+    lhs = torch.from_numpy(spectrum("spd", rank, seed=3)).float().cuda()
+    rhs = [torch.from_numpy(rng.random((n, rank), dtype=np.float32)).cuda()
+           for n in (17, 9)]
+    do_mttkrp = _mttkrp_closure(bs, torch.device("cuda"), torch.float32,
+                                False)
+
+    def work():
+        grams = [linalg.gram(U) for U in factors]
+        facs = list(factors)
+        x = linalg.solve_normals(lhs, rhs[0])
+        xs = solve_normals_many(lhs, rhs)
+        return _sweep(do_mttkrp, facs, grams, False, 0.0), x, xs
+
+    work()                  # builds and loads the kernels first
+    torch.cuda.synchronize()
+    before = linalg.sym_eig.launches
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        (lam, znormsq, inner), x, xs = work()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    linalg.check_solver()
+    assert linalg.sym_eig.launches == before + 2 + len(dims)
+    assert bool(torch.isfinite(x).all()) and all(
+        bool(torch.isfinite(y).all()) for y in xs)
+    assert math.isfinite(float(znormsq)) and math.isfinite(float(inner))
+
+
+@pytest.mark.gpu
+def test_cuda_sym_eig_launch_failure_raises():
+    """A refused eigensolver launch raises; torch.linalg.eigh never takes
+    its place."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from splatt_tpu_torch.ops import linalg
+
+    lhs = torch.from_numpy(spectrum("spd", 8, seed=4)).float().cuda()
+    rhs = torch.ones((5, 8), device="cuda")
+    real_threads, real_eigh = linalg.sym_eig_threads, torch.linalg.eigh
+
+    def no_eigh(*a, **k):
+        raise AssertionError("torch.linalg.eigh stood in for the kernel")
+
+    linalg.sym_eig_threads = lambda R: 2048     # above the CTA limit
+    torch.linalg.eigh = no_eigh
+    try:
+        with pytest.raises(kernels.KernelLaunchError):
+            linalg.solve_normals(lhs, rhs)
+    finally:
+        linalg.sym_eig_threads = real_threads
+        torch.linalg.eigh = real_eigh
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_ring_gather_plans_are_exact(dtype):
+    """The bucketed ring_gather on 4 virtual ranks at R in {1, 7, 50, 64}
+    (2- to 16-byte row vectors) equals its plain walk and the sync ring
+    exactly, pads of no shard included, over plans built once on the card
+    (equal to the CPU's) and reused by a second launch."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from splatt_tpu_torch.parallel import ring, ring_kernels
+    from splatt_tpu_torch.parallel.mesh import make_mesh
+
+    mesh = _ring_mesh(4)
+    cpu = make_mesh(n_devices=4, device="cpu")
+    rng = np.random.default_rng(12)
+    block, nnz = 301, 5000
+    idx_cpu = []
+    for _ in range(4):
+        i = rng.integers(0, 4 * block, size=nnz).astype(np.int32)
+        i[::9] = -1
+        i[5::13] = 4 * block + 7
+        idx_cpu.append(torch.from_numpy(i))
+    idx = [i.to(dev) for i, dev in zip(idx_cpu, mesh.devices)]
+    ring_kernels.reset_launches()
+    plans = ring_kernels.build_gather_plans(idx, mesh, block)
+    assert ring_kernels.build_gather_plans.builds == 4
+    for p, q in zip(plans, ring_kernels.build_gather_plans(idx_cpu, cpu,
+                                                           block)):
+        for a, b in ((p.pos, q.pos), (p.loc, q.loc), (p.offsets, q.offsets)):
+            assert torch.equal(a.cpu(), b)
+    for R in (1, 7, 50, 64):
+        U = [torch.from_numpy(rng.random((block, R))).to(dev, dtype)
+             for dev in mesh.devices]
+        want = ring.gather_hops(U, idx, mesh)
+        plain = ring_kernels.ring_gather_plain(U, plans, mesh)
+        for _ in range(2):
+            before = ring_kernels.ring_gather.launches
+            got = ring_kernels.ring_gather(U, idx, mesh, plans=plans)
+            assert ring_kernels.ring_gather.launches \
+                == before + len(mesh.cards)
+            for c in mesh.cards:
+                torch.cuda.synchronize(c)
+            ring_kernels.check_errors()
+            for g, w, p in zip(got, want, plain):
+                assert torch.equal(g.cpu(), w.cpu()), f"R={R} {dtype}"
+                assert torch.equal(g.cpu(), p.cpu()), f"R={R} {dtype}"
+    assert ring_kernels.build_gather_plans.builds == 8

@@ -253,3 +253,98 @@ def test_imbalance_records_match_jax():
     assert resilience.run_report().summary() == jres.run_report().summary()
     resilience.run_report().clear()
     jres.run_report().clear()
+
+
+def _plan_ids(ndev: int, block: int, nnz: int, seed: int):
+    """Each rank's int32 ids over every shard, with pads of no shard (-1
+    and ids past the last block) among them."""
+    rng = np.random.default_rng(seed)
+    ids = rng.integers(0, ndev * block, size=(ndev, nnz)).astype(np.int32)
+    ids[:, ::7] = -1
+    ids[:, 3::11] = ndev * block + 2
+    return [torch.from_numpy(i) for i in ids]
+
+
+@pytest.mark.parametrize("ndev", NDEVS)
+def test_gather_plan_buckets_by_owner(ndev):
+    """Each rank's plan is a permutation of its nonzeros, stable within a
+    bucket; bucket b holds exactly the ids with id // block == b at their
+    within-block rows; ids of no shard get the last bucket."""
+    block, nnz = 6 + ndev, 97
+    mesh = make_mesh(n_devices=ndev, device="cpu")
+    idx = _plan_ids(ndev, block, nnz, seed=ndev)
+    ring_kernels.reset_launches()
+    plans = ring_kernels.build_gather_plans(idx, mesh, block)
+    assert ring_kernels.build_gather_plans.builds == ndev
+    for ids, plan in zip(idx, plans):
+        assert plan.pos.dtype == plan.loc.dtype == plan.offsets.dtype \
+            == torch.int32
+        assert plan.offsets.shape == (ndev + 2,)
+        pos = plan.pos.long()
+        assert torch.equal(torch.sort(pos).values, torch.arange(nnz))
+        off = plan.offsets.tolist()
+        assert off[0] == 0 and off[-1] == nnz
+        ids = ids.long()
+        for b in range(ndev + 1):
+            sel = pos[off[b]:off[b + 1]]
+            assert bool((sel[1:] > sel[:-1]).all())       # stable
+            got = ids[sel]
+            if b < ndev:
+                assert bool((torch.div(got, block, rounding_mode="floor")
+                             == b).all())
+                assert torch.equal(plan.loc[off[b]:off[b + 1]].long(),
+                                   got - b * block)
+            else:
+                assert bool(((got < 0) | (got >= ndev * block)).all())
+        none = (ids < 0) | (ids >= ndev * block)
+        assert off[ndev + 1] - off[ndev] == int(none.sum())
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.bfloat16])
+@pytest.mark.parametrize("ndev", NDEVS)
+def test_async_gather_through_the_plan_equals_sync_ring(ndev, dtype):
+    """async_ring_gather_rows over the plans, and the kernel's plain walk,
+    equal the sync ring bit for bit on a CPU mesh, pads included, and a
+    plan serves every later gather at the same ids."""
+    block, nnz = 5 + ndev, 61
+    mesh = make_mesh(n_devices=ndev, device="cpu")
+    idx = _plan_ids(ndev, block, nnz, seed=20 + ndev)
+    plans = ring_kernels.build_gather_plans(idx, mesh, block)
+    rng = np.random.default_rng(ndev)
+    for _ in range(2):
+        U_l = [torch.from_numpy(rng.random((block, R))).to(dtype)
+               for _ in range(ndev)]
+        want = ring.ring_gather_rows(U_l, idx, mesh)
+        for got in (ring_kernels.async_ring_gather_rows(U_l, idx, mesh,
+                                                        plans),
+                    ring_kernels.ring_gather_plain(U_l, plans, mesh),
+                    ring_kernels.ring_gather(U_l, idx, mesh, plans=plans)):
+            for g, w in zip(got, want):
+                assert g.dtype == dtype and torch.equal(g, w)
+
+
+@pytest.mark.parametrize("ndev", [4, 8])
+def test_fine_run_builds_one_plan_per_mode_per_rank(ndev):
+    """A FINE ASYNC_RING run on virtual CPU ranks builds its gather plans
+    once: nmodes x ndev, however many iterations and gathers; its fits
+    equal the ring run's."""
+    from splatt_tpu_torch.config import CommPattern, Options, Verbosity
+    from splatt_tpu_torch.coo import SparseTensor
+    from splatt_tpu_torch.parallel import sharded_cpd_als
+
+    tt = gen.fixture_tensor("med")
+    X = SparseTensor(tt.inds, tt.vals, tt.dims)
+    mesh = make_mesh(n_devices=ndev, device="cpu")
+    rng = np.random.default_rng(ndev)
+    init = [rng.random((d, 3)) for d in X.dims]
+    fits = {}
+    for comm in (CommPattern.ASYNC_RING, CommPattern.POINT2POINT):
+        ring_kernels.reset_launches()
+        out = sharded_cpd_als(X, 3, mesh=mesh, init=init, opts=Options(
+            max_iterations=3, tolerance=0.0, comm_pattern=comm,
+            val_dtype=torch.float64, verbosity=Verbosity.NONE),
+            measure_overlap=False)
+        fits[comm] = out.fits
+        want = X.nmodes * ndev if comm is CommPattern.ASYNC_RING else 0
+        assert ring_kernels.build_gather_plans.builds == want
+    assert fits[CommPattern.ASYNC_RING] == fits[CommPattern.POINT2POINT]

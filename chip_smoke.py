@@ -76,9 +76,11 @@ Phases, each fatal on failure:
    gets a dense tile layout.  The host build (all sparse, hybrid, one
    dense layout alone), each mode's ``format_desc`` and
    ``storage_bytes`` (index bytes 0); ``fused_dense`` against its plain
-   version per mode in f32 and bf16 (<= 1e-4 of max|plain|), timed beside
-   its bound, the plain version and the library matmul (TF32 off, on a
-   materialized Khatri-Rao operand whose build is timed apart);
+   version per mode in f32 and bf16 (<= 1e-4 of max|plain|; the f32 error
+   against the 3xTF32 emulation printed beside), timed beside its bound
+   (bytes, or its products at the tensor-core rate; ``ffma_bound_ms`` at
+   the FFMA rate), the plain version and the library matmul (TF32 off,
+   on a materialized Khatri-Rao operand whose build is timed apart);
    ``cpd_als``, 5 iterations, fallback off, counters at 0 just before:
    ``dense/fused_dense`` on every mode, no demotion, 15 ``fused_dense``
    launches, a ``dense_dispatch`` event per mode, then the sweep phases;
@@ -90,9 +92,12 @@ Phases, each fatal on failure:
    ``engine.fused_dense`` armed ``cpd_als`` raises, fallback on or off;
    the dense sweep also runs under the sync-debug check;
 11. the FINE distributed CPD on phase 3's tensor over every card, or 4
-   virtual ranks sharing the one card: the gather plans built once per
-   mode, ``ring_gather`` per gather leg exact against its plain walk and
-   the sync ring, ``ring_reduce`` per mode within 1e-4, each timed beside
+   virtual ranks sharing the one card: the id-sorted ring plans built once
+   per mode (shared by the mode's gathers and its reduce; their builds and
+   bytes printed), ``ring_gather`` per gather leg exact against its plain
+   walk and the sync ring, and timed on the shared plans and on the
+   owner-stable plans it walked before, in turns; ``ring_reduce`` per mode
+   within 1e-4 of its plain walk and of the sync ring; each timed beside
    its bound, its plain version and the library; the ``ASYNC_RING`` CPD
    (30 + 15 ring launches per card, one plan per mode per rank, 0
    ``comm_fallback``), the overlap probe, the single-card COO CPD and
@@ -102,7 +107,8 @@ The line before the last is the ``{"kernels": [...]}`` record (the nine
 TPU kernels' counterparts and ``sym_eig``); the last is
 ``{"ok": true, "device": {...}}``.  ``python3 chip_smoke.py --ring`` runs
 phases 1-3's set-up and phase 11 alone (for a call with several cards)
-and prints the two ring kernels' entries.
+and prints the two ring kernels' entries; ``--dense`` runs phases 1-2
+and phase 10 alone and prints ``fused_dense``'s.
 """
 
 from __future__ import annotations
@@ -146,8 +152,10 @@ LAMBDA_TOL = 1e-4      # λ of a faulted CPD against the unfaulted, relative
 # the tensor cores
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
-# dense bf16 on the tensor cores, the rate of fused_dense's bf16 products
+# dense bf16 and TF32 on the tensor cores, the rates of fused_dense's bf16
+# products and of its f32 products made of three TF32 products (3xTF32)
 BF16_TC_FLOP_PER_S = 989e12
+TF32_TC_FLOP_PER_S = 495e12
 
 
 def log(msg: str) -> None:
@@ -1303,16 +1311,18 @@ def phase_format(bs, rank: int, main_fits: list, seed: int = 1) -> dict:
             "planted_bf16": planted}
 
 
-def dense_bound(lay, factors, mode: int, out, flop_rate: float) -> tuple:
+def dense_bound(lay, factors, mode: int, out, flop_rate: float,
+                products: int = 1) -> tuple:
     """Least time in ms for one fused_dense call: the value tiles, the
     other modes' factors read once and the output written once over the
-    HBM rate, against 2 R operations per tile cell (and R per Khatri-Rao
-    entry) over `flop_rate`."""
+    HBM rate, against `products` x (2 R operations per tile cell and R
+    per Khatri-Rao entry) over `flop_rate` (3 products of TF32 for an f32
+    product on the tensor cores)."""
     R = int(factors[0].shape[1])
     moved = nbytes(lay.tiles, out)
     moved += nbytes(*(U for k, U in enumerate(factors) if k != mode))
-    return least_ms(moved, (2 * lay.tiles.numel() + lay.span) * R,
-                    flop_rate)
+    return least_ms(moved, products * (2 * lay.tiles.numel() + lay.span)
+                    * R, flop_rate)
 
 
 def _cpd_launches(bs, rank: int, init, iters: int, fallback: bool = False):
@@ -1409,9 +1419,18 @@ def phase_dense(rank: int, seed: int = 1) -> dict:
                 lambda: kernels.fused_dense(lay, fac, m),
                 lambda: kernels.fused_dense_plain(lay, fac, m),
                 f"fused_dense {name} mode {m}")
-            rate = BF16_TC_FLOP_PER_S if cast is not None else F32_FLOP_PER_S
-            row["bound_ms"], row["bound_by"] = dense_bound(lay, fac, m, got,
-                                                           rate)
+            # f32 runs as 3xTF32 on the tensor cores, bf16 as one bf16
+            # product; ffma_bound_ms: the same work at the FFMA rate
+            if cast is None:
+                row["bound_ms"], row["bound_by"] = dense_bound(
+                    lay, fac, m, got, TF32_TC_FLOP_PER_S, products=3)
+                emul = kernels.fused_dense_tf32x3(lay, fac, m)
+                row["err_vs_tf32x3"] = float((got.double() - emul).abs()
+                                             .max() / emul.abs().max())
+                del emul
+            else:
+                row["bound_ms"], row["bound_by"] = dense_bound(
+                    lay, fac, m, got, BF16_TC_FLOP_PER_S)
             row["ffma_bound_ms"] = dense_bound(lay, fac, m, got,
                                                F32_FLOP_PER_S)[0]
             w, u = dense_operands(lay, fac, m)
@@ -1610,6 +1629,26 @@ def ring_bound(mesh, hbm: list, hop: list, flops: list,
     return best, by
 
 
+def owner_stable(plans):
+    """The ring plans' buckets in the order the gather walked before the
+    plans were sorted by id: each bucket's positions ascending, a stable
+    sort by owner alone.  For timing the gather on both orders."""
+    import torch
+
+    from splatt_tpu_torch.parallel import ring_kernels
+
+    out = []
+    for p in plans:
+        owner = torch.repeat_interleave(
+            torch.arange(int(p.offsets.shape[0]) - 1, device=p.pos.device),
+            torch.diff(p.offsets.long()))
+        order = torch.sort(owner * int(p.pos.shape[0])
+                           + p.pos.long()).indices
+        out.append(ring_kernels.RingPlan(p.pos[order], p.loc[order],
+                                         p.offsets, p.block))
+    return out
+
+
 def ring_library(kind: str, mesh, mats, idx, block: int, dim_pad: int):
     """One library call set computing a ring kernel's function: on
     distinct cards NCCL in one process (torch.cuda.nccl.all_gather, then
@@ -1754,17 +1793,26 @@ def phase_distributed(tt, rank: int, seed: int = 11) -> dict:
     mesh_sync(mesh)
 
     # 1. each kernel against its plain version on the real shards; the
-    # gather's plans built once per mode, as the CPD builds them
+    # id-sorted plans built once per mode, as the CPD builds them, and
+    # shared by the mode's gathers and its reduce; the gather is also
+    # timed on the owner-stable plans it walked before, in turns
     t0 = time.perf_counter()
-    plans = {k: ring_kernels.build_gather_plans(
+    plans = {k: ring_kernels.build_ring_plans(
         [i[k] for i in inds], mesh, dims_pad[k] // ndev)
         for k in range(tt.nmodes)}
     mesh_sync(mesh)
     plan_s = time.perf_counter() - t0
     plan_bytes = sum(nbytes(p.pos, p.loc, p.offsets)
                      for ps in plans.values() for p in ps)
-    log(f"[ring] gather plans: {tt.nmodes} modes x {ndev} ranks built in "
-        f"{plan_s:.3f} s, {plan_bytes} bytes on the card(s)")
+    # each rank's nonzeros per owner shard (the last: ids of no shard); a
+    # ring step waits for the rank with the largest bucket of that step
+    buckets = {k: [torch.diff(p.offsets).tolist() for p in ps]
+               for k, ps in plans.items()}
+    log(f"[ring] ring plans (id-sorted, one per mode per rank, shared by "
+        f"the gathers and the reduce): {tt.nmodes} modes x {ndev} ranks "
+        f"built in {plan_s:.3f} s, {plan_bytes} bytes on the card(s); "
+        f"bucket sizes by mode and rank {json.dumps(buckets)}")
+    owner_plans = {k: owner_stable(ps) for k, ps in plans.items()}
     rows_out = {"ring_gather": [], "ring_reduce": []}
     for m in range(tt.nmodes):
         prod = [v[:, None].clone() for v in vals]
@@ -1788,7 +1836,14 @@ def phase_distributed(tt, rank: int, seed: int = 11) -> dict:
                                      f"ring, {err_plain} against the plain "
                                      f"walk, expected exact")
             prod = [p * w for p, w in zip(prod, want)]
-            del got, want, plain
+            del got, plain
+            got = ring_kernels.ring_gather(U_l, idx, mesh,
+                                           plans=owner_plans[k])
+            mesh_sync(mesh)
+            if not all(torch.equal(g, w) for g, w in zip(got, want)):
+                raise AssertionError(f"ring_gather mode {k} on the owner-"
+                                     f"stable plans differs")
+            del got, want
             lib, label = ring_library("gather", mesh, U_l, idx, block,
                                       dims_pad[k])
             hbm = [4 * int(i.shape[0]) + U.numel() * U.element_size()
@@ -1796,11 +1851,19 @@ def phase_distributed(tt, rank: int, seed: int = 11) -> dict:
                    for U, i in zip(U_l, idx)]
             hop = [(ndev - 1) * U.numel() * U.element_size() for U in U_l]
             b_ms, b_by = ring_bound(mesh, hbm, hop, [0] * ndev, peer)
+            # the two plan orders in turns: id, owner, owner, id
+            turns = {"id": [], "owner": []}
+            for order in ("id", "owner", "owner", "id"):
+                ps = plans[k] if order == "id" else owner_plans[k]
+                turns[order].append(mesh_time_ms(
+                    lambda: ring_kernels.ring_gather(U_l, idx, mesh,
+                                                     plans=ps),
+                    mesh, reps=10, warmup=2))
             row = dict(leg=f"mode {m}: gather factor {k}", mode=m, factor=k,
                        block=block, max_abs_err=err, max_rel_err=err,
-                       ms=mesh_time_ms(lambda: ring_kernels.ring_gather(
-                           U_l, idx, mesh, plans=plans[k]), mesh, reps=10,
-                           warmup=2),
+                       ms=sum(turns["id"]) / 2,
+                       owner_plan_ms=sum(turns["owner"]) / 2,
+                       turns_ms=turns,
                        plain_ms=mesh_time_ms(
                            lambda: ring_kernels.ring_gather_plain(
                                U_l, plans[k], mesh), mesh, reps=3),
@@ -1814,17 +1877,23 @@ def phase_distributed(tt, rank: int, seed: int = 11) -> dict:
             rows_out["ring_gather"].append(row)
         idx = [i[m] for i in inds]
         block = dims_pad[m] // ndev
-        got = ring_kernels.ring_reduce(prod, idx, mesh, block)
+        got = ring_kernels.ring_reduce(prod, idx, mesh, block,
+                                       plans=plans[m])
         want = ring.blockwise_reduce_rows(prod, idx, mesh, block)
+        plain = ring_kernels.ring_reduce_plain(prod, plans[m], mesh)
         mesh_sync(mesh)
         ring_kernels.check_errors()
-        err = max(float((g - w).abs().max()) for g, w in zip(got, want))
         scale = max(float(w.abs().max()) for w in want)
-        rel = err / scale if scale > 0 else err
+        err = max(float((g - w).abs().max()) for g, w in zip(got, want))
+        err_plain = max(float((g - w).abs().max())
+                        for g, w in zip(got, plain))
+        rel = max(err, err_plain) / scale if scale > 0 else err
         if not rel <= KERNEL_TOL:
             raise AssertionError(f"ring_reduce mode {m}: relative error "
-                                 f"{rel:.3e} > {KERNEL_TOL}")
-        del got, want
+                                 f"{err / scale:.3e} against the sync ring, "
+                                 f"{err_plain / scale:.3e} against its plain "
+                                 f"walk > {KERNEL_TOL}")
+        del got, want, plain
         lib, label = ring_library("reduce", mesh, prod, idx, block,
                                   dims_pad[m])
         hbm = [p.numel() * p.element_size() + 4 * int(i.shape[0])
@@ -1833,11 +1902,17 @@ def phase_distributed(tt, rank: int, seed: int = 11) -> dict:
         b_ms, b_by = ring_bound(mesh, hbm, hop, [p.numel() for p in prod],
                                 peer)
         row = dict(leg=f"mode {m}: reduce", mode=m, block=block,
-                   max_abs_err=err, max_rel_err=rel,
+                   max_abs_err=max(err, err_plain), max_rel_err=rel,
+                   err_vs_sync_ring=err, err_vs_plain=err_plain,
                    ms=mesh_time_ms(lambda: ring_kernels.ring_reduce(
-                       prod, idx, mesh, block), mesh, reps=10, warmup=2),
-                   plain_ms=mesh_time_ms(lambda: ring.blockwise_reduce_rows(
-                       prod, idx, mesh, block), mesh, reps=3),
+                       prod, idx, mesh, block, plans=plans[m]), mesh,
+                       reps=10, warmup=2),
+                   plain_ms=mesh_time_ms(
+                       lambda: ring_kernels.ring_reduce_plain(
+                           prod, plans[m], mesh), mesh, reps=3),
+                   sync_ring_ms=mesh_time_ms(
+                       lambda: ring.blockwise_reduce_rows(
+                           prod, idx, mesh, block), mesh, reps=3),
                    library_ms=mesh_time_ms(lib, mesh, reps=10),
                    library=label, bound_ms=b_ms, bound_by=b_by,
                    hbm_bytes=sum(hbm), hop_bytes=sum(hop))
@@ -1848,7 +1923,7 @@ def phase_distributed(tt, rank: int, seed: int = 11) -> dict:
         torch.cuda.empty_cache()
     pitch = gather_pitch_probe(mesh, facs[1], [i[1] for i in inds], plans[1],
                                peer)
-    del facs
+    del facs, owner_plans
 
     def opts(comm, **kw):
         return Options(max_iterations=RING_ITERS, tolerance=0.0,
@@ -1867,7 +1942,7 @@ def phase_distributed(tt, rank: int, seed: int = 11) -> dict:
     mesh_sync(mesh)
     launches = {"ring_gather": ring_kernels.ring_gather.launches,
                 "ring_reduce": ring_kernels.ring_reduce.launches}
-    builds = ring_kernels.build_gather_plans.builds
+    builds = ring_kernels.build_ring_plans.builds
     ring_peaks = _peaks(mesh)
     fallbacks = resilience.run_report().events("comm_fallback")
     steady = sum(out.iter_seconds[1:]) / (len(out.iter_seconds) - 1)
@@ -1877,8 +1952,9 @@ def phase_distributed(tt, rank: int, seed: int = 11) -> dict:
     log(f"[ring] async_ring cpd fits {list(out.fits)}")
     log(f"[ring] async_ring cpd {steady:.5f} s/iteration (iterations "
         f"2..{RING_ITERS}); launches {launches} (expected {want_g} and "
-        f"{want_r}: {ncards_used} card(s)); gather plans built {builds} "
-        f"(expected {tt.nmodes * ndev}: one per mode per rank); "
+        f"{want_r}: {ncards_used} card(s)); ring plans built {builds} "
+        f"(expected {tt.nmodes * ndev}: one per mode per rank, shared by "
+        f"the gathers and the reduce; {plan_bytes} bytes); "
         f"comm_fallback events {len(fallbacks)}; peak GiB per card "
         f"{ring_peaks}")
     gather_ms = sum(r["ms"] for r in rows_out["ring_gather"]) / len(
@@ -1887,8 +1963,12 @@ def phase_distributed(tt, rank: int, seed: int = 11) -> dict:
         rows_out["ring_gather"])
     gather_bound = sum(r["bound_ms"] for r in rows_out["ring_gather"]) / len(
         rows_out["ring_gather"])
+    gather_owner = sum(r["owner_plan_ms"] for r in rows_out[
+        "ring_gather"]) / len(rows_out["ring_gather"])
     log(f"[ring] ring_gather {gather_ms:.4f} ms per launch (mean over the "
-        f"legs) beside its bound {gather_bound:.4f} ms, the library "
+        f"legs) on the shared id-sorted plans, {gather_owner:.4f} ms on "
+        f"the owner-stable plans (in turns), beside its bound "
+        f"{gather_bound:.4f} ms, the library "
         f"{gather_lib:.4f} ms; the all-ids scan design read "
         f"{SCAN_GATHER_MS} ms in an earlier run of this script (H100 80GB "
         f"HBM3, 700 W), not this one")
@@ -1896,7 +1976,7 @@ def phase_distributed(tt, rank: int, seed: int = 11) -> dict:
         raise AssertionError(f"ring launches {launches}, expected "
                              f"{want_g} and {want_r}")
     if builds != tt.nmodes * ndev:
-        raise AssertionError(f"{builds} gather plans built, expected "
+        raise AssertionError(f"{builds} ring plans built, expected "
                              f"{tt.nmodes * ndev}")
     if fallbacks:
         raise AssertionError(f"comm_fallback events: {fallbacks}")
@@ -1976,6 +2056,7 @@ def phase_distributed(tt, rank: int, seed: int = 11) -> dict:
             "cards": ncards_used, "virtual": mesh.virtual, "peers": peers,
             "copy_rate": peer, "plan_builds": builds, "pitch_probe": pitch,
             "plan_bytes": plan_bytes, "plan_build_s": plan_s,
+            "plan_buckets": buckets,
             "cpd": {"sec_per_iter": steady, "fits": list(out.fits),
                     "iter_seconds": list(out.iter_seconds),
                     "peak_gib": ring_peaks, "coo_fits": list(coo.fits),
@@ -2023,10 +2104,36 @@ def _ring_row(name: str, replaces: str, dist: dict, per: str) -> dict:
                    all2all=dist["all2all"], drill=dist["drill"],
                    phase_seconds=dist["seconds"],
                    sync_ring_ms=sum(r["sync_ring_ms"] for r in rows)
+                   / len(rows),
+                   owner_plan_ms=sum(r["owner_plan_ms"] for r in rows)
                    / len(rows), plan_builds=dist["plan_builds"],
                    plan_bytes=dist["plan_bytes"],
+                   plan_buckets=dist["plan_buckets"],
                    pitch_probe=dist["pitch_probe"])
     return row
+
+
+def _dense_row(dense: dict, bf16: dict) -> dict:
+    """Row 7 of the kernels line: phase 10's f32 means over the modes."""
+    rows = dense["rows"]["f32"]
+    return _record_row(
+        "fused_dense", "splatt_tpu_torch/csrc/fused_dense.cu",
+        "splatt_tpu/ops/pallas_kernels.py:1483",
+        dense["cpd"]["launches"]["fused_dense"], rows, "library_ms",
+        note=f"ms/plain_ms/bound_ms/library_ms: mean per launch over the 3 "
+        f"modes of {DENSE_DIMS}, 20M nonzeros, rank {RANK}, f32 tiles and "
+        f"factors on the tensor cores as 3xTF32 (bound: the bytes, or 3 "
+        f"TF32 products at the TF32 rate; ffma_bound_ms: the same work at "
+        f"the FFMA rate); launches: phase 10's dense CPD; library: one "
+        f"torch.matmul of the tiles with a materialized Khatri-Rao "
+        f"operand, TF32 off (its build in kr_build_ms); bf16: bound at the "
+        f"bf16 tensor-core rate",
+        ffma_bound_ms=sum(r["ffma_bound_ms"] for r in rows) / len(rows),
+        err_vs_tf32x3=max(r["err_vs_tf32x3"] for r in rows),
+        contracts=rows, bf16=bf16, layouts=dense["layouts"],
+        build=dense["build"], cpd=dense["cpd"],
+        all_sparse=dense["all_sparse"], drill=dense["drill"],
+        raised=dense["raised"], phase_seconds=dense["seconds"])
 
 
 def _eig_row(main_path: dict, big: dict, dense: dict) -> dict:
@@ -2084,6 +2191,14 @@ def main() -> int:
 
     dev = phase_device()
     phase_build()
+    if "--dense" in sys.argv[1:]:
+        dense = phase_dense(RANK)
+        print(json.dumps({"kernels": [_dense_row(
+            dense, _bf16_summary(dense["rows"]["bf16"]))],
+            "power": dev["smi"]}))
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": dev["kind"], "count": dev["count"]}}))
+        return 0
 
     t0 = time.perf_counter()
     tt = synthetic_tensor(NELL2, NNZ, seed=0)
@@ -2132,7 +2247,6 @@ def main() -> int:
         return chain[label]["launches"][kernel]
 
     fused_src = "splatt_tpu_torch/csrc/fused_mttkrp.cu"
-    dense_src = "splatt_tpu_torch/csrc/fused_dense.cu"
     v2_src = "splatt_tpu_torch/csrc/fused_mttkrp_v2.cu"
     reduce_src = "splatt_tpu_torch/csrc/onehot_reduce.cu"
     pk = "splatt_tpu/ops/pallas_kernels.py"
@@ -2197,22 +2311,7 @@ def main() -> int:
                     storage_bytes=fmt["storage_bytes"], cpd=fmt["cpd"],
                     planted_bf16=fmt["planted_bf16"],
                     bf16=bf16["fused_mttkrp_v2"]),
-        _record_row("fused_dense", dense_src, f"{pk}:1483",
-                    dense["cpd"]["launches"]["fused_dense"],
-                    dense["rows"]["f32"], "library_ms",
-                    note=f"ms/plain_ms/bound_ms/library_ms: mean per launch "
-                    f"over the 3 modes of {DENSE_DIMS}, 20M nonzeros, rank "
-                    f"{RANK}, f32 tiles (bound: f32 FFMA rate); launches: "
-                    f"phase 10's dense CPD; library: one torch.matmul of "
-                    f"the tiles with a materialized Khatri-Rao operand, "
-                    f"TF32 off (its build in kr_build_ms); bf16: bound at "
-                    f"the bf16 tensor-core rate, ffma_bound_ms at the FFMA "
-                    f"rate",
-                    contracts=dense["rows"]["f32"], bf16=bf16["fused_dense"],
-                    layouts=dense["layouts"], build=dense["build"],
-                    cpd=dense["cpd"], all_sparse=dense["all_sparse"],
-                    drill=dense["drill"], raised=dense["raised"],
-                    phase_seconds=dense["seconds"]),
+        _dense_row(dense, bf16["fused_dense"]),
         _ring_row("ring_gather", "splatt_tpu/parallel/ring_kernels.py:152",
                   dist, "2 x nmodes x iterations per card"),
         _ring_row("ring_reduce", "splatt_tpu/parallel/ring_kernels.py:260",

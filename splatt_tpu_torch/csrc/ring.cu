@@ -14,18 +14,19 @@
 //           s rank d holds shard (d - s) mod ndev and writes the rows of
 //           the nonzeros that shard owns.  An id outside [0, ndev*block)
 //           (a pad with owner -1) matches no shard and gives a zero row.
-//           The kernel reads no id: it walks rank d's gather plan
-//           (parallel/ring_kernels.py, build_gather_plans, made on the card
+//           The kernel reads no id: it walks rank d's ring plan
+//           (parallel/ring_kernels.py, build_ring_plans, made on the card
 //           once per id tensor), the nonzero positions stable-sorted by
-//           owner (pos), each one's within-block row (loc) and the ndev + 2
-//           offsets of the owner buckets, ids of no shard in the last.
+//           global id (pos), so by owner and within each owner by row,
+//           each one's within-block row (loc) and the ndev + 2 offsets of
+//           the owner buckets, ids of no shard in the last.
 //   reduce: out_d = sum over every rank e and nonzero n of e with
 //           idx_e[n] / block == d of prod_e[n] at row idx_e[n] % block,
 //           (block, R) f32.  The partial of block j starts at rank j+1 and
-//           travels right; each holder adds its local sum of block j
-//           (f32 atomics), and after ndev-1 hops the owner holds its
-//           rows.  The schedule of ring_kernels.py:323-326; rounding
-//           follows hop order.
+//           travels right; each holder adds its local sum of block j, and
+//           after ndev-1 hops the owner holds its rows.  The schedule of
+//           ring_kernels.py:323-326; rounding follows hop order.  It reads
+//           the same plan as the gather, not the ids.
 //
 // One launch per card per ring phase holds the whole ndev-step loop, as the
 // Pallas kernel's grid=(ndev,) does.  Every rank of a card runs in that one
@@ -55,9 +56,10 @@
 //
 // What bounds them on this card: bytes.  The gather writes nnz_d * R
 // elements per rank and reads its plan (8 bytes per nonzero) once; the
-// reduce reads nnz_d * R products and adds them into an L2-resident
-// (block, R) accumulator.  The hops move (ndev-1) * block * R elements per
-// rank over NVLink (or, between virtual ranks, within the card's memory).
+// reduce reads nnz_d * R products and its plan once and adds them into an
+// L2-resident (block, R) accumulator.  The hops move (ndev-1) * block * R
+// elements per rank over NVLink (or, between virtual ranks, within the
+// card's memory).
 //
 // The gather's design: at step s rank d's warps visit only bucket
 // (d - s) mod ndev of its plan, a 1/ndev share, with no integer division;
@@ -75,9 +77,15 @@
 // gather's time; PERF.md).  Registers are capped so 4 CTAs of 256 threads
 // fit an SM.  The hop copies the shard in 16-byte vectors.
 //
-// The reduce: warps scan 32 nonzeros at a time, a ballot picks the ones of
-// the step's block, and the warp adds each picked row with lanes over r.
-// No one-hot matmul: each row is copied or added directly.
+// The reduce's design: at step s a rank's warps walk only the bucket of
+// the block whose partial it adds to, each warp a contiguous range of it.
+// The plan is sorted by id, so a row's nonzeros are contiguous: the warp
+// keeps a running row sum in registers (lanes over r in the widest vector
+// the row allows, kRunroll product rows in flight) and writes each run of
+// one row once, with a plain store when the run lies wholly in its range
+// and with atomics only for the two runs its range's ends may cut.  At
+// hundreds of nonzeros per row that is two orders of magnitude fewer
+// atomics than one per product.  Registers are capped as the gather's.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -109,9 +117,9 @@ struct RankPtrs {
   unsigned long long* flags_left;
   long long nnz;
   long long rank;
-  const int* pos;                  // gather plan: nonzero positions by owner
-  const int* loc;                  // gather plan: within-block row of each
-  const int* off;                  // gather plan: ndev + 2 bucket offsets
+  const int* pos;                  // plan: nonzero positions by id
+  const int* loc;                  // plan: within-block row of each
+  const int* off;                  // plan: ndev + 2 bucket offsets
 };
 
 struct RingArgs {
@@ -198,7 +206,6 @@ __device__ __forceinline__ T load_cg(const T* p) {
   return __ldcg(p);
 }
 
-__device__ __forceinline__ float to_float(float v) { return v; }
 __device__ __forceinline__ float to_float(unsigned short v) {
   return __uint_as_float(static_cast<unsigned>(v) << 16);
 }
@@ -331,9 +338,175 @@ __global__ void __launch_bounds__(kThreads, kMaxCtasPerSm)
   }
 }
 
-// P: float or unsigned short (bf16 bits).
-template <class P>
-__global__ void __launch_bounds__(kThreads)
+// VW consecutive products of a row as f32 (P: float or unsigned short,
+// bf16 bits): one vector load of VW * sizeof(P) bytes, read once
+// (evict-first).
+template <class P, int VW>
+struct RowVec;
+template <>
+struct RowVec<float, 1> {
+  static __device__ __forceinline__ void load(const float* p, float* v) {
+    v[0] = __ldcs(p);
+  }
+};
+template <>
+struct RowVec<float, 2> {
+  static __device__ __forceinline__ void load(const float* p, float* v) {
+    const float2 x = __ldcs(reinterpret_cast<const float2*>(p));
+    v[0] = x.x;
+    v[1] = x.y;
+  }
+};
+template <>
+struct RowVec<float, 4> {
+  static __device__ __forceinline__ void load(const float* p, float* v) {
+    const float4 x = __ldcs(reinterpret_cast<const float4*>(p));
+    v[0] = x.x;
+    v[1] = x.y;
+    v[2] = x.z;
+    v[3] = x.w;
+  }
+};
+__device__ __forceinline__ void bf16_pair(unsigned w, float* v) {
+  v[0] = __uint_as_float(w << 16);
+  v[1] = __uint_as_float(w & 0xffff0000u);
+}
+template <>
+struct RowVec<unsigned short, 1> {
+  static __device__ __forceinline__ void load(const unsigned short* p,
+                                              float* v) {
+    v[0] = to_float(__ldcs(p));
+  }
+};
+template <>
+struct RowVec<unsigned short, 2> {
+  static __device__ __forceinline__ void load(const unsigned short* p,
+                                              float* v) {
+    bf16_pair(__ldcs(reinterpret_cast<const unsigned*>(p)), v);
+  }
+};
+template <>
+struct RowVec<unsigned short, 4> {
+  static __device__ __forceinline__ void load(const unsigned short* p,
+                                              float* v) {
+    const uint2 x = __ldcs(reinterpret_cast<const uint2*>(p));
+    bf16_pair(x.x, v);
+    bf16_pair(x.y, v + 2);
+  }
+};
+template <>
+struct RowVec<unsigned short, 8> {
+  static __device__ __forceinline__ void load(const unsigned short* p,
+                                              float* v) {
+    const uint4 x = __ldcs(reinterpret_cast<const uint4*>(p));
+    bf16_pair(x.x, v);
+    bf16_pair(x.y, v + 2);
+    bf16_pair(x.z, v + 4);
+    bf16_pair(x.w, v + 6);
+  }
+};
+
+// A run's sum of one row: stored when the warp holds the whole run (the
+// accumulator row is zero), else added with atomics.
+template <int VW>
+__device__ __forceinline__ void flush_run(float* dst, const float* sum,
+                                          bool atomic) {
+  if (atomic) {
+#pragma unroll
+    for (int i = 0; i < VW; ++i) atomicAdd(dst + i, sum[i]);
+  } else if constexpr (VW % 4 == 0) {
+#pragma unroll
+    for (int i = 0; i < VW; i += 4)
+      *reinterpret_cast<float4*>(dst + i) =
+          make_float4(sum[i], sum[i + 1], sum[i + 2], sum[i + 3]);
+  } else if constexpr (VW == 2) {
+    *reinterpret_cast<float2*>(dst) = make_float2(sum[0], sum[1]);
+  } else {
+    dst[0] = sum[0];
+  }
+}
+
+// One bucket's local sum: entries [b0, b1) of a rank's id-sorted plan add
+// product row pos[e] into accumulator row loc[e].  Each warp takes a
+// contiguous range of the bucket, lanes over the row in VW-wide vectors,
+// and keeps a running row sum in registers while loc stays the same;
+// kRunroll rows' loads are in flight before they are summed, and the
+// next 32 plan entries' while these are.  A run that lies wholly in the
+// warp's range is stored; the runs cut by the range's two ends (another
+// warp holds the rest) are added with atomics.
+template <class P, int VW>
+__device__ __forceinline__ void reduce_bucket(const P* prod, const int* pos,
+                                              const int* loc, long long b0,
+                                              long long b1, float* acc,
+                                              long long R, long long warp,
+                                              long long nwarps, int lane) {
+  // 16 floats of loads in flight per lane: under the 64-register cap of 4
+  // CTAs per SM, 32 spilled, and the reduce ran 1.5x longer (PERF.md)
+  constexpr int kRunroll = VW >= 2 ? 16 / VW : 8;
+  const long long len = b1 - b0;
+  if (len <= 0) return;
+  const long long per = (len + nwarps - 1) / nwarps;
+  const long long e0 = b0 + warp * per;
+  const long long e1 = min(b1, e0 + per);
+  if (e0 >= e1) return;
+  const bool cut_front = e0 > b0 && __ldg(loc + e0 - 1) == __ldg(loc + e0);
+  const bool cut_back = e1 < b1 && __ldg(loc + e1) == __ldg(loc + e1 - 1);
+  const long long vpr = R / VW;
+  for (long long k0 = 0; k0 < vpr; k0 += 32) {
+    const long long k = k0 + lane;
+    const bool on = k < vpr;
+    float sum[VW];
+#pragma unroll
+    for (int i = 0; i < VW; ++i) sum[i] = 0.0f;
+    int cur = -1;
+    bool front = cut_front;
+    // the plan entries of the next 32 are loaded while these are summed
+    int next_pos = lane < e1 - e0 ? __ldg(pos + e0 + lane) : 0;
+    int next_loc = lane < e1 - e0 ? __ldg(loc + e0 + lane) : -1;
+    for (long long base = e0; base < e1; base += 32) {
+      const int n = static_cast<int>(min(32LL, e1 - base));
+      const int my_pos = next_pos;
+      const int my_loc = next_loc;
+      const long long ahead = base + 32 + lane;
+      next_pos = ahead < e1 ? __ldg(pos + ahead) : 0;
+      next_loc = ahead < e1 ? __ldg(loc + ahead) : -1;
+      for (int u0 = 0; u0 < n; u0 += kRunroll) {
+        float v[kRunroll][VW];
+#pragma unroll
+        for (int u = 0; u < kRunroll; ++u) {
+          const int src = __shfl_sync(0xffffffffu, my_pos, (u0 + u) & 31);
+          if (on && u0 + u < n) {
+            RowVec<P, VW>::load(prod + src * R + k * VW, v[u]);
+          } else {
+#pragma unroll
+            for (int i = 0; i < VW; ++i) v[u][i] = 0.0f;
+          }
+        }
+#pragma unroll
+        for (int u = 0; u < kRunroll; ++u) {
+          const int row = __shfl_sync(0xffffffffu, my_loc, (u0 + u) & 31);
+          if (u0 + u < n) {       // uniform over the warp
+            if (row != cur) {
+              if (cur >= 0 && on)
+                flush_run<VW>(acc + cur * R + k * VW, sum, front);
+              if (cur >= 0) front = false;
+              cur = row;
+#pragma unroll
+              for (int i = 0; i < VW; ++i) sum[i] = 0.0f;
+            }
+#pragma unroll
+            for (int i = 0; i < VW; ++i) sum[i] += v[u][i];
+          }
+        }
+      }
+    }
+    if (on) flush_run<VW>(acc + cur * R + k * VW, sum, front || cut_back);
+  }
+}
+
+// P: float or unsigned short (bf16 bits); VW: products a lane loads at once.
+template <class P, int VW>
+__global__ void __launch_bounds__(kThreads, kMaxCtasPerSm)
     ring_reduce_kernel(const __grid_constant__ RingArgs a) {
   cg::grid_group grid = cg::this_grid();
   __shared__ int s_abort;
@@ -357,24 +530,12 @@ __global__ void __launch_bounds__(kThreads)
   }
   __syncthreads();
   for (int s = 0; s < ndev; ++s) {
-    const long long j = (d - 1 - s + 2 * ndev) % ndev;
+    const int j = (d - 1 - s + 2 * ndev) % ndev;
     float* acc = me.acc + (s & 1) * shard_elems;
-    // my local sum of block j; the previous step's outgoing stores fly
-    for (long long n0 = warp * 32; n0 < me.nnz; n0 += nwarps * 32) {
-      const long long n = n0 + lane;
-      const int id = n < me.nnz ? me.idx[n] : -1;
-      const bool mine = id >= 0 && id / blk == j;
-      unsigned pick = __ballot_sync(0xffffffffu, mine);
-      while (pick) {
-        const int l = __ffs(pick) - 1;
-        pick &= pick - 1;
-        const int idl = __shfl_sync(0xffffffffu, id, l);
-        const P* prow = prod + (n0 + l) * R;
-        float* arow = acc + (idl % blk) * R;
-        for (long long r = lane; r < R; r += 32)
-          atomicAdd(arow + r, to_float(prow[r]));
-      }
-    }
+    // my local sum of block j, its bucket alone; the previous step's
+    // outgoing stores fly
+    reduce_bucket<P, VW>(prod, me.pos, me.loc, me.off[j], me.off[j + 1], acc,
+                         R, warp, nwarps, lane);
     if (ex && s >= 1) __threadfence_system();
     grid.sync();
     if (ex && s >= 1 && blockIdx.x == 0 && threadIdx.x == 0) {
@@ -459,8 +620,8 @@ extern "C" {
 // launches on `stream` of card `dev`, does not synchronise and allocates
 // nothing.  `ranks` is an array of the card's ranks' RankPtrs (a type
 // local to this file, so the C interface takes it untyped); `err` is the
-// device address of a mapped host word (splatt_ring_alloc_host).  The
-// gather reads each rank's plan (pos, loc, off) and not its ids; `slot` is
+// device address of a mapped host word (splatt_ring_alloc_host).  Both
+// kernels read each rank's plan (pos, loc, off) and not its ids; `slot` is
 // the byte offset of its landing zone's second slot, `pitch` the bytes
 // between output rows (at least R * esize; the bytes past a row are
 // written as zeros).
@@ -507,7 +668,8 @@ int splatt_ring_gather(int dev, const void* ranks, int nlocal, int ndev,
   return launch(ring_gather_kernel<uint4>, dev, a, nlocal, stream);
 }
 
-// prod_bf16: the products are bf16, else f32; the output is f32.
+// prod_bf16: the products are bf16, else f32; the output is f32.  The
+// reduce reads each rank's id-sorted plan (pos, loc, off) and not its ids.
 int splatt_ring_reduce(int dev, const void* ranks, int nlocal, int ndev,
                        long long block, long long R, int prod_bf16,
                        long long gen, void* err, long long timeout_ns,
@@ -516,9 +678,39 @@ int splatt_ring_reduce(int dev, const void* ranks, int nlocal, int ndev,
   int rc = fill(&a, ranks, nlocal, ndev, block, R, gen, err, timeout_ns,
                 exchange);
   if (rc != 0) return rc;
-  if (prod_bf16)
-    return launch(ring_reduce_kernel<unsigned short>, dev, a, nlocal, stream);
-  return launch(ring_reduce_kernel<float>, dev, a, nlocal, stream);
+  // the widest product vector the row length and every rank's products
+  // allow (the accumulator rows are then aligned to it too)
+  const int esize = prod_bf16 ? 2 : 4;
+  int vw = prod_bf16 ? 8 : 4;
+  for (; vw > 1; vw /= 2) {
+    unsigned long long al = 0;
+    for (int i = 0; i < nlocal; ++i)
+      al |= reinterpret_cast<unsigned long long>(a.r[i].in) |
+            reinterpret_cast<unsigned long long>(a.r[i].acc);
+    if (R % vw == 0 && al % (vw * esize) == 0 && al % (vw * 4) == 0) break;
+  }
+  for (int i = 0; i < nlocal; ++i)
+    if (a.r[i].pos == nullptr || a.r[i].loc == nullptr ||
+        a.r[i].off == nullptr)
+      return static_cast<int>(cudaErrorInvalidValue);
+  if (prod_bf16) {
+    if (vw == 8)
+      return launch(ring_reduce_kernel<unsigned short, 8>, dev, a, nlocal,
+                    stream);
+    if (vw == 4)
+      return launch(ring_reduce_kernel<unsigned short, 4>, dev, a, nlocal,
+                    stream);
+    if (vw == 2)
+      return launch(ring_reduce_kernel<unsigned short, 2>, dev, a, nlocal,
+                    stream);
+    return launch(ring_reduce_kernel<unsigned short, 1>, dev, a, nlocal,
+                  stream);
+  }
+  if (vw == 4)
+    return launch(ring_reduce_kernel<float, 4>, dev, a, nlocal, stream);
+  if (vw == 2)
+    return launch(ring_reduce_kernel<float, 2>, dev, a, nlocal, stream);
+  return launch(ring_reduce_kernel<float, 1>, dev, a, nlocal, stream);
 }
 
 // Enable access from card `dev` to card `peer`'s memory: 0, or -1 when the

@@ -20,12 +20,14 @@ has its wrapper in ``ops/linalg.py``):
 - :func:`onehot_reduce_sorted`, :func:`onehot_reduce_full`
   (``csrc/onehot_reduce.cu``): the same reduction of precomputed products;
 - :func:`fused_dense` (``csrc/fused_dense.cu``): a dense mode's value
-  tiles times the Khatri-Rao operand it generates.
+  tiles times the Khatri-Rao operand it generates, on the tensor cores.
 
 On a card the kernels take f32 or bf16 values, tables and products and
 write f32.  A bf16 product is rounded to bf16 after each multiply, as the
 plain versions' bf16 ``prod * rows`` is, so a kernel and its plain
-version differ only in the order of their f32 sums.
+version differ only in the order of their f32 sums; ``fused_dense`` with
+f32 factors also in its 3xTF32 products (about 2^-21 of each, emulated by
+:func:`fused_dense_tf32x3`).
 
 A wrapper runs its plain version for tensors that lie on the CPU.  For CUDA
 tensors it launches the kernel on the current stream or raises: a launch
@@ -45,7 +47,7 @@ import subprocess
 import threading
 import time
 from pathlib import Path
-from typing import Dict, List, Optional, Sequence
+from typing import Dict, List, NamedTuple, Optional, Sequence
 
 import torch
 
@@ -72,17 +74,18 @@ FUSED_SCRATCH_BYTES = 8 * 7 * 32 * 4
 #: columns of the rank tile of fused_mttkrp_tg and the reductions
 #: (csrc/*.cu: 32 * min(4, ceil(R / 32)))
 RANK_TILE = 128
-#: csrc/fused_dense.cu's CTA tile: output rows, rank columns, span
-#: columns per chunk (BM, BN, BK)
-DENSE_TILE = (64, 64, 32)
+#: csrc/fused_dense.cu's CTA: output rows (two wgmma warpgroups of 64)
+DENSE_ROWS = 128
+#: the rank tiles N csrc/fused_dense.cu is built for (wgmma's N): R
+#: rounded up to the next, more than 96 on grid.y (N = 128 with bf16
+#: values and factors faulted on an H100).  The steps between are not
+#: built: at R = 50, N = 64 ran as fast as N = 56 on an H100 (PERF.md)
+DENSE_N_TILES = (8, 16, 32, 64, 96)
 #: fused_dense's one static limit: the rank tiles run on grid.y, at most
-#: 65535 of them.  It needs no residency limit: a CTA holds one (64, 32)
-#: value sub-tile and one (32, 64) Khatri-Rao sub-tile, whatever the span
-DENSE_MAX_RANK = 65535 * DENSE_TILE[1]
-#: CTAs per SM the split of the span aims at: 4 fit on an SM at the f32
-#: instantiations' 64 registers, 3 at the bf16 ones' 79, so the grid runs
-#: in 2 or 2.7 waves
-DENSE_CTAS_PER_SM = 8
+#: 65535 of them.  It needs no residency limit: a CTA holds a ring of
+#: (128, chunk) value boxes and (chunk, N) Khatri-Rao tiles, whatever the
+#: span
+DENSE_MAX_RANK = 65535 * DENSE_N_TILES[-1]
 
 #: cudaError_t codes of a launch the card refused (bad configuration, too
 #: many resources, an allocation): the kernel never ran and the context is
@@ -176,7 +179,7 @@ _ENTRIES = {
                                   [_P, _P, _I, _I, _I, _I, _I, _P, _P]),
     "splatt_fused_dense": ("fused_dense.cu",
                            [_P, _I, _P, _P, _I, _LL, _LL, _I, _I, _I, _I,
-                            _LL, _P, _P]),
+                            _I, _I, _P, _P]),
     "splatt_ring_gather": ("ring.cu", [_I, _P, _I, _I, _LL, _LL, _I, _LL,
                                        _P, _LL, _I, _LL, _LL, _P]),
     "splatt_ring_reduce": ("ring.cu", [_I, _P, _I, _I, _LL, _LL, _I, _LL,
@@ -673,19 +676,90 @@ def fused_dense_plain(layout, factors: Sequence[torch.Tensor],
     return out.reshape(-1, R)[:layout.dim]
 
 
-def dense_grid(rows: int, span: int, R: int, sms: int) -> tuple:
-    """(row blocks, splits, chunks per split) of csrc/fused_dense.cu: the
-    span's chunks of :data:`DENSE_TILE` [2] columns are split so the grid
-    holds about :data:`DENSE_CTAS_PER_SM` CTAs per SM (a mode with one
-    row tile still fills the card), each split a whole number of
-    chunks."""
-    bm, bn, bk = DENSE_TILE
-    row_blocks = -(-rows // bm)
-    rank_tiles = -(-R // bn)
-    chunks = span // bk
-    want = -(-DENSE_CTAS_PER_SM * sms // (row_blocks * rank_tiles))
-    per = -(-chunks // max(1, min(want, chunks)))
-    return row_blocks, -(-chunks // per), per
+def tf32_split(x: torch.Tensor) -> tuple:
+    """The 3xTF32 split of csrc/fused_dense.cu in torch: ``(big,
+    small)`` with ``big = tf32(x)`` and ``small = tf32(x - big)``, each
+    rounded to TF32's 10 mantissa bits, to nearest with ties away from
+    zero (``cvt.rna.tf32.f32``), as f32.  For the tests and
+    ``chip_smoke.py``; no engine calls it."""
+
+    def rna(v):
+        bits = v.contiguous().view(torch.int32)
+        return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+    x = x.to(torch.float32)
+    big = rna(x)
+    return big, rna(x - big)
+
+
+def fused_dense_tf32x3(layout, factors: Sequence[torch.Tensor],
+                       mode: int) -> torch.Tensor:
+    """What :func:`fused_dense` computes with f32 factors, emulated in
+    f64: the values and the f32 Khatri-Rao operand each split by
+    :func:`tf32_split`, then ``a_big b_big + a_big b_small + a_small
+    b_big`` (bf16 values have no small part), trimmed to ``dim`` rows.
+    It keeps about 2^-21 of each product; for the tests and
+    ``chip_smoke.py``."""
+    from splatt_tpu_torch.ops.mttkrp import dense_operands
+
+    R = int(factors[0].shape[1])
+    w, u = dense_operands(layout, list(factors), mode)
+    kr = (w[:, None, :] * u[None, :, :]).reshape(-1, R)
+    a_big, a_small = (t.double() for t in tf32_split(layout.tiles.view(
+        -1, layout.span)))
+    b_big, b_small = (t.double() for t in tf32_split(kr))
+    out = a_big @ b_big + a_big @ b_small + a_small @ b_big
+    return out[:layout.dim]
+
+
+class DenseTiling(NamedTuple):
+    """The launch shape of csrc/fused_dense.cu for one mode."""
+
+    n_tile: int        # rank columns per CTA (wgmma N)
+    rank_tiles: int    # CTAs on grid.y
+    chunk: int         # span columns per pipeline stage
+    row_blocks: int    # ceil(rows / DENSE_ROWS)
+    splits: int        # span splits per row block (split-K)
+
+
+def dense_tiling(rows: int, span: int, inner_pad: int, R: int, sms: int,
+                 tiles_bf16: bool = False,
+                 fac_bf16: bool = False) -> DenseTiling:
+    """The tiling of csrc/fused_dense.cu: N the first of
+    :data:`DENSE_N_TILES` that holds R (or the last, with the rest of the
+    rank on grid.y); a chunk is one 128-byte row of the narrower of the
+    value and factor types (32 columns in f32, 64 when either is bf16);
+    the span is split so the grid is about one wave of one CTA per SM (a
+    mode with one row block still fills the card), as its u-stationary
+    schedule allows (:func:`dense_split_chunks`): at most ``nib =
+    inner_pad / chunk`` splits, or a whole multiple of nib."""
+    n_tile = next((n for n in DENSE_N_TILES if n >= R), DENSE_N_TILES[-1])
+    rank_tiles = -(-R // n_tile)
+    chunk = 64 if (tiles_bf16 or fac_bf16) else 32
+    row_blocks = -(-rows // DENSE_ROWS)
+    nib, n_outer = inner_pad // chunk, span // inner_pad
+    want = max(1, sms // (row_blocks * rank_tiles))
+    splits = want if want <= nib else nib * min(n_outer, want // nib)
+    return DenseTiling(n_tile, rank_tiles, chunk, row_blocks, splits)
+
+
+def dense_split_chunks(t: DenseTiling, span: int, inner_pad: int,
+                       split: int) -> List[int]:
+    """The chunks split `split` of a row block takes, in order (the
+    kernel's Schedule): chunk ``o * nib + ib`` is outer index o and inner
+    rows ``ib * chunk ..``; a split takes whole u blocks ib (with splits
+    <= nib: ib = split, split + splits, ..., every o) or, with splits a
+    multiple of nib, block ``split % nib`` for part ``split // nib`` of
+    the o range, so consecutive chunks share their u rows."""
+    nib, n_outer = inner_pad // t.chunk, span // inner_pad
+    if t.splits <= nib:
+        return [o * nib + ib for ib in range(split, nib, t.splits)
+                for o in range(n_outer)]
+    parts = t.splits // nib
+    part = split // nib
+    return [o * nib + split % nib
+            for o in range(n_outer * part // parts,
+                           n_outer * (part + 1) // parts)]
 
 
 def fused_dense(layout, factors: Sequence[torch.Tensor],
@@ -698,7 +772,8 @@ def fused_dense(layout, factors: Sequence[torch.Tensor],
     entry builds them outside its pallas_call.  CPU tensors take
     :func:`fused_dense_plain`; CUDA tensors (f32 or bf16 tiles and
     factors, R ≤ :data:`DENSE_MAX_RANK`) launch ``csrc/fused_dense.cu``
-    or raise."""
+    (the tensor cores: bf16 products, or 3xTF32 for f32 factors) or
+    raise."""
     from splatt_tpu_torch.ops.mttkrp import dense_operands
 
     factors = list(factors)
@@ -712,19 +787,25 @@ def fused_dense(layout, factors: Sequence[torch.Tensor],
         raise ValueError(f"rank {R} above fused_dense's {DENSE_MAX_RANK}")
     if layout.tiles.data_ptr() % 16:
         raise ValueError("the value tiles must be 16-byte aligned")
-    w, u = (t.contiguous() for t in dense_operands(layout, factors, mode))
     dev = layout.device
     rows, span = layout.dim, layout.span
-    row_blocks, splits, per = dense_grid(
-        rows, span, R,
-        torch.cuda.get_device_properties(dev).multi_processor_count)
+    tiles_bf16, fac_bf16 = _is_bf16(layout.tiles), _is_bf16(factors[0])
+    inner_pad = layout.geometry.inner_pad
+    t = dense_tiling(
+        rows, span, inner_pad, R,
+        torch.cuda.get_device_properties(dev).multi_processor_count,
+        tiles_bf16, fac_bf16)
+    # w and u in fresh buffers whose rows are rank_tiles * n_tile columns,
+    # zero past R: the kernel copies a tile's columns in 16-byte pieces
+    w, u = dense_operands(layout, factors, mode)
+    w, u = (x.new_zeros((int(x.shape[0]), t.rank_tiles * t.n_tile))
+            .index_copy_(1, torch.arange(R, device=dev), x) for x in (w, u))
     out = torch.zeros((rows, R), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
-        _launch("splatt_fused_dense", layout.tiles.data_ptr(),
-                _is_bf16(layout.tiles), w.data_ptr(), u.data_ptr(),
-                _is_bf16(factors[0]), rows, span,
-                layout.geometry.inner_pad, R, row_blocks, splits, per,
-                out.data_ptr())
+        _launch("splatt_fused_dense", layout.tiles.data_ptr(), tiles_bf16,
+                w.data_ptr(), u.data_ptr(), fac_bf16, rows, span,
+                inner_pad, R, t.n_tile, t.rank_tiles, t.row_blocks,
+                t.splits, out.data_ptr())
     fused_dense.launches += 1
     return out
 

@@ -13,23 +13,27 @@ semaphores (``csrc/ring.cu`` has the protocol).
 
 - :func:`ring_gather` (≙ ``_ring_gather_kernel``): each rank's ``(nnz_d,
   R)`` rows of a row-sharded factor at its nonzeros' global ids, exact.
-  It walks a :class:`GatherPlan` per rank (:func:`build_gather_plans`):
-  the nonzeros bucketed by owner once per id tensor, as the TPU kernel
-  takes each nonzero's owner and within-block row precomputed
-  (``idx_div_ref``/``idx_loc_ref``, ring_kernels.py:152-160), so a step
-  visits only the bucket of the shard it holds.
 - :func:`ring_reduce` (≙ ``_ring_reduce_kernel``): the ring
   reduce-scatter of the MTTKRP products into each rank's ``(block, R)``
   rows, f32; rounding follows hop order.
 
-Their plain versions: :func:`ring_gather_plain` (the kernel's walk over
-the plan's buckets, bit for bit the sync ring's
-:func:`~splatt_tpu_torch.parallel.ring.gather_hops`) and the sync ring's
-:func:`~splatt_tpu_torch.parallel.ring.blockwise_reduce_rows`.  A wrapper
-runs the sync ring for CPU tensors; for CUDA tensors it launches the kernel on
-every card of the mesh, one launch per card holding all of that card's
-ranks, or raises.  It launches every card's kernel before it waits on any
-and never synchronizes: a spin that ran out writes an error word that
+Both walk one :class:`RingPlan` per rank (:func:`build_ring_plans`): the
+nonzeros sorted by global id once per id tensor, so bucketed by owner, as
+the TPU kernels take each nonzero's owner and within-block row
+precomputed (``idx_div_ref``/``idx_loc_ref``, ring_kernels.py:152-160).
+A step visits only one bucket, and in the reduce a row's nonzeros are
+contiguous, so they are summed in registers and written once.
+
+Their plain versions walk the same plans: :func:`ring_gather_plain` (bit
+for bit the sync ring's
+:func:`~splatt_tpu_torch.parallel.ring.gather_hops`) and
+:func:`ring_reduce_plain` (the sync ring's
+:func:`~splatt_tpu_torch.parallel.ring.blockwise_reduce_rows` to
+rounding).  A wrapper runs the sync ring for CPU tensors; for CUDA tensors
+it launches the kernel on every card of the mesh, one launch per card
+holding all of that card's ranks, or raises.  It launches every card's
+kernel before it waits on any and never synchronizes: a spin that ran out
+writes an error word that
 :func:`check_errors` turns into a :class:`RingError` at the sweep's next
 fit read.  Each wrapper's ``.launches`` counts its launches (one per card
 per call).
@@ -297,12 +301,15 @@ def _run(wrapper, entry: str, mesh, st: _RingState, ranks, block: int,
 
 
 @dataclasses.dataclass(frozen=True)
-class GatherPlan:
-    """One rank's owner buckets for :func:`ring_gather`, built once per id
-    tensor (8 bytes per nonzero): ``pos`` the nonzero positions stably
-    sorted by owner shard (ids of no shard, owner ndev, last), ``loc``
-    each one's row within its owner's block (0 for ids of no shard), both
-    int32, and ``offsets`` the ``ndev + 2`` int32 bucket bounds."""
+class RingPlan:
+    """One rank's owner buckets for :func:`ring_gather` and
+    :func:`ring_reduce`, built once per id tensor (8 bytes per nonzero):
+    ``pos`` the nonzero positions stably sorted by global id (so by owner
+    shard and, within a shard, by row; ids of no shard, owner ndev,
+    last), ``loc`` each one's row within its owner's block (0 for ids of
+    no shard), both int32, and ``offsets`` the ``ndev + 2`` int32 bucket
+    bounds.  A row's nonzeros are contiguous in its bucket, which the
+    reduce's running row sums need."""
 
     pos: torch.Tensor
     loc: torch.Tensor
@@ -310,23 +317,26 @@ class GatherPlan:
     block: int
 
 
-def build_gather_plans(idx: Sequence[torch.Tensor], mesh,
-                       block: int) -> List[GatherPlan]:
-    """Each rank's :class:`GatherPlan` for global ids ``idx[d]`` over
+def build_ring_plans(idx: Sequence[torch.Tensor], mesh,
+                     block: int) -> List[RingPlan]:
+    """Each rank's :class:`RingPlan` for global ids ``idx[d]`` over
     shards of `block` rows, built on the ids' device with no host sync
-    (a stable sort by owner, the bucket counts by ``scatter_add_``).
-    ``build_gather_plans.builds`` counts the plans built, one per rank."""
+    (a stable sort by id and the bucket counts by ``scatter_add_``).  ``build_ring_plans.builds`` counts the
+    plans built, one per rank."""
     ndev = mesh.ndev
     plans = []
     for ids in idx:
         if ids.dim() != 1 or int(ids.shape[0]) >= 2**31:
-            raise ValueError(f"gather plan: ids of shape {tuple(ids.shape)}; "
+            raise ValueError(f"ring plan: ids of shape {tuple(ids.shape)}; "
                              f"a 1-D tensor below 2^31 entries is needed")
         ids = ids.long()
         owner = torch.div(ids, block, rounding_mode="floor")
         owner = torch.where((ids >= 0) & (owner < ndev), owner,
                             torch.full_like(owner, ndev))
-        order = torch.sort(owner, stable=True).indices
+        # ids of no shard sort last, in their own order
+        key = torch.where(owner < ndev, ids,
+                          torch.full_like(ids, ndev * block))
+        order = torch.sort(key, stable=True).indices
         ordered = owner[order]
         loc = torch.where(ordered < ndev, ids[order] - ordered * block,
                           torch.zeros_like(ordered))
@@ -335,14 +345,22 @@ def build_gather_plans(idx: Sequence[torch.Tensor], mesh,
         offsets = torch.cat([torch.zeros(1, dtype=torch.int64,
                                          device=ids.device),
                              torch.cumsum(counts, 0)])
-        plans.append(GatherPlan(order.int(), loc.int(), offsets.int(),
-                                block))
-        build_gather_plans.builds += 1
+        plans.append(RingPlan(order.int(), loc.int(), offsets.int(), block))
+        build_ring_plans.builds += 1
     return plans
 
 
+def _check_plans(name: str, plans, idx, block: int) -> None:
+    """Each rank's plan was built from its ids over `block`-row shards."""
+    for d, (plan, i) in enumerate(zip(plans, idx)):
+        if plan.block != block or plan.pos.shape != i.shape \
+                or plan.pos.device != i.device:
+            raise ValueError(f"{name}: rank {d}'s plan does not match its "
+                             f"ids and shards")
+
+
 def ring_gather_plain(U_l: Sequence[torch.Tensor],
-                      plans: Sequence[GatherPlan], mesh
+                      plans: Sequence[RingPlan], mesh
                       ) -> List[torch.Tensor]:
     """Plain PyTorch version of :func:`ring_gather`, the kernel's walk:
     at step s rank d copies the rows of its plan's bucket (d - s) mod ndev
@@ -368,16 +386,16 @@ def ring_gather_plain(U_l: Sequence[torch.Tensor],
 
 def ring_gather(U_l: Sequence[torch.Tensor], idx: Sequence[torch.Tensor],
                 mesh, exchange: bool = True,
-                plans: Optional[Sequence[GatherPlan]] = None
+                plans: Optional[Sequence[RingPlan]] = None
                 ) -> List[torch.Tensor]:
     """Rank d's ``(nnz_d, R)`` rows of the row-sharded factor ``U_l``
     (``U_l[d]``: rank d's ``(block, R)`` shard) at its global ids
     ``idx[d]``, in U's dtype; an id of no shard gives a zero row.  On a
     card each result is the ``(nnz_d, R)`` view of a buffer whose rows are
     padded to :data:`ROW_PITCH_ALIGN` bytes.  `plans` are the ids'
-    :class:`GatherPlan`s; without them they are built here (a caller that
+    :class:`RingPlan`s; without them they are built here (a caller that
     gathers at the same ids again builds them once with
-    :func:`build_gather_plans`).  CPU tensors take the sync ring's
+    :func:`build_ring_plans`).  CPU tensors take the sync ring's
     :func:`~splatt_tpu_torch.parallel.ring.gather_hops`.  With `exchange`
     off (the overlap probe's compute-only run) the blocks do not travel
     and the result is wrong by design."""
@@ -387,13 +405,9 @@ def ring_gather(U_l: Sequence[torch.Tensor], idx: Sequence[torch.Tensor],
         return gather_hops(U_l, idx, mesh)
     block = int(U_l[0].shape[0])
     if plans is None:
-        plans = build_gather_plans(idx, mesh, block)
+        plans = build_ring_plans(idx, mesh, block)
     _check("ring_gather", U_l, idx, mesh, lambda d: block)
-    for d, (plan, i) in enumerate(zip(plans, idx)):
-        if plan.block != block or plan.pos.shape != i.shape \
-                or plan.pos.device != i.device:
-            raise ValueError(f"ring_gather: rank {d}'s plan does not match "
-                             f"its ids and shards")
+    _check_plans("ring_gather", plans, idx, block)
     check_errors()
     R = int(U_l[0].shape[1])
     st = _state("gather", mesh, block, R, U_l[0].dtype)
@@ -409,13 +423,48 @@ def ring_gather(U_l: Sequence[torch.Tensor], idx: Sequence[torch.Tensor],
     return rows
 
 
+def ring_reduce_plain(prod: Sequence[torch.Tensor],
+                      plans: Sequence[RingPlan], mesh) -> List[torch.Tensor]:
+    """Plain PyTorch version of :func:`ring_reduce`, the kernel's walk:
+    the partial of block j starts at rank j+1 and travels right; at step
+    s rank d adds its plan's bucket (d - 1 - s) mod ndev (product rows
+    ``pos`` into rows ``loc``) to the partial it received, in the
+    accumulator dtype.  Rounding follows hop order, as the sync ring's
+    :func:`~splatt_tpu_torch.parallel.ring.blockwise_reduce_rows`."""
+    from splatt_tpu_torch.config import acc_dtype
+
+    ndev = mesh.ndev
+    block = plans[0].block
+    R = int(prod[0].shape[1])
+    out_dtype = acc_dtype(prod[0].dtype)
+    held = [None] * ndev
+    for s in range(ndev):
+        new = []
+        for d, plan in enumerate(plans):
+            j = (d - 1 - s) % ndev
+            lo, hi = plan.offsets[j:j + 2].tolist()
+            part = torch.zeros((block, R), dtype=out_dtype,
+                               device=prod[d].device)
+            part.index_add_(0, plan.loc[lo:hi].long(),
+                            prod[d][plan.pos[lo:hi].long()].to(out_dtype))
+            new.append(part if s == 0 else part + held[d])
+        held = ([new[(d - 1) % ndev].to(mesh.devices[d])
+                 for d in range(ndev)] if s < ndev - 1 else new)
+    return held
+
+
 def ring_reduce(prod: Sequence[torch.Tensor], idx: Sequence[torch.Tensor],
-                mesh, block: int, exchange: bool = True
+                mesh, block: int, exchange: bool = True,
+                plans: Optional[Sequence[RingPlan]] = None
                 ) -> List[torch.Tensor]:
     """Rank d's reduced ``(block, R)`` rows, f32: the sum over every
     rank's products ``prod[e]`` (``(nnz_e, R)``) whose global id
-    ``idx[e]`` falls in rank d's block.  With `exchange` off the partials
-    do not travel (the overlap probe's compute-only run)."""
+    ``idx[e]`` falls in rank d's block.  `plans` are the ids'
+    id-sorted :class:`RingPlan`s (the gather's, when it shares them);
+    without them they are built here.  CPU tensors take the sync ring's
+    :func:`~splatt_tpu_torch.parallel.ring.blockwise_reduce_rows`.  With
+    `exchange` off the partials do not travel (the overlap probe's
+    compute-only run)."""
     from splatt_tpu_torch.parallel.ring import blockwise_reduce_rows
 
     if prod[0].device.type == "cpu":
@@ -423,13 +472,16 @@ def ring_reduce(prod: Sequence[torch.Tensor], idx: Sequence[torch.Tensor],
     _check("ring_reduce", prod, idx, mesh, lambda d: int(idx[d].shape[0]))
     if block < 1:
         raise ValueError(f"ring_reduce: block must be >= 1, got {block}")
+    if plans is None:
+        plans = build_ring_plans(idx, mesh, block)
+    _check_plans("ring_reduce", plans, idx, block)
     check_errors()
     R = int(prod[0].shape[1])
     st = _state("reduce", mesh, block, R, torch.float32)
     out = [torch.empty((block, R), dtype=torch.float32, device=p.device)
            for p in prod]
-    ranks = [(p.data_ptr(), i.data_ptr(), o.data_ptr(), int(i.shape[0]),
-              None) for p, i, o in zip(prod, idx, out)]
+    ranks = [(p.data_ptr(), i.data_ptr(), o.data_ptr(), int(i.shape[0]), q)
+             for p, i, o, q in zip(prod, idx, out, plans)]
     _run(ring_reduce, "splatt_ring_reduce", mesh, st, ranks, block, R,
          int(prod[0].dtype == torch.bfloat16), exchange)
     return out
@@ -439,11 +491,11 @@ RING_KERNELS = (ring_gather, ring_reduce)
 
 
 def reset_launches() -> None:
-    """Set both ring wrappers' launch counts and the count of gather
-    plans built to 0."""
+    """Set both ring wrappers' launch counts and the count of ring plans
+    built to 0."""
     for k in RING_KERNELS:
         k.launches = 0
-    build_gather_plans.builds = 0
+    build_ring_plans.builds = 0
 
 
 reset_launches()
@@ -454,7 +506,7 @@ reset_launches()
 
 def async_ring_gather_rows(U_l: Sequence[torch.Tensor],
                            idx: Sequence[torch.Tensor], mesh,
-                           plans: Optional[Sequence[GatherPlan]] = None
+                           plans: Optional[Sequence[RingPlan]] = None
                            ) -> List[torch.Tensor]:
     """Rows of a row-sharded factor at each rank's global ids through the
     ring kernel (≙ splatt_tpu async_ring_gather_rows), over the ids'
@@ -470,13 +522,15 @@ def async_ring_gather_rows(U_l: Sequence[torch.Tensor],
 
 def async_blockwise_reduce_rows(prod: Sequence[torch.Tensor],
                                 idx: Sequence[torch.Tensor], mesh,
-                                block: int) -> List[torch.Tensor]:
+                                block: int,
+                                plans: Optional[Sequence[RingPlan]] = None
+                                ) -> List[torch.Tensor]:
     """Each rank's reduced MTTKRP rows through the ring kernel
-    (≙ splatt_tpu async_blockwise_reduce_rows); on a CPU mesh the sync
-    ring."""
+    (≙ splatt_tpu async_blockwise_reduce_rows), over the ids' `plans`
+    when given; on a CPU mesh the sync ring, which needs no plan."""
     faults.maybe_fail("comm.ring_exchange")
     if prod[0].device.type == "cpu":
         from splatt_tpu_torch.parallel.ring import blockwise_reduce_rows
 
         return blockwise_reduce_rows(prod, idx, mesh, block)
-    return ring_reduce(prod, idx, mesh, block)
+    return ring_reduce(prod, idx, mesh, block, plans=plans)

@@ -117,8 +117,9 @@ def _exchanges(mesh, dims_pad, variant: str, plans=None):
     idx, k)`` gives each rank's rows of mode k's row-sharded factor at its
     ids; ``reduce_rows(prod, idx, m)`` each rank's reduced (block, R) rows
     of mode m's MTTKRP, in the accumulator dtype.  `plans[k]`, when given,
-    are the ring kernel's gather plans of mode k's ids
-    (``ring_kernels.build_gather_plans``), built once per run."""
+    are the ring kernels' plans of mode k's ids
+    (``ring_kernels.build_ring_plans``), built once per run: mode k's
+    gather and mode k's reduce read the same ids, and so one plan."""
     ndev = mesh.ndev
 
     def plans_of(k):
@@ -143,7 +144,8 @@ def _exchanges(mesh, dims_pad, variant: str, plans=None):
 
         def reduce_rows(prod, idx, m):
             return async_blockwise_reduce_rows(prod, idx, mesh,
-                                               dims_pad[m] // ndev)
+                                               dims_pad[m] // ndev,
+                                               plans_of(m))
     elif variant == "local_stub" and mesh.is_cuda:
         # the kernels with the exchange off: each step's compute, no hop
         from splatt_tpu_torch.parallel.ring_kernels import (ring_gather,
@@ -155,7 +157,7 @@ def _exchanges(mesh, dims_pad, variant: str, plans=None):
 
         def reduce_rows(prod, idx, m):
             return ring_reduce(prod, idx, mesh, dims_pad[m] // ndev,
-                               exchange=False)
+                               exchange=False, plans=plans_of(m))
     elif variant == "local_stub":
         from splatt_tpu_torch.parallel.ring import local_block_sum
 
@@ -242,7 +244,7 @@ def make_sharded_sweep(mesh, nmodes: int, reg: float,
     lists in, new per-rank lists out (the inputs are not modified, so a
     probe's result can be thrown away).  `first` selects the 2-norm
     (iteration 0) over the max-norm (≙ src/cpd.c:343-347).  `plans`: the
-    gather plans of each mode's ids (:func:`_exchanges`)."""
+    ring plans of each mode's ids (:func:`_exchanges`)."""
     gather_rows, reduce_rows = _exchanges(mesh, dims_pad, variant, plans)
 
     def sweep(inds, vals, factors, grams, first: bool):
@@ -547,11 +549,12 @@ def sharded_cpd_als(tt, rank: int, mesh=None,
     inds, vals = shard_nnz(tt, mesh, dtype=dtype, partition=partition)
     plans = None
     if "async_ring" in chain:
-        # the ring kernel's owner buckets of each mode's ids: once per run
-        from splatt_tpu_torch.parallel.ring_kernels import build_gather_plans
+        # the ring kernels' id-sorted buckets of each mode's ids, shared
+        # by the mode's gathers and its reduce: once per run
+        from splatt_tpu_torch.parallel.ring_kernels import build_ring_plans
 
-        plans = [build_gather_plans([i[k] for i in inds], mesh,
-                                    dims_pad[k] // ndev)
+        plans = [build_ring_plans([i[k] for i in inds], mesh,
+                                  dims_pad[k] // ndev)
                  for k in range(nmodes)]
     if init is None:
         from splatt_tpu_torch.cpd import init_factors

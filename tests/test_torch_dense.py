@@ -333,23 +333,128 @@ def test_operands_and_operand_contract():
         kernels.fused_dense_plain(lay, tf, 2)
 
 
+def _covered_once(t, span, inner_pad):
+    """Every chunk of the span in exactly one split's schedule; the
+    splits' lengths within one u block's o range of each other."""
+    lists = [kernels.dense_split_chunks(t, span, inner_pad, s)
+             for s in range(t.splits)]
+    got = sorted(c for chunks in lists for c in chunks)
+    assert got == list(range(span // t.chunk))
+    return [len(chunks) for chunks in lists]
+
+
 def test_dense_grid_fills_the_card():
     """The split of the span: the phase-10 modes of chip_smoke.py on 132
-    SMs, whole chunks per split, every chunk covered once."""
-    bm, bn, bk = kernels.DENSE_TILE
-    for rows, span, R in [(96, 2_097_152, 50), (1024, 196_608, 50),
-                          (2048, 98_304, 50), (8, 128, 3),
-                          (40_000, 128, 300)]:
-        rb, splits, per = kernels.dense_grid(rows, span, R, 132)
-        chunks = span // bk
-        assert rb == -(-rows // bm)
-        assert (splits - 1) * per < chunks <= splits * per
-        rank_tiles = -(-R // bn)
-        ctas = rb * splits * rank_tiles
-        # about DENSE_CTAS_PER_SM per SM, or every chunk its own CTA
-        assert ctas >= min(0.9 * kernels.DENSE_CTAS_PER_SM * 132,
-                           rb * chunks * rank_tiles)
-        assert rb * splits < 2**31
+    SMs, every chunk covered once, about one CTA per SM, each split the
+    same number of chunks."""
+    for rows, span, inner_pad, R in [(96, 2_097_152, 2048, 50),
+                                     (1024, 196_608, 2048, 50),
+                                     (2048, 98_304, 1024, 50),
+                                     (8, 128, 128, 3),
+                                     (40_000, 128, 128, 300)]:
+        t = kernels.dense_tiling(rows, span, inner_pad, R, 132)
+        assert t.row_blocks == -(-rows // kernels.DENSE_ROWS)
+        lengths = _covered_once(t, span, inner_pad)
+        ctas = t.row_blocks * t.splits * t.rank_tiles
+        assert ctas >= min(0.9 * 132, t.row_blocks * t.rank_tiles
+                           * span // t.chunk)
+        if rows <= 2048:
+            assert max(lengths) == min(lengths)
+        assert t.row_blocks * t.splits < 2**31
+
+
+#: (span, inner_pad) of a dense unfolding: n_outer x inner_pad, inner_pad
+#: a multiple of 128 (one outer index, a few, odd counts, the phase-10
+#: modes)
+AWKWARD_SPANS = ((128, 128), (384, 128), (128 * 1001, 128 * 7),
+                 (256 * 7, 256), (98_304, 1024), (2_097_152, 2048))
+
+
+@pytest.mark.parametrize("R", [1, 8, 24, 40, 50, 56, 64, 65, 257])
+@pytest.mark.parametrize("rows", [1, 96, 100, 1024, 2048])
+def test_dense_tiling_covers_rows_ranks_and_span(rows, R):
+    """csrc/fused_dense.cu's launch shape for every value/factor dtype
+    pair: a wgmma N it is built for (the smallest of 8, 16, 32, 64 and 96
+    holding R, or 96 with the rest of the rank on grid.y), rank tiles
+    covering R and no
+    more, 128-row blocks covering the rows, chunks of one 128-byte row of
+    the narrower type dividing inner_pad, the u-stationary schedule's
+    splits (at most nib, or a multiple of it) covering each span's chunks
+    exactly once, in at most one wave of 132 SMs."""
+    for tiles_bf16 in (False, True):
+        for fac_bf16 in (False, True):
+            for span, inner_pad in AWKWARD_SPANS:
+                t = kernels.dense_tiling(rows, span, inner_pad, R, 132,
+                                         tiles_bf16, fac_bf16)
+                assert kernels.DENSE_N_TILES == (8, 16, 32, 64, 96)
+                assert t.n_tile in kernels.DENSE_N_TILES
+                assert (t.rank_tiles - 1) * t.n_tile < R \
+                    <= t.rank_tiles * t.n_tile
+                if R <= 96:
+                    assert t.rank_tiles == 1 and all(
+                        n < R for n in kernels.DENSE_N_TILES if n < t.n_tile)
+                assert t.chunk == (64 if tiles_bf16 or fac_bf16 else 32)
+                assert inner_pad % t.chunk == 0
+                assert t.row_blocks == -(-rows // 128)
+                nib = inner_pad // t.chunk
+                assert t.splits <= nib or (
+                    t.splits % nib == 0
+                    and t.splits // nib <= span // inner_pad)
+                _covered_once(t, span, inner_pad)
+                ctas = t.row_blocks * t.splits * t.rank_tiles
+                assert ctas <= max(132, t.row_blocks * t.rank_tiles)
+
+
+def test_tf32_split_rounds_as_the_card():
+    """tf32_split: big keeps 10 mantissa bits, rounded to nearest with
+    ties away from zero (cvt.rna.tf32.f32); small is the remainder's
+    TF32 part; big + small is x within 2^-22 relative."""
+    x = torch.tensor([1.0, 1.0 + 2.0**-11, -(1.0 + 2.0**-11),
+                      1.0 + 3 * 2.0**-12, 3.0e-30, 0.0])
+    big, small = kernels.tf32_split(x)
+    assert big.tolist()[:4] == [1.0, 1.0 + 2.0**-10, -(1.0 + 2.0**-10),
+                                1.0 + 2.0**-10]
+    assert float(big[5]) == 0.0 and float(small[5]) == 0.0
+    rng = np.random.default_rng(0)
+    x = torch.from_numpy(rng.standard_normal(10000).astype(np.float32))
+    big, small = kernels.tf32_split(x)
+    for part in (big, small):
+        assert not bool((part.view(torch.int32) & 0x1FFF).any())
+    err = (x.double() - big.double() - small.double()).abs()
+    assert bool((err <= 2.0**-22 * x.double().abs()).all())
+
+
+@pytest.mark.parametrize("vals", ["f32", "bf16"])
+@pytest.mark.parametrize("dims,nnz", [((16, 32, 120), 4000),
+                                      ((5, 6, 7, 9), 1200),
+                                      ((300, 8, 128), 100000)])
+def test_tf32x3_emulation_matches_plain_and_jax(dims, nnz, vals):
+    """What fused_dense computes with f32 factors, 3xTF32 emulated in
+    f64, against fused_dense_plain (f32, 1e-5 of max: the plain version's
+    own f32 sums) and the JAX package's dense_mttkrp in f64 on the same
+    f32-representable values and factors: within 2^-20 of max|ref|, as
+    3xTF32 keeps about 2^-21 of each product (the dropped small x small
+    term and the remainders' rounding) and the values are positive."""
+    tt = _tensor(dims, nnz)
+    bf16 = vals == "bf16"
+    store = torch.bfloat16 if bf16 else torch.float32
+    v = torch.from_numpy(tt.vals).to(store).double().numpy()
+    tt = JSparse(tt.inds, v, tt.dims)
+    X = port_tensor(tt)
+    rng = np.random.default_rng(9)
+    f32 = [rng.random((d, 6)).astype(np.float32) for d in dims]
+    tf = [torch.from_numpy(U) for U in f32]
+    jf = [jnp.asarray(U.astype(np.float64)) for U in f32]
+    for mode in range(tt.nmodes):
+        lay = tb.build_dense_layout(X, mode, device="cpu", val_dtype=store)
+        jlay = jb.build_dense_layout(tt, mode, val_dtype=np.float64)
+        got = kernels.fused_dense_tf32x3(lay, tf, mode)
+        assert got.dtype == torch.float64 and got.shape == (dims[mode], 6)
+        ref = np.asarray(jdense_mttkrp(jlay, jf, mode), dtype=np.float64)
+        scale = np.abs(ref).max()
+        assert np.abs(got.numpy() - ref).max() <= 2.0**-20 * scale
+        plain = kernels.fused_dense_plain(lay, tf, mode).double().numpy()
+        assert np.abs(got.numpy() - plain).max() <= 1e-5 * scale
 
 
 # -- chain and dispatch ------------------------------------------------------
@@ -374,7 +479,7 @@ def test_chain_gate_and_shape_key():
     assert tm.engine_chain(big, bfacs, 0) == ["dense_xla"]
     big_card, _ = _meta(rank=1, device="cuda")
     assert tm.engine_chain(big_card, bfacs, 0) == []
-    assert kernels.DENSE_MAX_RANK == 65535 * kernels.DENSE_TILE[1]
+    assert kernels.DENSE_MAX_RANK == 65535 * kernels.DENSE_N_TILES[-1]
     key = tm._engine_shape_key(lay, facs, 0)
     assert key == "r64:b256:dn"
     sparse = SimpleNamespace(block=256, encoding="v1")

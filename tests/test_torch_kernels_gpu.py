@@ -291,10 +291,13 @@ def test_cuda_kernels_take_bf16():
 @pytest.mark.gpu
 def test_cuda_fused_dense_matches_plain():
     """fused_dense against its plain version (IEEE f32 matmul) on 3- and
-    4-mode tensors, a mode above one 64-row block with pad rows, ranks
-    across the 64-column rank tile, f32 and bf16 tiles and factors, and
-    f32 tiles meeting bf16 factors; then the dispatch on a card: the
-    chain is fused_dense alone, so its armed fault raises."""
+    4-mode tensors: a mode of one row, one of 96 rows in one tile, one
+    above the 128-row CTA with pad rows, ranks from 1 to 257 (every
+    wgmma N it is built for, 8 to 96, the common CP ranks 16-48 between,
+    and rank tiles on grid.y), all four pairs of
+    f32 and bf16 tiles and factors (3xTF32 keeps about 2^-21 of each
+    product, inside the 1e-5 tolerance); then the dispatch on a card:
+    the chain is fused_dense alone, so its armed fault raises."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     from splatt_tpu_torch.blocked import build_dense_layout
@@ -303,7 +306,9 @@ def test_cuda_fused_dense_matches_plain():
 
     rng = np.random.default_rng(10)
     cases = [((16, 32, 120), 4000, (1, 50)), ((5, 6, 7, 9), 1200, (3, 64)),
-             ((300, 8, 128), 100000, (50, 130))]
+             ((300, 8, 128), 100000, (50, 130)),
+             ((96, 16, 128), 60000, (8, 257)), ((1, 40, 130), 3000, (65,)),
+             ((24, 40, 128), 30000, (16, 24, 32, 40, 48))]
     launched = 0
     for dims, nnz, ranks in cases:
         lin = rng.choice(int(np.prod(dims)), size=nnz, replace=False)
@@ -314,7 +319,8 @@ def test_cuda_fused_dense_matches_plain():
                    .cuda() for d in dims]
             for vdt, fdt in ((torch.float32, torch.float32),
                              (torch.bfloat16, torch.bfloat16),
-                             (torch.float32, torch.bfloat16)):
+                             (torch.float32, torch.bfloat16),
+                             (torch.bfloat16, torch.float32)):
                 tf = [U.to(fdt) for U in f32]
                 for m in range(len(dims)):
                     lay = build_dense_layout(X, m, val_dtype=vdt,
@@ -326,7 +332,7 @@ def test_cuda_fused_dense_matches_plain():
                     _close(got, kernels.fused_dense_plain(lay, tf, m),
                            f"dims={dims} rank={rank} {vdt}/{fdt} mode={m}")
                     launched += 1
-    assert launched == 60
+    assert launched == 4 * (3 * 2 + 4 * 2 + 3 * 2 + 3 * 2 + 3 + 3 * 5)
     # a dense layout takes the dense path whatever the caller's path
     before = kernels.fused_dense.launches
     for path in ("sorted_onehot", "dense"):
@@ -338,6 +344,50 @@ def test_cuda_fused_dense_matches_plain():
             mttkrp_blocked(lay, tf, m, fallback=True)
     with pytest.raises(ValueError, match="own mode"):
         kernels.fused_dense(lay, tf, (m + 1) % len(dims))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("fdt", [torch.float32, torch.bfloat16])
+def test_cuda_fused_dense_long_span_per_cta(fdt):
+    """fused_dense where each CTA sums a 65,536-column span alone (rank
+    tiles past half the card's SMs leave one split per row block), on
+    positive values and factors, where an accumulation that rounds with
+    a bias loses most.  Held to an f64 reference within 1e-5 of its
+    largest output: with f32 factors the 3xTF32 emulation
+    (fused_dense_tf32x3: the products the card makes, summed in f64),
+    with bf16 factors the plain version's bf16 roundings summed in f64.
+    IEEE f32 sums of these products stay near 1e-6; sums in one
+    tensor-core accumulator over the whole span drift to about 1e-4."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from splatt_tpu_torch.blocked import build_dense_layout
+    from splatt_tpu_torch.ops.mttkrp import dense_operands
+
+    rng = np.random.default_rng(11)
+    dims = (100, 512, 128)
+    inds = np.indices(dims).reshape(3, -1)
+    X = SparseTensor(inds, rng.random(inds.shape[1]) + 0.1, dims)
+    lay = build_dense_layout(X, 0, device="cuda")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    R = kernels.DENSE_N_TILES[-1] * (sms // 2 + 1)
+    t = kernels.dense_tiling(lay.dim, lay.span, lay.geometry.inner_pad, R,
+                             sms, False, fdt == torch.bfloat16)
+    assert lay.span == 65536 and t.splits == 1
+    tf = [torch.from_numpy(rng.random((d, R), dtype=np.float32)).cuda()
+          .to(fdt) for d in dims]
+    before = kernels.fused_dense.launches
+    got = kernels.fused_dense(lay, tf, 0)
+    assert kernels.fused_dense.launches == before + 1
+    if fdt == torch.float32:
+        want = kernels.fused_dense_tf32x3(lay, tf, 0)
+    else:
+        w, u = dense_operands(lay, tf, 0)
+        kr = (w[:, None, :] * u[None, :, :]).reshape(-1, R)
+        want = (lay.tiles.view(-1, lay.span).to(fdt).double()
+                @ kr.double())[:lay.dim]
+    err = float((got.double() - want).abs().max())
+    scale = float(want.abs().max())
+    assert err <= 1e-5 * scale, f"{fdt}: {err / scale:.3e} of max"
 
 
 def _ring_mesh(ndev):
@@ -582,10 +632,10 @@ def test_cuda_ring_gather_plans_are_exact(dtype):
         idx_cpu.append(torch.from_numpy(i))
     idx = [i.to(dev) for i, dev in zip(idx_cpu, mesh.devices)]
     ring_kernels.reset_launches()
-    plans = ring_kernels.build_gather_plans(idx, mesh, block)
-    assert ring_kernels.build_gather_plans.builds == 4
-    for p, q in zip(plans, ring_kernels.build_gather_plans(idx_cpu, cpu,
-                                                           block)):
+    plans = ring_kernels.build_ring_plans(idx, mesh, block)
+    assert ring_kernels.build_ring_plans.builds == 4
+    for p, q in zip(plans, ring_kernels.build_ring_plans(idx_cpu, cpu,
+                                                         block)):
         for a, b in ((p.pos, q.pos), (p.loc, q.loc), (p.offsets, q.offsets)):
             assert torch.equal(a.cpu(), b)
     for R in (1, 7, 50, 64):
@@ -604,4 +654,51 @@ def test_cuda_ring_gather_plans_are_exact(dtype):
             for g, w, p in zip(got, want, plain):
                 assert torch.equal(g.cpu(), w.cpu()), f"R={R} {dtype}"
                 assert torch.equal(g.cpu(), p.cpu()), f"R={R} {dtype}"
-    assert ring_kernels.build_gather_plans.builds == 8
+    assert ring_kernels.build_ring_plans.builds == 8
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_ring_reduce_walks_the_sorted_plans(dtype):
+    """ring_reduce over id-sorted plans on 4 virtual ranks at R in {1, 7,
+    50, 64} (each product vector width), with pads of no shard, a bucket
+    left empty and long runs of one row (runs cut by the warps' ranges),
+    against its plain walk and the sync ring within 1e-5 of the largest
+    output, twice over the same plans; an owner-stable plan is
+    refused."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from splatt_tpu_torch.parallel import ring, ring_kernels
+
+    mesh = _ring_mesh(4)
+    rng = np.random.default_rng(13)
+    block, nnz = 301, 20000
+    idx = []
+    for d in range(4):
+        i = rng.integers(0, 3 * block, size=nnz).astype(np.int32)  # shard 3
+        i[::9] = -1                                                # empty
+        i[5::13] = 4 * block + 7
+        i[1::3] = block + 5 if d % 2 else 2 * block    # long runs of a row
+        idx.append(torch.from_numpy(i).to(mesh.devices[d]))
+    plans = ring_kernels.build_ring_plans(idx, mesh, block)
+    for R in (1, 7, 50, 64):
+        prod = [torch.from_numpy(rng.random((nnz, R))).to(dev, dtype)
+                for dev in mesh.devices]
+        want = ring.blockwise_reduce_rows(prod, idx, mesh, block)
+        plain = ring_kernels.ring_reduce_plain(prod, plans, mesh)
+        for _ in range(2):
+            before = ring_kernels.ring_reduce.launches
+            got = ring_kernels.ring_reduce(prod, idx, mesh, block,
+                                           plans=plans)
+            assert ring_kernels.ring_reduce.launches \
+                == before + len(mesh.cards)
+            for c in mesh.cards:
+                torch.cuda.synchronize(c)
+            ring_kernels.check_errors()
+            for g, w, p in zip(got, want, plain):
+                assert g.dtype == torch.float32
+                scale = max(float(w.abs().max()), 1e-30)
+                assert float((g - w).abs().max()) <= 1e-5 * scale, R
+                assert float((g - p).abs().max()) <= 1e-5 * scale, R
+    with pytest.raises(ValueError, match="does not match"):
+        ring_kernels.ring_reduce(prod, idx, mesh, block + 1, plans=plans)

@@ -267,15 +267,16 @@ def _plan_ids(ndev: int, block: int, nnz: int, seed: int):
 
 @pytest.mark.parametrize("ndev", NDEVS)
 def test_gather_plan_buckets_by_owner(ndev):
-    """Each rank's plan is a permutation of its nonzeros, stable within a
-    bucket; bucket b holds exactly the ids with id // block == b at their
-    within-block rows; ids of no shard get the last bucket."""
+    """Each rank's plan is a permutation of its nonzeros, sorted by id and
+    stable among equal ids within a bucket; bucket b holds exactly the ids
+    with id // block == b at their within-block rows; ids of no shard get
+    the last bucket, in their own order."""
     block, nnz = 6 + ndev, 97
     mesh = make_mesh(n_devices=ndev, device="cpu")
     idx = _plan_ids(ndev, block, nnz, seed=ndev)
     ring_kernels.reset_launches()
-    plans = ring_kernels.build_gather_plans(idx, mesh, block)
-    assert ring_kernels.build_gather_plans.builds == ndev
+    plans = ring_kernels.build_ring_plans(idx, mesh, block)
+    assert ring_kernels.build_ring_plans.builds == ndev
     for ids, plan in zip(idx, plans):
         assert plan.pos.dtype == plan.loc.dtype == plan.offsets.dtype \
             == torch.int32
@@ -287,8 +288,13 @@ def test_gather_plan_buckets_by_owner(ndev):
         ids = ids.long()
         for b in range(ndev + 1):
             sel = pos[off[b]:off[b + 1]]
-            assert bool((sel[1:] > sel[:-1]).all())       # stable
             got = ids[sel]
+            if b < ndev:
+                step = got[1:] - got[:-1]
+                assert bool((step >= 0).all())             # by id
+                assert bool((sel[1:] > sel[:-1])[step == 0].all())
+            else:
+                assert bool((sel[1:] > sel[:-1]).all())    # stable
             if b < ndev:
                 assert bool((torch.div(got, block, rounding_mode="floor")
                              == b).all())
@@ -309,7 +315,7 @@ def test_async_gather_through_the_plan_equals_sync_ring(ndev, dtype):
     block, nnz = 5 + ndev, 61
     mesh = make_mesh(n_devices=ndev, device="cpu")
     idx = _plan_ids(ndev, block, nnz, seed=20 + ndev)
-    plans = ring_kernels.build_gather_plans(idx, mesh, block)
+    plans = ring_kernels.build_ring_plans(idx, mesh, block)
     rng = np.random.default_rng(ndev)
     for _ in range(2):
         U_l = [torch.from_numpy(rng.random((block, R))).to(dtype)
@@ -325,9 +331,9 @@ def test_async_gather_through_the_plan_equals_sync_ring(ndev, dtype):
 
 @pytest.mark.parametrize("ndev", [4, 8])
 def test_fine_run_builds_one_plan_per_mode_per_rank(ndev):
-    """A FINE ASYNC_RING run on virtual CPU ranks builds its gather plans
-    once: nmodes x ndev, however many iterations and gathers; its fits
-    equal the ring run's."""
+    """A FINE ASYNC_RING run on virtual CPU ranks builds its ring plans
+    once: nmodes x ndev, however many iterations, gathers and reduces
+    share them; its fits equal the ring run's."""
     from splatt_tpu_torch.config import CommPattern, Options, Verbosity
     from splatt_tpu_torch.coo import SparseTensor
     from splatt_tpu_torch.parallel import sharded_cpd_als
@@ -346,5 +352,5 @@ def test_fine_run_builds_one_plan_per_mode_per_rank(ndev):
             measure_overlap=False)
         fits[comm] = out.fits
         want = X.nmodes * ndev if comm is CommPattern.ASYNC_RING else 0
-        assert ring_kernels.build_gather_plans.builds == want
+        assert ring_kernels.build_ring_plans.builds == want
     assert fits[CommPattern.ASYNC_RING] == fits[CommPattern.POINT2POINT]

@@ -41,8 +41,11 @@ Phases, each fatal on failure:
    (m+1) % 3, the products made once per case; each timed beside its
    bound, its plain version and, for the two reductions, one
    ``index_add_`` call; ``fused_mttkrp`` runs at its engine's chunk and is
-   also timed at the chunk that cuts the grid to 8 CTAs per SM.  Then ``fused_mttkrp_tg`` against its plain
-   version at rank 512 on a 2M-nonzero tensor of the same dims;
+   also timed at the chunk that cuts the grid to 8 CTAs per SM.  Then
+   ``fused_mttkrp_tg`` against its plain version at rank 512 on a
+   2M-nonzero tensor of the same dims, f32 and bf16, both contracts.  The
+   fused kernels' rows carry the bytes they gather from the tables,
+   counted in 32-byte sectors, and the rate those imply;
 7. the engine chain at full width: ``cpd_als`` on the phase-3 tensor, rank
    50, 3 iterations, from one numpy init, under armed engine faults (see
    ``CHAIN_SCHEDULES``): each schedule's demotions and launch counts, fits
@@ -55,16 +58,27 @@ Phases, each fatal on failure:
 8. rank 512 at full width: ``cpd_als`` on the phase-3 layouts, 3
    iterations, no fault: the plan reads ``fused_tg`` on every mode, no
    demotion, ``fused_mttkrp_tg`` launched 9 times, the fit finite in
-   (0, 1]; the eigensolver's gate is printed (R = 512 keeps
-   ``torch.linalg.eigh``) and the sweep phases timed as in phase 5;
+   (0, 1]; then each mode's launch alone beside its bound, the 32-byte
+   sectors of table rows it requests (some served from L1) and the rate
+   they imply, one launch on a copy of the layout whose gathered ids are
+   all 0 (the kernel without its wait on gathers) and one in bf16; the
+   yardsticks, timed once per run and never called by the port, sit in
+   the kernels line: a library copy of an L2-resident 16 MiB tensor and
+   a library gather of L2-resident rows at a layout's ids
+   (``embedding_bag``); the eigensolver's gate is printed
+   (R = 512 keeps ``torch.linalg.eigh``) and the sweep phases timed as in
+   phase 5;
 9. the compact format v2 and bf16 storage: the phase-3 layouts re-encoded
    (``reencode_layout``, no second host sort) under ``auto``, ``u8``,
    ``delta`` and ``rle``, each mode's ``format_desc`` and
    ``storage_bytes`` beside v1's; ``fused_mttkrp_v2`` against its plain
    version (<= 1e-4 of max|plain|) for each encoding and contract, timed
-   beside its bound, with ``fused_mttkrp_t`` on the v1 layout timed in
-   turns beside it; rows 1-5 and ``fused_mttkrp_v2`` with bf16 values,
-   tables and products against their plain versions, timed; ``cpd_als``
+   beside its bound and the bytes it gathers, with ``fused_mttkrp_t``
+   (the old walk) and ``fused_mttkrp_tg`` (the new walk without a decode)
+   on the v1 layout timed in turns beside it; rows 1-5 and
+   ``fused_mttkrp_v2`` with bf16 values, tables and products against
+   their plain versions (both contracts for ``fused_mttkrp_tg`` and
+   ``fused_mttkrp_v2``), timed; ``cpd_als``
    at full width on the ``auto`` layouts from phase 5's seed, 5
    iterations, fallback off: the plan reads ``fused_v2`` on every mode,
    no demotion, 15 launches, fits within 1e-4 of phase 5's at every
@@ -108,7 +122,12 @@ TPU kernels' counterparts and ``sym_eig``); the last is
 ``{"ok": true, "device": {...}}``.  ``python3 chip_smoke.py --ring`` runs
 phases 1-3's set-up and phase 11 alone (for a call with several cards)
 and prints the two ring kernels' entries; ``--dense`` runs phases 1-2
-and phase 10 alone and prints ``fused_dense``'s.
+and phase 10 alone and prints ``fused_dense``'s.  ``--gather`` runs the
+set-up, the 20M-nonzero layouts, phase 6's ``fused_mttkrp_tg`` rows,
+phase 8 (with the rank-512 comparison at 2M nonzeros, and
+``fused_mttkrp_tg`` timed in turns at the rank tiles of PROBE_TILES, each
+checked against the shipped tile) and phase 9; it prints those two
+kernels' entries.
 """
 
 from __future__ import annotations
@@ -133,6 +152,8 @@ BIG_RANK_NNZ = 2_000_000
 PARITY_RANK = 16
 ENCODINGS = ("auto", "u8", "delta", "rle")
 BF16_ITERS = 10
+# --gather: the rank tiles fused_mttkrp_tg is timed at in turns at rank 512
+PROBE_TILES = (64, 128, 256)
 # phase 10: bench.py's densemode scenario (24, 256, 512) with every dim
 # scaled by 4, 20M nonzeros: every mode's padded density is ~0.1
 DENSE_DIMS = (96, 1024, 2048)
@@ -216,6 +237,104 @@ def bound(layout, factors, mode: int, out) -> tuple:
                     * layout.nnz)
 
 
+def row_sectors(R: int, itemsize: int, r0: int, cols: int) -> float:
+    """Mean 32-byte sectors that columns [r0, r0 + cols) of one row of a
+    (d, R) table touch, over the row offsets a table's rows take (the
+    pitch R * itemsize cycles the start through the sector)."""
+    pitch, lo, span = R * itemsize, r0 * itemsize, cols * itemsize
+    cycle = 32 // math.gcd(pitch, 32)
+    return sum(((i * pitch + lo) % 32 + span + 31) // 32
+               for i in range(cycle)) / cycle
+
+
+def requested_bytes(layout, factors, mode: int, rtile: int) -> int:
+    """Bytes of table rows a fused launch requests, in 32-byte sectors:
+    for every entry of the layout's blocks (pads too: the kernel gathers
+    their clamped rows), the sectors of each other table's row in each
+    rank tile of `rtile` columns.  A sector the L1 cache serves counts
+    too, so the rate they imply is a request rate, not an L2 rate."""
+    R = int(factors[0].shape[1])
+    itemsize = factors[0].element_size()
+    per_row = sum(row_sectors(R, itemsize, r0, min(rtile, R - r0))
+                  for r0 in range(0, R, rtile))
+    tables = len(factors) - 1
+    return int(layout.nblocks * layout.block * tables * per_row * 32)
+
+
+def library_gather_rate(bs, cols: int, mode: int = 0,
+                        seed: int = 3) -> dict:
+    """A yardstick shaped like the gathering kernels' work: one library
+    call, ``embedding_bag`` in sum mode, that gathers `cols`-column f32
+    rows of an L2-resident table (the dims of the first mode other than
+    `mode`) at that mode's ids in `mode`'s layout, in bags of 32
+    consecutive entries (a warp's load), timed with CUDA events; its rate
+    counts the same requested 32-byte sectors as :func:`requested_bytes`
+    (the bag sums it writes are 1/32 of them, not counted).  The port
+    never calls it."""
+    import torch
+
+    lay = bs.layout_for(mode)
+    k = 1 if mode == 0 else 0
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    table = torch.rand((bs.dims[k], cols), device="cuda", generator=gen)
+    ids = lay.inds[k].clamp(0, bs.dims[k] - 1)
+    offsets = torch.arange(0, ids.numel(), 32, dtype=ids.dtype,
+                           device=ids.device)
+
+    def run():
+        return torch.nn.functional.embedding_bag(ids, table, offsets,
+                                                 mode="sum")
+
+    ms = time_ms(run, reps=10, warmup=2)
+    moved = int(ids.numel() * row_sectors(cols, 4, 0, cols) * 32)
+    row = dict(cols=cols, table_rows=bs.dims[k], ids=ids.numel(), ms=ms,
+               requested_bytes=moved, requested_tb_s=gather_rate(moved, ms))
+    log(f"[yardstick] embedding_bag of {cols}-column rows at mode {k}'s "
+        f"ids: {json.dumps(row)}")
+    del table, ids, offsets
+    return row
+
+
+def gather_rate(moved: int, ms: float) -> float:
+    """TB/s that `moved` bytes in `ms` milliseconds imply."""
+    return moved / (ms * 1e-3) / 1e12
+
+
+def l2_copy_rate(mib: int = 16) -> dict:
+    """A yardstick of the L2: one library copy of an L2-resident `mib`
+    MiB tensor (source and destination together 2 x `mib` MiB, inside
+    the 50 MB L2), read plus written bytes over its time: CUDA events
+    around back-to-back copies after warm-up, and the copy kernel's own
+    device time from the profiler (None where it records none).  It is
+    a rate one library kernel reaches, not the L2's ceiling.  The port
+    never calls it."""
+    import torch
+
+    n = mib * 2**20 // 4
+    src = torch.rand(n, device="cuda")
+    dst = torch.empty_like(src)
+    ms = time_ms(lambda: dst.copy_(src), reps=200, warmup=20)
+    moved = 2 * nbytes(src)
+    row = dict(mib=mib, ms=ms, bytes=moved, tb_s=gather_rate(moved, ms))
+    # the same copies' device time alone (CUDA events above include the
+    # gaps between back-to-back launches of a ~10 us kernel)
+    reps = 50
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            dst.copy_(src)
+        torch.cuda.synchronize()
+    dev_us = sum(getattr(e, "self_device_time_total",
+                         getattr(e, "self_cuda_time_total", 0.0))
+                 for e in prof.key_averages()) / reps
+    row["kernel_ms"] = dev_us / 1e3 if dev_us > 0 else None
+    row["kernel_tb_s"] = (gather_rate(moved, dev_us / 1e3) if dev_us > 0
+                          else None)
+    log(f"[l2] copy of an L2-resident {mib} MiB tensor: {json.dumps(row)}")
+    del src, dst
+    return row
+
+
 def reduce_bound(ids, prod, out, nnz: int) -> tuple:
     """Least time in ms for one onehot_reduce_* call: ids and products
     read once, the output written once, against R additions per real
@@ -265,13 +384,15 @@ def phase_device() -> dict:
 
 
 def phase_build() -> None:
+    """Build every kernel with ``-Xptxas -v`` (one nvcc per source, in
+    parallel) and print its registers, shared memory and spills."""
     from splatt_tpu_torch.ops import kernels
 
     res = kernels.build(verbose=True)
     log(f"[build] nvcc -Xptxas -v over {len(kernels.SOURCES)} source(s): "
         f"{res['seconds']:.2f} s")
     for line in res["log"].splitlines():
-        if re.search(r"registers|spill|smem|Compiling entry", line):
+        if re.search(r"registers|spill|smem|Compiling entry|\.cu", line):
             log(f"[build]   {line.strip()}")
     kernels.load_library()
 
@@ -313,6 +434,8 @@ def phase_kernels(bs, rank: int, seed: int = 1) -> list:
         row.update(contract=contract, mode=m, layout_mode=lay.mode,
                    width=width, nblocks=lay.nblocks, block=lay.block)
         row["bound_ms"], row["bound_by"] = bound(lay, factors, m, got)
+        row["requested_bytes"] = requested_bytes(lay, factors, m, rank)
+        row["requested_tb_s"] = gather_rate(row["requested_bytes"], row["ms"])
         log(f"[kernel] {json.dumps(row)}")
         rows.append(row)
         del got
@@ -744,9 +867,11 @@ def eig_gate(R: int) -> dict:
     return gate
 
 
-def phase_new_kernels(bs, rank: int, seed: int = 1) -> dict:
+def phase_new_kernels(bs, rank: int, seed: int = 1,
+                      tg_only: bool = False) -> dict:
     """The other four kernels against their plain versions on the phase-3
-    layouts and factors, timed beside their bounds."""
+    layouts and factors, timed beside their bounds (`tg_only`: the
+    fused_mttkrp_tg rows alone)."""
     import torch
 
     from splatt_tpu_torch.ops import kernels
@@ -767,7 +892,7 @@ def phase_new_kernels(bs, rank: int, seed: int = 1) -> dict:
                   kernels.fused_mttkrp_tg_plain, {}),
                  ("fused_mttkrp", kernels.fused_mttkrp,
                   kernels.fused_mttkrp_plain, {"chunk": FUSED_CHUNK}))
-        for name, fn, plain, kw in fused:
+        for name, fn, plain, kw in fused[:1] if tg_only else fused:
             got, row = compare(
                 lambda: fn(lay, factors, m, width, acc, **kw),
                 lambda: plain(lay, factors, m, width, acc),
@@ -779,9 +904,16 @@ def phase_new_kernels(bs, rank: int, seed: int = 1) -> dict:
                     lambda: fn(lay, factors, m, width, acc, chunk=wide),
                     reps=20, warmup=2)
             row["bound_ms"], row["bound_by"] = bound(lay, factors, m, got)
+            row["requested_bytes"] = requested_bytes(
+                lay, factors, m, kernels.tg_rank_tile(rank)
+                if name == "fused_mttkrp_tg" else rank)
+            row["requested_tb_s"] = gather_rate(row["requested_bytes"],
+                                             row["ms"])
             log(f"[kernel] {name} {json.dumps(row)}")
             rows[name].append(row)
             del got
+        if tg_only:
+            continue
         # the reductions: the products once per case, and the flat ids
         # of the one index_add_ call that computes the same sum
         nb, B = lay.nblocks, lay.block
@@ -824,12 +956,14 @@ def phase_new_kernels(bs, rank: int, seed: int = 1) -> dict:
 
 def phase_big_rank(seed: int = 5) -> list:
     """fused_mttkrp_tg against its plain version at rank 512, both
-    contracts on every mode, on a 2M-nonzero tensor of the NELL-2 dims
-    (the plain version needs ~3 x nnz x R x 4 bytes)."""
+    contracts on every mode, f32 and bf16 (values and tables), on a
+    2M-nonzero tensor of the NELL-2 dims (the plain version needs ~3 x
+    nnz x R x 4 bytes)."""
     import torch
 
     from splatt_tpu_torch import BlockedSparse, Options
-    from splatt_tpu_torch.config import BlockAlloc
+    from splatt_tpu_torch.blocked import reencode_layout
+    from splatt_tpu_torch.config import BlockAlloc, LayoutFormat
     from splatt_tpu_torch.ops import kernels
 
     t0 = time.perf_counter()
@@ -837,30 +971,40 @@ def phase_big_rank(seed: int = 5) -> list:
                                 Options(block_alloc=BlockAlloc.ALLMODE))
     log(f"[rank{BIG_RANK}] {BIG_RANK_NNZ}-nonzero layouts in "
         f"{time.perf_counter() - t0:.2f} s")
-    factors = random_factors(bs, BIG_RANK, seed)
+    f32 = random_factors(bs, BIG_RANK, seed)
+    bs16 = dataclasses.replace(bs, layouts=[
+        reencode_layout(lay, LayoutFormat(val="bf16"),
+                        val_dtype=torch.bfloat16) for lay in bs.layouts])
     rows = []
-    for contract, lay, width, acc, m in contracts(bs):
-        got, row = compare(
-            lambda: kernels.fused_mttkrp_tg(lay, factors, m, width, acc),
-            lambda: kernels.fused_mttkrp_tg_plain(lay, factors, m, width,
-                                                  acc),
-            f"fused_mttkrp_tg rank {BIG_RANK} {contract} mode {m}",
-            reps=5, plain_reps=1)
-        row.update(contract=contract, mode=m, layout_mode=lay.mode,
-                   width=width, nnz=lay.nnz)
-        row["bound_ms"], row["bound_by"] = bound(lay, factors, m, got)
-        # the kernel's own traffic: each rank tile re-reads the id and
-        # value streams
-        tiles = -(-BIG_RANK // kernels.RANK_TILE)
-        streams = nbytes(lay.inds, lay.vals, lay.row_start)
-        row["rank_tiles"] = tiles
-        row["tiled_bytes_ms"] = least_ms(
-            streams * tiles + nbytes(got) + nbytes(
-                *(U for k, U in enumerate(factors) if k != m)), 0)[0]
-        log(f"[rank{BIG_RANK}] fused_mttkrp_tg {json.dumps(row)}")
-        rows.append(row)
-        del got
-        torch.cuda.empty_cache()
+    for dtype, X in ((torch.float32, bs), (torch.bfloat16, bs16)):
+        factors = [U.to(dtype) for U in f32]
+        for contract, lay, width, acc, m in contracts(X):
+            got, row = compare(
+                lambda: kernels.fused_mttkrp_tg(lay, factors, m, width,
+                                                acc),
+                lambda: kernels.fused_mttkrp_tg_plain(lay, factors, m,
+                                                      width, acc),
+                f"fused_mttkrp_tg rank {BIG_RANK} {dtype} {contract} "
+                f"mode {m}", reps=5, plain_reps=1)
+            row.update(dtype=str(dtype), contract=contract, mode=m,
+                       layout_mode=lay.mode, width=width, nnz=lay.nnz)
+            row["bound_ms"], row["bound_by"] = bound(lay, factors, m, got)
+            # the kernel's own traffic: each rank tile re-reads the id and
+            # value streams
+            rtile = kernels.tg_rank_tile(BIG_RANK)
+            tiles = -(-BIG_RANK // rtile)
+            streams = nbytes(lay.inds, lay.vals, lay.row_start)
+            row["rank_tiles"] = tiles
+            row["tiled_bytes_ms"] = least_ms(
+                streams * tiles + nbytes(got) + nbytes(
+                    *(U for k, U in enumerate(factors) if k != m)), 0)[0]
+            row["requested_bytes"] = requested_bytes(lay, factors, m, rtile)
+            row["requested_tb_s"] = gather_rate(row["requested_bytes"],
+                                             row["ms"])
+            log(f"[rank{BIG_RANK}] fused_mttkrp_tg {json.dumps(row)}")
+            rows.append(row)
+            del got
+            torch.cuda.empty_cache()
     return rows
 
 
@@ -1040,13 +1184,74 @@ def phase_chain(bs, rank: int) -> dict:
     return {r["schedule"]: r for r in runs}
 
 
-def phase_rank512(bs) -> dict:
+def v1_fits(bs, rank: int) -> list:
+    """The fits of phase 5's CPD (the v1 layouts, its options and seed),
+    for --gather, which skips phase 5: phase 9's auto CPD is held to
+    them."""
+    from splatt_tpu_torch import Options, cpd_als
+    from splatt_tpu_torch.config import BlockAlloc, Verbosity
+
+    opts = Options(block_alloc=BlockAlloc.ALLMODE, max_iterations=ITERS,
+                   tolerance=0.0, random_seed=0, engine_fallback=False,
+                   verbosity=Verbosity.NONE)
+    fits = list(cpd_als(bs, rank, opts).fits)
+    log(f"[cpd] phase 5's CPD for its fits: {fits}")
+    return fits
+
+
+def in_turns(fns: dict, reps: int) -> dict:
+    """Each of `fns` (label -> callable) timed in turns: in order, then in
+    reverse (a, b, c, c, b, a); the mean of its two runs."""
+    order = list(fns)
+    runs = {k: [] for k in order}
+    for k in order + order[::-1]:
+        runs[k].append(time_ms(fns[k], reps=reps, warmup=2))
+    return {k: dict(ms=sum(v) / len(v), runs=v) for k, v in runs.items()}
+
+
+def check_tile(label: str, got, want) -> float:
+    """A rank tile's output against the shipped tile's on the same inputs
+    (<= KERNEL_TOL of max|shipped|; the shipped kernel is held against
+    the plain version elsewhere); returns the relative difference."""
+    import torch
+
+    torch.cuda.synchronize()
+    scale = float(want.abs().max())
+    rel = float((got - want).abs().max()) / (scale if scale > 0 else 1.0)
+    if not rel <= KERNEL_TOL:
+        raise AssertionError(f"{label}: {rel:.3e} from the shipped tile")
+    return rel
+
+
+def tg_tile_turns(lay, factors, m: int, want) -> dict:
+    """fused_mttkrp_tg on one sorted launch at rank 512 at each rank tile
+    of PROBE_TILES, in turns, each checked against the shipped tile's
+    output `want`."""
+    from splatt_tpu_torch.ops import kernels
+
+    w = lay.seg_width
+    fns = {f"tile {t}": (lambda t=t: kernels.fused_tg_launch(
+        lay, factors, m, w, False, t)) for t in PROBE_TILES}
+    rel = {k: check_tile(k, fn(), want) for k, fn in fns.items()}
+    turns = in_turns(fns, reps=5)
+    for k in turns:
+        turns[k]["rel_to_shipped"] = rel[k]
+    log(f"[rank{BIG_RANK}] fused_mttkrp_tg mode {m} rank tiles in turns: "
+        f"{json.dumps(turns)}")
+    return turns
+
+
+def phase_rank512(bs, tiles: bool = False) -> dict:
     """cpd_als at rank 512 on the phase-3 layouts: fused_tg on every
-    mode, no fault, no demotion."""
+    mode, no fault, no demotion; then each mode's launch alone, beside
+    the sectors it requests, the library gather yardstick, on zeroed
+    gather ids and in bf16, and with `tiles` (``--gather``) at each rank
+    tile of PROBE_TILES in turns."""
     import torch
 
     from splatt_tpu_torch import Options, cpd_als, resilience
-    from splatt_tpu_torch.config import Verbosity
+    from splatt_tpu_torch.blocked import reencode_layout
+    from splatt_tpu_torch.config import LayoutFormat, Verbosity
     from splatt_tpu_torch.ops import kernels
     from splatt_tpu_torch.ops.mttkrp import describe_plan
 
@@ -1080,9 +1285,14 @@ def phase_rank512(bs) -> dict:
     if not (math.isfinite(out.fit) and 0.0 < out.fit <= 1.0):
         raise AssertionError(f"fit {out.fit} is not finite in (0, 1]")
     # the kernel alone at this width, per mode, on the final factors,
-    # beside its bound and the bytes its rank tiles stream
+    # beside its bound, the bytes its rank tiles stream, the bytes it
+    # gathers and the rate they imply; then on a copy of the layout whose
+    # gathered ids are all 0 (every gather hits one row: the kernel
+    # without its wait on gathers), and with bf16 values and tables
     kernel = []
-    tiles = -(-BIG_RANK // kernels.RANK_TILE)
+    rtile = kernels.tg_rank_tile(BIG_RANK)
+    tiles = -(-BIG_RANK // rtile)
+    f16 = [U.to(torch.bfloat16) for U in out.factors]
     for m in range(bs.nmodes):
         lay = bs.layout_for(m)
 
@@ -1097,8 +1307,30 @@ def phase_rank512(bs) -> dict:
             nbytes(lay.inds, lay.vals, lay.row_start) * tiles + nbytes(got)
             + nbytes(*(U for k, U in enumerate(out.factors) if k != m)),
             0)[0]
+        row["requested_bytes"] = requested_bytes(lay, out.factors, m, rtile)
+        row["requested_tb_s"] = gather_rate(row["requested_bytes"], row["ms"])
+        zero = dataclasses.replace(lay, inds=torch.where(
+            (torch.arange(bs.nmodes, device=lay.inds.device) == m)[:, None],
+            lay.inds, torch.zeros_like(lay.inds)))
+        row["zero_ids_ms"] = time_ms(
+            lambda: kernels.fused_tg_launch(zero, out.factors, m,
+                                            lay.seg_width, False, rtile),
+            reps=5, warmup=2)
+        del zero
+        lay16 = reencode_layout(lay, LayoutFormat(val="bf16"),
+                                val_dtype=torch.bfloat16)
+        row["bf16_ms"] = time_ms(
+            lambda: kernels.fused_mttkrp_tg(lay16, f16, m, lay.seg_width,
+                                            False), reps=5, warmup=2)
+        row["bf16_requested_bytes"] = requested_bytes(lay16, f16, m, rtile)
+        row["bf16_requested_tb_s"] = gather_rate(row["bf16_requested_bytes"],
+                                              row["bf16_ms"])
+        row["bf16_bound_ms"] = bound(lay16, f16, m, got)[0]
         kernel.append(row)
-        del got
+        if tiles:
+            row["tiles"] = tg_tile_turns(lay, out.factors, m, got)
+        del got, lay16
+        torch.cuda.empty_cache()
     log(f"[rank{BIG_RANK}] fused_mttkrp_tg per sorted launch by mode "
         f"{json.dumps(kernel)}")
     gate = eig_gate(BIG_RANK)
@@ -1164,28 +1396,35 @@ def phase_format(bs, rank: int, main_fits: list, seed: int = 1) -> dict:
                        layout_mode=lay.mode, width=width,
                        format=lay.format_desc())
             row["bound_ms"], row["bound_by"] = v2_bound(lay, factors, m, got)
+            row["requested_bytes"] = requested_bytes(lay, factors, m, rank)
+            row["requested_tb_s"] = gather_rate(row["requested_bytes"],
+                                             row["ms"])
             log(f"[format] fused_mttkrp_v2 {json.dumps(row)}")
             v2_rows.append(row)
             del got
         torch.cuda.empty_cache()
-    # fused_mttkrp_t on the v1 layout and fused_v2 on auto, in turns
+    # fused_mttkrp_t on the v1 layout (warp_runs' walk) and fused_v2 on
+    # auto in turns, with fused_tg on v1 (fused_v2's walk without its
+    # decode); each launch's requested sectors and the rate they imply
     turns = []
     for m in range(bs.nmodes):
         v1, auto = bs.layout_for(m), encoded["auto"].layout_for(m)
-
-        def t_v1():
-            return kernels.fused_mttkrp_t(v1, factors, m, v1.seg_width,
-                                          False)
-
-        def v2_auto():
-            return kernels.fused_mttkrp_v2(auto, factors, m, auto.seg_width,
-                                           False)
-
-        ms = [time_ms(fn, reps=20, warmup=2)
-              for fn in (t_v1, v2_auto, v2_auto, t_v1)]
-        turns.append(dict(mode=m, fused_t_v1_ms=(ms[0] + ms[3]) / 2,
-                          fused_v2_auto_ms=(ms[1] + ms[2]) / 2, order=ms))
-    log(f"[format] sorted launch in turns (t, v2, v2, t) {json.dumps(turns)}")
+        fns = {
+            "fused_t_v1": lambda: kernels.fused_mttkrp_t(
+                v1, factors, m, v1.seg_width, False),
+            "fused_v2_auto": lambda: kernels.fused_mttkrp_v2(
+                auto, factors, m, auto.seg_width, False),
+            "fused_tg_v1": lambda: kernels.fused_mttkrp_tg(
+                v1, factors, m, v1.seg_width, False)}
+        ms = in_turns(fns, reps=20)
+        moved = requested_bytes(v1, factors, m, rank)
+        row = dict(mode=m, requested_bytes=moved,
+                   fused_t_v1_ms=ms["fused_t_v1"]["ms"],
+                   fused_v2_auto_ms=ms["fused_v2_auto"]["ms"], turns=ms)
+        for k in ms:
+            ms[k]["requested_tb_s"] = gather_rate(moved, ms[k]["ms"])
+        turns.append(row)
+    log(f"[format] sorted launch in turns {json.dumps(turns)}")
 
     # bf16 values, tables and products through rows 1-6
     bf16 = {}
@@ -1208,7 +1447,9 @@ def phase_format(bs, rank: int, main_fits: list, seed: int = 1) -> dict:
     for name, fn, plain, X in fused:
         bf16[name] = []
         for contract, lay, width, acc, m in contracts(X):
-            if contract != "sorted":
+            # both contracts of the two kernels on the gathering walk
+            if contract != "sorted" and name not in ("fused_mttkrp_tg",
+                                                     "fused_mttkrp_v2"):
                 continue
             got, row = compare(lambda: fn(lay, fac16, m, width, acc),
                                lambda: plain(lay, fac16, m, width, acc),
@@ -2067,6 +2308,46 @@ def phase_distributed(tt, rank: int, seed: int = 11) -> dict:
             "drill": drill, "seconds": seconds}
 
 
+FUSED_SRC = "splatt_tpu_torch/csrc/fused_mttkrp.cu"
+PK = "splatt_tpu/ops/pallas_kernels.py"
+NOTE = ("ms/plain_ms/bound_ms: mean per launch over the 3 modes at rank "
+        f"{RANK}, 20M nonzeros; launches: the phase that runs it on a full "
+        "CPD; every case is in 'contracts'")
+
+
+def _tg_row(launches: int, where: str, new_rows: dict, bf16: dict,
+            big: dict, big_rows: list) -> dict:
+    """Row 4 of the kernels line: phase 6's sorted rows at rank 50, with
+    phase 8's rank-512 launches (and its rank tiles) beside them."""
+    return _record_row(
+        "fused_mttkrp_tg", FUSED_SRC, f"{PK}:507", launches,
+        [r for r in new_rows["fused_mttkrp_tg"] if r["contract"] == "sorted"],
+        None, note=NOTE + f" ({where}); rank512: phase 8's CPD, where it "
+        "is the head of the chain", contracts=new_rows["fused_mttkrp_tg"],
+        bf16=bf16["fused_mttkrp_tg"],
+        rank512=dict(launches=big["launches"], sorted_20m=big["kernel"],
+                     contracts_2m=big_rows,
+                     cpd_sec_per_iter=big["sec_per_iter"],
+                     peak_gib=big["peak_gib"], sweep_phase_ms=big["phases"]))
+
+
+def _v2_row(fmt: dict, bf16: dict) -> dict:
+    """Row 6 of the kernels line: phase 9's auto rows, sorted contract."""
+    return _record_row(
+        "fused_mttkrp_v2", "splatt_tpu_torch/csrc/fused_mttkrp_v2.cu",
+        f"{PK}:702", fmt["launches"]["fused_mttkrp_v2"],
+        [r for r in fmt["v2_rows"] if r["encoding"] == "auto"
+         and r["contract"] == "sorted"], None,
+        note=NOTE.replace("20M nonzeros", "20M nonzeros, idx_width auto, "
+                          "sorted contract")
+        + " (phase 9, the auto CPD); library: none, no single PyTorch call "
+          "computes it",
+        max_rel_err_all=max(r["max_rel_err"] for r in fmt["v2_rows"]),
+        contracts=fmt["v2_rows"], turns=fmt["turns"],
+        storage_bytes=fmt["storage_bytes"], cpd=fmt["cpd"],
+        planted_bf16=fmt["planted_bf16"], bf16=bf16["fused_mttkrp_v2"])
+
+
 def _record_row(name: str, source: str, replaces: str, launches: int,
                 rows: list, library, **extra) -> dict:
     """One kernel's entry of the kernels line: ms, plain, bound and
@@ -2170,12 +2451,13 @@ def _eig_row(main_path: dict, big: dict, dense: dict) -> dict:
 
 
 def _bf16_summary(rows: list) -> dict:
-    """Phase 9's (or 10's) bf16 rows of one kernel: means over the
-    modes."""
-    n = len(rows)
-    return dict(ms=sum(r["ms"] for r in rows) / n,
-                plain_ms=sum(r["plain_ms"] for r in rows) / n,
-                bound_ms=sum(r["bound_ms"] for r in rows) / n,
+    """Phase 9's (or 10's) bf16 rows of one kernel: means over the modes
+    of the first contract (sorted), the largest error over all."""
+    first = [r for r in rows if r["contract"] == rows[0]["contract"]]
+    n = len(first)
+    return dict(ms=sum(r["ms"] for r in first) / n,
+                plain_ms=sum(r["plain_ms"] for r in first) / n,
+                bound_ms=sum(r["bound_ms"] for r in first) / n,
                 max_rel_err=max(r["max_rel_err"] for r in rows),
                 contract=rows[0]["contract"], rows=rows)
 
@@ -2188,8 +2470,10 @@ def main() -> int:
         return 2
     from splatt_tpu_torch import BlockedSparse, Options
     from splatt_tpu_torch.config import BlockAlloc
+    from splatt_tpu_torch.ops import kernels
 
     dev = phase_device()
+    gather = "--gather" in sys.argv[1:]
     phase_build()
     if "--dense" in sys.argv[1:]:
         dense = phase_dense(RANK)
@@ -2224,6 +2508,24 @@ def main() -> int:
         f"mode{lay.mode}: nblocks={lay.nblocks} seg_width={lay.seg_width}"
         for lay in bs.layouts))
 
+    yard = {"l2_copy": l2_copy_rate(),
+            "library_gather": [
+                library_gather_rate(bs, c)
+                for c in (kernels.tg_rank_tile(BIG_RANK), RANK)]}
+    if gather:
+        new_rows = phase_new_kernels(bs, RANK, tg_only=True)
+        big_rows = phase_big_rank()
+        big = phase_rank512(bs, tiles=True)
+        fmt = phase_format(bs, RANK, v1_fits(bs, RANK))
+        bf16 = {k: _bf16_summary(v) for k, v in fmt["bf16"].items()}
+        print(json.dumps({"kernels": [
+            _tg_row(big["launches"], "phase 8's rank-512 CPD", new_rows,
+                    bf16, big, big_rows),
+            _v2_row(fmt, bf16)], "yardsticks": yard,
+            "power": dev["smi"]}))
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": dev["kind"], "count": dev["count"]}}))
+        return 0
     rows = phase_kernels(bs, RANK)
     phase_parity()
     main_path = phase_main_path(bs, RANK)
@@ -2246,13 +2548,10 @@ def main() -> int:
     def launches(label, kernel):
         return chain[label]["launches"][kernel]
 
-    fused_src = "splatt_tpu_torch/csrc/fused_mttkrp.cu"
-    v2_src = "splatt_tpu_torch/csrc/fused_mttkrp_v2.cu"
+    fused_src = FUSED_SRC
     reduce_src = "splatt_tpu_torch/csrc/onehot_reduce.cu"
-    pk = "splatt_tpu/ops/pallas_kernels.py"
-    note = ("ms/plain_ms/bound_ms: mean per launch over the 3 modes at rank "
-            f"{RANK}, 20M nonzeros; launches: the phase that runs it on a "
-            "full CPD; every case is in 'contracts'")
+    pk = PK
+    note = NOTE
     record = {"kernels": [
         _record_row("fused_mttkrp_t", fused_src, f"{pk}:355",
                     main_path["launches"], main_rows(rows), None,
@@ -2260,19 +2559,8 @@ def main() -> int:
                     cpd_sec_per_iter=main_path["sec_per_iter"],
                     sweep_phase_ms=main_path["phases"],
                     bf16=bf16["fused_mttkrp_t"]),
-        _record_row("fused_mttkrp_tg", fused_src, f"{pk}:507",
-                    launches("fused_t faulted", "fused_mttkrp_tg"),
-                    main_rows(new_rows["fused_mttkrp_tg"]), None,
-                    note=note + " (phase 7, fused_t faulted); rank512: "
-                    "phase 8's CPD, where it is the head of the chain",
-                    contracts=new_rows["fused_mttkrp_tg"],
-                    bf16=bf16["fused_mttkrp_tg"],
-                    rank512=dict(launches=big["launches"],
-                                 sorted_20m=big["kernel"],
-                                 contracts_2m=big_rows,
-                                 cpd_sec_per_iter=big["sec_per_iter"],
-                                 peak_gib=big["peak_gib"],
-                                 sweep_phase_ms=big["phases"])),
+        _tg_row(launches("fused_t faulted", "fused_mttkrp_tg"),
+                "phase 7, fused_t faulted", new_rows, bf16, big, big_rows),
         _record_row("fused_mttkrp", fused_src, f"{pk}:1340",
                     launches("fused_t, fused_tg faulted, experimental fused",
                              "fused_mttkrp"),
@@ -2297,27 +2585,14 @@ def main() -> int:
                       "index_add_",
                     contracts=new_rows["onehot_reduce_full"],
                     bf16=bf16["onehot_reduce_full"]),
-        _record_row("fused_mttkrp_v2", v2_src, f"{pk}:702",
-                    fmt["launches"]["fused_mttkrp_v2"],
-                    [r for r in fmt["v2_rows"] if r["encoding"] == "auto"
-                     and r["contract"] == "sorted"], None,
-                    note=note.replace("20M nonzeros", "20M nonzeros, "
-                                      "idx_width auto, sorted contract")
-                    + " (phase 9, the auto CPD); library: none, no single "
-                      "PyTorch call computes it",
-                    max_rel_err_all=max(r["max_rel_err"]
-                                        for r in fmt["v2_rows"]),
-                    contracts=fmt["v2_rows"], turns=fmt["turns"],
-                    storage_bytes=fmt["storage_bytes"], cpd=fmt["cpd"],
-                    planted_bf16=fmt["planted_bf16"],
-                    bf16=bf16["fused_mttkrp_v2"]),
+        _v2_row(fmt, bf16),
         _dense_row(dense, bf16["fused_dense"]),
         _ring_row("ring_gather", "splatt_tpu/parallel/ring_kernels.py:152",
                   dist, "2 x nmodes x iterations per card"),
         _ring_row("ring_reduce", "splatt_tpu/parallel/ring_kernels.py:260",
                   dist, "nmodes x iterations per card"),
         _eig_row(main_path, big, dense),
-    ], "chain": chain, "power": dev["smi"]}
+    ], "chain": chain, "yardsticks": yard, "power": dev["smi"]}
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": dev["kind"], "count": dev["count"]}}))

@@ -30,24 +30,38 @@
 // is formed in T, rounded to bf16 after each multiply when T is bf16, as
 // the plain version's `prod * rows` is; only the row sums are f32.
 //
-// What bounds it on this card: memory and gathers, as fused_mttkrp_t.  A
-// nonzero streams its encoded ids (1-4 B per mode, 2 B per mode on
-// NELL-2-like shapes under "auto") and 4 or 2 B of value, and gathers one
-// R-element row of every other factor; the tables stay in the 50 MB L2.
+// What bounds it on this card.  A nonzero streams its encoded ids (1-4 B
+// per mode, 2 B per mode on NELL-2-like shapes under "auto") and 4 or 2 B
+// of value, and gathers one R-element row of every other factor; the
+// tables stay in the 50 MB L2.  At R = 50 a launch over 20M nonzeros
+// requests 9.0 GB of rows (each 200-byte row touches 7 sectors of 32
+// bytes; some are served from L1).  On warp_runs' walk (one entry's rows
+// in flight per warp, scalar loads, ~0.65 us a round trip under load by
+// Little's law: latency-bound) a launch took 2.29-2.44 ms (3.7-3.9 TB/s of
+// requests), slower than fused_mttkrp_t on v1 for all its fewer bytes.
+// What bounds the redesign was not identified, as for fused_mttkrp_tg
+// (fused_mttkrp.cu): about half of a launch there is per-entry work, and
+// no measured L2 rate bounds the 7.5 TB/s of requests below.
 //
-// What the design does about it: the warp-run body of warp_runs.cuh with a
-// fourth source, V2Src, which decodes as it loads.  Warps walk contiguous
-// runs of a block, so a delta stream, or an RLE count vector, needs the
-// prefix before the warp's run.  A CTA prologue gets it without staging
-// the block's ids: for a delta stream each warp sums the differences of
-// its own run and the 8 sums go to shared memory, whose exclusive prefix
-// is the warp's starting carry; the walk then carries a warp-wide
-// inclusive scan of each 32-entry load.  For an RLE stream the CTA scans
-// the block's S counts into shared run ends, and each lane finds its
-// segment by binary search.  The decoded gather ids of a warp's current 32
-// entries, the block bases and the carries sit in shared memory too, not
-// in registers: the kernel waits on gathers, so its time follows the warps
-// in flight, and registers bound those.  So shared memory holds
+// What the design does about it: gather_walk.cuh's walk with a source,
+// V2Src, that decodes as it commits each 32 entries: 4 entries' rows in
+// flight per warp, 8-byte row loads at R = 50 (the 200-byte pitch refuses
+// 16), and the next 32 entries' raw streams fetched into registers while
+// these are walked, so the decode's loads no longer stall the walk:
+// 1.18-1.20 ms per launch on "auto" (7.5 TB/s of requests) against
+// fused_mttkrp_t's 2.17-2.19 on v1 in turns; fused_mttkrp_tg on v1, the
+// same walk without a decode, 1.13-1.15 (PERF.md, H100 80GB HBM3, 700 W).
+// Warps walk
+// contiguous runs of a block, so a delta stream, or an RLE count vector,
+// needs the prefix before the warp's run.  A CTA prologue gets it without
+// staging the block's ids: for a delta stream each warp sums the
+// differences of its own run and the 8 sums go to shared memory, whose
+// exclusive prefix is the warp's starting carry; the walk then carries a
+// warp-wide inclusive scan of each 32-entry load.  For an RLE stream the
+// CTA scans the block's S counts into shared run ends, and each lane finds
+// its segment by binary search.  The decoded gather ids of a warp's current
+// 32 entries, the block bases and the carries sit in shared memory, so
+// registers go to the rows in flight.  So shared memory holds
 // (kPrologueInts + S) ints before the sorted contract's (width, R) tile,
 // which keeps the rest of the 227 KB.  The TPU kernel's transposed tables,
 // replicated request tiles and one-hot matmul were Mosaic's way to gather
@@ -55,7 +69,7 @@
 
 #include <algorithm>
 
-#include "warp_runs.cuh"
+#include "gather_walk.cuh"
 
 using namespace splatt;
 
@@ -175,9 +189,32 @@ struct V2Src {
   int* ids;                   // shared: this warp's [mode][32] gather ids
   int my_row;
   float my_val;
+  // fetched a load ahead (gather_walk.cuh): the streams' raw values, the
+  // value, the entry and whether it is real
+  int f_raw[kMaxModes];
+  float f_val;
+  int f_j;
+  bool f_ok;
 
-  __device__ __forceinline__ void load(int j, bool ok) {
+  // read entry j's raw stream values and value into registers
+  __device__ __forceinline__ void fetch(int j, bool ok) {
+#pragma unroll
+    for (int k = 0; k < kMaxModes; ++k) {
+      if (k >= a.nmodes) break;
+      f_raw[k] = ok && a.enc[k] != kRle
+                     ? load_id(a.stream[k], a.idtype[k], off + j)
+                     : 0;
+    }
+    f_val = ok ? load_val<T>(a.vals, a.vals_bf16, off + j) : 0.f;
+    f_j = j;
+    f_ok = ok;
+  }
+
+  // decode the fetched entries into the current 32 (ids, row, value)
+  __device__ __forceinline__ void commit() {
     const int lane = threadIdx.x & 31;
+    const int j = f_j;
+    const bool ok = f_ok;
     __syncwarp();   // the warp is done with the previous 32 entries' ids
 #pragma unroll
     for (int k = 0; k < kMaxModes; ++k) {
@@ -186,7 +223,7 @@ struct V2Src {
       if (a.enc[k] == kRle) {
         id = count_le(ends, a.scols, j);
       } else {
-        const int raw = ok ? load_id(a.stream[k], a.idtype[k], off + j) : 0;
+        const int raw = f_raw[k];
         if (a.enc[k] == kDelta) {
           const int s = warp_scan(raw, lane);
           id = carry[k] + s;
@@ -202,7 +239,7 @@ struct V2Src {
         ids[k * 32 + lane] = min(max(id + gbase[k], 0), a.fdim[k] - 1);
     }
     if (!ok) my_row = -1;
-    my_val = ok ? load_val<T>(a.vals, a.vals_bf16, off + j) : 0.f;
+    my_val = f_val;
     __syncwarp();
   }
 
@@ -210,25 +247,20 @@ struct V2Src {
     return __shfl_sync(kFull, my_row, t);
   }
 
-  template <int NR>
-  __device__ __forceinline__ void product(int t, int, int lane,
-                                          float (&p)[NR]) const {
-    const float v = __shfl_sync(kFull, my_val, t);
-#pragma unroll
-    for (int i = 0; i < NR; ++i) p[i] = v;
-#pragma unroll
-    for (int k = 0; k < kMaxModes; ++k) {
-      if (k >= a.nmodes) break;
-      if (k == a.mode) continue;
-      const int g = ids[k * 32 + t];
-      const T* urow = static_cast<const T*>(a.fac[k]) + (long long)g * a.R;
-#pragma unroll
-      for (int i = 0; i < NR; ++i) {
-        const int c = lane + 32 * i;
-        if (c < a.R) p[i] = to_t<T>(p[i] * ld(urow, c));
-      }
-    }
+  // the gather-source interface of gather_walk.cuh: table k is the k-th
+  // mode other than the output mode
+  __device__ __forceinline__ float val(int t) const {
+    return __shfl_sync(kFull, my_val, t);
   }
+  __device__ __forceinline__ const int* ids_of(int k) const {
+    return ids + (k + (k >= a.mode)) * 32;
+  }
+  __device__ __forceinline__ const T* table(int k) const {
+    return static_cast<const T*>(a.fac[k + (k >= a.mode)]);
+  }
+  __device__ __forceinline__ int pitch() const { return a.R; }
+  __device__ __forceinline__ int ntables() const { return a.nmodes - 1; }
+
 };
 
 size_t prologue_bytes(const Args& a) {
@@ -236,8 +268,10 @@ size_t prologue_bytes(const Args& a) {
   return (ints * sizeof(int) + 15) / 16 * 16;
 }
 
-template <class T, int NR>
-__global__ void __launch_bounds__(kThreads, gather_min_blocks(NR))
+// NV chunks of VEC columns per lane, TWO or more gathered tables (else
+// one, a 2-mode tensor).
+template <class T, int NV, int VEC, bool TWO>
+__global__ void __launch_bounds__(kThreads, walk_min_blocks(NV * VEC))
 fused_v2_kernel(const Args a, size_t tile_at) {
   extern __shared__ __align__(16) unsigned char smem[];
   int* shared = reinterpret_cast<int*>(smem);
@@ -279,44 +313,46 @@ fused_v2_kernel(const Args a, size_t tile_at) {
                shared + kIdsAt + warp * kMaxModes * 32};
 
   if (a.accumulate) {
-    warp_runs<NR>(src, a.block, a.out, a.R, a.width, a.R);
+    walk_rows<T, NV, VEC, TWO>(src, a.block, a.out, a.R, a.width, a.R);
     return;
   }
   float* slab = a.out + (long long)b * a.width * a.R;
   if (!a.use_smem) {
-    warp_runs<NR>(src, a.block, slab, a.R, a.width, a.R);
+    walk_rows<T, NV, VEC, TWO>(src, a.block, slab, a.R, a.width, a.R);
     return;
   }
   zero_tile(tile, (long long)a.width * a.R);
-  warp_runs<NR>(src, a.block, tile, a.R, a.width, a.R);
+  walk_rows<T, NV, VEC, TWO>(src, a.block, tile, a.R, a.width, a.R);
   store_tile(tile, slab, a.width, a.R, a.R, 0);
 }
 
-template <class T, int NR>
-cudaError_t launch(const Args& a, cudaStream_t stream) {
-  const size_t tile_at = prologue_bytes(a);
-  const size_t smem =
-      tile_at + ((!a.accumulate && a.use_smem)
-                     ? (size_t)a.width * a.R * sizeof(float)
-                     : 0);
-  const cudaError_t e = allow_smem(fused_v2_kernel<T, NR>, smem);
-  if (e != cudaSuccess) return e;
-  fused_v2_kernel<T, NR><<<a.nb, kThreads, smem, stream>>>(a, tile_at);
-  return cudaGetLastError();
-}
+template <class T>
+struct Launch {
+  const Args& a;
+  cudaStream_t stream;
+  template <int NV, int VEC, bool TWO>
+  cudaError_t go() const {
+    const size_t tile_at = prologue_bytes(a);
+    const size_t smem =
+        tile_at + ((!a.accumulate && a.use_smem)
+                       ? (size_t)a.width * a.R * sizeof(float)
+                       : 0);
+    const cudaError_t e =
+        allow_smem(fused_v2_kernel<T, NV, VEC, TWO>, smem);
+    if (e != cudaSuccess) return e;
+    fused_v2_kernel<T, NV, VEC, TWO><<<a.nb, kThreads, smem, stream>>>(
+        a, tile_at);
+    return cudaGetLastError();
+  }
+  template <int NV, int VEC>
+  cudaError_t run() const {
+    return a.nmodes > 2 ? go<NV, VEC, true>() : go<NV, VEC, false>();
+  }
+};
 
 template <class T>
-cudaError_t dispatch(const Args& a, cudaStream_t s) {
-  switch ((a.R + 31) / 32) {
-    case 1: return launch<T, 1>(a, s);
-    case 2: return launch<T, 2>(a, s);
-    case 3: return launch<T, 3>(a, s);
-    case 4: return launch<T, 4>(a, s);
-    case 5: return launch<T, 5>(a, s);
-    case 6: return launch<T, 6>(a, s);
-    case 7: return launch<T, 7>(a, s);
-    default: return launch<T, 8>(a, s);
-  }
+cudaError_t dispatch(const Args& a, int nv, int vec, cudaStream_t s) {
+  return dispatch_chunks<T>(nv, vec, Launch<T>{a, s});
 }
 
 }  // namespace
@@ -328,7 +364,9 @@ extern "C" {
 // the IdType then the Enc of each mode's stream; fdims: host array of
 // nmodes table rows; vals_bf16 / tabs_bf16: values / tables are bf16, else
 // f32.  scols: S of the RLE stream (0 without one).  R <= 256: each lane
-// holds R / 32 running sums in registers.  Returns the cudaError_t of the
+// holds nv chunks of vec columns of the row sums in registers (vec divides
+// R, the tables' bases aligned to vec elements; ops/kernels.py
+// gather_vec).  Returns the cudaError_t of the
 // launch (0 on success), launches on `stream`, does not synchronise and
 // allocates nothing.  The f32 output must be zeroed unless use_smem
 // (sorted contract, every CTA writes its whole tile).
@@ -337,10 +375,11 @@ int splatt_fused_mttkrp_v2(const void* streams, const void* codes,
                            const void* factors, const void* fdims,
                            int tabs_bf16, int nmodes, int mode, int nb,
                            int block, int scols, int R, int width,
-                           int accumulate, int use_smem, void* out,
-                           void* stream) {
+                           int accumulate, int use_smem, int nv, int vec,
+                           void* out, void* stream) {
   if (nmodes < 2 || nmodes > kMaxModes || mode < 0 || mode >= nmodes ||
-      R < 1 || R > 32 * 8 || nb < 1 || block < 1 || width < 1 || scols < 0)
+      R < 1 || R > 32 * 8 || nb < 1 || block < 1 || width < 1 ||
+      scols < 0 || nv < 1 || vec < 1 || R % vec != 0 || 32 * nv * vec < R)
     return (int)cudaErrorInvalidValue;
   const void* const* st = static_cast<const void* const*>(streams);
   const void* const* bs = static_cast<const void* const*>(bases);
@@ -378,8 +417,8 @@ int splatt_fused_mttkrp_v2(const void* streams, const void* codes,
   a.use_smem = use_smem;
   a.out = static_cast<float*>(out);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return (int)(tabs_bf16 ? dispatch<__nv_bfloat16>(a, s)
-                         : dispatch<float>(a, s));
+  return (int)(tabs_bf16 ? dispatch<__nv_bfloat16>(a, nv, vec, s)
+                         : dispatch<float>(a, nv, vec, s));
 }
 
 }  // extern "C"

@@ -17,6 +17,9 @@ has its wrapper in ``ops/linalg.py``):
   contract;
 - :func:`fused_mttkrp_v2` (``csrc/fused_mttkrp_v2.cu``): the same over a
   compact v2 layout, decoding its encoded streams in registers;
+  ``fused_mttkrp_tg`` and ``fused_mttkrp_v2`` walk a block with several
+  entries' table rows in flight per warp and vector row loads
+  (``csrc/gather_walk.cuh``; :func:`gather_vec` picks the load width);
 - :func:`onehot_reduce_sorted`, :func:`onehot_reduce_full`
   (``csrc/onehot_reduce.cu``): the same reduction of precomputed products;
 - :func:`fused_dense` (``csrc/fused_dense.cu``): a dense mode's value
@@ -71,9 +74,16 @@ SMEM_TILE_BYTES = 232448
 #: the scratch of csrc/fused_mttkrp.cu before its tile: each warp's gather
 #: ids, [7 modes][32 entries] int32 (kIdsInts)
 FUSED_SCRATCH_BYTES = 8 * 7 * 32 * 4
-#: columns of the rank tile of fused_mttkrp_tg and the reductions
-#: (csrc/*.cu: 32 * min(4, ceil(R / 32)))
+#: columns of the rank tile of the reductions (csrc/onehot_reduce.cu:
+#: 32 * min(4, ceil(R / 32)))
 RANK_TILE = 128
+#: columns of fused_mttkrp_tg's rank tile above that rank (one tile up to
+#: it), chosen by timing 64, 128 and 256 in turns at R = 512 on an H100
+#: (PERF.md): every launch gathers one tile's columns of the tables,
+#: which stay resident in the 50 MB L2
+TG_RANK_TILE = 128
+#: the widest row load of csrc/gather_walk.cuh, bytes per lane
+GATHER_LOAD_BYTES = 16
 #: csrc/fused_dense.cu's CTA: output rows (two wgmma warpgroups of 64)
 DENSE_ROWS = 128
 #: the rank tiles N csrc/fused_dense.cu is built for (wgmma's N): R
@@ -166,12 +176,13 @@ _FUSED_ARGS = [_P, _P, _I, _P, _P, _P, _I, _I, _I, _LL, _I, _I, _I, _I, _I,
                _I]
 _ENTRIES = {
     "splatt_fused_mttkrp_t": ("fused_mttkrp.cu", _FUSED_ARGS + [_P, _P]),
-    "splatt_fused_mttkrp_tg": ("fused_mttkrp.cu", _FUSED_ARGS + [_P, _P]),
+    "splatt_fused_mttkrp_tg": ("fused_mttkrp.cu",
+                               _FUSED_ARGS + [_I, _I, _I, _P, _P]),
     "splatt_fused_mttkrp": ("fused_mttkrp.cu",
                             _FUSED_ARGS + [_I, _P, _P]),
     "splatt_fused_mttkrp_v2": ("fused_mttkrp_v2.cu",
                                [_P, _P, _P, _P, _I, _P, _P, _I, _I, _I, _I,
-                                _I, _I, _I, _I, _I, _I, _P, _P]),
+                                _I, _I, _I, _I, _I, _I, _I, _I, _P, _P]),
     "splatt_onehot_reduce_sorted": ("onehot_reduce.cu",
                                     [_P, _P, _I, _I, _I, _I, _I, _I, _P,
                                      _P]),
@@ -431,6 +442,37 @@ def fused_mttkrp_v2_plain(layout, factors: Sequence[torch.Tensor],
     return fused_mttkrp_t_plain(layout, factors, mode, width, accumulate)
 
 
+def gather_vec(R: int, cols: int, itemsize: int,
+               addresses: Sequence[int]) -> tuple:
+    """``(nv, vec)`` of ``csrc/gather_walk.cuh``'s walk over a rank tile
+    of `cols` columns of ``(d, R)`` tables with `itemsize`-byte elements
+    at the device `addresses`: each lane owns nv chunks of vec
+    consecutive columns, each read by one load of ``vec * itemsize``
+    bytes.  The columns per lane ``nv * vec`` are the least power of two
+    (1 to 8) whose 32 lanes cover `cols`; vec is the widest power of two
+    that divides them, loads at most :data:`GATHER_LOAD_BYTES`, divides R
+    and keeps every table's address aligned to the load.  So R = 512 in
+    f32 takes one 16-byte load per lane per 128-column tile, R = 50 (a
+    200-byte pitch) 8-byte loads, and an odd R scalar loads."""
+    if not 1 <= cols <= 256:
+        raise ValueError(f"a rank tile of {cols} columns; 1 to 256 "
+                         f"are walked")
+    per_lane = 1
+    while 32 * per_lane < cols:
+        per_lane *= 2
+    vec = min(per_lane, max(1, GATHER_LOAD_BYTES // itemsize))
+    while vec > 1 and (R % vec or any(a % (vec * itemsize)
+                                      for a in addresses)):
+        vec //= 2
+    return per_lane // vec, vec
+
+
+def tg_rank_tile(R: int) -> int:
+    """Columns of fused_mttkrp_tg's rank tile at rank R: the whole rank
+    up to :data:`TG_RANK_TILE`, that tile above it."""
+    return R if R <= TG_RANK_TILE else TG_RANK_TILE
+
+
 def _fused_launch(name: str, layout, factors: List[torch.Tensor], mode: int,
                   width: int, accumulate: bool, rtile: int,
                   *extra) -> torch.Tensor:
@@ -479,7 +521,9 @@ def fused_mttkrp_tg(layout, factors: Sequence[torch.Tensor], mode: int,
     """Rank-tiled fused MTTKRP
     (≙ splatt_tpu.ops.pallas_kernels.fused_mttkrp_tg): the contract of
     :func:`fused_mttkrp_t` at any rank, a grid over (block, rank tile of
-    :data:`RANK_TILE` columns).  CPU tensors take
+    :func:`tg_rank_tile` columns), each block walked with several
+    entries' rows in flight per warp (``csrc/gather_walk.cuh``, loads of
+    :func:`gather_vec`).  CPU tensors take
     :func:`fused_mttkrp_tg_plain`; CUDA tensors launch the kernel or
     raise."""
     factors = list(factors)
@@ -487,10 +531,25 @@ def fused_mttkrp_tg(layout, factors: Sequence[torch.Tensor], mode: int,
         return fused_mttkrp_tg_plain(layout, factors, mode, width,
                                      accumulate)
     _check_fused(layout, factors, mode, width, None)
-    out = _fused_launch("splatt_fused_mttkrp_tg", layout, factors, mode,
-                        width, accumulate, RANK_TILE)
+    out = fused_tg_launch(layout, factors, mode, width, accumulate,
+                          tg_rank_tile(int(factors[0].shape[1])))
     fused_mttkrp_tg.launches += 1
     return out
+
+
+def fused_tg_launch(layout, factors: List[torch.Tensor], mode: int,
+                    width: int, accumulate: bool,
+                    rtile: int) -> torch.Tensor:
+    """One launch of ``splatt_fused_mttkrp_tg`` on operands that
+    :func:`fused_mttkrp_tg` has checked, at rank tile `rtile` (the whole
+    rank, or a multiple of 32 columns per lane).  It counts no launch:
+    ``chip_smoke.py`` times rank tiles and diagnostic layouts with it."""
+    R = int(factors[0].shape[1])
+    nv, vec = gather_vec(R, min(rtile, R), factors[0].element_size(),
+                         [U.data_ptr() for k, U in enumerate(factors)
+                          if k != mode])
+    return _fused_launch("splatt_fused_mttkrp_tg", layout, factors, mode,
+                         width, accumulate, rtile, rtile, nv, vec)
 
 
 def fused_mttkrp(layout, factors: Sequence[torch.Tensor], mode: int,
@@ -540,6 +599,9 @@ def fused_mttkrp_v2(layout, factors: Sequence[torch.Tensor], mode: int,
     if not accumulate and mode != layout.mode:
         raise ValueError("the sorted contract needs the layout's own mode")
     nb, R = layout.nblocks, int(factors[0].shape[1])
+    nv, vec = gather_vec(R, R, factors[0].element_size(),
+                         [U.data_ptr() for k, U in enumerate(factors)
+                          if k != mode])
     encs = layout.stream_encs()
     shape = (width, R) if accumulate else (nb, width, R)
     use_smem = (not accumulate and _v2_prologue_bytes(layout) + width * R * 4
@@ -558,7 +620,7 @@ def fused_mttkrp_v2(layout, factors: Sequence[torch.Tensor], mode: int,
         _launch("splatt_fused_mttkrp_v2", streams, codes, bases,
                 layout.vals.data_ptr(), _is_bf16(layout.vals), ptrs, dims,
                 _is_bf16(factors[0]), layout.nmodes, mode, nb, layout.block,
-                scols, R, width, int(accumulate), int(use_smem),
+                scols, R, width, int(accumulate), int(use_smem), nv, vec,
                 out.data_ptr())
     fused_mttkrp_v2.launches += 1
     return out

@@ -162,6 +162,112 @@ def test_cuda_fused_tg_and_rowmajor_match_plain():
         kernels.fused_mttkrp(lays[0], tf, 0, 8, False)
 
 
+#: the value and table dtypes the kernels take on a card, every pair
+DTYPE_PAIRS = ((torch.float32, torch.float32),
+               (torch.bfloat16, torch.bfloat16),
+               (torch.float32, torch.bfloat16),
+               (torch.bfloat16, torch.float32))
+
+
+def _tables(rng, dims, rank, dtype, misaligned=False):
+    """Factor tables on the card; `misaligned` puts each one element past
+    an aligned address, so no table takes a load wider than one element
+    (csrc/gather_walk.cuh's scalar loads)."""
+    out = []
+    for d in dims:
+        U = torch.from_numpy(rng.random((d, rank), dtype=np.float32)).to(
+            "cuda", dtype)
+        if misaligned:
+            buf = torch.empty(d * rank + 1, dtype=dtype, device="cuda")
+            buf[1:].copy_(U.reshape(-1))
+            U = buf[1:].view(d, rank)
+        out.append(U)
+    return out
+
+
+@pytest.mark.gpu
+def test_cuda_fused_tg_every_load_width():
+    """fused_mttkrp_tg on the gathering walk against its plain version at
+    ranks that take every load width and rank tiling (1 to 640: one tile,
+    a tile and a column, several tiles, 16-, 8- and 4-byte loads and the
+    scalar loads of odd R), both contracts, 2 modes (one gathered table),
+    3 and 4 modes, all four value/table dtype pairs, an all-padding last
+    block, and tables off their alignment."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    rng = np.random.default_rng(16)
+    launched = 0
+    for dims in ((30, 24), (30, 24, 36), (30, 24, 36, 20)):
+        X = _tensor(rng, dims, 3000, False)
+        v1 = [_pad_block(port_build_layout(X, m, block=256, device="cuda"))
+              for m in range(len(dims))]
+        for rank in (1, 50, 127, 128, 129, 257, 384, 512, 640):
+            for vdt, fdt in DTYPE_PAIRS:
+                lays = [reencode_layout(lay, LayoutFormat(
+                    val="bf16" if vdt == torch.bfloat16 else "f32"),
+                    val_dtype=vdt) for lay in v1]
+                for misaligned in (False, True):
+                    if misaligned and rank not in (128, 512):
+                        continue
+                    tf = _tables(rng, dims, rank, fdt, misaligned)
+                    for lay, m, width, acc in contracts(lays, dims):
+                        what = (f"dims={dims} rank={rank} {vdt}/{fdt} "
+                                f"misaligned={misaligned} mode={m} "
+                                f"accumulate={acc}")
+                        before = kernels.fused_mttkrp_tg.launches
+                        _close(kernels.fused_mttkrp_tg(lay, tf, m, width,
+                                                       acc),
+                               kernels.fused_mttkrp_tg_plain(lay, tf, m,
+                                                             width, acc),
+                               what)
+                        assert kernels.fused_mttkrp_tg.launches == \
+                            before + 1
+                        launched += 1
+    assert launched == 2 * 9 * 4 * (9 + 2)
+
+
+@pytest.mark.gpu
+def test_cuda_fused_v2_every_load_width():
+    """fused_mttkrp_v2 on the gathering walk against its plain version at
+    ranks that take every load width (1 to 256: 16-, 8- and 4-byte loads,
+    the scalar loads of odd R), under u8, u16, delta, rle and auto, both
+    contracts, 2 modes (one gathered table) and 3, all four value/table
+    dtype pairs, with an all-padding last block, and tables off their
+    alignment."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    rng = np.random.default_rng(17)
+    launched = 0
+    for dims in ((30, 24), (30, 24, 36)):
+        X = _tensor(rng, dims, 3000, False)
+        v1 = [_pad_block(port_build_layout(X, m, block=256, device="cuda"))
+              for m in range(len(dims))]
+        for rank in (1, 8, 50, 64, 65, 130, 256):
+            for vdt, fdt in DTYPE_PAIRS:
+                for misaligned in (False, True):
+                    if misaligned and rank not in (64, 256):
+                        continue
+                    tf = _tables(rng, dims, rank, fdt, misaligned)
+                    for idx in ("u8", "u16", "delta", "rle", "auto"):
+                        lays = [reencode_layout(lay, LayoutFormat(idx=idx),
+                                                val_dtype=vdt) for lay in v1]
+                        for lay, m, width, acc in contracts(lays, dims):
+                            assert lay.encoding == "v2"
+                            what = (f"dims={dims} rank={rank} {idx} "
+                                    f"{vdt}/{fdt} misaligned={misaligned} "
+                                    f"mode={m} accumulate={acc}")
+                            before = kernels.fused_mttkrp_v2.launches
+                            _close(kernels.fused_mttkrp_v2(lay, tf, m, width,
+                                                           acc),
+                                   kernels.fused_mttkrp_v2_plain(lay, tf, m,
+                                                                 width, acc),
+                                   what)
+                            assert kernels.fused_mttkrp_v2.launches == \
+                                before + 1
+                            launched += 1
+    assert launched == 4 * (7 + 2) * 5 * (4 + 6)
+
+
 @pytest.mark.gpu
 def test_cuda_onehot_reductions_match_plain():
     if not torch.cuda.is_available():

@@ -41,11 +41,15 @@ Phases, each fatal on failure:
    (m+1) % 3, the products made once per case; each timed beside its
    bound, its plain version and, for the two reductions, one
    ``index_add_`` call; ``fused_mttkrp`` runs at its engine's chunk and is
-   also timed at the chunk that cuts the grid to 8 CTAs per SM.  Then
-   ``fused_mttkrp_tg`` against its plain version at rank 512 on a
-   2M-nonzero tensor of the same dims, f32 and bf16, both contracts.  The
-   fused kernels' rows carry the bytes they gather from the tables,
-   counted in 32-byte sectors, and the rate those imply;
+   also timed at the chunk that cuts the grid to 8 CTAs per SM.  Then,
+   on 2M-nonzero tensors of the NELL-2 dims, of its first two dims and
+   of bench.py's 4-mode enron4 shape, ``fused_mttkrp_t`` and
+   ``fused_mttkrp`` (chunk 1 and 3) against their plain version at every
+   rank of ``WALK_RANKS`` (1 to 256), f32 and bf16 values and tables,
+   both contracts on every mode; and ``fused_mttkrp_tg`` against its
+   plain version at rank 512 on the NELL-2 one, f32 and bf16, both
+   contracts.  The fused kernels' rows carry the bytes they gather from
+   the tables, counted in 32-byte sectors, and the rate those imply;
 7. the engine chain at full width: ``cpd_als`` on the phase-3 tensor, rank
    50, 3 iterations, from one numpy init, under armed engine faults (see
    ``CHAIN_SCHEDULES``): each schedule's demotions and launch counts, fits
@@ -74,11 +78,14 @@ Phases, each fatal on failure:
    ``storage_bytes`` beside v1's; ``fused_mttkrp_v2`` against its plain
    version (<= 1e-4 of max|plain|) for each encoding and contract, timed
    beside its bound and the bytes it gathers, with ``fused_mttkrp_t``
-   (the old walk) and ``fused_mttkrp_tg`` (the new walk without a decode)
-   on the v1 layout timed in turns beside it; rows 1-5 and
-   ``fused_mttkrp_v2`` with bf16 values, tables and products against
-   their plain versions (both contracts for ``fused_mttkrp_tg`` and
-   ``fused_mttkrp_v2``), timed; ``cpd_als``
+   and ``fused_mttkrp_tg`` (the same walk without a decode) on the v1
+   layout timed in turns beside it; rows 1-5 and ``fused_mttkrp_v2``
+   with bf16 values, tables and products against their plain versions
+   (both contracts for the fused kernels), timed; ``fused_mttkrp_t``
+   (the whole rank in one tile) and ``fused_mttkrp_tg`` (tiles of 128)
+   on each mode's sorted launch at ranks ``WIDE_RANKS`` (192, 256) and
+   ``ODD_RANKS`` (75, 201: scalar loads), in turns, each held to the
+   other; ``cpd_als``
    at full width on the ``auto`` layouts from phase 5's seed, 5
    iterations, fallback off: the plan reads ``fused_v2`` on every mode,
    no demotion, 15 launches, fits within 1e-4 of phase 5's at every
@@ -123,11 +130,20 @@ TPU kernels' counterparts and ``sym_eig``); the last is
 phases 1-3's set-up and phase 11 alone (for a call with several cards)
 and prints the two ring kernels' entries; ``--dense`` runs phases 1-2
 and phase 10 alone and prints ``fused_dense``'s.  ``--gather`` runs the
-set-up, the 20M-nonzero layouts, phase 6's ``fused_mttkrp_tg`` rows,
-phase 8 (with the rank-512 comparison at 2M nonzeros, and
+set-up, the 20M-nonzero layouts, phase 3, phase 6's ``fused_mttkrp_tg``
+and ``fused_mttkrp`` rows and its 2M-nonzero checks, phase 8 (with
 ``fused_mttkrp_tg`` timed in turns at the rank tiles of PROBE_TILES, each
-checked against the shipped tile) and phase 9; it prints those two
-kernels' entries.
+checked against the shipped tile), phase 5's CPD for its fits, phase 7's
+unfaulted and ``SPLATT_EXPERIMENTAL_FUSED=1`` schedules (the launches of
+``fused_mttkrp`` on a full CPD) and phase 9; it prints the entries of
+the four gathering kernels.  ``--ranks`` runs the set-up (building only
+what is not built yet, without ``-Xptxas -v``), the 20M-nonzero layouts,
+phase 5's CPD with its sweep phases, and ``fused_mttkrp_t`` against
+``fused_mttkrp_tg`` in turns at rank 50, ``ODD_RANKS`` and
+``WIDE_RANKS``.  It calls only the package's public wrappers, so a copy
+of this script run in another checkout of the port times that
+checkout's kernels the same way: two trees compared in turns in one
+call (parent, change, change, parent).
 """
 
 from __future__ import annotations
@@ -154,6 +170,23 @@ ENCODINGS = ("auto", "u8", "delta", "rle")
 BF16_ITERS = 10
 # --gather: the rank tiles fused_mttkrp_tg is timed at in turns at rank 512
 PROBE_TILES = (64, 128, 256)
+# phase 6: fused_mttkrp_t and fused_mttkrp (at each of WALK_CHUNKS) against
+# their plain version at ranks that take every columns-per-lane count and
+# load width of the whole-rank walk (1, 17: scalar loads; 50: 8-byte; 128;
+# 200 and 256: 8 columns a lane), on the 2M-nonzero NELL-2 tensor and on a
+# 2-mode (NELL-2's first two dims) and a 4-mode tensor (bench.py's enron4
+# shape) of as many nonzeros
+WALK_RANKS = (1, 17, 50, 128, 200, 256)
+WALK_CHUNKS = (1, 3)
+TWO_MODE_DIMS = NELL2[:2]
+ENRON4 = (6066, 5699, 244268, 1176)
+# phase 9: the ranks above fused_mttkrp_tg's one tile of 128 at which
+# fused_mttkrp_t (the whole rank, 8 columns a lane) and fused_mttkrp_tg
+# (tiles of 128) are timed in turns on the 20M-nonzero layouts, and two
+# odd ranks, whose rows take scalar loads: 4 columns a lane at 75 (both
+# kernels one tile), 8 at 201 (fused_tg two tiles at 4)
+WIDE_RANKS = (192, 256)
+ODD_RANKS = (75, 201)
 # phase 10: bench.py's densemode scenario (24, 256, 512) with every dim
 # scaled by 4, 20M nonzeros: every mode's padded density is ~0.1
 DENSE_DIMS = (96, 1024, 2048)
@@ -383,12 +416,13 @@ def phase_device() -> dict:
     return {"kind": name, "count": torch.cuda.device_count(), "smi": smi}
 
 
-def phase_build() -> None:
-    """Build every kernel with ``-Xptxas -v`` (one nvcc per source, in
-    parallel) and print its registers, shared memory and spills."""
+def phase_build(verbose: bool = True) -> None:
+    """Build every kernel (one nvcc per source, in parallel); with
+    `verbose` under ``-Xptxas -v``, printing registers, shared memory and
+    spills, else only the sources not built yet."""
     from splatt_tpu_torch.ops import kernels
 
-    res = kernels.build(verbose=True)
+    res = kernels.build(verbose=verbose)
     log(f"[build] nvcc -Xptxas -v over {len(kernels.SOURCES)} source(s): "
         f"{res['seconds']:.2f} s")
     for line in res["log"].splitlines():
@@ -868,10 +902,10 @@ def eig_gate(R: int) -> dict:
 
 
 def phase_new_kernels(bs, rank: int, seed: int = 1,
-                      tg_only: bool = False) -> dict:
+                      gathers_only: bool = False) -> dict:
     """The other four kernels against their plain versions on the phase-3
-    layouts and factors, timed beside their bounds (`tg_only`: the
-    fused_mttkrp_tg rows alone)."""
+    layouts and factors, timed beside their bounds (`gathers_only`: the
+    fused_mttkrp_tg and fused_mttkrp rows alone)."""
     import torch
 
     from splatt_tpu_torch.ops import kernels
@@ -892,7 +926,7 @@ def phase_new_kernels(bs, rank: int, seed: int = 1,
                   kernels.fused_mttkrp_tg_plain, {}),
                  ("fused_mttkrp", kernels.fused_mttkrp,
                   kernels.fused_mttkrp_plain, {"chunk": FUSED_CHUNK}))
-        for name, fn, plain, kw in fused[:1] if tg_only else fused:
+        for name, fn, plain, kw in fused:
             got, row = compare(
                 lambda: fn(lay, factors, m, width, acc, **kw),
                 lambda: plain(lay, factors, m, width, acc),
@@ -912,7 +946,7 @@ def phase_new_kernels(bs, rank: int, seed: int = 1,
             log(f"[kernel] {name} {json.dumps(row)}")
             rows[name].append(row)
             del got
-        if tg_only:
+        if gathers_only:
             continue
         # the reductions: the products once per case, and the flat ids
         # of the one index_add_ call that computes the same sum
@@ -954,27 +988,43 @@ def phase_new_kernels(bs, rank: int, seed: int = 1,
     return rows
 
 
-def phase_big_rank(seed: int = 5) -> list:
-    """fused_mttkrp_tg against its plain version at rank 512, both
-    contracts on every mode, f32 and bf16 (values and tables), on a
-    2M-nonzero tensor of the NELL-2 dims (the plain version needs ~3 x
-    nnz x R x 4 bytes)."""
-    import torch
-
+def small_layouts(dims, seed: int = 5):
+    """ALLMODE layouts of a BIG_RANK_NNZ-nonzero synthetic tensor of
+    `dims`, small enough for the plain versions at wide ranks (they need
+    ~3 x nnz x R x 4 bytes)."""
     from splatt_tpu_torch import BlockedSparse, Options
-    from splatt_tpu_torch.blocked import reencode_layout
-    from splatt_tpu_torch.config import BlockAlloc, LayoutFormat
-    from splatt_tpu_torch.ops import kernels
+    from splatt_tpu_torch.config import BlockAlloc
 
     t0 = time.perf_counter()
-    bs = BlockedSparse.from_coo(synthetic_tensor(NELL2, BIG_RANK_NNZ, seed),
+    bs = BlockedSparse.from_coo(synthetic_tensor(dims, BIG_RANK_NNZ, seed),
                                 Options(block_alloc=BlockAlloc.ALLMODE))
-    log(f"[rank{BIG_RANK}] {BIG_RANK_NNZ}-nonzero layouts in "
+    log(f"[layout] {dims}, {BIG_RANK_NNZ} nonzeros: layouts in "
         f"{time.perf_counter() - t0:.2f} s")
-    f32 = random_factors(bs, BIG_RANK, seed)
-    bs16 = dataclasses.replace(bs, layouts=[
+    return bs
+
+
+def bf16_layouts(bs):
+    """`bs` with its values stored in bf16."""
+    import torch
+
+    from splatt_tpu_torch.blocked import reencode_layout
+    from splatt_tpu_torch.config import LayoutFormat
+
+    return dataclasses.replace(bs, layouts=[
         reencode_layout(lay, LayoutFormat(val="bf16"),
                         val_dtype=torch.bfloat16) for lay in bs.layouts])
+
+
+def phase_big_rank(bs, seed: int = 5) -> list:
+    """fused_mttkrp_tg against its plain version at rank 512, both
+    contracts on every mode, f32 and bf16 (values and tables), on the
+    2M-nonzero layouts `bs` of the NELL-2 dims."""
+    import torch
+
+    from splatt_tpu_torch.ops import kernels
+
+    f32 = random_factors(bs, BIG_RANK, seed)
+    bs16 = bf16_layouts(bs)
     rows = []
     for dtype, X in ((torch.float32, bs), (torch.bfloat16, bs16)):
         factors = [U.to(dtype) for U in f32]
@@ -1013,6 +1063,8 @@ KERNEL_FAULTS = ("engine.fused_t:runtime,engine.fused_tg:runtime,"
 
 #: phase 7: (label, armed faults, SPLATT_EXPERIMENTAL_FUSED, privatize
 #: mode 0, engines demoted, launches of each kernel, unlisted = 0)
+#: phase 7's schedule that runs fused_mttkrp on a full CPD
+FUSED_CHAIN = "fused_t, fused_tg faulted, experimental fused"
 CHAIN_SCHEDULES = [
     ("no fault", "", False, False, [], {"fused_mttkrp_t": 9}),
     ("fused_t faulted", "engine.fused_t:runtime", False, False,
@@ -1020,8 +1072,8 @@ CHAIN_SCHEDULES = [
     ("fused_t, fused_tg faulted",
      "engine.fused_t:runtime,engine.fused_tg:runtime", False, False,
      ["fused_t", "fused_tg"], {"onehot_reduce_sorted": 9}),
-    ("fused_t, fused_tg faulted, experimental fused",
-     "engine.fused_t:runtime,engine.fused_tg:runtime", True, False,
+    (FUSED_CHAIN, "engine.fused_t:runtime,engine.fused_tg:runtime", True,
+     False,
      ["fused_t", "fused_tg"], {"fused_mttkrp": 9}),
     ("fused_t, fused_tg faulted, mode 0 privatized",
      "engine.fused_t:runtime,engine.fused_tg:runtime", False, True,
@@ -1042,11 +1094,17 @@ RAISING_SCHEDULES = [
 ]
 
 
-def phase_chain(bs, rank: int) -> dict:
-    """cpd_als at full width under each of CHAIN_SCHEDULES (demotions,
-    launch counts, fits and λ against the unfaulted run, each mode's
-    MTTKRP through the engines left against fused_mttkrp_t's) and
-    RAISING_SCHEDULES (cpd_als raises)."""
+#: --gather: the unfaulted schedule (the reference) and FUSED_CHAIN
+GATHER_CHAIN = [s for s in CHAIN_SCHEDULES
+                if s[0] in ("no fault", FUSED_CHAIN)]
+
+
+def phase_chain(bs, rank: int, schedules=CHAIN_SCHEDULES,
+                raising=RAISING_SCHEDULES) -> dict:
+    """cpd_als at full width under each of `schedules` (demotions,
+    launch counts, fits and λ against the first, unfaulted run, each
+    mode's MTTKRP through the engines left against fused_mttkrp_t's) and
+    `raising` (cpd_als raises)."""
     import dataclasses
     import os
 
@@ -1113,7 +1171,7 @@ def phase_chain(bs, rank: int) -> dict:
     base = None
     runs = []
     for label, schedule, experimental, privatize, demoted, want in \
-            CHAIN_SCHEDULES:
+            schedules:
         X = priv if privatize else bs
         try:
             out, seconds = run(X, schedule, experimental, True)
@@ -1158,7 +1216,7 @@ def phase_chain(bs, rank: int) -> dict:
                                  f"fused_mttkrp_t's by {mttkrp_err:.3e}")
         runs.append(row)
     for label, schedule, experimental, fallback, demoted, site in \
-            RAISING_SCHEDULES:
+            raising:
         try:
             run(bs, schedule, experimental, fallback)
         except RuntimeError as e:
@@ -1184,19 +1242,120 @@ def phase_chain(bs, rank: int) -> dict:
     return {r["schedule"]: r for r in runs}
 
 
-def v1_fits(bs, rank: int) -> list:
-    """The fits of phase 5's CPD (the v1 layouts, its options and seed),
-    for --gather, which skips phase 5: phase 9's auto CPD is held to
-    them."""
+def walk_tensors(nell2) -> dict:
+    """The layout sets phase_walk checks: the 2M-nonzero NELL-2 layouts
+    `nell2`, and as many nonzeros over a 2-mode and a 4-mode shape."""
+    return {"nell2": nell2, "two_mode": small_layouts(TWO_MODE_DIMS, 6),
+            "enron4": small_layouts(ENRON4, 7)}
+
+
+def phase_walk(tensors: dict) -> dict:
+    """fused_mttkrp_t and fused_mttkrp (at each chunk of WALK_CHUNKS)
+    against their plain version at every rank of WALK_RANKS, f32 and bf16
+    values and tables, both contracts on every mode of each layout set in
+    `tensors` (label -> 2M-nonzero layouts); returns the largest relative
+    error of each kernel and the launches checked."""
+    import torch
+
+    from splatt_tpu_torch.ops import kernels
+
+    t0 = time.perf_counter()
+    worst = {"fused_mttkrp_t": 0.0, "fused_mttkrp": 0.0}
+    checked = 0
+    for label, bs in tensors.items():
+        for dtype in (torch.float32, torch.bfloat16):
+            X = bs if dtype == torch.float32 else bf16_layouts(bs)
+            for rank in WALK_RANKS:
+                factors = [U.to(dtype) for U in random_factors(bs, rank,
+                                                               rank)]
+                for contract, lay, width, acc, m in contracts(X):
+                    want = kernels.fused_mttkrp_t_plain(lay, factors, m,
+                                                        width, acc)
+                    runs = [("fused_mttkrp_t", None)] + [
+                        ("fused_mttkrp", c) for c in WALK_CHUNKS]
+                    for name, chunk in runs:
+                        got = (kernels.fused_mttkrp_t(lay, factors, m, width,
+                                                      acc) if chunk is None
+                               else kernels.fused_mttkrp(
+                                   lay, factors, m, width, acc, chunk=chunk))
+                        rel = check_close(
+                            f"{name} {label} {dtype} rank {rank} chunk "
+                            f"{chunk} {contract} mode {m}", got, want)
+                        worst[name] = max(worst[name], rel)
+                        checked += 1
+                        del got
+                    del want
+            del X
+            torch.cuda.empty_cache()
+    out = dict(max_rel_err=worst, launches_checked=checked,
+               ranks=list(WALK_RANKS), chunks=list(WALK_CHUNKS),
+               tensors={k: list(v.dims) for k, v in tensors.items()},
+               seconds=time.perf_counter() - t0)
+    log(f"[walk] fused_mttkrp_t and fused_mttkrp against plain: "
+        f"{json.dumps(out)}")
+    return out
+
+
+def wide_rank_turns(bs, ranks=ODD_RANKS + WIDE_RANKS, seed: int = 2
+                    ) -> list:
+    """fused_mttkrp_t (the whole rank in one tile) and fused_mttkrp_tg
+    (tiles of 128) on each mode's sorted launch at each of `ranks`, in
+    turns, fused_t's output held to fused_tg's; each with its requested
+    sectors' rate."""
+    from splatt_tpu_torch.ops import kernels
+
+    rows = []
+    for rank in ranks:
+        factors = random_factors(bs, rank, seed)
+        for m in range(bs.nmodes):
+            lay = bs.layout_for(m)
+            w = lay.seg_width
+            fns = {"fused_t": lambda: kernels.fused_mttkrp_t(
+                       lay, factors, m, w, False),
+                   "fused_tg": lambda: kernels.fused_mttkrp_tg(
+                       lay, factors, m, w, False)}
+            rel = check_close(f"fused_t against fused_tg rank {rank} mode "
+                              f"{m}", fns["fused_t"](), fns["fused_tg"]())
+            turns = in_turns(fns, reps=5)
+            for k, rtile in (("fused_t", rank),
+                             ("fused_tg", kernels.tg_rank_tile(rank))):
+                turns[k]["requested_bytes"] = requested_bytes(
+                    lay, factors, m, rtile)
+                turns[k]["requested_tb_s"] = gather_rate(
+                    turns[k]["requested_bytes"], turns[k]["ms"])
+            row = dict(rank=rank, mode=m, rel_t_to_tg=rel,
+                       t_over_tg=turns["fused_t"]["ms"]
+                       / turns["fused_tg"]["ms"], turns=turns)
+            log(f"[wide] sorted launch in turns {json.dumps(row)}")
+            rows.append(row)
+        del factors
+    return rows
+
+
+def v1_fits(bs, rank: int) -> dict:
+    """Phase 5's CPD (the v1 layouts, its options and seed) for
+    --gather and --ranks, which skip phase 5: its fits (phase 9's auto
+    CPD is held to them), its fused_mttkrp_t launches, its steady
+    seconds per iteration and its final factors."""
+    import torch
+
     from splatt_tpu_torch import Options, cpd_als
     from splatt_tpu_torch.config import BlockAlloc, Verbosity
+    from splatt_tpu_torch.ops import kernels
 
     opts = Options(block_alloc=BlockAlloc.ALLMODE, max_iterations=ITERS,
                    tolerance=0.0, random_seed=0, engine_fallback=False,
                    verbosity=Verbosity.NONE)
-    fits = list(cpd_als(bs, rank, opts).fits)
-    log(f"[cpd] phase 5's CPD for its fits: {fits}")
-    return fits
+    kernels.reset_launches()
+    out = cpd_als(bs, rank, opts)
+    torch.cuda.synchronize()
+    launches = kernels.fused_mttkrp_t.launches
+    steady = sum(out.iter_seconds[1:]) / (len(out.iter_seconds) - 1)
+    log(f"[cpd] phase 5's CPD: fits {list(out.fits)}; fused_mttkrp_t "
+        f"launches {launches}; {steady * 1e3:.3f} ms/iteration "
+        f"(iterations 2..{ITERS})")
+    return {"fits": list(out.fits), "launches": launches,
+            "sec_per_iter": steady, "factors": out.factors}
 
 
 def in_turns(fns: dict, reps: int) -> dict:
@@ -1209,30 +1368,30 @@ def in_turns(fns: dict, reps: int) -> dict:
     return {k: dict(ms=sum(v) / len(v), runs=v) for k, v in runs.items()}
 
 
-def check_tile(label: str, got, want) -> float:
-    """A rank tile's output against the shipped tile's on the same inputs
-    (<= KERNEL_TOL of max|shipped|; the shipped kernel is held against
-    the plain version elsewhere); returns the relative difference."""
+def check_close(label: str, got, want) -> float:
+    """`got` against `want` on the same inputs, <= KERNEL_TOL of
+    max|want|; returns the relative difference."""
     import torch
 
     torch.cuda.synchronize()
     scale = float(want.abs().max())
     rel = float((got - want).abs().max()) / (scale if scale > 0 else 1.0)
     if not rel <= KERNEL_TOL:
-        raise AssertionError(f"{label}: {rel:.3e} from the shipped tile")
+        raise AssertionError(f"{label}: relative difference {rel:.3e} > "
+                             f"{KERNEL_TOL}")
     return rel
 
 
 def tg_tile_turns(lay, factors, m: int, want) -> dict:
     """fused_mttkrp_tg on one sorted launch at rank 512 at each rank tile
     of PROBE_TILES, in turns, each checked against the shipped tile's
-    output `want`."""
+    output `want` (which is held against the plain version elsewhere)."""
     from splatt_tpu_torch.ops import kernels
 
     w = lay.seg_width
     fns = {f"tile {t}": (lambda t=t: kernels.fused_tg_launch(
         lay, factors, m, w, False, t)) for t in PROBE_TILES}
-    rel = {k: check_tile(k, fn(), want) for k, fn in fns.items()}
+    rel = {k: check_close(k, fn(), want) for k, fn in fns.items()}
     turns = in_turns(fns, reps=5)
     for k in turns:
         turns[k]["rel_to_shipped"] = rel[k]
@@ -1403,9 +1562,10 @@ def phase_format(bs, rank: int, main_fits: list, seed: int = 1) -> dict:
             v2_rows.append(row)
             del got
         torch.cuda.empty_cache()
-    # fused_mttkrp_t on the v1 layout (warp_runs' walk) and fused_v2 on
-    # auto in turns, with fused_tg on v1 (fused_v2's walk without its
-    # decode); each launch's requested sectors and the rate they imply
+    # fused_mttkrp_t and fused_tg on the v1 layout (at R <= 128 the same
+    # kernel on the same grid) and fused_v2 on auto (the walk with its
+    # decode) in turns; each launch's requested sectors and the rate they
+    # imply
     turns = []
     for m in range(bs.nmodes):
         v1, auto = bs.layout_for(m), encoded["auto"].layout_for(m)
@@ -1420,7 +1580,9 @@ def phase_format(bs, rank: int, main_fits: list, seed: int = 1) -> dict:
         moved = requested_bytes(v1, factors, m, rank)
         row = dict(mode=m, requested_bytes=moved,
                    fused_t_v1_ms=ms["fused_t_v1"]["ms"],
-                   fused_v2_auto_ms=ms["fused_v2_auto"]["ms"], turns=ms)
+                   fused_v2_auto_ms=ms["fused_v2_auto"]["ms"],
+                   t_over_tg=ms["fused_t_v1"]["ms"]
+                   / ms["fused_tg_v1"]["ms"], turns=ms)
         for k in ms:
             ms[k]["requested_tb_s"] = gather_rate(moved, ms[k]["ms"])
         turns.append(row)
@@ -1447,10 +1609,6 @@ def phase_format(bs, rank: int, main_fits: list, seed: int = 1) -> dict:
     for name, fn, plain, X in fused:
         bf16[name] = []
         for contract, lay, width, acc, m in contracts(X):
-            # both contracts of the two kernels on the gathering walk
-            if contract != "sorted" and name not in ("fused_mttkrp_tg",
-                                                     "fused_mttkrp_v2"):
-                continue
             got, row = compare(lambda: fn(lay, fac16, m, width, acc),
                                lambda: plain(lay, fac16, m, width, acc),
                                f"{name} bf16 {contract} mode {m}")
@@ -2331,6 +2489,46 @@ def _tg_row(launches: int, where: str, new_rows: dict, bf16: dict,
                      peak_gib=big["peak_gib"], sweep_phase_ms=big["phases"]))
 
 
+#: rows 1 and 5 of the kernels line: their design
+WALK_STATUS = ("redesigned: the whole rank in one tile on "
+               "csrc/gather_walk.cuh's walk_rows")
+
+
+def _requested(rows: list) -> dict:
+    """Mean requested bytes of table rows per launch over `rows`, and
+    the mean rate they imply."""
+    n = len(rows)
+    return dict(requested_bytes=sum(r["requested_bytes"] for r in rows) / n,
+                requested_tb_s=sum(r["requested_tb_s"] for r in rows) / n)
+
+
+def _t_row(launches: int, where: str, rows: list, bf16: dict, walk: dict,
+           fmt: dict, wide: list, **extra) -> dict:
+    """Row 1 of the kernels line: phase 3's sorted rows at rank 50, with
+    phase 6's checks at every rank of WALK_RANKS and phase 9's turns
+    beside fused_tg at rank 50, ODD_RANKS and WIDE_RANKS."""
+    main = [r for r in rows if r["contract"] == "sorted"]
+    return _record_row(
+        "fused_mttkrp_t", FUSED_SRC, f"{PK}:355", launches, main, None,
+        note=NOTE + f" ({where})", status=WALK_STATUS, contracts=rows,
+        bf16=bf16["fused_mttkrp_t"], walk_checks=walk,
+        turns_rank50=fmt["turns"], turns_wide=wide, **_requested(main),
+        **extra)
+
+
+def _rowmajor_row(launches: int, where: str, new_rows: dict, bf16: dict,
+                  walk: dict) -> dict:
+    """Row 5 of the kernels line: phase 6's sorted rows at rank 50 and
+    the engine's chunk, with phase 6's checks at every rank of
+    WALK_RANKS."""
+    main = [r for r in new_rows["fused_mttkrp"] if r["contract"] == "sorted"]
+    return _record_row(
+        "fused_mttkrp", FUSED_SRC, f"{PK}:1340", launches, main, None,
+        note=NOTE + f" ({where})", status=WALK_STATUS,
+        contracts=new_rows["fused_mttkrp"], bf16=bf16["fused_mttkrp"],
+        walk_checks=walk, **_requested(main))
+
+
 def _v2_row(fmt: dict, bf16: dict) -> dict:
     """Row 6 of the kernels line: phase 9's auto rows, sorted contract."""
     return _record_row(
@@ -2474,7 +2672,8 @@ def main() -> int:
 
     dev = phase_device()
     gather = "--gather" in sys.argv[1:]
-    phase_build()
+    ranks = "--ranks" in sys.argv[1:]
+    phase_build(verbose=not ranks)
     if "--dense" in sys.argv[1:]:
         dense = phase_dense(RANK)
         print(json.dumps({"kernels": [_dense_row(
@@ -2508,19 +2707,45 @@ def main() -> int:
         f"mode{lay.mode}: nblocks={lay.nblocks} seg_width={lay.seg_width}"
         for lay in bs.layouts))
 
+    if ranks:
+        v1 = v1_fits(bs, RANK)
+        if v1["launches"] != bs.nmodes * ITERS:
+            raise AssertionError(f"fused_mttkrp_t launched {v1['launches']} "
+                                 f"times, expected {bs.nmodes * ITERS}")
+        parts = sweep_phases(bs, v1["factors"], v1["sec_per_iter"], "[cpd]")
+        turns = wide_rank_turns(bs, (RANK,) + ODD_RANKS + WIDE_RANKS)
+        print(json.dumps({"turns": turns, "cpd": dict(
+            fits=v1["fits"], launches=v1["launches"],
+            sec_per_iter=v1["sec_per_iter"], phases=parts),
+            "power": dev["smi"]}))
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": dev["kind"], "count": dev["count"]}}))
+        return 0
     yard = {"l2_copy": l2_copy_rate(),
             "library_gather": [
                 library_gather_rate(bs, c)
                 for c in (kernels.tg_rank_tile(BIG_RANK), RANK)]}
     if gather:
-        new_rows = phase_new_kernels(bs, RANK, tg_only=True)
-        big_rows = phase_big_rank()
+        rows = phase_kernels(bs, RANK)
+        new_rows = phase_new_kernels(bs, RANK, gathers_only=True)
+        small = small_layouts(NELL2)
+        walk = phase_walk(walk_tensors(small))
+        big_rows = phase_big_rank(small)
+        del small
         big = phase_rank512(bs, tiles=True)
-        fmt = phase_format(bs, RANK, v1_fits(bs, RANK))
+        v1 = v1_fits(bs, RANK)
+        chain = phase_chain(bs, RANK, GATHER_CHAIN, [])
+        fmt = phase_format(bs, RANK, v1["fits"])
+        wide = wide_rank_turns(bs)
         bf16 = {k: _bf16_summary(v) for k, v in fmt["bf16"].items()}
         print(json.dumps({"kernels": [
+            _t_row(v1["launches"], "phase 5's CPD, run for its fits", rows,
+                   bf16, walk, fmt, wide),
             _tg_row(big["launches"], "phase 8's rank-512 CPD", new_rows,
                     bf16, big, big_rows),
+            _rowmajor_row(chain[FUSED_CHAIN]["launches"]["fused_mttkrp"],
+                          "phase 7's SPLATT_EXPERIMENTAL_FUSED=1 CPD",
+                          new_rows, bf16, walk),
             _v2_row(fmt, bf16)], "yardsticks": yard,
             "power": dev["smi"]}))
         print(json.dumps({"ok": True, "device": {
@@ -2530,10 +2755,14 @@ def main() -> int:
     phase_parity()
     main_path = phase_main_path(bs, RANK)
     new_rows = phase_new_kernels(bs, RANK)
-    big_rows = phase_big_rank()
+    small = small_layouts(NELL2)
+    walk = phase_walk(walk_tensors(small))
+    big_rows = phase_big_rank(small)
+    del small
     chain = phase_chain(bs, RANK)
     big = phase_rank512(bs)
     fmt = phase_format(bs, RANK, main_path["fits"])
+    wide = wide_rank_turns(bs)
     bf16 = {k: _bf16_summary(v) for k, v in fmt["bf16"].items()}
     del bs
     dense = phase_dense(RANK)
@@ -2541,33 +2770,21 @@ def main() -> int:
     dist = phase_distributed(tt, RANK)
     del tt
 
-    def main_rows(rs):
-        """The rows of the contract the main path runs: sorted."""
-        return [r for r in rs if r["contract"] == "sorted"]
-
     def launches(label, kernel):
         return chain[label]["launches"][kernel]
 
-    fused_src = FUSED_SRC
     reduce_src = "splatt_tpu_torch/csrc/onehot_reduce.cu"
     pk = PK
     note = NOTE
     record = {"kernels": [
-        _record_row("fused_mttkrp_t", fused_src, f"{pk}:355",
-                    main_path["launches"], main_rows(rows), None,
-                    note=note + " (phase 5, the main path)", contracts=rows,
-                    cpd_sec_per_iter=main_path["sec_per_iter"],
-                    sweep_phase_ms=main_path["phases"],
-                    bf16=bf16["fused_mttkrp_t"]),
+        _t_row(main_path["launches"], "phase 5, the main path", rows, bf16,
+               walk, fmt, wide, cpd_sec_per_iter=main_path["sec_per_iter"],
+               sweep_phase_ms=main_path["phases"]),
         _tg_row(launches("fused_t faulted", "fused_mttkrp_tg"),
                 "phase 7, fused_t faulted", new_rows, bf16, big, big_rows),
-        _record_row("fused_mttkrp", fused_src, f"{pk}:1340",
-                    launches("fused_t, fused_tg faulted, experimental fused",
-                             "fused_mttkrp"),
-                    main_rows(new_rows["fused_mttkrp"]), None,
-                    note=note + " (phase 7, SPLATT_EXPERIMENTAL_FUSED=1)",
-                    contracts=new_rows["fused_mttkrp"],
-                    bf16=bf16["fused_mttkrp"]),
+        _rowmajor_row(launches(FUSED_CHAIN, "fused_mttkrp"),
+                      "phase 7, SPLATT_EXPERIMENTAL_FUSED=1", new_rows, bf16,
+                      walk),
         _record_row("onehot_reduce_sorted", reduce_src, f"{pk}:148",
                     launches("fused_t, fused_tg faulted",
                              "onehot_reduce_sorted"),

@@ -29,51 +29,46 @@
 // the 50 MB L2.  At R = 512 a launch requests 20M nonzeros x 2 tables x 2
 // KB = 81.9 GB of rows, at R = 50 9.0 GB (each 200-byte row touches 7
 // sectors of 32 bytes); these count requests, some of which the L1 serves.
-// On warp_runs' walk the request rate rose with the bytes in flight per SM
-// at one latency, ~0.65 us a round trip by Little's law: a latency-bound
-// walk.  The redesign below is not bound by one thing that was measured:
-// with every gathered id 0 (one row, no wait on L2) a launch at R = 512
-// still takes 5.1 of its 9.9 ms, so about half of it is per-entry work
-// (ids, values, products, flushes), the other half the wait on gathers.
-// No L2 ceiling was measured: a library copy inside L2 reaches 3.7-4.4
-// TB/s, under the kernel's 8.2 TB/s of requests, so it bounds nothing
-// (PERF.md section 6 gives these and a library gather's rate; H100 80GB
-// HBM3, 700 W).
+// What bounds the walk below was not identified: with every gathered id 0
+// (one row, no wait on L2) a launch at R = 512 still takes 5.1 of its 9.9
+// ms, so about half of it is per-entry work (ids, values, products,
+// flushes), the other half the wait on gathers; a library copy inside L2
+// (3.7-4.4 TB/s) and a library row gather (2.2-2.5 TB/s of requested
+// sectors) both run below the walk's 8.2 TB/s of requests, so neither
+// bounds it (PERF.md section 6; H100 80GB HBM3, 700 W).
 //
-// What the design does about it: one CTA per block (per block and rank
-// tile for _tg, per `chunk` blocks for the row-major entry); a warp walks
-// a contiguous run of the block's entries, keeps a running row sum in
-// registers and flushes it when the sorted id changes.  A warp's gather ids
-// for its current 32 entries sit in a shared scratch (kIdsInts).  The
-// sorted contract flushes into a shared (width, cols) tile after the
-// scratch, written to out[b] once, or straight to device memory when the
-// tile does not fit; the accumulate contract flushes into a zeroed (width,
-// R) output.  The TPU kernels' transposed R8 x D tables, replicated
-// 8-sublane request tiles and one-hot matmul were Mosaic workarounds and
-// have no counterpart here.  The entries differ in the grid and the walk:
+// What the design does: one walk for all three entries, gather_walk.cuh's
+// walk_rows.  A CTA of 8 warps reduces one block at a time; a warp walks a
+// contiguous run of the block's entries with the rows of 4 entries in
+// flight, each lane loading its chunks of vec columns (8 or 16 bytes where
+// R and the tables' alignment allow, ops/kernels.py gather_vec) with the
+// next 32 entries' ids fetched ahead, keeps a running row sum in registers
+// and flushes it when the sorted id changes.  A warp's gather ids for its
+// current 32 entries sit in a shared scratch (kIdsInts).  The sorted
+// contract flushes into a shared (width, cols) tile after the scratch,
+// written to out[b] once, or straight to device memory when the tile does
+// not fit; the accumulate contract flushes into a zeroed (width, R)
+// output.  The TPU kernels' transposed R8 x D tables, replicated 8-sublane
+// request tiles and one-hot matmul were Mosaic workarounds and have no
+// counterpart here.  The entries differ in the grid and the rank tile:
 //
-//   _t   grid (nb), warp_runs.cuh's walk: the whole rank in registers,
-//        R <= 256, lanes over columns (NR = R/32 sums per lane), one
-//        entry's rows in flight per warp.
-//   _tg  grid (nb, ceil(R / RT)): a rank tile of RT = 128 columns (the
-//        whole rank up to 128; ops/kernels.py tg_rank_tile), so registers
-//        and the shared tile (width, RT) do not grow with R and a launch
-//        gathers one tile's columns of the tables; every rank tile re-reads
-//        the block's id and value streams.  Its walk is gather_walk.cuh's:
-//        on warp_runs' walk a warp had one entry's rows in flight, each an
-//        L2 round trip of ~0.65 us under load by Little's law: 13.3 ms per
-//        launch at R = 512 (6.2 TB/s of gathered rows).  The new walk keeps
-//        4 entries' rows in flight per warp and loads 16 bytes a lane (8 at
-//        R = 50); a first version stopped at 10.2 ms, 8.9 of them left with
-//        every gathered id 0, so it also cuts the instructions an entry
-//        takes: loads are unconditional, a row's address is one
-//        multiply-add, and the next 32 entries' ids are fetched while these
-//        are walked.  9.9-10.0 ms at R = 512 (8.2-8.3 TB/s of requested
-//        sectors; 5.1 ms with the ids zeroed), 1.13-1.14 ms at R = 50 (2.04
-//        before) (PERF.md, H100 80GB HBM3, 700 W).  A cp.async ring in
-//        shared memory ran 1.6-2.2x slower and was dropped.
-//   row-major (fused_mttkrp) grid (ceil(nb / chunk)), warp_runs' walk: a
-//        CTA walks `chunk` consecutive blocks, R <= 256.
+//   _t   grid (nb): one CTA per block, the whole rank in one tile, R <=
+//        256 (up to 8 columns per lane); the same kernel as _tg with
+//        rtile = R, so the block's id and value streams are read once.
+//   _tg  grid (nb, ceil(R / rtile)): rank tiles of rtile = 128 columns
+//        (the whole rank up to 128; ops/kernels.py tg_rank_tile), so
+//        registers and the shared tile (width, rtile) do not grow with R
+//        and a launch gathers one tile's columns of the tables; every rank
+//        tile re-reads the block's id and value streams.  At R <= 128 it
+//        runs _t's launch.
+//   row-major (fused_mttkrp) grid ceil(nb / chunk): a CTA walks `chunk`
+//        consecutive blocks in turn, the whole rank, R <= 256; each
+//        block's walk starts afresh, so no id is fetched past a block.
+//
+// Measured on the new walk (PERF.md section 6, H100 80GB HBM3, 700 W):
+// _tg at R = 512 9.9-10.0 ms a launch (13.3 on the one-entry walk it
+// replaced), at R = 50 1.14 (2.04).  A cp.async ring in shared memory ran
+// 1.6-2.2x slower and was dropped.
 
 #include <algorithm>
 
@@ -109,44 +104,20 @@ struct Args {
 };
 
 // Entries of one block: output ids and the gathered Hadamard product of
-// the rank tile [r0, r0 + cols), formed in the table type T.
+// the rank tile starting at column r0, formed in the table type T; the
+// gather source of gather_walk.cuh's walk_rows.  fetch reads entry j's ids
+// and value into registers a load ahead (j < the block's n, so never into
+// the next block's stream), commit makes the fetched 32 entries the
+// current ones.
 template <class T>
 struct FusedSrc {
   const Args& a;
   long long base;
   int shift;
   int r0;
-  int cols;
   int* ids;                    // shared: this warp's [mode][32] gather ids
   int my_row;
   float my_val;
-
-  __device__ __forceinline__ void load(int j, bool ok) {
-    const int lane = threadIdx.x & 31;
-    __syncwarp();   // the warp is done with the previous 32 entries' ids
-    my_row = -1;
-    my_val = 0.f;
-    if (ok) {
-      my_row = a.inds[(long long)a.mode * a.nnz_pad + base + j] - shift;
-      my_val = load_val<T>(a.vals, a.vals_bf16, base + j);
-    }
-#pragma unroll
-    for (int k = 0; k < kMaxOther; ++k) {
-      if (k >= a.nother) break;
-      const int g =
-          ok ? a.inds[(long long)a.fmode[k] * a.nnz_pad + base + j] : 0;
-      ids[k * 32 + lane] = min(max(g, 0), a.fdim[k] - 1);
-    }
-    __syncwarp();
-  }
-
-  __device__ __forceinline__ int row(int t) const {
-    return __shfl_sync(kFull, my_row, t);
-  }
-
-  // the gather-source interface of gather_walk.cuh (fused_mttkrp_tg):
-  // fetch reads entry j's ids and value into registers a load ahead,
-  // commit makes the fetched 32 entries the current ones
   int f_row;
   float f_val;
   int f_ids[kMaxOther];
@@ -176,6 +147,9 @@ struct FusedSrc {
     __syncwarp();
   }
 
+  __device__ __forceinline__ int row(int t) const {
+    return __shfl_sync(kFull, my_row, t);
+  }
   __device__ __forceinline__ float val(int t) const {
     return __shfl_sync(kFull, my_val, t);
   }
@@ -187,44 +161,15 @@ struct FusedSrc {
   }
   __device__ __forceinline__ int pitch() const { return a.R; }
   __device__ __forceinline__ int ntables() const { return a.nother; }
-
-  template <int NR>
-  __device__ __forceinline__ void product(int t, int, int lane,
-                                          float (&p)[NR]) const {
-    const float v = __shfl_sync(kFull, my_val, t);
-#pragma unroll
-    for (int i = 0; i < NR; ++i) p[i] = v;
-#pragma unroll
-    for (int k = 0; k < kMaxOther; ++k) {
-      if (k >= a.nother) break;
-      const T* urow = static_cast<const T*>(a.fac[k]) +
-                      (long long)ids[k * 32 + t] * a.R + r0;
-#pragma unroll
-      for (int i = 0; i < NR; ++i) {
-        const int c = lane + 32 * i;
-        if (c < cols) p[i] = to_t<T>(p[i] * ld(urow, c));
-      }
-    }
-  }
 };
 
 // Shared bytes before the sorted contract's tile: each warp's gather ids.
 constexpr size_t kTileOffset = kIdsInts * sizeof(int);
 
-// A block's walk: warp_runs<NR> (one entry in flight per warp, lanes over
-// columns) when NV == 0, else gather_walk.cuh's walk_rows<T, NV, VEC,
-// TWO>.
-template <class T, int NR, int NV, int VEC, bool TWO, class Src>
-__device__ __forceinline__ void walk(Src& src, int n, float* dst,
-                                     long long ld, int width, int cols) {
-  if constexpr (NV == 0)
-    warp_runs<NR>(src, n, dst, ld, width, cols);
-  else
-    walk_rows<T, NV, VEC, TWO>(src, n, dst, ld, width, cols);
-}
-
-// Reduce block b's rank tile starting at column r0 into the output.
-template <class T, int NR, int NV = 0, int VEC = 0, bool TWO = true>
+// Reduce block b's rank tile starting at column r0 into the output, NV
+// chunks of VEC columns per lane, TWO or more gathered tables (else one,
+// a 2-mode tensor).
+template <class T, int NV, int VEC, bool TWO>
 __device__ __forceinline__ void fused_block(const Args& a, int b, int r0,
                                             float* smem) {
   const int cols = min(a.rtile, a.R - r0);
@@ -232,51 +177,43 @@ __device__ __forceinline__ void fused_block(const Args& a, int b, int r0,
   int* ids = reinterpret_cast<int*>(smem) + warp * kMaxOther * 32;
   float* tile = smem + kTileOffset / sizeof(float);
   FusedSrc<T> src{a, (long long)b * a.block,
-                  a.accumulate ? 0 : a.row_start[b], r0, cols, ids};
+                  a.accumulate ? 0 : a.row_start[b], r0, ids};
   if (a.accumulate) {
-    walk<T, NR, NV, VEC, TWO>(src, a.block, a.out + r0, a.R, a.width,
-                              cols);
+    walk_rows<T, NV, VEC, TWO>(src, a.block, a.out + r0, a.R, a.width,
+                               cols);
     return;
   }
   float* slab = a.out + (long long)b * a.width * a.R;
   if (!a.use_smem) {
-    walk<T, NR, NV, VEC, TWO>(src, a.block, slab + r0, a.R, a.width, cols);
+    walk_rows<T, NV, VEC, TWO>(src, a.block, slab + r0, a.R, a.width, cols);
     return;
   }
   zero_tile(tile, (long long)a.width * cols);
-  walk<T, NR, NV, VEC, TWO>(src, a.block, tile, cols, a.width, cols);
+  walk_rows<T, NV, VEC, TWO>(src, a.block, tile, cols, a.width, cols);
   store_tile(tile, slab, a.width, cols, a.R, r0);
 }
 
-template <class T, int NR>
-__global__ void __launch_bounds__(kThreads, gather_min_blocks(NR))
-fused_t_kernel(const Args a) {
-  extern __shared__ float smem[];
-  fused_block<T, NR>(a, blockIdx.x, 0, smem);
-}
-
-// The rank-tiled grid on gather_walk.cuh's walk: NV chunks of VEC columns
-// per lane, TWO or more gathered tables (else one, a 2-mode tensor).
+// fused_mttkrp_t and _tg: grid (nb, ceil(R / rtile)), block blockIdx.x,
+// rank tile blockIdx.y.
 template <class T, int NV, int VEC, bool TWO>
 __global__ void __launch_bounds__(kThreads, walk_min_blocks(NV * VEC))
-fused_tg_kernel(const Args a) {
+fused_tile_kernel(const Args a) {
   extern __shared__ float smem[];
-  fused_block<T, 0, NV, VEC, TWO>(a, blockIdx.x, blockIdx.y * a.rtile,
-                                  smem);
+  fused_block<T, NV, VEC, TWO>(a, blockIdx.x, blockIdx.y * a.rtile, smem);
 }
 
-template <class T, int NR>
-__global__ void __launch_bounds__(kThreads, gather_min_blocks(NR))
+// fused_mttkrp: grid ceil(nb / chunk), the whole rank; a CTA walks its
+// `chunk` consecutive blocks in turn.
+template <class T, int NV, int VEC, bool TWO>
+__global__ void __launch_bounds__(kThreads, walk_min_blocks(NV * VEC))
 fused_rowmajor_kernel(const Args a) {
   extern __shared__ float smem[];
   const int b0 = blockIdx.x * a.chunk;
   const int b1 = min(b0 + a.chunk, a.nb);
-  for (int b = b0; b < b1; ++b) fused_block<T, NR>(a, b, 0, smem);
+  for (int b = b0; b < b1; ++b) fused_block<T, NV, VEC, TWO>(a, b, 0, smem);
 }
 
-enum class Grid { kT, kRowMajor };
-
-// Dynamic shared memory of a launch: the gather ids (tile_offset), then
+// Dynamic shared memory of a launch: the gather ids (kTileOffset), then
 // the sorted contract's (width, cols) tile when it fits.
 size_t smem_bytes(const Args& a) {
   const int cols = std::min(a.rtile, a.R);
@@ -286,36 +223,29 @@ size_t smem_bytes(const Args& a) {
               : 0);
 }
 
-template <Grid G, class T, int NR>
-cudaError_t launch(const Args& a, cudaStream_t stream) {
-  const size_t smem = smem_bytes(a);
-  cudaError_t e;
-  if constexpr (G == Grid::kT) {
-    if ((e = allow_smem(fused_t_kernel<T, NR>, smem)) != cudaSuccess)
-      return e;
-    fused_t_kernel<T, NR><<<a.nb, kThreads, smem, stream>>>(a);
-  } else {
-    if ((e = allow_smem(fused_rowmajor_kernel<T, NR>, smem)) != cudaSuccess)
-      return e;
-    fused_rowmajor_kernel<T, NR>
-        <<<(a.nb + a.chunk - 1) / a.chunk, kThreads, smem, stream>>>(a);
-  }
-  return cudaGetLastError();
-}
-
-// fused_mttkrp_tg's launch: grid (nb, ceil(R / rtile)), NV chunks of VEC
-// columns per lane.
-template <class T>
-struct LaunchTG {
+// A launch with NV chunks of VEC columns per lane: the rank-tiled grid of
+// fused_mttkrp_t and _tg, or with ROWMAJOR the grid of fused_mttkrp.
+template <class T, bool ROWMAJOR>
+struct Launch {
   const Args& a;
   cudaStream_t stream;
   template <int NV, int VEC, bool TWO>
   cudaError_t go() const {
     const size_t smem = smem_bytes(a);
-    const cudaError_t e = allow_smem(fused_tg_kernel<T, NV, VEC, TWO>, smem);
-    if (e != cudaSuccess) return e;
-    const dim3 g(a.nb, (a.R + a.rtile - 1) / a.rtile);
-    fused_tg_kernel<T, NV, VEC, TWO><<<g, kThreads, smem, stream>>>(a);
+    cudaError_t e;
+    if constexpr (ROWMAJOR) {
+      if ((e = allow_smem(fused_rowmajor_kernel<T, NV, VEC, TWO>, smem)) !=
+          cudaSuccess)
+        return e;
+      fused_rowmajor_kernel<T, NV, VEC, TWO>
+          <<<(a.nb + a.chunk - 1) / a.chunk, kThreads, smem, stream>>>(a);
+    } else {
+      if ((e = allow_smem(fused_tile_kernel<T, NV, VEC, TWO>, smem)) !=
+          cudaSuccess)
+        return e;
+      const dim3 g(a.nb, (a.R + a.rtile - 1) / a.rtile);
+      fused_tile_kernel<T, NV, VEC, TWO><<<g, kThreads, smem, stream>>>(a);
+    }
     return cudaGetLastError();
   }
   template <int NV, int VEC>
@@ -323,6 +253,22 @@ struct LaunchTG {
     return a.nother > 1 ? go<NV, VEC, true>() : go<NV, VEC, false>();
   }
 };
+
+// Launch on tables of type T (bf16 with `tabs_bf16`, else float) with the
+// host's (nv, vec); cudaErrorInvalidValue when (nv, vec) does not cover
+// the rank tile in whole aligned loads (ops/kernels.py gather_vec).
+template <bool ROWMAJOR>
+cudaError_t dispatch(const Args& a, int tabs_bf16, int nv, int vec,
+                     cudaStream_t s) {
+  const int cols = std::min(a.rtile, a.R);
+  if (nv < 1 || vec < 1 || a.R % vec != 0 || 32 * nv * vec < cols ||
+      (a.rtile < a.R && a.rtile % (32 * nv * vec) != 0))
+    return cudaErrorInvalidValue;
+  return tabs_bf16 ? dispatch_chunks<__nv_bfloat16>(
+                         nv, vec, Launch<__nv_bfloat16, ROWMAJOR>{a, s})
+                   : dispatch_chunks<float>(nv, vec,
+                                            Launch<float, ROWMAJOR>{a, s});
+}
 
 // Fill Args from the C entry's operands; false on an argument out of range.
 bool make_args(Args& a, const void* inds, const void* vals, int vals_bf16,
@@ -361,32 +307,10 @@ bool make_args(Args& a, const void* inds, const void* vals, int vals_bf16,
   a.width = width;
   a.accumulate = accumulate;
   a.use_smem = use_smem;
-  a.rtile = 32 * ((R + 31) / 32);
+  a.rtile = R;
   a.chunk = 1;
   a.out = static_cast<float*>(out);
   return true;
-}
-
-// Launch with NR = ceil(cols / 32) sums per lane, up to 8.
-template <Grid G, class T>
-cudaError_t dispatch_nr(const Args& a, cudaStream_t s) {
-  switch ((std::min(a.rtile, a.R) + 31) / 32) {
-    case 1: return launch<G, T, 1>(a, s);
-    case 2: return launch<G, T, 2>(a, s);
-    case 3: return launch<G, T, 3>(a, s);
-    case 4: return launch<G, T, 4>(a, s);
-    case 5: return launch<G, T, 5>(a, s);
-    case 6: return launch<G, T, 6>(a, s);
-    case 7: return launch<G, T, 7>(a, s);
-    default: return launch<G, T, 8>(a, s);
-  }
-}
-
-// ... and tables of type T: float, or bf16 with `tabs_bf16`.
-template <Grid G>
-cudaError_t dispatch(const Args& a, int tabs_bf16, cudaStream_t s) {
-  return tabs_bf16 ? dispatch_nr<G, __nv_bfloat16>(a, s)
-                   : dispatch_nr<G, float>(a, s);
 }
 
 }  // namespace
@@ -396,31 +320,33 @@ extern "C" {
 // Common operands of the three entries.  vals_bf16: the values are bf16,
 // else f32; factors: host array of nmodes device pointers to tables of
 // one type (the output mode's entry is not read), bf16 with tabs_bf16,
-// else f32; fdims: host array of nmodes row counts.  Each returns the
-// cudaError_t of its launch (0 on success), launches on `stream`, does
-// not synchronise and allocates nothing.  The output (f32) must be zeroed
-// unless use_smem (sorted contract, every CTA writes its whole tile).
+// else f32; fdims: host array of nmodes row counts; nv, vec: each lane
+// walks nv chunks of vec columns (32 * nv * vec covers the rank tile, vec
+// divides R and the tile, the tables' bases are aligned to vec elements;
+// ops/kernels.py gather_vec).  Each returns the cudaError_t of its launch
+// (0 on success), launches on `stream`, does not synchronise and
+// allocates nothing.  The output (f32) must be zeroed unless use_smem
+// (sorted contract, every CTA writes its whole tile).
 
-// R <= 256: each lane holds R / 32 running sums in registers.
+// R <= 256: the whole rank in one tile, one CTA per block.
 int splatt_fused_mttkrp_t(const void* inds, const void* vals, int vals_bf16,
                           const void* row_start, const void* factors,
                           const void* fdims, int tabs_bf16, int nmodes,
                           int mode, long long nnz_pad, int nb, int block,
                           int R, int width, int accumulate, int use_smem,
-                          void* out, void* stream) {
+                          int nv, int vec, void* out, void* stream) {
   Args a;
   if (!make_args(a, inds, vals, vals_bf16, row_start, factors, fdims,
                  nmodes, mode, nnz_pad, nb, block, R, width, accumulate,
                  use_smem, out) ||
       R > 32 * 8)
     return (int)cudaErrorInvalidValue;
-  return (int)dispatch<Grid::kT>(a, tabs_bf16,
-                                 static_cast<cudaStream_t>(stream));
+  return (int)dispatch<false>(a, tabs_bf16, nv, vec,
+                              static_cast<cudaStream_t>(stream));
 }
 
 // Any R: rank tiles of `rtile` columns (a multiple of 32 * nv * vec, or R
-// itself), each lane nv chunks of vec columns (vec divides R and rtile,
-// the tables' bases aligned to vec elements; ops/kernels.py gather_vec).
+// itself) on grid.y.
 int splatt_fused_mttkrp_tg(const void* inds, const void* vals,
                            int vals_bf16, const void* row_start,
                            const void* factors, const void* fdims,
@@ -433,25 +359,21 @@ int splatt_fused_mttkrp_tg(const void* inds, const void* vals,
   if (!make_args(a, inds, vals, vals_bf16, row_start, factors, fdims,
                  nmodes, mode, nnz_pad, nb, block, R, width, accumulate,
                  use_smem, out) ||
-      rtile < 1 || nv < 1 || vec < 1 || R % vec != 0 ||
-      (rtile < R && rtile % (32 * nv * vec) != 0) ||
-      32 * nv * vec < std::min(rtile, R))
+      rtile < 1)
     return (int)cudaErrorInvalidValue;
   a.rtile = rtile;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return (int)(tabs_bf16
-                   ? dispatch_chunks<__nv_bfloat16>(
-                         nv, vec, LaunchTG<__nv_bfloat16>{a, s})
-                   : dispatch_chunks<float>(nv, vec, LaunchTG<float>{a, s}));
+  return (int)dispatch<false>(a, tabs_bf16, nv, vec,
+                              static_cast<cudaStream_t>(stream));
 }
 
-// R <= 256, `chunk` consecutive blocks per CTA.
+// R <= 256, the whole rank, `chunk` consecutive blocks per CTA.
 int splatt_fused_mttkrp(const void* inds, const void* vals, int vals_bf16,
                         const void* row_start, const void* factors,
                         const void* fdims, int tabs_bf16, int nmodes,
                         int mode, long long nnz_pad, int nb, int block,
                         int R, int width, int accumulate, int use_smem,
-                        int chunk, void* out, void* stream) {
+                        int chunk, int nv, int vec, void* out,
+                        void* stream) {
   Args a;
   if (!make_args(a, inds, vals, vals_bf16, row_start, factors, fdims,
                  nmodes, mode, nnz_pad, nb, block, R, width, accumulate,
@@ -459,8 +381,8 @@ int splatt_fused_mttkrp(const void* inds, const void* vals, int vals_bf16,
       R > 32 * 8 || chunk < 1)
     return (int)cudaErrorInvalidValue;
   a.chunk = chunk;
-  return (int)dispatch<Grid::kRowMajor>(a, tabs_bf16,
-                                        static_cast<cudaStream_t>(stream));
+  return (int)dispatch<true>(a, tabs_bf16, nv, vec,
+                             static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

@@ -1,6 +1,6 @@
 // The gathering walk of a block with several entries in flight per warp
 // (sm_90a): the reduction of warp_runs.cuh, rebuilt for the kernels that
-// gather table rows (fused_mttkrp_tg, fused_mttkrp_v2).
+// gather table rows (fused_mttkrp_t, _tg, fused_mttkrp, fused_mttkrp_v2).
 //
 // warp_runs<NR>() walks a warp's entries one at a time: it broadcasts an
 // entry's gather ids, loads its rows with scalar 4-byte loads (lanes over

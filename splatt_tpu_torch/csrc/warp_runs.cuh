@@ -7,7 +7,9 @@
 // outside [0, width) are padding and add nothing (their products are
 // still formed, and dropped at the flush).
 //
-// warp_runs<NR>() is that reduction for one CTA of kWarps warps.  Each
+// warp_runs<NR>() is that reduction for one CTA of kWarps warps, as the
+// reductions of precomputed products (onehot_reduce.cu) walk it; the
+// kernels that gather table rows walk gather_walk.cuh's walk_rows.  Each
 // warp takes a contiguous run of the block's entries; its lanes load 32
 // entries' ids at once (coalesced) and the warp walks them one by one
 // with the id broadcast by shuffles and the lanes spread over the rank
@@ -42,13 +44,11 @@ constexpr int kMaxModes = kMaxOther + 1;
 constexpr int kWarps = 8;
 constexpr int kThreads = kWarps * 32;
 
-// CTAs per SM a kernel is built for: its __launch_bounds__ minimum, which
-// caps registers at 65536 / (kThreads * n).  These kernels wait on gathers
-// or streamed loads, so their time follows the warps in flight; left to
-// itself, nvcc gave near-identical bodies anywhere from 40 to 62 registers.
-constexpr int gather_min_blocks(int nr) {
-  return nr <= 2 ? 6 : nr <= 3 ? 5 : 4;
-}
+// CTAs per SM the reductions of streamed products are built for: their
+// __launch_bounds__ minimum, which caps registers at 65536 / (kThreads *
+// n).  They wait on streamed loads, so their time follows the warps in
+// flight; left to itself, nvcc gave near-identical bodies anywhere from 40
+// to 62 registers.
 constexpr int stream_min_blocks(int nr) { return nr <= 3 ? 8 : 4; }
 
 // Element `i` of a float or bf16 array, as float (read-only cache).

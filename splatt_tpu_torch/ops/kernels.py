@@ -17,9 +17,9 @@ has its wrapper in ``ops/linalg.py``):
   contract;
 - :func:`fused_mttkrp_v2` (``csrc/fused_mttkrp_v2.cu``): the same over a
   compact v2 layout, decoding its encoded streams in registers;
-  ``fused_mttkrp_tg`` and ``fused_mttkrp_v2`` walk a block with several
-  entries' table rows in flight per warp and vector row loads
-  (``csrc/gather_walk.cuh``; :func:`gather_vec` picks the load width);
+  all four walk a block with several entries' table rows in flight per
+  warp and vector row loads (``csrc/gather_walk.cuh``; :func:`gather_vec`
+  picks the load width);
 - :func:`onehot_reduce_sorted`, :func:`onehot_reduce_full`
   (``csrc/onehot_reduce.cu``): the same reduction of precomputed products;
 - :func:`fused_dense` (``csrc/fused_dense.cu``): a dense mode's value
@@ -175,11 +175,12 @@ _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _FUSED_ARGS = [_P, _P, _I, _P, _P, _P, _I, _I, _I, _LL, _I, _I, _I, _I, _I,
                _I]
 _ENTRIES = {
-    "splatt_fused_mttkrp_t": ("fused_mttkrp.cu", _FUSED_ARGS + [_P, _P]),
+    "splatt_fused_mttkrp_t": ("fused_mttkrp.cu",
+                              _FUSED_ARGS + [_I, _I, _P, _P]),
     "splatt_fused_mttkrp_tg": ("fused_mttkrp.cu",
                                _FUSED_ARGS + [_I, _I, _I, _P, _P]),
     "splatt_fused_mttkrp": ("fused_mttkrp.cu",
-                            _FUSED_ARGS + [_I, _P, _P]),
+                            _FUSED_ARGS + [_I, _I, _I, _P, _P]),
     "splatt_fused_mttkrp_v2": ("fused_mttkrp_v2.cu",
                                [_P, _P, _P, _P, _I, _P, _P, _I, _I, _I, _I,
                                 _I, _I, _I, _I, _I, _I, _I, _I, _P, _P]),
@@ -467,6 +468,16 @@ def gather_vec(R: int, cols: int, itemsize: int,
     return per_lane // vec, vec
 
 
+def _walk_chunks(factors: Sequence[torch.Tensor], mode: int,
+                 cols: int) -> tuple:
+    """:func:`gather_vec`'s ``(nv, vec)`` for a launch over rank tiles of
+    `cols` columns of the tables that `mode`'s MTTKRP gathers."""
+    return gather_vec(int(factors[0].shape[1]), cols,
+                      factors[0].element_size(),
+                      [U.data_ptr() for k, U in enumerate(factors)
+                       if k != mode])
+
+
 def tg_rank_tile(R: int) -> int:
     """Columns of fused_mttkrp_tg's rank tile at rank R: the whole rank
     up to :data:`TG_RANK_TILE`, that tile above it."""
@@ -502,16 +513,21 @@ def fused_mttkrp_t(layout, factors: Sequence[torch.Tensor], mode: int,
 
     Output: ``(nb, width, R)`` block partials at within-block ids, or
     with `accumulate` the ``(width, R)`` totals at global ids, in the
-    accumulator dtype.  CPU tensors take :func:`fused_mttkrp_t_plain`;
-    CUDA tensors launch ``csrc/fused_mttkrp.cu`` (a v1 layout, int32 ids,
-    f32 or bf16 values and factors, contiguous) or raise.
+    accumulator dtype.  One CTA per block walks the whole rank in one
+    tile with several entries' rows in flight per warp
+    (``csrc/gather_walk.cuh``, loads of :func:`gather_vec`).  CPU tensors
+    take :func:`fused_mttkrp_t_plain`; CUDA tensors launch
+    ``csrc/fused_mttkrp.cu`` (a v1 layout, int32 ids, f32 or bf16 values
+    and factors, contiguous) or raise.
     """
     factors = list(factors)
     if layout.vals.device.type == "cpu":
         return fused_mttkrp_t_plain(layout, factors, mode, width, accumulate)
     _check_fused(layout, factors, mode, width, MAX_RANK)
+    R = int(factors[0].shape[1])
     out = _fused_launch("splatt_fused_mttkrp_t", layout, factors, mode,
-                        width, accumulate, MAX_RANK)
+                        width, accumulate, R,
+                        *_walk_chunks(factors, mode, R))
     fused_mttkrp_t.launches += 1
     return out
 
@@ -544,12 +560,10 @@ def fused_tg_launch(layout, factors: List[torch.Tensor], mode: int,
     :func:`fused_mttkrp_tg` has checked, at rank tile `rtile` (the whole
     rank, or a multiple of 32 columns per lane).  It counts no launch:
     ``chip_smoke.py`` times rank tiles and diagnostic layouts with it."""
-    R = int(factors[0].shape[1])
-    nv, vec = gather_vec(R, min(rtile, R), factors[0].element_size(),
-                         [U.data_ptr() for k, U in enumerate(factors)
-                          if k != mode])
+    cols = min(rtile, int(factors[0].shape[1]))
     return _fused_launch("splatt_fused_mttkrp_tg", layout, factors, mode,
-                         width, accumulate, rtile, rtile, nv, vec)
+                         width, accumulate, rtile, rtile,
+                         *_walk_chunks(factors, mode, cols))
 
 
 def fused_mttkrp(layout, factors: Sequence[torch.Tensor], mode: int,
@@ -557,9 +571,10 @@ def fused_mttkrp(layout, factors: Sequence[torch.Tensor], mode: int,
                  chunk: int = 1) -> torch.Tensor:
     """Row-major fused MTTKRP (≙ splatt_tpu.ops.pallas_kernels.
     fused_mttkrp), R ≤ :data:`MAX_RANK`: a CTA walks `chunk` consecutive
-    blocks.  Output ``(nb, width, R)`` (sorted) or ``(width, R)``
-    (accumulate).  CPU tensors take :func:`fused_mttkrp_plain`; CUDA
-    tensors launch the kernel or raise."""
+    blocks in turn, each as :func:`fused_mttkrp_t` walks one.  Output
+    ``(nb, width, R)`` (sorted) or ``(width, R)`` (accumulate).  CPU
+    tensors take :func:`fused_mttkrp_plain`; CUDA tensors launch the
+    kernel or raise."""
     factors = list(factors)
     if chunk < 1:
         raise ValueError(f"chunk must be >= 1, got {chunk}")
@@ -567,8 +582,10 @@ def fused_mttkrp(layout, factors: Sequence[torch.Tensor], mode: int,
         return fused_mttkrp_plain(layout, factors, mode, width, accumulate,
                                   chunk)
     _check_fused(layout, factors, mode, width, MAX_RANK)
+    R = int(factors[0].shape[1])
     out = _fused_launch("splatt_fused_mttkrp", layout, factors, mode,
-                        width, accumulate, MAX_RANK, int(chunk))
+                        width, accumulate, R, int(chunk),
+                        *_walk_chunks(factors, mode, R))
     fused_mttkrp.launches += 1
     return out
 
@@ -599,9 +616,7 @@ def fused_mttkrp_v2(layout, factors: Sequence[torch.Tensor], mode: int,
     if not accumulate and mode != layout.mode:
         raise ValueError("the sorted contract needs the layout's own mode")
     nb, R = layout.nblocks, int(factors[0].shape[1])
-    nv, vec = gather_vec(R, R, factors[0].element_size(),
-                         [U.data_ptr() for k, U in enumerate(factors)
-                          if k != mode])
+    nv, vec = _walk_chunks(factors, mode, R)
     encs = layout.stream_encs()
     shape = (width, R) if accumulate else (nb, width, R)
     use_smem = (not accumulate and _v2_prologue_bytes(layout) + width * R * 4

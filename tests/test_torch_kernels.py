@@ -1,18 +1,23 @@
-"""fused_mttkrp_t: the port's plain version against the JAX Pallas kernel
-(interpret mode), in f64 at 1e-10 (the repo's TOL).  The CUDA kernels
-against their plain versions on a card: tests/test_torch_kernels_gpu.py.
+"""fused_mttkrp_t and fused_mttkrp: the port's plain versions against the
+JAX Pallas kernels (interpret mode), in f64 at 1e-10 (the repo's TOL);
+the gathering walk's load widths and the operands the wrappers hand the C
+entries.  The CUDA kernels against their plain versions on a card:
+tests/test_torch_kernels_gpu.py.
 """
+
+import contextlib
+import dataclasses
 
 import numpy as np
 import pytest
 import torch
 
 from splatt_tpu.blocked import build_layout
-from splatt_tpu.ops.pallas_kernels import fused_mttkrp_t
+from splatt_tpu.ops.pallas_kernels import fused_mttkrp, fused_mttkrp_t
 from splatt_tpu_torch import state
 from splatt_tpu_torch.ops import kernels
 from tests import gen
-from tests.test_torch_kernels_gpu import contracts
+from tests.test_torch_kernels_gpu import _crosses_blocks, contracts
 from tests.test_mttkrp import TOL, make_factors
 
 
@@ -119,3 +124,132 @@ def test_gather_vec_spans_whole_rank_tiles_at_512(rtile, itemsize):
     assert rtile % (32 * nv * vec) == 0 and 32 * nv * vec >= rtile
     assert vec * itemsize <= kernels.GATHER_LOAD_BYTES
     assert 512 % vec == 0
+
+
+@pytest.mark.parametrize("accumulate", [False, True])
+@pytest.mark.parametrize("chunk", [3, 5])
+def test_plain_rowmajor_matches_pallas_across_blocks(chunk, accumulate):
+    """fused_mttkrp with `chunk` blocks per grid step (5 does not divide
+    the 12 blocks, so the JAX kernel pads) against the port's plain
+    versions of fused_mttkrp and fused_mttkrp_t, on blocks of 64 whose
+    row runs cross block boundaries."""
+    tt = gen.fixture_tensor("med")
+    jf = make_factors(tt.dims, rank=6)
+    tf = [torch.from_numpy(np.array(U)) for U in jf]
+    lays = [build_layout(tt, m, block=64, val_dtype=np.float64)
+            for m in range(tt.nmodes)]
+    assert all(lay.nblocks % 5 and _crosses_blocks(port_layout(lay))
+               for lay in lays)
+    for lay, m, width, acc in contracts(lays, tt.dims):
+        if acc != accumulate:
+            continue
+        want = np.asarray(fused_mttkrp(lay, jf, m, width, accumulate=acc,
+                                       interpret=True, chunk=chunk))
+        port = port_layout(lay)
+        for got in (kernels.fused_mttkrp(port, tf, m, width, acc,
+                                         chunk=chunk),
+                    kernels.fused_mttkrp_t(port, tf, m, width, acc)):
+            assert got.dtype == torch.float64
+            np.testing.assert_allclose(got.numpy(), want, atol=TOL, rtol=0,
+                                       err_msg=f"chunk={chunk} mode={m}")
+
+
+#: (nv, vec) pairs csrc/gather_walk.cuh's dispatch_chunks builds, by
+#: element bytes
+BUILT_CHUNKS = {4: {(1, 1), (2, 1), (1, 2), (4, 1), (2, 2), (1, 4), (8, 1),
+                    (4, 2), (2, 4)},
+                2: {(1, 1), (2, 1), (1, 2), (4, 1), (2, 2), (1, 4), (8, 1),
+                    (4, 2), (2, 4), (1, 8)}}
+
+
+@pytest.mark.parametrize("R", list(range(1, 257)) + [257, 300, 512])
+def test_gather_vec_takes_the_whole_rank(R):
+    """fused_mttkrp_t and fused_mttkrp walk the whole rank in one tile
+    (cols = R): up to 256 columns the walk's (nv, vec) is one it builds,
+    covers R with the fewest columns a lane, loads aligned and as wide
+    as R and the tables allow (R = 50 f32 8-byte loads, R = 256 f32 2 x
+    16 bytes, odd R scalar loads); past 256 it refuses."""
+    for itemsize in (4, 2):
+        aligned = (0, 7 * R * itemsize + 4096)
+        off = (0, 7 * R * itemsize + 4096 + itemsize)   # a table 1 off
+        if R > 256:
+            with pytest.raises(ValueError):
+                kernels.gather_vec(R, R, itemsize, aligned)
+            continue
+        for addresses in (aligned, off):
+            nv, vec = kernels.gather_vec(R, R, itemsize, addresses)
+            assert (nv, vec) in BUILT_CHUNKS[itemsize]
+            c = nv * vec
+            assert 32 * c >= R and (c == 1 or 16 * c < R)
+            assert R % vec == 0 and vec * itemsize <= 16
+            assert all(a % (vec * itemsize) == 0 for a in addresses)
+            if addresses is off:
+                assert vec == 1
+            else:
+                # the widest power of two dividing R, the lane's columns
+                # and the 16-byte load
+                widest = 1
+                while (widest * 2 <= min(c, 16 // itemsize)
+                       and R % (widest * 2) == 0):
+                    widest *= 2
+                assert vec == widest
+            covered = sorted((lane + 32 * v) * vec + i for lane in range(32)
+                             for v in range(nv) for i in range(vec)
+                             if (lane + 32 * v) * vec < R)
+            assert covered == list(range(R))
+    if R == 50:
+        assert kernels.gather_vec(50, 50, 4, (0, 1400)) == (1, 2)
+    if R == 256:
+        assert kernels.gather_vec(256, 256, 4, (0, 1024)) == (2, 4)
+
+
+def _meta_layout(lay):
+    """A port layout whose tensors lie on the meta device: the wrappers
+    take their kernel path (not the CPU's plain version) without a card,
+    and the factors' data_ptr() are their byte offsets."""
+    port = port_layout(lay)
+    return dataclasses.replace(port, inds=port.inds.to("meta"),
+                               vals=port.vals.to("meta"),
+                               row_start=port.row_start.to("meta"))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("R", [1, 17, 50, 128, 200, 256])
+@pytest.mark.parametrize("name", ["fused_mttkrp_t", "fused_mttkrp"])
+def test_wrappers_pass_the_walks_load_width(name, R, dtype, monkeypatch):
+    """fused_mttkrp_t and fused_mttkrp hand their C entry the (nv, vec)
+    of gather_vec over the whole rank and the gathered tables'
+    addresses, in the argument order of the entry's declared types, and
+    count one launch; no card: the C call is recorded."""
+    tt = gen.fixture_tensor("med")
+    lay = _meta_layout(build_layout(tt, 0, block=64, val_dtype=np.float32))
+    calls = []
+    monkeypatch.setattr(kernels, "_launch",
+                        lambda entry, *args: calls.append((entry, args)))
+    monkeypatch.setattr(torch.cuda, "device",
+                        lambda dev: contextlib.nullcontext())
+    fn = getattr(kernels, name)
+    monkeypatch.setattr(fn, "launches", 0)
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    for shift in (0, 1):
+        # the second set of tables starts one element off alignment
+        buf = [torch.empty(d * R + 1, dtype=dtype, device="meta")
+               for d in tt.dims]
+        tf = [b[shift:shift + d * R].view(d, R)
+              for b, d in zip(buf, tt.dims)]
+        kw = {"chunk": 3} if name == "fused_mttkrp" else {}
+        fn(dataclasses.replace(lay, vals=lay.vals.to(dtype)), tf, 0,
+           lay.seg_width, False, **kw)
+        entry, args = calls[-1]
+        assert entry == f"splatt_{name}"
+        # the entry's declared operands, less the stream _launch appends
+        assert len(args) + 1 == len(kernels._ENTRIES[entry][1])
+        want = kernels.gather_vec(R, R, itemsize,
+                                  [U.data_ptr() for U in tf[1:]])
+        assert tuple(args[-3:-1]) == want
+        if shift:
+            assert want[1] == 1
+        if kw:
+            assert args[-4] == 3
+        assert args[12] == R   # the rank operand
+    assert fn.launches == 2

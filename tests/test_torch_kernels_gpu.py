@@ -226,6 +226,65 @@ def test_cuda_fused_tg_every_load_width():
     assert launched == 2 * 9 * 4 * (9 + 2)
 
 
+def _crosses_blocks(lay) -> bool:
+    """Some block's first row continues its predecessor's last real row:
+    a run cut by a block boundary, which a CTA of fused_mttkrp walking
+    consecutive blocks must not carry across."""
+    ids = lay.inds[lay.mode].reshape(lay.nblocks, -1).cpu()
+    real = lay.vals.reshape(lay.nblocks, -1).cpu() != 0
+    return any(bool(real[b - 1].any()) and int(ids[b - 1][real[b - 1]][-1])
+               == int(ids[b][0]) for b in range(1, lay.nblocks))
+
+
+@pytest.mark.gpu
+def test_cuda_fused_t_and_rowmajor_every_load_width():
+    """fused_mttkrp_t and fused_mttkrp (chunk 1 and 3) on the gathering
+    walk, the whole rank in one tile, against their plain version at
+    ranks that take every columns-per-lane count and load width (1, 17:
+    scalar loads; 50: 8-byte; 128; 200, 256: 8 columns a lane), both
+    contracts, 2 modes (one gathered table), 3 and 4 modes, all four
+    value/table dtype pairs, an all-padding last block, row runs that
+    cross block boundaries, and tables off their alignment."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    rng = np.random.default_rng(18)
+    launched = 0
+    for dims in ((30, 24), (30, 24, 36), (30, 24, 36, 20)):
+        X = _tensor(rng, dims, 3000, False)
+        v1 = [_pad_block(port_build_layout(X, m, block=256, device="cuda"))
+              for m in range(len(dims))]
+        assert all(_crosses_blocks(lay) for lay in v1)
+        for rank in (1, 17, 50, 128, 200, 256):
+            for vdt, fdt in DTYPE_PAIRS:
+                lays = [reencode_layout(lay, LayoutFormat(
+                    val="bf16" if vdt == torch.bfloat16 else "f32"),
+                    val_dtype=vdt) for lay in v1]
+                for misaligned in (False, True):
+                    if misaligned and rank not in (128, 256):
+                        continue
+                    tf = _tables(rng, dims, rank, fdt, misaligned)
+                    for lay, m, width, acc in contracts(lays, dims):
+                        what = (f"dims={dims} rank={rank} {vdt}/{fdt} "
+                                f"misaligned={misaligned} mode={m} "
+                                f"accumulate={acc}")
+                        want = kernels.fused_mttkrp_t_plain(lay, tf, m,
+                                                            width, acc)
+                        before = kernels.fused_mttkrp_t.launches
+                        _close(kernels.fused_mttkrp_t(lay, tf, m, width,
+                                                      acc), want, what)
+                        assert kernels.fused_mttkrp_t.launches == \
+                            before + 1
+                        for chunk in (1, 3):
+                            before = kernels.fused_mttkrp.launches
+                            _close(kernels.fused_mttkrp(lay, tf, m, width,
+                                                        acc, chunk=chunk),
+                                   want, f"chunk={chunk} " + what)
+                            assert kernels.fused_mttkrp.launches == \
+                                before + 1
+                        launched += 1
+    assert launched == 2 * 9 * 4 * (6 + 2)
+
+
 @pytest.mark.gpu
 def test_cuda_fused_v2_every_load_width():
     """fused_mttkrp_v2 on the gathering walk against its plain version at

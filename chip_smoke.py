@@ -7,7 +7,9 @@ Phases, each fatal on failure:
 
 1. device: needs CUDA; prints the card, its power limit and the versions;
 2. build: compiles every kernel from ``splatt_tpu_torch/csrc`` with
-   ``nvcc -Xptxas -v`` and prints registers, shared memory and spills;
+   ``nvcc -Xptxas -v`` and prints registers, shared memory and spills,
+   and a line per instance of the reductions' kernel (type, NV, VEC,
+   registers, spill bytes);
 3. kernel against plain: NELL-2-shaped synthetic tensor (12092 x 9184 x
    28818, 20M nonzeros, rank 50, f32, ALLMODE).  For each mode the sorted
    contract of ``fused_mttkrp_t`` on the mode's own layout and the
@@ -40,7 +42,9 @@ Phases, each fatal on failure:
    own layout and ``onehot_reduce_full`` at width ceil8(dim+1) on layout
    (m+1) % 3, the products made once per case; each timed beside its
    bound, its plain version and, for the two reductions, one
-   ``index_add_`` call; ``fused_mttkrp`` runs at its engine's chunk and is
+   ``index_add_`` call, and ``onehot_reduce_full`` also on ids that are
+   all the width (every flush dropped: the walk without its atomics,
+   ``no_flush_ms``); ``fused_mttkrp`` runs at its engine's chunk and is
    also timed at the chunk that cuts the grid to 8 CTAs per SM.  Then,
    on 2M-nonzero tensors of the NELL-2 dims, of its first two dims and
    of bench.py's 4-mode enron4 shape, ``fused_mttkrp_t`` and
@@ -140,10 +144,18 @@ the four gathering kernels.  ``--ranks`` runs the set-up (building only
 what is not built yet, without ``-Xptxas -v``), the 20M-nonzero layouts,
 phase 5's CPD with its sweep phases, and ``fused_mttkrp_t`` against
 ``fused_mttkrp_tg`` in turns at rank 50, ``ODD_RANKS`` and
-``WIDE_RANKS``.  It calls only the package's public wrappers, so a copy
-of this script run in another checkout of the port times that
-checkout's kernels the same way: two trees compared in turns in one
-call (parent, change, change, parent).
+``WIDE_RANKS``.  ``--reduce`` runs the same set-up, the 20M-nonzero
+layouts, phase 6's two reduction rows (with the no-flush launch), phase
+9's bf16 reduction rows, phase 7's unfaulted schedule and the two that
+launch the reductions (``REDUCE_CHAIN``: launch counts, fits, λ and
+MTTKRP against the unfaulted run), where the checkout has
+``kernels.onehot_reduce_launch`` the two candidate rank tiles in turns
+at ``REDUCE_TILE_RANKS`` in f32 and bf16, and prints rows 2 and 3 of
+the kernels line.  ``--ranks`` and ``--reduce`` call only the package's
+public wrappers (the tile turns aside), so a copy of this script run in
+another checkout of the port times that checkout's kernels the same
+way: two trees compared in turns in one call (parent, change, change,
+parent).
 """
 
 from __future__ import annotations
@@ -187,6 +199,10 @@ ENRON4 = (6066, 5699, 244268, 1176)
 # kernels one tile), 8 at 201 (fused_tg two tiles at 4)
 WIDE_RANKS = (192, 256)
 ODD_RANKS = (75, 201)
+# --reduce: the ranks at which the reductions' two candidate rank tiles,
+# min(R, 128) and min(R, 256) columns, are timed in turns
+REDUCE_TILE_RANKS = (192, 256, 512)
+REDUCE_TILES = (128, 256)
 # phase 10: bench.py's densemode scenario (24, 256, 512) with every dim
 # scaled by 4, 20M nonzeros: every mode's padded density is ~0.1
 DENSE_DIMS = (96, 1024, 2048)
@@ -428,7 +444,38 @@ def phase_build(verbose: bool = True) -> None:
     for line in res["log"].splitlines():
         if re.search(r"registers|spill|smem|Compiling entry|\.cu", line):
             log(f"[build]   {line.strip()}")
+    for inst in walk_instances(res["log"], "reduce_kernel"):
+        log(f"[build] onehot_reduce.cu {json.dumps(inst)}")
     kernels.load_library()
+
+
+def walk_instances(log_text: str, kernel: str) -> list:
+    """Each instance of `kernel` (a template over the table type and the
+    walk's NV, VEC) in an ``-Xptxas -v`` report: its type, NV, VEC,
+    registers and spill bytes."""
+    out, cur = [], None
+    for line in log_text.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            t = re.search(kernel + r"I(f|13__nv_bfloat16)Li(\d+)ELi(\d+)E",
+                          m.group(1))
+            cur = None
+            if t:
+                cur = dict(type="f32" if t.group(1) == "f" else "bf16",
+                           nv=int(t.group(2)), vec=int(t.group(3)))
+                out.append(cur)
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            cur.update(spill_stores=int(m.group(1)),
+                       spill_loads=int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            cur["registers"] = int(m.group(1))
+    return out
 
 
 def random_factors(bs, rank: int, seed: int) -> list:
@@ -901,11 +948,13 @@ def eig_gate(R: int) -> dict:
     return gate
 
 
-def phase_new_kernels(bs, rank: int, seed: int = 1,
-                      gathers_only: bool = False) -> dict:
+def phase_new_kernels(bs, rank: int, seed: int = 1, gathers: bool = True,
+                      reductions: bool = True) -> dict:
     """The other four kernels against their plain versions on the phase-3
-    layouts and factors, timed beside their bounds (`gathers_only`: the
-    fused_mttkrp_tg and fused_mttkrp rows alone)."""
+    layouts and factors, timed beside their bounds: the fused_mttkrp_tg
+    and fused_mttkrp rows (`gathers`) and the two reductions'
+    (`reductions`), the full contract also on ids that are all `width`
+    (every flush dropped: the walk without its atomics)."""
     import torch
 
     from splatt_tpu_torch.ops import kernels
@@ -926,7 +975,7 @@ def phase_new_kernels(bs, rank: int, seed: int = 1,
                   kernels.fused_mttkrp_tg_plain, {}),
                  ("fused_mttkrp", kernels.fused_mttkrp,
                   kernels.fused_mttkrp_plain, {"chunk": FUSED_CHUNK}))
-        for name, fn, plain, kw in fused:
+        for name, fn, plain, kw in (fused if gathers else ()):
             got, row = compare(
                 lambda: fn(lay, factors, m, width, acc, **kw),
                 lambda: plain(lay, factors, m, width, acc),
@@ -946,7 +995,7 @@ def phase_new_kernels(bs, rank: int, seed: int = 1,
             log(f"[kernel] {name} {json.dumps(row)}")
             rows[name].append(row)
             del got
-        if gathers_only:
+        if not reductions:
             continue
         # the reductions: the products once per case, and the flat ids
         # of the one index_add_ call that computes the same sum
@@ -981,6 +1030,17 @@ def phase_new_kernels(bs, rank: int, seed: int = 1,
         row.update(where)
         row["bound_ms"], row["bound_by"] = reduce_bound(ids, prod, got,
                                                         lay.nnz)
+        if hasattr(kernels, "reduce_rank_tile"):
+            row["rank_tile"] = kernels.reduce_rank_tile(rank)
+        if acc:
+            # the same launch with every id `width`: the walk streams the
+            # same products and drops every flush
+            none = torch.full_like(ids, width)
+            if float(fn(none, prod, width).abs().max()) != 0.0:
+                raise AssertionError(f"{name}: ids of {width} added")
+            row["no_flush_ms"] = time_ms(lambda: fn(none, prod, width),
+                                         reps=20, warmup=2)
+            del none
         log(f"[kernel] {name} {json.dumps(row)}")
         rows[name].append(row)
         del prod, prod2, got, lib, flat, ids
@@ -1065,17 +1125,21 @@ KERNEL_FAULTS = ("engine.fused_t:runtime,engine.fused_tg:runtime,"
 #: mode 0, engines demoted, launches of each kernel, unlisted = 0)
 #: phase 7's schedule that runs fused_mttkrp on a full CPD
 FUSED_CHAIN = "fused_t, fused_tg faulted, experimental fused"
+#: phase 7's schedules that run the reductions on a full CPD: every mode
+#: sorted, and mode 0 privatized (the full contract)
+SORTED_CHAIN = "fused_t, fused_tg faulted"
+FULL_CHAIN = "fused_t, fused_tg faulted, mode 0 privatized"
 CHAIN_SCHEDULES = [
     ("no fault", "", False, False, [], {"fused_mttkrp_t": 9}),
     ("fused_t faulted", "engine.fused_t:runtime", False, False,
      ["fused_t"], {"fused_mttkrp_tg": 9}),
-    ("fused_t, fused_tg faulted",
+    (SORTED_CHAIN,
      "engine.fused_t:runtime,engine.fused_tg:runtime", False, False,
      ["fused_t", "fused_tg"], {"onehot_reduce_sorted": 9}),
     (FUSED_CHAIN, "engine.fused_t:runtime,engine.fused_tg:runtime", True,
      False,
      ["fused_t", "fused_tg"], {"fused_mttkrp": 9}),
-    ("fused_t, fused_tg faulted, mode 0 privatized",
+    (FULL_CHAIN,
      "engine.fused_t:runtime,engine.fused_tg:runtime", False, True,
      ["fused_t", "fused_tg"],
      {"onehot_reduce_full": 3, "onehot_reduce_sorted": 6}),
@@ -1097,6 +1161,10 @@ RAISING_SCHEDULES = [
 #: --gather: the unfaulted schedule (the reference) and FUSED_CHAIN
 GATHER_CHAIN = [s for s in CHAIN_SCHEDULES
                 if s[0] in ("no fault", FUSED_CHAIN)]
+#: --reduce: the unfaulted schedule (the reference), SORTED_CHAIN and
+#: FULL_CHAIN
+REDUCE_CHAIN = [s for s in CHAIN_SCHEDULES
+                if s[0] in ("no fault", SORTED_CHAIN, FULL_CHAIN)]
 
 
 def phase_chain(bs, rank: int, schedules=CHAIN_SCHEDULES,
@@ -1195,6 +1263,8 @@ def phase_chain(bs, rank: int, schedules=CHAIN_SCHEDULES,
                    launches=launches, fits=list(out.fits),
                    max_fit_diff=fit_diff, lambda_rel_diff=lam_diff,
                    mttkrp_rel_err=mttkrp_err, seconds=seconds,
+                   sec_per_iter=sum(out.iter_seconds[1:])
+                   / (len(out.iter_seconds) - 1),
                    plan_after=plan_after)
         log(f"[chain] {json.dumps(row)}")
         if got_demoted != demoted:
@@ -1519,7 +1589,7 @@ def phase_format(bs, rank: int, main_fits: list, seed: int = 1) -> dict:
     from splatt_tpu_torch.blocked import reencode_layout
     from splatt_tpu_torch.config import BlockAlloc, LayoutFormat, Verbosity
     from splatt_tpu_torch.ops import kernels
-    from splatt_tpu_torch.ops.mttkrp import _gather_prod, describe_plan
+    from splatt_tpu_torch.ops.mttkrp import describe_plan
 
     factors = random_factors(bs, rank, seed)
     storage = {"v1": {f"mode{lay.mode}": lay.storage_bytes()
@@ -1618,29 +1688,7 @@ def phase_format(bs, rank: int, main_fits: list, seed: int = 1) -> dict:
             log(f"[format] {name} bf16 {json.dumps(row)}")
             bf16[name].append(row)
             del got
-    for contract, lay, width, acc, m in contracts(bs16):
-        nb, B = lay.nblocks, lay.block
-        prod = _gather_prod(lay.inds, lay.vals, fac16, m).reshape(nb, B,
-                                                                   rank)
-        if acc:
-            name, fn, plain = ("onehot_reduce_full",
-                               kernels.onehot_reduce_full,
-                               kernels.onehot_reduce_full_plain)
-            ids = lay.mode_ids(m).reshape(nb, B)
-        else:
-            name, fn, plain = ("onehot_reduce_sorted",
-                               kernels.onehot_reduce_sorted,
-                               kernels.onehot_reduce_sorted_plain)
-            ids = lay.blocked_locals()
-        got, row = compare(lambda: fn(ids, prod, width),
-                           lambda: plain(ids, prod, width),
-                           f"{name} bf16 {contract} mode {m}")
-        row["bound_ms"], row["bound_by"] = reduce_bound(ids, prod, got,
-                                                        lay.nnz)
-        row.update(contract=contract, mode=m)
-        log(f"[format] {name} bf16 {json.dumps(row)}")
-        bf16.setdefault(name, []).append(row)
-        del prod, got, ids
+    bf16.update(bf16_reductions(bs16, fac16, rank))
     del bs16, auto16, lays16
     torch.cuda.empty_cache()
 
@@ -1708,6 +1756,92 @@ def phase_format(bs, rank: int, main_fits: list, seed: int = 1) -> dict:
                         sec_per_iter=steady, peak_gib=peak / 2**30,
                         sweep_phase_ms=parts),
             "planted_bf16": planted}
+
+
+def bf16_reductions(bs16, fac16, rank: int) -> dict:
+    """Phase 9's bf16 rows of the two reductions: each mode's products
+    formed from the bf16 layouts `bs16` and tables `fac16`, the sorted
+    contract on the mode's own layout and the full one on layout (m+1) %
+    nmodes, each against its plain version, timed beside its bound."""
+    from splatt_tpu_torch.ops import kernels
+    from splatt_tpu_torch.ops.mttkrp import _gather_prod
+
+    rows = {"onehot_reduce_sorted": [], "onehot_reduce_full": []}
+    for contract, lay, width, acc, m in contracts(bs16):
+        nb, B = lay.nblocks, lay.block
+        prod = _gather_prod(lay.inds, lay.vals, fac16, m).reshape(nb, B,
+                                                                   rank)
+        if acc:
+            name, fn, plain = ("onehot_reduce_full",
+                               kernels.onehot_reduce_full,
+                               kernels.onehot_reduce_full_plain)
+            ids = lay.mode_ids(m).reshape(nb, B)
+        else:
+            name, fn, plain = ("onehot_reduce_sorted",
+                               kernels.onehot_reduce_sorted,
+                               kernels.onehot_reduce_sorted_plain)
+            ids = lay.blocked_locals()
+        got, row = compare(lambda: fn(ids, prod, width),
+                           lambda: plain(ids, prod, width),
+                           f"{name} bf16 {contract} mode {m}")
+        row["bound_ms"], row["bound_by"] = reduce_bound(ids, prod, got,
+                                                        lay.nnz)
+        row.update(contract=contract, mode=m)
+        log(f"[format] {name} bf16 {json.dumps(row)}")
+        rows[name].append(row)
+        del prod, got, ids
+    return rows
+
+
+def reduce_tile_turns(bs, seed: int = 4) -> list:
+    """The two reductions at each rank of REDUCE_TILE_RANKS, f32 and bf16
+    products, each mode and contract on the 20M-nonzero layouts `bs`, at
+    the rank tile of each of REDUCE_TILES (min(R, tile) columns) in
+    turns.  The products are random (a launch's time does not depend on
+    their values) at the layouts' ids; each tile's output is held to the
+    plain version (to the other tile's where the plain version's f32
+    copy of bf16 products would pass 24 GiB)."""
+    import torch
+
+    from splatt_tpu_torch.ops import kernels
+
+    gen = torch.Generator(device=bs.device).manual_seed(seed)
+    rows = []
+    for dtype in (torch.float32, torch.bfloat16):
+        for rank in REDUCE_TILE_RANKS:
+            for contract, lay, width, acc, m in contracts(bs):
+                nb, B = lay.nblocks, lay.block
+                ids = (lay.mode_ids(m).reshape(nb, B) if acc
+                       else lay.blocked_locals())
+                prod = torch.rand((nb, B, rank), generator=gen,
+                                  device=bs.device, dtype=dtype)
+                fns = {f"tile {t}": (
+                    lambda t=t: kernels.onehot_reduce_launch(
+                        ids, prod, width, acc, min(rank, t)))
+                    for t in REDUCE_TILES}
+                label = f"{contract} {dtype} rank {rank} mode {m}"
+                outs = {k: fn() for k, fn in fns.items()}
+                if dtype == torch.float32 or prod.numel() * 4 <= 24 << 30:
+                    plain = (kernels.onehot_reduce_full_plain if acc
+                             else kernels.onehot_reduce_sorted_plain)
+                    want = plain(ids, prod, width)
+                else:
+                    want = outs[f"tile {REDUCE_TILES[0]}"]
+                rel = {k: check_close(f"{label} {k}", got, want)
+                       for k, got in outs.items()}
+                del outs, want
+                turns = in_turns(fns, reps=5)
+                for k in turns:
+                    turns[k]["max_rel_err"] = rel[k]
+                first, second = (f"tile {t}" for t in REDUCE_TILES)
+                row = dict(dtype=str(dtype), rank=rank, contract=contract,
+                           mode=m, turns=turns,
+                           ratio=turns[second]["ms"] / turns[first]["ms"])
+                log(f"[reduce] rank tiles in turns {json.dumps(row)}")
+                rows.append(row)
+                del prod, ids
+                torch.cuda.empty_cache()
+    return rows
 
 
 def dense_bound(lay, factors, mode: int, out, flop_rate: float,
@@ -2492,6 +2626,45 @@ def _tg_row(launches: int, where: str, new_rows: dict, bf16: dict,
 #: rows 1 and 5 of the kernels line: their design
 WALK_STATUS = ("redesigned: the whole rank in one tile on "
                "csrc/gather_walk.cuh's walk_rows")
+#: rows 2 and 3: their design, where the checkout holds no
+#: csrc/warp_runs.cuh
+REDUCE_STATUS = ("redesigned: csrc/gather_walk.cuh's walk_rows, the "
+                 "block's products as its one table, rank tiles of "
+                 "reduce_rank_tile")
+
+
+def _reduce_rows(chain: dict, new_rows: dict, bf16: dict) -> list:
+    """Rows 2 and 3 of the kernels line: phase 6's rows at rank 50 (the
+    full contract's no-flush launch beside them), phase 9's bf16 rows,
+    the launches of phase 7's SORTED_CHAIN and FULL_CHAIN."""
+    from splatt_tpu_torch.ops import kernels
+
+    src = "splatt_tpu_torch/csrc/onehot_reduce.cu"
+    status = ("the one-entry walk of csrc/warp_runs.cuh"
+              if (kernels.CSRC / "warp_runs.cuh").exists()
+              else REDUCE_STATUS)
+    full = new_rows["onehot_reduce_full"]
+    return [
+        _record_row("onehot_reduce_sorted", src, f"{PK}:148",
+                    chain[SORTED_CHAIN]["launches"]["onehot_reduce_sorted"],
+                    new_rows["onehot_reduce_sorted"], "library_ms",
+                    note=NOTE + " (phase 7); library: one index_add_",
+                    status=status,
+                    contracts=new_rows["onehot_reduce_sorted"],
+                    bf16=bf16["onehot_reduce_sorted"]),
+        _record_row("onehot_reduce_full", src, f"{PK}:1415",
+                    chain[FULL_CHAIN]["launches"]["onehot_reduce_full"],
+                    full, "library_ms",
+                    note=NOTE.replace("over the 3 modes", "over the 3 "
+                                      "modes, accumulate contract")
+                    + " (phase 7, mode 0 privatized); library: one "
+                      "index_add_; no_flush_ms: the same launch on ids "
+                      "that are all the width (every flush dropped)",
+                    status=status,
+                    no_flush_ms=sum(r["no_flush_ms"] for r in full)
+                    / len(full),
+                    contracts=full, bf16=bf16["onehot_reduce_full"]),
+    ]
 
 
 def _requested(rows: list) -> dict:
@@ -2673,7 +2846,8 @@ def main() -> int:
     dev = phase_device()
     gather = "--gather" in sys.argv[1:]
     ranks = "--ranks" in sys.argv[1:]
-    phase_build(verbose=not ranks)
+    reduce = "--reduce" in sys.argv[1:]
+    phase_build(verbose=not (ranks or reduce))
     if "--dense" in sys.argv[1:]:
         dense = phase_dense(RANK)
         print(json.dumps({"kernels": [_dense_row(
@@ -2721,13 +2895,27 @@ def main() -> int:
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": dev["kind"], "count": dev["count"]}}))
         return 0
+    if reduce:
+        new_rows = phase_new_kernels(bs, RANK, gathers=False)
+        fac16 = [U.to(torch.bfloat16) for U in random_factors(bs, RANK, 1)]
+        bf16 = {k: _bf16_summary(v) for k, v in bf16_reductions(
+            bf16_layouts(bs), fac16, RANK).items()}
+        chain = phase_chain(bs, RANK, REDUCE_CHAIN, [])
+        # the rank tiles, where the checkout's kernels take one
+        tiles = (reduce_tile_turns(bs)
+                 if hasattr(kernels, "onehot_reduce_launch") else None)
+        print(json.dumps({"kernels": _reduce_rows(chain, new_rows, bf16),
+                          "tile_turns": tiles, "power": dev["smi"]}))
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": dev["kind"], "count": dev["count"]}}))
+        return 0
     yard = {"l2_copy": l2_copy_rate(),
             "library_gather": [
                 library_gather_rate(bs, c)
                 for c in (kernels.tg_rank_tile(BIG_RANK), RANK)]}
     if gather:
         rows = phase_kernels(bs, RANK)
-        new_rows = phase_new_kernels(bs, RANK, gathers_only=True)
+        new_rows = phase_new_kernels(bs, RANK, reductions=False)
         small = small_layouts(NELL2)
         walk = phase_walk(walk_tensors(small))
         big_rows = phase_big_rank(small)
@@ -2773,9 +2961,6 @@ def main() -> int:
     def launches(label, kernel):
         return chain[label]["launches"][kernel]
 
-    reduce_src = "splatt_tpu_torch/csrc/onehot_reduce.cu"
-    pk = PK
-    note = NOTE
     record = {"kernels": [
         _t_row(main_path["launches"], "phase 5, the main path", rows, bf16,
                walk, fmt, wide, cpd_sec_per_iter=main_path["sec_per_iter"],
@@ -2785,23 +2970,7 @@ def main() -> int:
         _rowmajor_row(launches(FUSED_CHAIN, "fused_mttkrp"),
                       "phase 7, SPLATT_EXPERIMENTAL_FUSED=1", new_rows, bf16,
                       walk),
-        _record_row("onehot_reduce_sorted", reduce_src, f"{pk}:148",
-                    launches("fused_t, fused_tg faulted",
-                             "onehot_reduce_sorted"),
-                    new_rows["onehot_reduce_sorted"], "library_ms",
-                    note=note + " (phase 7); library: one index_add_",
-                    contracts=new_rows["onehot_reduce_sorted"],
-                    bf16=bf16["onehot_reduce_sorted"]),
-        _record_row("onehot_reduce_full", reduce_src, f"{pk}:1415",
-                    launches("fused_t, fused_tg faulted, mode 0 privatized",
-                             "onehot_reduce_full"),
-                    new_rows["onehot_reduce_full"], "library_ms",
-                    note=note.replace("over the 3 modes", "over the 3 "
-                                      "modes, accumulate contract")
-                    + " (phase 7, mode 0 privatized); library: one "
-                      "index_add_",
-                    contracts=new_rows["onehot_reduce_full"],
-                    bf16=bf16["onehot_reduce_full"]),
+        *_reduce_rows(chain, new_rows, bf16),
         _v2_row(fmt, bf16),
         _dense_row(dense, bf16["fused_dense"]),
         _ring_row("ring_gather", "splatt_tpu/parallel/ring_kernels.py:152",

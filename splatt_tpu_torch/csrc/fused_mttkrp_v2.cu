@@ -35,7 +35,7 @@
 // of value, and gathers one R-element row of every other factor; the
 // tables stay in the 50 MB L2.  At R = 50 a launch over 20M nonzeros
 // requests 9.0 GB of rows (each 200-byte row touches 7 sectors of 32
-// bytes; some are served from L1).  On warp_runs' walk (one entry's rows
+// bytes; some are served from L1).  On the one-entry walk (one entry's rows
 // in flight per warp, scalar loads, ~0.65 us a round trip under load by
 // Little's law: latency-bound) a launch took 2.29-2.44 ms (3.7-3.9 TB/s of
 // requests), slower than fused_mttkrp_t on v1 for all its fewer bytes.

@@ -1,18 +1,27 @@
-// The gathering walk of a block with several entries in flight per warp
-// (sm_90a): the reduction of warp_runs.cuh, rebuilt for the kernels that
-// gather table rows (fused_mttkrp_t, _tg, fused_mttkrp, fused_mttkrp_v2).
+// The walk of a block that every blocked-MTTKRP kernel of this directory
+// shares (sm_90a): fused_mttkrp_t, _tg and fused_mttkrp (fused_mttkrp.cu),
+// fused_mttkrp_v2 (fused_mttkrp_v2.cu), onehot_reduce_sorted and _full
+// (onehot_reduce.cu).
 //
-// warp_runs<NR>() walks a warp's entries one at a time: it broadcasts an
-// entry's gather ids, loads its rows with scalar 4-byte loads (lanes over
-// columns) and tests the row id before it starts the next entry, so a warp
-// has one entry's gathers in flight, each an L2 round trip (~0.65 us under
-// load on an H100, PERF.md).  walk_rows<T, NV, VEC, TWO>() instead:
+// Each kernel reduces one block of `n` entries into rows of a (width,
+// cols) tile: entry j carries an output row id and an R-vector (a gathered
+// Hadamard product of table rows, or a precomputed product row read from
+// memory), and the tile row of that id gains the vector.  Ids outside [0,
+// width) are padding and add nothing (their vectors are still formed, and
+// dropped at the flush).
+//
+// The walk it replaced took a warp's entries one at a time: it broadcast
+// an entry's ids, loaded its rows with scalar 4-byte loads (lanes over
+// columns) and tested the row id before it started the next entry, so a
+// warp had one entry's loads in flight, each an L2 or device-memory round
+// trip (~0.65 us under load on an H100, PERF.md).  walk_rows<T, NV, VEC,
+// TWO>() instead:
 //
 //   - Batches of K entries.  A warp issues the row loads of its next K
 //     entries, two tables at a time, before it consumes the first; it then
 //     forms their products and folds them into the running row sum in entry
-//     order, so each row's f32 sum adds in the order warp_runs adds it.  The
-//     rows are held in registers.
+//     order, so each row's f32 sum adds in entry order.  The rows are held
+//     in registers.
 //   - Vector row loads.  Lane l owns NV chunks of VEC consecutive columns of
 //     the rank tile, chunk v at columns (l + 32 v) * VEC, read with one load
 //     of VEC * sizeof(T) bytes (16: f32 float4 or 8 bf16; 8; 4; 2 for a
@@ -27,10 +36,13 @@
 //     multiply-add, and the next 32 entries' ids are fetched into registers
 //     while these are walked.
 //
-// What stays as warp_runs has it: a row sum is flushed (flush_chunks) when
-// the row id changes (atomics into a shared tile or device memory); ids
-// outside [0, width) are summed and dropped at the flush; a bf16 product is
-// rounded after each multiply, in the order value, then table 0, 1, ...
+// A warp walks a contiguous run of the block's entries and keeps a running
+// row sum in registers, flushed (flush_chunks) only when the row id
+// changes, into a shared tile or device memory: ids sorted inside a block
+// cost one flush per run of equal ids, and unsorted ids still give the
+// right sum, one flush per entry.  A bf16 product is rounded after each
+// multiply, in the order value, then table 0, 1, ..., as PyTorch's bf16
+// `prod * rows` rounds it; only the row sums are f32.
 //
 // A "gather source" supplies the entries:
 //   void fetch(int j, bool ok)     lane reads entry j's ids and value into
@@ -49,12 +61,93 @@
 //                                  first column
 //   int pitch()                    the tables' row pitch (R)
 //   int ntables()                  tables gathered per entry (>= 1)
+//
+// A reduction of precomputed products is a source with one "table", the
+// block's (n, R) products, whose row for entry j is row j itself, and the
+// value 1 (exact: a bf16 product times 1 is itself).
+//
+// Tables may be float or bf16 (T below).
 
 #pragma once
 
-#include "warp_runs.cuh"
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
 
 namespace splatt {
+
+constexpr unsigned kFull = 0xffffffffu;
+constexpr int kMaxOther = 7;   // MAX_NMODES - 1
+constexpr int kMaxModes = kMaxOther + 1;
+constexpr int kWarps = 8;
+constexpr int kThreads = kWarps * 32;
+
+// Element `i` of a float or bf16 array, as float (read-only cache).
+__device__ __forceinline__ float ld(const float* p, long long i) {
+  return __ldg(p + i);
+}
+__device__ __forceinline__ float ld(const __nv_bfloat16* p, long long i) {
+  const unsigned short bits =
+      __ldg(reinterpret_cast<const unsigned short*>(p) + i);
+  return __uint_as_float(static_cast<unsigned>(bits) << 16);
+}
+
+// x rounded to the table type T (round to nearest even for bf16).
+template <class T>
+__device__ __forceinline__ float to_t(float x) {
+  return x;
+}
+template <>
+__device__ __forceinline__ float to_t<__nv_bfloat16>(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+
+// A value of a float or bf16 value stream, rounded to the table type T.
+template <class T>
+__device__ __forceinline__ float load_val(const void* vals, int vals_bf16,
+                                          long long i) {
+  return to_t<T>(vals_bf16 ? ld(static_cast<const __nv_bfloat16*>(vals), i)
+                           : ld(static_cast<const float*>(vals), i));
+}
+
+// The contiguous run [j0, j1) of a block's n entries that warp `warp`
+// walks.
+__device__ __forceinline__ void warp_range(int n, int warp, int& j0,
+                                           int& j1) {
+  const int per = (n + kWarps - 1) / kWarps;
+  j0 = min(warp * per, n);
+  j1 = min(j0 + per, n);
+}
+
+// Zero a CTA's shared (width, cols) tile before its runs flush into it.
+__device__ __forceinline__ void zero_tile(float* tile, long long elems) {
+  for (long long i = threadIdx.x; i < elems; i += kThreads) tile[i] = 0.f;
+  __syncthreads();
+}
+
+// Write a CTA's shared (width, cols) tile into rows [0, width) and
+// columns [r0, r0 + cols) of a (width, R) slab of the output.
+__device__ __forceinline__ void store_tile(const float* tile, float* out,
+                                           int width, int cols, int R,
+                                           int r0) {
+  __syncthreads();
+  const long long elems = (long long)width * cols;
+  for (long long i = threadIdx.x; i < elems; i += kThreads) {
+    const long long s = i / cols;
+    const int c = (int)(i - s * cols);
+    out[s * R + r0 + c] = tile[i];
+  }
+  __syncthreads();  // the tile may be zeroed again for the next block
+}
+
+// Raise the dynamic shared-memory cap of `kernel` when `smem` needs it.
+template <class K>
+cudaError_t allow_smem(K kernel, size_t smem) {
+  if (smem <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              (int)smem);
+}
 
 // Entries in flight per warp (the batch), chosen by timing K = 2, 4 and 8
 // in turns on an H100 (PERF.md section 6).
@@ -114,8 +207,8 @@ __device__ __forceinline__ float chunk_elem(const Chunk<T, VEC>& c, int i) {
 // Add a lane's NV chunks of a row sum into row `row` of dst: in device
 // memory one vector atomic per 8 or 16 bytes of a chunk (the host keeps a
 // chunk aligned to its bytes, and so its f32 sums to 4 * VEC), so a warp's
-// atomics cover whole sectors as warp_runs' did with lanes over columns; in
-// a shared tile (no vector atomics there) one per element.
+// atomics cover whole sectors; in a shared tile (no vector atomics there)
+// one per element.
 template <int NV, int VEC>
 __device__ __forceinline__ void flush_chunks(float* dst, long long ld,
                                              int row, int cols, int lane,
@@ -199,7 +292,9 @@ __device__ __forceinline__ void walk_rows(Src& src, int n, float* dst,
   float acc[C];
 #pragma unroll
   for (int i = 0; i < C; ++i) acc[i] = 0.f;
-  int cur = -1;   // the open run's row, as in warp_runs
+  // the open run's row; a run outside [0, width) (padding, or -1: none
+  // open yet) is summed like any other and never flushed
+  int cur = -1;
 
   // the ids of the next 32 entries are fetched while these are walked
   if (j0 < j1) src.fetch(j0 + lane, j0 + lane < j1);

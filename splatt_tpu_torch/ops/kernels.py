@@ -17,11 +17,11 @@ has its wrapper in ``ops/linalg.py``):
   contract;
 - :func:`fused_mttkrp_v2` (``csrc/fused_mttkrp_v2.cu``): the same over a
   compact v2 layout, decoding its encoded streams in registers;
-  all four walk a block with several entries' table rows in flight per
-  warp and vector row loads (``csrc/gather_walk.cuh``; :func:`gather_vec`
-  picks the load width);
 - :func:`onehot_reduce_sorted`, :func:`onehot_reduce_full`
   (``csrc/onehot_reduce.cu``): the same reduction of precomputed products;
+  all six walk a block with several entries' rows (of the tables, or of
+  the products) in flight per warp and vector row loads
+  (``csrc/gather_walk.cuh``; :func:`gather_vec` picks the load width);
 - :func:`fused_dense` (``csrc/fused_dense.cu``): a dense mode's value
   tiles times the Khatri-Rao operand it generates, on the tensor cores.
 
@@ -74,8 +74,14 @@ SMEM_TILE_BYTES = 232448
 #: the scratch of csrc/fused_mttkrp.cu before its tile: each warp's gather
 #: ids, [7 modes][32 entries] int32 (kIdsInts)
 FUSED_SCRATCH_BYTES = 8 * 7 * 32 * 4
-#: columns of the rank tile of the reductions (csrc/onehot_reduce.cu:
-#: 32 * min(4, ceil(R / 32)))
+#: the scratch of csrc/onehot_reduce.cu before its tile: each warp's 32
+#: entry indices, int32 (kIdxInts)
+REDUCE_SCRATCH_BYTES = 8 * 32 * 4
+#: columns of the reductions' rank tile above that rank (one tile up to
+#: it; :func:`reduce_rank_tile`), chosen by timing tiles of 128 and 256
+#: in turns at R = 192, 256 and 512 on an H100 (PERF.md): the sorted
+#: launch within 3% either way, the full launch's flushes up to 1.35x
+#: (f32) and 2x (bf16) slower at 256
 RANK_TILE = 128
 #: columns of fused_mttkrp_tg's rank tile above that rank (one tile up to
 #: it), chosen by timing 64, 128 and 256 in turns at R = 512 on an H100
@@ -185,10 +191,11 @@ _ENTRIES = {
                                [_P, _P, _P, _P, _I, _P, _P, _I, _I, _I, _I,
                                 _I, _I, _I, _I, _I, _I, _I, _I, _P, _P]),
     "splatt_onehot_reduce_sorted": ("onehot_reduce.cu",
-                                    [_P, _P, _I, _I, _I, _I, _I, _I, _P,
-                                     _P]),
+                                    [_P, _P, _I, _I, _I, _I, _I, _I, _I,
+                                     _I, _I, _P, _P]),
     "splatt_onehot_reduce_full": ("onehot_reduce.cu",
-                                  [_P, _P, _I, _I, _I, _I, _I, _P, _P]),
+                                  [_P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+                                   _P, _P]),
     "splatt_fused_dense": ("fused_dense.cu",
                            [_P, _I, _P, _P, _I, _LL, _LL, _I, _I, _I, _I,
                             _I, _I, _P, _P]),
@@ -675,24 +682,63 @@ def onehot_reduce_full_plain(local: torch.Tensor, prod: torch.Tensor,
     return _segment_sum(local, prod, width)
 
 
+def reduce_rank_tile(R: int) -> int:
+    """Columns of the reductions' rank tile at rank R: the whole rank up
+    to :data:`RANK_TILE`, that tile above it."""
+    return R if R <= RANK_TILE else RANK_TILE
+
+
+def reduce_uses_smem(width: int, cols: int) -> bool:
+    """Whether the sorted reduction's ``(width, cols)`` f32 tile fits a
+    CTA's shared memory after its scratch (else it adds into a zeroed
+    output in device memory)."""
+    return REDUCE_SCRATCH_BYTES + width * cols * 4 <= SMEM_TILE_BYTES
+
+
+def onehot_reduce_launch(local: torch.Tensor, prod: torch.Tensor,
+                         width: int, full: bool,
+                         rtile: int) -> torch.Tensor:
+    """One launch of ``splatt_onehot_reduce_full`` (`full`) or
+    ``_sorted`` on operands that :func:`_check_reduce` has passed, at
+    rank tile `rtile` (the whole rank, or a multiple of 32 columns per
+    lane), each lane's chunks from :func:`gather_vec` over the products'
+    address.  It counts no launch: ``chip_smoke.py`` times rank tiles
+    with it."""
+    nb, B, R = prod.shape
+    cols = min(rtile, R)
+    nv, vec = gather_vec(R, cols, prod.element_size(), [prod.data_ptr()])
+    operands = (local.data_ptr(), prod.data_ptr(), _is_bf16(prod), nb, B, R,
+                width)
+    if full:
+        out = torch.zeros((width, R), dtype=torch.float32,
+                          device=prod.device)
+        name = "splatt_onehot_reduce_full"
+    else:
+        use_smem = reduce_uses_smem(width, cols)
+        # every CTA writes its whole tile from shared memory; otherwise
+        # the rows it does not write must read 0
+        alloc = torch.empty if use_smem else torch.zeros
+        out = alloc((nb, width, R), dtype=torch.float32, device=prod.device)
+        name = "splatt_onehot_reduce_sorted"
+        operands += (int(use_smem),)
+    with torch.cuda.device(prod.device):
+        _launch(name, *operands, rtile, nv, vec, out.data_ptr())
+    return out
+
+
 def onehot_reduce_sorted(local: torch.Tensor, prod: torch.Tensor,
                          seg_width: int) -> torch.Tensor:
     """(nb, B) in-block ids + (nb, B, R) products → (nb, S, R) block
     partials (≙ splatt_tpu.ops.pallas_kernels.onehot_reduce_sorted); ids
     outside ``[0, S)`` add nothing.  CPU tensors take the plain version;
     CUDA tensors (int32 ids, f32 or bf16 products) launch
-    ``csrc/onehot_reduce.cu`` or raise."""
+    ``csrc/onehot_reduce.cu`` (the walk of ``csrc/gather_walk.cuh``,
+    rank tiles of :func:`reduce_rank_tile`) or raise."""
     if local.device.type == "cpu":
         return onehot_reduce_sorted_plain(local, prod, seg_width)
     _check_reduce(local, prod, seg_width)
-    nb, B, R = prod.shape
-    use_smem = seg_width * min(RANK_TILE, R) * 4 <= SMEM_TILE_BYTES
-    alloc = torch.empty if use_smem else torch.zeros
-    out = alloc((nb, seg_width, R), dtype=torch.float32, device=prod.device)
-    with torch.cuda.device(prod.device):
-        _launch("splatt_onehot_reduce_sorted", local.data_ptr(),
-                prod.data_ptr(), _is_bf16(prod), nb, B, R, seg_width,
-                int(use_smem), out.data_ptr())
+    out = onehot_reduce_launch(local, prod, seg_width, False,
+                               reduce_rank_tile(int(prod.shape[2])))
     onehot_reduce_sorted.launches += 1
     return out
 
@@ -702,16 +748,13 @@ def onehot_reduce_full(local: torch.Tensor, prod: torch.Tensor,
     """(nb, B) global ids + (nb, B, R) products → (width, R) totals over
     all blocks (≙ splatt_tpu.ops.pallas_kernels.onehot_reduce_full); ids
     outside ``[0, width)`` add nothing.  CPU tensors take the plain
-    version; CUDA tensors launch ``csrc/onehot_reduce.cu`` or raise."""
+    version; CUDA tensors launch ``csrc/onehot_reduce.cu`` (as
+    :func:`onehot_reduce_sorted`) or raise."""
     if local.device.type == "cpu":
         return onehot_reduce_full_plain(local, prod, width)
     _check_reduce(local, prod, width)
-    nb, B, R = prod.shape
-    out = torch.zeros((width, R), dtype=torch.float32, device=prod.device)
-    with torch.cuda.device(prod.device):
-        _launch("splatt_onehot_reduce_full", local.data_ptr(),
-                prod.data_ptr(), _is_bf16(prod), nb, B, R, width,
-                out.data_ptr())
+    out = onehot_reduce_launch(local, prod, width, True,
+                               reduce_rank_tile(int(prod.shape[2])))
     onehot_reduce_full.launches += 1
     return out
 

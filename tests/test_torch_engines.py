@@ -71,7 +71,7 @@ def _clean(monkeypatch):
 # -- plain versions against the Pallas kernels (interpret mode) --------------
 
 
-@pytest.mark.parametrize("rank", [8, 13])
+@pytest.mark.parametrize("rank", [1, 8, 13, 50])
 def test_onehot_reduce_sorted_plain_matches_pallas(rank):
     rng = np.random.default_rng(0)
     nb, B, S = 5, 128, 16
@@ -85,7 +85,7 @@ def test_onehot_reduce_sorted_plain_matches_pallas(rank):
     np.testing.assert_allclose(got.numpy(), want, atol=TOL, rtol=0)
 
 
-@pytest.mark.parametrize("rank", [8, 13])
+@pytest.mark.parametrize("rank", [1, 8, 13, 50])
 def test_onehot_reduce_full_plain_matches_pallas(rank):
     rng = np.random.default_rng(1)
     nb, B, W = 9, 128, 24   # nb not divisible by the Pallas chunk

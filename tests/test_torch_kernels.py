@@ -253,3 +253,85 @@ def test_wrappers_pass_the_walks_load_width(name, R, dtype, monkeypatch):
             assert args[-4] == 3
         assert args[12] == R   # the rank operand
     assert fn.launches == 2
+
+
+#: ranks the reductions' wrappers are checked at: scalar loads (1, 17),
+#: 8-byte loads (50), one tile of 128, the whole rank or tiles above it
+#: (200, 256), several tiles (512)
+REDUCE_RANKS = [1, 17, 50, 128, 200, 256, 512]
+
+
+@pytest.mark.parametrize("R", REDUCE_RANKS + [129, 257, 640])
+def test_reduce_rank_tile_covers_the_rank(R):
+    """The reductions' rank tile is the whole rank up to RANK_TILE and
+    that tile above it; every tile is walked in whole aligned chunks
+    (csrc/onehot_reduce.cu refuses anything else)."""
+    rtile = kernels.reduce_rank_tile(R)
+    assert rtile == min(R, kernels.RANK_TILE)
+    tiles = -(-R // rtile)
+    assert (tiles - 1) * rtile < R <= tiles * rtile
+    for itemsize in (4, 2):
+        nv, vec = kernels.gather_vec(R, min(rtile, R), itemsize, (0,))
+        assert (nv, vec) in BUILT_CHUNKS[itemsize]
+        assert rtile >= R or rtile % (32 * nv * vec) == 0
+        assert 32 * nv * vec >= min(rtile, R) and R % vec == 0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("R", REDUCE_RANKS)
+@pytest.mark.parametrize("name", ["onehot_reduce_sorted",
+                                  "onehot_reduce_full"])
+def test_reduction_wrappers_pass_the_walks_load_width(name, R, dtype,
+                                                      monkeypatch):
+    """onehot_reduce_sorted and onehot_reduce_full hand their C entry the
+    rank tile of reduce_rank_tile and the (nv, vec) of gather_vec over
+    that tile and the products' address, in the argument order of the
+    entry's declared types, and count one launch each; the sorted
+    wrapper's use_smem is that of its tile (a width whose tile fits
+    shared memory, and the narrowest that does not); products aligned
+    and one element off.  No card: meta-device tensors, the C call
+    recorded."""
+    nb, B = 3, 64
+    calls = []
+    monkeypatch.setattr(kernels, "_launch",
+                        lambda entry, *args: calls.append((entry, args)))
+    monkeypatch.setattr(torch.cuda, "device",
+                        lambda dev: contextlib.nullcontext())
+    fn = getattr(kernels, name)
+    monkeypatch.setattr(fn, "launches", 0)
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    rtile = kernels.reduce_rank_tile(R)
+    cols = min(rtile, R)
+    fits = (kernels.SMEM_TILE_BYTES - kernels.REDUCE_SCRATCH_BYTES) \
+        // (4 * cols)
+    ids = torch.empty((nb, B), dtype=torch.int32, device="meta")
+    n = 0
+    for width in (8, fits + 1):
+        for shift in (0, 1):
+            buf = torch.empty(nb * B * R + 1, dtype=dtype, device="meta")
+            prod = buf[shift:shift + nb * B * R].view(nb, B, R)
+            out = fn(ids, prod, width)
+            n += 1
+            entry, args = calls[-1]
+            assert entry == f"splatt_{name}"
+            # the entry's declared operands, less the stream _launch
+            # appends
+            assert len(args) + 1 == len(kernels._ENTRIES[entry][1])
+            assert args[1] == prod.data_ptr() == shift * itemsize
+            assert args[2] == int(dtype == torch.bfloat16)
+            assert tuple(args[3:7]) == (nb, B, R, width)
+            want = kernels.gather_vec(R, cols, itemsize, [prod.data_ptr()])
+            assert tuple(args[-3:-1]) == want
+            assert args[-4] == rtile
+            if shift:
+                assert want[1] == 1
+            if name == "onehot_reduce_sorted":
+                assert len(args) == 12
+                assert args[7] == int(width == 8)
+                assert bool(args[7]) == kernels.reduce_uses_smem(width, cols)
+                assert out.shape == (nb, width, R)
+            else:
+                assert len(args) == 11
+                assert out.shape == (width, R)
+            assert out.dtype == torch.float32
+    assert fn.launches == n == 4

@@ -358,6 +358,53 @@ def test_cuda_onehot_reductions_match_plain():
         kernels.onehot_reduce_full(ids.long(), prod, S)
 
 
+
+@pytest.mark.gpu
+def test_cuda_onehot_reductions_every_load_width():
+    """onehot_reduce_sorted and onehot_reduce_full on the gathering walk
+    against their plain versions at ranks that take every load width
+    and rank tiling (1, 17: scalar loads; 50: 8-byte; 128; 200, 256: the
+    whole rank or tiles; 512: several tiles), f32 and bf16 products,
+    aligned and one element off alignment (scalar loads), ids of -1 and
+    past the width, an all-padding last block, sorted runs (sorted) and
+    unsorted ids (full), and a sorted tile wider than shared memory (S =
+    2000 at 29 or more columns: the device-memory branch); one launch
+    per call."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    rng = np.random.default_rng(19)
+    launched = 0
+    for nb, B, S in [(6, 256, 16), (3, 512, 2000)]:
+        for R in (1, 17, 50, 128, 200, 256, 512):
+            for dtype in (torch.float32, torch.bfloat16):
+                for shift in (0, 1):
+                    local = rng.integers(-1, S + 3, size=(nb, B)).astype(
+                        np.int32)
+                    local[:-1].sort(axis=1)
+                    local[-1] = S          # an all-padding last block
+                    ids = rng.integers(-1, S + 2, size=(nb, B)).astype(
+                        np.int32)
+                    ids[-1] = -1
+                    buf = torch.empty(nb * B * R + 1, dtype=dtype,
+                                      device="cuda")
+                    prod = buf[shift:shift + nb * B * R].view(nb, B, R)
+                    prod.copy_(torch.from_numpy(rng.random(
+                        (nb, B, R), dtype=np.float32)))
+                    what = (f"nb={nb} B={B} S={S} R={R} {dtype} "
+                            f"shift={shift}")
+                    for name, idx in (("onehot_reduce_sorted", local),
+                                      ("onehot_reduce_full", ids)):
+                        fn = getattr(kernels, name)
+                        plain = getattr(kernels, name + "_plain")
+                        idx_t = torch.from_numpy(idx).cuda()
+                        before = fn.launches
+                        _close(fn(idx_t, prod, S), plain(idx_t, prod, S),
+                               f"{name} {what}")
+                        assert fn.launches == before + 1
+                        launched += 1
+    assert launched == 2 * 7 * 2 * 2 * 2
+
+
 def _tensor(rng, dims, nnz, wide):
     inds = np.stack([rng.zipf(1.5, size=nnz) % d for d in dims])
     if wide:

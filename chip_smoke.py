@@ -126,14 +126,33 @@ Phases, each fatal on failure:
    its bound, its plain version and the library; the ``ASYNC_RING`` CPD
    (30 + 15 ring launches per card, one plan per mode per rank, 0
    ``comm_fallback``), the overlap probe, the single-card COO CPD and
-   ``ALL2ALL`` (fits within 1e-4) and the ``comm.ring_exchange`` drill.
+   ``ALL2ALL`` on the stream engine (fits within 1e-4) and the
+   ``comm.ring_exchange`` drill;
+12. the blocked per-rank engine in the three decompositions on phase 3's
+   tensor over every card, or 4 virtual ranks sharing the one card, 5
+   iterations each from one numpy init, fallback off: for FINE, MEDIUM
+   on the auto grid and on a grid that splits two axes ((2, 2, 1) on 4
+   ranks) and COARSE, the per-rank layouts built from the package's
+   pieces (host seconds, each rank's nnz and seg width), rank 0's
+   ``fused_mttkrp_t`` launch of each sorted mode against its plain
+   version (within 1e-4 of max|plain|) timed beside its bound, and one
+   sweep under the sync check (host ms to enqueue it); then each CPD
+   through ``distributed_cpd_als`` with the launch counters at 0 just
+   before: ``fused_mttkrp_t`` launched (sorted modes) x ranks x
+   iterations times, no demotion, fits within 1e-4 of the single-card
+   COO ``cpd_als`` from the same init at every iteration and λ within
+   1e-4 of it (relative); FINE also on the stream engine (the blocked
+   run within 1e-4 of it); last the ``engine.fused_t`` drill (MEDIUM
+   raises with fallback off, on 1M nonzeros of the same dims).
 
 The line before the last is the ``{"kernels": [...]}`` record (the nine
 TPU kernels' counterparts and ``sym_eig``); the last is
 ``{"ok": true, "device": {...}}``.  ``python3 chip_smoke.py --ring`` runs
 phases 1-3's set-up and phase 11 alone (for a call with several cards)
-and prints the two ring kernels' entries; ``--dense`` runs phases 1-2
-and phase 10 alone and prints ``fused_dense``'s.  ``--gather`` runs the
+and prints the two ring kernels' entries; ``--decomp`` runs the set-up
+and phase 12 alone and prints ``fused_mttkrp_t``'s entry from phase 12;
+``--dense`` runs phases 1-2 and phase 10 alone and prints
+``fused_dense``'s.  ``--gather`` runs the
 set-up, the 20M-nonzero layouts, phase 3, phase 6's ``fused_mttkrp_tg``
 and ``fused_mttkrp`` rows and its 2M-nonzero checks, phase 8 (with
 ``fused_mttkrp_tg`` timed in turns at the rank tiles of PROBE_TILES, each
@@ -213,6 +232,11 @@ DRILL_ITERS = 2
 # card its ranks are virtual ranks sharing it
 RING_ITERS = 5
 RING_VIRTUAL_RANKS = 4
+# phase 12: FINE, MEDIUM and COARSE with the blocked per-rank engine, 5
+# iterations; with one card its ranks are virtual ranks sharing it
+DECOMP_ITERS = 5
+DECOMP_VIRTUAL_RANKS = 4
+DECOMP_DRILL_NNZ = 1_000_000
 BF16_MIN_FIT = 0.97    # the planted tensor's bf16 fit
 BF16_FIT_GAP = 0.03    # bf16 against f32 (≙ tests/test_format.py:251-252)
 PARITY_TOL = 1e-4      # f32 on the card against f64 on the CPU
@@ -2545,7 +2569,8 @@ def phase_distributed(tt, rank: int, seed: int = 11) -> dict:
     _reset_peaks(mesh)
     a2a = sharded_cpd_als(tt, rank, mesh=mesh, init=init,
                           opts=opts(CommPattern.ALL2ALL,
-                                    engine_fallback=False))
+                                    engine_fallback=False),
+                          local_engine="stream")
     mesh_sync(mesh)
     a2a_peaks = _peaks(mesh)
     a2a_steady = sum(a2a.iter_seconds[1:]) / (len(a2a.iter_seconds) - 1)
@@ -2598,6 +2623,333 @@ def phase_distributed(tt, rank: int, seed: int = 11) -> dict:
             "all2all": {"sec_per_iter": a2a_steady, "fits": list(a2a.fits),
                         "fit_diff": a2a_diff, "peak_gib": a2a_peaks},
             "drill": drill, "seconds": seconds}
+
+
+# -- phase 12: the blocked per-rank engine in FINE, MEDIUM and COARSE ---------
+
+
+def rank_launch(lay, tables, m: int, tag: str) -> dict:
+    """One rank's sorted fused_mttkrp_t launch on its layout and gathered
+    tables against the plain version, timed beside its bound."""
+    from splatt_tpu_torch.ops.kernels import (fused_mttkrp_t,
+                                              fused_mttkrp_t_plain)
+
+    got, row = compare(
+        lambda: fused_mttkrp_t(lay, tables, m, lay.seg_width, False),
+        lambda: fused_mttkrp_t_plain(lay, tables, m, lay.seg_width, False),
+        f"{tag} fused_mttkrp_t rank 0 mode {m}")
+    row["bound_ms"], row["bound_by"] = bound(lay, tables, m, got)
+    row.update(decomp=tag, mode=m, rank=0, nnz=lay.nnz, nblocks=lay.nblocks,
+               seg_width=lay.seg_width, dim=lay.dim)
+    log(f"[decomp] {json.dumps(row)}")
+    return row
+
+
+def sweep_host_ms(step, factors, grams, mesh, tag: str) -> float:
+    """One sweep of a decomposition under
+    torch.cuda.set_sync_debug_mode("error") (it raises if anything in the
+    sweep waits on the host); returns the host ms to enqueue it, the time
+    the host spends outside the launches."""
+    import torch
+
+    from splatt_tpu_torch.ops.linalg import check_solver
+    from splatt_tpu_torch.parallel.sharded import sync_mesh
+
+    step(factors, grams, False)
+    sync_mesh(mesh)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        t0 = time.perf_counter()
+        step(factors, grams, False)
+        host_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    sync_mesh(mesh)
+    check_solver()
+    log(f"[decomp] {tag}: one sweep under set_sync_debug_mode('error'): no "
+        f"host sync; enqueued in {host_ms:.3f} ms")
+    return host_ms
+
+
+def decomp_pieces(kind: str, tt, mesh, rank: int, init, grid=None) -> dict:
+    """The per-rank layouts, sharded factors and sweep of one
+    decomposition, built from the package's pieces as its CPD entry
+    point builds them (the host build timed), with a function giving
+    rank 0's tables for mode m."""
+    import torch
+
+    from splatt_tpu_torch import Options
+    from splatt_tpu_torch.ops.linalg import gram
+    from splatt_tpu_torch.parallel.coarse import (_bucket_by_mode,
+                                                  coarse_rank_layouts,
+                                                  make_coarse_sweep)
+    from splatt_tpu_torch.parallel.common import allreduce, ceil_to
+    from splatt_tpu_torch.parallel.grid import GridDecomp, make_grid_sweep
+    from splatt_tpu_torch.parallel.sharded import (gather_full,
+                                                   make_sharded_sweep,
+                                                   shard_blocked_layouts,
+                                                   shard_factors, sync_mesh)
+
+    opts = Options()
+    ndev, nmodes = mesh.ndev, tt.nmodes
+    t0 = time.perf_counter()
+    if kind == "medium":
+        decomp = GridDecomp.build(tt, grid=grid, val_dtype=tt.vals.dtype,
+                                  balance=None)
+        mesh = decomp.make_mesh(devices=mesh.devices)
+        cells = decomp.build_cell_layouts(opts).device_put(mesh, nmodes)
+    elif kind == "coarse":
+        per_mode = [_bucket_by_mode(tt, m, ndev, tt.vals.dtype)
+                    for m in range(nmodes)]
+        blocks = tuple(b for (_, _, b, _) in per_mode)
+        cells = coarse_rank_layouts(per_mode, opts, mesh)
+        del per_mode
+    else:
+        dims_pad = tuple(ceil_to(d, ndev) for d in tt.dims)
+        cells = shard_blocked_layouts(tt, mesh, opts, dims_pad)
+    sync_mesh(mesh)
+    build_s = time.perf_counter() - t0
+    if kind == "medium":
+        factors = decomp.shard_factors(init, mesh)
+        groups = [mesh.groups([m]) for m in range(nmodes)]
+        sweep = make_grid_sweep(mesh, decomp, 0.0, cells=cells,
+                                fallback=False)
+    elif kind == "coarse":
+        factors = shard_factors(init, tt.dims, mesh,
+                                dims_pad=[b * ndev for b in blocks])
+        groups = [None] * nmodes
+        sweep = make_coarse_sweep(mesh, blocks, 0.0, cells=cells,
+                                  fallback=False)
+    else:
+        factors = shard_factors(init, tt.dims, mesh)
+        groups = [None] * nmodes
+        sweep = make_sharded_sweep(mesh, nmodes, 0.0, dims_pad, cells=cells,
+                                   fallback=False)
+    grams = [allreduce([gram(u) for u in f], mesh, groups=groups[m])
+             for m, f in enumerate(factors)]
+    dev = mesh.devices[0]
+    full = [gather_full(f, mesh)[dev] for f in factors]
+
+    def tables(m):
+        if kind == "medium":
+            return [f[0] for f in factors]
+        if kind == "coarse":
+            return [factors[k][0] if k == m else full[k]
+                    for k in range(nmodes)]
+        return [torch.zeros((dims_pad[m], rank), device=dev) if k == m
+                else full[k] for k in range(nmodes)]
+
+    def step(f, g, first):
+        return sweep(None, None, f, g, first)
+
+    sorted_modes = [m for m, c in enumerate(cells) if c.sort_mode == m
+                    and c.path == "sorted_onehot"]
+    info = dict(build_s=build_s, sorted_modes=sorted_modes,
+                rank_nnz=list(cells[sorted_modes[0]].counts),
+                seg_width={m: cells[m].seg_width for m in sorted_modes},
+                nnz_pad={m: int(cells[m].vals[0].shape[0])
+                         for m in sorted_modes})
+    log(f"[decomp] {kind}{'' if grid is None else ' grid ' + str(grid)}: "
+        f"per-rank layouts built on the host and copied in {build_s:.2f} s; "
+        f"{json.dumps(info)}")
+    return dict(mesh=mesh, cells=cells, step=step, factors=factors,
+                grams=grams, tables=tables, info=info)
+
+
+def check_decomp(kind: str, tt, mesh, rank: int, init, grid=None) -> dict:
+    """Rank 0's fused_mttkrp_t launch of each sorted mode against the
+    plain version, and one sweep under the sync check."""
+    import torch
+
+    p = decomp_pieces(kind, tt, mesh, rank, init, grid)
+    tag = kind if grid is None else f"{kind} {'x'.join(map(str, grid))}"
+    rows = [rank_launch(p["cells"][m].layout(0), p["tables"](m), m, tag)
+            for m in p["info"]["sorted_modes"]]
+    host_ms = sweep_host_ms(p["step"], p["factors"], p["grams"], p["mesh"],
+                            tag)
+    out = dict(p["info"], rank0_rows=rows, sweep_host_ms=host_ms)
+    del p
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_decomp(tt, rank: int, seed: int = 12) -> dict:
+    """Phase 12: the blocked per-rank engine in FINE, MEDIUM and COARSE on
+    phase 3's tensor."""
+    import torch
+
+    from splatt_tpu_torch import Options, cpd_als, resilience
+    from splatt_tpu_torch.config import CommPattern, Decomposition
+    from splatt_tpu_torch.ops import kernels
+    from splatt_tpu_torch.parallel import distributed_cpd_als
+    from splatt_tpu_torch.parallel.common import alloc_build_modes, ceil_to
+    from splatt_tpu_torch.parallel.mesh import auto_grid, make_mesh
+    from splatt_tpu_torch.parallel.sharded import sync_mesh
+    from splatt_tpu_torch.utils import faults
+
+    t_phase = time.perf_counter()
+    ncards = torch.cuda.device_count()
+    nranks = ncards if ncards > 1 else DECOMP_VIRTUAL_RANKS
+    mesh = make_mesh(n_devices=nranks)
+    auto = auto_grid(nranks, tt.dims)
+    split = (2, nranks // 2, 1)
+    log(f"[decomp] phase 12: {nranks} ranks on {len(mesh.cards)} card(s)"
+        + (" (virtual ranks)" if mesh.virtual else "")
+        + f"; MEDIUM auto grid {auto}, split grid {split}")
+    rng = np.random.default_rng(seed)
+    init = [rng.random((d, rank)) for d in tt.dims]
+    iters = DECOMP_ITERS
+    nmodes = tt.nmodes
+
+    # the single-card reference from the same init: the COO cpd_als
+    t0 = time.perf_counter()
+    ref = cpd_als(tt, rank, Options(max_iterations=iters, tolerance=0.0,
+                                    random_seed=0),
+                  init=init, device=mesh.devices[0])
+    ref_lam = ref.lam.cpu()
+    log(f"[decomp] single-card COO cpd fits {list(ref.fits)} "
+        f"({time.perf_counter() - t0:.1f} s)")
+
+    # each decomposition's pieces: rank 0's launches and the sync check
+    checks = {"fine": check_decomp("fine", tt, mesh, rank, init),
+              "medium": check_decomp("medium", tt, mesh, rank, init, auto),
+              "medium_split": check_decomp("medium", tt, mesh, rank, init,
+                                           split),
+              "coarse": check_decomp("coarse", tt, mesh, rank, init)}
+
+    def nsorted(kind, grid=None):
+        if kind == "coarse":
+            return nmodes
+        if kind == "medium":
+            return len(alloc_build_modes(
+                [ceil_to(max(d, g), g) // g for d, g in zip(tt.dims, grid)],
+                Options()))
+        return len(alloc_build_modes([ceil_to(d, nranks) for d in tt.dims],
+                                     Options()))
+
+    def run(label, decomp, want_launches, **kw):
+        resilience.reset_demotions()
+        resilience.run_report().clear()
+        sync_mesh(mesh)
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        out = distributed_cpd_als(
+            tt, rank, Options(max_iterations=iters, tolerance=0.0,
+                              random_seed=0, decomposition=decomp,
+                              comm_pattern=CommPattern.ALL2ALL,
+                              engine_fallback=False),
+            init=init, mesh=mesh, **kw)
+        sync_mesh(mesh)
+        seconds = time.perf_counter() - t0
+        launches = kernels.fused_mttkrp_t.launches
+        demoted = [d.engine for d in resilience.demotions()]
+        events = [{k: v for k, v in e.items() if k not in ("kind", "ts")}
+                  for e in resilience.run_report().events("layout_imbalance")]
+        steady = sum(out.iter_seconds[1:]) / (len(out.iter_seconds) - 1)
+        diff = max(abs(a - b) for a, b in zip(out.fits, ref.fits))
+        lam_rel = float((out.lam - ref_lam).abs().max()
+                        / ref_lam.abs().max())
+        row = dict(label=label, sec_per_iter=steady, fits=list(out.fits),
+                   fit_diff=diff, lam_rel_diff=lam_rel, launches=launches,
+                   expected_launches=want_launches, demoted=demoted,
+                   imbalance=events, seconds=seconds,
+                   iter_seconds=list(out.iter_seconds))
+        log(f"[decomp] {json.dumps(row)}")
+        if len(out.fits) != iters or not diff <= PARITY_TOL:
+            raise AssertionError(f"{label}: fits {out.fits} leave the "
+                                 f"single-card CPD's {ref.fits}")
+        if not lam_rel <= LAMBDA_TOL:
+            raise AssertionError(f"{label}: λ relative difference "
+                                 f"{lam_rel:.3e} > {LAMBDA_TOL}")
+        if demoted:
+            raise AssertionError(f"{label}: demoted {demoted}")
+        if want_launches is not None and launches != want_launches:
+            raise AssertionError(f"{label}: fused_mttkrp_t launched "
+                                 f"{launches} times, expected "
+                                 f"{want_launches}")
+        return row, out
+
+    runs = {}
+    runs["fine_stream"], stream = run("fine all2all stream",
+                                      Decomposition.FINE, 0,
+                                      local_engine="stream")
+    runs["fine"], blocked = run("fine all2all blocked (the default)",
+                                Decomposition.FINE,
+                                nsorted("fine") * nranks * iters)
+    diff = max(abs(a - b) for a, b in zip(blocked.fits, stream.fits))
+    lam_rel = float((blocked.lam - stream.lam).abs().max()
+                    / stream.lam.abs().max())
+    log(f"[decomp] fine blocked against stream: max |fit difference| "
+        f"{diff:.3e}, λ relative difference {lam_rel:.3e}; "
+        f"{runs['fine']['sec_per_iter']:.5f} against "
+        f"{runs['fine_stream']['sec_per_iter']:.5f} s/iteration")
+    if not (diff <= PARITY_TOL and lam_rel <= LAMBDA_TOL):
+        raise AssertionError("the blocked FINE CPD leaves the stream one")
+    runs["fine"].update(fit_diff_vs_stream=diff, lam_rel_vs_stream=lam_rel)
+    del stream, blocked
+    runs["medium"], _ = run(f"medium auto grid {auto}",
+                            Decomposition.MEDIUM,
+                            nsorted("medium", auto) * nranks * iters)
+    runs["medium_split"], _ = run(f"medium grid {split}",
+                                  Decomposition.MEDIUM,
+                                  nsorted("medium", split) * nranks * iters,
+                                  grid=split)
+    runs["coarse"], _ = run("coarse", Decomposition.COARSE,
+                            nsorted("coarse") * nranks * iters)
+
+    # the drill: with engine.fused_t armed and fallback off, MEDIUM
+    # raises (on DRILL_NNZ nonzeros of the same dims: the host build of
+    # the full tensor would only delay the raise)
+    small = synthetic_tensor(tt.dims, DECOMP_DRILL_NNZ, seed=3)
+    resilience.reset_demotions()
+    faults.reset()
+    faults.arm(*next(iter(faults.parse_schedule(
+        "engine.fused_t:runtime").items())))
+    err = None
+    try:
+        distributed_cpd_als(small, rank, Options(
+            max_iterations=1, tolerance=0.0, random_seed=0,
+            decomposition=Decomposition.MEDIUM, engine_fallback=False),
+            init=init, mesh=mesh)
+    except Exception as e:
+        err = e
+    finally:
+        faults.reset()
+    sync_mesh(mesh)
+    if err is None or "injected" not in str(err):
+        raise AssertionError(f"the engine.fused_t drill on MEDIUM did not "
+                             f"raise: {err!r}")
+    log(f"[decomp] drill engine.fused_t, fallback off, MEDIUM: raised "
+        f"{err!r}")
+    resilience.reset_demotions()
+    resilience.run_report().clear()
+    seconds = time.perf_counter() - t_phase
+    log(f"[decomp] phase 12 took {seconds:.1f} s")
+    return {"ranks": nranks, "cards": len(mesh.cards),
+            "virtual": mesh.virtual, "auto_grid": list(auto),
+            "split_grid": list(split), "ref_fits": list(ref.fits),
+            "checks": checks, "runs": runs, "drill": repr(err)[:160],
+            "launches": {k: runs[k]["launches"]
+                         for k in ("fine", "medium", "medium_split",
+                                   "coarse")},
+            "seconds": seconds}
+
+
+def _decomp_summary(decomp: dict) -> dict:
+    """Phase 12 in row 1 of the kernels line: the CPDs' launches and
+    times, rank 0's launches against the plain version, the builds."""
+    return dict(
+        launches=decomp["launches"], ranks=decomp["ranks"],
+        cards=decomp["cards"], auto_grid=decomp["auto_grid"],
+        split_grid=decomp["split_grid"],
+        sec_per_iter={k: r["sec_per_iter"]
+                      for k, r in decomp["runs"].items()},
+        rank0_rows=[r for c in decomp["checks"].values()
+                    for r in c["rank0_rows"]],
+        build_s={k: c["build_s"] for k, c in decomp["checks"].items()},
+        sweep_host_ms={k: c["sweep_host_ms"]
+                       for k, c in decomp["checks"].items()},
+        phase_seconds=decomp["seconds"])
 
 
 FUSED_SRC = "splatt_tpu_torch/csrc/fused_mttkrp.cu"
@@ -2861,6 +3213,21 @@ def main() -> int:
     tt = synthetic_tensor(NELL2, NNZ, seed=0)
     log(f"[data] NELL-2-shaped {NELL2} nnz={tt.nnz}: generated in "
         f"{time.perf_counter() - t0:.2f} s")
+    if "--decomp" in sys.argv[1:]:
+        decomp = phase_decomp(tt, RANK)
+        rows = _decomp_summary(decomp)["rank0_rows"]
+        print(json.dumps({"kernels": [_record_row(
+            "fused_mttkrp_t", FUSED_SRC, f"{PK}:355",
+            sum(decomp["launches"].values()), rows, None,
+            note=f"ms/plain_ms/bound_ms: mean per launch over rank 0's "
+            f"sorted launches in phase 12's decompositions, NELL-2 shape, "
+            f"20M nonzeros over {decomp['ranks']} ranks, rank {RANK}; "
+            f"launches: phase 12's four blocked CPDs",
+            status=WALK_STATUS, phase12=_decomp_summary(decomp))],
+            "power": dev["smi"]}))
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": dev["kind"], "count": dev["count"]}}))
+        return 0
     if "--ring" in sys.argv[1:]:
         dist = phase_distributed(tt, RANK)
         print(json.dumps({"kernels": [
@@ -2956,6 +3323,7 @@ def main() -> int:
     dense = phase_dense(RANK)
     bf16["fused_dense"] = _bf16_summary(dense["rows"]["bf16"])
     dist = phase_distributed(tt, RANK)
+    decomp = phase_decomp(tt, RANK)
     del tt
 
     def launches(label, kernel):
@@ -2964,7 +3332,8 @@ def main() -> int:
     record = {"kernels": [
         _t_row(main_path["launches"], "phase 5, the main path", rows, bf16,
                walk, fmt, wide, cpd_sec_per_iter=main_path["sec_per_iter"],
-               sweep_phase_ms=main_path["phases"]),
+               sweep_phase_ms=main_path["phases"],
+               phase12=_decomp_summary(decomp)),
         _tg_row(launches("fused_t faulted", "fused_mttkrp_tg"),
                 "phase 7, fused_t faulted", new_rows, bf16, big, big_rows),
         _rowmajor_row(launches(FUSED_CHAIN, "fused_mttkrp"),

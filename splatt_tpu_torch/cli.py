@@ -3,8 +3,9 @@
     python -m splatt_tpu_torch.cli cpd T.tns -r R [-i ITERS] [--tol TOL]
         [--seed SEED] [--alloc onemode|twomode|allmode] [--device cuda|cpu]
         [--engine-fallback on|off] [--json] [-o DIR]
-        [--decomp medium|coarse|fine] [--comm all2all|point2point|async_ring]
-        [--rowdist greedy|balanced] [-p PARTITION] [--ndev N]
+        [--decomp medium|coarse|fine] [--grid IxJxK]
+        [--comm all2all|point2point|async_ring] [--rowdist greedy|balanced]
+        [-p PARTITION] [--ndev N] [--local-engine blocked|stream]
 
 prints the MTTKRP engine plan, one fit line per iteration and the
 resilience events of the run (engine demotions, transient retries, format
@@ -18,12 +19,15 @@ dense mode: ``SPLATT_DENSE`` (off|auto|on) with ``SPLATT_DENSE_THRESHOLD``
 (default 0.05) gives each mode whose padded fiber density meets the
 threshold a dense tile layout and the ``dense/fused_dense`` plan.
 
-``--decomp``, ``--comm``, ``--rowdist`` or ``-p`` run the distributed CPD
-over a mesh of ``--ndev`` ranks (default: every card, or 8 virtual ranks
-with ``--device cpu``) and print a ``DISTRIBUTED decomp=...`` line, with
-the JAX CLI's implications: ``--comm``, ``--rowdist`` and ``-p`` imply
-FINE, the only decomposition ported (MEDIUM and COARSE raise).  ``--json``
-ring runs carry the ``ring_overlap`` event, and every distributed run the
+``--decomp``, ``--grid``, ``--comm``, ``--rowdist`` or ``-p`` run the
+distributed CPD over a mesh of ``--ndev`` ranks (default: every card, or 8
+virtual ranks with ``--device cpu``) and print a ``DISTRIBUTED
+decomp=...`` line, with the JAX CLI's implications: ``--grid IxJxK``
+implies MEDIUM (the grid of its ranks, one factor per mode) and rejects
+the other decompositions; ``--comm``, ``--rowdist`` and ``-p`` imply FINE.
+``--local-engine`` picks the per-rank MTTKRP (default: the blocked engine,
+except on the FINE ring patterns).  ``--json`` ring runs carry the
+``ring_overlap`` event, and every distributed run the
 ``layout_imbalance`` event.
 """
 
@@ -34,6 +38,8 @@ import json
 import sys
 import time
 from typing import List, Optional
+
+import numpy as np
 
 from splatt_tpu_torch.config import BlockAlloc
 
@@ -54,8 +60,9 @@ def cmd_cpd(args) -> int:
     tt = load(args.tensor)
     print(f"Tensor {args.tensor}: dims={'x'.join(map(str, tt.dims))} "
           f"nnz={tt.nnz} ({time.perf_counter() - t0:.3f}s)")
-    if (args.decomp is not None or args.partition is not None
-            or args.comm is not None or args.rowdist is not None):
+    if (args.decomp is not None or args.grid is not None
+            or args.partition is not None or args.comm is not None
+            or args.rowdist is not None):
         out = _distributed(args, opts, tt)
     else:
         t0 = time.perf_counter()
@@ -87,6 +94,8 @@ def _distributed(args, opts, tt):
         opts.comm_pattern = CommPattern(args.comm)
     if args.decomp:
         opts.decomposition = Decomposition(args.decomp)
+    elif args.grid:
+        opts.decomposition = Decomposition.MEDIUM
     else:
         # comm patterns, partitions and row distribution are
         # fine-decomposition concepts
@@ -99,16 +108,33 @@ def _distributed(args, opts, tt):
             and opts.decomposition is not Decomposition.FINE):
         raise ValueError(f"--comm {args.comm} (ring) applies to the fine "
                          f"decomposition only")
+    if args.grid and opts.decomposition is not Decomposition.MEDIUM:
+        raise ValueError("--grid applies to the medium decomposition only")
+    grid = None
+    if args.grid:
+        try:
+            grid = tuple(int(g) for g in args.grid.split("x"))
+        except ValueError:
+            grid = ()
+        if len(grid) != tt.nmodes or any(g < 1 for g in grid):
+            raise ValueError(
+                f"--grid must give one positive factor per mode "
+                f"({tt.nmodes} modes), got {args.grid!r}")
     partition = (read_permutation(args.partition) if args.partition
                  else None)
-    mesh = make_mesh(n_devices=args.ndev, device=args.device)
+    ndev = args.ndev
+    if grid is not None and ndev is None:
+        ndev = int(np.prod(grid))
+    mesh = make_mesh(n_devices=ndev, device=args.device)
     print(f"DISTRIBUTED decomp={opts.decomposition.value} "
           f"devices={mesh.ndev}"
+          + (f" grid={args.grid}" if args.grid else "")
           + (" (virtual ranks)" if mesh.virtual else ""))
     # --json ring runs always carry the achieved-overlap metric
-    return distributed_cpd_als(tt, rank=args.rank, opts=opts,
+    return distributed_cpd_als(tt, rank=args.rank, opts=opts, grid=grid,
                                partition=partition,
                                row_distribute=args.rowdist, mesh=mesh,
+                               local_engine=args.local_engine,
                                measure_overlap=True if args.json else None)
 
 
@@ -153,7 +179,10 @@ def build_parser() -> argparse.ArgumentParser:
     c.add_argument("-o", "--outdir", default=".")
     c.add_argument("--decomp", choices=["medium", "coarse", "fine"],
                    help="run distributed over a mesh with this "
-                        "decomposition (only fine is ported)")
+                        "decomposition")
+    c.add_argument("--grid", metavar="IxJxK",
+                   help="rank grid for the medium decomposition (implies "
+                        "--decomp medium; default: sized from the ranks)")
     c.add_argument("-p", "--partition", metavar="FILE",
                    help="per-nonzero partition file (fine decomposition)")
     c.add_argument("--comm", choices=["all2all", "point2point",
@@ -170,6 +199,12 @@ def build_parser() -> argparse.ArgumentParser:
                    help="ranks of the distributed mesh (default: every "
                         "card; 8 virtual ranks with --device cpu); ranks "
                         "share cards round-robin when there are fewer")
+    c.add_argument("--local-engine", choices=["blocked", "stream"],
+                   dest="local_engine",
+                   help="per-rank MTTKRP engine of a distributed run "
+                        "(default: blocked, each rank's sorted layouts "
+                        "through the single-card engine chain; the fine "
+                        "ring patterns take stream)")
     c.set_defaults(func=cmd_cpd)
     return p
 

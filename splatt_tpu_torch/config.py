@@ -1,7 +1,7 @@
 """Run-time options and the dtype and device policy of the PyTorch port.
 
 Counterpart of ``splatt_tpu/config.py``, cut to the fields the single-device
-CPD-ALS path and the FINE distributed path read.  The defaults are the
+CPD-ALS path and the distributed paths read.  The defaults are the
 same (≙ splatt_default_opts, SPLATT's opts.c).  No field is read from the
 environment; a field left None (``engine_fallback``, ``idx_width``,
 ``val_storage``, ``dense``, ``dense_threshold``, ``comm_pattern``) defers
@@ -44,8 +44,7 @@ class ModeOrder(enum.Enum):
 
 
 class Decomposition(enum.Enum):
-    """Distributed decomposition (≙ types_config.h:179-190).  The port
-    runs FINE; MEDIUM and COARSE are queued (ROADMAP.md slice 5 item 5)."""
+    """Distributed decomposition (≙ types_config.h:179-190)."""
 
     COARSE = "coarse"   # 1-D per mode
     MEDIUM = "medium"   # n-D cartesian grid (the default)

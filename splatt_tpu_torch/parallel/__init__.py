@@ -1,44 +1,61 @@
 """The distributed CPD (≙ splatt_tpu/parallel): one process over a mesh of
-devices (:mod:`splatt_tpu_torch.parallel.mesh`).  The FINE decomposition
-is ported (:mod:`~splatt_tpu_torch.parallel.sharded`); MEDIUM
-(``parallel/grid.py``) and COARSE (``parallel/coarse.py``) are queued
-(ROADMAP.md slice 5 item 5)."""
+devices (:mod:`splatt_tpu_torch.parallel.mesh`), in all three
+decompositions: MEDIUM (:mod:`~splatt_tpu_torch.parallel.grid`), COARSE
+(:mod:`~splatt_tpu_torch.parallel.coarse`) and FINE
+(:mod:`~splatt_tpu_torch.parallel.sharded`), each running the single-card
+blocked MTTKRP engine in every rank by default."""
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import numpy as np
 
 from splatt_tpu_torch.config import Decomposition, Options, default_opts
 from splatt_tpu_torch.kruskal import KruskalTensor
+from splatt_tpu_torch.parallel.coarse import coarse_cpd_als
+from splatt_tpu_torch.parallel.grid import GridDecomp, grid_cpd_als
 from splatt_tpu_torch.parallel.mesh import auto_grid, make_mesh
 from splatt_tpu_torch.parallel.sharded import (sharded_cpd_als,
                                                sharded_mttkrp)
 
-_QUEUED = ("is not ported yet: ROADMAP.md slice 5 item 5 (MEDIUM, "
-           "parallel/grid.py; COARSE, parallel/coarse.py); use "
-           "Decomposition.FINE")
-
 
 def distributed_cpd_als(tt, rank: int, opts: Optional[Options] = None,
-                        init=None, partition: Optional[np.ndarray] = None,
+                        init=None, grid: Optional[Tuple[int, ...]] = None,
+                        partition: Optional[np.ndarray] = None,
                         mesh=None, row_distribute: Optional[str] = None,
                         local_engine: Optional[str] = None,
                         measure_overlap: Optional[bool] = None,
                         device=None) -> KruskalTensor:
     """Distributed CPD-ALS, dispatching on ``opts.decomposition``
     (≙ SPLATT_OPTION_DECOMP, types_config.h:179-190), as the JAX
-    package's does: FINE (or any decomposition given a per-nonzero
-    `partition`, except COARSE) runs :func:`sharded_cpd_als`; MEDIUM
-    without a partition and COARSE raise NotImplementedError."""
+    package's does:
+
+    - MEDIUM (the default): the n-D grid on `grid` (default
+      :func:`auto_grid`), inputs local, outputs summed over the layer
+      (:func:`grid_cpd_als`);
+    - COARSE: per-mode owner-computes copies, gathered inputs, no output
+      reduce (:func:`coarse_cpd_als`);
+    - FINE, or any decomposition but COARSE given a per-nonzero
+      `partition`: gathered inputs and reduced outputs
+      (:func:`sharded_cpd_als`).
+
+    `local_engine` None lets each decomposition's CPD pick
+    (:func:`~splatt_tpu_torch.parallel.common.auto_local_engine`)."""
     opts = (opts or default_opts()).validate()
     if opts.decomposition is Decomposition.MEDIUM and partition is None:
         if row_distribute is not None:
             raise ValueError("row_distribute applies to the FINE and "
                              "COARSE decompositions (the medium grid's "
                              "layer fences already localize inputs)")
-        raise NotImplementedError(f"the MEDIUM decomposition {_QUEUED}")
+        return grid_cpd_als(tt, rank, grid=grid, mesh=mesh, opts=opts,
+                            init=init, local_engine=local_engine,
+                            device=device)
     if opts.decomposition is Decomposition.COARSE:
-        raise NotImplementedError(f"the COARSE decomposition {_QUEUED}")
+        if row_distribute not in (None, "balanced"):
+            raise ValueError("COARSE supports row_distribute='balanced' "
+                             "(nnz-weighted fences); 'greedy' is FINE-only")
+        return coarse_cpd_als(tt, rank, mesh=mesh, opts=opts, init=init,
+                              local_engine=local_engine,
+                              row_distribute=row_distribute, device=device)
     return sharded_cpd_als(tt, rank, mesh=mesh, opts=opts, init=init,
                            partition=partition,
                            row_distribute=row_distribute,
@@ -47,4 +64,5 @@ def distributed_cpd_als(tt, rank: int, opts: Optional[Options] = None,
 
 
 __all__ = ["auto_grid", "make_mesh", "sharded_cpd_als", "sharded_mttkrp",
+           "GridDecomp", "grid_cpd_als", "coarse_cpd_als",
            "distributed_cpd_als"]

@@ -1,18 +1,29 @@
 """Shared machinery of the distributed CPD (≙ splatt_tpu/parallel/common.py,
-cut to what the FINE decomposition runs).
+in-memory).
 
 - :func:`bucket_scatter`: place nonzero n in bucket owner[n], pad the
   buckets to the largest (≙ the rearrange-to-owners steps of
   src/mpi/mpi_io.c).
+- The blocked per-rank engine's host half: :func:`blocked_buckets` sorts
+  and blocks each bucket for one mode, :func:`build_bucket_layout` is its
+  one dispatch point, :class:`RankLayouts` holds one layout per rank on
+  the rank's device, and :func:`blocked_local_mttkrp` runs the
+  single-card engine chain (``ops/mttkrp.py``'s ``mttkrp_blocked``, with
+  ``fused_mttkrp_t`` on a sorted mode) over one rank's layout
+  (≙ every MPI rank calling mttkrp_csf, src/mpi/mpi_cpd.c:714);
+  :func:`bucket_engine`, :func:`alloc_build_modes` and
+  :func:`auto_local_engine` are its policies.
 - :func:`balanced_relabel`, :func:`relabel_tensor`: row relabelings of
   ``--rowdist balanced``; :func:`record_shard_imbalance` and
   :func:`imbalance_report`: the ``layout_imbalance`` event.
 - :func:`comm_volume_model` / :func:`comm_volume_report`: the per-device
   wire model of each comm strategy.
 - :func:`mode_update_tail`, :func:`fit_tail`: the per-mode ALS tail and
-  the fit pieces.  The JAX package's ``psum``/``pmax`` over the mesh axis
-  become :func:`allreduce`: the ranks' tensors moved to rank 0's device,
-  combined in rank order, and copied back to each rank's device.
+  the fit pieces.  The JAX package's ``psum``/``pmax`` over mesh axes
+  become :func:`allreduce`: each group of ranks' tensors moved to its
+  first rank's device, combined in rank order, and copied back to each
+  rank's device (one group of every rank on a 1-D mesh; the ranks of a
+  :meth:`GridMesh.group` on the MEDIUM grid).
 - :func:`run_distributed_als`: the iterate/converge/post-process loop
   (≙ the outer loop of mpi_cpd_als_iterate + cpd_post_process), without
   the JAX package's checkpoints, guarded rollback and trace spans
@@ -24,12 +35,14 @@ device; a "replicated" value (a Gram, λ) is such a list of equal copies.
 
 from __future__ import annotations
 
+import dataclasses
 import time
 from typing import Callable, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from splatt_tpu_torch.blocked import alloc_build_modes
 from splatt_tpu_torch.config import Options, Verbosity, acc_dtype
 from splatt_tpu_torch.kruskal import KruskalTensor, post_process
 
@@ -45,6 +58,15 @@ def max_mean_ratio(a) -> float:
     a = np.asarray(a)
     mean = float(a.mean()) if a.size else 0.0
     return round(float(a.max()) / mean, 3) if mean > 0 else 1.0
+
+
+def stable_argsort(keys: np.ndarray) -> np.ndarray:
+    """``np.argsort(keys, kind="stable")``; nonnegative keys below 2^16
+    are sorted as uint16, which numpy's stable sort takes by radix sort:
+    the same permutation, several times faster on millions of keys."""
+    if keys.size and 0 <= int(keys.min()) and int(keys.max()) < 1 << 16:
+        keys = keys.astype(np.uint16)
+    return np.argsort(keys, kind="stable")
 
 
 def bucket_scatter(inds: np.ndarray, vals: np.ndarray, owner: np.ndarray,
@@ -73,7 +95,7 @@ def bucket_scatter(inds: np.ndarray, vals: np.ndarray, owner: np.ndarray,
         check_int32_dims([int(inds.max()) + 1])
     counts = np.bincount(owner, minlength=nbuckets)
     C = max(int(counts.max()), 1)
-    order = np.argsort(owner, kind="stable")
+    order = stable_argsort(owner)
     offsets = np.zeros(nbuckets + 1, dtype=np.int64)
     np.cumsum(counts, out=offsets[1:])
     slot = np.arange(nnz) - offsets[owner[order]]
@@ -87,12 +109,219 @@ def bucket_scatter(inds: np.ndarray, vals: np.ndarray, owner: np.ndarray,
             C, counts)
 
 
+def blocked_buckets(binds: np.ndarray, bvals: np.ndarray,
+                    counts: np.ndarray, mode: int, local_dim: int,
+                    block: int
+                    ) -> Tuple[np.ndarray, np.ndarray, np.ndarray, int, int]:
+    """Per-bucket sorted and blocked layout arrays for output `mode`, the
+    distributed analog of ``blocked.build_layout`` with one shape for
+    every bucket (≙ each MPI rank building its own CSF over its local
+    nonzeros).  The same arrays as the JAX package's.
+
+    binds: (nmodes, nbuckets, C) int32 with the mode-`mode` row in
+    [0, local_dim); bvals: (nbuckets, C); counts: each bucket's true
+    occupancy.  Each bucket's first ``counts[b]`` entries are stably
+    sorted by the mode's row; its tail is re-marked with the sentinel
+    `local_dim`, so it trails the sort (the single-card padding
+    contract).  The block is ``max(128, min(block, ceil_to(C, 128)))``;
+    ``row_start`` is each block's first row (the sentinel for an
+    all-padding block), and ``seg_width`` the widest block span, clamped
+    to `local_dim`, rounded up to 8.
+
+    Returns (inds (nmodes, nbuckets, nnz_pad), vals (nbuckets, nnz_pad),
+    row_start (nbuckets, nb) int32, block, seg_width).
+    """
+    nmodes, nbuckets, C = binds.shape
+    block = max(128, min(block, ceil_to(max(C, 1), 128)))
+    nnz_pad = max(block, ceil_to(C, block))
+    nb = nnz_pad // block
+    out_i = np.zeros((nmodes, nbuckets, nnz_pad), dtype=np.int32)
+    out_v = np.zeros((nbuckets, nnz_pad), dtype=bvals.dtype)
+    for b in range(nbuckets):
+        n = int(counts[b])
+        order = stable_argsort(binds[mode, b, :n])
+        out_i[:, b, :n] = binds[:, b, :n][:, order]
+        out_v[b, :n] = bvals[b, :n][order]
+        out_i[mode, b, n:] = local_dim
+    rows = out_i[mode].reshape(nbuckets, nb, block)
+    row_start = np.ascontiguousarray(rows[:, :, 0]).astype(np.int32)
+    if nbuckets > 0 and counts.size and int(counts.max()) > 0:
+        span = int((rows[:, :, -1] - rows[:, :, 0]).max()) + 1
+    else:
+        span = 1
+    # the sentinel tails inflate the last real block's span: clamp as
+    # build_layout does (the kernels drop ids past the width)
+    seg_width = ceil_to(min(span, local_dim if local_dim > 0 else 1), 8)
+    return out_i, out_v, row_start, block, seg_width
+
+
+def is_memmapped(arr) -> bool:
+    """Whether an array is (a view of) an np.memmap."""
+    while arr is not None:
+        if isinstance(arr, np.memmap):
+            return True
+        arr = getattr(arr, "base", None)
+    return False
+
+
 def auto_local_engine(tt, out_dir: Optional[str]) -> str:
-    """The per-rank MTTKRP engine when the caller names none.  The JAX
-    package picks its blocked engine for in-memory tensors; the port runs
-    the stream engine until the blocked one is ported (ROADMAP.md, queue
-    A, the item after slice 5's FINE path)."""
-    return "stream"
+    """The per-rank MTTKRP engine when the caller names none, the JAX
+    package's rule for all three decompositions: the blocked engine,
+    except for a memmapped tensor without a scratch directory, whose
+    sorted copies would be a second O(nnz) allocation in host memory.
+    (The FINE ring patterns are stream-only; their caller adds that.)"""
+    return ("stream" if is_memmapped(tt.inds) and out_dir is None
+            else "blocked")
+
+
+def build_bucket_layout(binds: np.ndarray, bvals: np.ndarray,
+                        counts: np.ndarray, mode: int, local_dim: int,
+                        block: int):
+    """:func:`blocked_buckets`, the one dispatch point of every
+    decomposition's per-rank layouts.  Memmapped buckets need the JAX
+    package's chunked counting sort, which is not ported: they raise."""
+    if is_memmapped(binds):
+        raise NotImplementedError(
+            "memmapped buckets need the out-of-core layout build "
+            "(streamed_blocked_buckets), not ported yet: ROADMAP.md queue "
+            "A item 3")
+    return blocked_buckets(binds, bvals, counts, mode, local_dim, block)
+
+
+def bucket_engine(seg_width: int, opts: Options) -> str:
+    """The path of a per-rank sorted layout's own mode: the port's one
+    rule on every device (``ops/mttkrp.py`` ``choose_path``), the sorted
+    per-block reduction whenever the block span fits ``onehot_cap``.  The
+    JAX package takes it only on a TPU (``sorted_scatter`` on the CPU),
+    with the same numbers."""
+    return ("sorted_onehot" if seg_width <= opts.onehot_cap
+            else "sorted_scatter")
+
+
+def place_buckets(binds: np.ndarray, bvals: np.ndarray, mesh, dtype
+                  ) -> Tuple[List[torch.Tensor], List[torch.Tensor]]:
+    """Bucket r of ``(nmodes, nbuckets, C)`` indices and ``(nbuckets, C)``
+    values on rank r's device, the values in `dtype`."""
+    inds, vals = [], []
+    for r, dev in enumerate(mesh.devices):
+        inds.append(torch.from_numpy(
+            np.ascontiguousarray(binds[:, r])).to(dev))
+        vals.append(torch.from_numpy(
+            np.ascontiguousarray(bvals[r])).to(dev, dtype))
+    return inds, vals
+
+
+@dataclasses.dataclass(frozen=True)
+class RankLayouts:
+    """One sorted and blocked layout per rank, each on its rank's device
+    (≙ a shard_mapped layout array, one bucket per device), and the
+    statics they share: `sort_mode` and its row count `sort_dim` (the
+    sentinel), the block, the seg width and the path that mode `mode`
+    of a sweep takes over them: the sorted `path` for the sort mode, and
+    ``scatter`` (the gather product into ``index_add_``, plain torch)
+    for a mode that shares another mode's layout."""
+
+    inds: Tuple[torch.Tensor, ...]
+    vals: Tuple[torch.Tensor, ...]
+    row_start: Tuple[torch.Tensor, ...]
+    counts: Tuple[int, ...]
+    block: int
+    seg_width: int
+    path: str
+    sort_mode: int
+    sort_dim: int
+
+    @staticmethod
+    def place(built, counts, path: str, sort_mode: int, sort_dim: int,
+              mesh, dtype) -> "RankLayouts":
+        """Copy :func:`build_bucket_layout`'s host arrays `built` to the
+        ranks' devices: bucket r to rank r, values in `dtype`."""
+        i, v, rs, block, seg_width = built
+        inds, vals = place_buckets(i, v, mesh, dtype)
+        starts = [torch.from_numpy(np.ascontiguousarray(rs[r])).to(dev)
+                  for r, dev in enumerate(mesh.devices)]
+        return RankLayouts(tuple(inds), tuple(vals), tuple(starts),
+                           tuple(int(c) for c in counts), int(block),
+                           int(seg_width), path, int(sort_mode),
+                           int(sort_dim))
+
+    def for_mode(self, m: int) -> "RankLayouts":
+        """The layouts as mode m's sweep step reads them: the arrays
+        shared by reference, the path ``scatter`` unless m is the sort
+        mode."""
+        if m == self.sort_mode:
+            return self
+        return dataclasses.replace(self, path="scatter")
+
+    def layout(self, r: int):
+        """Rank r's layout as a port ``ModeLayout``."""
+        return bucket_layout(self.inds[r], self.vals[r], self.row_start[r],
+                             self.sort_mode, self.sort_dim, self.block,
+                             self.seg_width, self.counts[r])
+
+    def mttkrp(self, r: int, factors: Sequence[torch.Tensor], mode: int,
+               fallback: Optional[bool] = None) -> torch.Tensor:
+        """Rank r's local MTTKRP of `mode` over its layout."""
+        return blocked_local_mttkrp(
+            self.inds[r], self.vals[r], self.row_start[r], factors, mode,
+            dim=self.sort_dim, block=self.block, seg_width=self.seg_width,
+            path=self.path, sort_mode=self.sort_mode, nnz=self.counts[r],
+            fallback=fallback)
+
+
+def rank_layouts_by_mode(built: dict, nmodes: int) -> List[RankLayouts]:
+    """Per mode, the layouts its sweep step reads (≙ CellLayouts.
+    device_put): the sort mode's own where the alloc policy built one
+    (`built` maps sort mode to :class:`RankLayouts`, in build order),
+    else the first built, shared by reference on the ``scatter`` path."""
+    first = next(iter(built.values()))
+    return [built.get(m, first).for_mode(m) for m in range(nmodes)]
+
+
+def blocked_local_mttkrp(inds_b, vals_b, row_start_b, factors, mode: int,
+                         dim: int, block: int, seg_width: int, path: str,
+                         sort_mode: Optional[int] = None, nnz: int = 0,
+                         fallback: Optional[bool] = None) -> torch.Tensor:
+    """Run the single-card blocked MTTKRP engine over one rank's bucket
+    (≙ each rank calling the optimized mttkrp_csf locally,
+    src/mpi/mpi_cpd.c:714): a port ``ModeLayout`` over the bucket's
+    arrays, on their device, through ``mttkrp_blocked``'s engine chain,
+    so on a card ``fused_mttkrp_t`` serves a sorted mode.
+
+    `sort_mode`/`dim` describe the layout (the mode its nonzeros are
+    sorted by, and that mode's local row count, the sentinel); `mode` is
+    the output mode.  When they differ `path` is ``scatter``.
+    ``factors[mode]`` only carries the output row count on the sorted
+    paths (its values are not read).  Returns ``(rows of factors[mode],
+    R)`` in the accumulator dtype."""
+    from splatt_tpu_torch.ops.mttkrp import mttkrp_blocked
+
+    lay = bucket_layout(inds_b, vals_b, row_start_b,
+                        mode if sort_mode is None else sort_mode, dim, block,
+                        seg_width, nnz)
+    return mttkrp_blocked(lay, list(factors), mode, path=path,
+                          fallback=fallback)
+
+
+def bucket_layout(inds_b, vals_b, row_start_b, sort_mode: int, dim: int,
+                  block: int, seg_width: int, nnz: int = 0):
+    """A port ``ModeLayout`` (v1) over one bucket's sorted arrays, on
+    their device: `nnz` real entries sorted by `sort_mode`, whose `dim`
+    rows are the sentinel of the padded tail."""
+    from splatt_tpu_torch.blocked import ModeLayout
+
+    return ModeLayout(inds=inds_b, vals=vals_b, row_start=row_start_b,
+                      mode=sort_mode, dim=dim, block=block,
+                      seg_width=seg_width, nnz=nnz)
+
+
+def engine_fallback(opts: Options) -> bool:
+    """Whether a failing per-rank MTTKRP engine is demoted for the next
+    in its chain: ``opts.engine_fallback``, else the env default."""
+    from splatt_tpu_torch import resilience
+
+    return (resilience.fallback_enabled() if opts.engine_fallback is None
+            else opts.engine_fallback)
 
 
 def balanced_relabel(hist: np.ndarray, nparts: int, cap: int) -> np.ndarray:
@@ -172,21 +401,36 @@ def imbalance_report(counts: np.ndarray, label: str = "device") -> str:
 
 
 def comm_volume_model(dims_pad: Sequence[int], rank: int, itemsize: int,
-                      *, ndev: int = None, acc_itemsize: int = 4,
+                      *, ndev: int = None, grid: Sequence[int] = None,
+                      acc_itemsize: int = 4,
                       variant: str = "all2all") -> dict:
-    """Per-iteration, per-rank wire model of the FINE sweep's exchanges
-    (≙ mpi_send_recv_stats), the same numbers as the JAX package's model:
-    "all2all" at the collectives' ring lower bounds; "ring" ndev hops per
-    gather leg of one (dim/ndev, R) block and the blockwise reduce;
-    "async_ring" ndev-1 hops per leg, the reduce point to point at
-    accumulator width, ``per_hop_mb`` (the largest hop) and
-    ``overlap_eligible_frac`` (the ring bytes a double buffer can hide:
-    all but the pipeline fill)."""
+    """Per-iteration, per-rank wire model of a distributed sweep's
+    exchanges (≙ mpi_send_recv_stats), the same numbers as the JAX
+    package's model.  With `grid` (MEDIUM): per mode the layer reduce of
+    one (block_rows, R) block over the other axes and the Gram/λ
+    allreduce over axis m, all as ``allreduce_mb``.  Otherwise the FINE
+    sweep's, by `variant`: "all2all" at the collectives' ring lower
+    bounds; "ring" ndev hops per gather leg of one (dim/ndev, R) block and
+    the blockwise reduce; "async_ring" ndev-1 hops per leg, the reduce
+    point to point at accumulator width, ``per_hop_mb`` (the largest hop)
+    and ``overlap_eligible_frac`` (the ring bytes a double buffer can
+    hide: all but the pipeline fill)."""
     nmodes = len(dims_pad)
     mb = 1.0 / (1 << 20)
-    out = dict(variant=variant, gather_mb=0.0, reduce_mb=0.0,
-               allreduce_mb=0.0, per_hop_mb=0.0, hops=0,
-               overlap_eligible_frac=0.0)
+    out = dict(variant=variant if grid is None else "grid",
+               gather_mb=0.0, reduce_mb=0.0, allreduce_mb=0.0,
+               per_hop_mb=0.0, hops=0, overlap_eligible_frac=0.0)
+    if grid is not None:
+        allred = 0.0
+        for m in range(nmodes):
+            layer = int(np.prod([g for k, g in enumerate(grid) if k != m]))
+            block = dims_pad[m] // max(grid[m], 1)
+            if layer > 1:
+                allred += (2.0 * (layer - 1) / layer * block * rank
+                           * acc_itemsize)
+            allred += 2.0 * rank * rank * acc_itemsize
+        out["allreduce_mb"] = round(allred * mb, 4)
+        return out
     w = max(int(ndev), 1)
     gather = reduce_b = allred = hop = 0.0
     for m in range(nmodes):
@@ -223,11 +467,16 @@ def comm_volume_model(dims_pad: Sequence[int], rank: int, itemsize: int,
 
 
 def comm_volume_report(dims_pad: Sequence[int], rank: int, itemsize: int,
-                       *, ndev: int = None, acc_itemsize: int = 4,
+                       *, ndev: int = None, grid: Sequence[int] = None,
+                       acc_itemsize: int = 4,
                        variant: str = "all2all") -> list:
     """The ``comm/iter/device`` lines over :func:`comm_volume_model`."""
     model = comm_volume_model(dims_pad, rank, itemsize, ndev=ndev,
-                              acc_itemsize=acc_itemsize, variant=variant)
+                              grid=grid, acc_itemsize=acc_itemsize,
+                              variant=variant)
+    if grid is not None:
+        return [f"  comm/iter/device: layer psum + gram allreduce "
+                f"{model['allreduce_mb']:.2f}MB"]
     if model["variant"] in ("ring", "async_ring"):
         tag = ("async ring" if model["variant"] == "async_ring"
                else "ppermute ring")
@@ -248,26 +497,40 @@ def comm_volume_report(dims_pad: Sequence[int], rank: int, itemsize: int,
 # -- cross-rank reductions ---------------------------------------------------
 
 
-def allreduce(tensors: Sequence[torch.Tensor], mesh, op: str = "sum"
+def allreduce(tensors: Sequence[torch.Tensor], mesh, op: str = "sum",
+              groups: Optional[Sequence[Sequence[int]]] = None
               ) -> List[torch.Tensor]:
-    """The ranks' tensors combined on rank 0's device in rank order
-    (``sum`` or ``max``), one copy per rank on its device (ranks that
-    share a device share the copy)."""
-    home = mesh.devices[0]
-    tot = tensors[0]
-    for t in tensors[1:]:
-        t = t.to(home)
-        tot = tot + t if op == "sum" else torch.maximum(tot, t)
-    copies = {}
-    return [copies.setdefault(dev, tot.to(dev)) for dev in mesh.devices]
+    """Each group's tensors combined on its first rank's device in rank
+    order (``sum`` or ``max``), one copy of the result per rank of the
+    group on its device (ranks that share a device share the copy).
+    `groups` splits the ranks into disjoint groups (default: one group
+    of every rank, a psum over a 1-D mesh's axis)."""
+    if groups is None:
+        groups = [range(mesh.ndev)]
+    out: List[Optional[torch.Tensor]] = [None] * mesh.ndev
+    for group in groups:
+        group = list(group)
+        home = mesh.devices[group[0]]
+        tot = tensors[group[0]]
+        for r in group[1:]:
+            t = tensors[r].to(home)
+            tot = tot + t if op == "sum" else torch.maximum(tot, t)
+        copies = {}
+        for r in group:
+            dev = mesh.devices[r]
+            out[r] = copies.setdefault(dev, tot.to(dev))
+    return out
 
 
 def mode_update_tail(M_l: Sequence[torch.Tensor], grams, m: int, reg: float,
-                     first: bool, mesh, store_dtype=None):
+                     first: bool, mesh, store_dtype=None, groups=None):
     """The per-mode ALS tail on every rank's block: the normal-equations
     solve, the normalization with λ reduced over the ranks
     (≙ mat_normalize, src/matrix.c:117-187) and the Gram reduced over the
-    ranks (≙ mat_aTa, src/matrix.c:445-452).
+    ranks (≙ mat_aTa, src/matrix.c:445-452).  `groups` are the rank
+    groups of those two reductions (:func:`allreduce`): on the MEDIUM
+    grid the ranks along axis m, so the replicas of a block on the other
+    axes are not counted again.
 
     `grams[k]` holds rank copies of mode k's Gram.  The left-hand side
     is the same on every rank, so it is factored once, on rank 0's
@@ -281,16 +544,17 @@ def mode_update_tail(M_l: Sequence[torch.Tensor], grams, m: int, reg: float,
     U = solve_normals_many(lhs, M_l)
     if first:
         lam = [torch.sqrt(s) for s in
-               allreduce([torch.sum(u * u, dim=0) for u in U], mesh)]
+               allreduce([torch.sum(u * u, dim=0) for u in U], mesh,
+                         groups=groups)]
     else:
         lam = [torch.clamp(x, min=1.0) for x in
                allreduce([torch.max(u, dim=0).values for u in U], mesh,
-                         op="max")]
+                         op="max", groups=groups)]
     U = [u / torch.where(lm > 0, lm, torch.ones_like(lm))
          for u, lm in zip(U, lam)]
     if store_dtype is not None:
         U = [u.to(store_dtype) for u in U]
-    grams_m = allreduce([gram(u) for u in U], mesh)
+    grams_m = allreduce([gram(u) for u in U], mesh, groups=groups)
     return U, grams_m, lam
 
 
@@ -322,16 +586,22 @@ def solve_normals_many(lhs: torch.Tensor, rhs: Sequence[torch.Tensor]
     return out
 
 
-def fit_tail(lam, grams, M_l, U_last, mesh):
+def fit_tail(lam, grams, M_l, U_last, mesh, ranks=None):
     """⟨Z,Z⟩ from λ and the Grams, and ⟨X,Z⟩ from the last mode's MTTKRP
-    blocks summed over the ranks (≙ p_calc_fit + the fit allreduce,
-    mpi_cpd.c:92-98); both on rank 0's device."""
+    blocks summed over `ranks` (default every rank; on the MEDIUM grid
+    one holder of each block of the last mode) (≙ p_calc_fit + the fit
+    allreduce, mpi_cpd.c:92-98); both on rank 0's device."""
     had = torch.outer(lam[0], lam[0])
     for g in grams:
         had = had * g[0]
     znormsq = torch.sum(had)
-    inner = allreduce([torch.sum(M * U.to(M.dtype) * lm[None, :])
-                       for M, U, lm in zip(M_l, U_last, lam)], mesh)[0]
+    ranks = list(range(mesh.ndev)) if ranks is None else list(ranks)
+    home = mesh.devices[0]
+    inner = None
+    for r in ranks:
+        part = torch.sum(M_l[r] * U_last[r].to(M_l[r].dtype)
+                         * lam[r][None, :]).to(home)
+        inner = part if inner is None else inner + part
     return znormsq, inner
 
 
@@ -350,11 +620,16 @@ def _gather_global(shards) -> torch.Tensor:
     return torch.cat([s.cpu() for s in shards])
 
 
-def _gather_original(factors, dims, row_select) -> List[torch.Tensor]:
+def _gather_original(factors, dims, row_select,
+                     shard_ranks=None) -> List[torch.Tensor]:
     """Bring the row-sharded factors to the host, restore the original
-    row order and strip the row padding."""
+    row order and strip the row padding.  `shard_ranks[m]`, when given,
+    lists the ranks whose blocks of mode m, in that order, make the
+    whole factor (default every rank)."""
     out = []
     for m, shards in enumerate(factors):
+        if shard_ranks is not None:
+            shards = [shards[r] for r in shard_ranks[m]]
         g = _gather_global(shards)
         sel = row_select[m] if row_select is not None else None
         out.append(g[:dims[m]] if sel is None
@@ -366,8 +641,8 @@ def run_distributed_als(step: Callable, factors, grams, rank: int,
                         opts: Options, xnormsq: float,
                         dims: Sequence[int], dtype, mesh,
                         row_select=None,
-                        after_fit: Optional[Callable] = None
-                        ) -> KruskalTensor:
+                        after_fit: Optional[Callable] = None,
+                        shard_ranks=None) -> KruskalTensor:
     """Host convergence loop and post-processing of a distributed sweep.
 
     ``step(factors, grams, first) -> (factors, grams, λ, ⟨Z,Z⟩, ⟨X,Z⟩)``
@@ -375,8 +650,9 @@ def run_distributed_als(step: Callable, factors, grams, rank: int,
     iteration's one host sync; the eigensolver's status word is read
     right after it, then `after_fit` runs (the ring kernels' error
     check).  The factors come back to the host, in the original row
-    order (`row_select[m]` maps an original row to its placement), and
-    are renormalized into λ (≙ cpd_post_process).
+    order (`row_select[m]` maps an original row to its placement; on the
+    MEDIUM grid `shard_ranks` names the ranks that hold one copy of each
+    block), and are renormalized into λ (≙ cpd_post_process).
     """
     from splatt_tpu_torch.config import fit_dtype
     from splatt_tpu_torch.ops.linalg import check_solver
@@ -402,5 +678,5 @@ def run_distributed_als(step: Callable, factors, grams, rank: int,
         fit_prev = fitval
         if converged:
             break
-    gathered = _gather_original(factors, dims, row_select)
+    gathered = _gather_original(factors, dims, row_select, shard_ranks)
     return post_process(gathered, lam[0].cpu(), fit_prev, fits, seconds)

@@ -13,6 +13,13 @@ Where there are fewer cards than ranks, ranks share cards round-robin
 launch.  With ``device="cpu"`` every rank is a virtual CPU rank, the
 counterpart of the JAX tests' 8 virtual CPU devices
 (``tests/conftest.py``).
+
+The MEDIUM decomposition runs on a :class:`GridMesh`, the counterpart of
+a JAX mesh with one axis ``m<k>`` per tensor mode: rank r sits at grid
+coordinates ``coords(r)`` (row-major over ``grid``), and
+:meth:`GridMesh.group` lists the ranks a collective over some axes
+combines (≙ the reference's per-mode layer communicators,
+src/mpi/mpi_setup.c:201-243).
 """
 
 from __future__ import annotations
@@ -82,6 +89,48 @@ class Mesh:
     def ranks_on(self, device: torch.device) -> List[int]:
         return [r for r, d in enumerate(self.devices) if d == device]
 
+    @property
+    def axis_names(self) -> Tuple[str, ...]:
+        return (self.axis,)
+
+
+@dataclasses.dataclass(frozen=True)
+class GridMesh(Mesh):
+    """An n-D mesh: ``devices[r]`` is the device of the rank at grid
+    coordinates ``coords(r)``, in row-major order over ``grid``."""
+
+    grid: Tuple[int, ...] = ()
+
+    @property
+    def axis_names(self) -> Tuple[str, ...]:
+        return tuple(f"m{m}" for m in range(len(self.grid)))
+
+    def coords(self, r: int) -> Tuple[int, ...]:
+        return tuple(int(c) for c in np.unravel_index(r, self.grid))
+
+    def group(self, r: int, axes: Sequence[int]) -> List[int]:
+        """The ranks that agree with rank r on every axis outside
+        `axes`, in rank order: the members of a collective over `axes`
+        (a psum over ``m<k>`` for k in `axes`) that rank r takes part
+        in."""
+        mine = self.coords(r)
+        keep = [k for k in range(len(self.grid)) if k not in axes]
+        return [q for q in range(self.ndev)
+                if all(self.coords(q)[k] == mine[k] for k in keep)]
+
+    def groups(self, axes: Sequence[int]) -> List[List[int]]:
+        """Every rank's :meth:`group` over `axes`, each group once, in
+        the order of its first rank."""
+        seen = dict.fromkeys(tuple(self.group(r, axes))
+                             for r in range(self.ndev))
+        return [list(g) for g in seen]
+
+    def line(self, m: int) -> List[int]:
+        """The ranks at coordinate 0 on every axis but m, ordered by
+        their coordinate on m: one holder of each of mode m's row
+        blocks."""
+        return self.group(0, (m,))
+
 
 def make_mesh(n_devices: Optional[int] = None,
               devices: Optional[Sequence] = None,
@@ -128,10 +177,33 @@ def make_mesh(n_devices: Optional[int] = None,
     return mesh
 
 
+def make_grid_mesh(grid: Sequence[int], devices: Optional[Sequence] = None,
+                   device=None) -> GridMesh:
+    """A :class:`GridMesh` of ``prod(grid)`` ranks (≙ GridDecomp.make_mesh):
+    `devices`, when given, must hold one device per rank (the JAX
+    package's check); otherwise the ranks take :func:`make_mesh`'s
+    devices, sharing cards round-robin where there are fewer."""
+    grid = tuple(int(g) for g in grid)
+    n = int(np.prod(grid))
+    if devices is not None and n > len(devices):
+        raise ValueError(f"grid {'x'.join(str(g) for g in grid)} needs {n} "
+                         f"devices, only {len(devices)} available")
+    flat = make_mesh(n_devices=n, devices=devices, device=device)
+    return GridMesh(flat.devices, "grid", grid)
+
+
 def single_axis_of(mesh: Optional[Mesh], default_axis: str
                    ) -> Tuple[Optional[Mesh], str]:
-    """Normalize a user mesh for the 1-D decompositions: a port mesh is
-    always 1-D, so this returns it with its axis name."""
+    """Normalize a user mesh for the 1-D decompositions: a 1-D mesh is
+    returned with its axis name; a multi-axis :class:`GridMesh` raises,
+    as the JAX package rejects a multi-axis mesh."""
     if mesh is None:
         return None, default_axis
+    if len(mesh.axis_names) != 1:
+        raise ValueError(
+            f"this decomposition needs a 1-D mesh; got axes "
+            f"{mesh.axis_names} — build one with make_mesh(), or use the "
+            f"MEDIUM grid decomposition for multi-axis meshes")
+    if isinstance(mesh, GridMesh):
+        mesh = Mesh(mesh.devices, mesh.axis_names[0])
     return mesh, mesh.axis

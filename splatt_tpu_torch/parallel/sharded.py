@@ -20,6 +20,12 @@ The two row exchanges follow ``Options.comm_pattern``:
 - ``local_stub``: a timing-only variant for :func:`measure_ring_overlap`,
   the same compute with no traffic; its math is wrong by design.
 
+The per-rank MTTKRP follows `local_engine`: ``blocked`` (the default
+under ``all2all``, as in the JAX package) runs the single-card engine
+chain over each rank's own sorted layouts (:func:`shard_blocked_layouts`),
+so on a card ``fused_mttkrp_t`` serves each sorted mode; ``stream`` (the
+ring patterns' only engine) forms the ``(nnz_l, R)`` product per rank.
+
 On a CPU mesh the ``ASYNC_RING`` chain is the JAX ladder ``async_ring ->
 ring -> all2all``: a failing strategy is probed, demoted under its
 ``:comm`` shape key and degraded (``comm_fallback`` events).  On a CUDA
@@ -38,10 +44,15 @@ from splatt_tpu_torch.config import (CommPattern, Options, Verbosity,
                                      acc_dtype, default_opts,
                                      resolve_comm_pattern, resolve_dtype)
 from splatt_tpu_torch.kruskal import KruskalTensor
-from splatt_tpu_torch.parallel.common import (allreduce, bucket_scatter,
-                                              ceil_to, comm_volume_report,
-                                              fit_tail, imbalance_report,
+from splatt_tpu_torch.parallel.common import (RankLayouts, allreduce,
+                                              alloc_build_modes,
+                                              bucket_engine, bucket_scatter,
+                                              build_bucket_layout, ceil_to,
+                                              comm_volume_report,
+                                              engine_fallback, fit_tail,
+                                              imbalance_report,
                                               mode_update_tail,
+                                              rank_layouts_by_mode,
                                               run_distributed_als)
 from splatt_tpu_torch.parallel.mesh import make_mesh, single_axis_of
 
@@ -86,20 +97,54 @@ def shard_nnz(tt, mesh, dtype=torch.float32,
     return out_i, out_v
 
 
+def shard_blocked_layouts(tt, mesh, opts: Options, dims_pad: Tuple[int, ...],
+                          dtype=torch.float32,
+                          partition: Optional[np.ndarray] = None
+                          ) -> List[RankLayouts]:
+    """Per-rank sorted and blocked layouts, so each rank runs the
+    single-card blocked MTTKRP engine over its own nonzeros (≙ each MPI
+    rank building CSF over its local nonzeros, mpi_cpd.c:714), built
+    once per run, each rank's arrays on its device.  The nonzeros are
+    bucketed as :func:`shard_nnz` places them (equal contiguous chunks, or
+    a `partition`).  The mode-m row space stays global (the owners'
+    reduce splits it), so a layout's sentinel is ``dims_pad[sort_mode]``.
+
+    ``opts.block_alloc`` sets the layouts built, as on one card
+    (:func:`alloc_build_modes`); a mode without its own shares the first
+    by reference on the ``scatter`` path.  Returns one
+    :class:`RankLayouts` per mode."""
+    ndev = mesh.ndev
+    fence = max(ndev, ceil_to(tt.nnz, ndev)) // ndev
+    owner = (np.arange(tt.nnz, dtype=np.int64) // fence
+             if partition is None else np.asarray(partition, dtype=np.int64))
+    binds, bvals, _, counts = bucket_scatter(tt.inds, tt.vals, owner, ndev,
+                                             tt.vals.dtype)
+    built = {}
+    for m in alloc_build_modes(dims_pad, opts):
+        host = build_bucket_layout(binds, bvals, counts, m, dims_pad[m],
+                                   opts.nnz_block)
+        built[m] = RankLayouts.place(host, counts,
+                                     bucket_engine(host[4], opts), m,
+                                     dims_pad[m], mesh, dtype)
+        del host
+    return rank_layouts_by_mode(built, tt.nmodes)
+
+
 def shard_factors(factors: Sequence, dims: Tuple[int, ...], mesh,
                   dtype=torch.float32,
-                  relabels: Optional[List[Optional[np.ndarray]]] = None
+                  relabels: Optional[List[Optional[np.ndarray]]] = None,
+                  dims_pad: Optional[Sequence[int]] = None
                   ) -> List[List[torch.Tensor]]:
     """Row-shard factors (numpy arrays or tensors in the original row
-    space), zero-padding the rows to the rank count.  Zero pad rows keep
-    the Grams, norms and solves exact.  `relabels[m]`, when given, places
-    row `old` at label ``relabels[m][old]``."""
+    space), zero-padding the rows to the rank count (or to `dims_pad`).
+    Zero pad rows keep the Grams, norms and solves exact.  `relabels[m]`,
+    when given, places row `old` at label ``relabels[m][old]``."""
     ndev = mesh.ndev
     out = []
     for m, (U, d) in enumerate(zip(factors, dims)):
         U = torch.as_tensor(np.asarray(U) if not torch.is_tensor(U) else U)
         U = U.detach().cpu()
-        d_pad = ceil_to(d, ndev)
+        d_pad = ceil_to(d, ndev) if dims_pad is None else int(dims_pad[m])
         U_pad = torch.zeros((d_pad, U.shape[1]), dtype=U.dtype)
         rl = relabels[m] if relabels is not None else None
         if rl is None:
@@ -190,33 +235,44 @@ def _exchanges(mesh, dims_pad, variant: str, plans=None):
             return out
     elif variant == "all2all":
         def gather_rows(U_l, idx, k):
-            # ≙ mpi_update_rows: every rank fetches each whole factor
-            full = {dev: torch.cat([u.to(dev) for u in U_l])
-                    for dev in mesh.cards}
+            full = gather_full(U_l, mesh)
             return [full[mesh.devices[d]].index_select(0, idx[d])
                     for d in range(ndev)]
 
         def reduce_rows(prod, idx, m):
-            # local partials over the global row space, then
-            # ≙ mpi_reduce_rows: each rank keeps the summed rows it owns
+            # local partials over the global row space, then the owners'
+            # sums
             dim = dims_pad[m]
-            block = dim // ndev
             parts = []
             for p, ids in zip(prod, idx):
                 acc = acc_dtype(p.dtype)
                 parts.append(torch.zeros((dim, int(p.shape[1])), dtype=acc,
                                          device=p.device)
                              .index_add_(0, ids, p.to(acc)))
-            out = []
-            for d, dev in enumerate(mesh.devices):
-                tot = parts[0][d * block:(d + 1) * block].to(dev)
-                for e in range(1, ndev):
-                    tot = tot + parts[e][d * block:(d + 1) * block].to(dev)
-                out.append(tot)
-            return out
+            return owner_sums(parts, mesh, dim // ndev)
     else:
         raise ValueError(f"unknown comm variant {variant!r}")
     return gather_rows, reduce_rows
+
+
+def gather_full(U_l: Sequence[torch.Tensor], mesh) -> dict:
+    """≙ mpi_update_rows under all2all: a row-sharded factor's shards
+    concatenated on every card of the mesh, keyed by card."""
+    return {dev: torch.cat([u.to(dev) for u in U_l]) for dev in mesh.cards}
+
+
+def owner_sums(parts: Sequence[torch.Tensor], mesh, block: int
+               ) -> List[torch.Tensor]:
+    """≙ mpi_reduce_rows under all2all: the ranks' partials over the whole
+    row space summed in rank order, each rank keeping its `block` of
+    rows, on its device."""
+    out = []
+    for d, dev in enumerate(mesh.devices):
+        tot = parts[0][d * block:(d + 1) * block].to(dev)
+        for e in range(1, len(parts)):
+            tot = tot + parts[e][d * block:(d + 1) * block].to(dev)
+        out.append(tot)
+    return out
 
 
 def sharded_mttkrp(inds: Sequence[torch.Tensor],
@@ -238,34 +294,70 @@ def sharded_mttkrp(inds: Sequence[torch.Tensor],
 
 def make_sharded_sweep(mesh, nmodes: int, reg: float,
                        dims_pad: Tuple[int, ...], variant: str = "all2all",
-                       plans=None):
+                       plans=None, cells: Optional[List[RankLayouts]] = None,
+                       fallback: Optional[bool] = None):
     """One ALS iteration over the mesh, as ``sweep(inds, vals, factors,
     grams, first) -> (factors, grams, λ, ⟨Z,Z⟩, ⟨X,Z⟩)``: per-rank
     lists in, new per-rank lists out (the inputs are not modified, so a
     probe's result can be thrown away).  `first` selects the 2-norm
     (iteration 0) over the max-norm (≙ src/cpd.c:343-347).  `plans`: the
-    ring plans of each mode's ids (:func:`_exchanges`)."""
+    ring plans of each mode's ids (:func:`_exchanges`).
+
+    `cells` (:func:`shard_blocked_layouts`; ``all2all`` only): per mode,
+    every rank gathers the other factors whole, runs the blocked engine
+    over its layout into a ``(dims_pad[m], R)`` partial (`fallback`
+    passed to the engine chain), and the owners' sums reduce the
+    partials; `inds` and `vals` are not read."""
+    if cells is not None and variant != "all2all":
+        raise ValueError("the blocked local engine requires the all2all "
+                         "variant (the ring reduce is blockwise)")
     gather_rows, reduce_rows = _exchanges(mesh, dims_pad, variant, plans)
+    ndev = mesh.ndev
+    carriers = {}
+
+    def blocked_mttkrp(full, factors, m):
+        # the output mode's table only carries its row count: one zero
+        # (dims_pad[m], R) tensor per card, kept for the run
+        U = factors[m][0]
+        key = (m, U.dtype, int(U.shape[1]))
+        if key not in carriers:
+            carriers[key] = {dev: torch.zeros((dims_pad[m], int(U.shape[1])),
+                                              dtype=U.dtype, device=dev)
+                             for dev in mesh.cards}
+        parts = []
+        for d, dev in enumerate(mesh.devices):
+            facs = [carriers[key][dev] if k == m else full[k][dev]
+                    for k in range(nmodes)]
+            parts.append(cells[m].mttkrp(d, facs, m, fallback))
+        return owner_sums(parts, mesh, dims_pad[m] // ndev)
 
     def sweep(inds, vals, factors, grams, first: bool):
         factors = [list(f) for f in factors]
         grams = [list(g) for g in grams]
         dtype = factors[0][0].dtype
         lam = M = None
+        if cells is not None:
+            # factor 0 is regathered after its update, before it is read
+            full = [None] + [gather_full(f, mesh) for f in factors[1:]]
         for m in range(nmodes):
-            prod = [v[:, None].to(dtype) for v in vals]
-            for k in range(nmodes):
-                if k != m:
-                    rows = gather_rows(factors[k], [i[k] for i in inds],
-                                       k)
-                    prod = [p * r for p, r in zip(prod, rows)]
-                    del rows
-            M = reduce_rows(prod, [i[m] for i in inds], m)
-            del prod
+            if cells is not None:
+                M = blocked_mttkrp(full, factors, m)
+            else:
+                prod = [v[:, None].to(dtype) for v in vals]
+                for k in range(nmodes):
+                    if k != m:
+                        rows = gather_rows(factors[k],
+                                           [i[k] for i in inds], k)
+                        prod = [p * r for p, r in zip(prod, rows)]
+                        del rows
+                M = reduce_rows(prod, [i[m] for i in inds], m)
+                del prod
             U, g, lam = mode_update_tail(M, grams, m, reg, first, mesh,
                                          store_dtype=dtype)
             factors[m] = U
             grams[m] = g
+            if cells is not None and m < nmodes - 1:
+                full[m] = gather_full(U, mesh)
         znormsq, inner = fit_tail(lam, grams, M, factors[nmodes - 1], mesh)
         return factors, grams, lam, znormsq, inner
 
@@ -310,7 +402,7 @@ def sync_mesh(mesh) -> None:
 
 
 def _select_comm_sweep(chain, mesh, nmodes, reg, dims_pad, inds, vals,
-                       factors, grams, dtype, opts, plans=None):
+                       factors, grams, dtype, opts, plans=None, cells=None):
     """The sweep on the best live comm strategy: each strategy but the
     last is probed with one discarded step; a probe failure demotes
     ``comm.<variant>`` under the comm shape key (per shape for RESOURCE
@@ -322,14 +414,14 @@ def _select_comm_sweep(chain, mesh, nmodes, reg, dims_pad, inds, vals,
 
     rank = int(factors[0][0].shape[1])
     ckey = _comm_shape_key(dims_pad, mesh.ndev, rank, dtype)
-    fallback = (opts.engine_fallback if opts.engine_fallback is not None
-                else resilience.fallback_enabled())
+    fallback = engine_fallback(opts)
     live = [v for v in chain
             if v == chain[-1]
             or not resilience.is_demoted(f"comm.{v}", ckey)]
     for i, variant in enumerate(live):
         sweep = make_sharded_sweep(mesh, nmodes, reg, dims_pad,
-                                   variant=variant, plans=plans)
+                                   variant=variant, plans=plans, cells=cells,
+                                   fallback=fallback)
 
         def step(f, g, first, sweep=sweep):
             return sweep(inds, vals, f, g, first)
@@ -480,8 +572,12 @@ def sharded_cpd_als(tt, rank: int, mesh=None,
     `row_distribute`: "greedy" relabels each mode's rows so a shard's
     touched rows fall in its own fence (≙ p_greedy_mat_distribution);
     "balanced" spreads hot rows over the fences by nnz.  `partition`
-    places nonzero n on rank ``partition[n]``.  `local_engine` "stream"
-    (the default) is the only per-rank engine ported; "blocked" raises.
+    places nonzero n on rank ``partition[n]``.  `local_engine`: "blocked"
+    (the default under ALL2ALL, :func:`auto_local_engine`) runs the
+    single-card engine chain over each rank's sorted layouts
+    (:func:`shard_blocked_layouts`, built once per run; the stream arrays
+    are then never copied to the ranks); "stream" (the ring patterns'
+    default and only engine) the gather product per rank.
 
     The result's factors and λ lie on the CPU.
     """
@@ -535,18 +631,21 @@ def sharded_cpd_als(tt, rank: int, mesh=None,
         raise ValueError(f"local_engine='blocked' is not supported with "
                          f"the {comm.value} (ring) comm pattern; use "
                          f"ALL2ALL or local_engine='stream'")
-    if local_engine == "blocked":
-        raise NotImplementedError(
-            "the blocked per-rank MTTKRP engine (shard_blocked_layouts, "
-            "blocked_local_mttkrp) is not ported yet: ROADMAP.md, queue A, "
-            "the item after slice 5's FINE path; use local_engine='stream'")
-    if local_engine != "stream":
+    if local_engine not in ("blocked", "stream"):
         raise ValueError(f"unknown local_engine {local_engine!r}")
     if "async_ring" in chain and mesh.is_cuda:
         from splatt_tpu_torch.parallel.ring_kernels import prepare
 
         prepare(mesh, dtype)
-    inds, vals = shard_nnz(tt, mesh, dtype=dtype, partition=partition)
+    cells = None
+    if local_engine == "blocked":
+        # the blocked sweep never reads the stream arrays: no O(nnz)
+        # copy of them goes to the ranks
+        cells = shard_blocked_layouts(tt, mesh, opts, dims_pad, dtype=dtype,
+                                      partition=partition)
+        inds = vals = None
+    else:
+        inds, vals = shard_nnz(tt, mesh, dtype=dtype, partition=partition)
     plans = None
     if "async_ring" in chain:
         # the ring kernels' id-sorted buckets of each mode's ids, shared
@@ -598,7 +697,7 @@ def sharded_cpd_als(tt, rank: int, mesh=None,
     variant, step = _select_comm_sweep(chain, mesh, nmodes,
                                        opts.regularization, dims_pad, inds,
                                        vals, factors, grams, dtype, opts,
-                                       plans)
+                                       plans, cells)
     if opts.verbosity >= Verbosity.HIGH:
         for line in comm_volume_report(
                 dims_pad, rank, torch.empty(0, dtype=dtype).element_size(),

@@ -914,3 +914,61 @@ def test_cuda_ring_reduce_walks_the_sorted_plans(dtype):
                 assert float((g - p).abs().max()) <= 1e-5 * scale, R
     with pytest.raises(ValueError, match="does not match"):
         ring_kernels.ring_reduce(prod, idx, mesh, block + 1, plans=plans)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("decomp", ["fine", "medium", "coarse"])
+def test_cuda_blocked_decomposition_cpd(decomp):
+    """A 2-rank blocked CPD of each decomposition on the card: fused_t
+    serves each sorted mode of each rank (launched exactly sorted modes x
+    ranks x iterations times, fallback off, no demotion), and the fits
+    follow the same run on the CPU in f64 within 1e-4.  Every nonzero
+    lies in the first half of mode 0's rows, so rank 1 holds an
+    all-padding bucket: FINE by its partition, MEDIUM on grid (2, 1, 1),
+    COARSE in mode 0."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from splatt_tpu_torch import resilience
+    from splatt_tpu_torch.config import (CommPattern, Options, Verbosity,
+                                         default_opts)
+    from splatt_tpu_torch.parallel import (coarse_cpd_als, grid_cpd_als,
+                                           sharded_cpd_als)
+    from splatt_tpu_torch.parallel.common import alloc_build_modes
+    from splatt_tpu_torch.parallel.mesh import make_mesh
+
+    rng = np.random.default_rng(17)
+    dims, rank, iters, nnz = (60, 47, 83), 8, 3, 4000
+    inds = np.stack([rng.integers(0, 30, size=nnz)]
+                    + [rng.integers(0, d, size=nnz) for d in dims[1:]])
+    X = SparseTensor(inds, rng.random(nnz) + 0.1, dims).deduplicate()
+    init = [rng.random((d, rank)) for d in dims]
+
+    def run(device, dtype, **kw):
+        opts = Options(max_iterations=iters, tolerance=0.0, val_dtype=dtype,
+                       comm_pattern=CommPattern.ALL2ALL,
+                       verbosity=Verbosity.NONE, **kw)
+        mesh = make_mesh(n_devices=2, device=device)
+        if decomp == "fine":
+            return sharded_cpd_als(X, rank, mesh=mesh, opts=opts, init=init,
+                                   partition=np.zeros(X.nnz, np.int64),
+                                   local_engine="blocked")
+        if decomp == "medium":
+            return grid_cpd_als(X, rank, grid=(2, 1, 1), opts=opts,
+                                init=init, local_engine="blocked",
+                                device=device)
+        return coarse_cpd_als(X, rank, mesh=mesh, opts=opts, init=init,
+                              local_engine="blocked")
+
+    resilience.reset_demotions()
+    kernels.reset_launches()
+    got = run("cuda", torch.float32, engine_fallback=False)
+    torch.cuda.synchronize()
+    sort_dims = {"fine": [-(-d // 2) * 2 for d in dims],
+                 "medium": [30, 47, 83], "coarse": dims}[decomp]
+    nsorted = (len(dims) if decomp == "coarse"
+               else len(alloc_build_modes(sort_dims, default_opts())))
+    assert kernels.fused_mttkrp_t.launches == nsorted * 2 * iters
+    assert resilience.demotions() == []
+    want = run("cpu", torch.float64)
+    assert max(abs(a - b) for a, b in zip(got.fits, want.fits)) <= 1e-4
+    resilience.run_report().clear()

@@ -369,12 +369,25 @@ def test_comm_fallback_summary_line_matches_jax():
 
 @pytest.mark.parametrize("decomp", [Decomposition.MEDIUM,
                                     Decomposition.COARSE])
-def test_medium_and_coarse_are_queued(decomp):
-    _, tt = _tensor()
-    with pytest.raises(NotImplementedError, match="ROADMAP.md slice 5"):
-        distributed_cpd_als(tt, 3, Options(decomposition=decomp,
-                                           max_iterations=1),
-                            mesh=make_mesh(n_devices=2, device="cpu"))
+def test_medium_and_coarse_dispatch_match_jax(decomp):
+    """distributed_cpd_als runs MEDIUM (on the auto grid of its mesh) and
+    COARSE, as the JAX package's dispatch does."""
+    from splatt_tpu.config import Decomposition as JDecomp
+    from splatt_tpu.parallel import distributed_cpd_als as jax_dispatch
+
+    jt, tt = _tensor()
+    init = _init(tt.dims)
+    got = distributed_cpd_als(
+        tt, RANK, Options(decomposition=decomp, max_iterations=ITERS,
+                          tolerance=0.0, val_dtype=torch.float64,
+                          verbosity=Verbosity.NONE),
+        init=init, mesh=make_mesh(n_devices=4, device="cpu"))
+    jopts = JOptions(decomposition=JDecomp(decomp.value),
+                     max_iterations=ITERS, tolerance=0.0,
+                     val_dtype=np.float64, verbosity=JVerbosity.NONE)
+    want = jax_dispatch(jt, RANK, jopts, init=[jnp.asarray(i) for i in init],
+                        mesh=jax_make_mesh(n_devices=4))
+    _assert_same(got, want, fit_tol=1e-8, tol=1e-6)
 
 
 def test_fine_dispatch_and_partition_imply_fine():
@@ -395,12 +408,26 @@ def test_fine_dispatch_and_partition_imply_fine():
                             row_distribute="greedy")
 
 
-@pytest.mark.parametrize("comm,exc", [("async_ring", ValueError),
-                                      ("all2all", NotImplementedError)])
+@pytest.mark.parametrize("comm,exc", [("async_ring", ValueError)])
 def test_blocked_local_engine_raises(comm, exc):
     _, tt = _tensor()
-    with pytest.raises(exc, match="ring|ROADMAP"):
+    with pytest.raises(exc, match="ring"):
         _port(tt, 2, comm, _init(tt.dims), local_engine="blocked")
+
+
+@pytest.mark.parametrize("partitioned", [False, True])
+def test_blocked_local_engine_all2all_matches_stream(partitioned):
+    """local_engine="blocked" runs under ALL2ALL (its default there) and
+    matches the stream engine and the JAX package's stream CPD."""
+    jt, tt = _tensor()
+    init = _init(tt.dims)
+    part = (np.random.default_rng(5).integers(0, 4, size=tt.nnz)
+            if partitioned else None)
+    blocked = _port(tt, 4, "all2all", init, partition=part,
+                    local_engine="blocked")
+    _assert_same(blocked, _port(tt, 4, "all2all", init, partition=part,
+                                local_engine="stream"))
+    _assert_same(blocked, _jax(jt, 4, "all2all", init, partition=part))
 
 
 def test_cli_async_ring_json(tensors_dir, tmp_path, capsys):
@@ -431,9 +458,10 @@ def test_cli_partition_and_decomp_errors(tensors_dir, tmp_path, capsys):
     with pytest.raises(ValueError, match="FINE"):
         cli_main(["cpd", str(tensors_dir / "med.tns"), "--decomp", "medium",
                   "-p", str(part), "--device", "cpu"])
-    with pytest.raises(NotImplementedError):
-        cli_main(["cpd", str(tensors_dir / "med.tns"), "--decomp", "medium",
-                  "--device", "cpu", "-o", str(tmp_path / "o")])
+    assert cli_main(["cpd", str(tensors_dir / "med.tns"), "-r", "3", "-i",
+                     "2", "--decomp", "medium", "--device", "cpu", "-o",
+                     str(tmp_path / "o")]) == 0
+    assert "DISTRIBUTED decomp=medium devices=8" in capsys.readouterr().out
 
 
 def test_coo_cpd_uploads_the_tensor_once(monkeypatch):

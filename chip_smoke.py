@@ -143,7 +143,53 @@ Phases, each fatal on failure:
    COO ``cpd_als`` from the same init at every iteration and λ within
    1e-4 of it (relative); FINE also on the stream engine (the blocked
    run within 1e-4 of it); last the ``engine.fused_t`` drill (MEDIUM
-   raises with fallback off, on 1M nonzeros of the same dims).
+   raises with fallback off, on 1M nonzeros of the same dims); MEDIUM on
+   the split grid once more over the tensor relabeled by the ``hgraph``
+   reorder (``grid_cpd_als(relabel="hgraph")``), held to the same fits, λ
+   and launches;
+13. the host build and the balanced layouts (``--balance`` runs the
+   set-up, phase 5's host layout build and this phase alone): the native
+   host sort (``csrc/host_sort.cpp``, which must build here) against
+   ``np.lexsort`` on mode 0's sort of phase 3's tensor, in turns, equal
+   permutations, beside phase 5's host layout build and an earlier
+   run's 59.3 s with ``np.lexsort``;
+   then bench.py's amazon-like tensor (48212 x 17742 x 18051, zipf
+   exponents 1.5 / 1.5 / 1.2, seed 0, deduplicated) at 2M and 20M draws,
+   each under fixed + identity, balanced + identity and balanced +
+   ``hgraph``, TWOMODE, rank 50: the layouts built by
+   ``BlockedSparse.compile`` with the host seconds of its reorder, sorts
+   and pack (``build_seconds``), each layout's seg width, fill and
+   ``layout_imbalance`` figures, the ``engine plan:``, and a 5-iteration
+   CPD from one init (what ``cpd --seed 7`` draws) with fallback off,
+   ``fused_mttkrp_t`` launched exactly as the plan says; each balanced
+   layout's ``fused_mttkrp_t`` launch within 1e-4 of max|plain|, timed
+   beside its bound; each configuration's MTTKRP of every mode on one set
+   of factors (moved in through its permutation, its output back out)
+   against the f64 MTTKRP of the original tensor (the stream path on the
+   card), within 1e-4 of max|reference| on a kernel path and within 1e-3
+   on the plain scatter paths; at 20M draws also each final model's fit,
+   taken in f64 against the original tensor (so its factors must be back
+   in the original row order), within 1e-6 of fixed + identity's, and
+   the ``hgraph`` run's factors on the live columns (λ at least 1e-4 of
+   the largest) within 1e-5 of the identity run's, relative.  Printed, not
+   held: the sweeps' f32 fits at every iteration (the f32 fit misreads
+   this well-fit tensor by ~1e-3, so another summation order moves it by
+   as much) and λ, and at 2M draws every CPD figure (that rank-50 CPD
+   keeps 3 live components in f32 and another summation order moves its
+   model; PERF.md); mode 0's plan at 2M draws beside its seg widths;
+   each sorted mode's ``fused_mttkrp_t`` launch on the three
+   configurations' layouts, in turns, where all three run it.  At
+   20M draws the tensor is also written with ``io.save`` and factored by
+   ``python -m splatt_tpu_torch.cli cpd X.bin ... --mmap`` under
+   ``SPLATT_FIBER_PACKING=balanced SPLATT_REORDER=hgraph`` in a
+   subprocess, with no fallback event, its model's f64 fit within 1e-6 of
+   the in-process run's (its sweep fit printed beside), and the balanced
+   layouts re-encoded under ``auto`` run ``fused_mttkrp_v2`` (each launch
+   against its plain version; the CPD's launches; its model's f64 fit
+   within 1e-6); at 2M draws the ``layout.pack`` and ``reorder.apply``
+   drills each leave their event, fixed or identity layouts and a
+   finished CPD with ``fused_mttkrp_t`` launched and nothing demoted.
+   Every check of the phase runs before it fails.
 
 The line before the last is the ``{"kernels": [...]}`` record (the nine
 TPU kernels' counterparts and ``sym_eig``); the last is
@@ -152,7 +198,9 @@ phases 1-3's set-up and phase 11 alone (for a call with several cards)
 and prints the two ring kernels' entries; ``--decomp`` runs the set-up
 and phase 12 alone and prints ``fused_mttkrp_t``'s entry from phase 12;
 ``--dense`` runs phases 1-2 and phase 10 alone and prints
-``fused_dense``'s.  ``--gather`` runs the
+``fused_dense``'s; ``--balance`` runs the set-up and phase 13 and prints
+``fused_mttkrp_t``'s and ``fused_mttkrp_v2``'s entries from it.  The line
+``[total]`` gives the script's seconds.  ``--gather`` runs the
 set-up, the 20M-nonzero layouts, phase 3, phase 6's ``fused_mttkrp_tg``
 and ``fused_mttkrp`` rows and its 2M-nonzero checks, phase 8 (with
 ``fused_mttkrp_tg`` timed in turns at the rank tiles of PROBE_TILES, each
@@ -242,6 +290,18 @@ BF16_FIT_GAP = 0.03    # bf16 against f32 (≙ tests/test_format.py:251-252)
 PARITY_TOL = 1e-4      # f32 on the card against f64 on the CPU
 KERNEL_TOL = 1e-4      # relative to max|plain|, f32 with atomics
 LAMBDA_TOL = 1e-4      # λ of a faulted CPD against the unfaulted, relative
+# phase 13's gates, each set from the largest reading of three passing
+# runs of the phase (H100 80GB HBM3, 700 W) with the headroom given:
+# a plain scatter/sorted_scatter MTTKRP (f32 atomics over whole slices)
+# against the f64 MTTKRP, relative: 3.02e-4 (3.3x)
+SCATTER_TOL = 1e-3
+# the final models' fits taken in f64 at 20M draws, against fixed +
+# identity's, the CLI's and the v2 run's against their twins': 5.14e-8
+# (19x)
+MODEL_FIT_TOL = 1e-6
+# the hgraph run's live factors (original order) against balanced +
+# identity's at 20M draws, relative: 9.1e-7 (11x)
+FACTOR_TOL = 1e-5
 # H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s and f32 FLOP/s outside
 # the tensor cores
 HBM_BYTES_PER_S = 3.35e12
@@ -2781,7 +2841,7 @@ def phase_decomp(tt, rank: int, seed: int = 12) -> dict:
     from splatt_tpu_torch import Options, cpd_als, resilience
     from splatt_tpu_torch.config import CommPattern, Decomposition
     from splatt_tpu_torch.ops import kernels
-    from splatt_tpu_torch.parallel import distributed_cpd_als
+    from splatt_tpu_torch.parallel import distributed_cpd_als, grid_cpd_als
     from splatt_tpu_torch.parallel.common import alloc_build_modes, ceil_to
     from splatt_tpu_torch.parallel.mesh import auto_grid, make_mesh
     from splatt_tpu_torch.parallel.sharded import sync_mesh
@@ -2827,17 +2887,17 @@ def phase_decomp(tt, rank: int, seed: int = 12) -> dict:
         return len(alloc_build_modes([ceil_to(d, nranks) for d in tt.dims],
                                      Options()))
 
-    def run(label, decomp, want_launches, **kw):
+    def run(label, decomp, want_launches, entry=distributed_cpd_als, **kw):
         resilience.reset_demotions()
         resilience.run_report().clear()
         sync_mesh(mesh)
         kernels.reset_launches()
         t0 = time.perf_counter()
-        out = distributed_cpd_als(
-            tt, rank, Options(max_iterations=iters, tolerance=0.0,
-                              random_seed=0, decomposition=decomp,
-                              comm_pattern=CommPattern.ALL2ALL,
-                              engine_fallback=False),
+        out = entry(
+            tt, rank, opts=Options(max_iterations=iters, tolerance=0.0,
+                                   random_seed=0, decomposition=decomp,
+                                   comm_pattern=CommPattern.ALL2ALL,
+                                   engine_fallback=False),
             init=init, mesh=mesh, **kw)
         sync_mesh(mesh)
         seconds = time.perf_counter() - t0
@@ -2896,6 +2956,12 @@ def phase_decomp(tt, rank: int, seed: int = 12) -> dict:
                                   grid=split)
     runs["coarse"], _ = run("coarse", Decomposition.COARSE,
                             nsorted("coarse") * nranks * iters)
+    # the same split grid over the tensor relabeled by reorder.py's
+    # hgraph strategy (equal fences), factors back in the original order
+    runs["medium_split_hgraph"], _ = run(
+        f"medium grid {split} relabel hgraph", Decomposition.MEDIUM,
+        nsorted("medium", split) * nranks * iters, entry=grid_cpd_als,
+        grid=split, relabel="hgraph")
 
     # the drill: with engine.fused_t armed and fallback off, MEDIUM
     # raises (on DRILL_NNZ nonzeros of the same dims: the host build of
@@ -2931,7 +2997,7 @@ def phase_decomp(tt, rank: int, seed: int = 12) -> dict:
             "checks": checks, "runs": runs, "drill": repr(err)[:160],
             "launches": {k: runs[k]["launches"]
                          for k in ("fine", "medium", "medium_split",
-                                   "coarse")},
+                                   "coarse", "medium_split_hgraph")},
             "seconds": seconds}
 
 
@@ -2950,6 +3016,664 @@ def _decomp_summary(decomp: dict) -> dict:
         sweep_host_ms={k: c["sweep_host_ms"]
                        for k, c in decomp["checks"].items()},
         phase_seconds=decomp["seconds"])
+
+
+# -- phase 13: the host build, balanced packing and reordering ---------------
+
+#: bench.py's amazon-like scenario (bench.py:110-123, :131-147, :177-179):
+#: a user x item x word review tensor at 1/100 scale, zipf exponents per
+#: mode; phase 13 draws it at both sizes and deduplicates
+AMAZON_DIMS = (48212, 17742, 18051)
+AMAZON_EXPONENTS = (1.5, 1.5, 1.2)
+AMAZON_DRAWS = (2_000_000, 20_000_000)
+#: phase 13's layout configurations: (packing, reorder)
+BALANCE_CONFIGS = (("fixed", "identity"), ("balanced", "identity"),
+                   ("balanced", "hgraph"))
+#: the seed of phase 13's one init, which the CLI run draws itself
+BALANCE_SEED = 7
+#: phase 5's host layout build in an earlier run of this script, whose
+#: layouts sorted with np.lexsort (H100 80GB HBM3 host, 700 W)
+LEXSORT_BUILD_S = 59.3
+
+
+def synthetic_zipf(dims, nnz: int, seed: int = 0,
+                   exponents=AMAZON_EXPONENTS):
+    """The port's copy of bench.py's synthetic_zipf (bench.py:131-147):
+    slice popularity per mode follows zipf(exponents[m]), the hot slices
+    scattered over the mode by a fixed permutation."""
+    from splatt_tpu_torch.coo import SparseTensor
+
+    rng = np.random.default_rng(seed)
+    inds = np.empty((len(dims), nnz), dtype=np.int64)
+    for m, d in enumerate(dims):
+        raw = (rng.zipf(float(exponents[m]), size=nnz) - 1) % d
+        inds[m] = rng.permutation(d)[raw]
+    return SparseTensor(inds, rng.random(nnz), dims)
+
+
+def sort_turns(tt) -> dict:
+    """Mode 0's layout sort of phase 3's tensor by the native host sort
+    and by np.lexsort, in turns (native, lexsort, native: one lexsort of
+    20M nonzeros takes ~18 s): the permutations must be equal.  The
+    native sort must build here."""
+    from splatt_tpu_torch import native
+    from splatt_tpu_torch.blocked import secondary_order
+
+    native.library()    # raises with the build's error: no silent lexsort
+    order = [0] + secondary_order(tt.dims, 0)
+    keys = tuple(tt.inds[m] for m in reversed(order))
+    runs = {"native": [], "lexsort": []}
+    perms = {}
+    for kind in ("native", "lexsort", "native"):
+        t0 = time.perf_counter()
+        perm = (native.sort_perm(tt.inds, tt.dims, order)
+                if kind == "native" else np.lexsort(keys))
+        runs[kind].append(time.perf_counter() - t0)
+        if perm is None:
+            raise AssertionError("the native sort declined phase 3's "
+                                 "tensor")
+        perms.setdefault(kind, perm)
+    if not np.array_equal(perms["native"], perms["lexsort"]):
+        raise AssertionError("the native sort's permutation is not "
+                             "np.lexsort's")
+    out = {k: dict(runs=v, mean_s=sum(v) / len(v)) for k, v in runs.items()}
+    log(f"[balance] sort of {tt.nnz} nonzeros by {order}, in turns: native "
+        f"{runs['native']} s, np.lexsort {runs['lexsort']} s; equal "
+        f"permutations")
+    return out
+
+
+def layout_stats(bs) -> list:
+    """Each sparse layout's shape beside its build's ``layout_imbalance``
+    event (the run report holds this build's events alone)."""
+    from splatt_tpu_torch import resilience
+
+    events = resilience.run_report().events("layout_imbalance")
+    rows = []
+    for lay in bs.layouts:
+        ev = [e for e in events if e["mode"] == lay.mode][-1]
+        rows.append(dict(
+            mode=lay.mode, packing=lay.packing, reorder=lay.reorder,
+            seg_width=lay.seg_width, nblocks=lay.nblocks,
+            fill=lay.nnz / lay.nnz_pad,
+            block_nnz_max_mean=ev["block_nnz_max_mean"],
+            span_max_mean=ev["span_max_mean"], work_amp=ev["work_amp"],
+            slice_max_mean=ev["slice_max_mean"]))
+    return rows
+
+
+def balance_launch(bs, factors, m: int, path: str, tag: str) -> dict:
+    """Mode m's fused_mttkrp_t launch, as the CPD makes it, against its
+    plain version, timed beside its bound; the partials' zeroing is in
+    the timed ms."""
+    from splatt_tpu_torch.ops.kernels import (fused_mttkrp_t,
+                                              fused_mttkrp_t_plain)
+
+    lay = bs.layout_for(m)
+    acc = path == "privatized"
+    width = -(-(bs.dims[m] + 1) // 8) * 8 if acc else lay.seg_width
+    got, row = compare(
+        lambda: fused_mttkrp_t(lay, factors, m, width, acc),
+        lambda: fused_mttkrp_t_plain(lay, factors, m, width, acc),
+        f"{tag} fused_mttkrp_t mode {m}")
+    row["bound_ms"], row["bound_by"] = bound(lay, factors, m, got)
+    row.update(tag=tag, mode=m, path=path, nnz=lay.nnz, nblocks=lay.nblocks,
+               seg_width=lay.seg_width, packing=lay.packing,
+               out_bytes=got.numel() * got.element_size(),
+               ms_per_mnnz=row["ms"] / (lay.nnz / 1e6))
+    log(f"[balance] {json.dumps(row)}")
+    return row
+
+
+def balance_config(tt, packing: str, how: str, init, rank: int,
+                   tag: str) -> dict:
+    """One configuration of phase 13: the layouts built as the CLI builds
+    them (BlockedSparse.compile), with the host seconds of its reorder,
+    sorts and pack as compile records them; the layouts' balance, the
+    plan, and a 5-iteration CPD from `init` with fallback off and the
+    launch counters at 0 just before; each fused_t launch of a balanced
+    layout held to its plain version."""
+    import torch
+
+    from splatt_tpu_torch import Options, cpd_als, resilience
+    from splatt_tpu_torch.blocked import BlockedSparse
+    from splatt_tpu_torch.ops import kernels
+    from splatt_tpu_torch.ops.mttkrp import describe_plan, plan_mttkrp
+
+    opts = Options(max_iterations=ITERS, tolerance=0.0,
+                   random_seed=BALANCE_SEED, engine_fallback=False,
+                   fiber_packing=packing, reorder=how)
+    resilience.reset_demotions()
+    resilience.run_report().clear()
+    t0 = time.perf_counter()
+    bs = BlockedSparse.compile(tt, opts)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    if (bs.perm is None) != (how == "identity") or bs.reorder != how:
+        raise AssertionError(f"{tag}: the reorder {how} degraded: "
+                             f"{resilience.run_report().events()}")
+    secs = bs.build_seconds
+    reorder_s, sort_s, pack_s = secs["reorder"], secs["sort"], secs["pack"]
+    layouts = layout_stats(bs)
+    tables = random_factors(bs, rank, 3)
+    plans = {m: plan_mttkrp(bs, tables, m) for m in range(bs.nmodes)}
+    want = sum(p.engine == "fused_t" for p in plans.values()) * ITERS
+    log(f"[balance] {tag}: compile {build_s:.2f} s: reorder "
+        f"{reorder_s:.2f} s, sorts {sort_s:.2f} s, pack (with the encode "
+        f"and the copy to the card) {pack_s:.2f} s; "
+        f"{describe_plan(bs, tables)}")
+    for row in layouts:
+        log(f"[balance] {tag} layout {json.dumps(row)}")
+    resilience.reset_demotions()
+    kernels.reset_launches()
+    out = cpd_als(bs, rank, opts, init=init)
+    torch.cuda.synchronize()
+    launches = kernels.fused_mttkrp_t.launches
+    demoted = [d.engine for d in resilience.demotions()]
+    steady = sum(out.iter_seconds[1:]) / (len(out.iter_seconds) - 1)
+    if demoted or launches != want:
+        raise AssertionError(f"{tag}: fused_mttkrp_t launched {launches} "
+                             f"times (the plan gives {want}); demoted "
+                             f"{demoted}")
+    rows = []
+    if packing == "balanced":
+        rows = [balance_launch(bs, tables, m, p.path, tag)
+                for m, p in plans.items() if p.engine == "fused_t"]
+    res = dict(tag=tag, packing=packing, reorder=how, nnz=tt.nnz,
+               reorder_s=reorder_s, sort_s=sort_s, build_s=build_s,
+               pack_s=pack_s, layouts=layouts,
+               plan={m: f"{p.path}/{p.engine}" for m, p in plans.items()},
+               launches=launches, fits=list(out.fits),
+               ms_per_iter=steady * 1e3,
+               iter_seconds=list(out.iter_seconds), rows=rows)
+    log(f"[balance] {tag}: fits {res['fits']}; fused_mttkrp_t launches "
+        f"{launches}; {steady * 1e3:.3f} ms/iteration (iterations "
+        f"2..{ITERS})")
+    res["true_fit"] = true_fit(tt, out.factors, out.lam)
+    log(f"[balance] {tag}: the final model's fit in f64 against the "
+        f"tensor {res['true_fit']:.9f} (the sweep's f32 fit "
+        f"{out.fits[-1]:.9f})")
+    res["factors"] = [U.cpu() for U in out.factors]
+    res["lam"] = out.lam.cpu()
+    res["bs"] = bs
+    return res
+
+
+def live_factor_rel(got, got_lam, want, want_lam) -> tuple:
+    """(the live columns, max over modes of max|got - want| / max|want| on
+    them): a column is live where λ is at least 1e-4 of the largest in
+    both runs; a dead one (λ near 0) adds nothing to the model and is not
+    determined by it."""
+    live = ((want_lam >= 1e-4 * want_lam.max())
+            & (got_lam >= 1e-4 * got_lam.max()))
+    rel = max(float((g[:, live] - w[:, live]).abs().max()
+                    / w[:, live].abs().max()) for g, w in zip(got, want))
+    return int(live.sum()), rel
+
+
+def true_fit(tt, factors, lam, chunk: int = 1 << 20) -> float:
+    """The fit of the Kruskal model (`factors` in the tensor's labels,
+    `lam`) against `tt`, every sum in f64 on the card:
+    1 - ||X - Z|| / ||X|| with <X,Z> summed over the nonzeros."""
+    import torch
+
+    dev = factors[0].device
+    U = [f.to(torch.float64) for f in factors]
+    lam = lam.to(dev, torch.float64)
+    had = torch.outer(lam, lam)
+    for u in U:
+        had = had * (u.T @ u)
+    vals = torch.from_numpy(np.asarray(tt.vals, dtype=np.float64)).to(dev)
+    inner = torch.zeros((), dtype=torch.float64, device=dev)
+    for lo in range(0, tt.nnz, chunk):
+        hi = min(tt.nnz, lo + chunk)
+        prod = lam[None, :].expand(hi - lo, -1).clone()
+        for k, u in enumerate(U):
+            idx = torch.from_numpy(np.asarray(tt.inds[k][lo:hi])).to(dev)
+            prod *= u.index_select(0, idx.long())
+        inner += (prod.sum(dim=1) * vals[lo:hi]).sum()
+    x = float((vals * vals).sum())
+    res = max(x + float(had.sum()) - 2.0 * float(inner), 0.0)
+    return 1.0 - math.sqrt(res) / math.sqrt(x)
+
+
+def mttkrp_turns(tt, cfgs: dict, rank: int) -> dict:
+    """Each configuration's MTTKRP of every mode, through its own engine
+    chain, on one set of f32 factors in the original labels (moved in
+    through its permutation, its output back out), against the f64
+    MTTKRP of the original tensor (the stream path on the card): per
+    mode the largest difference relative to max|reference|, and the
+    tolerance it is held to: KERNEL_TOL on a kernel path, SCATTER_TOL on
+    the plain ``scatter``/``sorted_scatter`` path (f32 atomics over whole
+    slices)."""
+    import torch
+
+    from splatt_tpu_torch.ops.mttkrp import mttkrp, mttkrp_stream, plan_mttkrp
+
+    base = cfgs["fixed+identity"]["bs"]
+    F = random_factors(base, rank, 5)
+    inds = torch.from_numpy(np.asarray(tt.inds)).to(base.device)
+    vals = torch.from_numpy(np.asarray(tt.vals, dtype=np.float64)).to(
+        base.device)
+    F64 = [U.to(torch.float64) for U in F]
+    want = [mttkrp_stream(inds, vals, F64, m, tt.dims[m])
+            for m in range(tt.nmodes)]
+    del inds, vals
+    out = {}
+    for name, cfg in cfgs.items():
+        bs = cfg["bs"]
+        perm = bs.perm
+        Fi = (F if perm is None
+              else [perm.permute_factor(U, m) for m, U in enumerate(F)])
+        rels, tols = [], []
+        for m in range(bs.nmodes):
+            got = mttkrp(bs, Fi, m, fallback=False)
+            if perm is not None:
+                got = perm.apply_to_factor(got, m)
+            rels.append(float((got.to(torch.float64) - want[m]).abs().max()
+                              / want[m].abs().max()))
+            path = plan_mttkrp(bs, Fi, m).path
+            tols.append(KERNEL_TOL if path in ("sorted_onehot", "privatized")
+                        else SCATTER_TOL)
+        torch.cuda.synchronize()
+        out[name] = dict(rel=rels, tol=tols)
+    log(f"[balance] every mode's MTTKRP against the f64 MTTKRP of the "
+        f"tensor, relative: {json.dumps(out)}")
+    return out
+
+
+def packing_turns(cfgs: dict, rank: int) -> dict:
+    """Each sorted mode's fused_mttkrp_t launch (sorted contract) on the
+    three configurations' layouts, in turns, where all three run it: ms
+    per launch and per million nonzeros, beside the seg width and the
+    bytes of the (nb, seg_width, R) partials it writes."""
+    from splatt_tpu_torch.ops.kernels import fused_mttkrp_t
+
+    out = {}
+    nmodes = len(next(iter(cfgs.values()))["plan"])
+    for m in range(nmodes):
+        if any(c["plan"][m] != "sorted_onehot/fused_t"
+               for c in cfgs.values()):
+            continue
+        fns, shapes = {}, {}
+        for name, cfg in cfgs.items():
+            lay = cfg["bs"].layout_for(m)
+            tables = random_factors(cfg["bs"], rank, 3)
+            fns[name] = (lambda lay=lay, tables=tables: fused_mttkrp_t(
+                lay, tables, m, lay.seg_width, False))
+            shapes[name] = dict(seg_width=lay.seg_width, nblocks=lay.nblocks,
+                                nnz=lay.nnz, partials_mb=lay.nblocks
+                                * lay.seg_width * rank * 4 / 1e6)
+        turns = in_turns(fns, reps=20)
+        out[m] = {k: dict(v, ms_per_mnnz=v["ms"] / (shapes[k]["nnz"] / 1e6),
+                          **shapes[k]) for k, v in turns.items()}
+        log(f"[balance] mode {m} fused_mttkrp_t in turns: "
+            + "; ".join(f"{k} {v['ms']:.4f} ms (seg {v['seg_width']}, "
+                        f"{v['partials_mb']:.1f} MB of partials)"
+                        for k, v in out[m].items()))
+    return out
+
+
+def cli_bin_run(tt, rank: int) -> dict:
+    """The normal entry point: the tensor written with io.save as .bin and
+    factored by ``python -m splatt_tpu_torch.cli cpd --mmap`` under
+    SPLATT_FIBER_PACKING=balanced and SPLATT_REORDER=hgraph, in a
+    subprocess on the card; its factor files are read back for the
+    model's fit in f64."""
+    import os
+    import shutil
+    import tempfile
+
+    import torch
+
+    from splatt_tpu_torch.io import read_matrix, save
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_", dir=root)
+    try:
+        path = os.path.join(tmp, "amazon.bin")
+        t0 = time.perf_counter()
+        save(tt, path)
+        save_s = time.perf_counter() - t0
+        stem = os.path.join(tmp, "cli")
+        cmd = [sys.executable, "-m", "splatt_tpu_torch.cli", "cpd", path,
+               "-r", str(rank), "-i", str(ITERS), "--tol", "0", "--seed",
+               str(BALANCE_SEED), "-s", stem, "--mmap", "--json",
+               "--engine-fallback", "off"]
+        env = dict(os.environ, SPLATT_FIBER_PACKING="balanced",
+                   SPLATT_REORDER="hgraph")
+        t0 = time.perf_counter()
+        r = subprocess.run(cmd, capture_output=True, text=True, env=env,
+                           cwd=root, timeout=600)
+        seconds = time.perf_counter() - t0
+        model = None
+        if r.returncode == 0:
+            model = ([read_matrix(f"{stem}.mode{m + 1}.mat")
+                      for m in range(tt.nmodes)],
+                     read_matrix(f"{stem}.lambda.mat").ravel())
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    for line in r.stdout.splitlines():
+        log(f"[balance] cli | {line}")
+    if r.returncode != 0:
+        raise AssertionError(f"the cli run failed ({r.returncode}): "
+                             f"{r.stderr[-2000:]}")
+    rec = json.loads(r.stdout.strip().splitlines()[-1])
+    kinds = [e["kind"] for e in rec["events"]]
+    if rec["demotions"] or "reorder_fallback" in kinds \
+            or "packing_fallback" in kinds:
+        raise AssertionError(f"the cli run degraded: {rec}")
+    fit64 = true_fit(tt, [torch.from_numpy(U).cuda() for U in model[0]],
+                     torch.from_numpy(model[1]))
+    return dict(cmd=" ".join(cmd[1:]), fit=rec["fit"], true_fit=fit64,
+                seconds=seconds, save_s=save_s,
+                bin_mb=tt.nnz * (4 * tt.nmodes + 8) / 1e6,
+                imbalance=[e for e in rec["events"]
+                           if e["kind"] == "layout_imbalance"])
+
+
+def balance_v2(cfg: dict, tt, rank: int, init) -> dict:
+    """The balanced layouts of `cfg` re-encoded under ``auto`` (v2): each
+    fused_v2 launch against its plain version, and the CPD's launches and
+    fits against `cfg`'s."""
+    import dataclasses
+
+    import torch
+
+    from splatt_tpu_torch import Options, cpd_als, resilience
+    from splatt_tpu_torch.blocked import reencode_layout
+    from splatt_tpu_torch.config import LayoutFormat
+    from splatt_tpu_torch.ops import kernels
+    from splatt_tpu_torch.ops.kernels import (fused_mttkrp_v2,
+                                              fused_mttkrp_v2_plain)
+    from splatt_tpu_torch.ops.mttkrp import plan_mttkrp
+
+    bs = cfg["bs"]
+    v2 = dataclasses.replace(bs, layouts=[
+        reencode_layout(lay, LayoutFormat(idx="auto")) for lay in bs.layouts])
+    tables = random_factors(v2, rank, 3)
+    plans = {m: plan_mttkrp(v2, tables, m) for m in range(v2.nmodes)}
+    rows = []
+    for m, p in plans.items():
+        if p.engine != "fused_v2":
+            continue
+        lay = v2.layout_for(m)
+        acc = p.path == "privatized"
+        width = -(-(v2.dims[m] + 1) // 8) * 8 if acc else lay.seg_width
+        got, row = compare(
+            lambda: fused_mttkrp_v2(lay, tables, m, width, acc),
+            lambda: fused_mttkrp_v2_plain(lay, tables, m, width, acc),
+            f"balanced auto fused_mttkrp_v2 mode {m}")
+        row["bound_ms"], row["bound_by"] = v2_bound(lay, tables, m, got)
+        row.update(mode=m, path=p.path, format=lay.format_desc(),
+                   bytes=lay.storage_bytes())
+        log(f"[balance] {json.dumps(row)}")
+        rows.append(row)
+    opts = Options(max_iterations=ITERS, tolerance=0.0,
+                   random_seed=BALANCE_SEED, engine_fallback=False)
+    resilience.reset_demotions()
+    kernels.reset_launches()
+    out = cpd_als(v2, rank, opts, init=init)
+    torch.cuda.synchronize()
+    launches = kernels.fused_mttkrp_v2.launches
+    diff = max(abs(a - b) for a, b in zip(out.fits, cfg["fits"]))
+    want = len(rows) * ITERS
+    fit64 = true_fit(tt, out.factors, out.lam)
+    log(f"[balance] balanced auto (v2) CPD: fits {list(out.fits)}, max "
+        f"|fit difference| to {cfg['tag']} {diff:.3e}, the model's f64 fit "
+        f"{fit64:.9f} against {cfg['true_fit']:.9f}; fused_mttkrp_v2 "
+        f"launches {launches} (want {want})")
+    if launches != want or resilience.demotions():
+        raise AssertionError("the balanced v2 CPD left its launches or "
+                             "engines")
+    steady = sum(out.iter_seconds[1:]) / (len(out.iter_seconds) - 1)
+    return dict(rows=rows, launches=launches, fits=list(out.fits),
+                fit_diff=diff, true_fit=fit64,
+                true_fit_diff=abs(fit64 - cfg["true_fit"]),
+                ms_per_iter=steady * 1e3)
+
+
+def balance_drills(tt, rank: int, init) -> dict:
+    """The two degrades on the 2M-draw tensor: layout.pack armed on every
+    build gives packing_fallback and fixed layouts, reorder.apply armed
+    once gives reorder_fallback and identity order; each CPD finishes with
+    fused_t launched and no kernel demoted."""
+    import torch
+
+    from splatt_tpu_torch import Options, cpd_als, resilience
+    from splatt_tpu_torch.blocked import BlockedSparse
+    from splatt_tpu_torch.ops import kernels
+    from splatt_tpu_torch.utils import faults
+
+    out = {}
+    # layout.pack on balanced + identity (its fixed layouts are fixed +
+    # identity's), reorder.apply on balanced + hgraph
+    for site, times, event, how in (
+            ("layout.pack", faults.ALWAYS, "packing_fallback", "identity"),
+            ("reorder.apply", 1, "reorder_fallback", "hgraph")):
+        opts = Options(max_iterations=DRILL_ITERS, tolerance=0.0,
+                       random_seed=BALANCE_SEED, engine_fallback=False,
+                       fiber_packing="balanced", reorder=how)
+        resilience.reset_demotions()
+        resilience.run_report().clear()
+        faults.reset()
+        with faults.inject(site, "runtime", times=times):
+            bs = BlockedSparse.compile(tt, opts)
+        events = resilience.run_report().events(event)
+        kernels.reset_launches()
+        res = cpd_als(bs, rank, opts, init=init)
+        torch.cuda.synchronize()
+        row = dict(events=len(events),
+                   packings=[lay.packing for lay in bs.layouts],
+                   reorder=bs.reorder, fits=list(res.fits),
+                   launches=kernels.fused_mttkrp_t.launches,
+                   demoted=[d.engine for d in resilience.demotions()])
+        log(f"[balance] drill {site}: {json.dumps(row)}")
+        ok = (events and row["launches"] > 0 and not row["demoted"]
+              and math.isfinite(res.fit) and len(res.fits) == DRILL_ITERS)
+        if site == "layout.pack":
+            ok = ok and set(row["packings"]) == {"fixed"}
+        else:
+            ok = ok and bs.reorder == "identity" and bs.perm is None
+        if not ok:
+            raise AssertionError(f"the {site} drill: {row}")
+        out[site] = row
+    resilience.reset_demotions()
+    resilience.run_report().clear()
+    return out
+
+
+def phase_balance(nell2, nell2_build_s: float, rank: int) -> dict:
+    """Phase 13: the native sort on phase 3's tensor, then the amazon-like
+    tensor at 2M and 20M draws under fixed + identity, balanced +
+    identity and balanced + hgraph; the CLI's .bin --mmap run, the v2
+    layouts and the degrades (see the module docstring)."""
+    import torch
+
+    from splatt_tpu_torch.cpd import init_factors
+
+    t_phase = time.perf_counter()
+    failures = []
+
+    def gate(ok: bool, msg: str) -> None:
+        # every check of the phase runs; the phase fails at its end
+        if not ok:
+            log(f"[balance] CHECK FAILED: {msg}")
+            failures.append(msg)
+
+    sort = sort_turns(nell2)
+    log(f"[balance] phase 5's host layout build (3 layouts, ALLMODE): "
+        f"{nell2_build_s:.2f} s with the native sort; an earlier run "
+        f"{LEXSORT_BUILD_S} s with np.lexsort")
+    sizes = {}
+    for draws in AMAZON_DRAWS:
+        t0 = time.perf_counter()
+        tt = synthetic_zipf(AMAZON_DIMS, draws, seed=0).deduplicate()
+        gen_s = time.perf_counter() - t0
+        log(f"[balance] amazon-like {AMAZON_DIMS}, {draws} draws: {tt.nnz} "
+            f"nonzeros after dedup ({gen_s:.1f} s)")
+        # the one init: what `cpd --seed 7` draws, in the original labels
+        init = [U.numpy() for U in init_factors(
+            tt.dims, rank, torch.Generator().manual_seed(BALANCE_SEED))]
+        cfgs = {}
+        for packing, how in BALANCE_CONFIGS:
+            tag = f"{draws // 1_000_000}M {packing}+{how}"
+            cfgs[f"{packing}+{how}"] = balance_config(tt, packing, how, init,
+                                                      rank, tag)
+        base = cfgs["fixed+identity"]
+        turns = mttkrp_turns(tt, cfgs, rank)
+        timed = packing_turns(cfgs, rank)
+        for name, cfg in cfgs.items():
+            cfg["fit_diff"] = max(abs(a - b) for a, b in
+                                  zip(cfg["fits"], base["fits"]))
+            cfg["true_fit_diff"] = abs(cfg["true_fit"] - base["true_fit"])
+            cfg["lam_rel_diff"] = float((cfg["lam"] - base["lam"]).abs().max()
+                                        / base["lam"].abs().max())
+            cfg["mttkrp"] = turns[name]
+        ident = cfgs["balanced+identity"]
+        hg = cfgs["balanced+hgraph"]
+        live, rel = live_factor_rel(hg["factors"], hg["lam"],
+                                    ident["factors"], ident["lam"])
+        log(f"[balance] {draws} draws, against fixed + identity: the sweeps' "
+            f"f32 fits within "
+            + ", ".join(f"{k} {c['fit_diff']:.3e}" for k, c in cfgs.items())
+            + "; the final models' f64 fits within "
+            + ", ".join(f"{k} {c['true_fit_diff']:.3e}"
+                        for k, c in cfgs.items())
+            + "; λ within "
+            + ", ".join(f"{k} {c['lam_rel_diff']:.3e}"
+                        for k, c in cfgs.items())
+            + f" (relative); hgraph factors (original order) on the "
+            f"{live} live columns within {rel:.3e} of balanced + "
+            f"identity's, relative")
+        # held at both sizes: every mode's MTTKRP of each layout on one
+        # set of factors, moved in through the permutation and its output
+        # back out, against the f64 MTTKRP.  Held at 20M draws: the final
+        # models' fits taken in f64 against the original tensor (they
+        # need the factors back in the original row order) and the hgraph
+        # run's live factors.  Printed only: the sweeps' f32 fits, which
+        # misread the fit by ~1e-3 on this well-fit tensor (the f32
+        # <X,X> + <Z,Z> - 2<X,Z> cancels), so another summation order
+        # moves them by that much; and at 2M draws every CPD figure: that
+        # rank-50 CPD keeps 3 live components in f32 and another
+        # summation order moves its model (PERF.md)
+        for name, cfg in cfgs.items():
+            gate(all(r <= t for r, t in zip(cfg["mttkrp"]["rel"],
+                                            cfg["mttkrp"]["tol"])),
+                 f"{cfg['tag']}: the MTTKRP leaves the f64 one by "
+                 f"{cfg['mttkrp']}")
+            if draws == AMAZON_DRAWS[-1]:
+                gate(cfg["true_fit_diff"] <= MODEL_FIT_TOL,
+                     f"{cfg['tag']}: the final model's f64 fit leaves fixed "
+                     f"+ identity's by {cfg['true_fit_diff']:.3e}")
+        if draws == AMAZON_DRAWS[-1]:
+            gate(rel <= FACTOR_TOL,
+                 f"{draws} draws: the hgraph run's live factors leave the "
+                 f"identity run's by {rel:.3e}, relative")
+        mode0 = {k: c["plan"][0] for k, c in cfgs.items()}
+        widths = {k: c["layouts"][[r["mode"] for r in c["layouts"]].index(0)]
+                  ["seg_width"] for k, c in cfgs.items()}
+        expected = (mode0["fixed+identity"].startswith("sorted_scatter")
+                    and mode0["balanced+identity"].endswith("/fused_t"))
+        log(f"[balance] {draws} draws: mode 0 plans {mode0}, seg widths "
+            f"{widths}; " + ("as predicted" if expected or draws != 2_000_000
+                             else "NOT the predicted sorted_scatter -> "
+                                  "fused_t at 2M draws"))
+        size = dict(nnz=tt.nnz, gen_s=gen_s, hgraph_factor_rel=rel,
+                    packing_turns=timed,
+                    hgraph_live_columns=live,
+                    mttkrp_rel=turns,
+                    mode0_plans=mode0, mode0_seg_widths=widths,
+                    configs={k: {kk: vv for kk, vv in c.items()
+                                 if kk not in ("bs", "factors", "lam")}
+                             for k, c in cfgs.items()})
+        if draws == AMAZON_DRAWS[-1]:
+            size["cli"] = cli_bin_run(tt, rank)
+            size["cli"]["fit_diff"] = abs(size["cli"]["fit"]
+                                          - hg["fits"][-1])
+            size["cli"]["true_fit_diff"] = abs(size["cli"]["true_fit"]
+                                               - hg["true_fit"])
+            gate(size["cli"]["true_fit_diff"] <= MODEL_FIT_TOL,
+                 "the cli run's model leaves the in-process run's")
+            log(f"[balance] cli .bin --mmap run: fit {size['cli']['fit']} "
+                f"against {hg['fits'][-1]} ({size['cli']['fit_diff']:.3e}); "
+                f"its model's f64 fit {size['cli']['true_fit']:.9f} against "
+                f"{hg['true_fit']:.9f} "
+                f"({size['cli']['true_fit_diff']:.3e}); "
+                f"{size['cli']['seconds']:.1f} s with its start")
+
+            size["v2"] = balance_v2(ident, tt, rank, init)
+            gate(size["v2"]["true_fit_diff"] <= MODEL_FIT_TOL,
+                 "the balanced v2 CPD's model leaves balanced + identity's")
+
+        else:
+            size["drills"] = balance_drills(tt, rank, init)
+        for c in cfgs.values():
+            c.pop("bs", None)
+        sizes[f"{draws // 1_000_000}M"] = size
+        del cfgs, tt
+        torch.cuda.empty_cache()
+    seconds = time.perf_counter() - t_phase
+    log(f"[balance] phase 13 took {seconds:.1f} s")
+    if failures:
+        raise AssertionError(f"phase 13: {len(failures)} check(s) failed: "
+                             f"{failures}")
+    return dict(sort=sort, nell2_build_s=nell2_build_s,
+                lexsort_build_s=LEXSORT_BUILD_S, sizes=sizes,
+                seconds=seconds)
+
+
+def _balance_t_row(bal: dict) -> dict:
+    """Row 1 of the kernels line from phase 13 alone (``--balance``): the
+    20M-draw balanced configurations' launches against the plain
+    version, the CPDs' launches of all three configurations."""
+    return _record_row(
+        "fused_mttkrp_t", FUSED_SRC, f"{PK}:355",
+        sum(c["launches"] for c in bal["sizes"]["20M"]["configs"].values()),
+        _balance_rows(bal), None,
+        note=f"ms/plain_ms/bound_ms: mean per launch over phase 13's "
+        f"balanced layouts of the amazon-like tensor (20M draws), rank "
+        f"{RANK}, f32; launches: phase 13's three 20M-draw CPDs",
+        status=WALK_STATUS, phase13=_balance_summary(bal))
+
+
+def _balance_v2_row(bal: dict) -> dict:
+    """Row 6 of the kernels line from phase 13 alone: the balanced auto
+    layouts' fused_v2 launches against the plain version."""
+    v2 = bal["sizes"]["20M"]["v2"]
+    return _record_row(
+        "fused_mttkrp_v2", "splatt_tpu_torch/csrc/fused_mttkrp_v2.cu",
+        f"{PK}:702", v2["launches"], v2["rows"], None,
+        note=f"ms/plain_ms/bound_ms: mean per launch over phase 13's "
+        f"balanced auto (v2) layouts of the amazon-like tensor (20M "
+        f"draws), rank {RANK}; launches: their CPD", phase13=v2)
+
+
+def _balance_rows(bal: dict) -> list:
+    """Phase 13's balanced fused_t rows (the 20M-draw tensor's)."""
+    return [r for c in bal["sizes"]["20M"]["configs"].values()
+            for r in c["rows"]]
+
+
+def _balance_summary(bal: dict) -> dict:
+    """Phase 13 in row 1 of the kernels line: per size and configuration
+    the launches, ms per iteration, host seconds and mode 0's plan."""
+    return dict(
+        sort=bal["sort"], nell2_build_s=bal["nell2_build_s"],
+        sizes={k: dict(nnz=s["nnz"], mode0_plans=s["mode0_plans"],
+                       packing_turns=s["packing_turns"],
+                       mode0_seg_widths=s["mode0_seg_widths"],
+                       configs={n: dict(launches=c["launches"],
+                                        ms_per_iter=c["ms_per_iter"],
+                                        reorder_s=c["reorder_s"],
+                                        sort_s=c["sort_s"],
+                                        pack_s=c["pack_s"],
+                                        fit_diff=c["fit_diff"],
+                                        true_fit_diff=c["true_fit_diff"],
+                                        lam_rel_diff=c["lam_rel_diff"])
+                                for n, c in s["configs"].items()})
+               for k, s in bal["sizes"].items()},
+        phase_seconds=bal["seconds"])
 
 
 FUSED_SRC = "splatt_tpu_torch/csrc/fused_mttkrp.cu"
@@ -3054,7 +3778,7 @@ def _rowmajor_row(launches: int, where: str, new_rows: dict, bf16: dict,
         walk_checks=walk, **_requested(main))
 
 
-def _v2_row(fmt: dict, bf16: dict) -> dict:
+def _v2_row(fmt: dict, bf16: dict, **extra) -> dict:
     """Row 6 of the kernels line: phase 9's auto rows, sorted contract."""
     return _record_row(
         "fused_mttkrp_v2", "splatt_tpu_torch/csrc/fused_mttkrp_v2.cu",
@@ -3068,7 +3792,8 @@ def _v2_row(fmt: dict, bf16: dict) -> dict:
         max_rel_err_all=max(r["max_rel_err"] for r in fmt["v2_rows"]),
         contracts=fmt["v2_rows"], turns=fmt["turns"],
         storage_bytes=fmt["storage_bytes"], cpd=fmt["cpd"],
-        planted_bf16=fmt["planted_bf16"], bf16=bf16["fused_mttkrp_v2"])
+        planted_bf16=fmt["planted_bf16"], bf16=bf16["fused_mttkrp_v2"],
+        **extra)
 
 
 def _record_row(name: str, source: str, replaces: str, launches: int,
@@ -3196,10 +3921,18 @@ def main() -> int:
     from splatt_tpu_torch.ops import kernels
 
     dev = phase_device()
+    t_script = time.perf_counter()
     gather = "--gather" in sys.argv[1:]
     ranks = "--ranks" in sys.argv[1:]
     reduce = "--reduce" in sys.argv[1:]
-    phase_build(verbose=not (ranks or reduce))
+    balance = "--balance" in sys.argv[1:]
+    phase_build(verbose=not (ranks or reduce or balance))
+    from splatt_tpu_torch import native
+
+    # phase 13 fails without it; every earlier host build would sort with
+    # np.lexsort
+    log(f"[build] native host sort ({native.lib_path().name}): "
+        + ("built" if native.available() else "NOT AVAILABLE"))
     if "--dense" in sys.argv[1:]:
         dense = phase_dense(RANK)
         print(json.dumps({"kernels": [_dense_row(
@@ -3242,12 +3975,23 @@ def main() -> int:
     t0 = time.perf_counter()
     bs = BlockedSparse.from_coo(tt, Options(block_alloc=BlockAlloc.ALLMODE))
     torch.cuda.synchronize()
+    layout_s = time.perf_counter() - t0
     log(f"[layout] host sort + block of {bs.nmodes} layouts and transfer: "
-        f"{time.perf_counter() - t0:.2f} s")
+        f"{layout_s:.2f} s")
     log(f"[layout] " + " ".join(
         f"mode{lay.mode}: nblocks={lay.nblocks} seg_width={lay.seg_width}"
         for lay in bs.layouts))
 
+    if balance:
+        del bs
+        bal = phase_balance(tt, layout_s, RANK)
+        print(json.dumps({"kernels": [
+            _balance_t_row(bal), _balance_v2_row(bal)],
+            "power": dev["smi"]}))
+        log(f"[total] {time.perf_counter() - t_script:.1f} s")
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": dev["kind"], "count": dev["count"]}}))
+        return 0
     if ranks:
         v1 = v1_fits(bs, RANK)
         if v1["launches"] != bs.nmodes * ITERS:
@@ -3324,6 +4068,7 @@ def main() -> int:
     bf16["fused_dense"] = _bf16_summary(dense["rows"]["bf16"])
     dist = phase_distributed(tt, RANK)
     decomp = phase_decomp(tt, RANK)
+    bal = phase_balance(tt, layout_s, RANK)
     del tt
 
     def launches(label, kernel):
@@ -3333,14 +4078,16 @@ def main() -> int:
         _t_row(main_path["launches"], "phase 5, the main path", rows, bf16,
                walk, fmt, wide, cpd_sec_per_iter=main_path["sec_per_iter"],
                sweep_phase_ms=main_path["phases"],
-               phase12=_decomp_summary(decomp)),
+               phase12=_decomp_summary(decomp),
+               phase13=_balance_summary(bal),
+               phase13_rows=_balance_rows(bal)),
         _tg_row(launches("fused_t faulted", "fused_mttkrp_tg"),
                 "phase 7, fused_t faulted", new_rows, bf16, big, big_rows),
         _rowmajor_row(launches(FUSED_CHAIN, "fused_mttkrp"),
                       "phase 7, SPLATT_EXPERIMENTAL_FUSED=1", new_rows, bf16,
                       walk),
         *_reduce_rows(chain, new_rows, bf16),
-        _v2_row(fmt, bf16),
+        _v2_row(fmt, bf16, phase13=bal["sizes"]["20M"]["v2"]),
         _dense_row(dense, bf16["fused_dense"]),
         _ring_row("ring_gather", "splatt_tpu/parallel/ring_kernels.py:152",
                   dist, "2 x nmodes x iterations per card"),
@@ -3349,6 +4096,7 @@ def main() -> int:
         _eig_row(main_path, big, dense),
     ], "chain": chain, "yardsticks": yard, "power": dev["smi"]}
     print(json.dumps(record))
+    log(f"[total] {time.perf_counter() - t_script:.1f} s")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": dev["kind"], "count": dev["count"]}}))
     return 0

@@ -1,13 +1,26 @@
-"""Blocked sparse layouts, ``fixed`` packing, v1 and the compact v2
-encodings (≙ src/csf.c).
+"""Blocked sparse layouts, ``fixed`` and ``balanced`` packing, v1 and the
+compact v2 encodings (≙ src/csf.c).
 
 Counterpart of ``splatt_tpu/blocked.py``.  A layout holds the nonzeros
-sorted by one output mode, cut into fixed blocks of ``block`` nonzeros and
-padded to a whole number of blocks with sentinel entries (id ``dim`` in the
-sorted mode, 0 elsewhere, value 0).  Each block records the first output row
-it touches (``row_start``); ``seg_width`` is the widest row span of any
-block, rounded up to 8.  Sorting, blocking and encoding run on the host in
-numpy; the finished arrays move to the device once.
+sorted by one output mode, cut into blocks of ``block`` slots.  Each block
+records the first output row it touches (``row_start``); ``seg_width`` is
+the widest row span of any block, rounded up to 8.  Sorting, blocking and
+encoding run on the host in numpy; the finished arrays move to the device
+once.  Two packings (docs/layout-balance.md):
+
+- ``fixed`` cuts the sorted stream every ``block`` nonzeros and pads the
+  last block with sentinel entries (id ``dim`` in the sorted mode, 0
+  elsewhere, value 0): the reals are the first ``nnz`` slots.
+- ``balanced`` (:func:`plan_balanced_blocks`) cuts at fiber boundaries
+  under a row-span cap and splits fibers hotter than a block, so the pads
+  sit mid-stream: block b's reals are its first ``block_nnz[b]`` slots,
+  and its pads repeat its last real row in the sorted mode (0 elsewhere,
+  value 0).  :meth:`ModeLayout.real_mask` is the one reader of that
+  contract.
+
+A reorder (``reorder.py``) may relabel the tensor before the build; the
+layout carries its name (``reorder``) and :meth:`BlockedSparse.compile`
+its :class:`~splatt_tpu_torch.reorder.Permutation`.
 
 Two encodings share :class:`ModeLayout` (docs/format.md):
 
@@ -33,6 +46,7 @@ and remaps those modes to them (the hybrid per-mode dispatch).
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple, Union
 
 import numpy as np
@@ -42,7 +56,8 @@ from splatt_tpu_torch.config import (BlockAlloc, LayoutFormat, ModeOrder,
                                      Options, Verbosity, default_opts,
                                      layout_format, resolve_dense,
                                      resolve_dense_threshold, resolve_device,
-                                     resolve_dtype, resolve_storage_dtype,
+                                     resolve_dtype, resolve_packing,
+                                     resolve_reorder, resolve_storage_dtype,
                                      torch_dtype)
 from splatt_tpu_torch.coo import SparseTensor
 
@@ -161,6 +176,12 @@ class ModeLayout:
     base: v2 per-mode (nblocks,) int32 block offsets; None for v1.
     mode, dim, block, seg_width, nnz: as in the JAX package.
     idx_width / val_storage: the requested format policy.
+    block_nnz: (nblocks,) int32 real nonzeros per block under the
+      balanced packing (each block's reals are its first block_nnz[b]
+      slots); None for the fixed packing (the reals are the first nnz).
+    packing: "fixed" or "balanced"; reorder: the relabeling the tensor
+      went through before the build ("identity" when none);
+      density_bucket: :func:`mode_density_bucket` of the mode.
     """
 
     inds: Union[torch.Tensor, Tuple[torch.Tensor, ...]]
@@ -174,6 +195,10 @@ class ModeLayout:
     base: Optional[Tuple[torch.Tensor, ...]] = None
     idx_width: str = "i32"
     val_storage: str = "auto"
+    block_nnz: Optional[torch.Tensor] = None
+    packing: str = "fixed"
+    reorder: str = "identity"
+    density_bucket: str = ""
 
     @property
     def nnz_pad(self) -> int:
@@ -230,10 +255,14 @@ class ModeLayout:
 
     def real_mask(self) -> np.ndarray:
         """(nblocks, block) bool host mask of real entries: the fixed
-        packing's reals are the first ``nnz`` positions."""
-        real = np.zeros(self.nblocks * self.block, dtype=bool)
-        real[:self.nnz] = True
-        return real.reshape(self.nblocks, self.block)
+        packing's reals are the first ``nnz`` positions, the balanced
+        packing's each block's first ``block_nnz[b]`` slots."""
+        if self.block_nnz is None:
+            real = np.zeros(self.nblocks * self.block, dtype=bool)
+            real[:self.nnz] = True
+            return real.reshape(self.nblocks, self.block)
+        return real_mask_from_counts(self.block,
+                                     self.block_nnz.cpu().numpy())
 
     def idx_widths(self) -> List[str]:
         """Per-mode stored index width ("u8"/"u16"/"i8"/"i16"/"i32")."""
@@ -265,14 +294,19 @@ class ModeLayout:
         else:
             idx = sum(nbytes(a) for a in self.inds)
             idx += sum(nbytes(b) for b in self.base)
+        if self.block_nnz is not None:
+            idx += nbytes(self.block_nnz)
         return idx + nbytes(self.vals) + nbytes(self.row_start)
 
     def __repr__(self) -> str:
+        extra = "" if self.packing == "fixed" else f", pack={self.packing}"
+        if self.reorder != "identity":
+            extra += f", reorder={self.reorder}"
         return (f"ModeLayout(mode={self.mode}, dim={self.dim}, "
                 f"block={self.block}, seg_width={self.seg_width}, "
                 f"nnz={self.nnz}, nnz_pad={self.nnz_pad}, "
                 f"nblocks={self.nblocks}, enc={self.encoding}"
-                f"[{self.format_desc()}])")
+                f"[{self.format_desc()}]{extra})")
 
     def to(self, device) -> "ModeLayout":
         if self.base is None:
@@ -281,9 +315,12 @@ class ModeLayout:
         else:
             inds = tuple(s.to(device) for s in self.inds)
             base = tuple(b.to(device) for b in self.base)
+        block_nnz = (None if self.block_nnz is None
+                     else self.block_nnz.to(device))
         return dataclasses.replace(self, inds=inds, base=base,
                                    vals=self.vals.to(device),
-                                   row_start=self.row_start.to(device))
+                                   row_start=self.row_start.to(device),
+                                   block_nnz=block_nnz)
 
 
 def secondary_order(dims, mode: int, policy: Optional[ModeOrder] = None,
@@ -318,6 +355,171 @@ def check_int32_dims(dims) -> None:
         raise ValueError(
             f"dims {tuple(dims)} exceed the int32 device index width "
             f"(max dim must be < {limit}); relabel/split the mode first")
+
+
+# -- balanced packing (≙ splatt_tpu/blocked.py:406-760, docs/layout-balance.md)
+
+
+def real_mask_from_counts(block: int, counts) -> np.ndarray:
+    """(nblocks, block) bool mask of real entries from per-block real
+    counts: the balanced packing's pad contract (each block's reals are
+    its first ``counts[b]`` slots), defined once for the encoder, the
+    build's stats and :meth:`ModeLayout.real_mask`."""
+    counts = np.asarray(counts, dtype=np.int64)
+    return np.arange(block, dtype=np.int64)[None, :] < counts[:, None]
+
+
+def nnz_skew_bucket(hist: np.ndarray) -> str:
+    """``k<n>``, n the bit length of the max/mean nonzeros per nonempty
+    slice: k0/k1 about uniform, k4 and above power-law."""
+    hist = np.asarray(hist, dtype=np.int64)
+    hist = hist[hist > 0]
+    if hist.size == 0:
+        return "k0"
+    ratio = float(hist.max()) / float(hist.mean())
+    return f"k{int(max(ratio, 1.0)).bit_length()}"
+
+
+#: the balanced packing's fill floor: a span cap whose blocks average
+#: less than this share of real slots is infeasible (it would cap the
+#: max/mean real nonzeros per block near 1.1 and the padding's bytes)
+MIN_FILL = 0.91
+
+
+def plan_balanced_blocks(rows: np.ndarray, block: int, dim: int,
+                         span_caps: Optional[Sequence] = None):
+    """The nnz-balanced cut of a sorted row stream into blocks of at most
+    `block` real nonzeros (≙ splatt_tpu.blocked.plan_balanced_blocks).
+
+    A block fills to `block` nonzeros (splitting the fiber it ends in,
+    which adds no rows to either block) unless a row-span cap W closes it
+    first at a fiber boundary.  Each candidate cap (powers of two below
+    the fixed span, and None, which is the fixed slicing) is simulated;
+    of those whose fill reaches :data:`MIN_FILL`, the one with the least
+    ``nblocks x (ceil8(span) + 8)`` wins, None first on a tie, and when
+    none does, the fullest.  Returns (starts, counts, span): each block's
+    start in the sorted stream, its real count, and the widest row span
+    of any block."""
+    nnz = int(rows.shape[0])
+    B = int(block)
+    if nnz == 0:
+        return (np.zeros(1, dtype=np.int64), np.zeros(1, dtype=np.int64), 1)
+    rows = np.asarray(rows, dtype=np.int64)
+    starts_f = np.flatnonzero(
+        np.concatenate([[True], rows[1:] != rows[:-1]]))
+    run_rows = rows[starts_f]
+    bounds = np.concatenate([starts_f, [nnz]])
+    nruns = int(run_rows.shape[0])
+
+    def simulate(W, materialize=False, max_blocks=None):
+        # max_blocks gives up on a cap the fill floor will reject anyway,
+        # so a tight cap over one-nonzero rows does not walk the tensor
+        pos = 0
+        nb = 0
+        max_span = 1
+        out_starts = [] if materialize else None
+        out_counts = [] if materialize else None
+        while pos < nnz:
+            row0 = int(rows[pos])
+            if W is None:
+                e_span = nnz
+            else:
+                # the first fiber whose row leaves [row0, row0 + W)
+                rj = int(np.searchsorted(run_rows, row0 + W, side="left"))
+                e_span = int(bounds[rj]) if rj < nruns else nnz
+            end = min(pos + B, e_span)
+            nb += 1
+            if max_blocks is not None and nb > max_blocks:
+                return None, None
+            max_span = max(max_span, int(rows[end - 1]) - row0 + 1)
+            if materialize:
+                out_starts.append(pos)
+                out_counts.append(end - pos)
+            pos = end
+        if materialize:
+            return (np.asarray(out_starts, dtype=np.int64),
+                    np.asarray(out_counts, dtype=np.int64), max_span)
+        return nb, max_span
+
+    if span_caps is None:
+        fixed_span = int(rows[-1]) - int(rows[0]) + 1
+        caps, W = [None], 8
+        while W < min(fixed_span, dim if dim > 0 else 1):
+            caps.insert(1, W)
+            W *= 2
+    else:
+        caps = list(span_caps)
+    feasible_nb = int(nnz / (MIN_FILL * B)) + 1
+    best_cap, best_cost, best_fill_cap, best_fill = None, None, None, -1.0
+    for W in caps:
+        nb, span = simulate(
+            W, max_blocks=None if W is None else feasible_nb)
+        if nb is None:
+            continue
+        fill = nnz / float(nb * B)
+        if fill > best_fill:
+            best_fill_cap, best_fill = W, fill
+        if fill < MIN_FILL:
+            continue
+        cost = nb * (ceil_to(min(span, dim if dim > 0 else 1), 8) + 8)
+        if best_cost is None or cost < best_cost:
+            best_cap, best_cost = W, cost
+    if best_cost is None:
+        best_cap = best_fill_cap
+    return simulate(best_cap, materialize=True)
+
+
+def _pack_balanced(sinds: np.ndarray, svals: np.ndarray, mode: int,
+                   block: int, dim: int):
+    """The balanced packing of a sorted nonzero stream: padded ``(nmodes,
+    nblocks * block)`` int32 global ids, the values (at `svals`' dtype),
+    row_start, the per-block real counts and the widest span.  A pad
+    repeats its block's last real row in the sorted mode (the stream stays
+    nondecreasing, and the row's partial gains a zero), points at row 0 in
+    the others, and holds value 0."""
+    nmodes, nnz = sinds.shape
+    starts, counts, span = plan_balanced_blocks(sinds[mode], block, dim)
+    offs = np.arange(block, dtype=np.int64)[None, :]
+    sel = starts[:, None] + offs
+    valid = offs < counts[:, None]
+    take = np.clip(np.where(valid, sel, 0), 0, max(nnz - 1, 0)).reshape(-1)
+    mask = valid.reshape(-1)
+    # fancy indexing along axis 1 may hand back a transposed buffer: the
+    # kernels read a row-major (nmodes, nnz_pad) array
+    inds = np.ascontiguousarray(sinds[:, take], dtype=np.int32)
+    last_row = sinds[mode][starts + counts - 1]
+    for k in range(nmodes):
+        pad = np.repeat(last_row, block) if k == mode else 0
+        inds[k] = np.where(mask, inds[k], pad)
+    vals = np.where(mask, svals[take], 0)
+    row_start = sinds[mode][starts].astype(np.int32)
+    return inds, vals, row_start, counts.astype(np.int32), span
+
+
+def _record_imbalance(mode: int, packing: str, block: int, seg_width: int,
+                      hist: np.ndarray, counts: np.ndarray,
+                      spans: np.ndarray, nnz: int, verbose: bool) -> None:
+    """One ``layout_imbalance`` event per layout build: max/mean real
+    nonzeros and row span per block, the input's slice skew and the
+    padded work per real nonzero (``nblocks x seg_width x block / nnz``)."""
+    from splatt_tpu_torch import resilience
+    from splatt_tpu_torch.utils.env import max_mean_ratio as max_mean
+
+    hist = hist[hist > 0]
+    counts = np.asarray(counts)
+    spans = np.asarray(spans)
+    work_amp = len(counts) * seg_width * block / max(nnz, 1)
+    resilience.run_report().add(
+        "layout_imbalance", mode=mode, packing=packing, block=block,
+        seg_width=seg_width, nblocks=len(counts),
+        slice_max_mean=max_mean(hist),
+        block_nnz_max_mean=max_mean(counts),
+        span_max_mean=max_mean(spans),
+        work_amp=round(work_amp, 2))
+    if verbose:
+        print(f"  layout mode{mode} [{packing}]: block nnz max/mean "
+              f"{max_mean(counts)}, span max/mean {max_mean(spans)}, "
+              f"seg_width {seg_width}, one-hot work x{work_amp:.1f}/nnz")
 
 
 # -- the v2 encoders (≙ splatt_tpu/blocked.py:559-699), numpy on the host ---
@@ -461,7 +663,9 @@ def build_layout(tt: SparseTensor, mode: int, block: int = 4096,
                  val_dtype=torch.float32, mode_order=None,
                  mode_order_custom=None, device=None,
                  fmt: Optional[LayoutFormat] = None,
-                 verbose: bool = False, dense: Optional[bool] = None
+                 verbose: bool = False, dense: Optional[bool] = None,
+                 packing: str = "fixed", reorder_label: str = "identity",
+                 seconds: Optional[Dict[str, float]] = None
                  ) -> Union[ModeLayout, "DenseModeLayout"]:
     """Sort, block and pad the tensor for output mode `mode`
     (≙ csf_alloc's sort + fiber build, src/csf.c:613-726).
@@ -471,6 +675,18 @@ def build_layout(tt: SparseTensor, mode: int, block: int = 4096,
     overflow) degrades to v1 with a ``format_fallback`` event.  A
     requested block cut to the tensor's size leaves a ``block_clamp``
     event.
+
+    `packing` picks the cut: "fixed" every `block` nonzeros, "balanced"
+    :func:`plan_balanced_blocks`'s fiber-aligned cut, whose pads sit
+    mid-stream (``block_nnz``).  A balanced pack that fails (an armed
+    ``layout.pack`` fault) degrades to the fixed cut with a
+    ``packing_fallback`` event; an empty tensor has nothing to balance
+    and is cut fixed.  `reorder_label` names the relabeling the caller
+    applied to `tt` (the layout carries it).  Every sparse build leaves
+    one ``layout_imbalance`` event (:func:`_record_imbalance`), and adds
+    its host seconds into `seconds`, when given: the sort under
+    ``"sort"``, the rest of the build (pack, encode, copy to the device)
+    under ``"pack"``.
 
     `dense` picks the dense tile layout: True forces it, False forbids
     it, None reads the SPLATT_DENSE policy and :func:`dense_mode_verdict`.
@@ -483,18 +699,26 @@ def build_layout(tt: SparseTensor, mode: int, block: int = 4096,
     nmodes, nnz = tt.nmodes, tt.nnz
     check_int32_dims(tt.dims)
     fmt = (fmt or LayoutFormat()).validate()
+    if packing not in ("fixed", "balanced"):
+        raise ValueError(f"unknown packing {packing!r}")
     dev = resolve_device(device)
     if dense is None:
         dense = _wants_dense(tt.dims, mode, nnz, Options())
     if dense:
         lay = _dense_or_degrade(mode, verbose, lambda: build_dense_layout(
-            tt, mode, val_dtype=val_dtype, device=dev, verbose=verbose))
+            tt, mode, val_dtype=val_dtype, device=dev, verbose=verbose,
+            reorder_label=reorder_label))
         if lay is not None:
             return lay
     order = [mode] + secondary_order(tt.dims, mode, mode_order,
                                      mode_order_custom)
+    t0 = time.perf_counter()
     perm = tt.sort_order(order)
+    t_sorted = time.perf_counter()
+    if seconds is not None:
+        seconds["sort"] = seconds.get("sort", 0.0) + t_sorted - t0
     dim = tt.dims[mode]
+    hist = tt.mode_histogram(mode)
 
     # the block never dwarfs a small tensor: clamp to the nnz count
     # padded to 128
@@ -508,36 +732,85 @@ def build_layout(tt: SparseTensor, mode: int, block: int = 4096,
         if verbose:
             print(f"  layout mode{mode} [{fmt.idx}/{fmt.val}]: requested "
                   f"nnz_block {requested} clamped to {block} (nnz={nnz})")
-    nnz_pad = max(block, ceil_to(nnz, block))
-    nblocks = nnz_pad // block
-    inds = np.zeros((nmodes, nnz_pad), dtype=np.int32)
-    inds[:, :nnz] = tt.inds[:, perm]
-    inds[mode, nnz:] = dim
-    vals = torch.zeros(nnz_pad, dtype=val_dtype)
-    vals[:nnz] = torch.from_numpy(np.ascontiguousarray(tt.vals[perm]))
-    rows = inds[mode].reshape(nblocks, block)
-    row_start = rows[:, 0].astype(np.int32)
-    span = int((rows[:, -1] - rows[:, 0]).max()) + 1 if nnz else 1
+
+    block_nnz = None
+    if packing == "balanced" and nnz > 0:
+        try:
+            faults.maybe_fail("layout.pack")
+            inds, svals, row_start, block_nnz, span = _pack_balanced(
+                tt.inds[:, perm].astype(np.int64), np.asarray(tt.vals)[perm],
+                mode, block, dim)
+            vals = torch.from_numpy(svals).to(val_dtype)
+        except Exception as e:
+            # a failed balanced pack degrades the build, classified, to
+            # the fixed cut
+            cls = resilience.classify_failure(e)
+            resilience.run_report().add(
+                "packing_fallback", mode=mode, failure_class=cls.value,
+                error=resilience.failure_message(e)[:200])
+            if verbose:
+                print(f"  layout mode{mode}: balanced packing failed "
+                      f"({cls.value}); falling back to fixed slicing")
+            block_nnz = None
+    if block_nnz is None:
+        packing = "fixed"
+        nnz_pad = max(block, ceil_to(nnz, block))
+        inds = np.zeros((nmodes, nnz_pad), dtype=np.int32)
+        inds[:, :nnz] = tt.inds[:, perm]
+        inds[mode, nnz:] = dim
+        vals = torch.zeros(nnz_pad, dtype=val_dtype)
+        vals[:nnz] = torch.from_numpy(np.ascontiguousarray(tt.vals[perm]))
+        rows = inds[mode].reshape(-1, block)
+        row_start = rows[:, 0].astype(np.int32)
+        span = int((rows[:, -1] - rows[:, 0]).max()) + 1 if nnz else 1
+    nblocks = int(row_start.shape[0])
     # sentinels in the last real block can inflate its span: clamp to the
     # widest span real rows can have
     seg_width = ceil_to(min(span, dim if dim > 0 else 1), 8)
+
+    rows_b = inds[mode].reshape(nblocks, block)
+    counts_b = (block_nnz if block_nnz is not None
+                else np.minimum(np.maximum(
+                    nnz - block * np.arange(nblocks), 0), block))
+    # spans over the real entries only: a fixed layout's sentinels carry
+    # row `dim`
+    realm = real_mask_from_counts(block, counts_b)
+    hi = np.where(realm, rows_b, -1).max(axis=1)
+    lo = np.where(realm, rows_b, dim).min(axis=1)
+    spans_b = np.where(counts_b > 0, hi - lo + 1, 1)
+    _record_imbalance(mode, packing, block, seg_width, hist, counts_b,
+                      np.minimum(spans_b, dim if dim > 0 else 1), nnz,
+                      verbose)
+
     statics = dict(vals=vals.to(dev),
                    row_start=torch.from_numpy(row_start).to(dev),
                    mode=mode, dim=dim, block=block, seg_width=seg_width,
-                   nnz=nnz, val_storage=fmt.val)
+                   nnz=nnz, val_storage=fmt.val, packing=packing,
+                   reorder=reorder_label,
+                   density_bucket=mode_density_bucket(tt.dims, mode, nnz),
+                   block_nnz=(None if block_nnz is None
+                              else torch.from_numpy(block_nnz).to(dev)))
+    lay = None
     if fmt.v2:
         try:
             faults.maybe_fail("format.encode")
+            real = (None if block_nnz is None
+                    else real_mask_from_counts(block, block_nnz))
             locs, bases = _encode_v2(inds, row_start, mode, block, nnz,
-                                     fmt, seg_width=seg_width)
-            return ModeLayout(**_encoded(locs, bases, dev),
-                              idx_width=fmt.idx, **statics)
+                                     fmt, real=real, seg_width=seg_width)
+            lay = ModeLayout(**_encoded(locs, bases, dev),
+                             idx_width=fmt.idx, **statics)
         except Exception as e:
             # a failed v2 encode degrades the build, classified, to the
             # v1 encoding every engine reads
             _format_fallback(mode, fmt, e, verbose)
-    return ModeLayout(inds=torch.from_numpy(inds).to(dev), idx_width="i32",
-                      **statics)
+    if lay is None:
+        lay = ModeLayout(inds=torch.from_numpy(inds).to(dev),
+                         idx_width="i32", **statics)
+    if seconds is not None:
+        seconds["pack"] = (seconds.get("pack", 0.0) + time.perf_counter()
+                           - t_sorted)
+    return lay
 
 
 def reencode_layout(layout: ModeLayout, fmt: LayoutFormat,
@@ -707,6 +980,7 @@ class DenseModeLayout:
     dims: Tuple[int, ...]
     nnz: int
     val_storage: str = "auto"
+    reorder: str = "identity"
 
     @property
     def dim(self) -> int:
@@ -781,9 +1055,11 @@ class DenseModeLayout:
         return f"dense/t{self.tile}/{val}"
 
     def __repr__(self) -> str:
+        extra = ("" if self.reorder == "identity"
+                 else f", reorder={self.reorder}")
         return (f"DenseModeLayout(mode={self.mode}, dim={self.dim}, "
                 f"tile={self.tile}x{self.span}, ntiles={self.ntiles}, "
-                f"nnz={self.nnz}, density={self.density():.3g})")
+                f"nnz={self.nnz}, density={self.density():.3g}{extra})")
 
     def to(self, device) -> "DenseModeLayout":
         return dataclasses.replace(self, tiles=self.tiles.to(device),
@@ -823,7 +1099,8 @@ def _dense_or_degrade(mode: int, verbose: bool, build):
 
 
 def build_dense_layout(tt: SparseTensor, mode: int, val_dtype=None,
-                       device=None, verbose: bool = False
+                       device=None, verbose: bool = False,
+                       reorder_label: str = "identity"
                        ) -> DenseModeLayout:
     """Mode `mode`'s unfolding as dense value tiles, built on the host
     and moved to `device` once.  Raises on an infeasible geometry or a
@@ -867,7 +1144,8 @@ def build_dense_layout(tt: SparseTensor, mode: int, val_dtype=None,
         tiles=tiles.to(dev).to(val_dtype),
         mask=torch.from_numpy(mask.reshape(-1)).to(dev),
         mode=mode, dims=tuple(int(d) for d in tt.dims), nnz=tt.nnz,
-        val_storage="bf16" if val_dtype == torch.bfloat16 else "auto")
+        val_storage="bf16" if val_dtype == torch.bfloat16 else "auto",
+        reorder=reorder_label)
     if verbose:
         print(f"  layout mode{mode}: dense tiles {geo.ntiles}x{geo.tile}"
               f"x{geo.span} (density {lay.density():.3g}, zero index "
@@ -891,7 +1169,7 @@ def densify_layout(layout: ModeLayout, dims: Sequence[int],
     return build_dense_layout(
         tt, layout.mode,
         val_dtype=layout.vals.dtype if val_dtype is None else val_dtype,
-        device=layout.device)
+        device=layout.device, reorder_label=layout.reorder)
 
 
 def alloc_build_modes(dims: Sequence[int], opts: Options) -> List[int]:
@@ -912,13 +1190,25 @@ def alloc_build_modes(dims: Sequence[int], opts: Options) -> List[int]:
 
 @dataclasses.dataclass
 class BlockedSparse:
-    """Per-mode layouts and the mode -> layout map (≙ splatt_csf[])."""
+    """Per-mode layouts and the mode -> layout map (≙ splatt_csf[]).
+
+    ``perm`` is the :class:`~splatt_tpu_torch.reorder.Permutation` the
+    tensor was relabeled by before the layouts were built (None for the
+    identity) and ``reorder`` its recipe: factors computed over these
+    layouts live in the relabeled row space, and :func:`cpd_als` moves
+    its init in and its output factors out through ``perm``.
+    ``build_seconds`` holds the host seconds of the build's stages:
+    ``"sort"`` and ``"pack"`` summed over the sparse layouts, and
+    ``"reorder"`` when :meth:`compile` built it."""
 
     layouts: List[Union[ModeLayout, DenseModeLayout]]
     mode_map: Dict[int, int]
     dims: Tuple[int, ...]
     nnz: int
     opts: Options
+    perm: Optional[object] = None
+    reorder: str = "identity"
+    build_seconds: Dict[str, float] = dataclasses.field(default_factory=dict)
 
     @property
     def nmodes(self) -> int:
@@ -946,12 +1236,15 @@ class BlockedSparse:
 
     @staticmethod
     def from_coo(tt: SparseTensor, opts: Optional[Options] = None,
-                 device=None) -> "BlockedSparse":
+                 device=None,
+                 reorder_label: str = "identity") -> "BlockedSparse":
         """Build the layouts the alloc policy asks for; a mode without
         its own layout maps to the first one.  The format comes from
-        ``opts`` else the env (:func:`layout_format`); every layout
-        stores its values at one dtype, so the CPD derives one factor
-        dtype from them.
+        ``opts`` else the env (:func:`layout_format`), the packing from
+        ``opts`` else the env (:func:`resolve_packing`); every layout stores its values at one
+        dtype, so the CPD derives one factor dtype from them.
+        `reorder_label` names the relabeling `tt` went through (every
+        layout carries it; :meth:`compile` applies it).
 
         The hybrid per-mode dispatch: under the dense policy
         (``opts.dense`` else SPLATT_DENSE) each mode that passes
@@ -968,6 +1261,8 @@ class BlockedSparse:
         opts = (opts or default_opts()).validate()
         dev = resolve_device(device)
         fmt = layout_format(opts)
+        packing = resolve_packing(opts)
+        seconds = {"sort": 0.0, "pack": 0.0}
         storage = resolve_storage_dtype(fmt.val, resolve_dtype(opts))
         verbose = opts.verbosity >= Verbosity.LOW
         build_modes = alloc_build_modes(tt.dims, opts)
@@ -976,7 +1271,9 @@ class BlockedSparse:
                                 mode_order=opts.mode_order,
                                 mode_order_custom=opts.mode_order_custom,
                                 device=dev, fmt=fmt, verbose=verbose,
-                                dense=False)
+                                dense=False, packing=packing,
+                                reorder_label=reorder_label,
+                                seconds=seconds)
                    for m in build_modes]
         mode_map = {m: build_modes.index(m) if m in build_modes else 0
                     for m in range(tt.nmodes)}
@@ -985,12 +1282,14 @@ class BlockedSparse:
                 continue
             dense = _dense_or_degrade(m, verbose, lambda m=m: (
                 build_dense_layout(tt, m, val_dtype=storage, device=dev,
-                                   verbose=verbose)))
+                                   verbose=verbose,
+                                   reorder_label=reorder_label)))
             if dense is not None:
                 mode_map[m] = len(layouts)
                 layouts.append(dense)
         bs = BlockedSparse(layouts=layouts, mode_map=mode_map,
-                           dims=tt.dims, nnz=tt.nnz, opts=opts)
+                           dims=tt.dims, nnz=tt.nnz, opts=opts,
+                           reorder=reorder_label, build_seconds=seconds)
         if (any(lay.encoding in ("v2", "dense") for lay in layouts)
                 or fmt.val != "auto"):
             resilience.run_report().add(
@@ -998,6 +1297,38 @@ class BlockedSparse:
                 modes={str(lay.mode): lay.format_desc() for lay in layouts})
             if verbose:
                 print(f"  format: {bs.format_summary()}")
+        return bs
+
+    @staticmethod
+    def compile(tt: SparseTensor, opts: Optional[Options] = None,
+                device=None) -> "BlockedSparse":
+        """:meth:`from_coo` after the run's reorder
+        (≙ splatt_tpu.blocked.BlockedSparse.compile, without the
+        autotuner): the reorder pinned by ``opts.reorder`` else
+        SPLATT_REORDER (:func:`resolve_reorder`; identity when neither is
+        set) relabels the whole tensor, one permutation for every mode,
+        under the ``reorder.apply`` fault site, where any failure degrades
+        to identity order with a ``reorder_fallback`` event
+        (:func:`reorder.apply_reorder`); the packing follows
+        ``opts.fiber_packing`` else SPLATT_FIBER_PACKING.  The result
+        carries the :class:`~splatt_tpu_torch.reorder.Permutation`
+        (``perm``), so :func:`cpd_als` returns factors in the original
+        row order, and ``build_seconds["reorder"]`` the reorder's host
+        seconds."""
+        from splatt_tpu_torch.reorder import apply_reorder
+
+        opts = (opts or default_opts()).validate()
+        dev = resolve_device(device)
+        how = resolve_reorder(opts) or "identity"
+        t0 = time.perf_counter()
+        tt, perm = apply_reorder(tt, how)
+        reorder_s = time.perf_counter() - t0
+        if perm is None:
+            how = "identity"
+        bs = BlockedSparse.from_coo(tt, opts, device=dev,
+                                    reorder_label=how)
+        bs.perm = perm
+        bs.build_seconds["reorder"] = reorder_s
         return bs
 
     def frobsq(self) -> float:

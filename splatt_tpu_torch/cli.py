@@ -1,23 +1,40 @@
-"""Command line of the PyTorch port (≙ src/cmds/cmd_cpd.c).
+"""Command line of the PyTorch port (≙ src/cmds/: cmd_cpd.c, cmd_check.c,
+cmd_convert.c, cmd_reorder.c, cmd_stats.c).
 
-    python -m splatt_tpu_torch.cli cpd T.tns -r R [-i ITERS] [--tol TOL]
-        [--seed SEED] [--alloc onemode|twomode|allmode] [--device cuda|cpu]
-        [--engine-fallback on|off] [--json] [-o DIR]
-        [--decomp medium|coarse|fine] [--grid IxJxK]
+    python -m splatt_tpu_torch.cli cpd T.tns|T.bin -r R [-i ITERS]
+        [--tol TOL] [--reg REG] [--seed SEED]
+        [--alloc onemode|twomode|allmode] [--mode-order ORDER]
+        [--block NNZ] [--f64] [--mmap] [-v] [--device cuda|cpu]
+        [--engine-fallback on|off] [--json] [-o DIR | -s STEM]
+        [--nowrite] [--decomp medium|coarse|fine] [--grid IxJxK]
         [--comm all2all|point2point|async_ring] [--rowdist greedy|balanced]
         [-p PARTITION] [--ndev N] [--local-engine blocked|stream]
+    python -m splatt_tpu_torch.cli check T [--fix OUT]
+    python -m splatt_tpu_torch.cli convert T TYPE OUT [-m MODE]
+    python -m splatt_tpu_torch.cli reorder T TYPE OUT [--seed S]
+        [--write-perms]
+    python -m splatt_tpu_torch.cli stats T [-p PARTITION]
 
-prints the MTTKRP engine plan, one fit line per iteration and the
-resilience events of the run (engine demotions, transient retries, format
-fallbacks), and writes ``mode<N>.mat`` and ``lambda.mat`` into DIR.
-``--json`` adds one line ``{"fit": ..., "events": [...], "demotions":
-[...]}``.  The layout format comes from the environment, as in the JAX
-CLI: ``SPLATT_IDX_WIDTH`` (i32|auto|u16|u8|delta|rle),
-``SPLATT_VAL_STORAGE`` (auto|f32|bf16) and ``SPLATT_DECODE``
-(kernel|prep); a non-default format prints a ``format:`` line.  So does
-dense mode: ``SPLATT_DENSE`` (off|auto|on) with ``SPLATT_DENSE_THRESHOLD``
-(default 0.05) gives each mode whose padded fiber density meets the
-threshold a dense tile layout and the ``dense/fused_dense`` plan.
+``cpd`` prints the MTTKRP engine plan, one fit line per iteration and the
+resilience events of the run (engine demotions, transient retries, format,
+packing and reorder fallbacks), and writes ``mode<N>.mat`` and
+``lambda.mat`` by the JAX CLI's ``-s`` stem (a bare stem writes
+``<stem>.mode<N>.mat``, a trailing ``/`` or an existing directory plain
+names inside it; default ``./``; ``-o DIR`` is ``-s DIR/``), nothing
+with ``--nowrite``.  ``--json`` adds one line ``{"fit": ..., "events": [...],
+"demotions": [...]}``.  A tensor is read as text or ``.bin`` by its
+magic; ``--mmap`` maps a ``.bin`` file instead of reading it.  The
+layout format comes from the environment, as in the JAX CLI:
+``SPLATT_IDX_WIDTH`` (i32|auto|u16|u8|delta|rle), ``SPLATT_VAL_STORAGE``
+(auto|f32|bf16) and ``SPLATT_DECODE`` (kernel|prep); a non-default format
+prints a ``format:`` line.  So does dense mode: ``SPLATT_DENSE``
+(off|auto|on) with ``SPLATT_DENSE_THRESHOLD`` (default 0.05) gives each
+mode whose padded fiber density meets the threshold a dense tile layout
+and the ``dense/fused_dense`` plan.  ``SPLATT_FIBER_PACKING``
+(fixed|balanced) picks the layouts' packing and ``SPLATT_REORDER``
+(identity|random|graph|hgraph|fibsched) relabels the tensor before they
+are built (``BlockedSparse.compile``); the factors are written in the
+original row order.
 
 ``--decomp``, ``--grid``, ``--comm``, ``--rowdist`` or ``-p`` run the
 distributed CPD over a mesh of ``--ndev`` ranks (default: every card, or 8
@@ -29,35 +46,73 @@ the other decompositions; ``--comm``, ``--rowdist`` and ``-p`` imply FINE.
 except on the FINE ring patterns).  ``--json`` ring runs carry the
 ``ring_overlap`` event, and every distributed run the
 ``layout_imbalance`` event.
+
+``check``, ``convert``, ``reorder`` and ``stats`` run on the host and
+write the JAX CLI's files and text: duplicates and empty slices (``--fix``
+writes the deduplicated tensor with empty slices removed); the graph,
+``fibmat``, hypergraph, ``bin`` and ``coord`` conversions; a relabeled
+tensor (``--write-perms`` adds ``OUT.perm<m>``); the tensor, slice-skew
+and density statistics.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import os
 import sys
 import time
 from typing import List, Optional
 
 import numpy as np
+import torch
 
 from splatt_tpu_torch.config import BlockAlloc
+
+
+def _build_opts(args):
+    """The run's Options from the cpd verb's flags
+    (≙ splatt_tpu.cli._build_opts)."""
+    from splatt_tpu_torch.config import ModeOrder, Options, Verbosity
+
+    opts = Options(max_iterations=args.iters, tolerance=args.tol,
+                   random_seed=args.seed,
+                   block_alloc=BlockAlloc(args.alloc),
+                   verbosity=Verbosity(min(1 + args.verbose, 3)))
+    if args.reg is not None:
+        opts.regularization = args.reg
+    if args.block:
+        opts.nnz_block = args.block
+    if args.f64:
+        opts.val_dtype = torch.float64
+    if args.mode_order:
+        opts.mode_order = ModeOrder(args.mode_order)
+    if args.engine_fallback:
+        opts.engine_fallback = args.engine_fallback == "on"
+    return opts
+
+
+def _write_factors(out, args) -> None:
+    """The ``-s`` stem (≙ cmd_cpd.c:209-230): a bare stem writes
+    ``<stem>.mode<N>.mat``, a trailing separator, "." or an existing
+    directory plain names inside it (``-o DIR`` is ``-s DIR/``)."""
+    stem = args.stem
+    if stem.endswith(os.sep) or stem in (".", "./") or os.path.isdir(stem):
+        out.save(stem.rstrip(os.sep) or ".", stem="")
+    else:
+        d, base = os.path.split(stem)
+        out.save(d or ".", stem=base + ".")
 
 
 def cmd_cpd(args) -> int:
     from splatt_tpu_torch import resilience
     from splatt_tpu_torch.blocked import BlockedSparse
-    from splatt_tpu_torch.config import Options
     from splatt_tpu_torch.cpd import cpd_als
-    from splatt_tpu_torch.io import load
+    from splatt_tpu_torch.io import load, load_memmap
 
-    opts = Options(max_iterations=args.iters, tolerance=args.tol,
-                   random_seed=args.seed,
-                   block_alloc=BlockAlloc(args.alloc))
-    if args.engine_fallback:
-        opts.engine_fallback = args.engine_fallback == "on"
+    opts = _build_opts(args)
     t0 = time.perf_counter()
-    tt = load(args.tensor)
+    tt = load_memmap(args.tensor) if args.mmap else load(args.tensor)
     print(f"Tensor {args.tensor}: dims={'x'.join(map(str, tt.dims))} "
           f"nnz={tt.nnz} ({time.perf_counter() - t0:.3f}s)")
     if (args.decomp is not None or args.grid is not None
@@ -66,9 +121,11 @@ def cmd_cpd(args) -> int:
         out = _distributed(args, opts, tt)
     else:
         t0 = time.perf_counter()
-        bs = BlockedSparse.from_coo(tt, opts, device=args.device)
+        bs = BlockedSparse.compile(tt, opts, device=args.device)
         print(f"Layouts: {len(bs.layouts)} on {bs.device} "
-              f"({time.perf_counter() - t0:.3f}s)")
+              f"({time.perf_counter() - t0:.3f}s)"
+              + ("" if bs.reorder == "identity"
+                 else f" reorder={bs.reorder}"))
         out = cpd_als(bs, rank=args.rank, opts=opts, device=args.device)
     print(f"Final fit: {out.fit:0.5f}")
     report = resilience.run_report()
@@ -79,7 +136,8 @@ def cmd_cpd(args) -> int:
             print(line)
     if args.json:
         print(json.dumps(_resilience_record(report, fit=float(out.fit))))
-    out.save(args.outdir)
+    if not args.nowrite:
+        _write_factors(out, args)
     return 0
 
 
@@ -154,18 +212,119 @@ def _resilience_record(report, **extra) -> dict:
                    for d in resilience.demotions()])
 
 
+def cmd_check(args) -> int:
+    """≙ splatt_check_cmd (src/cmds/cmd_check.c:63-116): count (and with
+    ``--fix`` remove) duplicate nonzeros and empty slices; exits 1 when
+    there are any, or indices outside the dims."""
+    from splatt_tpu_torch.io import load, save
+
+    tt = load(args.tensor)
+    # out-of-range first: the histograms below assume in-range indices
+    noob = sum(int(np.count_nonzero((tt.inds[m] < 0)
+                                    | (tt.inds[m] >= tt.dims[m])))
+               for m in range(tt.nmodes))
+    if noob:
+        print(f"out-of-range: {noob}")
+        print("error: tensor declares indices outside its dimensions "
+              "(corrupt file?)")
+        return 1
+    ndup = tt.count_duplicates()
+    nempty = sum(tt.dims[m] - tt.nslices_nonempty(m)
+                 for m in range(tt.nmodes))
+    print(f"duplicates: {ndup}  empty slices: {nempty}  "
+          f"out-of-range: 0")
+    if args.fix:
+        fixed = tt.deduplicate().remove_empty_slices()
+        save(fixed, args.fix)
+        print(f"wrote fixed tensor: {args.fix} "
+              f"(nnz {tt.nnz} -> {fixed.nnz}, dims {tt.dims} -> "
+              f"{fixed.dims})")
+    return 0 if (ndup == 0 and nempty == 0) else 1
+
+
+def cmd_convert(args) -> int:
+    """≙ splatt_convert_cmd (src/cmds/cmd_convert.c); ``bin`` loads the
+    whole tensor (no streamed conversion yet)."""
+    from splatt_tpu_torch.convert import convert
+    from splatt_tpu_torch.io import load
+
+    tt = load(args.tensor)
+    convert(tt, args.type, args.output, mode=args.mode)
+    print(f"wrote {args.type}: {args.output}")
+    return 0
+
+
+def cmd_reorder(args) -> int:
+    """≙ splatt_reorder_cmd (src/cmds/cmd_reorder.c)."""
+    from splatt_tpu_torch.io import load, save, write_permutation
+    from splatt_tpu_torch.reorder import reorder
+
+    tt = load(args.tensor)
+    perm = reorder(tt, args.type, seed=args.seed or 0)
+    save(perm.apply(tt), args.output)
+    for m, p in enumerate(perm.perms):
+        if p is not None and args.write_perms:
+            write_permutation(p, f"{args.output}.perm{m}")
+    print(f"wrote reordered tensor: {args.output}")
+    return 0
+
+
+def cmd_stats(args) -> int:
+    """≙ splatt_stats_cmd (src/cmds/cmd_stats.c; ``-p`` adds the quality
+    of a nonzero partition, src/stats.c:53-170)."""
+    from splatt_tpu_torch.io import load, read_permutation
+    from splatt_tpu_torch.stats import (density_stats_text,
+                                        partition_quality_text,
+                                        skew_stats_text, tensor_stats)
+
+    tt = load(args.tensor)
+    print(tensor_stats(tt, args.tensor))
+    if args.partition:
+        print(partition_quality_text(tt, read_permutation(args.partition)))
+    for m in range(tt.nmodes):
+        hist = tt.mode_histogram(m)
+        nz = hist[hist > 0]
+        print(f"  mode {m}: dim={tt.dims[m]} nonempty={nz.size} "
+              f"nnz/slice min={nz.min() if nz.size else 0} "
+              f"avg={tt.nnz / max(nz.size, 1):.1f} "
+              f"max={nz.max() if nz.size else 0}")
+    print(skew_stats_text(tt))
+    print(density_stats_text(tt))
+    return 0
+
+
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="splatt_tpu_torch",
                                 description="CPD-ALS on an NVIDIA GPU")
     sub = p.add_subparsers(dest="cmd", required=True)
     c = sub.add_parser("cpd", help="CPD-ALS factorization")
-    c.add_argument("tensor")
+    c.add_argument("tensor", help="coordinate tensor file (.tns/.bin)")
+    c.add_argument("-v", "--verbose", action="count", default=0,
+                   help="increase verbosity (repeatable)")
     c.add_argument("-r", "--rank", type=int, default=10)
     c.add_argument("-i", "--iters", type=int, default=50)
-    c.add_argument("--tol", type=float, default=1e-5)
+    c.add_argument("-t", "--tol", type=float, default=1e-5)
+    c.add_argument("--reg", type=float, default=None,
+                   help="Tikhonov regularization of the solve")
     c.add_argument("--seed", type=int, default=None)
     c.add_argument("--alloc", choices=[a.value for a in BlockAlloc],
                    default="twomode")
+    c.add_argument("--mode-order", dest="mode_order",
+                   choices=["smallfirst", "bigfirst", "inorder_minusone",
+                            "sorted_minusone"],
+                   help="secondary mode ordering within a layout "
+                        "(the reference's csf_find_mode_order policies)")
+    c.add_argument("--block", type=int, help="nnz per block")
+    c.add_argument("--f64", action="store_true", help="double precision")
+    c.add_argument("--mmap", action="store_true",
+                   help="memory-map a .bin tensor instead of reading it")
+    c.add_argument("--nowrite", action="store_true",
+                   help="skip writing factor files")
+    c.add_argument("-s", "--stem", default="./", metavar="PATH",
+                   help="file stem of the factor files (default ./): "
+                        "<stem>.mode1.mat etc.; a trailing / (or an "
+                        "existing directory) writes plain mode1.mat "
+                        "inside it")
     c.add_argument("--device", choices=["cuda", "cpu"], default="cuda")
     c.add_argument("--engine-fallback", choices=["on", "off"],
                    dest="engine_fallback",
@@ -176,7 +335,10 @@ def build_parser() -> argparse.ArgumentParser:
     c.add_argument("--json", action="store_true",
                    help="print one JSON line with the fit, the resilience "
                         "events and the engine demotions")
-    c.add_argument("-o", "--outdir", default=".")
+    c.add_argument("-o", "--outdir", dest="stem", metavar="DIR",
+                   type=lambda d: os.path.join(d, ""),
+                   help="write plain mode<N>.mat and lambda.mat into DIR "
+                        "(the same as -s DIR/)")
     c.add_argument("--decomp", choices=["medium", "coarse", "fine"],
                    help="run distributed over a mesh with this "
                         "decomposition")
@@ -206,6 +368,33 @@ def build_parser() -> argparse.ArgumentParser:
                         "through the single-card engine chain; the fine "
                         "ring patterns take stream)")
     c.set_defaults(func=cmd_cpd)
+
+    from splatt_tpu_torch.convert import CONVERT_TYPES
+    from splatt_tpu_torch.reorder import PERM_TYPES
+
+    c = sub.add_parser("check", help="check for duplicates/empty slices")
+    c.add_argument("tensor", help="coordinate tensor file (.tns/.bin)")
+    c.add_argument("--fix", metavar="OUT",
+                   help="write a fixed tensor to OUT")
+    c.set_defaults(func=cmd_check)
+    c = sub.add_parser("convert", help="convert to other formats")
+    c.add_argument("tensor", help="coordinate tensor file (.tns/.bin)")
+    c.add_argument("type", choices=list(CONVERT_TYPES))
+    c.add_argument("output")
+    c.add_argument("-m", "--mode", type=int, default=0)
+    c.set_defaults(func=cmd_convert)
+    c = sub.add_parser("reorder", help="relabel tensor indices")
+    c.add_argument("tensor", help="coordinate tensor file (.tns/.bin)")
+    c.add_argument("type", choices=list(PERM_TYPES))
+    c.add_argument("output")
+    c.add_argument("--seed", type=int)
+    c.add_argument("--write-perms", action="store_true")
+    c.set_defaults(func=cmd_reorder)
+    c = sub.add_parser("stats", help="print tensor statistics")
+    c.add_argument("tensor", help="coordinate tensor file (.tns/.bin)")
+    c.add_argument("-p", "--partition", metavar="FILE",
+                   help="also report quality of this nonzero partition")
+    c.set_defaults(func=cmd_stats)
     return p
 
 

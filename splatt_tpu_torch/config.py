@@ -4,8 +4,9 @@ Counterpart of ``splatt_tpu/config.py``, cut to the fields the single-device
 CPD-ALS path and the distributed paths read.  The defaults are the
 same (≙ splatt_default_opts, SPLATT's opts.c).  No field is read from the
 environment; a field left None (``engine_fallback``, ``idx_width``,
-``val_storage``, ``dense``, ``dense_threshold``, ``comm_pattern``) defers
-to the env default its consumer reads (``utils/env.py``).
+``val_storage``, ``fiber_packing``, ``reorder``, ``dense``,
+``dense_threshold``, ``comm_pattern``) defers to the env default its
+consumer reads (``utils/env.py``).
 """
 
 from __future__ import annotations
@@ -118,6 +119,52 @@ DECODES = ("kernel", "prep")
 #: legal value-storage policies (SPLATT_VAL_STORAGE /
 #: Options.val_storage); "auto" = the resolved compute dtype
 VAL_STORAGES = ("auto", "f32", "bf16")
+
+
+#: legal fiber-packing policies (SPLATT_FIBER_PACKING /
+#: Options.fiber_packing, docs/layout-balance.md): "fixed" cuts the sorted
+#: stream every nnz_block nonzeros; "balanced" cuts it at fiber boundaries
+#: under a row-span cap, splitting fibers hotter than a block, so one
+#: block landing on a run of tiny fibers cannot widen seg_width for every
+#: block (≙ the chains-on-chains partitioner,
+#: src/thread_partition.c:156-195)
+PACKINGS = ("fixed", "balanced")
+
+#: legal reorder policies (SPLATT_REORDER / Options.reorder): "identity"
+#: keeps the tensor's labels; the others are the relabelings of
+#: ``reorder.py`` (≙ splatt_perm_type, src/reorder.h:15-22).  One
+#: permutation relabels every mode before the layouts are built, and
+#: cpd_als returns the factors in the original row order.
+REORDERS = ("identity", "random", "graph", "hgraph", "fibsched")
+
+
+def resolve_packing(opts: "Options") -> str:
+    """The fiber-packing policy of a run: ``Options.fiber_packing`` wins,
+    else SPLATT_FIBER_PACKING (default "fixed")."""
+    from splatt_tpu_torch.utils.env import read_env
+
+    pol = (opts.fiber_packing if opts.fiber_packing is not None
+           else str(read_env("SPLATT_FIBER_PACKING")))
+    if pol not in PACKINGS:
+        raise ValueError(
+            f"fiber_packing must be one of {PACKINGS}, got {pol!r}")
+    return pol
+
+
+def resolve_reorder(opts: "Options") -> Optional[str]:
+    """The pinned reorder policy: ``Options.reorder`` wins, else a
+    non-empty SPLATT_REORDER; None when neither is set (then
+    ``BlockedSparse.compile`` keeps the identity)."""
+    from splatt_tpu_torch.utils.env import read_env
+
+    how = opts.reorder
+    if how is None:
+        env = str(read_env("SPLATT_REORDER") or "").strip().lower()
+        how = env or None
+    if how is not None and how not in REORDERS:
+        raise ValueError(
+            f"reorder must be one of {REORDERS}, got {how!r}")
+    return how
 
 
 def resolve_decode() -> str:
@@ -258,6 +305,11 @@ class Options:
     # storage (VAL_STORAGES); None = SPLATT_IDX_WIDTH / SPLATT_VAL_STORAGE
     idx_width: Optional[str] = None
     val_storage: Optional[str] = None
+    # load-balanced layouts: the fiber packing (PACKINGS; None =
+    # SPLATT_FIBER_PACKING) and the relabeling applied before the layouts
+    # are built (REORDERS; None = SPLATT_REORDER, else identity)
+    fiber_packing: Optional[str] = None
+    reorder: Optional[str] = None
     # dense-mode tile layouts (DENSE_POLICIES) and the padded-density
     # threshold of their verdict; None = SPLATT_DENSE /
     # SPLATT_DENSE_THRESHOLD
@@ -291,6 +343,14 @@ class Options:
             raise ValueError(
                 f"val_storage must be one of {VAL_STORAGES}, "
                 f"got {self.val_storage!r}")
+        if (self.fiber_packing is not None
+                and self.fiber_packing not in PACKINGS):
+            raise ValueError(
+                f"fiber_packing must be one of {PACKINGS}, "
+                f"got {self.fiber_packing!r}")
+        if self.reorder is not None and self.reorder not in REORDERS:
+            raise ValueError(
+                f"reorder must be one of {REORDERS}, got {self.reorder!r}")
         if self.dense is not None and self.dense not in DENSE_POLICIES:
             raise ValueError(
                 f"dense must be one of {DENSE_POLICIES}, got {self.dense!r}")

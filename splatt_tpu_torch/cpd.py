@@ -113,6 +113,15 @@ def cpd_als(X: Union[SparseTensor, BlockedSparse], rank: int,
     to the card and raises where there is none.  ``opts.engine_fallback``
     (else SPLATT_ENGINE_FALLBACK) decides whether a failing MTTKRP engine
     is demoted for the next one in its chain or the error propagates.
+
+    A reordered :class:`BlockedSparse` (``X.perm``, from
+    :meth:`BlockedSparse.compile`) computes in the relabeled row space:
+    `init`, in the original labels, moves in through the permutation,
+    and the output factors move back out (≙ splatt_tpu/cpd.py:612-617,
+    :1003-1010), so the caller sees the original row order.  A seeded
+    init is drawn in the original labels too (the JAX package draws it
+    in the relabeled ones), so one seed gives one CPD whatever the
+    reorder.
     """
     opts = (opts or default_opts()).validate()
     dev = resolve_device(device)
@@ -124,11 +133,19 @@ def cpd_als(X: Union[SparseTensor, BlockedSparse], rank: int,
             X = X.to(dev)
         xnormsq = X.frobsq()
         dtype = X.layouts[0].vals.dtype
+    perm = getattr(X, "perm", None)
+    if perm is not None and init is not None:
+        init = [perm.permute_factor(U, m) for m, U in enumerate(init)]
     if init is not None:
         factors = [torch.as_tensor(f).to(dev, dtype).clone() for f in init]
     else:
         gen = torch.Generator().manual_seed(opts.seed())
         factors = init_factors(X.dims, rank, gen, dtype=dtype, device=dev)
+        if perm is not None:
+            # drawn in the original labels, so a seed gives one CPD
+            # whatever the reorder
+            factors = [perm.permute_factor(U, m)
+                       for m, U in enumerate(factors)]
     grams = [gram(U) for U in factors]
     fallback = (resilience.fallback_enabled()
                 if opts.engine_fallback is None else opts.engine_fallback)
@@ -163,4 +180,7 @@ def cpd_als(X: Union[SparseTensor, BlockedSparse], rank: int,
         fit_prev = fitval
         if converged:
             break
-    return post_process(factors, lam, fit_prev, fits, seconds)
+    out = post_process(factors, lam, fit_prev, fits, seconds)
+    if perm is not None:
+        out.factors = perm.undo_factors(out.factors)
+    return out

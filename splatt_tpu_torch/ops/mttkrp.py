@@ -232,8 +232,9 @@ def _run_engine(engine: str, layout: ModeLayout,
         layout = decode_to_v1(layout)
     if engine == "xla":
         # the stream formulation over the layout's arrays: any mode, no
-        # kernel; the sorted mode's pads carry id dim (a spill row) in v1,
-        # the block's last row with value 0 in v2
+        # kernel; the sorted mode's pads carry id dim (a spill row) in a
+        # fixed v1 layout, the block's last real row with value 0 in v2
+        # and in a balanced layout
         prod = _gather_prod_layout(layout, factors, mode)
         acc = acc_dtype(prod.dtype)
         nseg = dim + 1 if mode == layout.mode else dim
@@ -287,7 +288,10 @@ def _engine_shape_key(layout: ModeLayout, factors: Sequence[torch.Tensor],
     32-lane rank tile}:b{block}``, so an out-of-memory at one shape
     never demotes the engine for shapes that fit; a compact layout adds
     ``:v2``, so an out-of-memory under v2 leaves v1 alone (and the
-    reverse); a dense layout adds ``:dn`` (its block is the row tile)."""
+    reverse); a dense layout adds ``:dn`` (its block is the row tile); a
+    balanced layout ``:bal`` and a reordered one ``:ro``
+    (≙ splatt_tpu/ops/mttkrp.py:783-791), so the default layouts' keys
+    are unchanged."""
     R = int(factors[0].shape[1])
     key = f"r{-(-R // 32) * 32}:b{layout.block}"
     # getattr: chain tests pass stand-in layouts
@@ -296,6 +300,10 @@ def _engine_shape_key(layout: ModeLayout, factors: Sequence[torch.Tensor],
         key += ":dn"
     elif enc != "v1":
         key += ":v2"
+    if getattr(layout, "packing", "fixed") != "fixed":
+        key += ":bal"
+    if getattr(layout, "reorder", "identity") != "identity":
+        key += ":ro"
     return key
 
 

@@ -45,19 +45,12 @@ import torch
 from splatt_tpu_torch.blocked import alloc_build_modes
 from splatt_tpu_torch.config import Options, Verbosity, acc_dtype
 from splatt_tpu_torch.kruskal import KruskalTensor, post_process
+from splatt_tpu_torch.utils.env import max_mean_ratio
 
 
 def ceil_to(x: int, mult: int) -> int:
     """Round x up to a multiple of mult."""
     return ((x + mult - 1) // mult) * mult
-
-
-def max_mean_ratio(a) -> float:
-    """round(max/mean, 3) of a nonnegative weight array; 1.0 means
-    balanced, or empty (≙ splatt_tpu.utils.env.max_mean_ratio)."""
-    a = np.asarray(a)
-    mean = float(a.mean()) if a.size else 0.0
-    return round(float(a.max()) / mean, 3) if mean > 0 else 1.0
 
 
 def stable_argsort(keys: np.ndarray) -> np.ndarray:

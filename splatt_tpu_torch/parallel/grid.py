@@ -320,24 +320,32 @@ def grid_cpd_als(tt, rank: int, grid: Optional[Tuple[int, ...]] = None,
     runs the single-card blocked engine in every cell over per-cell
     sorted layouts (≙ mttkrp_csf per rank, mpi_cpd.c:714); "stream"
     keeps the gather product, the oracle.  `relabel`: None balances the
-    fences when the equal fences fill poorly, "balanced" always; the
-    JAX package's reorderings (``random``, ``graph``, ...) need
-    ``reorder.py`` and raise.  `init` is a list of arrays in the
-    original row space; without it the factors come from a generator
-    seeded by ``opts.random_seed``.  The factors come back in the
-    original row order, on the CPU.
+    fences when the equal fences fill poorly, "balanced" always (the
+    nnz-balanced fences of :func:`balanced_relabel`); a
+    ``reorder.PERM_TYPES`` entry ("random", "graph", "hgraph",
+    "fibsched") relabels the whole tensor with :func:`reorder.reorder`
+    (seeded by ``opts.random_seed``) before it is decomposed, over equal
+    fences (≙ splatt_tpu/parallel/grid.py:615-650).  `init` is a list of
+    arrays in the original row space; without it the factors come from a
+    generator seeded by ``opts.random_seed``.  The factors come back in
+    the original row order, on the CPU.
     """
     opts = (opts or default_opts()).validate()
     dtype = resolve_dtype(opts)
+    balance = None
     if relabel == "balanced":
-        balance = True
-    elif relabel is None:
-        balance = None
-    else:
-        raise NotImplementedError(
-            f"relabel={relabel!r} permutes the tensor with reorder.py, not "
-            f"ported yet: ROADMAP.md queue A item 9; use relabel="
-            f"'balanced' or None")
+        balance, relabel = True, None
+    elif relabel is not None:
+        # a whole-tensor relabeling takes the place of fence balancing
+        balance = False
+    perm = None
+    if relabel is not None:
+        from splatt_tpu_torch.reorder import reorder
+
+        perm = reorder(tt, relabel, seed=opts.seed())
+        tt = perm.apply(tt)
+        if init is not None:
+            init = [perm.permute_factor(U, m) for m, U in enumerate(init)]
 
     devices = None
     if mesh is not None:
@@ -401,7 +409,10 @@ def grid_cpd_als(tt, rank: int, grid: Optional[Tuple[int, ...]] = None,
     def step(f, g, first):
         return sweep(inds, vals, f, g, first)
 
-    return run_distributed_als(
+    out = run_distributed_als(
         step, factors, grams, rank, opts, xnormsq, tt.dims, dtype, mesh,
         row_select=decomp.row_select(),
         shard_ranks=[mesh.line(m) for m in range(tt.nmodes)])
+    if perm is not None:
+        out.factors = perm.undo_factors(out.factors)
+    return out

@@ -675,7 +675,7 @@ def sharded_cpd_als(tt, rank: int, mesh=None,
         counts = np.clip(tt.nnz - chunk * np.arange(ndev), 0, chunk)
     fence_mm = None
     if row_distribute is not None or opts.verbosity >= Verbosity.HIGH:
-        from splatt_tpu_torch.parallel.common import max_mean_ratio
+        from splatt_tpu_torch.utils.env import max_mean_ratio
 
         fence_mm = {}
         for m in range(nmodes):

@@ -16,8 +16,11 @@ chain needs).
   ``format_v2`` (the achieved per-mode encodings), ``format_fallback``
   (an encode, or with ``site="decode"`` a dispatch, degraded to v1),
   ``format_decode`` (where an engine's decode ran), ``block_clamp``
-  (a requested nnz block cut to the tensor's size), and the distributed
-  path's ``layout_imbalance`` (the nnz balance of a sharding),
+  (a requested nnz block cut to the tensor's size), the balanced
+  layouts' ``packing_fallback`` (a balanced pack degraded to the fixed
+  slicing) and ``reorder_fallback`` (a reorder degraded to identity
+  order), ``layout_imbalance`` (the achieved balance of a built layout or
+  of a distributed sharding), and the distributed path's
   ``comm_fallback`` (a comm strategy degraded down its chain) and
   ``ring_overlap`` (a ring sweep's exchange time hidden under compute).
 
@@ -162,15 +165,28 @@ class RunReport:
                          f"{e.get('tile')}x{e.get('span')} value tiles "
                          f"({e.get('density_bucket') or 'dense'}; zero "
                          f"index bytes)")
+        for e in self.events("packing_fallback"):
+            lines.append(f"  balanced fiber pack failed for mode "
+                         f"{e.get('mode')} ({e['failure_class']}: "
+                         f"{e['error'][:80]}); degraded to fixed "
+                         f"slicing")
+        for e in self.events("reorder_fallback"):
+            lines.append(f"  reorder recipe {e.get('how')!r} failed "
+                         f"({e['failure_class']}: {e['error'][:80]}); "
+                         f"degraded to identity order")
         for e in self.events("layout_imbalance"):
-            # only imbalanced shardings are worth a line; the full stats
-            # always ride in the --json events
-            worst = e.get("shard_max_mean", 1.0) or 1.0
+            # only imbalanced layouts and shardings are worth a line; the
+            # full stats always ride in the --json events
+            worst = max(e.get("block_nnz_max_mean", 1.0) or 1.0,
+                        e.get("shard_max_mean", 1.0) or 1.0)
             if worst > 1.5:
-                lines.append(f"  load imbalance at "
-                             f"{e.get('scope', 'sharding')} "
-                             f"[{e.get('policy', '?')}]: max/mean {worst} "
-                             f"(seg_width -, work x-/nnz)")
+                where = (f"{e.get('scope', 'layout')} mode {e['mode']}"
+                         if "mode" in e else e.get("scope", "sharding"))
+                lines.append(f"  load imbalance at {where} "
+                             f"[{e.get('packing', e.get('policy', '?'))}]"
+                             f": max/mean {worst} "
+                             f"(seg_width {e.get('seg_width', '-')}, "
+                             f"work x{e.get('work_amp', '-')}/nnz)")
         for e in self.events("comm_fallback"):
             lines.append(f"  comm engine {e['strategy']} degraded to "
                          f"{e['fallback_to']} ({e['failure_class']}: "

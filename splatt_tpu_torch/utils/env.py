@@ -54,6 +54,26 @@ ENV_VARS = {
                                  "it.  bf16 stores the values, and the "
                                  "factors derived from them, in bfloat16 "
                                  "with f32 accumulation"),
+    "SPLATT_FIBER_PACKING": EnvVar("fixed", "blocked-layout fiber "
+                                   "packing (docs/layout-balance.md): "
+                                   "fixed = cut the sorted stream every "
+                                   "nnz_block nonzeros; balanced = cut "
+                                   "at fiber boundaries under a row-span "
+                                   "cap, splitting fibers hotter than a "
+                                   "block, so skewed tensors stop "
+                                   "widening seg_width (a failed pack "
+                                   "degrades classified to fixed).  An "
+                                   "explicit Options.fiber_packing "
+                                   "wins"),
+    "SPLATT_REORDER": EnvVar(None, "relabeling applied before the "
+                             "blocked layouts are built (docs/layout-"
+                             "balance.md): identity | random | graph | "
+                             "hgraph | fibsched.  One permutation "
+                             "relabels every mode; cpd_als returns the "
+                             "factors in the original row order.  An "
+                             "explicit Options.reorder wins; a failed "
+                             "reorder degrades classified to identity "
+                             "(reorder_fallback)"),
     "SPLATT_DENSE": EnvVar("off", "dense-mode tile layout policy "
                            "(docs/dense.md): off = every mode keeps "
                            "the sparse blocked encoding; auto = a "
@@ -93,6 +113,18 @@ def read_env(name: str) -> Optional[object]:
             f"doc string) before reading it")
     raw = os.environ.get(name)
     return spec.default if raw is None else raw
+
+
+def max_mean_ratio(a) -> float:
+    """round(max/mean, 3) of a nonnegative weight array, the one
+    imbalance figure every layout and sharding balance stat reports; 1.0
+    is perfectly balanced, or empty (≙ splatt_tpu.utils.env.
+    max_mean_ratio)."""
+    import numpy as np
+
+    a = np.asarray(a)
+    mean = float(a.mean()) if a.size else 0.0
+    return round(float(a.max()) / mean, 3) if mean > 0 else 1.0
 
 
 def read_env_float(name: str) -> float:

@@ -1,5 +1,6 @@
 """Fault injection: the test hook points of the resilience layer
-(≙ splatt_tpu/utils/faults.py, cut to the engine, format and comm sites).
+(≙ splatt_tpu/utils/faults.py, cut to the engine, format, layout, reorder
+and comm sites).
 
 Production call sites call :func:`maybe_fail` / :func:`poison` with a
 site name; tests (or an operator, via env var) arm faults against those
@@ -82,6 +83,14 @@ SITES = {
                      "fault degrades the dispatch to the decoded v1 "
                      "layout (blocked.decode_to_v1, format_fallback event "
                      "with site=decode), never fails it",
+    "layout.pack": "the balanced fiber packing of one blocked layout "
+                   "(blocked.py build_layout); a raised fault degrades "
+                   "the build to the fixed slicing (packing_fallback "
+                   "event), never fails it",
+    "reorder.apply": "the reorder permutation's compute and apply "
+                     "(reorder.py apply_reorder); a raised fault degrades "
+                     "the run to identity order (reorder_fallback "
+                     "event), never fails it",
     "comm.ring_exchange": "the ring row-exchange of a distributed sweep "
                           "(parallel/ring_kernels.py and parallel/ring.py: "
                           "the ring kernels and the sync ring); on a CPU "

@@ -972,3 +972,65 @@ def test_cuda_blocked_decomposition_cpd(decomp):
     want = run("cpu", torch.float64)
     assert max(abs(a - b) for a, b in zip(got.fits, want.fits)) <= 1e-4
     resilience.run_report().clear()
+
+
+def _balanced_tensor(rng, block):
+    """Zipf-skewed modes and one slice of mode 0 holding three blocks'
+    worth of nonzeros and more, so its balanced layout splits that fiber
+    over at least three consecutive blocks and pads blocks mid-stream."""
+    dims = (300, 40, 50)
+    hot = 3 * block + block // 2
+    nnz = 6000
+    inds = np.stack([rng.zipf(1.4, size=nnz) % d for d in dims])
+    inds = np.concatenate([inds, np.stack([
+        np.full(hot, 17), rng.integers(0, 40, hot),
+        rng.integers(0, 50, hot)])], axis=1)
+    return SparseTensor(inds, rng.random(nnz + hot) + 0.1, dims)
+
+
+@pytest.mark.gpu
+def test_cuda_fused_t_and_v2_on_balanced_layouts():
+    """fused_mttkrp_t and fused_mttkrp_v2 on balanced layouts, whose pads
+    sit mid-stream with in-range rows (the block's last real row, value
+    0) and whose hot fiber is split over three blocks, against their
+    plain versions: both contracts, every v2 width, f32 and bf16."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    rng = np.random.default_rng(23)
+    block = 128
+    X = _balanced_tensor(rng, block)
+    v1 = [port_build_layout(X, m, block=block, packing="balanced",
+                            device="cuda")
+          for m in range(3)]
+    lay = v1[0]
+    counts = lay.block_nnz.cpu().numpy()
+    assert lay.packing == "balanced" and (counts[:-1] < block).any()
+    ids = lay.inds[0].reshape(lay.nblocks, block).cpu().numpy()
+    real = lay.real_mask()
+    hot = [b for b in range(lay.nblocks) if (ids[b][real[b]] == 17).any()]
+    assert len(hot) >= 3
+    launched = 0
+    for rank in (8, 50, 256):
+        for vdt, fdt in DTYPE_PAIRS[:2]:
+            tf = _tables(rng, X.dims, rank, fdt)
+            lays = [reencode_layout(lay, LayoutFormat(), val_dtype=vdt)
+                    for lay in v1]
+            for lay, m, width, acc in contracts(lays, X.dims):
+                what = f"fused_t rank={rank} {vdt}/{fdt} mode={m} acc={acc}"
+                _close(kernels.fused_mttkrp_t(lay, tf, m, width, acc),
+                       kernels.fused_mttkrp_t_plain(lay, tf, m, width, acc),
+                       what)
+                launched += 1
+            for idx in ("u8", "u16", "delta", "rle", "auto"):
+                lays = [reencode_layout(lay, LayoutFormat(idx=idx),
+                                        val_dtype=vdt) for lay in v1]
+                for lay, m, width, acc in contracts(lays, X.dims):
+                    if lay.encoding != "v2":
+                        continue
+                    what = (f"fused_v2 rank={rank} {idx} {vdt}/{fdt} "
+                            f"mode={m} acc={acc}")
+                    _close(kernels.fused_mttkrp_v2(lay, tf, m, width, acc),
+                           kernels.fused_mttkrp_v2_plain(lay, tf, m, width,
+                                                         acc), what)
+                    launched += 1
+    assert launched >= 3 * 2 * 6 * 2

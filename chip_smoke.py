@@ -190,6 +190,44 @@ Phases, each fatal on failure:
    drills each leave their event, fixed or identity layouts and a
    finished CPD with ``fused_mttkrp_t`` launched and nothing demoted.
    Every check of the phase runs before it fails.
+14. the guarded driver, checkpoints and observability at full width, on
+   phase 5's layouts, options and seed (rank 50, f32, fallback off), each
+   check fatal: an unguarded run and a guarded traced one
+   (``SPLATT_HEALTH_RETRIES`` 2 through a resilience scope), fits within
+   1e-6 of phase 5's at every iteration, ``fused_mttkrp_t`` launched
+   nmodes x iterations times each, no demotion; the host syncs of one
+   checked iteration (a 3-iteration run's less a 2-iteration run's,
+   counted from ``torch.cuda.set_sync_debug_mode("warn")``) equal with
+   the guard and the tracing off, on, and on together; the iteration's ms
+   in those three settings, in turns; the syncs the warn mode reports for
+   each kind of small host read.  A ``cpd.sweep`` NaN at iteration 3
+   rolled back (one ``health_nonfinite``, one ``health_rollback``, a
+   finite fit, ``fused_mttkrp_t`` launched for the re-run sweep), and a
+   budget of 1 with every sweep after iteration 2 poisoned degrading
+   (``health_degraded``) to a checkpoint of iteration 2 that
+   ``load_checkpoint`` verifies.  6 iterations checkpointed every 2,
+   stopped after iteration 4 by ``stop`` and resumed: fits within 1e-4 of
+   the uninterrupted run's, each save's ms and its parts (host copy,
+   sha256, ``np.savez``, fsync and renames).  ``fit_check_every=3``
+   over 6 iterations: 4 fewer host syncs than k = 1, the fits at 3 and 6
+   within 1e-4.  The guarded run's Chrome trace summarized by the port's
+   ``summarize_file``: 5 ``cpd.iter`` spans reconciling with the printed
+   seconds per iteration, the guard share.  ``cpd_als`` at
+   ``Verbosity.HIGH`` (the profiled sweep), 3 iterations: the phase table
+   beside phase 5's phase times (CUDA events), the per-mode MTTKRP sum
+   within 20% of the same MTTKRP calls timed in the same fenced bracket
+   (host clock to the end of a synchronize, which holds each call's host
+   enqueue, printed apart), fits within 1e-4.  FINE on the blocked
+   engine over every card, or 4 virtual ranks sharing one, 6 iterations:
+   checkpointed every 2, stopped after 4 and resumed (fits within 1e-4
+   of the uninterrupted run), a ``cpd.sweep`` NaN rolled back, the
+   profiled FINE sweep's ``dist_phase_report``.  Last phase 3's tensor
+   written with ``io.save`` and factored by ``python -m
+   splatt_tpu_torch.cli cpd X.bin -r 50 -i 4 --checkpoint F
+   --checkpoint-every 2 --trace T --json`` in a subprocess: exit code 0,
+   the checkpoint verifies, and the ``trace`` verb reads 4 iterations
+   from T.  ``--guard`` runs the set-up, phase 3's sorted launches (row 1
+   of the kernels line), phase 5's CPD and sweep phases, and phase 14.
 
 The line before the last is the ``{"kernels": [...]}`` record (the nine
 TPU kernels' counterparts and ``sym_eig``); the last is
@@ -230,6 +268,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import math
+import os
 import re
 import subprocess
 import sys
@@ -3676,6 +3715,598 @@ def _balance_summary(bal: dict) -> dict:
         phase_seconds=bal["seconds"])
 
 
+# -- phase 14: the guarded driver, checkpoints and observability ----------
+
+#: phase 14's rollback budget on the guarded runs (SPLATT_HEALTH_RETRIES)
+GUARD_RETRIES = 2
+#: the iteration phase 14's rollback and degrade drills poison
+GUARD_NAN_ITER = 3
+#: phase 14's checkpoint/resume and deferred-check runs
+GUARD_ITERS = 6
+#: the profiled sweep's iterations and its per-mode MTTKRP tolerance
+#: against the same MTTKRP calls timed in the same fenced bracket,
+#: relative
+PROFILED_ITERS = 3
+PROFILED_MTTKRP_TOL = 0.2
+#: the guarded fits against phase 5's, and the resumed/deferred fits
+#: against their uninterrupted/k = 1 twins
+GUARD_FIT_TOL = 1e-6
+RESUME_FIT_TOL = 1e-4
+
+
+def count_syncs(fn) -> int:
+    """The host syncs `fn` makes, counted from the warnings of
+    torch.cuda.set_sync_debug_mode("warn")."""
+    import warnings
+
+    import torch
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as got:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    return sum("synchroniz" in str(w.message) for w in got)
+
+
+def sync_probe() -> dict:
+    """The syncs the warn mode reports for each kind of host read of a
+    small CUDA tensor."""
+    import torch
+
+    a = torch.ones((), device="cuda")
+    v = torch.ones(5, device="cuda")
+    reads = {"float(0-d)": lambda: float(a), "0-d.item()": lambda: a.item(),
+             "0-d.cpu()": lambda: a.cpu(),
+             "1-elem.cpu()": lambda: a.reshape(1).cpu(),
+             "5-elem.cpu()": lambda: v.cpu(),
+             "5-elem.cpu().numpy()": lambda: v.cpu().numpy(),
+             "synchronize()": torch.cuda.synchronize}
+    return {k: count_syncs(fn) for k, fn in reads.items()}
+
+
+def guard_run(bs, rank: int, retries: int, traced: bool = False,
+              iters: int = ITERS, **kw):
+    """cpd_als on phase 5's layouts, options and seed inside a resilience
+    scope with `retries` as its health budget, fallback off, the launch
+    counters at 0 just before: (result, scope, fused_mttkrp_t launches,
+    seconds)."""
+    import torch
+
+    from splatt_tpu_torch import Options, cpd_als, resilience
+    from splatt_tpu_torch.config import BlockAlloc, Verbosity
+    from splatt_tpu_torch.ops import kernels
+
+    opts = Options(block_alloc=BlockAlloc.ALLMODE, max_iterations=iters,
+                   tolerance=0.0, random_seed=0, engine_fallback=False,
+                   verbosity=kw.pop("verbosity", Verbosity.NONE),
+                   trace=traced, fit_check_every=kw.pop("k", 1))
+    with resilience.scope("phase14", health_retries=retries) as sc:
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        out = cpd_als(bs, rank, opts, **kw)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    if sc.demoted:
+        raise AssertionError(f"demotions in phase 14: {list(sc.demoted)}")
+    return out, sc, kernels.fused_mttkrp_t.launches, seconds
+
+
+def _max_diff(a, b) -> float:
+    if len(a) != len(b):
+        raise AssertionError(f"fit lists of lengths {len(a)} and {len(b)}")
+    return max(abs(x - y) for x, y in zip(a, b))
+
+
+def _factor_rel(a, b) -> float:
+    """The largest difference of two models' factors and λ, relative to
+    each one's largest entry (this tensor's fits are ~3e-6, so a fit
+    tolerance alone says little)."""
+    pairs = list(zip(a.factors, b.factors)) + [(a.lam, b.lam)]
+    return max(float((x.float() - y.float()).abs().max())
+               / max(float(y.float().abs().max()), 1e-30)
+               for x, y in pairs)
+
+
+def guard_and_sync(bs, rank: int, main_fits: list, tmp: str) -> dict:
+    """14.1: the unguarded and the guarded traced runs against phase 5's
+    fits and launches, the syncs of one checked iteration per setting,
+    and the iteration's ms per setting in turns."""
+    from splatt_tpu_torch import trace
+
+    nm = bs.nmodes
+    out = {}
+    models = {}
+    for label, retries, traced in (("guard_off", 0, False),
+                                   ("guard_on_traced", GUARD_RETRIES, True)):
+        if traced:
+            trace.reset()
+        res, sc, launches, _ = guard_run(bs, rank, retries, traced)
+        models[label] = res
+        diff = _max_diff(list(res.fits), main_fits)
+        kinds = [e["kind"] for e in sc.report.events()]
+        log(f"[guard] {label}: fits {list(res.fits)}; max |fit - phase "
+            f"5's| {diff:.3e}; fused_mttkrp_t launches {launches}; events "
+            f"{kinds}")
+        if diff > GUARD_FIT_TOL or launches != nm * ITERS:
+            raise AssertionError(f"{label}: fits {diff:.3e} from phase 5's "
+                                 f"or {launches} launches (want "
+                                 f"{nm * ITERS})")
+        out[label] = dict(fits=list(res.fits), launches=launches,
+                          max_fit_diff=diff, iter_seconds=list(
+                              res.iter_seconds))
+        if traced:
+            path = os.path.join(tmp, "guarded.json")
+            ev = trace.write_chrome_trace(path)
+            if not ev["ok"]:
+                raise AssertionError(f"trace export failed: {ev}")
+            out["trace_path"] = path
+            out["traced_iter_seconds"] = list(res.iter_seconds)
+    rel = _factor_rel(models["guard_on_traced"], models["guard_off"])
+    log(f"[guard] guarded model against the unguarded one: factors and λ "
+        f"within {rel:.3e} (relative)")
+    if rel > RESUME_FIT_TOL:
+        raise AssertionError(f"the guard moved the model by {rel:.3e}")
+    out["model_rel_diff"] = rel
+    probe = sync_probe()
+    log(f"[guard] syncs that set_sync_debug_mode('warn') reports per "
+        f"host read: {probe}")
+    out["sync_probe"] = probe
+    # the syncs of one checked iteration: a 3-iteration run's less a
+    # 2-iteration run's, per setting
+    syncs = {}
+    for label, retries, traced in (("guard_off", 0, False),
+                                   ("guard_on", GUARD_RETRIES, False),
+                                   ("guard_on_traced", GUARD_RETRIES, True)):
+        n = [count_syncs(lambda i=i: guard_run(bs, rank, retries, traced,
+                                               iters=i))
+             for i in (2, 3)]
+        syncs[label] = n[1] - n[0]
+    log(f"[guard] host syncs of one checked iteration: {syncs}")
+    if len(set(syncs.values())) != 1:
+        raise AssertionError(f"the guard or the trace adds syncs: {syncs}")
+    trace.reset()
+    # the iteration's ms, the three settings in turns (a, b, c, c, b, a)
+    order = (("guard_off", 0, False), ("guard_on", GUARD_RETRIES, False),
+             ("guard_on_traced", GUARD_RETRIES, True))
+    ms = {k: [] for k, _, _ in order}
+    for label, retries, traced in order + order[::-1]:
+        res = guard_run(bs, rank, retries, traced)[0]
+        ms[label].append(1e3 * sum(res.iter_seconds[1:])
+                         / (len(res.iter_seconds) - 1))
+        trace.reset()
+    ms = {k: dict(ms=sum(v) / len(v), runs=v) for k, v in ms.items()}
+    log(f"[guard] ms per iteration (iterations 2..{ITERS}), in turns: "
+        + ", ".join(f"{k} {v['ms']:.4f} {v['runs']}" for k, v in ms.items()))
+    out.update(syncs_per_checked_iteration=syncs, iter_ms_in_turns=ms)
+    return out
+
+
+def guard_drills(bs, rank: int, tmp: str) -> dict:
+    """14.2: a cpd.sweep NaN at GUARD_NAN_ITER rolled back (fused_t
+    launched for the re-run sweep), then an exhausted budget degrading to
+    a checkpoint at the last healthy check."""
+    from splatt_tpu_torch.cpd import load_checkpoint
+    from splatt_tpu_torch.utils import faults
+
+    nm = bs.nmodes
+    with faults.inject("cpd.sweep", "nan", iter_at=GUARD_NAN_ITER):
+        res, sc, launches, _ = guard_run(bs, rank, GUARD_RETRIES)
+    ev = [(e["kind"], e.get("iteration")) for e in sc.report.events()
+          if e["kind"].startswith("health_")]
+    log(f"[guard] rollback drill: events {ev}; fit {res.fit}; fused_t "
+        f"launches {launches}")
+    want = [("health_nonfinite", GUARD_NAN_ITER),
+            ("health_rollback", GUARD_NAN_ITER)]
+    if ev != want or not (math.isfinite(res.fit) and 0 < res.fit <= 1) \
+            or launches != nm * (ITERS + 1):
+        raise AssertionError(f"rollback drill: events {ev}, fit {res.fit}, "
+                             f"{launches} launches (want {want}, "
+                             f"{nm * (ITERS + 1)})")
+    rollback = dict(events=ev, fit=res.fit, launches=launches)
+    # degrade: budget 1, every sweep after iteration 2's check poisoned
+    # (budget 0 turns the sentinel off, in the JAX package too)
+    ck = os.path.join(tmp, "degrade.npz")
+    seen = [0]
+
+    def arm_after_two():
+        seen[0] += 1
+        if seen[0] == 2:
+            faults.arm("cpd.sweep", faults.FaultSpec(kind="nan",
+                                                     times=faults.ALWAYS))
+        return False
+
+    try:
+        res, sc, launches, _ = guard_run(bs, rank, 1, checkpoint_path=ck,
+                                         checkpoint_every=10,
+                                         stop=arm_after_two)
+    finally:
+        faults.reset()
+    deg = sc.report.events("health_degraded")
+    f, lam, it, fit = load_checkpoint(ck)
+    log(f"[guard] degrade drill: {[e['kind'] for e in sc.report.events()]}; "
+        f"checkpoint at iteration {it}, fit {fit}; result fit {res.fit}")
+    if len(deg) != 1 or it != 2 or abs(fit - res.fits[1]) > 0 \
+            or not math.isfinite(res.fit):
+        raise AssertionError(f"degrade drill: {deg}, checkpoint it {it} "
+                             f"fit {fit}, run fits {list(res.fits)}")
+    return dict(rollback=rollback, degrade=dict(
+        events=[e["kind"] for e in sc.report.events()], checkpoint_it=it,
+        checkpoint_fit=fit))
+
+
+def guard_resume(bs, rank: int, tmp: str) -> dict:
+    """14.3: GUARD_ITERS iterations checkpointed every 2 and stopped after
+    iteration 4, then resumed, against the uninterrupted run; each save's
+    parts timed (host copy, sha256, np.savez, fsync and renames)."""
+    import splatt_tpu_torch.cpd as tcpd
+    from splatt_tpu_torch.cpd import load_checkpoint
+
+    whole = guard_run(bs, rank, GUARD_RETRIES, iters=GUARD_ITERS)[0]
+    ck = os.path.join(tmp, "resume.npz")
+    saves = []
+    real = tcpd._save_checkpoint
+
+    def timed(*a, **kw):
+        t0 = time.perf_counter()
+        parts = real(*a, **kw)
+        saves.append(dict(parts, ms=(time.perf_counter() - t0) * 1e3))
+        return parts
+
+    tcpd._save_checkpoint = timed
+    try:
+        seen = [0]
+
+        def stop_after_four():
+            seen[0] += 1
+            return seen[0] == 4
+
+        first = guard_run(bs, rank, GUARD_RETRIES, iters=GUARD_ITERS,
+                          checkpoint_path=ck, checkpoint_every=2,
+                          stop=stop_after_four)[0]
+        rest = guard_run(bs, rank, GUARD_RETRIES, iters=GUARD_ITERS,
+                         checkpoint_path=ck, checkpoint_every=2)[0]
+    finally:
+        tcpd._save_checkpoint = real
+    fits = list(first.fits) + list(rest.fits)
+    diff = _max_diff(fits, list(whole.fits))
+    rel = _factor_rel(rest, whole)
+    it = load_checkpoint(ck)[2]
+    ms = [round(s["ms"], 3) for s in saves]
+    log(f"[guard] checkpoint/resume: stopped at {list(first.fit_iters)}, "
+        f"resumed {list(rest.fit_iters)}; max |fit - uninterrupted| "
+        f"{diff:.3e}, factors and λ within {rel:.3e} (relative); last "
+        f"checkpoint iteration {it}; save ms {ms}; parts "
+        + json.dumps([{k: round(v * 1e3, 3) for k, v in s.items()
+                       if k.endswith("_s")} for s in saves]))
+    if diff > RESUME_FIT_TOL or rel > RESUME_FIT_TOL \
+            or list(first.fit_iters) != [1, 2, 3, 4] \
+            or list(rest.fit_iters) != [5, 6] or it != GUARD_ITERS:
+        raise AssertionError(f"checkpoint/resume: fits {diff:.3e} apart, "
+                             f"iterations {first.fit_iters} + "
+                             f"{rest.fit_iters}, checkpoint it {it}")
+    return dict(max_fit_diff=diff, model_rel_diff=rel, saves=saves,
+                save_ms_mean=sum(ms) / len(ms))
+
+
+def guard_deferred(bs, rank: int) -> dict:
+    """14.4: fit_check_every = 3 over GUARD_ITERS iterations reads the
+    fit twice where k = 1 reads it six times; the fits at 3 and 6 agree."""
+    runs = {}
+    syncs = {}
+    for k in (1, 3):
+        box = {}
+
+        def run(k=k, box=box):
+            box["out"] = guard_run(bs, rank, GUARD_RETRIES,
+                                   iters=GUARD_ITERS, k=k)[0]
+
+        syncs[k] = count_syncs(run)
+        runs[k] = box["out"]
+    one, three = runs[1], runs[3]
+    saved = syncs[1] - syncs[3]
+    diff = _max_diff(list(three.fits), [one.fits[2], one.fits[5]])
+    log(f"[guard] deferred checks: k=3 checks at {list(three.fit_iters)}; "
+        f"run syncs k=1 {syncs[1]}, k=3 {syncs[3]} ({saved} fewer); fits at "
+        f"3 and 6 within {diff:.3e} of k=1's")
+    if list(three.fit_iters) != [3, 6] or saved != GUARD_ITERS - 2 \
+            or diff > RESUME_FIT_TOL:
+        raise AssertionError(f"deferred checks: iterations "
+                             f"{three.fit_iters}, {saved} syncs saved, fits "
+                             f"{diff:.3e} apart")
+    return dict(syncs=syncs, max_fit_diff=diff,
+                k3_iter_seconds=list(three.iter_seconds))
+
+
+def guard_trace(g: dict) -> dict:
+    """14.5: the guarded run's Chrome trace summarized with the port's
+    summarize_file; its cpd.iter spans against the printed seconds."""
+    from splatt_tpu_torch import trace
+
+    s = trace.summarize_file(g["trace_path"])
+    printed = sum(g["traced_iter_seconds"])
+    spans = s["iter_total_us"] / 1e6
+    log(f"[guard] trace: {s['spans']} spans, {len(s['iters'])} cpd.iter "
+        f"spans summing {spans * 1e3:.3f} ms against the printed "
+        f"{printed * 1e3:.3f} ms; guard share {s['guard_pct']}% "
+        f"({s['guard_self_us']} us self time); top "
+        + ", ".join(f"{n} {a['self_us']}us" for n, a in s["top"][:6]))
+    if len(s["iters"]) != ITERS or not (
+            0.99 * printed <= spans <= 1.1 * printed + 2e-3 * ITERS):
+        raise AssertionError(f"trace reconciliation: {len(s['iters'])} "
+                             f"iterations, spans {spans} s against "
+                             f"printed {printed} s")
+    return dict(spans=s["spans"], iter_span_s=spans, printed_s=printed,
+                guard_pct=s["guard_pct"], guard_self_us=s["guard_self_us"],
+                names=sorted(s["names"]))
+
+
+def fenced_mttkrp_ms(bs, U, reps: int = 5) -> tuple:
+    """Each mode's MTTKRP timed the way the profiled sweep's bracket
+    times it: the card idle, the host clock from the call to the end of a
+    torch.cuda.synchronize(); and the host time of the call alone (its
+    enqueue).  Means per mode, summed over modes: (fenced, enqueue)."""
+    import torch
+
+    from splatt_tpu_torch import mttkrp
+
+    fenced = enqueue = 0.0
+    for m in range(bs.nmodes):
+        mttkrp(bs, U, m)
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            mttkrp(bs, U, m)
+            t1 = time.perf_counter()
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            fenced += (t2 - t0) * 1e3 / reps
+            enqueue += (t1 - t0) * 1e3 / reps
+    return fenced, enqueue
+
+
+def guard_profiled(bs, rank: int, main_fits: list,
+                   main_phases: dict) -> dict:
+    """14.6: cpd_als at Verbosity.HIGH (the profiled sweep): its phase
+    table beside phase 5's phase times (CUDA events).  Each profiled
+    bracket is host time closed by a fence, so it holds the call's host
+    enqueue too: the per-mode MTTKRP sum is held, within
+    PROFILED_MTTKRP_TOL, to each mode's MTTKRP timed in that same bracket
+    on the run's factors, and printed beside phase 5's event time and the
+    enqueue."""
+    from splatt_tpu_torch.config import Verbosity
+    from splatt_tpu_torch.cpd import PROFILED_PHASES
+    from splatt_tpu_torch.utils.timers import timers
+
+    timers.reset()
+    res, _, launches, _ = guard_run(bs, rank, GUARD_RETRIES,
+                                    iters=PROFILED_ITERS,
+                                    verbosity=Verbosity.HIGH)
+    table = {n: timers[n] * 1e3 / PROFILED_ITERS for n in PROFILED_PHASES}
+    per_mode = [timers[f"mttkrp_mode{m}"] * 1e3 / PROFILED_ITERS
+                for m in range(bs.nmodes)]
+    fenced, enqueue = fenced_mttkrp_ms(bs, res.factors)
+    rel = abs(sum(per_mode) - fenced) / fenced
+    events_rel = (sum(per_mode) - main_phases["mttkrp"]) / main_phases[
+        "mttkrp"]
+    diff = _max_diff(list(res.fits), main_fits[:PROFILED_ITERS])
+    log(f"[guard] profiled sweep, ms per sweep: "
+        + ", ".join(f"{k} {v:.3f}" for k, v in table.items())
+        + f"; per-mode mttkrp {[round(x, 4) for x in per_mode]} (sum "
+          f"{sum(per_mode):.3f}) against {fenced:.3f} in the same fenced "
+          f"bracket ({rel:.1%}), of which the calls' host enqueue "
+          f"{enqueue:.3f}; phase 5's CUDA-event mttkrp "
+          f"{main_phases['mttkrp']:.3f} ({events_rel:+.1%}), solve "
+          f"{main_phases['solve']:.3f}, normalize+gram "
+          f"{main_phases['normalize+gram']:.3f}; fits {diff:.3e} from "
+          f"phase 5's")
+    print(timers.report(level=3), flush=True)
+    if rel > PROFILED_MTTKRP_TOL or diff > RESUME_FIT_TOL \
+            or min(table.values()) <= 0:
+        raise AssertionError(f"profiled sweep: mttkrp {rel:.1%} off the "
+                             f"fenced calls, fits {diff:.3e}, table "
+                             f"{table}")
+    return dict(ms_per_sweep=table, mttkrp_mode_ms=per_mode,
+                fenced_mttkrp_ms=fenced, mttkrp_enqueue_ms=enqueue,
+                mttkrp_rel_to_fenced=rel,
+                mttkrp_rel_to_phase5_events=events_rel, launches=launches,
+                sec_per_iter=sum(res.iter_seconds[1:])
+                / (len(res.iter_seconds) - 1))
+
+
+def guard_distributed(tt, rank: int, tmp: str) -> dict:
+    """14.7: FINE on the blocked engine over every card, or 4 virtual
+    ranks sharing one, GUARD_ITERS iterations from phase 5's init:
+    checkpointed every 2, stopped after 4 and resumed (fits against the
+    uninterrupted run), a cpd.sweep NaN rolled back, and the profiled
+    sweep's phase table."""
+    import torch
+
+    from splatt_tpu_torch import Options, resilience
+    from splatt_tpu_torch.cpd import init_factors, load_checkpoint
+    from splatt_tpu_torch.ops import kernels
+    from splatt_tpu_torch.ops.linalg import gram
+    from splatt_tpu_torch.parallel.common import (allreduce, ceil_to,
+                                                  dist_phase_report,
+                                                  reset_dist_timers,
+                                                  run_distributed_als,
+                                                  wrap_profiled_step)
+    from splatt_tpu_torch.parallel.mesh import make_mesh
+    from splatt_tpu_torch.parallel.ring_kernels import check_errors
+    from splatt_tpu_torch.parallel.sharded import (
+        make_sharded_profiled_sweep, shard_factors)
+    from splatt_tpu_torch.utils import faults
+
+    ncards = torch.cuda.device_count()
+    nranks = ncards if ncards > 1 else DECOMP_VIRTUAL_RANKS
+    mesh = make_mesh(n_devices=nranks)
+    init = init_factors(tt.dims, rank, torch.Generator().manual_seed(0))
+    p = decomp_pieces("fine", tt, mesh, rank, init)
+    mesh, step = p["mesh"], p["step"]
+    ndev = mesh.ndev
+    dims_pad = tuple(ceil_to(d, ndev) for d in tt.dims)
+    xnormsq = tt.normsq()
+    nsorted = len(p["info"]["sorted_modes"])
+
+    def place(U, m):
+        return shard_factors([U], (tt.dims[m],), mesh,
+                             dims_pad=(dims_pad[m],))[0]
+
+    def gram_of(f, m):
+        return allreduce([gram(u) for u in f], mesh)
+
+    def run(iters, stepper=None, retries=GUARD_RETRIES, **kw):
+        opts = Options(max_iterations=iters, tolerance=0.0, random_seed=0)
+        with resilience.scope("phase14-fine", health_retries=retries) as sc:
+            kernels.reset_launches()
+            out = run_distributed_als(
+                stepper or step, p["factors"], p["grams"], rank, opts,
+                xnormsq, tt.dims, torch.float32, mesh, after_fit=check_errors,
+                place=place, gram_of=gram_of, **kw)
+            torch.cuda.synchronize()
+        if sc.demoted:
+            raise AssertionError(f"demotions: {list(sc.demoted)}")
+        return out, sc, kernels.fused_mttkrp_t.launches
+
+    t0 = time.perf_counter()
+    whole, _, launches = run(GUARD_ITERS)
+    ck = os.path.join(tmp, "fine.npz")
+    first = run(4, checkpoint_path=ck, checkpoint_every=2)[0]
+    rest = run(GUARD_ITERS, checkpoint_path=ck, checkpoint_every=2)[0]
+    diff = _max_diff(list(first.fits) + list(rest.fits), list(whole.fits))
+    it = load_checkpoint(ck)[2]
+    with faults.inject("cpd.sweep", "nan", iter_at=GUARD_NAN_ITER):
+        rolled, sc, rolled_launches = run(GUARD_ITERS)
+    ev = [(e["kind"], e.get("iteration")) for e in sc.report.events()
+          if e["kind"].startswith("health_")]
+    sweep = make_sharded_profiled_sweep(mesh, tt.nmodes, 0.0, dims_pad,
+                                        cells=p["cells"], fallback=False)
+    reset_dist_timers()
+    prof = run(4, stepper=wrap_profiled_step(
+        lambda f, g, first: sweep(None, None, f, g, first)))[0]
+    report = dist_phase_report()
+    for line in report:
+        log(f"[guard] fine | {line}")
+    pdiff = _max_diff(list(prof.fits), list(whole.fits)[:4])
+    seconds = time.perf_counter() - t0
+    log(f"[guard] FINE on {ndev} ranks ({len(mesh.cards)} card(s)): fits "
+        f"{list(whole.fits)}; fused_t launches {launches} (want "
+        f"{nsorted * ndev * GUARD_ITERS}); stopped+resumed within "
+        f"{diff:.3e}, checkpoint iteration {it}; rollback {ev}, fit "
+        f"{rolled.fit}, {rolled_launches} launches; profiled fits within "
+        f"{pdiff:.3e}; {seconds:.2f} s")
+    want_ev = [("health_nonfinite", GUARD_NAN_ITER),
+               ("health_rollback", GUARD_NAN_ITER)]
+    if (launches != nsorted * ndev * GUARD_ITERS or diff > RESUME_FIT_TOL
+            or it != GUARD_ITERS or ev != want_ev
+            or not math.isfinite(rolled.fit) or pdiff > RESUME_FIT_TOL
+            or len(report) < 5):
+        raise AssertionError(f"FINE drills: launches {launches}, resume "
+                             f"{diff:.3e}, it {it}, rollback {ev} fit "
+                             f"{rolled.fit}, profiled {pdiff:.3e}, "
+                             f"report {report}")
+    del p
+    torch.cuda.empty_cache()
+    return dict(ranks=ndev, cards=len(mesh.cards), fits=list(whole.fits),
+                launches=launches, resume_max_fit_diff=diff,
+                rollback=ev, rollback_launches=rolled_launches,
+                phase_report=report, seconds=seconds)
+
+
+def guard_cli(tt, rank: int, tmp: str) -> dict:
+    """14.8: ``python -m splatt_tpu_torch.cli cpd X.bin -r R -i 4
+    --checkpoint F --checkpoint-every 2 --trace T --json`` in a subprocess
+    on the card, on phase 3's tensor written with io.save; the checkpoint
+    verifies, and the trace verb reads 4 iterations from T."""
+    from splatt_tpu_torch.cpd import load_checkpoint
+    from splatt_tpu_torch.io import save
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    path = os.path.join(tmp, "nell2.bin")
+    t0 = time.perf_counter()
+    save(tt, path)
+    save_s = time.perf_counter() - t0
+    ck, tr = os.path.join(tmp, "cli.npz"), os.path.join(tmp, "cli.json")
+    cmd = [sys.executable, "-m", "splatt_tpu_torch.cli", "cpd", path, "-r",
+           str(rank), "-i", "4", "--tol", "0", "--seed", "0",
+           "--checkpoint", ck, "--checkpoint-every", "2", "--trace", tr,
+           "--json", "--nowrite", "--engine-fallback", "off"]
+    t0 = time.perf_counter()
+    r = subprocess.run(cmd, capture_output=True, text=True, cwd=root,
+                       timeout=600)
+    seconds = time.perf_counter() - t0
+    for line in r.stdout.splitlines():
+        log(f"[guard] cli | {line}")
+    if r.returncode != 0:
+        raise AssertionError(f"the cli run failed ({r.returncode}): "
+                             f"{r.stderr[-2000:]}")
+    rec = json.loads(r.stdout.strip().splitlines()[-1])
+    it = load_checkpoint(ck)[2]
+    v = subprocess.run([sys.executable, "-m", "splatt_tpu_torch.cli",
+                        "trace", tr], capture_output=True, text=True,
+                       cwd=root, timeout=120)
+    for line in v.stdout.splitlines():
+        log(f"[guard] trace | {line}")
+    if (it != 4 or rec["demotions"] or rec["degraded"]
+            or v.returncode != 0 or "iterations: 4 spans" not in v.stdout):
+        raise AssertionError(f"cli drill: checkpoint it {it}, record "
+                             f"{rec}, trace rc {v.returncode}")
+    return dict(cmd=" ".join(cmd[1:]), seconds=seconds, save_s=save_s,
+                fit=rec["fit"], checkpoint_it=it)
+
+
+def phase_guard(bs, tt, rank: int, main_fits: list,
+                main_phases: dict) -> dict:
+    """Phase 14: the guarded driver, checkpoints and observability at full
+    width, on phase 5's layouts and seed."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    t_phase = time.perf_counter()
+    root = os.path.dirname(os.path.abspath(__file__))
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_guard_", dir=root)
+    try:
+        g = guard_and_sync(bs, rank, main_fits, tmp)
+        out = dict(guard=g, drills=guard_drills(bs, rank, tmp),
+                   resume=guard_resume(bs, rank, tmp),
+                   deferred=guard_deferred(bs, rank),
+                   trace=guard_trace(g),
+                   profiled=guard_profiled(bs, rank, main_fits, main_phases))
+        torch.cuda.empty_cache()
+        out["fine"] = guard_distributed(tt, rank, tmp)
+        out["cli"] = guard_cli(tt, rank, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    g.pop("trace_path", None)
+    out["launches"] = (g["guard_off"]["launches"]
+                       + g["guard_on_traced"]["launches"])
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"[guard] phase 14: {out['seconds']:.1f} s")
+    return out
+
+
+def _guard_summary(gd: dict) -> dict:
+    """Phase 14's figures for the kernels line."""
+    g = gd["guard"]
+    return dict(
+        launches=gd["launches"], seconds=gd["seconds"],
+        iter_ms_in_turns={k: v["ms"] for k, v in
+                          g["iter_ms_in_turns"].items()},
+        syncs_per_checked_iteration=g["syncs_per_checked_iteration"],
+        checkpoint_save_ms=gd["resume"]["save_ms_mean"],
+        guard_trace_pct=gd["trace"]["guard_pct"],
+        profiled_ms_per_sweep=gd["profiled"]["ms_per_sweep"],
+        fine=dict(launches=gd["fine"]["launches"],
+                  phase_report=gd["fine"]["phase_report"]),
+        cli_seconds=gd["cli"]["seconds"])
+
+
 FUSED_SRC = "splatt_tpu_torch/csrc/fused_mttkrp.cu"
 PK = "splatt_tpu/ops/pallas_kernels.py"
 NOTE = ("ms/plain_ms/bound_ms: mean per launch over the 3 modes at rank "
@@ -3926,7 +4557,8 @@ def main() -> int:
     ranks = "--ranks" in sys.argv[1:]
     reduce = "--reduce" in sys.argv[1:]
     balance = "--balance" in sys.argv[1:]
-    phase_build(verbose=not (ranks or reduce or balance))
+    guard_only = "--guard" in sys.argv[1:]
+    phase_build(verbose=not (ranks or reduce or balance or guard_only))
     from splatt_tpu_torch import native
 
     # phase 13 fails without it; every earlier host build would sort with
@@ -3988,6 +4620,21 @@ def main() -> int:
         print(json.dumps({"kernels": [
             _balance_t_row(bal), _balance_v2_row(bal)],
             "power": dev["smi"]}))
+        log(f"[total] {time.perf_counter() - t_script:.1f} s")
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": dev["kind"], "count": dev["count"]}}))
+        return 0
+    if guard_only:
+        rows = phase_kernels(bs, RANK)
+        v1 = v1_fits(bs, RANK)
+        parts = sweep_phases(bs, v1["factors"], v1["sec_per_iter"], "[cpd]")
+        gd = phase_guard(bs, tt, RANK, v1["fits"], parts)
+        print(json.dumps({"kernels": [_record_row(
+            "fused_mttkrp_t", FUSED_SRC, f"{PK}:355", gd["launches"],
+            [r for r in rows if r["contract"] == "sorted"], None,
+            note=NOTE + " (launches: phase 14's unguarded and guarded "
+            "traced CPDs)", status=WALK_STATUS,
+            phase14=_guard_summary(gd))], "power": dev["smi"]}))
         log(f"[total] {time.perf_counter() - t_script:.1f} s")
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": dev["kind"], "count": dev["count"]}}))
@@ -4063,6 +4710,7 @@ def main() -> int:
     fmt = phase_format(bs, RANK, main_path["fits"])
     wide = wide_rank_turns(bs)
     bf16 = {k: _bf16_summary(v) for k, v in fmt["bf16"].items()}
+    guard = phase_guard(bs, tt, RANK, main_path["fits"], main_path["phases"])
     del bs
     dense = phase_dense(RANK)
     bf16["fused_dense"] = _bf16_summary(dense["rows"]["bf16"])
@@ -4080,7 +4728,8 @@ def main() -> int:
                sweep_phase_ms=main_path["phases"],
                phase12=_decomp_summary(decomp),
                phase13=_balance_summary(bal),
-               phase13_rows=_balance_rows(bal)),
+               phase13_rows=_balance_rows(bal),
+               phase14=_guard_summary(guard)),
         _tg_row(launches("fused_t faulted", "fused_mttkrp_tg"),
                 "phase 7, fused_t faulted", new_rows, bf16, big, big_rows),
         _rowmajor_row(launches(FUSED_CHAIN, "fused_mttkrp"),

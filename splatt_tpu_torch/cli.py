@@ -9,6 +9,9 @@ cmd_convert.c, cmd_reorder.c, cmd_stats.c).
         [--nowrite] [--decomp medium|coarse|fine] [--grid IxJxK]
         [--comm all2all|point2point|async_ring] [--rowdist greedy|balanced]
         [-p PARTITION] [--ndev N] [--local-engine blocked|stream]
+        [--checkpoint FILE [--checkpoint-every N]] [--trace OUT_JSON]
+    python -m splatt_tpu_torch.cli trace FILE... [--out OUT_JSON]
+        [--top N] [--json]
     python -m splatt_tpu_torch.cli check T [--fix OUT]
     python -m splatt_tpu_torch.cli convert T TYPE OUT [-m MODE]
     python -m splatt_tpu_torch.cli reorder T TYPE OUT [--seed S]
@@ -46,6 +49,22 @@ the other decompositions; ``--comm``, ``--rowdist`` and ``-p`` imply FINE.
 except on the FINE ring patterns).  ``--json`` ring runs carry the
 ``ring_overlap`` event, and every distributed run the
 ``layout_imbalance`` event.
+
+``--checkpoint FILE`` writes an atomic checksummed ``.npz`` every
+``--checkpoint-every`` iterations (default 10; the previous generation
+kept as ``FILE.bak``) and resumes from it when it exists, on one card or
+distributed.  The guarded driver's events (``health_nonfinite``,
+``health_rollback``, ``health_degraded``, ``checkpoint_recovery``) print
+under ``Resilience events:`` and ride the ``--json`` line, which also
+carries ``"degraded"``; ``SPLATT_HEALTH_RETRIES`` sets the rollback
+budget and ``SPLATT_DEADLINE_S`` the watchdog of each engine's first
+launch.  ``--trace OUT_JSON`` records the run's spans and exports a
+Chrome trace-event file on exit, which the ``trace`` verb summarizes
+(top spans by self time, the iterations, the guard share; several files
+merge onto one timeline, ``--out`` writes the merge).  ``-v`` prints the
+timer report; ``-v -v`` runs the profiled sweep and adds its phase
+timers and a per-mode MTTKRP block (distributed runs print the phase
+table of their profiled sweep).
 
 ``check``, ``convert``, ``reorder`` and ``stats`` run on the host and
 write the JAX CLI's files and text: duplicates and empty slices (``--fix``
@@ -107,26 +126,34 @@ def _write_factors(out, args) -> None:
 def cmd_cpd(args) -> int:
     from splatt_tpu_torch import resilience
     from splatt_tpu_torch.blocked import BlockedSparse
+    from splatt_tpu_torch.config import Verbosity
     from splatt_tpu_torch.cpd import cpd_als
     from splatt_tpu_torch.io import load, load_memmap
+    from splatt_tpu_torch.utils.timers import timers
 
     opts = _build_opts(args)
+    timers.start("total")
     t0 = time.perf_counter()
-    tt = load_memmap(args.tensor) if args.mmap else load(args.tensor)
+    with timers.time("io"):
+        tt = load_memmap(args.tensor) if args.mmap else load(args.tensor)
     print(f"Tensor {args.tensor}: dims={'x'.join(map(str, tt.dims))} "
           f"nnz={tt.nnz} ({time.perf_counter() - t0:.3f}s)")
+    bs = None
     if (args.decomp is not None or args.grid is not None
             or args.partition is not None or args.comm is not None
             or args.rowdist is not None):
         out = _distributed(args, opts, tt)
     else:
         t0 = time.perf_counter()
-        bs = BlockedSparse.compile(tt, opts, device=args.device)
+        with timers.time("blocked_build"):
+            bs = BlockedSparse.compile(tt, opts, device=args.device)
         print(f"Layouts: {len(bs.layouts)} on {bs.device} "
               f"({time.perf_counter() - t0:.3f}s)"
               + ("" if bs.reorder == "identity"
                  else f" reorder={bs.reorder}"))
-        out = cpd_als(bs, rank=args.rank, opts=opts, device=args.device)
+        out = cpd_als(bs, rank=args.rank, opts=opts, device=args.device,
+                      checkpoint_path=args.checkpoint,
+                      checkpoint_every=args.checkpoint_every)
     print(f"Final fit: {out.fit:0.5f}")
     report = resilience.run_report()
     lines = report.summary()
@@ -134,10 +161,21 @@ def cmd_cpd(args) -> int:
         print("Resilience events:")
         for line in lines:
             print(line)
-    if args.json:
-        print(json.dumps(_resilience_record(report, fit=float(out.fit))))
+    if bs is not None and opts.verbosity >= Verbosity.HIGH:
+        # the profiled sweep ran: true in-loop totals per mode
+        # (≙ the per-mode times of `cpd -v -v`, src/cpd.c:361-366)
+        print("Per-mode MTTKRP time (in-loop totals):")
+        for m in range(bs.nmodes):
+            print(f"  mode {m}: {timers[f'mttkrp_mode{m}']:0.3f}s")
     if not args.nowrite:
         _write_factors(out, args)
+    timers.stop("total")
+    if opts.verbosity >= Verbosity.LOW:
+        print(timers.report(level=2 if opts.verbosity >= Verbosity.HIGH
+                            else 1))
+    if args.json:
+        # the last line of stdout
+        print(json.dumps(_resilience_record(report, fit=float(out.fit))))
     return 0
 
 
@@ -193,7 +231,9 @@ def _distributed(args, opts, tt):
                                partition=partition,
                                row_distribute=args.rowdist, mesh=mesh,
                                local_engine=args.local_engine,
-                               measure_overlap=True if args.json else None)
+                               measure_overlap=True if args.json else None,
+                               checkpoint_path=args.checkpoint,
+                               checkpoint_every=args.checkpoint_every)
 
 
 def _resilience_record(report, **extra) -> dict:
@@ -204,12 +244,51 @@ def _resilience_record(report, **extra) -> dict:
 
     return dict(
         extra,
+        degraded=bool(report.events("health_degraded")),
         events=[{k: v for k, v in e.items() if k != "ts"}
                 for e in report.events()],
         demotions=[dict(engine=d.engine,
                         failure_class=d.failure_class.value,
                         shape_key=d.shape_key, error=d.error[:120])
                    for d in resilience.demotions()])
+
+
+def cmd_trace(args) -> int:
+    """Summarize (and with several inputs merge) recorded Chrome traces
+    (≙ splatt_tpu.cli.cmd_trace): top spans by self time, the
+    per-iteration breakdown, the guard share and the point-event
+    counts."""
+    from splatt_tpu_torch import trace
+
+    files = trace.expand_trace_paths(args.file)
+    if not files:
+        raise ValueError(f"no trace files under {args.file}")
+    if len(files) == 1:
+        events = trace.load_trace(files[0])
+    else:
+        events = trace.merge_trace_files(files)
+    if args.out:
+        from splatt_tpu_torch.utils.durable import publish_json
+
+        publish_json(args.out, {"traceEvents": events,
+                                "displayTimeUnit": "ms"})
+        # stderr: the --json stdout is machine-readable
+        print(f"merged trace ({len(files)} source(s)) written to "
+              f"{args.out}", file=sys.stderr)
+    s = trace.summarize(events)
+    if args.json:
+        print(json.dumps({k: v for k, v in s.items() if k != "top"}))
+        return 0
+    for line in trace.format_summary(s, top_n=args.top):
+        print(line)
+    return 0
+
+
+def _positive_int(text: str) -> int:
+    v = int(text)
+    if v < 1:
+        raise argparse.ArgumentTypeError(f"must be >= 1, got {v}")
+    return v
 
 
 def cmd_check(args) -> int:
@@ -367,7 +446,32 @@ def build_parser() -> argparse.ArgumentParser:
                         "(default: blocked, each rank's sorted layouts "
                         "through the single-card engine chain; the fine "
                         "ring patterns take stream)")
+    c.add_argument("--checkpoint", metavar="FILE",
+                   help="write an atomic checksummed .npz checkpoint (the "
+                        "previous generation kept as FILE.bak) every "
+                        "--checkpoint-every iterations and resume from it "
+                        "when present (one card or distributed; a corrupt "
+                        "file degrades to the .bak generation)")
+    c.add_argument("--checkpoint-every", type=_positive_int, default=10,
+                   metavar="N", help="iterations between checkpoints")
+    c.add_argument("--trace", metavar="OUT_JSON",
+                   help="record the run's spans and export a Chrome "
+                        "trace-event JSON file on exit; summarize it with "
+                        "the trace verb")
     c.set_defaults(func=cmd_cpd)
+
+    c = sub.add_parser("trace", help="summarize (and merge) recorded span "
+                                     "traces")
+    c.add_argument("file", nargs="+",
+                   help="Chrome trace-event JSON file(s), or a directory "
+                        "holding them")
+    c.add_argument("--out", metavar="OUT_JSON",
+                   help="also write the merged Chrome trace-event file")
+    c.add_argument("--top", type=int, default=12, metavar="N",
+                   help="rows in the top-spans table (default 12)")
+    c.add_argument("--json", action="store_true",
+                   help="print the summary as JSON instead")
+    c.set_defaults(func=cmd_trace)
 
     from splatt_tpu_torch.convert import CONVERT_TYPES
     from splatt_tpu_torch.reorder import PERM_TYPES
@@ -400,7 +504,28 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv: Optional[List[str]] = None) -> int:
     args = build_parser().parse_args(argv)
-    return args.func(args)
+    # --trace: record every span of this invocation and export on the way
+    # out, on success or error (a failed run's partial trace is the one
+    # worth having)
+    trace_out = getattr(args, "trace", None)
+    if trace_out:
+        from splatt_tpu_torch import trace
+
+        trace.set_enabled(True)
+    try:
+        return args.func(args)
+    finally:
+        if trace_out:
+            ev = trace.write_chrome_trace(trace_out)
+            trace.set_enabled(None)
+            print("splatt-tpu: trace "
+                  + (f"written to {trace_out} ({ev.get('spans')} spans, "
+                     f"{ev.get('events')} point events); summarize with: "
+                     f"python -m splatt_tpu_torch.cli trace {trace_out}"
+                     if ev.get("ok") else
+                     f"export to {trace_out} FAILED "
+                     f"({ev.get('failure_class')}: {ev.get('error')})"),
+                  file=sys.stderr)
 
 
 if __name__ == "__main__":

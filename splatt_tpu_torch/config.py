@@ -282,6 +282,10 @@ class Options:
     tolerance: float = 1e-5
     max_iterations: int = 50
     regularization: float = 0.0
+    # fetch the fit (and test convergence) every k iterations; the fit is
+    # computed on the card every sweep, k > 1 only batches the host
+    # syncs.  k = 1 is the reference's semantics (src/cpd.c:357-370)
+    fit_check_every: int = 1
     # None ≙ seed-from-time, pinned on first use by seed()
     random_seed: Optional[int] = None
     verbosity: Verbosity = Verbosity.LOW
@@ -319,6 +323,10 @@ class Options:
     # (None = SPLATT_COMM, else ALL2ALL; resolve_comm_pattern)
     decomposition: Decomposition = Decomposition.MEDIUM
     comm_pattern: Optional[CommPattern] = None
+    # structured span tracing (trace.py): None = the process/env default
+    # (SPLATT_TRACE, off); True records the run's host-side spans, False
+    # pins tracing off for this run.  Event metrics are always on
+    trace: Optional[bool] = None
 
     def validate(self) -> "Options":
         if self.tolerance < 0:
@@ -329,6 +337,9 @@ class Options:
         if self.regularization < 0:
             raise ValueError(
                 f"regularization must be >= 0, got {self.regularization}")
+        if self.fit_check_every < 1:
+            raise ValueError(
+                f"fit_check_every must be >= 1, got {self.fit_check_every}")
         if self.nnz_block < 1:
             raise ValueError(f"nnz_block must be >= 1, got {self.nnz_block}")
         if self.priv_threshold < 0:

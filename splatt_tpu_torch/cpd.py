@@ -15,27 +15,39 @@ Under bf16 value storage the factors are bf16 (their dtype comes from the
 layouts' values); the MTTKRP, the Grams, the solve and the normalization
 accumulate in f32, each updated factor is cast back to bf16, and λ and the
 fit stay f32 (≙ splatt_tpu/cpd.py:107-115, :601-605).
+
+The driver is the JAX package's guarded one (≙ splatt_tpu/cpd.py:182-1011):
+atomic checksummed checkpoints with a ``.bak`` generation and resume,
+deferred fit checks (``Options.fit_check_every``), the numerical-health
+sentinel with its rollback and degrade (``SPLATT_HEALTH_RETRIES``), a
+cooperative ``stop`` hook, the sweep-level engine rescue, trace spans, and
+at ``Verbosity.HIGH`` the profiled sweep, whose phase timers close on a
+fence.  The sentinel's finite checks ride the fit read: one stacked
+vector, one host copy per checked iteration.
 """
 
 from __future__ import annotations
 
+import os
+import sys
 import time
-from typing import List, Optional, Sequence, Tuple, Union
+from typing import Callable, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 
-from splatt_tpu_torch import resilience
+from splatt_tpu_torch import resilience, trace
 from splatt_tpu_torch.blocked import BlockedSparse
 from splatt_tpu_torch.config import (Options, Verbosity, acc_dtype,
                                      default_opts, fit_dtype,
                                      resolve_device, resolve_dtype)
 from splatt_tpu_torch.coo import SparseTensor
 from splatt_tpu_torch.kruskal import KruskalTensor, post_process
-from splatt_tpu_torch.ops.linalg import (check_solver, form_normal_lhs,
-                                         gram, normalize_columns,
-                                         solve_normals)
+from splatt_tpu_torch.ops.linalg import (SolverError, check_solver,
+                                         form_normal_lhs, gram,
+                                         normalize_columns, solve_normals)
 from splatt_tpu_torch.ops.mttkrp import describe_plan, mttkrp, mttkrp_stream
+from splatt_tpu_torch.utils.timers import timers
 
 
 def init_factors(dims: Sequence[int], rank: int, generator: torch.Generator,
@@ -86,8 +98,9 @@ def _mttkrp_closure(X, dev, dtype, fallback: bool):
 
 
 def _sweep(do_mttkrp, factors, grams, first: bool, reg: float):
-    """One ALS sweep over every mode; updates `factors` and `grams` in
-    place and returns (λ, ⟨Z,Z⟩, ⟨X,Z⟩)."""
+    """One ALS sweep over every mode; assigns the new factors and Grams
+    into the lists `factors` and `grams` (the tensors they held are not
+    modified) and returns (λ, ⟨Z,Z⟩, ⟨X,Z⟩)."""
     nmodes = len(factors)
     lam = M = None
     for m in range(nmodes):
@@ -101,9 +114,301 @@ def _sweep(do_mttkrp, factors, grams, first: bool, reg: float):
     return lam, znormsq, inner
 
 
+def _profiled_sweep(do_mttkrp, factors, grams, first: bool, reg: float):
+    """:func:`_sweep` with each phase in a timer bracket closed by a
+    fence, so mttkrp / solve / normalize / gram / fit time is the card's
+    (≙ splatt_tpu/cpd.py:182-228, the reference's TIMER_MTTKRP /
+    TIMER_INV / TIMER_FIT brackets, src/cpd.c:318-352).  The fences cost
+    the overlap of the fused sweep: `-v -v` only."""
+    from splatt_tpu_torch.utils.env import host_fence as sync
+
+    nmodes = len(factors)
+    lam = M = None
+    for m in range(nmodes):
+        # per-mode timers at level 3: the CLI prints them in its own
+        # per-mode block, out of the level-2 report
+        timers.get(f"mttkrp_mode{m}", level=3)
+        with timers.time("mttkrp"), timers.time(f"mttkrp_mode{m}"):
+            M = sync(do_mttkrp(factors, m))
+        with timers.time("solve"):
+            U = sync(solve_normals(form_normal_lhs(grams, m, reg), M))
+        with timers.time("normalize"):
+            U, lam = sync(normalize_columns(U, "2" if first else "max"))
+        factors[m] = U.to(factors[m].dtype)
+        with timers.time("gram"):
+            grams[m] = sync(gram(factors[m]))
+    with timers.time("fit"):
+        znormsq, inner = sync(_zz_inner(lam, grams, M, factors[nmodes - 1]))
+    return lam, znormsq, inner
+
+
+#: the profiled sweep's phase timers, zeroed after its warm-up
+PROFILED_PHASES = ("mttkrp", "solve", "normalize", "gram", "fit")
+
+
+def _make_sweep(do_mttkrp, reg: float, profiled: bool) -> Callable:
+    """The sweep of one run as ``sweep(factors, grams, first) -> (factors,
+    grams, λ, ⟨Z,Z⟩, ⟨X,Z⟩)``: new lists out, the caller's lists and
+    tensors untouched, so the driver commits a sweep only after its
+    check and a rollback restores what it held."""
+    body = _profiled_sweep if profiled else _sweep
+
+    def sweep(factors, grams, first: bool):
+        factors, grams = list(factors), list(grams)
+        lam, znormsq, inner = body(do_mttkrp, factors, grams, first, reg)
+        return factors, grams, lam, znormsq, inner
+
+    return sweep
+
+
+def _try_engine_rescue(X, opts: Options, err: Exception) -> bool:
+    """Whether a failed sweep should be rebuilt and retried
+    (≙ splatt_tpu/cpd.py:231-270): demotes the engine the chain last
+    handed work to (``resilience.last_engine_attempt``).  False, so the
+    error propagates, when fallback is off, the input has no engine chain
+    (a COO tensor), the error is a sticky CUDA error (an illegal address
+    or a launch failure poisons the context: a rebuilt sweep would fail
+    again), it does not look like an engine's failure (UNKNOWN: a
+    LinAlgError or a shape bug must surface), it is NUMERICAL (the
+    sentinel's to roll back), no engine was attempted, the attempted one
+    is the terminal plain engine, or it is already demoted (nothing new
+    to try).  An engine's synchronous failure is handled one level down,
+    in the chain walk."""
+    if not isinstance(X, BlockedSparse):
+        return False
+    enabled = (opts.engine_fallback if opts.engine_fallback is not None
+               else resilience.fallback_enabled())
+    if not enabled or resilience.sticky_cuda_error(err):
+        return False
+    if resilience.classify_failure(err) in (
+            resilience.FailureClass.UNKNOWN,
+            resilience.FailureClass.NUMERICAL):
+        return False
+    attempt = resilience.last_engine_attempt()
+    if attempt is None:
+        return False
+    engine, shape_key = attempt
+    if engine in ("xla", "dense_xla") or resilience.is_demoted(engine,
+                                                               shape_key):
+        return False
+    resilience.demote_engine(engine, err, shape_key=shape_key)
+    if opts.verbosity >= Verbosity.LOW:
+        print(f"  engine {engine} failed at runtime "
+              f"({type(err).__name__}); falling back to the next engine "
+              f"in the chain")
+    return True
+
+
+# -- numerical-health sentinel -----------------------------------------------
+
+
+def _health_pack(factors, lam, fit) -> torch.Tensor:
+    """The sentinel's finite checks folded into one small tensor on the
+    card, ``[fit, isfinite(U_0), ..., isfinite(U_{n-1}), isfinite(λ),
+    isfinite(fit)]`` (flags 1/0 in the fit's dtype), so the check rides
+    the fit read: one host copy per checked iteration
+    (≙ splatt_tpu/cpd.py:280-292)."""
+    fit = torch.as_tensor(fit)
+    flags = [torch.isfinite(U).all() for U in factors]
+    flags.append(torch.isfinite(lam).all())
+    flags.append(torch.isfinite(fit))
+    flags = [f.to(fit.device) for f in flags]
+    return torch.cat([fit.reshape(1), torch.stack(flags).to(fit.dtype)])
+
+
+def _health_verdict(vec, nmodes: int):
+    """(fit, offending modes, healthy) from a fetched :func:`_health_pack`
+    vector; a λ- or fit-only blowup offends no mode (the rollback then
+    raises the regularization without a redraw)."""
+    vec = np.asarray(vec)
+    fitval = float(vec[0])
+    flags = vec[1:] > 0.5
+    offending = [m for m in range(nmodes) if not flags[m]]
+    return fitval, offending, bool(flags.all())
+
+
+def health_retries() -> int:
+    """The sentinel's rollback budget: the active resilience scope's
+    override when set, else SPLATT_HEALTH_RETRIES (default 3, as in the
+    JAX package).  0 disables the sentinel and its snapshots."""
+    from splatt_tpu_torch.utils.env import read_env_int
+
+    scoped = resilience.scope_health_retries()
+    if scoped is not None:
+        return int(scoped)
+    return int(read_env_int("SPLATT_HEALTH_RETRIES"))
+
+
+def _redraw(shape, dtype, device, seed: int, attempt: int, mode: int):
+    """A rollback's fresh draw of one offending factor: uniform [0, 1)
+    from a torch generator seeded by the run's seed + 7919 with
+    ``attempt * 64 + mode`` folded in (the JAX package folds the same
+    numbers into a jax.random key, which torch cannot reproduce)."""
+    gen = torch.Generator().manual_seed(
+        ((seed + 7919) * 1_000_003 + attempt * 64 + mode) % (1 << 63))
+    return torch.rand(shape, generator=gen,
+                      dtype=acc_dtype(dtype)).to(device, dtype)
+
+
+# -- checkpoints ---------------------------------------------------------------
+
+#: checkpoint schema: v2 adds `schema` and a sha256 `checksum` over every
+#: payload field, so a torn or corrupt file is detected at load
+_CKPT_SCHEMA = 2
+
+
+class CheckpointError(RuntimeError):
+    """A checkpoint file is unreadable, truncated, or fails its checksum;
+    a dims/rank mismatch is a caller's error and stays a ValueError."""
+
+
+def _checkpoint_digest(payload: dict) -> str:
+    """sha256 over every payload field in sorted-key order, covering
+    dtype, shape and bytes (≙ splatt_tpu/cpd.py:337-349)."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for k in sorted(payload):
+        a = np.asarray(payload[k])
+        h.update(k.encode())
+        h.update(str(a.dtype).encode())
+        h.update(str(a.shape).encode())
+        h.update(np.ascontiguousarray(a).tobytes())
+    return h.hexdigest()
+
+
+def _host_array(t) -> np.ndarray:
+    """A factor or λ as a host numpy array; bf16 goes to f32, which holds
+    it exactly (numpy has no bfloat16)."""
+    if torch.is_tensor(t):
+        t = t.detach()
+        if t.dtype in (torch.bfloat16, torch.float16):
+            t = t.float()
+        return t.cpu().numpy()
+    return np.asarray(t)
+
+
+def _save_checkpoint(path: str, factors, lam, it: int, fit: float,
+                     reorder: str = "identity") -> dict:
+    """Atomic checksummed ``.npz`` checkpoint (≙ splatt_tpu/cpd.py:352-395):
+    the same fields, dtypes and digest as the JAX package's, so either
+    package loads the other's files.  The previous generation is kept as
+    ``<path>.bak``.  `reorder` stamps the row-label space of the factors
+    (a reordered run checkpoints relabeled factors).  Returns the
+    seconds of its parts (``copy_s`` to the host, ``sha_s``, ``write_s``
+    for ``np.savez``, ``publish_s`` for the fsync and renames)."""
+    from splatt_tpu_torch.utils import faults
+    from splatt_tpu_torch.utils.durable import publish_file
+
+    with trace.span("cpd.checkpoint", path=path, it=int(it)):
+        faults.maybe_fail("checkpoint_write")
+        t0 = time.perf_counter()
+        tmp = path + ".tmp.npz"
+        payload = {f"factor{m}": _host_array(U)
+                   for m, U in enumerate(factors)}
+        payload.update(nmodes=len(factors), it=int(it), fit=float(fit),
+                       lam=_host_array(lam),
+                       dims=np.asarray([U.shape[0] for U in factors]),
+                       rank=int(factors[0].shape[1]))
+        t1 = time.perf_counter()
+        digest = _checkpoint_digest(payload)
+        t2 = time.perf_counter()
+        np.savez(tmp, schema=_CKPT_SCHEMA, checksum=digest,
+                 reorder=np.str_(reorder), **payload)
+        if faults.consume("checkpoint_torn"):
+            # injected torn write: drop the tail of the bytes just
+            # written, as a crashed writer or dying mount would
+            size = os.path.getsize(tmp)
+            with open(tmp, "r+b") as f:
+                f.truncate(max(size // 2, 1))
+        t3 = time.perf_counter()
+        if os.path.exists(path):
+            os.replace(path, path + ".bak")
+        publish_file(tmp, path)
+        t4 = time.perf_counter()
+    return {"copy_s": t1 - t0, "sha_s": t2 - t1, "write_s": t3 - t2,
+            "publish_s": t4 - t3}
+
+
+def load_checkpoint(path: str, verify: bool = True,
+                    expect_reorder: Optional[str] = None):
+    """Load a checkpoint → (factors, λ, it, fit), the factors and λ as CPU
+    tensors (≙ splatt_tpu/cpd.py:398-448).  Schema-v2 files are
+    checksum-verified (`verify=False` skips); v1 files still load.  An
+    unreadable, truncated or checksum-failing file, or one stamped with
+    another reorder than `expect_reorder` (files without the stamp count
+    as "identity"), raises :class:`CheckpointError`."""
+    try:
+        with np.load(path) as z:
+            nmodes = int(z["nmodes"])
+            factors_np = [np.asarray(z[f"factor{m}"])
+                          for m in range(nmodes)]
+            lam = np.asarray(z["lam"])
+            it = int(z["it"])
+            fit = float(z["fit"])
+            dims = np.asarray(z["dims"])
+            rank = int(z["rank"])
+            stored = str(z["checksum"]) if "checksum" in z.files else None
+            ck_reorder = (str(z["reorder"]) if "reorder" in z.files
+                          else "identity")
+        if expect_reorder is not None and ck_reorder != expect_reorder:
+            raise CheckpointError(
+                f"checkpoint {path} stores factors in "
+                f"reorder={ck_reorder!r} row space but this run "
+                f"resolved reorder={expect_reorder!r}; resuming would "
+                f"mix row labelings (pass resume=False to overwrite)")
+        if verify and stored is not None:
+            payload = {f"factor{m}": factors_np[m] for m in range(nmodes)}
+            payload.update(nmodes=nmodes, it=it, fit=fit, lam=lam,
+                           dims=dims, rank=rank)
+            if _checkpoint_digest(payload) != stored:
+                raise CheckpointError(
+                    f"checkpoint {path} failed its integrity checksum "
+                    f"(torn write or on-disk corruption)")
+        return ([torch.from_numpy(f) for f in factors_np],
+                torch.from_numpy(lam), it, fit)
+    except CheckpointError:
+        raise
+    except Exception as e:
+        raise CheckpointError(
+            f"checkpoint {path} is unreadable "
+            f"({type(e).__name__}: {e})") from e
+
+
+def load_checkpoint_resilient(path: str,
+                              expect_reorder: Optional[str] = None):
+    """The resume path's load (≙ splatt_tpu/cpd.py:451-487): `path`, else
+    its ``.bak`` generation, else None (start fresh).  Each recovery is a
+    ``checkpoint_recovery`` event and a line on stderr."""
+    try:
+        return load_checkpoint(path, expect_reorder=expect_reorder)
+    except CheckpointError as e:
+        first_err = str(e)
+    bak = path + ".bak"
+    if os.path.exists(bak):
+        try:
+            out = load_checkpoint(bak, expect_reorder=expect_reorder)
+            resilience.run_report().add(
+                "checkpoint_recovery", path=path, error=first_err,
+                action=f"resumed from previous generation {bak}")
+            print(f"splatt-tpu: WARNING: {first_err}; resumed from the "
+                  f"previous generation {bak}", file=sys.stderr, flush=True)
+            return out
+        except CheckpointError as e2:
+            first_err = f"{first_err}; .bak also unusable ({e2})"
+    resilience.run_report().add(
+        "checkpoint_recovery", path=path, error=first_err,
+        action="no usable generation; starting fresh")
+    print(f"splatt-tpu: WARNING: {first_err}; no usable checkpoint "
+          f"generation — starting from scratch", file=sys.stderr, flush=True)
+    return None
+
+
 def cpd_als(X: Union[SparseTensor, BlockedSparse], rank: int,
             opts: Optional[Options] = None, init=None,
-            device=None) -> KruskalTensor:
+            device=None, checkpoint_path: Optional[str] = None,
+            checkpoint_every: int = 10, resume: bool = True,
+            stop: Optional[Callable[[], bool]] = None) -> KruskalTensor:
     """Rank-`rank` CPD of X (≙ splatt_cpd_als, src/cpd.c:22-63).
 
     `X` is a :class:`BlockedSparse` (moved to `device` if it lies
@@ -121,9 +426,36 @@ def cpd_als(X: Union[SparseTensor, BlockedSparse], rank: int,
     :1003-1010), so the caller sees the original row order.  A seeded
     init is drawn in the original labels too (the JAX package draws it
     in the relabeled ones), so one seed gives one CPD whatever the
+    reorder.  Checkpoints hold the relabeled factors, stamped with the
     reorder.
+
+    With `checkpoint_path` the factors are written atomically every
+    `checkpoint_every` iterations (:func:`_save_checkpoint`), and an
+    existing checkpoint (or only its ``.bak``) is resumed from unless
+    `resume` is False.  `stop` is polled at check iterations: when it
+    returns True the run checkpoints what it just committed and returns.
+    ``opts.fit_check_every`` = k reads the fit (one host sync) every k
+    iterations, at the last and wherever a checkpoint is due; the
+    tolerance scales with the iterations since the last check.  The
+    result's ``fits``, ``iter_seconds`` and ``fit_iters`` hold the
+    checked iterations.  ``opts.trace`` pins span recording for the run.
     """
     opts = (opts or default_opts()).validate()
+    with trace.enabling(opts.trace):
+        with trace.span("cpd.als", rank=int(rank),
+                        max_iterations=int(opts.max_iterations)):
+            return _cpd_als_traced(X, rank, opts, init, device,
+                                   checkpoint_path, checkpoint_every,
+                                   resume, stop)
+
+
+def _cpd_als_traced(X, rank: int, opts: Options, init, device,
+                    checkpoint_path, checkpoint_every: int, resume: bool,
+                    stop) -> KruskalTensor:
+    """:func:`cpd_als` inside its ``cpd.als`` root span
+    (≙ splatt_tpu/cpd.py:592-1011)."""
+    from splatt_tpu_torch.utils import faults
+
     dev = resolve_device(device)
     if isinstance(X, SparseTensor):
         xnormsq = X.normsq()
@@ -133,14 +465,46 @@ def cpd_als(X: Union[SparseTensor, BlockedSparse], rank: int,
             X = X.to(dev)
         xnormsq = X.frobsq()
         dtype = X.layouts[0].vals.dtype
+    dims, nmodes = tuple(X.dims), len(X.dims)
     perm = getattr(X, "perm", None)
+    reorder_label = (getattr(X, "reorder", "identity")
+                     if perm is not None else "identity")
     if perm is not None and init is not None:
         init = [perm.permute_factor(U, m) for m, U in enumerate(init)]
+
+    start_it = 0
+    ck_lam = None
+    ck_fit = 0.0
+    if checkpoint_path is not None and checkpoint_every < 1:
+        raise ValueError(
+            f"checkpoint_every must be >= 1, got {checkpoint_every}")
+    if checkpoint_path is not None and resume and (
+            os.path.exists(checkpoint_path)
+            or os.path.exists(checkpoint_path + ".bak")):
+        # .bak alone counts: a crash between the writer's two renames can
+        # leave only the previous generation
+        loaded = load_checkpoint_resilient(checkpoint_path,
+                                           expect_reorder=reorder_label)
+        if loaded is not None:
+            ck_factors, ck_lam, start_it, ck_fit = loaded
+            ck_dims = tuple(int(U.shape[0]) for U in ck_factors)
+            ck_rank = int(ck_factors[0].shape[1])
+            if ck_dims != dims or ck_rank != rank:
+                raise ValueError(
+                    f"checkpoint {checkpoint_path} is for "
+                    f"dims={ck_dims} rank={ck_rank}, not "
+                    f"dims={dims} rank={rank}; "
+                    f"pass resume=False to overwrite it")
+            # already in the run's (relabeled) row space
+            init = ck_factors
+            if opts.verbosity >= Verbosity.LOW:
+                print(f"  resuming from {checkpoint_path} "
+                      f"(iteration {start_it})")
     if init is not None:
         factors = [torch.as_tensor(f).to(dev, dtype).clone() for f in init]
     else:
         gen = torch.Generator().manual_seed(opts.seed())
-        factors = init_factors(X.dims, rank, gen, dtype=dtype, device=dev)
+        factors = init_factors(dims, rank, gen, dtype=dtype, device=dev)
         if perm is not None:
             # drawn in the original labels, so a seed gives one CPD
             # whatever the reorder
@@ -157,30 +521,213 @@ def cpd_als(X: Union[SparseTensor, BlockedSparse], rank: int,
             print(f"  engine plan: impl={dev.type} mode*=stream "
                   f"(COO oracle)")
 
-    lam = torch.ones(rank, dtype=torch.promote_types(dtype, fit_dtype()),
-                     device=dev)
-    fit_prev = 0.0
+    # -v -v: the profiled sweep, each phase fenced into its timer
+    profiled = opts.verbosity >= Verbosity.HIGH
+
+    def build_sweep(reg=opts.regularization):
+        # a factory: rebuilt after an engine demotion or a rollback's
+        # regularization bump
+        with trace.span("cpd.build_sweep", regularization=float(reg),
+                        profiled=profiled):
+            return _make_sweep(do_mttkrp, reg, profiled)
+
+    sweep = build_sweep()
+    if profiled:
+        # warm both normalizations on the committed state (the sweep
+        # leaves it untouched), then zero the phase timers: the report
+        # shows steady-state cost, not the first launches
+        for first in (True, False):
+            sweep(factors, grams, first)
+        for name in (*PROFILED_PHASES,
+                     *(f"mttkrp_mode{m}" for m in range(nmodes))):
+            timers.get(name).reset()
+
+    fit_dt = torch.promote_types(dtype, fit_dtype())
+    # resuming past max_iterations runs no sweep: the checkpointed λ
+    # and fit are the result
+    fit_prev = ck_fit
+    lam = (ck_lam.to(dev, fit_dt) if ck_lam is not None
+           else torch.ones(rank, dtype=fit_dt, device=dev))
+    # the sentinel's rollback target: references to the last verified
+    # state.  The sweep never modifies its inputs and the port donates
+    # no buffer, so holding the tensors is the snapshot (never a copy)
+    guard = health_retries()
+    snap = None
+
+    def snapshot():
+        with trace.span("cpd.guard.snapshot", host_copy=False):
+            return (list(factors), list(grams), lam)
+
+    if guard > 0:
+        snap = snapshot()
+    timers.start("cpd")
+    k = opts.fit_check_every
+    last_check_it = start_it
+    health_attempts = 0
+    degraded = False
     fits: List[float] = []
     seconds: List[float] = []
-    for it in range(opts.max_iterations):
+    fit_iters: List[int] = []
+    for it in range(start_it, opts.max_iterations):
         t0 = time.perf_counter()
-        lam, znormsq, inner = _sweep(do_mttkrp, factors, grams, it == 0,
-                                     opts.regularization)
-        # fetching the fit waits for the sweep: the iteration's time ends
-        # here, and the eigensolver's status word is read after it
-        fitval = float(_fit(xnormsq, znormsq, inner))
-        check_solver()
-        fits.append(fitval)
-        seconds.append(time.perf_counter() - t0)
-        if opts.verbosity >= Verbosity.LOW:
-            print(f"  its = {it + 1:3d} ({seconds[-1]:.3f}s)"
-                  f"  fit = {fitval:0.5f}"
-                  f"  delta = {fitval - fit_prev:+0.4e}")
-        converged = it > 0 and abs(fitval - fit_prev) < opts.tolerance
-        fit_prev = fitval
-        if converged:
-            break
-    out = post_process(factors, lam, fit_prev, fits, seconds)
+        # one span per iteration, sweep dispatch through the commit
+        it_span = trace.begin("cpd.iter", it=it + 1)
+        try:
+            # the fit comes to the host only at check iterations; a due
+            # checkpoint forces a check
+            checkpoint_due = (checkpoint_path is not None
+                              and (it + 1) % checkpoint_every == 0)
+            check = ((it + 1) % k == 0 or it + 1 == opts.max_iterations
+                     or checkpoint_due)
+            rescue_attempts = 0
+            while True:
+                try:
+                    # host-side enqueue; the card's work drains into the
+                    # fit check
+                    with trace.span("cpd.sweep"):
+                        f_new, g_new, lam_new, znormsq, inner = sweep(
+                            factors, grams, it == 0)
+                    # chaos hook: poison the LAST factor, which every
+                    # next-sweep MTTKRP reads
+                    f_new[-1] = faults.poison("cpd.sweep", f_new[-1])
+                    fit = _fit(xnormsq, znormsq, inner)
+                    if check and guard > 0:
+                        # the finite checks ride the fit read: one host
+                        # copy of one stacked vector
+                        with trace.span("cpd.fit_check", it=it + 1):
+                            with trace.span("cpd.guard.health_pack"):
+                                packed = _health_pack(
+                                    f_new, lam_new, fit).cpu().numpy()
+                        fitval, offending, healthy = _health_verdict(
+                            packed, nmodes)
+                        if not healthy:
+                            err = resilience.NumericalHealthError(
+                                f"non-finite sweep outputs at iteration "
+                                f"{it + 1} (factor modes "
+                                f"{offending or 'none'}; λ/fit "
+                                f"{'finite' if offending else 'non-finite'})")
+                            err.offending = offending
+                            raise err
+                    elif check:
+                        # one host copy of a one-element vector, as the
+                        # guarded read copies its packed vector
+                        with trace.span("cpd.fit_check", it=it + 1):
+                            fitval = float(fit.reshape(1).cpu()[0])
+                    else:
+                        fitval = None
+                    if check:
+                        # the eigensolver's status word, after the fit read
+                        check_solver()
+                    break
+                except resilience.NumericalHealthError as e:
+                    health_attempts += 1
+                    offending = getattr(e, "offending", [])
+                    try:
+                        # the Jacobi sweeps may not converge on the
+                        # discarded sweep's non-finite Grams
+                        check_solver()
+                    except SolverError:
+                        pass
+                    resilience.run_report().add(
+                        "health_nonfinite", iteration=it + 1,
+                        modes=offending,
+                        error=resilience.failure_message(e)[:200])
+                    if health_attempts > guard:
+                        degraded = True
+                        break
+                    # rollback: the last-good state, a raised
+                    # regularization and the offending factors redrawn,
+                    # on a rebuilt sweep
+                    with trace.span("cpd.guard.rollback", it=it + 1,
+                                    attempt=health_attempts):
+                        factors, grams, lam = (list(snap[0]),
+                                               list(snap[1]), snap[2])
+                        reg = ((opts.regularization
+                                if opts.regularization > 0 else 1e-6)
+                               * (10.0 ** health_attempts))
+                        for m in offending:
+                            factors[m] = _redraw(
+                                factors[m].shape, factors[m].dtype, dev,
+                                opts.seed(), health_attempts, m)
+                            grams[m] = gram(factors[m])
+                    resilience.run_report().add(
+                        "health_rollback", iteration=it + 1,
+                        attempt=health_attempts, regularization=reg,
+                        rerandomized=offending)
+                    if opts.verbosity >= Verbosity.LOW:
+                        print(f"  non-finite sweep outputs at iteration "
+                              f"{it + 1}; rolled back to the last-good "
+                              f"snapshot (attempt {health_attempts}/"
+                              f"{guard}: reg={reg:g}, re-randomized modes "
+                              f"{offending})")
+                    sweep = build_sweep(reg)
+                except Exception as e:
+                    # a failure that escaped the chain walk (one that
+                    # surfaced at the fit read): demote the engine last
+                    # attempted and retry this iteration from the
+                    # committed state, which the failed sweep left alone
+                    rescue_attempts += 1
+                    if (rescue_attempts > 6
+                            or not _try_engine_rescue(X, opts, e)):
+                        raise
+                    sweep = build_sweep()
+            if degraded:
+                factors, grams, lam = list(snap[0]), list(snap[1]), snap[2]
+                action = "stopped early with the last-good factors"
+                if checkpoint_path is not None:
+                    # the snapshot is the LAST HEALTHY check: a resume
+                    # redoes the rolled-back window
+                    _save_checkpoint(checkpoint_path, factors, lam,
+                                     last_check_it, fit_prev,
+                                     reorder=reorder_label)
+                    action += f"; checkpointed to {checkpoint_path}"
+                resilience.run_report().add(
+                    "health_degraded", iteration=it + 1, action=action)
+                if opts.verbosity >= Verbosity.LOW:
+                    print(f"  health-retry budget ({guard}) exhausted at "
+                          f"iteration {it + 1}; {action}")
+                break
+            factors, grams, lam = f_new, g_new, lam_new
+            if not check:
+                if opts.verbosity >= Verbosity.HIGH:
+                    print(f"  its = {it + 1:3d} (deferred fit check)")
+                continue
+            it_span.set(fit=fitval)
+            elapsed = time.perf_counter() - t0
+            fits.append(fitval)
+            seconds.append(elapsed)
+            fit_iters.append(it + 1)
+            if guard > 0:
+                # the rollback target moves only after a verified check
+                snap = snapshot()
+            if opts.verbosity >= Verbosity.LOW:
+                print(f"  its = {it + 1:3d} ({elapsed:.3f}s)"
+                      f"  fit = {fitval:0.5f}"
+                      f"  delta = {fitval - fit_prev:+0.4e}")
+            if checkpoint_due:
+                _save_checkpoint(checkpoint_path, factors, lam, it + 1,
+                                 fitval, reorder=reorder_label)
+            if stop is not None and stop():
+                # cooperative interruption: the committed state is
+                # checkpointed, so a resume redoes nothing
+                if checkpoint_path is not None and not checkpoint_due:
+                    _save_checkpoint(checkpoint_path, factors, lam,
+                                     it + 1, fitval, reorder=reorder_label)
+                fit_prev = fitval
+                break
+            # the tolerance scales with the iterations since the last
+            # check (≙ the k = 1 test, src/cpd.c:368-370)
+            window = (it + 1) - last_check_it
+            last_check_it = it + 1
+            if it > 0 and abs(fitval - fit_prev) < opts.tolerance * window:
+                fit_prev = fitval
+                break
+            fit_prev = fitval
+        finally:
+            trace.end(it_span)
+    timers.stop("cpd")
+
+    out = post_process(factors, lam, fit_prev, fits, seconds, fit_iters)
     if perm is not None:
         out.factors = perm.undo_factors(out.factors)
     return out

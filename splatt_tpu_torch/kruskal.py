@@ -18,8 +18,10 @@ class KruskalTensor:
     """Rank-R factorization ``X ≈ Σ_r λ_r · U1[:,r] ∘ ... ∘ Um[:,r]``.
 
     factors: (dim_m, rank) factor matrices; lam: (rank,) column norms;
-    fit: quality of fit in [0, 1]; fits: the fit after each iteration;
-    iter_seconds: each iteration's host time, ending in the fit's fetch.
+    fit: quality of fit in [0, 1]; fits: the fit at each checked
+    iteration (every iteration unless ``Options.fit_check_every`` > 1);
+    iter_seconds: each checked iteration's host time, ending in the
+    fit's fetch; fit_iters: the 1-based iteration of each entry of fits.
     """
 
     factors: List[torch.Tensor]
@@ -27,6 +29,7 @@ class KruskalTensor:
     fit: float
     fits: Tuple[float, ...] = ()
     iter_seconds: Tuple[float, ...] = ()
+    fit_iters: Tuple[int, ...] = ()
 
     @property
     def rank(self) -> int:
@@ -51,7 +54,8 @@ class KruskalTensor:
                      os.path.join(directory, f"{stem}lambda.mat"))
 
 
-def post_process(factors, lam, fit, fits=(), iter_seconds=()) -> KruskalTensor:
+def post_process(factors, lam, fit, fits=(), iter_seconds=(),
+                 fit_iters=()) -> KruskalTensor:
     """Fold the remaining column norms into λ (≙ cpd_post_process,
     src/cpd.c:391-411)."""
     from splatt_tpu_torch.ops.linalg import normalize_columns
@@ -62,4 +66,5 @@ def post_process(factors, lam, fit, fits=(), iter_seconds=()) -> KruskalTensor:
         lam = lam * norms
         out.append(U)
     return KruskalTensor(factors=out, lam=lam, fit=float(fit),
-                         fits=tuple(fits), iter_seconds=tuple(iter_seconds))
+                         fits=tuple(fits), iter_seconds=tuple(iter_seconds),
+                         fit_iters=tuple(fit_iters))

@@ -66,6 +66,7 @@ from splatt_tpu_torch.blocked import (BlockedSparse, ModeLayout,
                                       decode_to_v1)
 from splatt_tpu_torch.config import Options, acc_dtype, resolve_decode
 from splatt_tpu_torch.coo import SparseTensor
+from splatt_tpu_torch import trace
 from splatt_tpu_torch.ops import kernels
 
 #: elements of the (C·B, R) gather product one step of the xla_scan
@@ -93,6 +94,9 @@ _DECODE_NOTED: set = set()
 #: layout left its dense_dispatch event; the JAX package keys on (engine,
 #: shape key) alone, which leaves silent a second mode of the same row tile
 _DENSE_NOTED: set = set()
+#: (engine, shape key) pairs whose first launch ran under the deadline
+#: watchdog (resilience.deadline); later launches skip the timer thread
+_DEADLINE_ARMED: set = set()
 
 
 def _hadamard(vals: torch.Tensor, factors: Sequence[torch.Tensor],
@@ -378,14 +382,16 @@ def engine_chain(layout: ModeLayout, factors: Sequence[torch.Tensor],
 
 def _engine_failure(exc: BaseException) -> bool:
     """Whether `exc` is an engine's own failure, the only kind the chain
-    demotes: an armed fault, a launch the card refused, or an
-    out-of-memory.  A wrong operand, a failed build or load, and a CUDA
-    error left by earlier work propagate."""
+    demotes: an armed fault, a launch the card refused, an
+    out-of-memory, or a first launch that blew its deadline (TIMEOUT,
+    demoted per shape).  A wrong operand, a failed build or load, and a
+    CUDA error left by earlier work propagate."""
+    from splatt_tpu_torch.resilience import DeadlineExceeded
     from splatt_tpu_torch.utils import faults
 
     return (faults.injected(exc)
             or isinstance(exc, (kernels.KernelLaunchError,
-                                torch.OutOfMemoryError)))
+                                torch.OutOfMemoryError, DeadlineExceeded)))
 
 
 def mttkrp_blocked(layout: ModeLayout, factors: Sequence[torch.Tensor],
@@ -412,6 +418,16 @@ def mttkrp_blocked(layout: ModeLayout, factors: Sequence[torch.Tensor],
     all demoted raises before it runs.  Nothing here synchronises the
     card: an error left sticky by a kernel surfaces at a later sync and
     propagates from there.
+
+    Around each attempt (≙ splatt_tpu/ops/mttkrp.py:542-611) the walk
+    notes the engine (``resilience.note_engine_attempt``, which the ALS
+    driver's sweep-level rescue reads), opens a ``mttkrp.dispatch`` span
+    (mode, path, engine, block, encoding), runs the engine's first launch
+    per (engine, shape) under ``resilience.deadline`` (a blown deadline
+    is TIMEOUT and demotes per shape; the kernels are built before the
+    walk, so the watchdog never bounds ``nvcc``) and passes the output
+    through ``faults.poison(f"engine.{engine}")``.  The JAX span fires
+    once per compilation, at trace time; this one fires once per call.
 
     A dense layout takes the ``dense`` path whatever `path` says, skips
     the decode machinery (it has no streams), and its engine's first
@@ -479,12 +495,24 @@ def mttkrp_blocked(layout: ModeLayout, factors: Sequence[torch.Tensor],
                     enc=layout.format_desc(),
                     strategy=("kernel" if engine in STREAM_NATIVE_ENGINES
                               else "prep"))
-            out = _run_engine(engine, layout, factors, mode, path)
+            if (engine, shape_key) not in _DEADLINE_ARMED:
+                # the watchdog bounds an engine's first launch per shape;
+                # the kernels were built and loaded before the walk, so
+                # it never bounds nvcc
+                _DEADLINE_ARMED.add((engine, shape_key))
+                with resilience.deadline(f"engine.{engine}"):
+                    out = _run_engine(engine, layout, factors, mode, path)
+            else:
+                out = _run_engine(engine, layout, factors, mode, path)
             return faults.poison(f"engine.{engine}", out)
 
         try:
-            return resilience.retry_transient(attempt,
-                                              label=f"engine.{engine}")
+            resilience.note_engine_attempt(engine, shape_key)
+            with trace.span("mttkrp.dispatch", mode=int(mode), path=path,
+                            engine=engine, block=int(layout.block),
+                            enc=layout.format_desc()):
+                return resilience.retry_transient(attempt,
+                                                  label=f"engine.{engine}")
         except Exception as e:
             if not fallback or i == last or not _engine_failure(e):
                 raise

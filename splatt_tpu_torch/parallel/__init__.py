@@ -24,7 +24,9 @@ def distributed_cpd_als(tt, rank: int, opts: Optional[Options] = None,
                         mesh=None, row_distribute: Optional[str] = None,
                         local_engine: Optional[str] = None,
                         measure_overlap: Optional[bool] = None,
-                        device=None) -> KruskalTensor:
+                        device=None, checkpoint_path: Optional[str] = None,
+                        checkpoint_every: int = 10,
+                        resume: bool = True) -> KruskalTensor:
     """Distributed CPD-ALS, dispatching on ``opts.decomposition``
     (≙ SPLATT_OPTION_DECOMP, types_config.h:179-190), as the JAX
     package's does:
@@ -39,7 +41,13 @@ def distributed_cpd_als(tt, rank: int, opts: Optional[Options] = None,
       (:func:`sharded_cpd_als`).
 
     `local_engine` None lets each decomposition's CPD pick
-    (:func:`~splatt_tpu_torch.parallel.common.auto_local_engine`)."""
+    (:func:`~splatt_tpu_torch.parallel.common.auto_local_engine`).
+    `checkpoint_path`, `checkpoint_every` and `resume` pass through to
+    every decomposition (≙ splatt_tpu/parallel/__init__.py:21-46): the
+    checkpoint is in the original row space and the single-card format,
+    so any decomposition, or ``cpd_als``, resumes it."""
+    ck = dict(checkpoint_path=checkpoint_path,
+              checkpoint_every=checkpoint_every, resume=resume)
     opts = (opts or default_opts()).validate()
     if opts.decomposition is Decomposition.MEDIUM and partition is None:
         if row_distribute is not None:
@@ -48,19 +56,21 @@ def distributed_cpd_als(tt, rank: int, opts: Optional[Options] = None,
                              "layer fences already localize inputs)")
         return grid_cpd_als(tt, rank, grid=grid, mesh=mesh, opts=opts,
                             init=init, local_engine=local_engine,
-                            device=device)
+                            device=device, **ck)
     if opts.decomposition is Decomposition.COARSE:
         if row_distribute not in (None, "balanced"):
             raise ValueError("COARSE supports row_distribute='balanced' "
                              "(nnz-weighted fences); 'greedy' is FINE-only")
         return coarse_cpd_als(tt, rank, mesh=mesh, opts=opts, init=init,
                               local_engine=local_engine,
-                              row_distribute=row_distribute, device=device)
+                              row_distribute=row_distribute, device=device,
+                              **ck)
     return sharded_cpd_als(tt, rank, mesh=mesh, opts=opts, init=init,
                            partition=partition,
                            row_distribute=row_distribute,
                            local_engine=local_engine,
-                           measure_overlap=measure_overlap, device=device)
+                           measure_overlap=measure_overlap, device=device,
+                           **ck)
 
 
 __all__ = ["auto_grid", "make_mesh", "sharded_cpd_als", "sharded_mttkrp",

@@ -129,7 +129,9 @@ def coarse_cpd_als(tt, rank: int, mesh=None, opts: Optional[Options] = None,
                    init=None, axis: str = "d",
                    local_engine: Optional[str] = None,
                    row_distribute: Optional[str] = None,
-                   device=None) -> KruskalTensor:
+                   device=None, checkpoint_path: Optional[str] = None,
+                   checkpoint_every: int = 10,
+                   resume: bool = True) -> KruskalTensor:
     """Distributed CPD-ALS, coarse-grained owner computes.
 
     `mesh` defaults to :func:`make_mesh` on `device`.
@@ -141,6 +143,8 @@ def coarse_cpd_als(tt, rank: int, mesh=None, opts: Optional[Options] = None,
     single-card blocked engine on every rank (≙ mttkrp_csf over each
     rank's per-mode tensor copy); "stream" keeps the gather product, the
     oracle.  The factors and λ come back on the CPU.
+    `checkpoint_path`, `checkpoint_every` and `resume` are
+    :func:`run_distributed_als`'s.
     """
     opts = (opts or default_opts()).validate()
     mesh, axis = single_axis_of(mesh, axis)
@@ -206,5 +210,18 @@ def coarse_cpd_als(tt, rank: int, mesh=None, opts: Optional[Options] = None,
     def step(f, g, first):
         return sweep(inds, vals, f, g, first)
 
+    def place(U, m):
+        return shard_factors([U], (orig_dims[m],), mesh, dtype=dtype,
+                             relabels=None if relabels is None
+                             else [relabels[m]],
+                             dims_pad=(dims_pad[m],))[0]
+
+    def gram_of(f, m):
+        return allreduce([gram(u) for u in f], mesh)
+
     return run_distributed_als(step, factors, grams, rank, opts, xnormsq,
-                               orig_dims, dtype, mesh, row_select=relabels)
+                               orig_dims, dtype, mesh, row_select=relabels,
+                               place=place, gram_of=gram_of,
+                               checkpoint_path=checkpoint_path,
+                               checkpoint_every=checkpoint_every,
+                               resume=resume)

@@ -25,9 +25,11 @@ in-memory).
   rank's device (one group of every rank on a 1-D mesh; the ranks of a
   :meth:`GridMesh.group` on the MEDIUM grid).
 - :func:`run_distributed_als`: the iterate/converge/post-process loop
-  (≙ the outer loop of mpi_cpd_als_iterate + cpd_post_process), without
-  the JAX package's checkpoints, guarded rollback and trace spans
-  (ROADMAP.md slice 7).
+  (≙ the outer loop of mpi_cpd_als_iterate + cpd_post_process) with the
+  JAX package's checkpoints in the original row space, resume, deferred
+  fit checks, the guarded rollback and the ``dist.*`` trace spans.
+- :data:`DIST_TIMER_NAMES`, :func:`wrap_profiled_step`,
+  :func:`dist_phase_report`: the phase timers of the profiled sweeps.
 
 Sharded state is a list with one tensor per rank, each on its rank's
 device; a "replicated" value (a Gram, λ) is such a list of equal copies.
@@ -35,6 +37,7 @@ device; a "replicated" value (a Gram, λ) is such a list of equal copies.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import time
 from typing import Callable, List, Optional, Sequence, Tuple
@@ -630,46 +633,300 @@ def _gather_original(factors, dims, row_select,
     return out
 
 
+#: the phase timers of the profiled distributed sweeps
+DIST_TIMER_NAMES = ("dist_gather", "dist_mttkrp", "dist_comm",
+                    "dist_update", "dist_fit")
+
+
+def reset_dist_timers() -> None:
+    """Zero the distributed phase timers (after a profiled step's first
+    call, so its first launches stay out of the attribution)."""
+    from splatt_tpu_torch.utils.timers import timers
+
+    for name in DIST_TIMER_NAMES:
+        timers.get(name).seconds = 0.0
+
+
+def wrap_profiled_step(step: Callable) -> Callable:
+    """A profiled step that zeroes the phase timers after its first call,
+    so the attribution covers warm iterations only
+    (≙ splatt_tpu.parallel.common.wrap_profiled_step)."""
+    ncalls = [0]
+
+    def wrapped(*args):
+        out = step(*args)
+        ncalls[0] += 1
+        if ncalls[0] == 1:
+            reset_dist_timers()
+        return out
+
+    return wrapped
+
+
+def dist_phase_report() -> List[str]:
+    """The measured per-phase totals of a profiled distributed run
+    (≙ mpi_time_stats' per-phase table, mpi_cpd.c:893-939; the phases
+    are fenced on every card, so one wall clock is the max)."""
+    from splatt_tpu_torch.utils.timers import timers
+
+    lines = ["distributed phase times (in-loop totals, warm iterations):"]
+    for name, label in (("dist_gather", "gather rows"),
+                        ("dist_mttkrp", "local mttkrp"),
+                        ("dist_comm", "reduce collective"),
+                        ("dist_update", "solve+normalize+gram"),
+                        ("dist_fit", "fit")):
+        t = timers.get(name)
+        if t.seconds > 0:
+            lines.append(f"  {label:<22s} {t.seconds:8.3f}s")
+    return lines
+
+
+def no_phase(name: str):
+    """The plain sweeps' phase bracket: nothing."""
+    return contextlib.nullcontext()
+
+
+@contextlib.contextmanager
+def profiled_phase(name: str, mesh):
+    """One phase of a profiled distributed sweep: its timer bracket,
+    closed after every card of `mesh` has finished the phase's work
+    (no-op fence on a CPU mesh)."""
+    from splatt_tpu_torch.utils.timers import timers
+
+    with timers.time(name):
+        yield
+        if mesh.is_cuda:
+            for card in mesh.cards:
+                torch.cuda.synchronize(card)
+
+
+def _health_pack_dist(factors, lam, fit, home) -> torch.Tensor:
+    """The sentinel's vector for per-rank factors: ``[fit, isfinite of
+    every rank's block of U_0, ..., of U_{n-1}, isfinite(λ),
+    isfinite(fit)]`` on `home`, one host copy at the fit read."""
+    fit = torch.as_tensor(fit)
+    flags = [torch.stack([torch.isfinite(u).all().to(home)
+                          for u in f]).all() for f in factors]
+    flags.append(torch.isfinite(lam).all().to(home))
+    flags.append(torch.isfinite(fit).to(home))
+    return torch.cat([fit.reshape(1).to(home),
+                      torch.stack(flags).to(fit.dtype)])
+
+
 def run_distributed_als(step: Callable, factors, grams, rank: int,
                         opts: Options, xnormsq: float,
                         dims: Sequence[int], dtype, mesh,
                         row_select=None,
                         after_fit: Optional[Callable] = None,
-                        shard_ranks=None) -> KruskalTensor:
+                        shard_ranks=None,
+                        place: Optional[Callable] = None,
+                        gram_of: Optional[Callable] = None,
+                        checkpoint_path: Optional[str] = None,
+                        checkpoint_every: int = 10,
+                        resume: bool = True) -> KruskalTensor:
     """Host convergence loop and post-processing of a distributed sweep.
 
     ``step(factors, grams, first) -> (factors, grams, λ, ⟨Z,Z⟩, ⟨X,Z⟩)``
-    with factors and Grams as per-rank lists.  Reading the fit is the
-    iteration's one host sync; the eigensolver's status word is read
-    right after it, then `after_fit` runs (the ring kernels' error
-    check).  The factors come back to the host, in the original row
-    order (`row_select[m]` maps an original row to its placement; on the
-    MEDIUM grid `shard_ranks` names the ranks that hold one copy of each
-    block), and are renormalized into λ (≙ cpd_post_process).
-    """
-    from splatt_tpu_torch.config import fit_dtype
-    from splatt_tpu_torch.ops.linalg import check_solver
+    with factors and Grams as per-rank lists; it returns new lists and
+    leaves its inputs alone.  The fit is read at check iterations
+    (``opts.fit_check_every``, the last, and a due checkpoint); the
+    eigensolver's status word is read right after it, then `after_fit`
+    runs (the ring kernels' error check).  The factors come back to the
+    host, in the original row order (`row_select[m]` maps an original
+    row to its placement; on the MEDIUM grid `shard_ranks` names the
+    ranks that hold one copy of each block), and are renormalized into
+    λ (≙ cpd_post_process).
 
+    Checkpoints (≙ splatt_tpu/parallel/common.py:787-1033): with
+    `checkpoint_path` the factors are gathered to the original row space
+    and written every `checkpoint_every` iterations and at the end, in
+    the single-card format, so a checkpoint does not depend on the
+    decomposition or the rank count; an existing one is resumed from
+    (`resume`), re-placed by ``place(U, m) -> per-rank list`` with the
+    Grams recomputed by ``gram_of(per-rank factor, m)``.  The sentinel
+    (``SPLATT_HEALTH_RETRIES``) keeps references to the last verified
+    per-rank tensors; a rollback restores them and redraws each
+    offending factor in the original row space from
+    ``np.random.default_rng(seed + 7919 + attempt)`` (as the JAX package
+    does), leaving the regularization as it is (the step holds it); a
+    checkpoint due at a rolled-back iteration is carried to the next
+    healthy check; an exhausted budget returns the last verified state,
+    checkpointed.
+    """
+    from splatt_tpu_torch import trace
+
+    with trace.enabling(opts.trace):
+        with trace.span("dist.als", rank=int(rank),
+                        max_iterations=int(opts.max_iterations)):
+            return _run_distributed_als_traced(
+                step, factors, grams, rank, opts, xnormsq, dims, dtype,
+                mesh, row_select, after_fit, shard_ranks, place, gram_of,
+                checkpoint_path, checkpoint_every, resume)
+
+
+def _run_distributed_als_traced(step, factors, grams, rank, opts, xnormsq,
+                                dims, dtype, mesh, row_select, after_fit,
+                                shard_ranks, place, gram_of,
+                                checkpoint_path, checkpoint_every,
+                                resume) -> KruskalTensor:
+    """:func:`run_distributed_als` inside its ``dist.als`` root span."""
+    import os
+
+    from splatt_tpu_torch import resilience, trace
+    from splatt_tpu_torch.config import fit_dtype
+    from splatt_tpu_torch.cpd import (_health_verdict, _save_checkpoint,
+                                      health_retries,
+                                      load_checkpoint_resilient)
+    from splatt_tpu_torch.ops.linalg import SolverError, check_solver
+    from splatt_tpu_torch.utils import faults
+
+    if checkpoint_path and checkpoint_every < 1:
+        raise ValueError(
+            f"checkpoint_every must be >= 1, got {checkpoint_every}")
+    if checkpoint_path and (place is None or gram_of is None):
+        raise ValueError("checkpoints need the decomposition's place and "
+                         "gram_of")
+    home = mesh.devices[0]
+    fit_dt = torch.promote_types(dtype, fit_dtype())
     fit_prev = 0.0
+    start_it = 0
+    lam = [torch.ones(rank, dtype=fit_dt, device=home)]
+    if checkpoint_path and resume and (
+            os.path.exists(checkpoint_path)
+            or os.path.exists(checkpoint_path + ".bak")):
+        loaded = load_checkpoint_resilient(checkpoint_path)
+        if loaded is not None:
+            fs, lam_ck, start_it, fit_ck = loaded
+            if (len(fs) != len(factors)
+                    or any(int(f.shape[0]) != d or int(f.shape[1]) != rank
+                           for f, d in zip(fs, dims))):
+                raise ValueError(
+                    f"checkpoint {checkpoint_path} does not match this run "
+                    f"(dims {tuple(dims)}, rank {rank}); pass resume=False "
+                    f"to overwrite")
+            factors = [place(U, m) for m, U in enumerate(fs)]
+            grams = [gram_of(f, m) for m, f in enumerate(factors)]
+            lam = [lam_ck.to(home, fit_dt)]
+            fit_prev = fit_ck
+            if opts.verbosity >= Verbosity.LOW:
+                print(f"  resumed from {checkpoint_path} at iteration "
+                      f"{start_it} (fit {fit_ck:0.5f})")
+    k = opts.fit_check_every
+    last_check_it = start_it
+    done_it = start_it
+    guard = health_retries()
+    health_attempts = 0
+    degraded = False
+    save_pending = False
+    # the rollback target: references to the last verified tensors (the
+    # step never modifies its inputs, so nothing is copied)
+    snap = (list(factors), list(grams), lam) if guard > 0 else None
     fits: List[float] = []
     seconds: List[float] = []
-    lam = [torch.ones(rank, dtype=torch.promote_types(dtype, fit_dtype()),
-                      device=mesh.devices[0])]
-    for it in range(opts.max_iterations):
+    fit_iters: List[int] = []
+    for it in range(start_it, opts.max_iterations):
         t0 = time.perf_counter()
-        factors, grams, lam, znormsq, inner = step(factors, grams, it == 0)
-        fitval = float(_fit(xnormsq, znormsq, inner))
+        with trace.span("dist.step", it=it + 1):
+            factors, grams, lam, znormsq, inner = step(factors, grams,
+                                                       it == 0)
+        # chaos hook: poison the last factor (every rank's block)
+        factors = list(factors)
+        factors[-1] = faults.poison_many("cpd.sweep", list(factors[-1]))
+        save_now = (checkpoint_path
+                    and (it + 1) % checkpoint_every == 0
+                    and it + 1 != opts.max_iterations)
+        if ((it + 1) % k != 0 and it + 1 != opts.max_iterations
+                and not save_now):
+            if opts.verbosity >= Verbosity.HIGH:
+                print(f"  its = {it + 1:3d} (deferred fit check)")
+            continue
+        fit_arr = _fit(xnormsq, znormsq, inner)
+        if guard > 0:
+            # the finite checks ride the fit read
+            fitval, offending, healthy = _health_verdict(
+                _health_pack_dist(factors, lam[0], fit_arr,
+                                  home).cpu().numpy(), len(factors))
+        else:
+            fitval, offending, healthy = (float(fit_arr.reshape(1).cpu()[0]),
+                                          [], True)
+        if not healthy:
+            health_attempts += 1
+            try:
+                check_solver()
+            except SolverError:
+                pass
+            resilience.run_report().add(
+                "health_nonfinite", iteration=it + 1, modes=offending,
+                error=f"non-finite distributed sweep outputs at "
+                      f"iteration {it + 1}")
+            if health_attempts > guard:
+                degraded = True
+                break
+            seq_f, seq_g = list(snap[0]), list(snap[1])
+            rng = np.random.default_rng(opts.seed() + 7919
+                                        + health_attempts)
+            for m in offending:
+                fresh = rng.random((int(dims[m]), rank))
+                seq_f[m] = place(fresh, m)
+                seq_g[m] = gram_of(seq_f[m], m)
+            factors, grams, lam = seq_f, seq_g, snap[2]
+            # a checkpoint due now goes to the next healthy check
+            save_pending = save_pending or bool(save_now)
+            resilience.run_report().add(
+                "health_rollback", iteration=it + 1,
+                attempt=health_attempts, regularization=None,
+                rerandomized=offending)
+            if opts.verbosity >= Verbosity.LOW:
+                print(f"  non-finite sweep outputs at iteration "
+                      f"{it + 1}; rolled back to the last-good "
+                      f"snapshot (attempt {health_attempts}/{guard}, "
+                      f"re-randomized modes {offending})")
+            continue
         check_solver()
         if after_fit is not None:
             after_fit()
+        if guard > 0:
+            snap = (list(factors), list(grams), lam)
+        if save_now or save_pending:
+            _save_checkpoint(checkpoint_path,
+                             _gather_original(factors, dims, row_select,
+                                              shard_ranks),
+                             lam[0], it + 1, fitval)
+            save_pending = False
         fits.append(fitval)
         seconds.append(time.perf_counter() - t0)
+        fit_iters.append(it + 1)
         if opts.verbosity >= Verbosity.LOW:
             print(f"  its = {it + 1:3d} ({seconds[-1]:.3f}s)"
                   f"  fit = {fitval:0.5f}  delta = {fitval - fit_prev:+0.4e}")
-        converged = it > 0 and abs(fitval - fit_prev) < opts.tolerance
-        fit_prev = fitval
-        if converged:
+        # a checkpoint-forced check shortens the window: the tolerance
+        # scales with it, so checkpoints cannot change convergence
+        window = (it + 1) - last_check_it
+        last_check_it = it + 1
+        done_it = it + 1
+        if it > 0 and abs(fitval - fit_prev) < opts.tolerance * window:
+            fit_prev = fitval
             break
+        fit_prev = fitval
+
+    if degraded:
+        gathered = _gather_original(snap[0], dims, row_select, shard_ranks)
+        lam = snap[2]
+        action = "stopped early with the last-good factors"
+        if checkpoint_path:
+            _save_checkpoint(checkpoint_path, gathered, lam[0], done_it,
+                             fit_prev)
+            action += f"; checkpointed to {checkpoint_path}"
+        resilience.run_report().add("health_degraded",
+                                    iteration=done_it, action=action)
+        if opts.verbosity >= Verbosity.LOW:
+            print(f"  health-retry budget ({guard}) exhausted; {action}")
+        return post_process(gathered, lam[0].cpu(), fit_prev, fits,
+                            seconds, fit_iters)
     gathered = _gather_original(factors, dims, row_select, shard_ranks)
-    return post_process(gathered, lam[0].cpu(), fit_prev, fits, seconds)
+    # the final save: a finished run's checkpoint is never stale
+    if checkpoint_path and done_it > start_it:
+        _save_checkpoint(checkpoint_path, gathered, lam[0], done_it,
+                         fit_prev)
+    return post_process(gathered, lam[0].cpu(), fit_prev, fits, seconds,
+                        fit_iters)

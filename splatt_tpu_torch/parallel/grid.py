@@ -41,12 +41,14 @@ from splatt_tpu_torch.parallel.common import (RankLayouts, allreduce,
                                               bucket_engine, bucket_scatter,
                                               build_bucket_layout, ceil_to,
                                               comm_volume_report,
+                                              dist_phase_report,
                                               engine_fallback, fit_tail,
                                               imbalance_report, is_memmapped,
-                                              mode_update_tail,
+                                              mode_update_tail, no_phase,
                                               place_buckets,
                                               record_shard_imbalance,
-                                              run_distributed_als)
+                                              run_distributed_als,
+                                              wrap_profiled_step)
 from splatt_tpu_torch.parallel.mesh import (GridMesh, auto_grid, make_mesh,
                                             make_grid_mesh)
 
@@ -167,27 +169,29 @@ class GridDecomp:
         """Factor m zero-padded to ``dims_pad[m]`` rows (row `old` at
         label ``relabels[m][old]`` under balanced fences), each rank
         holding the row block of its coordinate on axis m."""
-        out = []
-        for m, U in enumerate(factors):
-            U = torch.as_tensor(np.asarray(U) if not torch.is_tensor(U)
-                                else U).detach().cpu()
-            U_pad = torch.zeros((self.dims_pad[m], U.shape[1]), dtype=U.dtype)
-            rl = self.relabels[m] if self.relabels is not None else None
-            if rl is None:
-                U_pad[:U.shape[0]] = U
-            else:
-                U_pad[torch.from_numpy(np.asarray(rl))] = U
-            blk = self.block_rows[m]
-            blocks = {}
-            row = []
-            for r, dev in enumerate(mesh.devices):
-                c = mesh.coords(r)[m]
-                if (c, dev) not in blocks:
-                    blocks[(c, dev)] = U_pad[c * blk:(c + 1) * blk].to(
-                        dev, dtype)
-                row.append(blocks[(c, dev)])
-            out.append(row)
-        return out
+        return [self.shard_factor(U, m, mesh, dtype)
+                for m, U in enumerate(factors)]
+
+    def shard_factor(self, U, m: int, mesh: GridMesh,
+                     dtype=torch.float32) -> List[torch.Tensor]:
+        """:meth:`shard_factors` of mode m's factor alone."""
+        U = torch.as_tensor(np.asarray(U) if not torch.is_tensor(U)
+                            else U).detach().cpu()
+        U_pad = torch.zeros((self.dims_pad[m], U.shape[1]), dtype=U.dtype)
+        rl = self.relabels[m] if self.relabels is not None else None
+        if rl is None:
+            U_pad[:U.shape[0]] = U
+        else:
+            U_pad[torch.from_numpy(np.asarray(rl))] = U
+        blk = self.block_rows[m]
+        blocks = {}
+        row = []
+        for r, dev in enumerate(mesh.devices):
+            c = mesh.coords(r)[m]
+            if (c, dev) not in blocks:
+                blocks[(c, dev)] = U_pad[c * blk:(c + 1) * blk].to(dev, dtype)
+            row.append(blocks[(c, dev)])
+        return row
 
     def row_select(self) -> Optional[List[Optional[np.ndarray]]]:
         """Per-mode gather indices restoring the original row order of a
@@ -251,7 +255,7 @@ class CellLayouts:
 
 def make_grid_sweep(mesh: GridMesh, decomp: GridDecomp, reg: float,
                     cells: Optional[List[RankLayouts]] = None,
-                    fallback: Optional[bool] = None):
+                    fallback: Optional[bool] = None, phase=no_phase):
     """One ALS sweep over the grid, as ``sweep(inds, vals, factors,
     grams, first) -> (factors, grams, λ, ⟨Z,Z⟩, ⟨X,Z⟩)`` with per-rank
     lists (factor m's list holds each rank's block of its layer).
@@ -260,7 +264,8 @@ def make_grid_sweep(mesh: GridMesh, decomp: GridDecomp, reg: float,
     MTTKRP runs the single-card blocked engine over its cell's sorted
     arrays (`fallback` passed to its chain) and `inds`/`vals` are not
     read; without, the stream formulation over each rank's cell, the
-    blocked sweep's oracle."""
+    blocked sweep's oracle.  `phase(name)` brackets each phase of the
+    sweep (:func:`make_grid_profiled_sweep`)."""
     nmodes = decomp.nmodes
     block_rows = decomp.block_rows
     last = nmodes - 1
@@ -290,27 +295,47 @@ def make_grid_sweep(mesh: GridMesh, decomp: GridDecomp, reg: float,
         dtype = factors[0][0].dtype
         lam = M = None
         for m in range(nmodes):
-            parts = [local_mttkrp(inds, vals, factors, m, r)
-                     for r in range(mesh.ndev)]
-            M = allreduce(parts, mesh, groups=layers[m])
+            with phase("dist_mttkrp"):
+                parts = [local_mttkrp(inds, vals, factors, m, r)
+                         for r in range(mesh.ndev)]
+            with phase("dist_comm"):
+                M = allreduce(parts, mesh, groups=layers[m])
             del parts
-            U, g, lam = mode_update_tail(M, grams, m, reg, first, mesh,
-                                         store_dtype=dtype,
-                                         groups=owners[m])
+            with phase("dist_update"):
+                U, g, lam = mode_update_tail(M, grams, m, reg, first, mesh,
+                                             store_dtype=dtype,
+                                             groups=owners[m])
             factors[m] = U
             grams[m] = g
-        znormsq, inner = fit_tail(lam, grams, M, factors[last], mesh,
-                                  ranks=inner_ranks)
+        with phase("dist_fit"):
+            znormsq, inner = fit_tail(lam, grams, M, factors[last], mesh,
+                                      ranks=inner_ranks)
         return factors, grams, lam, znormsq, inner
 
     return sweep
+
+
+def make_grid_profiled_sweep(mesh: GridMesh, decomp: GridDecomp, reg: float,
+                             cells: Optional[List[RankLayouts]] = None,
+                             fallback: Optional[bool] = None):
+    """The grid sweep with its local MTTKRP, layer reduce, update and fit
+    each in its ``dist_*`` timer bracket, closed after every card has
+    finished it (≙ splatt_tpu/parallel/grid.py:476-586).  The grid
+    localizes inputs, so there is no gather phase."""
+    from splatt_tpu_torch.parallel.common import profiled_phase
+
+    return make_grid_sweep(mesh, decomp, reg, cells=cells,
+                           fallback=fallback,
+                           phase=lambda name: profiled_phase(name, mesh))
 
 
 def grid_cpd_als(tt, rank: int, grid: Optional[Tuple[int, ...]] = None,
                  mesh=None, opts: Optional[Options] = None, init=None,
                  relabel: Optional[str] = None,
                  local_engine: Optional[str] = None,
-                 device=None) -> KruskalTensor:
+                 device=None, checkpoint_path: Optional[str] = None,
+                 checkpoint_every: int = 10,
+                 resume: bool = True) -> KruskalTensor:
     """Distributed CPD-ALS over an n-D grid (MEDIUM decomposition).
 
     `grid` defaults to a :class:`GridMesh` `mesh`'s grid, else to
@@ -328,7 +353,11 @@ def grid_cpd_als(tt, rank: int, grid: Optional[Tuple[int, ...]] = None,
     fences (≙ splatt_tpu/parallel/grid.py:615-650).  `init` is a list of
     arrays in the original row space; without it the factors come from a
     generator seeded by ``opts.random_seed``.  The factors come back in
-    the original row order, on the CPU.
+    the original row order, on the CPU.  At ``Verbosity.HIGH`` the
+    profiled sweep (:func:`make_grid_profiled_sweep`) runs and the phase
+    table is printed.  `checkpoint_path`, `checkpoint_every` and `resume`
+    are :func:`run_distributed_als`'s; under `relabel` the checkpoint
+    holds the relabeled factors, as in the JAX package.
     """
     opts = (opts or default_opts()).validate()
     dtype = resolve_dtype(opts)
@@ -403,16 +432,32 @@ def grid_cpd_als(tt, rank: int, grid: Optional[Tuple[int, ...]] = None,
 
     grams = [allreduce([gram(u) for u in f], mesh, groups=mesh.groups([m]))
              for m, f in enumerate(factors)]
-    sweep = make_grid_sweep(mesh, decomp, opts.regularization, cells=cells,
-                            fallback=engine_fallback(opts))
+    profiled = opts.verbosity >= Verbosity.HIGH
+    sweep = (make_grid_profiled_sweep if profiled else make_grid_sweep)(
+        mesh, decomp, opts.regularization, cells=cells,
+        fallback=engine_fallback(opts))
 
     def step(f, g, first):
         return sweep(inds, vals, f, g, first)
 
+    if profiled:
+        step = wrap_profiled_step(step)
+
+    def place(U, m):
+        return decomp.shard_factor(U, m, mesh, dtype)
+
+    def gram_of(f, m):
+        return allreduce([gram(u) for u in f], mesh, groups=mesh.groups([m]))
+
     out = run_distributed_als(
         step, factors, grams, rank, opts, xnormsq, tt.dims, dtype, mesh,
         row_select=decomp.row_select(),
-        shard_ranks=[mesh.line(m) for m in range(tt.nmodes)])
+        shard_ranks=[mesh.line(m) for m in range(tt.nmodes)],
+        place=place, gram_of=gram_of, checkpoint_path=checkpoint_path,
+        checkpoint_every=checkpoint_every, resume=resume)
+    if profiled:
+        for line in dist_phase_report():
+            print(line)
     if perm is not None:
         out.factors = perm.undo_factors(out.factors)
     return out

@@ -43,17 +43,20 @@ import torch
 from splatt_tpu_torch.config import (CommPattern, Options, Verbosity,
                                      acc_dtype, default_opts,
                                      resolve_comm_pattern, resolve_dtype)
+from splatt_tpu_torch import trace
 from splatt_tpu_torch.kruskal import KruskalTensor
 from splatt_tpu_torch.parallel.common import (RankLayouts, allreduce,
                                               alloc_build_modes,
                                               bucket_engine, bucket_scatter,
                                               build_bucket_layout, ceil_to,
                                               comm_volume_report,
+                                              dist_phase_report,
                                               engine_fallback, fit_tail,
                                               imbalance_report,
-                                              mode_update_tail,
+                                              mode_update_tail, no_phase,
                                               rank_layouts_by_mode,
-                                              run_distributed_als)
+                                              run_distributed_als,
+                                              wrap_profiled_step)
 from splatt_tpu_torch.parallel.mesh import make_mesh, single_axis_of
 
 
@@ -295,7 +298,7 @@ def sharded_mttkrp(inds: Sequence[torch.Tensor],
 def make_sharded_sweep(mesh, nmodes: int, reg: float,
                        dims_pad: Tuple[int, ...], variant: str = "all2all",
                        plans=None, cells: Optional[List[RankLayouts]] = None,
-                       fallback: Optional[bool] = None):
+                       fallback: Optional[bool] = None, phase=no_phase):
     """One ALS iteration over the mesh, as ``sweep(inds, vals, factors,
     grams, first) -> (factors, grams, λ, ⟨Z,Z⟩, ⟨X,Z⟩)``: per-rank
     lists in, new per-rank lists out (the inputs are not modified, so a
@@ -307,7 +310,8 @@ def make_sharded_sweep(mesh, nmodes: int, reg: float,
     every rank gathers the other factors whole, runs the blocked engine
     over its layout into a ``(dims_pad[m], R)`` partial (`fallback`
     passed to the engine chain), and the owners' sums reduce the
-    partials; `inds` and `vals` are not read."""
+    partials; `inds` and `vals` are not read.  `phase(name)` brackets
+    each phase of the sweep (:func:`make_sharded_profiled_sweep`)."""
     if cells is not None and variant != "all2all":
         raise ValueError("the blocked local engine requires the all2all "
                          "variant (the ring reduce is blockwise)")
@@ -315,7 +319,7 @@ def make_sharded_sweep(mesh, nmodes: int, reg: float,
     ndev = mesh.ndev
     carriers = {}
 
-    def blocked_mttkrp(full, factors, m):
+    def blocked_parts(full, factors, m):
         # the output mode's table only carries its row count: one zero
         # (dims_pad[m], R) tensor per card, kept for the run
         U = factors[m][0]
@@ -329,7 +333,7 @@ def make_sharded_sweep(mesh, nmodes: int, reg: float,
             facs = [carriers[key][dev] if k == m else full[k][dev]
                     for k in range(nmodes)]
             parts.append(cells[m].mttkrp(d, facs, m, fallback))
-        return owner_sums(parts, mesh, dims_pad[m] // ndev)
+        return parts
 
     def sweep(inds, vals, factors, grams, first: bool):
         factors = [list(f) for f in factors]
@@ -338,30 +342,61 @@ def make_sharded_sweep(mesh, nmodes: int, reg: float,
         lam = M = None
         if cells is not None:
             # factor 0 is regathered after its update, before it is read
-            full = [None] + [gather_full(f, mesh) for f in factors[1:]]
+            with phase("dist_gather"):
+                full = [None] + [gather_full(f, mesh) for f in factors[1:]]
         for m in range(nmodes):
             if cells is not None:
-                M = blocked_mttkrp(full, factors, m)
+                with phase("dist_mttkrp"):
+                    parts = blocked_parts(full, factors, m)
+                with phase("dist_comm"):
+                    M = owner_sums(parts, mesh, dims_pad[m] // ndev)
+                del parts
             else:
                 prod = [v[:, None].to(dtype) for v in vals]
                 for k in range(nmodes):
                     if k != m:
-                        rows = gather_rows(factors[k],
-                                           [i[k] for i in inds], k)
-                        prod = [p * r for p, r in zip(prod, rows)]
+                        with phase("dist_gather"):
+                            rows = gather_rows(factors[k],
+                                               [i[k] for i in inds], k)
+                        with phase("dist_mttkrp"):
+                            prod = [p * r for p, r in zip(prod, rows)]
                         del rows
-                M = reduce_rows(prod, [i[m] for i in inds], m)
+                # the stream reduce sums each rank's rows and exchanges
+                # the sums in one step: both land in dist_comm
+                with phase("dist_comm"):
+                    M = reduce_rows(prod, [i[m] for i in inds], m)
                 del prod
-            U, g, lam = mode_update_tail(M, grams, m, reg, first, mesh,
-                                         store_dtype=dtype)
+            with phase("dist_update"):
+                U, g, lam = mode_update_tail(M, grams, m, reg, first, mesh,
+                                             store_dtype=dtype)
             factors[m] = U
             grams[m] = g
             if cells is not None and m < nmodes - 1:
-                full[m] = gather_full(U, mesh)
-        znormsq, inner = fit_tail(lam, grams, M, factors[nmodes - 1], mesh)
+                with phase("dist_gather"):
+                    full[m] = gather_full(U, mesh)
+        with phase("dist_fit"):
+            znormsq, inner = fit_tail(lam, grams, M, factors[nmodes - 1],
+                                      mesh)
         return factors, grams, lam, znormsq, inner
 
     return sweep
+
+
+def make_sharded_profiled_sweep(mesh, nmodes: int, reg: float,
+                                dims_pad: Tuple[int, ...],
+                                cells: Optional[List[RankLayouts]] = None,
+                                fallback: Optional[bool] = None):
+    """The all2all sweep with each phase (gather, local MTTKRP, reduce,
+    update, fit) in its ``dist_*`` timer bracket, closed after every card
+    has finished it (≙ splatt_tpu/parallel/sharded.py:435-567, the
+    measured attribution of mpi_time_stats).  The fences cost the overlap
+    of the plain sweep: ``Verbosity.HIGH`` only."""
+    from splatt_tpu_torch.parallel.common import profiled_phase
+
+    return make_sharded_sweep(mesh, nmodes, reg, dims_pad,
+                              variant="all2all", cells=cells,
+                              fallback=fallback,
+                              phase=lambda name: profiled_phase(name, mesh))
 
 
 #: ordered comm-strategy chains (≙ splatt_tpu/parallel/sharded.py:562-566):
@@ -556,7 +591,9 @@ def sharded_cpd_als(tt, rank: int, mesh=None,
                     row_distribute: Optional[str] = None,
                     local_engine: Optional[str] = None,
                     measure_overlap: Optional[bool] = None,
-                    device=None) -> KruskalTensor:
+                    device=None, checkpoint_path: Optional[str] = None,
+                    checkpoint_every: int = 10,
+                    resume: bool = True) -> KruskalTensor:
     """Distributed CPD-ALS over a mesh (≙ the mpirun cpd path,
     src/cmds/mpi_cmd_cpd.c:175-338), FINE decomposition.
 
@@ -579,7 +616,11 @@ def sharded_cpd_als(tt, rank: int, mesh=None,
     are then never copied to the ranks); "stream" (the ring patterns'
     default and only engine) the gather product per rank.
 
-    The result's factors and λ lie on the CPU.
+    At ``Verbosity.HIGH`` outside the ring patterns the profiled sweep
+    (:func:`make_sharded_profiled_sweep`) runs and the phase table is
+    printed.  `checkpoint_path`, `checkpoint_every` and `resume` are
+    :func:`run_distributed_als`'s.  The result's factors and λ lie on
+    the CPU.
     """
     from splatt_tpu_torch import resilience
     from splatt_tpu_torch.parallel.common import (auto_local_engine,
@@ -694,10 +735,27 @@ def sharded_cpd_als(tt, rank: int, mesh=None,
     if opts.verbosity >= Verbosity.HIGH:
         print(imbalance_report(counts, "shard"))
 
-    variant, step = _select_comm_sweep(chain, mesh, nmodes,
-                                       opts.regularization, dims_pad, inds,
-                                       vals, factors, grams, dtype, opts,
-                                       plans, cells)
+    profiled = opts.verbosity >= Verbosity.HIGH and not ring_family
+    if profiled:
+        # phase barriers mean nothing under a ring's overlap: the ring
+        # patterns report the achieved-overlap metric instead
+        variant = "all2all"
+        sweep = make_sharded_profiled_sweep(mesh, nmodes,
+                                            opts.regularization, dims_pad,
+                                            cells=cells,
+                                            fallback=engine_fallback(opts))
+
+        def step(f, g, first):
+            return sweep(inds, vals, f, g, first)
+
+        step = wrap_profiled_step(step)
+    else:
+        with trace.enabling(opts.trace):
+            with trace.span("dist.comm_select") as sp:
+                variant, step = _select_comm_sweep(
+                    chain, mesh, nmodes, opts.regularization, dims_pad,
+                    inds, vals, factors, grams, dtype, opts, plans, cells)
+                sp.set(variant=variant)
     if opts.verbosity >= Verbosity.HIGH:
         for line in comm_volume_report(
                 dims_pad, rank, torch.empty(0, dtype=dtype).element_size(),
@@ -707,10 +765,12 @@ def sharded_cpd_als(tt, rank: int, mesh=None,
             and (measure_overlap or opts.verbosity >= Verbosity.HIGH):
         # best effort: a failed measurement never takes down the run
         try:
-            ov = measure_ring_overlap(mesh, nmodes, opts.regularization,
-                                      dims_pad, axis, variant, inds, vals,
-                                      factors, grams, dtype, step_fn=step,
-                                      plans=plans)
+            with trace.enabling(opts.trace):
+                with trace.span("dist.measure_overlap", variant=variant):
+                    ov = measure_ring_overlap(
+                        mesh, nmodes, opts.regularization, dims_pad, axis,
+                        variant, inds, vals, factors, grams, dtype,
+                        step_fn=step, plans=plans)
             resilience.run_report().add("ring_overlap", **ov)
             if opts.verbosity >= Verbosity.LOW:
                 print(f"  ring overlap [{ov['engine']}]: "
@@ -729,6 +789,23 @@ def sharded_cpd_als(tt, rank: int, mesh=None,
         from splatt_tpu_torch.parallel.ring_kernels import check_errors
 
         after_fit = check_errors
-    return run_distributed_als(step, factors, grams, rank, opts, xnormsq,
-                               orig_dims, dtype, mesh, row_select=relabels,
-                               after_fit=after_fit)
+    def place(U, m):
+        return shard_factors([U], (orig_dims[m],), mesh, dtype=dtype,
+                             relabels=None if relabels is None
+                             else [relabels[m]],
+                             dims_pad=(dims_pad[m],))[0]
+
+    def gram_of(f, m):
+        return allreduce([gram(u) for u in f], mesh)
+
+    out = run_distributed_als(step, factors, grams, rank, opts, xnormsq,
+                              orig_dims, dtype, mesh, row_select=relabels,
+                              after_fit=after_fit, place=place,
+                              gram_of=gram_of,
+                              checkpoint_path=checkpoint_path,
+                              checkpoint_every=checkpoint_every,
+                              resume=resume)
+    if profiled:
+        for line in dist_phase_report():
+            print(line)
+    return out

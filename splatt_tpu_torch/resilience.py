@@ -1,6 +1,7 @@
-"""Resilience layer: failure taxonomy, transient retry, engine demotion and
-the run report (≙ splatt_tpu/resilience.py, cut to what the MTTKRP engine
-chain needs).
+"""Resilience layer: failure taxonomy, transient retry, engine demotion,
+the deadline watchdog, job scopes and the run report
+(≙ splatt_tpu/resilience.py, cut to what the engine chain and the guarded
+ALS drivers need).
 
 - :func:`classify_failure` sorts an error into a :class:`FailureClass`
   by the same marker strings as the JAX package.  torch's ``CUDA out of
@@ -11,6 +12,14 @@ chain needs).
 - :func:`demote_engine` / :func:`is_demoted` — the registry the engine
   chain (:func:`splatt_tpu_torch.ops.mttkrp.engine_chain`) prunes by.
   RESOURCE and TIMEOUT failures demote per shape, the rest process-wide.
+- :func:`note_engine_attempt` / :func:`last_engine_attempt` — the engine
+  the chain last handed work to, which the ALS driver's sweep-level
+  rescue demotes when an error surfaces later with no call-site context.
+- :func:`deadline` — a watchdog around a host-side call (an engine's
+  first launch per shape); a blown deadline raises
+  :class:`DeadlineExceeded`, classified TIMEOUT.
+- :func:`scope` — a per-job isolation unit of the demotions, the last
+  attempt, the run report and the health/deadline budgets.
 - :func:`run_report` — the event log the CLI prints after a run:
   ``engine_demotion``, ``transient_retry``, and the compact format's
   ``format_v2`` (the achieved per-mode encodings), ``format_fallback``
@@ -22,16 +31,24 @@ chain needs).
   order), ``layout_imbalance`` (the achieved balance of a built layout or
   of a distributed sharding), and the distributed path's
   ``comm_fallback`` (a comm strategy degraded down its chain) and
-  ``ring_overlap`` (a ring sweep's exchange time hidden under compute).
+  ``ring_overlap`` (a ring sweep's exchange time hidden under compute);
+  the guarded drivers' ``health_nonfinite``, ``health_rollback``,
+  ``health_degraded`` and ``checkpoint_recovery``, the watchdog's
+  ``deadline_blown`` and the trace exporter's ``trace_written``
+  (:data:`RUN_REPORT_EVENTS`).  Every event is also a
+  :func:`splatt_tpu_torch.trace.point`.
 
-The state is process-wide, as outside any job scope in the JAX package.
+Outside any :func:`scope` the state is process-wide.
 """
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import dataclasses
 import enum
 import random
+import threading
 import time
 from typing import Callable, Dict, List, Optional
 
@@ -79,6 +96,36 @@ TIMEOUT_MARKERS = ("splatt deadline blown",)
 NUMERICAL_MARKERS = ("non-finite", "NonFinite", "NumericalHealthError")
 
 
+# a CUDA error that leaves the context unusable: it surfaces at a later
+# sync, and every later launch fails too, so nothing retries it
+STICKY_CUDA_MARKERS = (
+    "illegal memory access", "an illegal instruction",
+    "unspecified launch failure", "misaligned address",
+    "device-side assert", "cudaErrorIllegalAddress",
+    "cudaErrorLaunchFailure", "cudaErrorIllegalInstruction",
+)
+
+
+class DeadlineExceeded(RuntimeError):
+    """The watchdog (:func:`deadline`) blew on a host-side call.
+    Classifies as TIMEOUT: demoted per shape, like an out-of-memory."""
+
+
+class NumericalHealthError(RuntimeError):
+    """The numerical-health sentinel found non-finite factors, λ or fit
+    in a sweep's outputs.  Classifies as NUMERICAL: rollback owns it,
+    never the demotion registry."""
+
+
+def sticky_cuda_error(exc) -> bool:
+    """Whether `exc` is a CUDA error that poisons the context (an
+    illegal address, a launch failure, a device-side assert): it is
+    never rescued, because a rebuilt sweep on that context fails
+    again."""
+    msg = failure_message(exc)
+    return any(m in msg for m in STICKY_CUDA_MARKERS)
+
+
 def failure_message(exc) -> str:
     """The string classification runs on: "ExcType: message"."""
     if isinstance(exc, str):
@@ -111,12 +158,20 @@ class RunReport:
     """Append-only log of resilience events for one run; the CLI prints
     :meth:`summary` after the run and tests assert on :meth:`events`."""
 
-    def __init__(self):
+    def __init__(self, job_id: Optional[str] = None):
         self._events: List[dict] = []
+        self.job_id = job_id
 
     def add(self, kind: str, **info) -> dict:
         ev = dict(kind=kind, ts=time.time(), **info)
+        if self.job_id is not None and "job" not in ev:
+            ev["job"] = self.job_id
         self._events.append(ev)
+        # every event is also a point on the trace and feeds the
+        # always-on metrics registry
+        from splatt_tpu_torch import trace
+
+        trace.point(kind, ev)
         return ev
 
     def events(self, kind: Optional[str] = None) -> List[dict]:
@@ -140,6 +195,28 @@ class RunReport:
                      else "this process")
             lines.append(f"  engine {e['engine']} demoted for {scope} "
                          f"({e['failure_class']}: {e['error'][:80]})")
+        for e in self.events("checkpoint_recovery"):
+            lines.append(f"  checkpoint {e['path']} was corrupt "
+                         f"({e['error'][:80]}); {e['action']}")
+        nonfinite = self.events("health_nonfinite")
+        if nonfinite:
+            its = sorted({e.get("iteration") for e in nonfinite})
+            lines.append(f"  numerical-health sentinel: non-finite "
+                         f"sweep outputs at iteration(s) "
+                         f"{', '.join(str(i) for i in its)}")
+        for e in self.events("health_rollback"):
+            lines.append(f"  rolled back to the last-good snapshot at "
+                         f"iteration {e.get('iteration')} (attempt "
+                         f"{e.get('attempt')}: reg={e.get('regularization')}"
+                         f", re-randomized modes "
+                         f"{e.get('rerandomized') or []})")
+        for e in self.events("health_degraded"):
+            lines.append(f"  HEALTH BUDGET EXHAUSTED at iteration "
+                         f"{e.get('iteration')}: returned the last-good "
+                         f"state ({e.get('action')})")
+        for e in self.events("deadline_blown"):
+            lines.append(f"  deadline watchdog blew at {e['site']} "
+                         f"({e['seconds']:g}s budget)")
         for e in self.events("format_fallback"):
             if e.get("site") == "decode":
                 lines.append(f"  compact-format decode failed at "
@@ -197,21 +274,144 @@ class RunReport:
                          f"{e.get('exchange_s')}s exchange hidden under "
                          f"compute ({e.get('model_mb_per_device')}MB/dev "
                          f"modeled)")
+        for e in self.events("trace_written"):
+            if e.get("ok"):
+                lines.append(f"  trace written to {e.get('path')} "
+                             f"({e.get('spans')} spans, "
+                             f"{e.get('events')} point events)")
+            else:
+                lines.append(f"  trace export {e.get('path')} degraded "
+                             f"({e.get('failure_class')}: "
+                             f"{str(e.get('error', ''))[:80]})")
         return lines
 
 
+# -- per-job scoping ----------------------------------------------------------
+
+
 @dataclasses.dataclass
-class _State:
+class ResilienceScope:
+    """One isolation unit of mutable resilience state: the demotion
+    table, the last-attempt note, the run report, and per-scope
+    overrides of the health-retry budget and the watchdog deadline (None
+    = the env/process default) (≙ splatt_tpu.resilience.ResilienceScope).
+    """
+
+    job_id: Optional[str] = None
     demoted: Dict[str, "Demotion"] = dataclasses.field(default_factory=dict)
-    report: RunReport = dataclasses.field(default_factory=RunReport)
+    last_attempt: Optional[tuple] = None
+    health_retries: Optional[int] = None
+    deadline_s: Optional[float] = None
+    report: RunReport = None
+
+    def __post_init__(self):
+        if self.report is None:
+            self.report = RunReport(job_id=self.job_id)
 
 
-_STATE = _State()
+_GLOBAL_SCOPE = ResilienceScope()
+_SCOPE: contextvars.ContextVar = contextvars.ContextVar(
+    "splatt_torch_resilience_scope", default=None)
+
+
+def _state() -> ResilienceScope:
+    """The active scope: the contextvar's inside :func:`scope`, else the
+    process-global one."""
+    return _SCOPE.get() or _GLOBAL_SCOPE
+
+
+def current_job() -> Optional[str]:
+    """The job id of the active scope, or None outside any scope."""
+    sc = _SCOPE.get()
+    return sc.job_id if sc is not None else None
+
+
+def scope_health_retries() -> Optional[int]:
+    """The active scope's health-retry budget, or None (the env default
+    applies); read by ``cpd.health_retries``."""
+    sc = _SCOPE.get()
+    return sc.health_retries if sc is not None else None
+
+
+@contextlib.contextmanager
+def scope(job_id: str, health_retries: Optional[int] = None,
+          deadline_s: Optional[float] = None):
+    """Enter a fresh per-job scope: demotions, the last-attempt note and
+    every run-report event inside the block belong to `job_id` and are
+    isolated from the global scope and from sibling jobs.  A scope starts
+    empty.  `health_retries` / `deadline_s` override the sentinel budget
+    and the watchdog deadline for this job only."""
+    st = ResilienceScope(job_id=str(job_id), health_retries=health_retries,
+                         deadline_s=deadline_s)
+    token = _SCOPE.set(st)
+    try:
+        yield st
+    finally:
+        _SCOPE.reset(token)
 
 
 def run_report() -> RunReport:
-    """The process-wide resilience event log."""
-    return _STATE.report
+    """The active scope's event log (the process-wide log outside any
+    :func:`scope`)."""
+    return _state().report
+
+
+#: every run-report event kind the port emits, name -> one-line doc
+RUN_REPORT_EVENTS = {
+    "transient_retry": "a transient failure was retried in place with "
+                       "capped backoff and jitter (retry_transient)",
+    "engine_demotion": "an MTTKRP engine (or comm.<strategy>) was "
+                       "demoted at runtime, process-wide or per shape",
+    "checkpoint_recovery": "a corrupt or torn checkpoint degraded the "
+                           "resume to the .bak generation or a fresh "
+                           "start (cpd.load_checkpoint_resilient)",
+    "health_nonfinite": "the numerical-health sentinel found non-finite "
+                        "factors, λ or fit in a sweep's outputs at a "
+                        "fit-check iteration",
+    "health_rollback": "the ALS driver rolled back to the last-good "
+                       "snapshot, raised regularization and/or "
+                       "re-randomized the offending factors, and "
+                       "retried the sweep",
+    "health_degraded": "the rollback budget (SPLATT_HEALTH_RETRIES) was "
+                       "exhausted: the run checkpointed the last-good "
+                       "state and stopped early",
+    "deadline_blown": "the deadline watchdog expired on a host-side "
+                      "call; classified TIMEOUT and demoted per shape",
+    "bench_path_error": "one measured path failed; the error was "
+                        "classified and recorded and the other paths "
+                        "continued (record_path_error)",
+    "format_v2": "blocked layouts were built at a non-default encoding",
+    "format_fallback": "a compact-format encode, a stream decode at "
+                       "dispatch (site=decode) or a dense tile build "
+                       "(site=dense) failed and degraded classified",
+    "format_decode": "an engine's first dispatch over a compact layout: "
+                     "where its decode runs",
+    "dense_dispatch": "an engine's first dispatch over a dense-mode "
+                      "layout",
+    "block_clamp": "a requested nnz block was cut to the tensor's size",
+    "packing_fallback": "a balanced fiber pack degraded to the fixed "
+                        "slicing",
+    "reorder_fallback": "a reorder degraded to identity order",
+    "layout_imbalance": "the achieved balance of a built layout or a "
+                        "distributed sharding",
+    "comm_fallback": "a comm strategy degraded down its chain",
+    "ring_overlap": "a ring sweep's exchange time hidden under compute",
+    "trace_written": "a Chrome trace-event export was written, or "
+                     "failed classified (trace.write_chrome_trace)",
+    "metrics_snapshot": "the metrics registry was written as Prometheus "
+                        "text (trace.write_metrics), or failed "
+                        "classified",
+}
+
+
+def record_path_error(label: str, exc) -> dict:
+    """Classify one measured path's failure into a ``bench_path_error``
+    event and return it, so the path is recorded and skipped instead of
+    ending the whole measurement."""
+    return run_report().add(
+        "bench_path_error", path=label,
+        failure_class=classify_failure(exc).value,
+        error=failure_message(exc)[:200])
 
 
 # -- transient retry ---------------------------------------------------------
@@ -281,7 +481,7 @@ def demote_engine(engine: str, error, shape_key: Optional[str] = None
         shape_key = None
     d = Demotion(engine=engine, failure_class=cls,
                  error=failure_message(error)[:500], shape_key=shape_key)
-    _STATE.demoted[_demotion_key(engine, shape_key)] = d
+    _state().demoted[_demotion_key(engine, shape_key)] = d
     run_report().add("engine_demotion", engine=engine,
                      failure_class=cls.value, shape_key=shape_key,
                      error=d.error[:200])
@@ -290,7 +490,7 @@ def demote_engine(engine: str, error, shape_key: Optional[str] = None
 
 def is_demoted(engine: str, shape_key: Optional[str] = None) -> bool:
     """Whether `engine` was demoted process-wide, or for this shape."""
-    demoted = _STATE.demoted
+    demoted = _state().demoted
     if engine in demoted:
         return True
     return (shape_key is not None
@@ -298,12 +498,31 @@ def is_demoted(engine: str, shape_key: Optional[str] = None) -> bool:
 
 
 def demotions() -> List[Demotion]:
-    return list(_STATE.demoted.values())
+    return list(_state().demoted.values())
 
 
 def reset_demotions() -> None:
     """Clear the runtime demotions (tests; a fresh run in one process)."""
-    _STATE.demoted.clear()
+    _state().demoted.clear()
+
+
+# -- last-attempt tracking ---------------------------------------------------
+#
+# A failure on the card can surface after the call that picked the engine,
+# at a later sync.  The chain notes which engine it handed work to; the ALS
+# driver's sweep-level rescue demotes that engine when an error arrives
+# with no call-site context.
+
+
+def note_engine_attempt(engine: str, shape_key: Optional[str] = None
+                        ) -> None:
+    _state().last_attempt = (engine, shape_key)
+
+
+def last_engine_attempt() -> Optional[tuple]:
+    """(engine, shape_key) of the active scope's most recent dispatch,
+    or None."""
+    return _state().last_attempt
 
 
 # -- engine fallback switch --------------------------------------------------
@@ -321,3 +540,121 @@ def fallback_enabled() -> bool:
     return str(read_env(_FALLBACK_ENV)).lower() not in (
         "0", "off", "false", "no")
 
+
+
+# -- deadline watchdog -------------------------------------------------------
+#
+# A host-side call that hangs (a first launch that never returns) is bounded
+# by a plain threading.Timer: no signals, and from the main thread the timer
+# interrupts the blocked call between bytecodes.  A launch in flight on the
+# card completes first; the blown deadline then raises.
+
+_DEADLINE_ENV = "SPLATT_DEADLINE_S"
+_deadline_override: Optional[float] = None
+
+
+def set_deadline(seconds: Optional[float]) -> None:
+    """Process-wide deadline override of the :func:`deadline` sites (None
+    restores the env default; <= 0 disables them even when
+    SPLATT_DEADLINE_S is set; a site's own `default` still applies)."""
+    global _deadline_override
+    _deadline_override = seconds
+
+
+def deadline_seconds(default: Optional[float] = None) -> Optional[float]:
+    """The configured watchdog deadline: the active scope's override if
+    set, else the process override (<= 0: disabled, the caller's
+    `default` still applies), else SPLATT_DEADLINE_S, else `default`.
+    None = disabled."""
+    sc = _SCOPE.get()
+    if sc is not None and sc.deadline_s is not None:
+        if sc.deadline_s > 0:
+            return sc.deadline_s
+        return default
+    if _deadline_override is not None:
+        if _deadline_override > 0:
+            return _deadline_override
+        return default
+    from splatt_tpu_torch.utils.env import read_env_float
+
+    env = read_env_float(_DEADLINE_ENV)
+    if env is not None and float(env) > 0:
+        return float(env)
+    return default
+
+
+@contextlib.contextmanager
+def deadline(site: str, seconds: Optional[float] = None):
+    """Bound a host-side call: when the block runs longer than `seconds`
+    (default :func:`deadline_seconds`), raise :class:`DeadlineExceeded`
+    (TIMEOUT, demoted per shape) and record a ``deadline_blown`` event
+    (≙ splatt_tpu.resilience.deadline).
+
+    A daemon ``threading.Timer`` fires after `seconds`.  From the main
+    thread it also calls ``_thread.interrupt_main()``, so a call blocked
+    in Python is interrupted between bytecodes (a call inside C that
+    holds the GIL gets the raise when it returns); off the main thread
+    the blown deadline raises when the block completes.  A raced
+    interrupt is absorbed inside the block, so no stray
+    ``KeyboardInterrupt`` escapes into later work.
+    """
+    if seconds is None:
+        seconds = deadline_seconds()
+    if not seconds or seconds <= 0:
+        yield
+        return
+    state = {"fired": False, "done": False}
+    lock = threading.Lock()
+    on_main = threading.current_thread() is threading.main_thread()
+
+    def fire():
+        # the fired flag and the interrupt are one critical section: once
+        # the main thread reads fired=True the interrupt is pending, so
+        # the absorb sleep below receives it
+        with lock:
+            if state["done"]:
+                return
+            state["fired"] = True
+            if on_main:
+                import _thread
+
+                _thread.interrupt_main()
+
+    from splatt_tpu_torch import trace
+
+    with trace.span("guard.deadline.arm", site=site,
+                    seconds=float(seconds)):
+        timer = threading.Timer(seconds, fire)
+        timer.daemon = True
+        timer.start()
+
+    def blew() -> DeadlineExceeded:
+        run_report().add("deadline_blown", site=site,
+                         seconds=float(seconds))
+        return DeadlineExceeded(
+            f"splatt deadline blown at {site} after {seconds:g}s "
+            f"(host-side call exceeded the watchdog budget)")
+
+    try:
+        try:
+            yield
+        finally:
+            with trace.span("guard.deadline.disarm", site=site):
+                with lock:
+                    state["done"] = True
+                timer.cancel()
+                if state["fired"] and on_main:
+                    # absorb the pending interrupt here, inside the
+                    # guarded region
+                    try:
+                        time.sleep(0.05)
+                    except KeyboardInterrupt:
+                        pass
+    except KeyboardInterrupt:
+        # a genuine Ctrl-C inside a blown-deadline window reads as the
+        # timeout; a second one aborts
+        if state["fired"]:
+            raise blew() from None
+        raise
+    if state["fired"]:
+        raise blew()

@@ -91,6 +91,33 @@ ENV_VARS = {
                                      "above which SPLATT_DENSE=auto "
                                      "elects the dense tile layout "
                                      "(docs/dense.md)"),
+    "SPLATT_HEALTH_RETRIES": EnvVar(3, "numerical-health sentinel "
+                                    "rollback budget: how many times a "
+                                    "run may restore the last-good "
+                                    "snapshot (bumping regularization "
+                                    "/ re-randomizing the offending "
+                                    "factor) before degrading to "
+                                    "checkpoint-and-abort; 0 disables "
+                                    "the sentinel and its snapshots"),
+    "SPLATT_DEADLINE_S": EnvVar(0.0, "deadline watchdog budget in "
+                                "seconds for an engine's first launch "
+                                "per shape (resilience.deadline); a "
+                                "blown deadline classifies TIMEOUT and "
+                                "demotes per shape like an out-of-"
+                                "memory; <= 0 disables"),
+    "SPLATT_TRACE": EnvVar(None, "1/on/true/yes enables structured "
+                           "span recording (trace.py): host-side spans "
+                           "(cpd -> sweep -> guard, dispatch, comm) "
+                           "exportable as Chrome trace-event JSON via "
+                           "--trace <path>.  Off by default: disabled "
+                           "spans are no-ops (one boolean check); an "
+                           "explicit Options.trace / CLI --trace wins.  "
+                           "Event-derived metrics are always on"),
+    "SPLATT_TRACE_MAX_RECORDS": EnvVar(100000, "in-memory span/point "
+                                       "recorder bound: past this many "
+                                       "finished records the oldest "
+                                       "are dropped (counted, reported "
+                                       "on the trace_written event)"),
     "SPLATT_COMM": EnvVar(None, "default row-exchange strategy of "
                           "FINE distributed runs: all2all (whole-factor "
                           "gathers and reduces), point2point (the sync "
@@ -127,6 +154,19 @@ def max_mean_ratio(a) -> float:
     return round(float(a.max()) / mean, 3) if mean > 0 else 1.0
 
 
+def read_env_int(name: str) -> int:
+    """:func:`read_env` parsed as an int; a malformed value falls back
+    to the registered default with one line on stderr
+    (≙ splatt_tpu.utils.env.read_env_int)."""
+    val = read_env(name)
+    try:
+        return int(val)
+    except (TypeError, ValueError):
+        print(f"splatt-tpu: bad {name}={val!r} (want an int); using the "
+              f"default", file=sys.stderr)
+        return int(ENV_VARS[name].default)
+
+
 def read_env_float(name: str) -> float:
     """:func:`read_env` parsed as a float; a malformed value falls back
     to the registered default with one line on stderr
@@ -138,3 +178,27 @@ def read_env_float(name: str) -> float:
         print(f"splatt-tpu: bad {name}={val!r} (want a float); using the "
               f"default", file=sys.stderr)
         return float(ENV_VARS[name].default)
+
+
+def host_fence(x):
+    """Wait until the card has finished `x` and everything queued before
+    it (≙ splatt_tpu.utils.env.host_fence): ``torch.cuda.synchronize``
+    on the device of every CUDA tensor among `x` (a tensor, or a nested
+    list/tuple of them); CPU tensors need no fence.  The profiled sweeps
+    close each phase's timer with it, and nothing else calls it.  Returns
+    `x` for chaining."""
+    import torch
+
+    seen = set()
+
+    def walk(v):
+        if isinstance(v, torch.Tensor):
+            if v.device.type == "cuda" and v.device not in seen:
+                seen.add(v.device)
+                torch.cuda.synchronize(v.device)
+        elif isinstance(v, (list, tuple)):
+            for w in v:
+                walk(w)
+
+    walk(x)
+    return x

@@ -1,6 +1,6 @@
 """Fault injection: the test hook points of the resilience layer
-(≙ splatt_tpu/utils/faults.py, cut to the engine, format, layout, reorder
-and comm sites).
+(≙ splatt_tpu/utils/faults.py, cut to the engine, format, layout,
+reorder, comm, checkpoint, sweep and trace-export sites).
 
 Production call sites call :func:`maybe_fail` / :func:`poison` with a
 site name; tests (or an operator, via env var) arm faults against those
@@ -25,6 +25,10 @@ Arming a fault
       ``runtime``.  :func:`parse_schedule` / :func:`format_schedule`
       round-trip the grammar.
 
+:func:`scoped` overlays a per-context schedule on the process registry
+(a job's own drill); :func:`consume` claims a non-raising fault (the torn
+checkpoint write), :func:`active` and :func:`fired` read the registry.
+
 Kinds map to canned exceptions whose messages classify as the JAX
 package's do (:func:`splatt_tpu_torch.resilience.classify_failure`):
 http500, internal, unavailable, timeout → transient; oom → resource;
@@ -39,12 +43,13 @@ real error.
 from __future__ import annotations
 
 import contextlib
+import contextvars
 import dataclasses
 import random
 import sys
 import threading
 import time
-from typing import Dict, Optional, Tuple
+from typing import Dict, Optional, Tuple, Union
 
 _FAULTS_ENV = "SPLATT_FAULTS"
 
@@ -69,6 +74,19 @@ SITES = {
                 "engine.fused_t / engine.xla_scan (ops/mttkrp.py); "
                 "poison-armed specs corrupt the engine's OUTPUT "
                 "instead of raising",
+    "checkpoint_write": "raise during the checkpoint save (cpd.py)",
+    "checkpoint_torn": "consumed (not raised): the writer truncates "
+                       "the bytes it just wrote, simulating a torn "
+                       "write (cpd.py)",
+    "cpd.sweep": "poisoned (not raised): corrupt one ALS sweep's "
+                 "factor output with non-finite values, exercising "
+                 "the numerical-health sentinel and its rollback "
+                 "(cpd.py, parallel/common.py)",
+    "trace.export": "the Chrome trace-event JSON export "
+                    "(trace.write_chrome_trace); a raised fault must "
+                    "degrade classified to a trace_written ok=False "
+                    "event: losing the trace must never lose the run "
+                    "it observed",
     "format.encode": "the compact-format v2 encode of one blocked layout "
                      "(blocked.py build_layout/reencode_layout); a raised "
                      "fault degrades the build to the v1 int32 encoding "
@@ -295,13 +313,48 @@ def _eligible_locked(spec: FaultSpec) -> bool:
     return True
 
 
-def _take(site: str, kinds: tuple) -> Optional[FaultSpec]:
+#: per-context overlay of the registry (:func:`scoped`): a site the
+#: overlay names is governed by the overlay's spec, every other site by
+#: the process registry
+_SCOPED: contextvars.ContextVar = contextvars.ContextVar(
+    "splatt_torch_faults_scope", default=None)
+
+
+def _lookup_locked(site: str) -> Optional[FaultSpec]:
+    """The spec governing `site` in this context: the scoped overlay's
+    when it names the site, else the process registry's."""
+    overlay = _SCOPED.get()
+    if overlay is not None and site in overlay:
+        return overlay[site]
+    return _ACTIVE.get(site)
+
+
+@contextlib.contextmanager
+def scoped(schedule: Union[str, Dict[str, FaultSpec], None]):
+    """Arm a per-context fault schedule (the SPLATT_FAULTS grammar, or a
+    {site: FaultSpec} dict) over the process registry for the block;
+    yields the {site: FaultSpec} dict, whose ``fired`` counters say what
+    fired."""
+    if schedule is None:
+        specs: Dict[str, FaultSpec] = {}
+    elif isinstance(schedule, str):
+        specs = parse_schedule(schedule)
+    else:
+        specs = dict(schedule)
+    token = _SCOPED.set(specs)
+    try:
+        yield specs
+    finally:
+        _SCOPED.reset(token)
+
+
+def _take(site: str, kinds: Optional[tuple] = None) -> Optional[FaultSpec]:
     """Claim one firing of the fault armed at `site`, if any; `kinds`
-    restricts which fault kinds this hook may claim."""
+    restricts which fault kinds this hook may claim (None: any)."""
     with _LOCK:
         _load_env_locked()
-        spec = _ACTIVE.get(site)
-        if spec is None or spec.kind not in kinds:
+        spec = _lookup_locked(site)
+        if spec is None or (kinds is not None and spec.kind not in kinds):
             return None
         spec.calls += 1
         if spec.times == 0 or not _eligible_locked(spec):
@@ -339,6 +392,48 @@ def poison(site: str, value):
     if spec is None:
         return value
     return value * float("nan" if spec.kind == "nan" else "inf")
+
+
+def poison_many(site: str, values):
+    """:func:`poison` over several tensors at one claim: every entry of
+    the list `values` times NaN/Inf when a ``nan``/``inf`` fault fires at
+    `site` (a factor held as one block per rank is poisoned whole), else
+    `values` itself."""
+    spec = _take(site, POISON_KINDS)
+    if spec is None:
+        return values
+    scale = float("nan" if spec.kind == "nan" else "inf")
+    return [v * scale for v in values]
+
+
+def consume(site: str) -> bool:
+    """Production hook of a non-raising fault (the torn checkpoint
+    write): True when a fault armed at `site` fires (one firing is
+    claimed)."""
+    return _take(site) is not None
+
+
+def active(site: str) -> bool:
+    """Whether a fault is armed at `site` (nothing is claimed), the
+    scoped overlay included."""
+    with _LOCK:
+        _load_env_locked()
+        spec = _lookup_locked(site)
+        return spec is not None and spec.times != 0
+
+
+def fired(site: Optional[str] = None):
+    """How often armed faults fired: a count for one `site`, or
+    {site: count} for every armed site."""
+    with _LOCK:
+        _load_env_locked()
+        overlay = _SCOPED.get() or {}
+        if site is not None:
+            spec = _lookup_locked(site)
+            return spec.fired if spec is not None else 0
+        merged = dict(_ACTIVE)
+        merged.update(overlay)
+        return {s: spec.fired for s, spec in merged.items()}
 
 
 @contextlib.contextmanager

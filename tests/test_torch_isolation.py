@@ -23,7 +23,8 @@ for name in names:
     importlib.import_module(name)
 print("IMPORTED", len(names), names)
 if not {"splatt_tpu_torch.cli", "splatt_tpu_torch.ops.kernels",
-        "splatt_tpu_torch.resilience",
+        "splatt_tpu_torch.resilience", "splatt_tpu_torch.trace",
+        "splatt_tpu_torch.utils.durable", "splatt_tpu_torch.utils.timers",
         "splatt_tpu_torch.utils.faults"} <= set(names):
     sys.exit(2)
 bad = sorted(m for m in sys.modules
@@ -37,6 +38,28 @@ sys.exit(1 if bad else 0)
 def test_import_loads_no_jax_and_no_jax_package():
     r = subprocess.run([sys.executable, "-c", PROBE], capture_output=True,
                        text=True, timeout=120)
+    assert r.returncode == 0, r.stdout + r.stderr
+
+
+ALONE = """
+import importlib, sys
+importlib.import_module(sys.argv[1])
+bad = sorted(m for m in sys.modules
+             if m in ("jax", "jaxlib", "splatt_tpu")
+             or m.startswith(("jax.", "jaxlib.", "splatt_tpu.")))
+sys.exit(1 if bad else 0)
+"""
+
+
+@pytest.mark.parametrize("module", [
+    "splatt_tpu_torch.trace", "splatt_tpu_torch.utils.timers",
+    "splatt_tpu_torch.utils.durable", "splatt_tpu_torch.cpd",
+    "splatt_tpu_torch.parallel.common"])
+def test_each_observability_module_imports_alone_without_jax(module):
+    """The slice's new and extended modules, each imported first in a
+    fresh interpreter, pull in neither JAX nor the JAX package."""
+    r = subprocess.run([sys.executable, "-c", ALONE, module],
+                       capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stdout + r.stderr
 
 

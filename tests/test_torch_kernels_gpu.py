@@ -1034,3 +1034,106 @@ def test_cuda_fused_t_and_v2_on_balanced_layouts():
                                                          acc), what)
                     launched += 1
     assert launched >= 3 * 2 * 6 * 2
+
+
+def _guard_tensor(rng, dims=(60, 47, 83), nnz=6000):
+    inds = np.stack([rng.integers(0, d, size=nnz) for d in dims])
+    return SparseTensor(inds, rng.random(nnz) + 0.1, dims).deduplicate()
+
+
+@pytest.mark.gpu
+def test_cuda_guarded_and_checkpointed_cpd(tmp_path):
+    """The guarded driver on the card with fused_t on every sorted mode: a
+    cpd.sweep NaN at iteration 3 rolls back (one health_nonfinite and one
+    health_rollback, a finite fit) with fused_t launched for the re-run
+    sweep too; a run stopped after iteration 2 and resumed from its
+    checkpoint follows the uninterrupted one within 1e-5, and the
+    checkpoint verifies."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from splatt_tpu_torch import resilience
+    from splatt_tpu_torch.blocked import BlockedSparse
+    from splatt_tpu_torch.config import BlockAlloc, Options, Verbosity
+    from splatt_tpu_torch.cpd import cpd_als, load_checkpoint
+    from splatt_tpu_torch.utils import faults
+
+    rng = np.random.default_rng(29)
+    X = _guard_tensor(rng)
+    rank, iters = 8, 5
+    init = [rng.random((d, rank)) for d in X.dims]
+    opts = Options(max_iterations=iters, tolerance=0.0, random_seed=1,
+                   verbosity=Verbosity.NONE, engine_fallback=False,
+                   block_alloc=BlockAlloc.ALLMODE)
+    bs = BlockedSparse.from_coo(X, opts, device="cuda")
+    resilience.reset_demotions()
+    resilience.run_report().clear()
+    whole = cpd_als(bs, rank, opts, init=init)
+    with resilience.scope("card", health_retries=2) as sc:
+        kernels.reset_launches()
+        with faults.inject("cpd.sweep", "nan", iter_at=3):
+            rolled = cpd_als(bs, rank, opts, init=init)
+        torch.cuda.synchronize()
+    kinds = [e["kind"] for e in sc.report.events()]
+    assert kinds.count("health_nonfinite") == 1
+    assert kinds.count("health_rollback") == 1
+    assert math.isfinite(rolled.fit) and 0.0 < rolled.fit <= 1.0
+    assert kernels.fused_mttkrp_t.launches == 3 * (iters + 1)
+    assert not resilience.demotions()
+    ck = str(tmp_path / "c.npz")
+    first = cpd_als(bs, rank, opts, init=init, checkpoint_path=ck,
+                    checkpoint_every=2, stop=lambda: True)
+    assert list(first.fit_iters) == [1]
+    assert load_checkpoint(ck)[2] == 1
+    rest = cpd_als(bs, rank, opts, checkpoint_path=ck, checkpoint_every=2)
+    assert list(rest.fit_iters) == [2, 3, 4, 5]
+    np.testing.assert_allclose(first.fits + rest.fits, whole.fits,
+                               atol=1e-5, rtol=0)
+    assert load_checkpoint(ck)[2] == 4
+
+
+def _count_syncs(fn) -> int:
+    """How many host syncs `fn` makes, from the warnings of
+    torch.cuda.set_sync_debug_mode("warn")."""
+    import warnings
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as got:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    return sum("synchroniz" in str(w.message) for w in got)
+
+
+@pytest.mark.gpu
+def test_cuda_guard_and_trace_add_no_sync():
+    """A checked iteration syncs the host as often with the sentinel and
+    the tracing on as with both off (the finite checks ride the fit read;
+    spans read the host clock only): syncs of a 3-iteration run less those
+    of a 2-iteration run, per setting."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from splatt_tpu_torch import resilience, trace
+    from splatt_tpu_torch.blocked import BlockedSparse
+    from splatt_tpu_torch.config import Options, Verbosity
+    from splatt_tpu_torch.cpd import cpd_als
+
+    rng = np.random.default_rng(31)
+    X = _guard_tensor(rng)
+    init = [rng.random((d, 8)) for d in X.dims]
+    bs = BlockedSparse.from_coo(X, Options(), device="cuda")
+    per_iter = {}
+    for guard, traced in ((0, False), (2, False), (2, True)):
+        counts = []
+        for iters in (2, 3):
+            opts = Options(max_iterations=iters, tolerance=0.0,
+                           verbosity=Verbosity.NONE, trace=traced)
+            with resilience.scope("s", health_retries=guard):
+                counts.append(_count_syncs(
+                    lambda: cpd_als(bs, 8, opts, init=init)))
+        per_iter[(guard, traced)] = counts[1] - counts[0]
+    trace.reset()
+    assert len(set(per_iter.values())) == 1, per_iter
+    assert per_iter[(0, False)] >= 1

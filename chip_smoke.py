@@ -228,6 +228,36 @@ Phases, each fatal on failure:
    the checkpoint verifies, and the ``trace`` verb reads 4 iterations
    from T.  ``--guard`` runs the set-up, phase 3's sorted launches (row 1
    of the kernels line), phase 5's CPD and sweep phases, and phase 14.
+15. the autotuner, its plan cache and the bench verb (every phase before
+   it reads a plan cache of this run's own, empty; phase 15 writes files
+   of its own): ``tune()`` of phase 5's tensor and options over blocks
+   2048/4096/8192 x fixed/balanced x i32/auto (``TUNE_*``), one line per
+   candidate (mode, engine, block, format, packing, the tuner's ms and
+   the launches it made: its kernel 3 times, warm + 2), the winners, the
+   cold tune's seconds by kind; a warm tune with 0 measurements and 3
+   hits; ``compile(rank=50)`` building each mode at its plan; the tuned
+   CPD with launches as the plans say, a ``tuned_plan`` event for every
+   mode and fits within 1e-4 of phase 5's, its iteration in turns with
+   phase 5's layouts under autotune off and under autotune on with an
+   empty plan cache, each one's sweep phases, MTTKRP outputs' strides
+   and the plan lookup's host us per call (memoized and resolved); each
+   winning kernel on its tuned layout against its plain version (1e-4
+   of max|plain|), its CUDA-event ms beside the tuner's host-clock
+   figure.  bench.py's amazon-like tensor at 2M draws tuned over every
+   block and packing under identity and ``hgraph``: the plan keys with
+   their skew, mode 1's winner beside phase 13's turns (printed, not
+   gated).  ``bench_mttkrp`` of stream, blocked, blocked_pallas, scatter
+   and ttbox on phase 6's 2M tensor at R = 16 and 50 with the roofline
+   lines and ``crosscheck_mttkrp`` within the CLI's 9e-3; the bench verb
+   with ``--check``, then the tune verb on phase 3's tensor as ``.bin``
+   in another process on the phase's cache (0 measurements, 3 hits)
+   and ``cpd --autotune on --alloc allmode`` with a 3-mode
+   ``tuned_plan``.  Drills on the 2M tensor: ``tuner.measure:runtime:*``
+   (no plan, ``tuner_degraded`` on every mode), ``engine.fused_t:
+   runtime:*`` (``tuner_negative`` for fused_t alone, every mode tuned),
+   and a kernel loader that raises (``tune()`` raises, the cache file
+   unchanged).  ``--tune`` runs the set-up, phase 5's layouts and CPD
+   and phase 15, and prints a kernels line of the winning kernels.
 
 The line before the last is the ``{"kernels": [...]}`` record (the nine
 TPU kernels' counterparts and ``sym_eig``); the last is
@@ -4307,6 +4337,608 @@ def _guard_summary(gd: dict) -> dict:
         cli_seconds=gd["cli"]["seconds"])
 
 
+# -- phase 15: the autotuner, its plan cache and the bench verb ----------------
+
+#: phase 15's candidate matrix at full width, cut from the JAX package's
+#: (4 reorders x 5 blocks x 2 packings x 10 formats: 400 builds and
+#: re-encodes of 20M nonzeros per mode) to 6 builds per mode sharing one
+#: host sort; the value storage stays the compute dtype's, so the tuned
+#: CPD's fits compare with phase 5's
+TUNE_BLOCKS = (2048, 4096, 8192)
+TUNE_PACKINGS = ("fixed", "balanced")
+TUNE_FORMATS = (("i32", "auto"), ("auto", "auto"))
+#: the skewed input's recipes (every block and packing)
+SKEW_REORDERS = ("identity", "hgraph")
+#: phase 13's in-turns reading of mode 1's fused_t launch at 2M draws
+#: (ms; H100 80GB HBM3, 700 W)
+PHASE13_MODE1_MS = {"fixed": 0.2225, "balanced": 0.1201}
+#: the bench verb's algorithms on the card and ranks
+BENCH_ALGS = ("stream", "blocked", "blocked_pallas", "scatter", "ttbox")
+BENCH_RANKS = (16, 50)
+#: the CLI's --check gate in f32
+BENCH_GATE = 9e-3
+#: the launch counter each kernel engine moves
+ENGINE_KERNEL = {"fused_t": "fused_mttkrp_t", "fused_tg": "fused_mttkrp_tg",
+                 "fused": "fused_mttkrp", "fused_v2": "fused_mttkrp_v2",
+                 "unfused_pallas": "onehot_reduce_sorted",
+                 "fused_dense": "fused_dense"}
+#: the tuned CPD's fits against phase 5's (the same layouts' math in f32)
+TUNED_FIT_TOL = 1e-4
+
+
+def launch_counts() -> dict:
+    from splatt_tpu_torch.ops import kernels
+
+    return {k.__name__: k.launches for k in kernels.KERNELS}
+
+
+def recording_tuner():
+    """tune._measure_candidate wrapped so each candidate leaves a record
+    (mode, path, engine, block, format, packing, reorder, the tuner's ms
+    and the kernel launches it made), and the host builds a tune makes
+    timed by kind (records[0], "host_s": sort, build, reencode, reorder,
+    measure); returns (records, restore)."""
+    from splatt_tpu_torch import blocked, reorder, tune
+
+    real = tune._measure_candidate
+    host = {"sort": 0.0, "build": 0.0, "reencode": 0.0, "reorder": 0.0,
+            "measure": 0.0}
+    records = [{"host_s": host}]
+    wrapped = []
+
+    def timed(mod, name, kind):
+        fn = getattr(mod, name)
+
+        def inner(*a, **k):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **k)
+            finally:
+                host[kind] += time.perf_counter() - t0
+
+        setattr(mod, name, inner)
+        wrapped.append((mod, name, fn))
+
+    timed(blocked, "layout_sort_order", "sort")
+    timed(blocked, "build_layout", "build")
+    timed(blocked, "reencode_layout", "reencode")
+    timed(reorder, "apply_reorder", "reorder")
+
+    def measured(layout, factors, mode, path, engine, st, **kw):
+        rec = dict(mode=int(mode), path=path, engine=engine,
+                   block=int(layout.block),
+                   fmt=f"{layout.idx_width}/{layout.val_storage}",
+                   packing=layout.packing, reorder=layout.reorder)
+        before = launch_counts()
+        try:
+            sec = real(layout, factors, mode, path, engine, st, **kw)
+        except Exception as e:
+            rec["error"] = f"{type(e).__name__}: {str(e)[:120]}"
+            records.append(rec)
+            raise
+        after = launch_counts()
+        rec["ms"] = sec * 1e3
+        rec["launches"] = {k: after[k] - before[k] for k in after
+                           if after[k] != before[k]}
+        records.append(rec)
+        return sec
+
+    def timed_measure(*a, **k):
+        t0 = time.perf_counter()
+        try:
+            return measured(*a, **k)
+        finally:
+            host["measure"] += time.perf_counter() - t0
+
+    def restore():
+        tune._measure_candidate = real
+        for mod, name, fn in wrapped:
+            setattr(mod, name, fn)
+
+    tune._measure_candidate = timed_measure
+    return records, restore
+
+
+def check_candidate_launches(records: list, calls: int) -> None:
+    """Every measured candidate of a kernel engine launched its kernel
+    `calls` times (warm and timed) and nothing else; the plain scatter
+    paths' xla launched no kernel."""
+    for r in records[1:]:
+        if "error" in r:
+            continue
+        want = ({ENGINE_KERNEL[r["engine"]]: calls}
+                if r["engine"] in ENGINE_KERNEL else {})
+        if r["launches"] != want:
+            raise AssertionError(f"candidate {r} launched {r['launches']}, "
+                                 f"expected {want}")
+
+
+def tune_opts(**kw):
+    from splatt_tpu_torch import Options
+    from splatt_tpu_torch.config import BlockAlloc, Verbosity
+
+    kw.setdefault("block_alloc", BlockAlloc.ALLMODE)
+    kw.setdefault("random_seed", 0)
+    return Options(max_iterations=ITERS, tolerance=0.0,
+                   engine_fallback=False, verbosity=Verbosity.NONE, **kw)
+
+
+def winner_check(lay, factors, m: int, plan) -> dict:
+    """The winning engine's kernel on its tuned layout against its plain
+    version (<= KERNEL_TOL of max|plain|), timed with CUDA events beside
+    its bound and the tuner's host-clock figure."""
+    from splatt_tpu_torch.blocked import decode_to_v1
+    from splatt_tpu_torch.ops import kernels
+    from splatt_tpu_torch.ops.mttkrp import _gather_prod_layout
+
+    width = lay.seg_width
+    label = f"[tune] winner mode {m} {plan.engine}"
+    if plan.engine == "fused_v2":
+        got, row = compare(
+            lambda: kernels.fused_mttkrp_v2(lay, factors, m, width, False),
+            lambda: kernels.fused_mttkrp_v2_plain(lay, factors, m, width,
+                                                  False), label)
+        row["bound_ms"], row["bound_by"] = v2_bound(lay, factors, m, got)
+    elif plan.engine in ("fused_t", "fused_tg"):
+        v1 = decode_to_v1(lay)
+        fn = (kernels.fused_mttkrp_t if plan.engine == "fused_t"
+              else kernels.fused_mttkrp_tg)
+        got, row = compare(
+            lambda: fn(v1, factors, m, width, False),
+            lambda: kernels.fused_mttkrp_t_plain(v1, factors, m, width,
+                                                 False), label)
+        row["bound_ms"], row["bound_by"] = bound(v1, factors, m, got)
+    elif plan.engine == "unfused_pallas":
+        v1 = decode_to_v1(lay)
+        prod = _gather_prod_layout(v1, factors, m).reshape(
+            v1.nblocks, v1.block, -1)
+        ids = v1.blocked_locals()
+        got, row = compare(
+            lambda: kernels.onehot_reduce_sorted(ids, prod, width),
+            lambda: kernels.onehot_reduce_sorted_plain(ids, prod, width),
+            label)
+        row["bound_ms"], row["bound_by"] = reduce_bound(ids, prod, got,
+                                                        v1.nnz)
+    else:
+        return dict(mode=m, engine=plan.engine, kernel=None)
+    row.update(mode=m, engine=plan.engine,
+               kernel=ENGINE_KERNEL[plan.engine], block=lay.block,
+               fmt=lay.format_desc(), packing=lay.packing,
+               tuner_ms=plan.sec * 1e3)
+    log(f"[tune] winner {json.dumps(row)}")
+    return row
+
+
+def lookup_us(bs, U, reps: int = 5000) -> dict:
+    """Host microseconds of one dispatch's autotuned-plan lookup on each
+    mode of `bs` under the current plan cache, mean over `reps` calls:
+    ``warm`` as dispatch runs it (the layout's memo), ``resolve`` the
+    match it memoizes (plan key, environment key, cache memo, compares),
+    and whether a plan applied."""
+    from splatt_tpu_torch.ops.mttkrp import (_choose_path_bs,
+                                             _engine_shape_key,
+                                             _resolve_tuned_plan,
+                                             _tuned_plan_for)
+
+    out = {}
+    for m in range(bs.nmodes):
+        lay, path, at = bs.layout_for(m), _choose_path_bs(bs, m), \
+            bs.opts.autotune
+        # dispatch hands the lookup the shape key it already made
+        key = _engine_shape_key(lay, U, m)
+        row = {"hit": _tuned_plan_for(lay, U, m, path, at, key) is not None}
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            _tuned_plan_for(lay, U, m, path, at, key)
+        row["warm"] = (time.perf_counter() - t0) / reps * 1e6
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            _resolve_tuned_plan(lay, U, m, path, at)
+        row["resolve"] = (time.perf_counter() - t0) / reps * 1e6
+        out[m] = row
+    return out
+
+
+def mttkrp_out_layouts(bs, U) -> dict:
+    """Each mode's MTTKRP output: shape, strides, dtype, contiguity."""
+    from splatt_tpu_torch import mttkrp
+
+    out = {}
+    for m in range(bs.nmodes):
+        M = mttkrp(bs, U, m)
+        out[m] = dict(shape=list(M.shape), stride=list(M.stride()),
+                      dtype=str(M.dtype), contiguous=M.is_contiguous())
+    return out
+
+
+def cpd_iter_ms(bs, rank: int, opts) -> tuple:
+    """One CPD's steady ms per iteration, its fits and its output."""
+    import torch
+
+    from splatt_tpu_torch import cpd_als
+
+    out = cpd_als(bs, rank, opts)
+    torch.cuda.synchronize()
+    return (sum(out.iter_seconds[1:]) / (len(out.iter_seconds) - 1) * 1e3,
+            list(out.fits), out)
+
+
+def tune_full_width(tt, bs, main: dict, tmp: str) -> dict:
+    """15.1: tune() at full width on phase 5's tensor and options over
+    the restricted matrix, the warm tune, compile at the plans, the tuned
+    CPD (launches, tuned_plan, fits, iteration in turns with phase 5's)
+    and each winning kernel against its plain version."""
+    import torch
+
+    from splatt_tpu_torch import BlockedSparse, resilience, tune
+    from splatt_tpu_torch.ops import kernels
+    from splatt_tpu_torch.ops.mttkrp import _choose_path_bs
+
+    opts = tune_opts()
+    tune.set_cache_path(os.path.join(tmp, "phase15.json"))
+    kw = dict(blocks=TUNE_BLOCKS, packings=TUNE_PACKINGS,
+              formats=list(TUNE_FORMATS), reorders=("identity",),
+              device="cuda")
+    records, restore = recording_tuner()
+    t0 = time.perf_counter()
+    try:
+        res = tune.tune(tt, RANK, opts, **kw)
+    finally:
+        restore()
+    cold_s = time.perf_counter() - t0
+    for r in records[1:]:
+        log(f"[tune] candidate {json.dumps(r)}")
+    check_candidate_launches(records, 3)
+    if sorted(res.plans) != list(range(tt.nmodes)) or res.skipped:
+        raise AssertionError(f"cold tune: plans {res.plans}, skipped "
+                             f"{res.skipped}")
+    winners = {m: dataclasses.asdict(p) for m, p in res.plans.items()}
+    for m, p in winners.items():
+        log(f"[tune] winner mode {m}: {json.dumps(p)}")
+    log(f"[tune] cold tune: {res.measured} measurements in {cold_s:.1f} s; "
+        f"host seconds by kind {json.dumps(records[0]['host_s'])}")
+    t0 = time.perf_counter()
+    warm = tune.tune(tt, RANK, opts, **kw)
+    warm_s = time.perf_counter() - t0
+    log(f"[tune] warm tune: {warm.measured} measurements, "
+        f"{warm.cache_hits} cache hits in {warm_s:.3f} s")
+    if (warm.measured, warm.cache_hits) != (0, tt.nmodes):
+        raise AssertionError("the warm tune measured")
+    t0 = time.perf_counter()
+    bs_t = BlockedSparse.compile(tt, opts, rank=RANK)
+    torch.cuda.synchronize()
+    compile_s = time.perf_counter() - t0
+    built = {}
+    for m, p in res.plans.items():
+        lay = bs_t.layout_for(m)
+        built[m] = dict(block=lay.block, fmt=lay.format_desc(),
+                        idx_width=lay.idx_width, packing=lay.packing,
+                        path=_choose_path_bs(bs_t, m))
+        log(f"[tune] compile mode {m}: {json.dumps(built[m])}")
+        if ((lay.block, lay.idx_width, lay.packing, built[m]["path"])
+                != (p.nnz_block, p.idx_width, p.packing, p.path)):
+            raise AssertionError(f"mode {m} built off its plan: {built[m]}")
+    # the tuned CPD: launches as the plans say, every mode's plan in effect
+    resilience.run_report().clear()
+    kernels.reset_launches()
+    iter_ms, fits, out = cpd_iter_ms(bs_t, RANK, opts)
+    launches = launch_counts()
+    want = {}
+    for p in res.plans.values():
+        if p.engine in ENGINE_KERNEL:
+            k = ENGINE_KERNEL[p.engine]
+            want[k] = want.get(k, 0) + ITERS
+    got = {k: v for k, v in launches.items() if v}
+    events = resilience.run_report().events("tuned_plan")
+    diff = max(abs(a - b) for a, b in zip(fits, main["fits"]))
+    log(f"[tune] tuned CPD: fits {fits}; max |fit - phase 5's| {diff:.3e}; "
+        f"launches {got} (plans say {want}); tuned_plan modes "
+        f"{sorted(events[-1]['plans']) if events else None}")
+    if got != want or resilience.demotions():
+        raise AssertionError(f"tuned CPD launches {got}, expected {want}")
+    if not events or sorted(events[-1]["plans"]) != list(range(tt.nmodes)):
+        raise AssertionError("no tuned_plan event with every mode")
+    if len(fits) != ITERS or not diff <= TUNED_FIT_TOL:
+        raise AssertionError(f"tuned fits {fits} against {main['fits']}")
+    # the iteration in turns: autotune off on phase 5's layouts, on with
+    # an empty plan cache on the same layouts (the plan lookup's cost
+    # alone), and tuned (the plans' layouts and engines); in order, then
+    # reversed, twice
+    plans_file = os.path.join(tmp, "phase15.json")
+    empty_file = os.path.join(tmp, "empty.json")
+    runs = {"untuned": (dataclasses.replace(bs, opts=dataclasses.replace(
+                bs.opts, autotune=False)), False, empty_file),
+            "lookup_miss": (dataclasses.replace(bs, opts=dataclasses.replace(
+                bs.opts, autotune=True)), True, empty_file),
+            "tuned": (bs_t, True, plans_file)}
+    turns = {k: [] for k in runs}
+    for label in (list(runs) + list(runs)[::-1]) * 2:
+        X, on, cache = runs[label]
+        tune.set_cache_path(cache)
+        turns[label].append(cpd_iter_ms(X, RANK, tune_opts(autotune=on))[0])
+    turn_ms = {k: sum(v) / len(v) for k, v in turns.items()}
+    log(f"[tune] ms per iteration in turns: "
+        + "; ".join(f"{k} {v}" for k, v in turns.items())
+        + f"; means {turn_ms}; phase 5's {main['sec_per_iter'] * 1e3:.3f}")
+    # where each iteration's time goes, on the same factors, with each
+    # mode's MTTKRP output's layout beside it; the plan lookup's host cost
+    phases, lookups = {}, {}
+    for label, (X, on, cache) in runs.items():
+        tune.set_cache_path(cache)
+        phases[label] = sweep_phases(X, out.factors, turn_ms[label] / 1e3,
+                                     f"[tune] {label}")
+        phases[label]["mttkrp_out"] = mttkrp_out_layouts(X, out.factors)
+        lookups[label] = lookup_us(X, out.factors)
+        log(f"[tune] {label}: MTTKRP outputs "
+            f"{json.dumps(phases[label]['mttkrp_out'])}; plan lookup host "
+            f"us per call {json.dumps(lookups[label])}")
+    tune.set_cache_path(plans_file)
+    factors = random_factors(bs_t, RANK, 1)
+    checks = [winner_check(bs_t.layout_for(m), factors, m, p)
+              for m, p in res.plans.items()]
+    del bs_t, out, factors
+    torch.cuda.empty_cache()
+    return dict(cold_s=cold_s, warm_s=warm_s, compile_s=compile_s,
+                measured=res.measured, candidates=records,
+                winners=winners, built=built, launches=got,
+                tuned_fits=fits, fit_diff=diff, tuned_iter_ms=iter_ms,
+                turns=turns, turn_ms=turn_ms, phases=phases,
+                lookup_us=lookups, checks=checks)
+
+
+def tune_skewed(tmp: str) -> dict:
+    """15.2: bench.py's amazon-like tensor at 2M draws, every block and
+    packing under identity and hgraph: the plan keys with their skew
+    component and mode 1's winner beside phase 13's in-turns reading."""
+    from splatt_tpu_torch import tune
+    from splatt_tpu_torch.blocked import mode_density_bucket
+    from splatt_tpu_torch.config import BlockAlloc
+
+    tt = synthetic_zipf(AMAZON_DIMS, AMAZON_DRAWS[0], seed=0).deduplicate()
+    opts = tune_opts(block_alloc=BlockAlloc.TWOMODE)
+    tune.set_cache_path(os.path.join(tmp, "phase15_skew.json"))
+    records, restore = recording_tuner()
+    t0 = time.perf_counter()
+    try:
+        res = tune.tune(tt, RANK, opts, formats=list(TUNE_FORMATS),
+                        reorders=SKEW_REORDERS, device="cuda")
+    finally:
+        restore()
+    seconds = time.perf_counter() - t0
+    check_candidate_launches(records, 3)
+    keys = {}
+    for m in range(tt.nmodes):
+        skew = tune.skew_of(tt, m)
+        keys[m] = tune.plan_key(tt.dims, tt.nnz, m, RANK, "float32",
+                                skew=skew, mode_density=mode_density_bucket(
+                                    tt.dims, m, tt.nnz))
+        p = res.plans.get(m)
+        log(f"[tune] skewed mode {m}: key {keys[m]} (skew {skew}); winner "
+            f"{json.dumps(dataclasses.asdict(p)) if p else None}")
+    m1 = res.plans.get(1)
+    faster = min(PHASE13_MODE1_MS, key=PHASE13_MODE1_MS.get)
+    agrees = m1 is not None and m1.packing == faster
+    log(f"[tune] skewed: {res.measured} measurements in {seconds:.1f} s "
+        f"(host seconds by kind {json.dumps(records[0]['host_s'])}); "
+        f"mode 1's winner packing {m1.packing if m1 else None} "
+        f"{'agrees' if agrees else 'disagrees'} with phase 13's in-turns "
+        f"reading ({PHASE13_MODE1_MS})")
+    return dict(nnz=tt.nnz, seconds=seconds, measured=res.measured,
+                keys=keys, winners={m: dataclasses.asdict(p)
+                                    for m, p in res.plans.items()},
+                mode1_agrees_phase13=agrees)
+
+
+def bench_and_cli(tt, tmp: str) -> dict:
+    """15.3: bench_mttkrp and crosscheck_mttkrp on phase 6's 2M tensor
+    at R = 16 and 50 with the roofline lines; the bench verb with
+    --check, then the tune verb and cpd --autotune on phase 3's tensor,
+    each in a subprocess."""
+    from splatt_tpu_torch.bench_algs import (bench_mttkrp, crosscheck_mttkrp,
+                                             format_bench, roofline_report)
+    from splatt_tpu_torch.config import BlockAlloc
+    from splatt_tpu_torch.io import save
+
+    small = synthetic_tensor(NELL2, BIG_RANK_NNZ, seed=5)
+    opts = tune_opts(random_seed=1, block_alloc=BlockAlloc.ALLMODE)
+    out = {"bench": {}, "crosscheck": {}}
+    for R in BENCH_RANKS:
+        res, lays = bench_mttkrp(small, rank=R, algs=BENCH_ALGS, opts=opts,
+                                 reps=3, return_layouts=True, device="cuda")
+        for line in format_bench(res).splitlines():
+            log(f"[bench] R={R} {line}")
+        for line in roofline_report(small, res, R, 4, lays, device="cuda"):
+            log(f"[bench] R={R} {line}")
+        dev = crosscheck_mttkrp(small, rank=R, algs=BENCH_ALGS, opts=opts,
+                                device="cuda")
+        log(f"[bench] R={R} cross-check max relative |alg - stream| = "
+            f"{dev:.3e} (gate {BENCH_GATE})")
+        if not dev <= BENCH_GATE:
+            raise AssertionError(f"bench cross-check {dev} at R={R}")
+        out["bench"][R] = {k: [v * 1e3 for v in t] for k, t in res.items()}
+        out["crosscheck"][R] = dev
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ)
+    env.pop("SPLATT_FAULTS", None)
+
+    def cli(args, env=env):
+        t0 = time.perf_counter()
+        r = subprocess.run([sys.executable, "-m", "splatt_tpu_torch.cli",
+                            *args], capture_output=True, text=True,
+                           cwd=root, env=env, timeout=600)
+        seconds = time.perf_counter() - t0
+        for line in r.stdout.splitlines():
+            log(f"[tune] cli {args[0]} | {line}")
+        if r.returncode != 0:
+            raise AssertionError(f"cli {args} failed ({r.returncode}): "
+                                 f"{r.stderr[-2000:]}")
+        return r.stdout, seconds
+
+    path = os.path.join(tmp, "small.bin")
+    save(small, path)
+    _, out["cli_bench_s"] = cli(["bench", path, "-r", "16", "--reps", "2",
+                                 "--check"])
+    big = os.path.join(tmp, "nell2.bin")
+    save(tt, big)
+    # another process on 15.1's plan cache: the tune verb finds every
+    # mode's plan (the plans survive a restart), and cpd builds and
+    # dispatches at them
+    cenv = dict(env, SPLATT_TUNE_CACHE=os.path.join(tmp, "phase15.json"))
+    text, out["cli_tune_s"] = cli(["tune", big, "-r", str(RANK)], cenv)
+    if (f"tuned {tt.nmodes}/{tt.nmodes} modes (0 measurements, "
+            f"{tt.nmodes} cache hits") not in text:
+        raise AssertionError("the tune verb did not find 15.1's plans")
+    text, out["cli_cpd_s"] = cli(
+        ["cpd", big, "-r", str(RANK), "-i", "3", "--tol", "0", "--seed",
+         "0", "--alloc", "allmode", "--autotune", "on", "--json",
+         "--nowrite", "--engine-fallback", "off"], cenv)
+    rec = json.loads(text.strip().splitlines()[-1])
+    kinds = [e["kind"] for e in rec["events"]]
+    tuned = [e for e in rec["events"] if e["kind"] == "tuned_plan"]
+    if (not tuned or sorted(tuned[0]["plans"]) != [str(m) for m in
+                                                   range(tt.nmodes)]
+            or rec["demotions"] or "tuner_degraded" in kinds):
+        raise AssertionError(f"cpd --autotune on: events {kinds}")
+    out["cli_tuned_plan"] = tuned[0]["plans"]
+    return out
+
+
+def tune_drills(tmp: str) -> dict:
+    """15.4: on phase 6's 2M tensor over one candidate layout per mode:
+    the tuner.measure drill (no plan, tuner_degraded per mode), the
+    engine.fused_t drill (tuner_negative for fused_t alone, every mode
+    still tuned), and a kernel loader that raises (tune() raises, the
+    cache file unchanged)."""
+    from splatt_tpu_torch import resilience, tune
+    from splatt_tpu_torch.ops import kernels
+    from splatt_tpu_torch.utils import faults
+
+    small = synthetic_tensor(NELL2, BIG_RANK_NNZ, seed=5)
+    opts = tune_opts()
+    kw = dict(blocks=(4096,), packings=("fixed",), formats=[("i32", "auto")],
+              reorders=("identity",), device="cuda")
+    out = {}
+    for spec in ("tuner.measure:runtime:*", "engine.fused_t:runtime:*"):
+        cache = os.path.join(tmp, f"drill_{spec.split(':')[0]}.json")
+        tune.set_cache_path(cache)
+        resilience.reset_demotions()
+        resilience.run_report().clear()
+        os.environ["SPLATT_FAULTS"] = spec
+        faults.reset()
+        try:
+            res = tune.tune(small, RANK, opts, **kw)
+        finally:
+            del os.environ["SPLATT_FAULTS"]
+            faults.reset()
+        rep = resilience.run_report()
+        degraded = sorted(e["mode"] for e in rep.events("tuner_degraded"))
+        negs = sorted({e["engine"] for e in rep.events("tuner_negative")})
+        log(f"[tune] drill {spec}: plans {sorted(res.plans)}, "
+            f"tuner_degraded {degraded}, tuner_negative engines {negs}")
+        if sorted(set(res.plans) | set(degraded)) != [0, 1, 2]:
+            raise AssertionError(f"drill {spec}: a mode has neither a plan "
+                                 f"nor a tuner_degraded event")
+        if spec.startswith("tuner.") and res.plans:
+            raise AssertionError("tuner.measure drill: a mode was tuned")
+        if spec.startswith("engine.") and (
+                negs != ["fused_t"] or sorted(res.plans) != [0, 1, 2]
+                or any(p.engine == "fused_t" for p in res.plans.values())):
+            raise AssertionError(f"engine.fused_t drill: {res.plans}")
+        out[spec] = dict(plans=sorted(res.plans), degraded=degraded,
+                         negative_engines=negs)
+    before = open(cache, "rb").read()
+    real = kernels.load_library
+
+    def broken():
+        raise RuntimeError("nvcc failed on fused_mttkrp.cu (drill)")
+
+    kernels.load_library = broken
+    try:
+        tune.tune(small, RANK, opts, force=True, **kw)
+        raised = None
+    except RuntimeError as e:
+        raised = str(e)
+    finally:
+        kernels.load_library = real
+    unchanged = open(cache, "rb").read() == before
+    log(f"[tune] drill broken loader: raised {raised!r}; cache unchanged "
+        f"{unchanged}")
+    if raised is None or not unchanged:
+        raise AssertionError("a broken kernel loader did not propagate, or "
+                             "the cache changed")
+    out["broken_loader"] = dict(raised=raised, cache_unchanged=unchanged)
+    return out
+
+
+def phase_tune(tt, bs, main: dict) -> dict:
+    """Phase 15: the autotuner, its plan cache and the bench verb; every
+    write goes to files of its own, and the start-up plan cache stays
+    empty for the phases after it."""
+    import shutil
+    import tempfile
+
+    from splatt_tpu_torch import tune
+
+    t_phase = time.perf_counter()
+    root = os.path.dirname(os.path.abspath(__file__))
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_tune_", dir=root)
+    try:
+        out = dict(full=tune_full_width(tt, bs, main, tmp),
+                   skewed=tune_skewed(tmp), bench=bench_and_cli(tt, tmp),
+                   drills=tune_drills(tmp))
+    finally:
+        tune.set_cache_path(None)
+        shutil.rmtree(tmp, ignore_errors=True)
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"[tune] phase 15: {out['seconds']:.1f} s")
+    return out
+
+
+def _tune_summary(tn: dict) -> dict:
+    """Phase 15's figures for the kernels line."""
+    f = tn["full"]
+    return dict(seconds=tn["seconds"], cold_tune_s=f["cold_s"],
+                warm_tune_s=f["warm_s"], measured=f["measured"],
+                winners={m: (p["engine"], p["nnz_block"], p["idx_width"],
+                             p["packing"], p["sec"] * 1e3)
+                         for m, p in f["winners"].items()},
+                tuned_launches=f["launches"], fit_diff=f["fit_diff"],
+                iter_ms_in_turns=f["turn_ms"], sweep_phase_ms=f["phases"],
+                lookup_us=f["lookup_us"],
+                winner_ms=[(c.get("kernel"), c.get("ms"), c.get("tuner_ms"))
+                           for c in f["checks"]],
+                skewed=dict(winners=tn["skewed"]["winners"],
+                            mode1_agrees_phase13=tn["skewed"][
+                                "mode1_agrees_phase13"]),
+                bench_ms=tn["bench"]["bench"],
+                crosscheck=tn["bench"]["crosscheck"],
+                drills=tn["drills"])
+
+
+def _tune_rows(tn: dict) -> list:
+    """The kernels line of ``--tune``: one row per winning kernel, its
+    winner checks' means and its launches in the tuned CPD."""
+    sources = {"fused_mttkrp_t": (FUSED_SRC, f"{PK}:355"),
+               "fused_mttkrp_tg": (FUSED_SRC, f"{PK}:507"),
+               "fused_mttkrp_v2": ("splatt_tpu_torch/csrc/fused_mttkrp_v2.cu",
+                                   f"{PK}:702"),
+               "onehot_reduce_sorted": ("splatt_tpu_torch/csrc/"
+                                        "onehot_reduce.cu", f"{PK}:148")}
+    f = tn["full"]
+    rows = []
+    for name, (src, rep) in sources.items():
+        mine = [c for c in f["checks"] if c.get("kernel") == name]
+        if mine:
+            rows.append(_record_row(
+                name, src, rep, f["launches"].get(name, 0), mine, None,
+                note=f"ms/plain_ms/bound_ms: mean per launch over the modes "
+                f"phase 15's tune gave this kernel, on their tuned layouts, "
+                f"NELL-2 shape, 20M nonzeros, rank {RANK}, f32; launches: "
+                f"the tuned CPD, {ITERS} iterations", contracts=mine,
+                phase15=_tune_summary(tn)))
+    return rows
+
+
 FUSED_SRC = "splatt_tpu_torch/csrc/fused_mttkrp.cu"
 PK = "splatt_tpu/ops/pallas_kernels.py"
 NOTE = ("ms/plain_ms/bound_ms: mean per launch over the 3 modes at rank "
@@ -4553,12 +5185,26 @@ def main() -> int:
 
     dev = phase_device()
     t_script = time.perf_counter()
+    # autotuning is on by default: every phase reads a plan cache of this
+    # run's own, empty until phase 15 (which writes files of its own)
+    import atexit
+    import shutil
+    import tempfile
+
+    cache_dir = tempfile.mkdtemp(prefix="chip_smoke_plans_",
+                                 dir=os.path.dirname(os.path.abspath(
+                                     __file__)))
+    atexit.register(shutil.rmtree, cache_dir, True)
+    os.environ["SPLATT_TUNE_CACHE"] = os.path.join(cache_dir,
+                                                   "tune_cache.json")
     gather = "--gather" in sys.argv[1:]
     ranks = "--ranks" in sys.argv[1:]
     reduce = "--reduce" in sys.argv[1:]
     balance = "--balance" in sys.argv[1:]
     guard_only = "--guard" in sys.argv[1:]
-    phase_build(verbose=not (ranks or reduce or balance or guard_only))
+    tune_only = "--tune" in sys.argv[1:]
+    phase_build(verbose=not (ranks or reduce or balance or guard_only
+                             or tune_only))
     from splatt_tpu_torch import native
 
     # phase 13 fails without it; every earlier host build would sort with
@@ -4639,6 +5285,14 @@ def main() -> int:
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": dev["kind"], "count": dev["count"]}}))
         return 0
+    if tune_only:
+        v1 = v1_fits(bs, RANK)
+        tn = phase_tune(tt, bs, v1)
+        print(json.dumps({"kernels": _tune_rows(tn), "power": dev["smi"]}))
+        log(f"[total] {time.perf_counter() - t_script:.1f} s")
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": dev["kind"], "count": dev["count"]}}))
+        return 0
     if ranks:
         v1 = v1_fits(bs, RANK)
         if v1["launches"] != bs.nmodes * ITERS:
@@ -4711,6 +5365,7 @@ def main() -> int:
     wide = wide_rank_turns(bs)
     bf16 = {k: _bf16_summary(v) for k, v in fmt["bf16"].items()}
     guard = phase_guard(bs, tt, RANK, main_path["fits"], main_path["phases"])
+    tuned = phase_tune(tt, bs, main_path)
     del bs
     dense = phase_dense(RANK)
     bf16["fused_dense"] = _bf16_summary(dense["rows"]["bf16"])
@@ -4729,7 +5384,8 @@ def main() -> int:
                phase12=_decomp_summary(decomp),
                phase13=_balance_summary(bal),
                phase13_rows=_balance_rows(bal),
-               phase14=_guard_summary(guard)),
+               phase14=_guard_summary(guard),
+               phase15=_tune_summary(tuned)),
         _tg_row(launches("fused_t faulted", "fused_mttkrp_tg"),
                 "phase 7, fused_t faulted", new_rows, bf16, big, big_rows),
         _rowmajor_row(launches(FUSED_CHAIN, "fused_mttkrp"),

@@ -181,7 +181,10 @@ class ModeLayout:
       slots); None for the fixed packing (the reals are the first nnz).
     packing: "fixed" or "balanced"; reorder: the relabeling the tensor
       went through before the build ("identity" when none);
-      density_bucket: :func:`mode_density_bucket` of the mode.
+      density_bucket: :func:`mode_density_bucket` of the mode; skew:
+      :func:`nnz_skew_bucket` of the sorted mode's slice histogram, which
+      :func:`build_layout` stamps and the autotuner's plan key reads
+      ("" for a layout built otherwise).
     """
 
     inds: Union[torch.Tensor, Tuple[torch.Tensor, ...]]
@@ -199,6 +202,7 @@ class ModeLayout:
     packing: str = "fixed"
     reorder: str = "identity"
     density_bucket: str = ""
+    skew: str = ""
 
     @property
     def nnz_pad(self) -> int:
@@ -659,13 +663,22 @@ def _encoded(locs, bases, dev) -> dict:
 # -- the builders -------------------------------------------------------------
 
 
+def layout_sort_order(tt: SparseTensor, mode: int, mode_order=None,
+                      mode_order_custom=None) -> np.ndarray:
+    """The permutation that sorts `tt` for mode `mode`'s layout: by the
+    output mode, then the others in the mode order's sequence."""
+    return tt.sort_order([mode] + secondary_order(
+        tt.dims, mode, mode_order, mode_order_custom))
+
+
 def build_layout(tt: SparseTensor, mode: int, block: int = 4096,
                  val_dtype=torch.float32, mode_order=None,
                  mode_order_custom=None, device=None,
                  fmt: Optional[LayoutFormat] = None,
                  verbose: bool = False, dense: Optional[bool] = None,
                  packing: str = "fixed", reorder_label: str = "identity",
-                 seconds: Optional[Dict[str, float]] = None
+                 seconds: Optional[Dict[str, float]] = None,
+                 record_stats: bool = True, presorted: bool = False
                  ) -> Union[ModeLayout, "DenseModeLayout"]:
     """Sort, block and pad the tensor for output mode `mode`
     (≙ csf_alloc's sort + fiber build, src/csf.c:613-726).
@@ -683,10 +696,14 @@ def build_layout(tt: SparseTensor, mode: int, block: int = 4096,
     ``packing_fallback`` event; an empty tensor has nothing to balance
     and is cut fixed.  `reorder_label` names the relabeling the caller
     applied to `tt` (the layout carries it).  Every sparse build leaves
-    one ``layout_imbalance`` event (:func:`_record_imbalance`), and adds
-    its host seconds into `seconds`, when given: the sort under
+    one ``layout_imbalance`` event (:func:`_record_imbalance`) unless
+    `record_stats` is False (the autotuner's candidate builds), stamps
+    the mode's slice skew (:func:`nnz_skew_bucket`) into the layout, and
+    adds its host seconds into `seconds`, when given: the sort under
     ``"sort"``, the rest of the build (pack, encode, copy to the device)
-    under ``"pack"``.
+    under ``"pack"``.  `presorted` says `tt` is already in
+    :func:`layout_sort_order`'s order for `mode` and skips the sort: the
+    autotuner's candidate builds of one mode read one sorted copy.
 
     `dense` picks the dense tile layout: True forces it, False forbids
     it, None reads the SPLATT_DENSE policy and :func:`dense_mode_verdict`.
@@ -710,10 +727,9 @@ def build_layout(tt: SparseTensor, mode: int, block: int = 4096,
             reorder_label=reorder_label))
         if lay is not None:
             return lay
-    order = [mode] + secondary_order(tt.dims, mode, mode_order,
-                                     mode_order_custom)
     t0 = time.perf_counter()
-    perm = tt.sort_order(order)
+    perm = (slice(None) if presorted else
+            layout_sort_order(tt, mode, mode_order, mode_order_custom))
     t_sorted = time.perf_counter()
     if seconds is not None:
         seconds["sort"] = seconds.get("sort", 0.0) + t_sorted - t0
@@ -768,25 +784,26 @@ def build_layout(tt: SparseTensor, mode: int, block: int = 4096,
     # widest span real rows can have
     seg_width = ceil_to(min(span, dim if dim > 0 else 1), 8)
 
-    rows_b = inds[mode].reshape(nblocks, block)
-    counts_b = (block_nnz if block_nnz is not None
-                else np.minimum(np.maximum(
-                    nnz - block * np.arange(nblocks), 0), block))
-    # spans over the real entries only: a fixed layout's sentinels carry
-    # row `dim`
-    realm = real_mask_from_counts(block, counts_b)
-    hi = np.where(realm, rows_b, -1).max(axis=1)
-    lo = np.where(realm, rows_b, dim).min(axis=1)
-    spans_b = np.where(counts_b > 0, hi - lo + 1, 1)
-    _record_imbalance(mode, packing, block, seg_width, hist, counts_b,
-                      np.minimum(spans_b, dim if dim > 0 else 1), nnz,
-                      verbose)
+    if record_stats:
+        rows_b = inds[mode].reshape(nblocks, block)
+        counts_b = (block_nnz if block_nnz is not None
+                    else np.minimum(np.maximum(
+                        nnz - block * np.arange(nblocks), 0), block))
+        # spans over the real entries only: a fixed layout's sentinels
+        # carry row `dim`
+        realm = real_mask_from_counts(block, counts_b)
+        hi = np.where(realm, rows_b, -1).max(axis=1)
+        lo = np.where(realm, rows_b, dim).min(axis=1)
+        spans_b = np.where(counts_b > 0, hi - lo + 1, 1)
+        _record_imbalance(mode, packing, block, seg_width, hist, counts_b,
+                          np.minimum(spans_b, dim if dim > 0 else 1), nnz,
+                          verbose)
 
     statics = dict(vals=vals.to(dev),
                    row_start=torch.from_numpy(row_start).to(dev),
                    mode=mode, dim=dim, block=block, seg_width=seg_width,
                    nnz=nnz, val_storage=fmt.val, packing=packing,
-                   reorder=reorder_label,
+                   reorder=reorder_label, skew=nnz_skew_bucket(hist),
                    density_bucket=mode_density_bucket(tt.dims, mode, nnz),
                    block_nnz=(None if block_nnz is None
                               else torch.from_numpy(block_nnz).to(dev)))
@@ -1234,10 +1251,42 @@ class BlockedSparse:
         return " ".join(f"mode{lay.mode}={lay.format_desc()}"
                         for lay in self.layouts)
 
+    def imbalance(self) -> Dict[str, dict]:
+        """Per-layout balance recomputed from the layouts on the host
+        (≙ splatt_tpu.blocked.BlockedSparse.imbalance): real nonzeros per
+        block and row span per block as max/mean, and the one-hot work
+        per nonzero; the figures ``layout_imbalance`` events carry.  Dense
+        layouts have no nonzero stream and are left out."""
+        from splatt_tpu_torch.utils.env import max_mean_ratio
+
+        out = {}
+        for lay in self.layouts:
+            if lay.encoding == "dense":
+                continue
+            real = lay.real_mask()
+            counts = np.count_nonzero(real, axis=1)
+            rows = lay.mode_ids(lay.mode).cpu().numpy().reshape(
+                lay.nblocks, lay.block).astype(np.int64)
+            rows = np.where(real, rows, rows.min(axis=1, keepdims=True))
+            spans = np.minimum(rows.max(axis=1) - rows.min(axis=1) + 1,
+                               lay.dim if lay.dim > 0 else 1)
+            out[f"mode{lay.mode}"] = dict(
+                packing=lay.packing, nblocks=lay.nblocks,
+                seg_width=lay.seg_width,
+                block_nnz_max_mean=max_mean_ratio(counts),
+                span_max_mean=max_mean_ratio(spans),
+                work_amp=round(lay.nblocks * lay.seg_width * lay.block
+                               / max(lay.nnz, 1), 2))
+        return out
+
     @staticmethod
     def from_coo(tt: SparseTensor, opts: Optional[Options] = None,
-                 device=None,
-                 reorder_label: str = "identity") -> "BlockedSparse":
+                 device=None, reorder_label: str = "identity",
+                 tuned_blocks: Optional[Dict[int, int]] = None,
+                 tuned_formats: Optional[Dict[int, LayoutFormat]] = None,
+                 tuned_packings: Optional[Dict[int, str]] = None,
+                 tuned_dense: Optional[Dict[int, bool]] = None
+                 ) -> "BlockedSparse":
         """Build the layouts the alloc policy asks for; a mode without
         its own layout maps to the first one.  The format comes from
         ``opts`` else the env (:func:`layout_format`), the packing from
@@ -1245,6 +1294,17 @@ class BlockedSparse:
         dtype, so the CPD derives one factor dtype from them.
         `reorder_label` names the relabeling `tt` went through (every
         layout carries it; :meth:`compile` applies it).
+
+        The autotuner's hooks (≙ splatt_tpu/blocked.py:1432-1581), which
+        :meth:`compile` fills from the plan cache: `tuned_blocks`,
+        `tuned_formats` and `tuned_packings` (mode -> nnz_block,
+        :class:`LayoutFormat`, packing) override the run's for that
+        mode's build, and `tuned_dense` (mode -> True) gives a mode a
+        dense layout whatever the dense policy says.  The value storage
+        is one for the whole tensor: a pinned policy wins, else a
+        unanimous tuned verdict; the plan of a mode whose tuned storage
+        cannot follow it is dropped whole, with a ``tuner_degraded``
+        event.
 
         The hybrid per-mode dispatch: under the dense policy
         (``opts.dense`` else SPLATT_DENSE) each mode that passes
@@ -1262,23 +1322,54 @@ class BlockedSparse:
         dev = resolve_device(device)
         fmt = layout_format(opts)
         packing = resolve_packing(opts)
+        tuned_blocks = dict(tuned_blocks or {})
+        tuned_formats = dict(tuned_formats or {})
+        tuned_packings = dict(tuned_packings or {})
+        tuned_dense = dict(tuned_dense or {})
+        # one storage dtype across layouts: pinned policy > unanimous
+        # tuned verdict > compute dtype
+        val_pol = fmt.val
+        if val_pol == "auto" and tuned_formats:
+            verdicts = {f.val for f in tuned_formats.values()}
+            if len(verdicts) == 1:
+                val_pol = verdicts.pop()
+        for m in sorted(m for m, f in tuned_formats.items()
+                        if f.val != val_pol):
+            # built at a storage it was never measured at, the plan would
+            # make a layout dispatch's strict match rejects: drop it whole
+            tuned_formats.pop(m)
+            tuned_blocks.pop(m, None)
+            tuned_packings.pop(m, None)
+            resilience.run_report().add(
+                "tuner_degraded", mode=m,
+                reason=f"tuned val_storage could not apply under the "
+                       f"resolved storage policy {val_pol!r}; mode keeps "
+                       f"the default format and the heuristic chain")
         seconds = {"sort": 0.0, "pack": 0.0}
-        storage = resolve_storage_dtype(fmt.val, resolve_dtype(opts))
+        storage = resolve_storage_dtype(val_pol, resolve_dtype(opts))
         verbose = opts.verbosity >= Verbosity.LOW
         build_modes = alloc_build_modes(tt.dims, opts)
-        layouts = [build_layout(tt, m, block=opts.nnz_block,
+        layouts = [build_layout(tt, m, block=tuned_blocks.get(m, opts.nnz_block),
                                 val_dtype=storage,
                                 mode_order=opts.mode_order,
                                 mode_order_custom=opts.mode_order_custom,
-                                device=dev, fmt=fmt, verbose=verbose,
-                                dense=False, packing=packing,
+                                device=dev,
+                                fmt=LayoutFormat(
+                                    idx=(tuned_formats[m].idx
+                                         if m in tuned_formats else fmt.idx),
+                                    val=val_pol),
+                                verbose=verbose, dense=False,
+                                packing=tuned_packings.get(m, packing),
                                 reorder_label=reorder_label,
                                 seconds=seconds)
                    for m in build_modes]
         mode_map = {m: build_modes.index(m) if m in build_modes else 0
                     for m in range(tt.nmodes)}
         for m in range(tt.nmodes):
-            if not _wants_dense(tt.dims, m, tt.nnz, opts):
+            want = tuned_dense.get(m)
+            if want is None:
+                want = _wants_dense(tt.dims, m, tt.nnz, opts)
+            if not want:
                 continue
             dense = _dense_or_degrade(m, verbose, lambda m=m: (
                 build_dense_layout(tt, m, val_dtype=storage, device=dev,
@@ -1291,7 +1382,7 @@ class BlockedSparse:
                            dims=tt.dims, nnz=tt.nnz, opts=opts,
                            reorder=reorder_label, build_seconds=seconds)
         if (any(lay.encoding in ("v2", "dense") for lay in layouts)
-                or fmt.val != "auto"):
+                or val_pol != "auto"):
             resilience.run_report().add(
                 "format_v2",
                 modes={str(lay.mode): lay.format_desc() for lay in layouts})
@@ -1301,32 +1392,86 @@ class BlockedSparse:
 
     @staticmethod
     def compile(tt: SparseTensor, opts: Optional[Options] = None,
-                device=None) -> "BlockedSparse":
-        """:meth:`from_coo` after the run's reorder
-        (≙ splatt_tpu.blocked.BlockedSparse.compile, without the
-        autotuner): the reorder pinned by ``opts.reorder`` else
-        SPLATT_REORDER (:func:`resolve_reorder`; identity when neither is
-        set) relabels the whole tensor, one permutation for every mode,
-        under the ``reorder.apply`` fault site, where any failure degrades
-        to identity order with a ``reorder_fallback`` event
-        (:func:`reorder.apply_reorder`); the packing follows
-        ``opts.fiber_packing`` else SPLATT_FIBER_PACKING.  The result
-        carries the :class:`~splatt_tpu_torch.reorder.Permutation`
+                device=None, rank: Optional[int] = None) -> "BlockedSparse":
+        """:meth:`from_coo` after the run's reorder, at the autotuner's
+        cached plans (≙ splatt_tpu.blocked.BlockedSparse.compile).
+
+        With a `rank` and autotune on (``opts.autotune`` else
+        SPLATT_AUTOTUNE), each mode's plan for this tensor's regime
+        (:func:`tune.tuned_build_for`, the cache of `device`) gives its
+        layout's block, index width, value storage and packing, or a
+        dense layout.  The reorder is one for the whole tensor: a pinned
+        one (``opts.reorder`` else SPLATT_REORDER) wins, else the plans'
+        unanimous recipe, else identity.  A plan that cannot apply is
+        dropped whole, with a ``tuner_degraded`` event: one measured
+        under another recipe, under the packing the user pinned
+        (:func:`config.packing_pinned`), or under a recipe that degraded
+        to identity.  Without a rank, or with autotune off, the reorder
+        is the pinned one or identity and the layouts follow the run's
+        options.
+
+        The reorder relabels the whole tensor under the ``reorder.apply``
+        fault site, where any failure degrades to identity order with a
+        ``reorder_fallback`` event (:func:`reorder.apply_reorder`).  The
+        result carries the :class:`~splatt_tpu_torch.reorder.Permutation`
         (``perm``), so :func:`cpd_als` returns factors in the original
         row order, and ``build_seconds["reorder"]`` the reorder's host
         seconds."""
+        from splatt_tpu_torch import resilience
+        from splatt_tpu_torch.config import packing_pinned
         from splatt_tpu_torch.reorder import apply_reorder
 
         opts = (opts or default_opts()).validate()
         dev = resolve_device(device)
-        how = resolve_reorder(opts) or "identity"
+        plans = {}
+        if rank is not None:
+            from splatt_tpu_torch import tune
+
+            if tune.autotune_enabled(opts.autotune):
+                plans = tune.tuned_build_for(tt, rank, resolve_dtype(opts),
+                                             device=dev)
+
+        def drop(modes, reason: str) -> None:
+            for m in sorted(modes):
+                plans.pop(m)
+                resilience.run_report().add("tuner_degraded", mode=m,
+                                            reason=reason)
+
+        how = resolve_reorder(opts)
+        if how is None:
+            verdicts = {p.reorder for p in plans.values()}
+            how = verdicts.pop() if len(verdicts) == 1 else "identity"
+        drop([m for m, p in plans.items() if p.reorder != how],
+             f"tuned reorder recipe could not apply under the resolved "
+             f"whole-tensor recipe {how!r}; mode keeps the default layout "
+             f"policy")
+        pinned = packing_pinned(opts)
+        if pinned is not None:
+            drop([m for m, p in plans.items() if p.packing != pinned],
+                 f"tuned fiber packing could not apply under the pinned "
+                 f"policy {pinned!r}; mode keeps the default layout policy")
         t0 = time.perf_counter()
         tt, perm = apply_reorder(tt, how)
         reorder_s = time.perf_counter() - t0
-        if perm is None:
+        if perm is None and how != "identity":
+            # the recipe degraded: the plans measured under it go too
+            drop([m for m, p in plans.items() if p.reorder != "identity"],
+                 f"tuned plan was measured under reorder {how!r}, which "
+                 f"degraded to identity; mode keeps the default layout "
+                 f"policy")
             how = "identity"
-        bs = BlockedSparse.from_coo(tt, opts, device=dev,
-                                    reorder_label=how)
+        # dense-path plans leave the sparse build: their block is the row
+        # tile and their idx_width the sentinel "dense"
+        sparse = {m: p for m, p in plans.items() if p.path != "dense"}
+        bs = BlockedSparse.from_coo(
+            tt, opts, device=dev, reorder_label=how,
+            tuned_blocks={m: p.nnz_block for m, p in sparse.items()},
+            tuned_formats={m: LayoutFormat(idx=p.idx_width,
+                                           val=p.val_storage)
+                           for m, p in sparse.items()},
+            tuned_packings={m: p.packing for m, p in sparse.items()},
+            tuned_dense={m: True for m, p in plans.items()
+                         if p.path == "dense"})
         bs.perm = perm
         bs.build_seconds["reorder"] = reorder_s
         return bs

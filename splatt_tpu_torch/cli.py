@@ -10,6 +10,12 @@ cmd_convert.c, cmd_reorder.c, cmd_stats.c).
         [--comm all2all|point2point|async_ring] [--rowdist greedy|balanced]
         [-p PARTITION] [--ndev N] [--local-engine blocked|stream]
         [--checkpoint FILE [--checkpoint-every N]] [--trace OUT_JSON]
+        [--autotune on|off]
+    python -m splatt_tpu_torch.cli tune T -r R [--reps N] [--force]
+        [--alloc ...] [--f64] [-v] [--device cuda|cpu]
+    python -m splatt_tpu_torch.cli bench T [-r R] [-a ALG]... [--reps N]
+        [--seed S] [--alloc ...] [--mode-order ORDER] [--block NNZ] [--f64]
+        [--permute TYPE] [--check] [-v] [--device cuda|cpu]
     python -m splatt_tpu_torch.cli trace FILE... [--out OUT_JSON]
         [--top N] [--json]
     python -m splatt_tpu_torch.cli check T [--fix OUT]
@@ -66,6 +72,20 @@ timer report; ``-v -v`` runs the profiled sweep and adds its phase
 timers and a per-mode MTTKRP block (distributed runs print the phase
 table of their profiled sweep).
 
+The autotuner (``tune.py``) is on by default, as in the JAX CLI
+(``SPLATT_AUTOTUNE``, ``--autotune on|off``): ``cpd`` builds its layouts
+at the plan cache's plans for its rank (``BlockedSparse.compile``), a
+cached plan heads each mode's engine chain, and the plans in effect print
+as a ``tuned plan:`` line and ride ``--json`` as a ``tuned_plan`` event.
+``tune`` measures the candidate plans of every mode on ``--device`` and
+persists the winners (``tuned N/M modes (... measurements, ... cache
+hits, ... skipped) -> CACHE``); the cache is ``$SPLATT_TUNE_CACHE``, else
+``splatt_tpu_torch/_build/tune_cache.json``.  ``bench`` times the MTTKRP
+algorithms per mode (``stream``, ``blocked``, ``blocked_pallas`` on a card
+only, ``scatter``, ``ttbox``; ``native`` prints ``--``) with the bytes
+model's GB/s, and ``--check`` holds each against ``stream`` (1e-10 in
+f64, 9e-3 in f32; exit 1 beyond it).
+
 ``check``, ``convert``, ``reorder`` and ``stats`` run on the host and
 write the JAX CLI's files and text: duplicates and empty slices (``--fix``
 writes the deduplicated tensor with empty slices removed); the graph,
@@ -90,24 +110,32 @@ from splatt_tpu_torch.config import BlockAlloc
 
 
 def _build_opts(args):
-    """The run's Options from the cpd verb's flags
-    (≙ splatt_tpu.cli._build_opts)."""
+    """The run's Options from a verb's flags; a flag the verb lacks keeps
+    the default (≙ splatt_tpu.cli._build_opts)."""
     from splatt_tpu_torch.config import ModeOrder, Options, Verbosity
 
-    opts = Options(max_iterations=args.iters, tolerance=args.tol,
-                   random_seed=args.seed,
-                   block_alloc=BlockAlloc(args.alloc),
-                   verbosity=Verbosity(min(1 + args.verbose, 3)))
-    if args.reg is not None:
+    opts = Options(verbosity=Verbosity(min(1 + getattr(args, "verbose", 0),
+                                           3)))
+    if getattr(args, "iters", None) is not None:
+        opts.max_iterations = args.iters
+    if getattr(args, "tol", None) is not None:
+        opts.tolerance = args.tol
+    if getattr(args, "seed", None) is not None:
+        opts.random_seed = args.seed
+    if getattr(args, "alloc", None):
+        opts.block_alloc = BlockAlloc(args.alloc)
+    if getattr(args, "reg", None) is not None:
         opts.regularization = args.reg
-    if args.block:
+    if getattr(args, "block", None):
         opts.nnz_block = args.block
-    if args.f64:
+    if getattr(args, "f64", False):
         opts.val_dtype = torch.float64
-    if args.mode_order:
+    if getattr(args, "mode_order", None):
         opts.mode_order = ModeOrder(args.mode_order)
-    if args.engine_fallback:
+    if getattr(args, "engine_fallback", None):
         opts.engine_fallback = args.engine_fallback == "on"
+    if getattr(args, "autotune", None):
+        opts.autotune = args.autotune == "on"
     return opts
 
 
@@ -146,7 +174,10 @@ def cmd_cpd(args) -> int:
     else:
         t0 = time.perf_counter()
         with timers.time("blocked_build"):
-            bs = BlockedSparse.compile(tt, opts, device=args.device)
+            # with autotune on, the layouts are built at the plan cache's
+            # plans for this rank
+            bs = BlockedSparse.compile(tt, opts, device=args.device,
+                                       rank=args.rank)
         print(f"Layouts: {len(bs.layouts)} on {bs.device} "
               f"({time.perf_counter() - t0:.3f}s)"
               + ("" if bs.reorder == "identity"
@@ -156,11 +187,7 @@ def cmd_cpd(args) -> int:
                       checkpoint_every=args.checkpoint_every)
     print(f"Final fit: {out.fit:0.5f}")
     report = resilience.run_report()
-    lines = report.summary()
-    if lines:
-        print("Resilience events:")
-        for line in lines:
-            print(line)
+    _print_report()
     if bs is not None and opts.verbosity >= Verbosity.HIGH:
         # the profiled sweep ran: true in-loop totals per mode
         # (≙ the per-mode times of `cpd -v -v`, src/cpd.c:361-366)
@@ -234,6 +261,84 @@ def _distributed(args, opts, tt):
                                measure_overlap=True if args.json else None,
                                checkpoint_path=args.checkpoint,
                                checkpoint_every=args.checkpoint_every)
+
+
+def _print_report() -> None:
+    from splatt_tpu_torch import resilience
+
+    lines = resilience.run_report().summary()
+    if lines:
+        print("Resilience events:")
+        for line in lines:
+            print(line)
+
+
+def cmd_tune(args) -> int:
+    """Pre-tune a tensor (≙ splatt_tpu.cli.cmd_tune): measure each mode's
+    candidate MTTKRP plans on ``--device`` and persist the winners, so
+    later ``cpd`` runs in the same regime build and dispatch at them with
+    no measurement.  Exits 1 when no mode got a plan."""
+    from splatt_tpu_torch import tune
+    from splatt_tpu_torch.io import load
+    from splatt_tpu_torch.stats import tensor_stats
+
+    opts = _build_opts(args)
+    tt = load(args.tensor)
+    print(tensor_stats(tt, args.tensor))
+    res = tune.tune(tt, rank=args.rank, opts=opts, reps=args.reps,
+                    force=args.force, device=args.device)
+    for m in sorted(res.plans):
+        p = res.plans[m]
+        print(f"  mode {m}: path={p.path} engine={p.engine} "
+              f"nnz_block={p.nnz_block} scan_target={p.scan_target} "
+              f"({p.sec:.4f}s/call)")
+    print(f"tuned {len(res.plans)}/{tt.nmodes} modes "
+          f"({res.measured} measurements, {res.cache_hits} cache hits, "
+          f"{res.skipped} skipped) -> {tune.cache_path()}")
+    _print_report()
+    return 0 if res.plans else 1
+
+
+def cmd_bench(args) -> int:
+    """≙ splatt_bench_cmd (src/cmds/cmd_bench.c:198-286) and
+    splatt_tpu.cli.cmd_bench: seconds per MTTKRP of each algorithm and
+    mode, the bytes model's GB/s, and with ``--check`` each algorithm
+    against ``stream``."""
+    from splatt_tpu_torch.bench_algs import (ALGS, bench_mttkrp,
+                                             crosscheck_mttkrp, format_bench,
+                                             roofline_report)
+    from splatt_tpu_torch.config import resolve_dtype
+    from splatt_tpu_torch.io import load
+    from splatt_tpu_torch.reorder import reorder
+    from splatt_tpu_torch.stats import tensor_stats
+
+    opts = _build_opts(args)
+    tt = load(args.tensor)
+    print(tensor_stats(tt, args.tensor))
+    if args.permute:
+        tt = reorder(tt, args.permute, seed=opts.seed()).apply(tt)
+        print(f"  (reordered: {args.permute})")
+    algs = args.alg or list(ALGS)
+    results, layouts = bench_mttkrp(tt, rank=args.rank, algs=algs,
+                                    opts=opts, reps=args.reps,
+                                    return_layouts=True, device=args.device)
+    print(f"Benchmarking MTTKRP, rank {args.rank}, {args.reps} reps")
+    print(format_bench(results))
+    dtype = resolve_dtype(opts)
+    print("Effective bandwidth (first-order bytes model):")
+    for line in roofline_report(tt, results, args.rank,
+                                torch.empty(0, dtype=dtype).element_size(),
+                                layouts, device=args.device):
+        print(line)
+    if args.check:
+        dev = crosscheck_mttkrp(tt, rank=args.rank, algs=algs, opts=opts,
+                                device=args.device)
+        print(f"cross-check max relative |alg - stream| = {dev:.3e}")
+        tol = 1e-10 if dtype == torch.float64 else 9e-3
+        if dev > tol:
+            print(f"error: algorithms disagree beyond tolerance {tol}")
+            return 1
+    return 0
 
 
 def _resilience_record(report, **extra) -> dict:
@@ -458,7 +563,65 @@ def build_parser() -> argparse.ArgumentParser:
                    help="record the run's spans and export a Chrome "
                         "trace-event JSON file on exit; summarize it with "
                         "the trace verb")
+    c.add_argument("--autotune", choices=["on", "off"],
+                   help="consult the autotuner's plan cache for the "
+                        "layouts and the engine plan (default on, or "
+                        "SPLATT_AUTOTUNE; pre-tune with the tune verb)")
     c.set_defaults(func=cmd_cpd)
+
+    from splatt_tpu_torch.reorder import PERM_TYPES
+
+    c = sub.add_parser("tune", help="pre-tune the MTTKRP plan of a tensor",
+                       epilog="Times the candidate plans (reorder x "
+                              "packing x nnz_block x format x engine) of "
+                              "each mode with short warm and timed calls "
+                              "and persists the winners in the plan cache "
+                              "($SPLATT_TUNE_CACHE, else "
+                              "splatt_tpu_torch/_build/tune_cache.json)")
+    c.add_argument("tensor", help="coordinate tensor file (.tns/.bin)")
+    c.add_argument("-v", "--verbose", action="count", default=0,
+                   help="increase verbosity (repeatable)")
+    c.add_argument("-r", "--rank", type=int, default=10)
+    c.add_argument("--reps", type=int, default=2,
+                   help="timed calls per candidate (the median wins)")
+    c.add_argument("--force", action="store_true",
+                   help="measure again even where the cache holds an "
+                        "unexpired plan")
+    c.add_argument("--alloc", choices=[a.value for a in BlockAlloc])
+    c.add_argument("--f64", action="store_true", help="double precision")
+    c.add_argument("--device", choices=["cuda", "cpu"], default="cuda")
+    c.add_argument("--trace", metavar="OUT_JSON",
+                   help="record the tune's spans and export a Chrome "
+                        "trace-event JSON file on exit")
+    c.set_defaults(func=cmd_tune)
+
+    c = sub.add_parser("bench", help="benchmark the MTTKRP algorithms")
+    c.add_argument("tensor", help="coordinate tensor file (.tns/.bin)")
+    c.add_argument("-v", "--verbose", action="count", default=0,
+                   help="increase verbosity (repeatable)")
+    c.add_argument("-r", "--rank", type=int, default=16)
+    c.add_argument("-a", "--alg", action="append",
+                   help="algorithm (repeatable): stream/blocked/"
+                        "blocked_pallas/scatter/ttbox/native")
+    c.add_argument("--reps", type=int, default=3)
+    c.add_argument("--seed", type=int)
+    c.add_argument("--alloc", choices=[a.value for a in BlockAlloc])
+    c.add_argument("--mode-order", dest="mode_order",
+                   choices=["smallfirst", "bigfirst", "inorder_minusone",
+                            "sorted_minusone"],
+                   help="secondary mode ordering within a layout")
+    c.add_argument("--block", type=int, help="nnz per block")
+    c.add_argument("--f64", action="store_true", help="double precision")
+    c.add_argument("--permute", choices=list(PERM_TYPES),
+                   help="reorder the tensor first")
+    c.add_argument("--check", action="store_true",
+                   help="hold every algorithm against stream (1e-10 in "
+                        "f64, 9e-3 in f32)")
+    c.add_argument("--device", choices=["cuda", "cpu"], default="cuda")
+    c.add_argument("--trace", metavar="OUT_JSON",
+                   help="record the bench's spans and export a Chrome "
+                        "trace-event JSON file on exit")
+    c.set_defaults(func=cmd_bench)
 
     c = sub.add_parser("trace", help="summarize (and merge) recorded span "
                                      "traces")
@@ -474,7 +637,6 @@ def build_parser() -> argparse.ArgumentParser:
     c.set_defaults(func=cmd_trace)
 
     from splatt_tpu_torch.convert import CONVERT_TYPES
-    from splatt_tpu_torch.reorder import PERM_TYPES
 
     c = sub.add_parser("check", help="check for duplicates/empty slices")
     c.add_argument("tensor", help="coordinate tensor file (.tns/.bin)")

@@ -5,7 +5,7 @@ CPD-ALS path and the distributed paths read.  The defaults are the
 same (≙ splatt_default_opts, SPLATT's opts.c).  No field is read from the
 environment; a field left None (``engine_fallback``, ``idx_width``,
 ``val_storage``, ``fiber_packing``, ``reorder``, ``dense``,
-``dense_threshold``, ``comm_pattern``) defers to the env default its
+``dense_threshold``, ``comm_pattern``, ``autotune``) defers to the env default its
 consumer reads (``utils/env.py``).
 """
 
@@ -149,6 +149,20 @@ def resolve_packing(opts: "Options") -> str:
         raise ValueError(
             f"fiber_packing must be one of {PACKINGS}, got {pol!r}")
     return pol
+
+
+def packing_pinned(opts: "Options") -> Optional[str]:
+    """The packing the user pinned: a set ``Options.fiber_packing`` or a
+    set SPLATT_FIBER_PACKING, checked through :func:`resolve_packing`;
+    None when the knob is left to the tuner (≙ splatt_tpu.config.
+    packing_pinned).  A pinned packing beats a cached tuned one: the
+    tuner measures it alone, and ``BlockedSparse.compile`` drops plans
+    measured under the other."""
+    from splatt_tpu_torch.utils.env import env_is_set
+
+    if opts.fiber_packing is None and not env_is_set("SPLATT_FIBER_PACKING"):
+        return None
+    return resolve_packing(opts)
 
 
 def resolve_reorder(opts: "Options") -> Optional[str]:
@@ -323,6 +337,12 @@ class Options:
     # (None = SPLATT_COMM, else ALL2ALL; resolve_comm_pattern)
     decomposition: Decomposition = Decomposition.MEDIUM
     comm_pattern: Optional[CommPattern] = None
+    # the autotuner (tune.py): when on, MTTKRP dispatch consults the plan
+    # cache before the heuristic engine chain and BlockedSparse.compile
+    # builds the layouts at the cached plans; None = SPLATT_AUTOTUNE (on
+    # unless 0/off/false/no), False pins the static heuristics.  Only
+    # tune.tune() (the tune and bench verbs) measures
+    autotune: Optional[bool] = None
     # structured span tracing (trace.py): None = the process/env default
     # (SPLATT_TRACE, off); True records the run's host-side spans, False
     # pins tracing off for this run.  Event metrics are always on

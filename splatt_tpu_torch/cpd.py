@@ -28,6 +28,7 @@ vector, one host copy per checked iteration.
 
 from __future__ import annotations
 
+import dataclasses
 import os
 import sys
 import time
@@ -78,6 +79,35 @@ def _fit(xnormsq: float, znormsq: torch.Tensor,
     residual = torch.sqrt(torch.clamp(xnormsq + znormsq - 2.0 * inner,
                                       min=0.0))
     return 1.0 - residual / np.sqrt(xnormsq)
+
+
+def _report_tuned_plans(X: BlockedSparse, factors, opts: Options) -> None:
+    """With autotune on, one ``tuned_plan`` event carrying each mode's
+    plan that dispatch will apply (through dispatch's own filter,
+    ``_tuned_plan_for``: a plan it rejects is never claimed), and at
+    verbosity LOW a ``tuned plan:`` line (≙ splatt_tpu/cpd.py:671-701)."""
+    from splatt_tpu_torch import tune
+    from splatt_tpu_torch.ops.mttkrp import _choose_path_bs, _tuned_plan_for
+
+    if not tune.autotune_enabled(opts.autotune):
+        return
+    plans = {}
+    for m in range(X.nmodes):
+        lay = X.layout_for(m)
+        plan = _tuned_plan_for(lay, factors, m, _choose_path_bs(X, m),
+                               autotune=opts.autotune)
+        if plan is not None:
+            plans[m] = dict(dataclasses.asdict(plan),
+                            mode_density=getattr(lay, "density_bucket", ""))
+    if not plans:
+        return
+    resilience.run_report().add("tuned_plan", plans=plans)
+    if opts.verbosity >= Verbosity.LOW:
+        print("  tuned plan: " + " ".join(
+            f"mode{m}={p['path']}/{p['engine']} b{p['nnz_block']} "
+            f"s{p['scan_target']} {p['idx_width']}/{p['val_storage']} "
+            f"{p['packing']}/{p['reorder']}"
+            for m, p in sorted(plans.items())))
 
 
 def _mttkrp_closure(X, dev, dtype, fallback: bool):
@@ -520,6 +550,8 @@ def _cpd_als_traced(X, rank: int, opts: Options, init, device,
         else:
             print(f"  engine plan: impl={dev.type} mode*=stream "
                   f"(COO oracle)")
+    if isinstance(X, BlockedSparse):
+        _report_tuned_plans(X, factors, opts)
 
     # -v -v: the profiled sweep, each phase fenced into its timer
     profiled = opts.verbosity >= Verbosity.HIGH

@@ -46,7 +46,8 @@ layout decoded to v1 first (prep decode, ``blocked.decode_to_v1``).
 v1 dataflow; an armed ``format.decode`` fault does the same for one call
 and leaves a ``format_fallback`` event.
 
-:func:`mttkrp_blocked` walks the chain.  An engine's own failure (an armed
+:func:`mttkrp_blocked` walks the chain, headed by the engine of an
+applicable autotuned plan (``tune.py``).  An engine's own failure (an armed
 fault, a launch the card refused, an out-of-memory) demotes it in the
 resilience registry and the next engine runs; every other error
 propagates.  On a CPU tensor each kernel engine runs its kernel's plain
@@ -57,6 +58,7 @@ plain-torch engine stands in for a kernel.
 
 from __future__ import annotations
 
+import os
 from typing import List, NamedTuple, Optional, Sequence, Union
 
 import torch
@@ -135,6 +137,27 @@ def mttkrp_stream(inds: torch.Tensor, vals: torch.Tensor,
     acc = acc_dtype(prod.dtype)
     out = torch.zeros((dim, prod.shape[1]), dtype=acc, device=prod.device)
     return out.index_add_(0, inds[mode].long(), prod.to(acc))
+
+
+def mttkrp_ttbox(inds: torch.Tensor, vals: torch.Tensor,
+                 factors: Sequence[torch.Tensor], mode: int,
+                 dim: int) -> torch.Tensor:
+    """The column-at-a-time MTTKRP (≙ mttkrp_ttbox, src/mttkrp.c:1655-1695;
+    splatt_tpu.ops.mttkrp.mttkrp_ttbox): one pass over the nonzeros per
+    rank column, accumulated like :func:`mttkrp_stream`.  A bench
+    baseline only."""
+    acc = acc_dtype(factors[0].dtype)
+    ids = inds[mode].long()
+    R = int(factors[0].shape[1])
+    out = torch.zeros((dim, R), dtype=acc, device=vals.device)
+    for r in range(R):
+        p = vals.to(factors[0].dtype)
+        for k, U in enumerate(factors):
+            if k != mode:
+                idx = inds[k].clamp(0, U.shape[0] - 1)
+                p = p * U[:, r].index_select(0, idx)
+        out[:, r].index_add_(0, ids, p.to(acc))
+    return out
 
 
 # -- the dense path (docs/dense.md) -----------------------------------------
@@ -222,10 +245,11 @@ def _scan_fused(layout: ModeLayout, factors: Sequence[torch.Tensor],
 
 def _run_engine(engine: str, layout: ModeLayout,
                 factors: Sequence[torch.Tensor], mode: int,
-                path: str) -> torch.Tensor:
+                path: str,
+                scan_target: int = SCAN_TARGET_ELEMS) -> torch.Tensor:
     """MTTKRP of one layout along `path` with `engine`; ``(dim, R)``.
     An engine outside :data:`STREAM_NATIVE_ENGINES` reads a v2 layout
-    decoded to v1."""
+    decoded to v1; `scan_target` sizes the xla_scan engine's chunks."""
     if engine == "fused_dense":
         return kernels.fused_dense(layout, factors, mode)
     if engine == "dense_xla":
@@ -270,7 +294,8 @@ def _run_engine(engine: str, layout: ModeLayout,
             parts = kernels.onehot_reduce_sorted(layout.blocked_locals(),
                                                  prod, width)
     elif engine == "xla_scan":
-        parts = _scan_fused(layout, factors, mode, width, accumulate)
+        parts = _scan_fused(layout, factors, mode, width, accumulate,
+                            target_elems=scan_target)
     else:
         raise ValueError(f"unknown engine {engine!r}")
     if accumulate:
@@ -394,9 +419,84 @@ def _engine_failure(exc: BaseException) -> bool:
                                 torch.OutOfMemoryError, DeadlineExceeded)))
 
 
+#: the per-layout lookup memo's mark of a call signature not yet answered
+_NO_ANSWER = object()
+
+
+def _tuned_plan_for(layout: ModeLayout, factors: Sequence[torch.Tensor],
+                    mode: int, path: str, autotune: Optional[bool] = None,
+                    shape_key: Optional[str] = None):
+    """The cached autotuner plan that applies to this dispatch, or None
+    (≙ splatt_tpu.ops.mttkrp._tuned_plan_for).  The match is strict: the
+    plan's path, block, index width, value storage, packing and reorder
+    must be this layout's, and its engine must not be demoted for this
+    shape.  The match (:func:`_resolve_tuned_plan`) is memoized on the
+    layout per call signature and plan-cache generation, so a warm
+    dispatch is one dict hit and the demotion check."""
+    from splatt_tpu_torch import resilience, tune
+
+    if autotune is False or getattr(layout, "nnz", None) is None:
+        return None  # autotune off, or a stand-in layout without a key
+    gen = tune.memo_generation()
+    memo = layout.__dict__.get("_tuned_memo")
+    if memo is None or memo[0] != gen:
+        memo = layout.__dict__["_tuned_memo"] = (gen, {})
+    key = (autotune, os.environ.get(tune._AUTOTUNE_ENV),
+           os.environ.get(tune._CACHE_ENV), mode, path,
+           int(factors[0].shape[1]), factors[0].dtype)
+    plan = memo[1].get(key, _NO_ANSWER)
+    if plan is _NO_ANSWER:
+        plan = memo[1][key] = _resolve_tuned_plan(layout, factors, mode,
+                                                  path, autotune)
+    if plan is None:
+        return None
+    if shape_key is None:
+        shape_key = _engine_shape_key(layout, factors, mode)
+    if resilience.is_demoted(plan.engine, shape_key):
+        return None
+    return plan
+
+
+def _resolve_tuned_plan(layout: ModeLayout,
+                        factors: Sequence[torch.Tensor], mode: int,
+                        path: str, autotune: Optional[bool]):
+    """The cached plan whose match fields are this layout's, or None,
+    before the demotion check.  The key's skew is ``layout.skew``, which
+    the build stamped."""
+    from splatt_tpu_torch import tune
+
+    if not tune.autotune_enabled(autotune):
+        return None
+    nnz = layout.nnz
+    plan = tune.cached_plan([int(f.shape[0]) for f in factors], nnz, mode,
+                            int(factors[0].shape[1]), factors[0].dtype,
+                            skew=getattr(layout, "skew", ""),
+                            mode_density=getattr(layout, "density_bucket",
+                                                 ""),
+                            device=layout.device)
+    if (plan is None or plan.path != path
+            or plan.nnz_block != layout.block
+            or plan.idx_width != getattr(layout, "idx_width", "i32")
+            or plan.val_storage != getattr(layout, "val_storage", "auto")
+            or plan.packing != getattr(layout, "packing", "fixed")
+            or plan.reorder != getattr(layout, "reorder", "identity")):
+        return None
+    return plan
+
+
+def _tuned_chain(chain: List[str], tuned) -> List[str]:
+    """`chain` with an applicable plan's engine moved to its head (a plan
+    whose engine the chain does not hold, gated out or demoted, leaves
+    it as it is)."""
+    if tuned is None or tuned.engine not in chain:
+        return chain
+    return [tuned.engine] + [e for e in chain if e != tuned.engine]
+
+
 def mttkrp_blocked(layout: ModeLayout, factors: Sequence[torch.Tensor],
                    mode: int, path: str = "sorted_onehot",
-                   fallback: Optional[bool] = None) -> torch.Tensor:
+                   fallback: Optional[bool] = None,
+                   autotune: Optional[bool] = None) -> torch.Tensor:
     """Blocked MTTKRP over one layout along `path`; returns ``(dim, R)``.
 
     The caller's contract (device, dtype, contiguity, shapes) is checked
@@ -432,6 +532,14 @@ def mttkrp_blocked(layout: ModeLayout, factors: Sequence[torch.Tensor],
     A dense layout takes the ``dense`` path whatever `path` says, skips
     the decode machinery (it has no streams), and its engine's first
     dispatch per shape and mode leaves a ``dense_dispatch`` event.
+
+    The autotuner's plan heads the chain (`autotune`, default
+    ``Options.autotune`` via :func:`mttkrp`, else SPLATT_AUTOTUNE): when
+    the plan cache holds an applicable winner (:func:`_tuned_plan_for`)
+    its engine is tried first, and everything above applies to it
+    unchanged.  The xla_scan engine's chunks take the plan's
+    ``scan_target`` when xla_scan is its engine, else
+    :data:`SCAN_TARGET_ELEMS`.
     """
     from splatt_tpu_torch import resilience
     from splatt_tpu_torch.utils import faults
@@ -468,6 +576,11 @@ def mttkrp_blocked(layout: ModeLayout, factors: Sequence[torch.Tensor],
                 layout = decode_to_v1(layout)
     shape_key = _engine_shape_key(layout, factors, mode)
     chain = engine_chain(layout, factors, mode, path, shape_key=shape_key)
+    tuned = _tuned_plan_for(layout, factors, mode, path, autotune=autotune,
+                            shape_key=shape_key)
+    chain = _tuned_chain(chain, tuned)
+    scan_target = (tuned.scan_target if tuned is not None
+                   and tuned.engine == "xla_scan" else SCAN_TARGET_ELEMS)
     if not chain:
         raise RuntimeError(
             f"no kernel engine left for {path} mode {mode} at "
@@ -495,15 +608,19 @@ def mttkrp_blocked(layout: ModeLayout, factors: Sequence[torch.Tensor],
                     enc=layout.format_desc(),
                     strategy=("kernel" if engine in STREAM_NATIVE_ENGINES
                               else "prep"))
+            # only the xla_scan engine reads the scan target
+            extra = (scan_target,) if engine == "xla_scan" else ()
             if (engine, shape_key) not in _DEADLINE_ARMED:
                 # the watchdog bounds an engine's first launch per shape;
                 # the kernels were built and loaded before the walk, so
                 # it never bounds nvcc
                 _DEADLINE_ARMED.add((engine, shape_key))
                 with resilience.deadline(f"engine.{engine}"):
-                    out = _run_engine(engine, layout, factors, mode, path)
+                    out = _run_engine(engine, layout, factors, mode, path,
+                                      *extra)
             else:
-                out = _run_engine(engine, layout, factors, mode, path)
+                out = _run_engine(engine, layout, factors, mode, path,
+                                  *extra)
             return faults.poison(f"engine.{engine}", out)
 
         try:
@@ -524,11 +641,15 @@ def mttkrp_blocked(layout: ModeLayout, factors: Sequence[torch.Tensor],
 
 
 def engine_plan(layout: ModeLayout, factors: Sequence[torch.Tensor],
-                mode: int, path: str = "sorted_onehot") -> str:
+                mode: int, path: str = "sorted_onehot",
+                autotune: Optional[bool] = None) -> str:
     """The engine :func:`mttkrp_blocked` will run first for this call:
-    the head of its chain (the port has no lazy capability probes), or
-    ``none`` on a card whose kernel engines are all demoted."""
-    chain = engine_chain(layout, factors, mode, path)
+    an applicable autotuned plan's engine, else the head of its chain
+    (the port has no lazy capability probes), or ``none`` on a card
+    whose kernel engines are all demoted."""
+    chain = _tuned_chain(engine_chain(layout, factors, mode, path),
+                         _tuned_plan_for(layout, factors, mode, path,
+                                         autotune=autotune))
     return chain[0] if chain else "none"
 
 
@@ -547,7 +668,8 @@ def plan_mttkrp(X: BlockedSparse, factors: Sequence[torch.Tensor],
     """The dispatch decision :func:`mttkrp` will execute for this call."""
     path = path or _choose_path_bs(X, mode)
     return Plan(X.device.type, path,
-                engine_plan(X.layout_for(mode), factors, mode, path))
+                engine_plan(X.layout_for(mode), factors, mode, path,
+                            autotune=X.opts.autotune))
 
 
 def describe_plan(X: BlockedSparse, factors: Sequence[torch.Tensor]) -> str:
@@ -612,7 +734,8 @@ def mttkrp(X: Union[SparseTensor, BlockedSparse],
 
     A COO tensor takes the stream path on the factors' device; a
     :class:`BlockedSparse` takes :func:`_choose_path_bs`'s path unless
-    `path` forces one, through :func:`mttkrp_blocked`'s engine chain.
+    `path` forces one, through :func:`mttkrp_blocked`'s engine chain,
+    with ``X.opts.autotune`` deciding whether a cached plan heads it.
     """
     if isinstance(X, SparseTensor):
         if path not in (None, "stream"):
@@ -625,4 +748,4 @@ def mttkrp(X: Union[SparseTensor, BlockedSparse],
         return mttkrp_stream(inds, vals, factors, mode, X.dims[mode])
     path = path or _choose_path_bs(X, mode)
     return mttkrp_blocked(X.layout_for(mode), factors, mode, path,
-                          fallback=fallback)
+                          fallback=fallback, autotune=X.opts.autotune)

@@ -198,6 +198,20 @@ class RunReport:
         for e in self.events("checkpoint_recovery"):
             lines.append(f"  checkpoint {e['path']} was corrupt "
                          f"({e['error'][:80]}); {e['action']}")
+        negatives = self.events("tuner_negative")
+        if negatives:
+            lines.append(f"  {len(negatives)} autotuner candidate(s) "
+                         f"failed to measure (deterministic failures "
+                         f"recorded as negative plan-cache entries)")
+        for e in self.events("tuner_degraded"):
+            why = e.get("reason") or ("no measurable candidate — "
+                                      "dispatch keeps the heuristic "
+                                      "chain")
+            lines.append(f"  autotuner: mode {e['mode']}: {why}")
+        for e in self.events("tune_cache_io_error"):
+            lines.append(f"  plan cache {e.get('op')} failed "
+                         f"({e['failure_class']}: {e['error'][:80]}); "
+                         f"degraded to re-tuning")
         nonfinite = self.events("health_nonfinite")
         if nonfinite:
             its = sorted({e.get("iteration") for e in nonfinite})
@@ -380,6 +394,19 @@ RUN_REPORT_EVENTS = {
     "bench_path_error": "one measured path failed; the error was "
                         "classified and recorded and the other paths "
                         "continued (record_path_error)",
+    "tune_cache_io_error": "plan-cache IO failed and was degraded "
+                           "(dispatch falls back to re-tuning or the "
+                           "heuristic chain)",
+    "tuned_plan": "cpd_als dispatched through autotuned MTTKRP plans; "
+                  "carries the per-mode plans",
+    "tuner_negative": "an autotuner candidate failed to measure; "
+                      "deterministic/resource failures persist as "
+                      "negative plan-cache entries",
+    "tuner_degraded": "a mode keeps the heuristic chain instead of a "
+                      "tuned plan: no candidate was measurable, or the "
+                      "plan could not apply under the resolved "
+                      "whole-tensor storage, reorder or packing "
+                      "(blocked.py)",
     "format_v2": "blocked layouts were built at a non-default encoding",
     "format_fallback": "a compact-format encode, a stream decode at "
                        "dispatch (site=decode) or a dense tile build "

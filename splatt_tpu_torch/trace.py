@@ -96,6 +96,9 @@ SPANS = {
     "dist.measure_overlap": "the achieved-overlap measurement of a "
                             "ring-variant sweep",
     "trace.export": "writing one Chrome-trace JSON file",
+    "tune.measure": "one autotuner candidate measurement, warm and "
+                    "timed calls of a forced engine (attrs: mode, path, "
+                    "engine, block, scan_target)",
     "timer.*": "utils/timers.py brackets routed through the span layer "
                "(timer.cpd, timer.mttkrp, ...)",
 }
@@ -117,6 +120,9 @@ METRICS = {
     "splatt_health_degraded_total": (
         "counter", "runs that exhausted the health budget and degraded "
                    "to checkpoint-and-abort"),
+    "splatt_tune_cache_total": (
+        "counter", "autotuner plan-cache consults by outcome (hit/miss), "
+                   "one per tuned mode"),
     "splatt_serve_queue_depth": (
         "gauge", "serve: pending jobs in the bounded queue"),
     "splatt_job_seconds": (

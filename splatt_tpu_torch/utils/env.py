@@ -118,6 +118,21 @@ ENV_VARS = {
                                        "finished records the oldest "
                                        "are dropped (counted, reported "
                                        "on the trace_written event)"),
+    "SPLATT_AUTOTUNE": EnvVar("1", "MTTKRP dispatch consults the "
+                              "autotuner's persisted plan cache "
+                              "(tune.py) before the heuristic engine "
+                              "chain, and BlockedSparse.compile builds "
+                              "the layouts at the cached plans; "
+                              "0/off/false/no = static heuristics.  An "
+                              "explicit Options.autotune wins"),
+    "SPLATT_TUNE_CACHE": EnvVar(None, "path of the autotuner's plan "
+                                "cache (default: tune_cache.json in "
+                                "splatt_tpu_torch/_build/)"),
+    "SPLATT_PROBE_CACHE_TTL_S": EnvVar(14 * 24 * 3600.0, "seconds a "
+                                       "plan-cache entry stays fresh "
+                                       "(the JAX package's probe-cache "
+                                       "TTL, which its plan cache "
+                                       "shares); <= 0 disables expiry"),
     "SPLATT_COMM": EnvVar(None, "default row-exchange strategy of "
                           "FINE distributed runs: all2all (whole-factor "
                           "gathers and reduces), point2point (the sync "
@@ -140,6 +155,18 @@ def read_env(name: str) -> Optional[object]:
             f"doc string) before reading it")
     raw = os.environ.get(name)
     return spec.default if raw is None else raw
+
+
+def env_is_set(name: str) -> bool:
+    """Whether the process environment sets a declared variable, as
+    opposed to its registered default applying (≙ splatt_tpu.utils.env.
+    env_is_set): the autotuner tells a pinned knob (measure only that)
+    from an untouched default (measure the candidates)."""
+    if name not in ENV_VARS:
+        raise KeyError(
+            f"environment variable {name!r} is not declared in "
+            f"splatt_tpu_torch.utils.env.ENV_VARS")
+    return name in os.environ
 
 
 def max_mean_ratio(a) -> float:
@@ -185,8 +212,8 @@ def host_fence(x):
     it (≙ splatt_tpu.utils.env.host_fence): ``torch.cuda.synchronize``
     on the device of every CUDA tensor among `x` (a tensor, or a nested
     list/tuple of them); CPU tensors need no fence.  The profiled sweeps
-    close each phase's timer with it, and nothing else calls it.  Returns
-    `x` for chaining."""
+    close each phase's timer with it, and the autotuner each timed
+    candidate call.  Returns `x` for chaining."""
     import torch
 
     seen = set()

@@ -75,6 +75,12 @@ SITES = {
                 "poison-armed specs corrupt the engine's OUTPUT "
                 "instead of raising",
     "checkpoint_write": "raise during the checkpoint save (cpd.py)",
+    "tuner.measure": "one autotuner candidate measurement, the warm and "
+                     "timed MTTKRP calls of a forced engine (tune.py); "
+                     "a raised fault skips the candidate, classified "
+                     "(tuner_negative event): a mode left with no "
+                     "measurable candidate keeps the heuristic chain "
+                     "(tuner_degraded), never fails the tune",
     "checkpoint_torn": "consumed (not raised): the writer truncates "
                        "the bytes it just wrote, simulating a torn "
                        "write (cpd.py)",

@@ -35,6 +35,7 @@ from splatt_tpu_torch.cpd import cpd_als
 from splatt_tpu_torch.ops import mttkrp as tm
 from splatt_tpu_torch.utils import faults
 from tests import gen
+from tests.torch_fixtures import private_tune_cache  # noqa: F401
 
 IDX_WIDTHS = ("i32", "auto", "u16", "u8", "delta", "rle")
 

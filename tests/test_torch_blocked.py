@@ -12,6 +12,7 @@ from splatt_tpu_torch import blocked as tb
 from splatt_tpu_torch import coo as tcoo
 from splatt_tpu_torch.config import BlockAlloc, Options
 from tests import gen
+from tests.torch_fixtures import private_tune_cache  # noqa: F401
 
 FIXTURES = ["small", "med", "small4", "med4", "med5"]
 

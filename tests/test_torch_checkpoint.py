@@ -38,6 +38,7 @@ from splatt_tpu_torch.parallel import distributed_cpd_als
 from splatt_tpu_torch.parallel.mesh import make_mesh
 from splatt_tpu_torch.utils import faults
 from tests import gen
+from tests.torch_fixtures import private_tune_cache  # noqa: F401
 
 RANK = 4
 

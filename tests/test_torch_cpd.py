@@ -18,6 +18,7 @@ from splatt_tpu_torch.cli import main as cli_main
 from splatt_tpu_torch.config import BlockAlloc, Options, Verbosity
 from splatt_tpu_torch.cpd import cpd_als
 from tests import gen
+from tests.torch_fixtures import private_tune_cache  # noqa: F401
 
 
 @pytest.mark.parametrize("iters", [1, 3])

@@ -52,6 +52,7 @@ from splatt_tpu_torch.ops import kernels
 from splatt_tpu_torch.ops import mttkrp as tm
 from splatt_tpu_torch.utils import faults
 from splatt_tpu_torch.utils.env import ENV_VARS
+from tests.torch_fixtures import private_tune_cache  # noqa: F401
 
 #: 3- and 4-mode dims, an inner dim that is no multiple of 128, a mode
 #: above the 256-row tile (several row tiles)

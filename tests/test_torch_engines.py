@@ -38,6 +38,7 @@ from tests import gen
 from tests.test_mttkrp import TOL, make_factors
 from tests.test_torch_kernels import port_layout
 from tests.test_torch_kernels_gpu import contracts
+from tests.torch_fixtures import private_tune_cache  # noqa: F401
 
 
 @pytest.fixture(autouse=True, scope="module")

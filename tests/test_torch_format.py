@@ -47,6 +47,7 @@ from splatt_tpu_torch.utils.env import ENV_VARS
 from tests import gen
 from tests.test_cpd import lowrank_tensor
 from tests.test_torch_kernels_gpu import contracts
+from tests.torch_fixtures import private_tune_cache  # noqa: F401
 
 ENCODINGS = ("auto", "u16", "u8", "delta", "rle")
 KERNEL_ENCODINGS = ("auto", "u8", "delta", "rle")

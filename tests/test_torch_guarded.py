@@ -35,6 +35,7 @@ from splatt_tpu_torch.resilience import DeadlineExceeded, NumericalHealthError
 from splatt_tpu_torch.utils import faults
 from splatt_tpu_torch.utils.timers import timers
 from tests import gen
+from tests.torch_fixtures import private_tune_cache  # noqa: F401
 
 RANK = 4
 

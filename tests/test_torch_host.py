@@ -39,6 +39,7 @@ from splatt_tpu_torch.cpd import cpd_als
 from splatt_tpu_torch.parallel.grid import GridDecomp
 from splatt_tpu_torch.utils import env as tenv
 from tests import gen
+from tests.torch_fixtures import private_tune_cache  # noqa: F401
 
 FIXTURES = ["small", "med", "small4", "med4", "med5"]
 

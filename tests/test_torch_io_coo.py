@@ -7,6 +7,7 @@ from splatt_tpu import io as jio
 from splatt_tpu_torch import coo as tcoo
 from splatt_tpu_torch import io as tio
 from tests import gen
+from tests.torch_fixtures import private_tune_cache  # noqa: F401
 
 FIXTURES = ["small", "med", "small4", "med4", "med5"]
 

@@ -13,6 +13,7 @@ from splatt_tpu_torch.blocked import BlockedSparse
 from splatt_tpu_torch.config import Options
 from splatt_tpu_torch.cpd import cpd_als
 from tests import gen
+from tests.torch_fixtures import private_tune_cache  # noqa: F401
 
 PROBE = """
 import importlib, pkgutil, sys
@@ -25,7 +26,8 @@ print("IMPORTED", len(names), names)
 if not {"splatt_tpu_torch.cli", "splatt_tpu_torch.ops.kernels",
         "splatt_tpu_torch.resilience", "splatt_tpu_torch.trace",
         "splatt_tpu_torch.utils.durable", "splatt_tpu_torch.utils.timers",
-        "splatt_tpu_torch.utils.faults"} <= set(names):
+        "splatt_tpu_torch.utils.faults", "splatt_tpu_torch.tune",
+        "splatt_tpu_torch.bench_algs"} <= set(names):
     sys.exit(2)
 bad = sorted(m for m in sys.modules
              if m in ("jax", "jaxlib", "splatt_tpu")
@@ -54,7 +56,8 @@ sys.exit(1 if bad else 0)
 @pytest.mark.parametrize("module", [
     "splatt_tpu_torch.trace", "splatt_tpu_torch.utils.timers",
     "splatt_tpu_torch.utils.durable", "splatt_tpu_torch.cpd",
-    "splatt_tpu_torch.parallel.common"])
+    "splatt_tpu_torch.parallel.common", "splatt_tpu_torch.tune",
+    "splatt_tpu_torch.bench_algs", "splatt_tpu_torch.cli"])
 def test_each_observability_module_imports_alone_without_jax(module):
     """The slice's new and extended modules, each imported first in a
     fresh interpreter, pull in neither JAX nor the JAX package."""

@@ -19,6 +19,7 @@ from splatt_tpu_torch.ops import kernels
 from tests import gen
 from tests.test_torch_kernels_gpu import _crosses_blocks, contracts
 from tests.test_mttkrp import TOL, make_factors
+from tests.torch_fixtures import private_tune_cache  # noqa: F401
 
 
 def port_layout(lay):

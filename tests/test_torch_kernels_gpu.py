@@ -24,6 +24,7 @@ from splatt_tpu_torch.blocked import reencode_layout
 from splatt_tpu_torch.config import LayoutFormat
 from splatt_tpu_torch.coo import SparseTensor
 from splatt_tpu_torch.ops import kernels
+from tests.torch_fixtures import private_tune_cache  # noqa: F401
 
 
 #: the matrices the eigensolver tests use (tests/test_torch_sym_eig.py too)
@@ -1137,3 +1138,145 @@ def test_cuda_guard_and_trace_add_no_sync():
     trace.reset()
     assert len(set(per_iter.values())) == 1, per_iter
     assert per_iter[(0, False)] >= 1
+
+
+#: the engines a tuner may measure on a card: kernel engines alone
+CARD_ENGINES = ("fused_v2", "fused_t", "fused_tg", "fused",
+                "unfused_pallas", "fused_dense")
+
+
+def _tune_env(monkeypatch, tmp_path):
+    from splatt_tpu_torch import resilience, tune
+
+    monkeypatch.setenv("SPLATT_TUNE_CACHE", str(tmp_path / "tune.json"))
+    tune.reset_memo()
+    resilience.reset_demotions()
+    resilience.run_report().clear()
+    return tune
+
+
+@pytest.mark.gpu
+def test_cuda_tune_persists_kernel_engine_plans(monkeypatch, tmp_path):
+    """A tune on the card measures kernel engines only and persists one
+    plan per mode under the card's name; a second tune measures
+    nothing."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    import json
+
+    from splatt_tpu_torch.config import Options, Verbosity
+
+    tune = _tune_env(monkeypatch, tmp_path)
+    X = _guard_tensor(np.random.default_rng(41))
+    opts = Options(verbosity=Verbosity.NONE)
+    kw = dict(blocks=(512, 2048), reorders=("identity",), reps=1,
+              device="cuda")
+    res = tune.tune(X, 8, opts, **kw)
+    assert sorted(res.plans) == [0, 1, 2] and res.measured > 0
+    assert all(p.engine in CARD_ENGINES for p in res.plans.values())
+    envs = json.loads((tmp_path / "tune.json").read_text())["envs"]
+    assert [k.split("|")[2] for k in envs] == [
+        torch.cuda.get_device_name()]
+    warm = tune.tune(X, 8, opts, **kw)
+    assert (warm.measured, warm.cache_hits) == (0, 3)
+
+
+@pytest.mark.gpu
+def test_cuda_tuned_cpd_fit_matches_untuned(monkeypatch, tmp_path):
+    """The CPD built and dispatched at the tuned plans (f32 values pinned,
+    so the fits compare) follows the untuned one within 1e-4, carries a
+    tuned_plan event for every mode and launches the tuned engines."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from splatt_tpu_torch import resilience
+    from splatt_tpu_torch.blocked import BlockedSparse
+    from splatt_tpu_torch.config import BlockAlloc, Options, Verbosity
+    from splatt_tpu_torch.cpd import cpd_als
+
+    tune = _tune_env(monkeypatch, tmp_path)
+    rng = np.random.default_rng(43)
+    X = _guard_tensor(rng)
+    init = [rng.random((d, 8)) for d in X.dims]
+    opts = Options(max_iterations=5, tolerance=0.0, random_seed=1,
+                   verbosity=Verbosity.NONE, engine_fallback=False,
+                   block_alloc=BlockAlloc.ALLMODE)
+    res = tune.tune(X, 8, opts, blocks=(512, 2048),
+                    formats=[("i32", "auto"), ("auto", "auto")],
+                    reorders=("identity",), reps=1, device="cuda")
+    assert sorted(res.plans) == [0, 1, 2]
+    tuned_bs = BlockedSparse.compile(X, opts, device="cuda", rank=8)
+    assert [lay.block for lay in tuned_bs.layouts] == [
+        res.plans[m].nnz_block for m in range(3)]
+    kernels.reset_launches()
+    tuned = cpd_als(tuned_bs, 8, opts, init=init)
+    torch.cuda.synchronize()
+    events = resilience.run_report().events("tuned_plan")
+    assert len(events) == 1 and sorted(events[0]["plans"]) == [0, 1, 2]
+    names = {"fused_t": "fused_mttkrp_t", "fused_tg": "fused_mttkrp_tg",
+             "fused_v2": "fused_mttkrp_v2"}
+    for m, p in res.plans.items():
+        if p.engine in names:
+            assert getattr(kernels, names[p.engine]).launches > 0
+    off = Options(max_iterations=5, tolerance=0.0, random_seed=1,
+                  verbosity=Verbosity.NONE, engine_fallback=False,
+                  block_alloc=BlockAlloc.ALLMODE, autotune=False)
+    plain = cpd_als(BlockedSparse.from_coo(X, off, device="cuda"), 8, off,
+                    init=init)
+    assert abs(tuned.fit - plain.fit) <= 1e-4
+
+
+@pytest.mark.gpu
+def test_cuda_bench_kernel_chain_agrees_with_stream():
+    """bench's blocked_pallas (the kernel chain) and the plain algorithms
+    on the card within the CLI's f32 gate of stream, each timed."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from splatt_tpu_torch.bench_algs import bench_mttkrp, crosscheck_mttkrp
+    from splatt_tpu_torch.config import BlockAlloc, Options, Verbosity
+
+    X = _guard_tensor(np.random.default_rng(47))
+    opts = Options(block_alloc=BlockAlloc.TWOMODE, verbosity=Verbosity.NONE,
+                   random_seed=3)
+    algs = ("stream", "blocked", "blocked_pallas", "scatter", "ttbox")
+    assert crosscheck_mttkrp(X, rank=16, algs=algs, opts=opts,
+                             device="cuda") <= 9e-3
+    res = bench_mttkrp(X, rank=16, algs=algs, opts=opts, reps=2,
+                       device="cuda")
+    assert all(t > 0 for alg in algs for t in res[alg])
+
+
+@pytest.mark.gpu
+def test_cuda_dense_tensor_tunes_over_fused_dense(monkeypatch, tmp_path):
+    """On the near-dense tensor each dense-eligible mode's tune measures
+    fused_dense (never the plain dense_xla), every winner is a kernel
+    engine, and a dense winner builds a dense layout."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from splatt_tpu_torch.blocked import BlockedSparse
+    from splatt_tpu_torch.config import Options, Verbosity
+
+    tune = _tune_env(monkeypatch, tmp_path)
+    rng = np.random.default_rng(9)
+    dims = (16, 32, 120)
+    flat = rng.choice(int(np.prod(dims)), 4000, replace=False)
+    X = SparseTensor(np.stack(np.unravel_index(flat, dims)),
+                     rng.random(4000) + 0.1, dims)
+    seen = []
+    real = tune._measure_candidate
+
+    def spy(layout, factors, mode, path, engine, st, **kw):
+        seen.append((mode, engine))
+        return real(layout, factors, mode, path, engine, st, **kw)
+
+    monkeypatch.setattr(tune, "_measure_candidate", spy)
+    opts = Options(dense="auto", verbosity=Verbosity.NONE)
+    res = tune.tune(X, 8, opts, blocks=(1024,), reorders=("identity",),
+                    formats=[("i32", "auto")], reps=1, device="cuda")
+    assert {(0, "fused_dense"), (1, "fused_dense")} <= set(seen)
+    assert all(e in CARD_ENGINES for _, e in seen)
+    assert all(p.engine in CARD_ENGINES for p in res.plans.values())
+    # with the dense policy off, only a dense plan gives a dense layout
+    bs = BlockedSparse.compile(X, Options(verbosity=Verbosity.NONE),
+                               device="cuda", rank=8)
+    for m, p in res.plans.items():
+        assert (bs.layout_for(m).encoding == "dense") == (p.path == "dense")

@@ -13,6 +13,7 @@ import torch
 from splatt_tpu.ops import linalg as jl
 from splatt_tpu_torch.ops import linalg as tl
 from tests.test_mttkrp import TOL
+from tests.torch_fixtures import private_tune_cache  # noqa: F401
 
 
 def pair(a):

@@ -13,6 +13,7 @@ from splatt_tpu_torch.config import BlockAlloc, Options
 from splatt_tpu_torch.ops.mttkrp import _choose_path_bs, mttkrp
 from tests import gen
 from tests.test_mttkrp import TOL, make_factors
+from tests.torch_fixtures import private_tune_cache  # noqa: F401
 
 PATHS = ["stream", "sorted_onehot", "sorted_scatter", "privatized",
          "scatter"]

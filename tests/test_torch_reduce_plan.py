@@ -26,6 +26,7 @@ from splatt_tpu.parallel.ring import blockwise_reduce_rows as jax_reduce
 from splatt_tpu.utils.env import shard_map
 from splatt_tpu_torch.parallel import ring, ring_kernels
 from splatt_tpu_torch.parallel.mesh import make_mesh
+from tests.torch_fixtures import private_tune_cache  # noqa: F401
 
 NDEVS = [2, 4, 8]
 R = 5

@@ -10,6 +10,7 @@ from splatt_tpu import resilience as jres
 from splatt_tpu.utils import faults as jfaults
 from splatt_tpu_torch import resilience
 from splatt_tpu_torch.utils import env, faults
+from tests.torch_fixtures import private_tune_cache  # noqa: F401
 
 
 @pytest.fixture(autouse=True)

@@ -32,6 +32,7 @@ from splatt_tpu_torch import resilience
 from splatt_tpu_torch.parallel import common, distribute, ring, ring_kernels
 from splatt_tpu_torch.parallel.mesh import Mesh, auto_grid, make_mesh
 from tests import gen
+from tests.torch_fixtures import private_tune_cache  # noqa: F401
 
 NDEVS = [2, 3, 4, 8]
 R = 4

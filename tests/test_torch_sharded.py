@@ -43,6 +43,7 @@ from splatt_tpu_torch.parallel.sharded import (comm_chain,
                                                sharded_cpd_als)
 from splatt_tpu_torch.utils import faults
 from tests import gen
+from tests.torch_fixtures import private_tune_cache  # noqa: F401
 
 RANK = 5
 ITERS = 3

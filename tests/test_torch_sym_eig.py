@@ -20,6 +20,7 @@ import torch
 from splatt_tpu.ops import linalg as jl
 from splatt_tpu_torch.ops import linalg as tl
 from tests.test_torch_kernels_gpu import SPECTRA, spectrum
+from tests.torch_fixtures import private_tune_cache  # noqa: F401
 
 RANKS = [1, 2, 3, 17, 50, 64]
 DTYPES = {"f32": torch.float32, "f64": torch.float64}

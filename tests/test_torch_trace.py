@@ -34,6 +34,7 @@ from splatt_tpu_torch.io import save
 from splatt_tpu_torch.utils import faults
 from splatt_tpu_torch.utils.timers import TimerRegistry, timers
 from tests import gen
+from tests.torch_fixtures import private_tune_cache  # noqa: F401
 
 
 @pytest.fixture(autouse=True)

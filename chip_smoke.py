@@ -144,9 +144,10 @@ Phases, each fatal on failure:
    1e-4 of it (relative); FINE also on the stream engine (the blocked
    run within 1e-4 of it); last the ``engine.fused_t`` drill (MEDIUM
    raises with fallback off, on 1M nonzeros of the same dims); MEDIUM on
-   the split grid once more over the tensor relabeled by the ``hgraph``
-   reorder (``grid_cpd_als(relabel="hgraph")``), held to the same fits, λ
-   and launches;
+   the split grid once more over phase 6's 2M tensor of the same dims
+   relabeled by the ``hgraph`` reorder (``grid_cpd_als(relabel=
+   "hgraph")``), held to that tensor's single-card CPD (fits, λ) and to
+   the same launches;
 13. the host build and the balanced layouts (``--balance`` runs the
    set-up, phase 5's host layout build and this phase alone): the native
    host sort (``csrc/host_sort.cpp``, which must build here) against
@@ -258,6 +259,31 @@ Phases, each fatal on failure:
    and a kernel loader that raises (``tune()`` raises, the cache file
    unchanged).  ``--tune`` runs the set-up, phase 5's layouts and CPD
    and phase 15, and prints a kernels line of the winning kernels.
+16. the out-of-core route, on phase 12's ranks (every card, or 4 virtual
+   ranks of one): phase 6's 2M tensor written as ``.tns``, the cli's
+   ``convert X.tns bin X.bin`` in a child process (it must print ``wrote
+   bin (streamed)``), ``load_memmap`` of the result equal to ``io.load``
+   of the text, ``native.parse_tns`` against the Python parse in turns.
+   Phase 3's tensor written with ``io.save`` as ``.bin`` and factored by
+   MEDIUM on phase 12's auto grid, seed and initial factors (rank 50, 5
+   iterations, f32, fallback off) in two child processes: one maps it
+   (``load_memmap``) and builds out of core under a scratch directory,
+   one reads it whole; each prints its build seconds by kind (the grid
+   decomposition, the layout sorts, the uploads), ms per iteration,
+   ``fused_mttkrp_t`` launches and demotions, the fits, and its peak RSS
+   less its RSS once CUDA is up.  Gates: every rank's sorted layout of
+   the streamed build is a memmap under the scratch directory and equal
+   to the in-memory build's (``inds``, ``vals``, ``row_start``, block,
+   seg width), equal launches, no demotion, fits within 1e-4 and λ within
+   1e-4 (relative), and a smaller peak RSS growth out of core; rank 0's launch on each layout
+   left on disk against the plain version.  FINE and COARSE out of core
+   on the 2M ``.bin`` through the cpd verb (``--mmap --scratch-dir``, 3
+   iterations) against the same runs in memory: fits within 1e-4, λ
+   within 1e-4 (relative), equal launches; drills: ``--mmap`` without ``--scratch-dir`` runs the stream
+   engine (``per-rank engine: stream``, no launch), ``--scratch-dir``
+   without a decomposition exits non-zero.  ``--ooc`` runs the set-up,
+   phase 3's tensor and phase 16, and prints ``fused_mttkrp_t``'s entry
+   from it.
 
 The line before the last is the ``{"kernels": [...]}`` record (the nine
 TPU kernels' counterparts and ``sym_eig``); the last is
@@ -354,6 +380,8 @@ RING_VIRTUAL_RANKS = 4
 DECOMP_ITERS = 5
 DECOMP_VIRTUAL_RANKS = 4
 DECOMP_DRILL_NNZ = 1_000_000
+DECOMP_HGRAPH_NNZ = BIG_RANK_NNZ   # the hgraph run's tensor (phase 6's)
+DECOMP_SEED = 12       # phase 12's initial factors, which phase 16 redraws
 BF16_MIN_FIT = 0.97    # the planted tensor's bf16 fit
 BF16_FIT_GAP = 0.03    # bf16 against f32 (≙ tests/test_format.py:251-252)
 PARITY_TOL = 1e-4      # f32 on the card against f64 on the CPU
@@ -2902,7 +2930,7 @@ def check_decomp(kind: str, tt, mesh, rank: int, init, grid=None) -> dict:
     return out
 
 
-def phase_decomp(tt, rank: int, seed: int = 12) -> dict:
+def phase_decomp(tt, rank: int, seed: int = DECOMP_SEED) -> dict:
     """Phase 12: the blocked per-rank engine in FINE, MEDIUM and COARSE on
     phase 3's tensor."""
     import torch
@@ -2956,14 +2984,16 @@ def phase_decomp(tt, rank: int, seed: int = 12) -> dict:
         return len(alloc_build_modes([ceil_to(d, nranks) for d in tt.dims],
                                      Options()))
 
-    def run(label, decomp, want_launches, entry=distributed_cpd_als, **kw):
+    def run(label, decomp, want_launches, entry=distributed_cpd_als,
+            data=None, **kw):
+        x, ref_fits, ref_lam_ = data or (tt, ref.fits, ref_lam)
         resilience.reset_demotions()
         resilience.run_report().clear()
         sync_mesh(mesh)
         kernels.reset_launches()
         t0 = time.perf_counter()
         out = entry(
-            tt, rank, opts=Options(max_iterations=iters, tolerance=0.0,
+            x, rank, opts=Options(max_iterations=iters, tolerance=0.0,
                                    random_seed=0, decomposition=decomp,
                                    comm_pattern=CommPattern.ALL2ALL,
                                    engine_fallback=False),
@@ -2975,10 +3005,11 @@ def phase_decomp(tt, rank: int, seed: int = 12) -> dict:
         events = [{k: v for k, v in e.items() if k not in ("kind", "ts")}
                   for e in resilience.run_report().events("layout_imbalance")]
         steady = sum(out.iter_seconds[1:]) / (len(out.iter_seconds) - 1)
-        diff = max(abs(a - b) for a, b in zip(out.fits, ref.fits))
-        lam_rel = float((out.lam - ref_lam).abs().max()
-                        / ref_lam.abs().max())
-        row = dict(label=label, sec_per_iter=steady, fits=list(out.fits),
+        diff = max(abs(a - b) for a, b in zip(out.fits, ref_fits))
+        lam_rel = float((out.lam - ref_lam_).abs().max()
+                        / ref_lam_.abs().max())
+        row = dict(label=label, nnz=x.nnz, sec_per_iter=steady,
+                   fits=list(out.fits),
                    fit_diff=diff, lam_rel_diff=lam_rel, launches=launches,
                    expected_launches=want_launches, demoted=demoted,
                    imbalance=events, seconds=seconds,
@@ -2986,7 +3017,7 @@ def phase_decomp(tt, rank: int, seed: int = 12) -> dict:
         log(f"[decomp] {json.dumps(row)}")
         if len(out.fits) != iters or not diff <= PARITY_TOL:
             raise AssertionError(f"{label}: fits {out.fits} leave the "
-                                 f"single-card CPD's {ref.fits}")
+                                 f"single-card CPD's {ref_fits}")
         if not lam_rel <= LAMBDA_TOL:
             raise AssertionError(f"{label}: λ relative difference "
                                  f"{lam_rel:.3e} > {LAMBDA_TOL}")
@@ -3025,12 +3056,20 @@ def phase_decomp(tt, rank: int, seed: int = 12) -> dict:
                                   grid=split)
     runs["coarse"], _ = run("coarse", Decomposition.COARSE,
                             nsorted("coarse") * nranks * iters)
-    # the same split grid over the tensor relabeled by reorder.py's
-    # hgraph strategy (equal fences), factors back in the original order
+    # the same split grid over a tensor relabeled by reorder.py's hgraph
+    # strategy (equal fences), factors back in the original order; on
+    # phase 6's 2M tensor of the same dims (the relabel's host time at
+    # 20M is most of this phase's), against its own single-card CPD
+    hg = synthetic_tensor(tt.dims, DECOMP_HGRAPH_NNZ, seed=5)
+    hg_ref = cpd_als(hg, rank, Options(max_iterations=iters, tolerance=0.0,
+                                       random_seed=0),
+                     init=init, device=mesh.devices[0])
     runs["medium_split_hgraph"], _ = run(
         f"medium grid {split} relabel hgraph", Decomposition.MEDIUM,
         nsorted("medium", split) * nranks * iters, entry=grid_cpd_als,
-        grid=split, relabel="hgraph")
+        data=(hg, hg_ref.fits, hg_ref.lam.cpu()), grid=split,
+        relabel="hgraph")
+    del hg, hg_ref
 
     # the drill: with engine.fused_t armed and fallback off, MEDIUM
     # raises (on DRILL_NNZ nonzeros of the same dims: the host build of
@@ -4939,6 +4978,492 @@ def _tune_rows(tn: dict) -> list:
     return rows
 
 
+# -- phase 16: the out-of-core route --------------------------------------------
+
+#: phase 16's depths: the out-of-core MEDIUM CPD at 20M nonzeros (phase
+#: 12's) and FINE and COARSE through the CLI at 2M
+OOC_ITERS = DECOMP_ITERS
+OOC_CLI_ITERS = 3
+
+
+def _rss_kib() -> int:
+    """This process's resident set now, in KiB (VmRSS)."""
+    with open("/proc/self/status") as f:
+        for line in f:
+            if line.startswith("VmRSS:"):
+                return int(line.split()[1])
+    raise RuntimeError("no VmRSS in /proc/self/status")
+
+
+class RssPeak:
+    """The largest resident set this process reaches while it runs,
+    sampled every `period` seconds by a thread.  Not ``ru_maxrss``: that
+    of a process started by ``subprocess`` also holds its parent's
+    resident set at the fork, which the kernel folds in at the exec (and
+    not every /proc gives VmHWM)."""
+
+    def __init__(self, period: float = 0.005) -> None:
+        import threading
+
+        self.peak = _rss_kib()
+        self._period = period
+        self._done = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True)
+        self._thread.start()
+
+    def _run(self) -> None:
+        while not self._done.wait(self._period):
+            self.peak = max(self.peak, _rss_kib())
+
+    def now(self) -> int:
+        """The peak so far, a sample taken now included."""
+        self.peak = max(self.peak, _rss_kib())
+        return self.peak
+
+    def stop(self) -> int:
+        self._done.set()
+        self._thread.join()
+        return self.now()
+
+
+def ooc_child(spec: dict) -> dict:
+    """One MEDIUM CPD of phase 16 in a process of its own (``python3
+    chip_smoke.py --ooc-child SPEC``): ``spec["kind"]`` ``ooc`` maps the
+    ``.bin`` with ``load_memmap`` and builds out of core under
+    ``spec["dir"]`` (its sorted layouts stay there, with each layout's
+    ``row_start.npy``); ``ram`` reads it whole with ``io.load`` and then
+    holds its layouts against the ``ooc`` child's files.  Returns the
+    build's seconds by kind (the grid decomposition, the layout sorts,
+    the uploads), ms per iteration, fused_mttkrp_t's launches, the
+    demotions, the fits, and the peak RSS less the RSS right after CUDA
+    and the libraries came up (:class:`RssPeak`), in KiB, with
+    ``ru_maxrss`` beside it."""
+    import resource
+
+    import torch
+
+    from splatt_tpu_torch import Options, native, resilience
+    from splatt_tpu_torch.config import CommPattern, Decomposition
+    from splatt_tpu_torch.io import load, load_memmap
+    from splatt_tpu_torch.ops import kernels
+    from splatt_tpu_torch.parallel import common, distributed_cpd_als
+    from splatt_tpu_torch.parallel import grid as gridmod
+    from splatt_tpu_torch.parallel.mesh import make_mesh
+
+    kernels.load_library()
+    native.available()
+    mesh = make_mesh(n_devices=spec["ranks"])
+    torch.zeros(1, device=mesh.devices[0])
+    torch.cuda.synchronize()
+    rss0 = _rss_kib()
+    sampler = RssPeak()
+    ooc = spec["kind"] == "ooc"
+    secs = {"decompose": 0.0, "sort": 0.0, "upload": 0.0}
+    # the peak RSS growth reached by the end of each kind's last call
+    peaks = {}
+
+    def timed(kind, fn):
+        def wrapped(*a, **k):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **k)
+            finally:
+                secs[kind] += time.perf_counter() - t0
+                peaks[kind] = sampler.now() - rss0
+        return wrapped
+
+    gridmod.GridDecomp.build = staticmethod(
+        timed("decompose", gridmod.GridDecomp.build))
+    for name in ("blocked_buckets", "streamed_blocked_buckets"):
+        setattr(common, name, timed("sort", getattr(common, name)))
+    common.upload = timed("upload", common.upload)
+    captured = []
+    build_cells = gridmod.GridDecomp.build_cell_layouts
+
+    def capture(decomp, *a, **k):
+        cl = build_cells(decomp, *a, **k)
+        captured.append((decomp, cl))
+        return cl
+
+    gridmod.GridDecomp.build_cell_layouts = capture
+
+    t0 = time.perf_counter()
+    tt = load_memmap(spec["bin"]) if ooc else load(spec["bin"])
+    load_s = time.perf_counter() - t0
+    rng = np.random.default_rng(DECOMP_SEED)
+    init = [rng.random((d, spec["rank"])) for d in tt.dims]
+    resilience.reset_demotions()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    out = distributed_cpd_als(
+        tt, spec["rank"], opts=Options(
+            max_iterations=spec["iters"], tolerance=0.0, random_seed=0,
+            decomposition=Decomposition.MEDIUM,
+            comm_pattern=CommPattern.ALL2ALL, engine_fallback=False),
+        init=init, grid=tuple(spec["grid"]), mesh=mesh,
+        out_dir=spec["dir"] if ooc else None)
+    torch.cuda.synchronize()
+    call_s = time.perf_counter() - t0
+    peak = sampler.stop()
+    launches = kernels.fused_mttkrp_t.launches
+    decomp, cells = captured[0]
+    ncells = decomp.ncells
+    lays = []
+    equal = {}
+    for lay in cells.layouts:
+        m = lay["sort_mode"]
+        inds = lay["inds"].reshape(tt.nmodes, ncells, -1)
+        vals = lay["vals"].reshape(ncells, -1)
+        starts = np.asarray(lay["row_start"]).reshape(ncells, -1)
+        where = os.path.join(spec["dir"], f"cells_m{m}")
+        meta = dict(sort_mode=m, block=lay["block"],
+                    seg_width=lay["seg_width"], sort_dim=lay["sort_dim"],
+                    nnz_pad=int(inds.shape[-1]),
+                    memmap_dir=common._memmap_dir(inds))
+        if ooc:
+            np.save(os.path.join(where, "row_start.npy"), starts)
+        else:
+            disk = (np.load(os.path.join(where, "linds.npy"), mmap_mode="r"),
+                    np.load(os.path.join(where, "lvals.npy"), mmap_mode="r"),
+                    np.load(os.path.join(where, "row_start.npy")))
+            equal[str(m)] = bool(
+                np.array_equal(inds, disk[0]) and np.array_equal(vals, disk[1])
+                and np.array_equal(starts, disk[2]))
+        lays.append(meta)
+    steady = sum(out.iter_seconds[1:]) / (len(out.iter_seconds) - 1)
+    late = out.iter_seconds[2:]
+    return dict(kind=spec["kind"], load_s=load_s, call_s=call_s,
+                build_s=secs, rss_growth_by_kind_kib=peaks,
+                ms_per_iter=steady * 1e3,
+                ms_per_iter_from_3=sum(late) / len(late) * 1e3,
+                iter_seconds=list(out.iter_seconds), fits=list(out.fits),
+                lam=[float(x) for x in out.lam], launches=launches,
+                demoted=[d.engine for d in resilience.demotions()],
+                rss_after_init_kib=rss0, peak_rss_kib=peak,
+                rss_growth_kib=peak - rss0,
+                ru_maxrss_kib=resource.getrusage(
+                    resource.RUSAGE_SELF).ru_maxrss, layouts=lays,
+                layouts_equal=equal, grid=list(decomp.grid),
+                block_rows=list(decomp.block_rows),
+                cell_counts=[int(c) for c in decomp.cell_counts],
+                relabeled=decomp.relabels is not None)
+
+
+def run_ooc_child(spec: dict) -> dict:
+    """:func:`ooc_child` in a child process; its result is the JSON last
+    line of its output."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, os.path.join(root, "chip_smoke.py"),
+                        "--ooc-child", json.dumps(spec)], capture_output=True,
+                       text=True, cwd=root, timeout=600)
+    for line in r.stdout.splitlines()[:-1]:
+        log(f"[ooc] {spec['kind']} | {line}")
+    if r.returncode != 0:
+        raise AssertionError(f"the {spec['kind']} child failed "
+                             f"({r.returncode}): {r.stderr[-3000:]}")
+    res = json.loads(r.stdout.strip().splitlines()[-1])
+    res["process_s"] = time.perf_counter() - t0
+    log(f"[ooc] {json.dumps(res)}")
+    return res
+
+
+def ooc_rank_launch(res: dict, rank: int) -> list:
+    """Rank 0's fused_mttkrp_t launch on each sorted layout the ``ooc``
+    child left on disk, against the plain version over random tables of
+    the cells' row counts, timed beside its bound."""
+    import torch
+
+    from splatt_tpu_torch.parallel.common import bucket_layout
+
+    rng = np.random.default_rng(16)
+    tables = [torch.from_numpy(rng.random((d, rank), dtype=np.float32)).cuda()
+              for d in res["block_rows"]]
+    rows = []
+    for meta in res["layouts"]:
+        m, where = meta["sort_mode"], meta["memmap_dir"]
+        inds = np.load(os.path.join(where, "linds.npy"), mmap_mode="r")
+        vals = np.load(os.path.join(where, "lvals.npy"), mmap_mode="r")
+        starts = np.load(os.path.join(where, "row_start.npy"))
+        lay = bucket_layout(
+            torch.from_numpy(np.array(inds[:, 0])).cuda(),
+            torch.from_numpy(np.array(vals[0])).to("cuda", torch.float32),
+            torch.from_numpy(starts[0]).cuda(), m, meta["sort_dim"],
+            meta["block"], meta["seg_width"], res["cell_counts"][0])
+        rows.append(rank_launch(lay, tables, m, "ooc medium"))
+    return rows
+
+
+def text_route(tt, tmp: str) -> dict:
+    """Phase 6's 2M tensor written as ``.tns``; the cli's ``convert X.tns
+    bin X.bin`` in a child process (it must stream); the ``.bin`` mapped
+    against the text loaded; ``native.parse_tns`` against the Python
+    parse in turns on the same file."""
+    from splatt_tpu_torch import native
+    from splatt_tpu_torch.io import (load, load_memmap, parse_text_python,
+                                     save)
+
+    if not native.available():
+        raise AssertionError("the native host runtime did not build: the "
+                             "text route would run the Python parse")
+    tns, binp = os.path.join(tmp, "x.tns"), os.path.join(tmp, "x.bin")
+    t0 = time.perf_counter()
+    save(tt, tns)
+    write_s = time.perf_counter() - t0
+    root = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m", "splatt_tpu_torch.cli",
+                        "convert", tns, "bin", binp], capture_output=True,
+                       text=True, cwd=root, timeout=300)
+    convert_s = time.perf_counter() - t0
+    if r.returncode != 0 or r.stdout.strip() != \
+            f"wrote bin (streamed): {binp}":
+        raise AssertionError(f"convert did not stream ({r.returncode}): "
+                             f"{r.stdout} {r.stderr[-2000:]}")
+    mm, txt = load_memmap(binp), load(tns)
+    # the dims of a text file are its largest indices
+    same = (mm.dims == txt.dims
+            and np.array_equal(np.asarray(mm.inds), txt.inds)
+            and np.array_equal(np.asarray(mm.inds), tt.inds)
+            and float(np.abs(np.asarray(mm.vals) - txt.vals).max()) == 0.0)
+    if not same:
+        raise AssertionError("the streamed .bin differs from the text")
+    turns = {"native": [], "python": []}
+    for _ in range(2):
+        for name, fn in (("native", native.parse_tns),
+                         ("python", parse_text_python)):
+            t0 = time.perf_counter()
+            got = fn(tns)
+            turns[name].append(time.perf_counter() - t0)
+            if not np.array_equal(got[0] - 1, tt.inds):
+                raise AssertionError(f"{name} parse differs")
+            del got
+    out = dict(nnz=tt.nnz, tns_mb=os.path.getsize(tns) / 1e6,
+               bin_mb=os.path.getsize(binp) / 1e6, write_tns_s=write_s,
+               convert_process_s=convert_s, parse_s=turns,
+               native_speedup=min(turns["python"]) / min(turns["native"]))
+    log(f"[ooc] text route: {json.dumps(out)}")
+    return out
+
+
+def lam_rel(got, want) -> float:
+    """The largest difference of two λ vectors relative to max|want|."""
+    got, want = np.asarray(got), np.asarray(want)
+    return float(np.abs(got - want).max() / np.abs(want).max())
+
+
+def cli_cpd(argv: list) -> dict:
+    """The cpd verb in this process (``cli.main``), its stdout captured:
+    the exit code, the per-iteration fits printed, the JSON record, the
+    engine line, the model's λ, and fused_mttkrp_t's launches."""
+    import contextlib
+    import io
+
+    import torch
+
+    from splatt_tpu_torch import cli, parallel, resilience
+    from splatt_tpu_torch.ops import kernels
+
+    resilience.reset_demotions()
+    resilience.run_report().clear()
+    kernels.reset_launches()
+    models = []
+    entry = parallel.distributed_cpd_als
+
+    def keep(*a, **k):
+        models.append(entry(*a, **k))
+        return models[-1]
+
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    parallel.distributed_cpd_als = keep
+    try:
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main(argv)
+    finally:
+        parallel.distributed_cpd_als = entry
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    text = buf.getvalue()
+    for line in text.splitlines():
+        log(f"[ooc] cli | {line}")
+    return dict(rc=rc, seconds=seconds,
+                fits=[float(ln.split("fit = ")[1].split()[0])
+                      for ln in text.splitlines() if "fit = " in ln],
+                record=json.loads(text.strip().splitlines()[-1]),
+                engine=next((ln.strip() for ln in text.splitlines()
+                             if "per-rank engine:" in ln), None),
+                lam=[float(x) for x in models[0].lam] if models else None,
+                launches=kernels.fused_mttkrp_t.launches)
+
+
+def ooc_cli_runs(binp: str, tmp: str, nranks: int, rank: int) -> dict:
+    """FINE and COARSE through the cpd verb on the 2M ``.bin``: out of
+    core (``--mmap --scratch-dir``) against in memory, the same fits and
+    launches; the drills: ``--mmap`` without a scratch directory takes the
+    stream engine, ``--scratch-dir`` without a decomposition exits
+    non-zero."""
+    import glob
+    import shutil
+
+    def base(iters):
+        return ["cpd", binp, "-r", str(rank), "-i", str(iters), "--tol", "0",
+                "--seed", "0", "--ndev", str(nranks), "--json", "--nowrite",
+                "--engine-fallback", "off"]
+
+    out = {}
+    for decomp in ("fine", "coarse"):
+        scratch = os.path.join(tmp, f"scratch_{decomp}")
+        ooc = cli_cpd(base(OOC_CLI_ITERS) + ["--decomp", decomp, "--mmap",
+                                             "--scratch-dir", scratch])
+        ram = cli_cpd(base(OOC_CLI_ITERS) + ["--decomp", decomp])
+        lay_files = sorted(os.path.relpath(p, scratch) for p in
+                           glob.glob(os.path.join(scratch, "**", "linds.npy"),
+                                     recursive=True))
+        diff = max(abs(a - b) for a, b in zip(ooc["fits"], ram["fits"]))
+        rel = lam_rel(ooc["lam"], ram["lam"])
+        row = dict(ooc=ooc, ram=ram, fit_diff=diff, lam_rel_diff=rel,
+                   layout_files=lay_files)
+        if (ooc["rc"] or ram["rc"] or len(ooc["fits"]) != OOC_CLI_ITERS
+                or not diff <= PARITY_TOL or not rel <= LAMBDA_TOL
+                or not abs(ooc["record"]["fit"] - ram["record"]["fit"])
+                <= PARITY_TOL
+                or ooc["launches"] != ram["launches"]
+                or not ooc["launches"] or ooc["record"]["demotions"]
+                or ram["record"]["demotions"] or not lay_files
+                or "out of core" not in (ooc["engine"] or "")):
+            raise AssertionError(f"{decomp}: the out-of-core cli run leaves "
+                                 f"the in-memory one: {json.dumps(row)}")
+        shutil.rmtree(scratch, ignore_errors=True)
+        out[decomp] = row
+    lean = cli_cpd(base(1) + ["--decomp", "fine", "--mmap"])
+    if lean["rc"] or lean["engine"] != "per-rank engine: stream" \
+            or lean["launches"]:
+        raise AssertionError(f"--mmap without --scratch-dir: {lean}")
+    root = os.path.dirname(os.path.abspath(__file__))
+    r = subprocess.run([sys.executable, "-m", "splatt_tpu_torch.cli", "cpd",
+                        binp, "-r", str(rank), "-i", "1", "--mmap",
+                        "--nowrite", "--scratch-dir",
+                        os.path.join(tmp, "unused")],
+                       capture_output=True, text=True, cwd=root, timeout=300)
+    if r.returncode == 0 or "--scratch-dir applies to distributed runs" \
+            not in r.stderr:
+        raise AssertionError(f"--scratch-dir alone: rc {r.returncode}, "
+                             f"{r.stderr[-1000:]}")
+    out["drills"] = dict(lean_engine=lean["engine"],
+                         lean_launches=lean["launches"],
+                         scratch_alone_rc=r.returncode)
+    log(f"[ooc] drills: {json.dumps(out['drills'])}")
+    return out
+
+
+def phase_ooc(tt, rank: int) -> dict:
+    """Phase 16: the out-of-core route on the ranks of phase 12."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from splatt_tpu_torch.io import save
+    from splatt_tpu_torch.parallel.mesh import auto_grid
+
+    t_phase = time.perf_counter()
+    ncards = torch.cuda.device_count()
+    nranks = ncards if ncards > 1 else DECOMP_VIRTUAL_RANKS
+    grid = auto_grid(nranks, tt.dims)
+    root = os.path.dirname(os.path.abspath(__file__))
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ooc_", dir=root)
+    try:
+        log(f"[ooc] phase 16: {nranks} ranks, MEDIUM grid {grid}; scratch "
+            f"{tmp} (free {shutil.disk_usage(tmp).free / 1e9:.1f} GB)")
+        small = synthetic_tensor(NELL2, BIG_RANK_NNZ, seed=5)
+        text = text_route(small, tmp)
+        binp = os.path.join(tmp, "x.bin")
+        del small
+        big = os.path.join(tmp, "nell2.bin")
+        t0 = time.perf_counter()
+        save(tt, big)
+        save_s = time.perf_counter() - t0
+        spec = dict(bin=big, rank=rank, iters=OOC_ITERS, grid=list(grid),
+                    ranks=nranks, dir=os.path.join(tmp, "scratch"))
+        ooc = run_ooc_child(dict(spec, kind="ooc"))
+        ram = run_ooc_child(dict(spec, kind="ram"))
+        rows = ooc_rank_launch(ooc, rank)
+        diff = max(abs(a - b) for a, b in zip(ooc["fits"], ram["fits"]))
+        rel = lam_rel(ooc["lam"], ram["lam"])
+        failures = []
+        if len(ooc["fits"]) != OOC_ITERS or not diff <= PARITY_TOL:
+            failures.append(f"fits {ooc['fits']} against {ram['fits']}")
+        if not rel <= LAMBDA_TOL:
+            failures.append(f"λ relative difference {rel:.3e}")
+        if ooc["launches"] != ram["launches"] or not ooc["launches"]:
+            failures.append(f"launches {ooc['launches']} against "
+                            f"{ram['launches']}")
+        if ooc["demoted"] or ram["demoted"]:
+            failures.append(f"demoted {ooc['demoted']} {ram['demoted']}")
+        if not ram["layouts_equal"] or not all(ram["layouts_equal"].values()):
+            failures.append(f"layouts differ: {ram['layouts_equal']}")
+        if any(a["block"] != b["block"] or a["seg_width"] != b["seg_width"]
+               for a, b in zip(ooc["layouts"], ram["layouts"])):
+            failures.append("block or seg_width differ")
+        if any(not (lay["memmap_dir"] or "").startswith(spec["dir"])
+               for lay in ooc["layouts"]):
+            failures.append(f"layouts not memmapped under {spec['dir']}: "
+                            f"{ooc['layouts']}")
+        if not ooc["rss_growth_kib"] < ram["rss_growth_kib"]:
+            failures.append(f"peak RSS growth {ooc['rss_growth_kib']} KiB "
+                            f"out of core, {ram['rss_growth_kib']} in memory")
+        log(f"[ooc] MEDIUM 20M: peak RSS growth {ooc['rss_growth_kib']} KiB "
+            f"out of core, {ram['rss_growth_kib']} KiB in memory; build "
+            f"{json.dumps(ooc['build_s'])} against "
+            f"{json.dumps(ram['build_s'])} s; {ooc['ms_per_iter']:.3f} "
+            f"against {ram['ms_per_iter']:.3f} "
+            f"ms/iteration; max |fit difference| {diff:.3e}, λ relative "
+            f"difference {rel:.3e}")
+        if failures:
+            raise AssertionError("phase 16: " + "; ".join(failures))
+        cli = ooc_cli_runs(binp, tmp, nranks, rank)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    seconds = time.perf_counter() - t_phase
+    log(f"[ooc] phase 16 took {seconds:.1f} s")
+    return dict(ranks=nranks, grid=list(grid), text=text, save_bin_s=save_s,
+                medium=dict(ooc=ooc, ram=ram, fit_diff=diff,
+                            lam_rel_diff=rel), rank0_rows=rows,
+                cli=cli, seconds=seconds)
+
+
+def _ooc_summary(ooc: dict) -> dict:
+    """Phase 16 in row 1 of the kernels line."""
+    med = ooc["medium"]
+    keep = ("build_s", "ms_per_iter", "ms_per_iter_from_3", "launches",
+            "fits", "rss_growth_kib", "rss_growth_by_kind_kib",
+            "peak_rss_kib", "load_s", "call_s", "process_s")
+    return dict(
+        ranks=ooc["ranks"], grid=ooc["grid"], text=ooc["text"],
+        medium={k: {key: med[k][key] for key in keep}
+                for k in ("ooc", "ram")},
+        fit_diff=med["fit_diff"], lam_rel_diff=med["lam_rel_diff"],
+        rank0_rows=ooc["rank0_rows"],
+        cli={k: dict(launches=v["ooc"]["launches"],
+                     seconds=[v["ooc"]["seconds"], v["ram"]["seconds"]],
+                     fit_diff=v["fit_diff"], lam_rel_diff=v["lam_rel_diff"])
+             for k, v in ooc["cli"].items() if k != "drills"},
+        drills=ooc["cli"]["drills"], phase_seconds=ooc["seconds"])
+
+
+def _ooc_row(ooc: dict) -> dict:
+    """Row 1 of the kernels line from phase 16 alone (``--ooc``)."""
+    return _record_row(
+        "fused_mttkrp_t", FUSED_SRC, f"{PK}:355",
+        ooc["medium"]["ooc"]["launches"], ooc["rank0_rows"], None,
+        note=f"ms/plain_ms/bound_ms: mean per launch over rank 0's sorted "
+        f"layouts of phase 16's out-of-core MEDIUM build (grid "
+        f"{ooc['grid']}), NELL-2 shape, 20M nonzeros, rank {RANK}; "
+        f"launches: phase 16's out-of-core MEDIUM CPD, {OOC_ITERS} "
+        f"iterations", status=WALK_STATUS, phase16=_ooc_summary(ooc))
+
+
 FUSED_SRC = "splatt_tpu_torch/csrc/fused_mttkrp.cu"
 PK = "splatt_tpu/ops/pallas_kernels.py"
 NOTE = ("ms/plain_ms/bound_ms: mean per launch over the 3 modes at rank "
@@ -5179,6 +5704,10 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
+    if "--ooc-child" in sys.argv[1:]:
+        spec = json.loads(sys.argv[sys.argv.index("--ooc-child") + 1])
+        print(json.dumps(ooc_child(spec)))
+        return 0
     from splatt_tpu_torch import BlockedSparse, Options
     from splatt_tpu_torch.config import BlockAlloc
     from splatt_tpu_torch.ops import kernels
@@ -5203,8 +5732,9 @@ def main() -> int:
     balance = "--balance" in sys.argv[1:]
     guard_only = "--guard" in sys.argv[1:]
     tune_only = "--tune" in sys.argv[1:]
+    ooc_only = "--ooc" in sys.argv[1:]
     phase_build(verbose=not (ranks or reduce or balance or guard_only
-                             or tune_only))
+                             or tune_only or ooc_only))
     from splatt_tpu_torch import native
 
     # phase 13 fails without it; every earlier host build would sort with
@@ -5236,6 +5766,13 @@ def main() -> int:
             f"launches: phase 12's four blocked CPDs",
             status=WALK_STATUS, phase12=_decomp_summary(decomp))],
             "power": dev["smi"]}))
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": dev["kind"], "count": dev["count"]}}))
+        return 0
+    if ooc_only:
+        ooc = phase_ooc(tt, RANK)
+        print(json.dumps({"kernels": [_ooc_row(ooc)], "power": dev["smi"]}))
+        log(f"[total] {time.perf_counter() - t_script:.1f} s")
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": dev["kind"], "count": dev["count"]}}))
         return 0
@@ -5371,6 +5908,7 @@ def main() -> int:
     bf16["fused_dense"] = _bf16_summary(dense["rows"]["bf16"])
     dist = phase_distributed(tt, RANK)
     decomp = phase_decomp(tt, RANK)
+    ooc = phase_ooc(tt, RANK)
     bal = phase_balance(tt, layout_s, RANK)
     del tt
 
@@ -5382,6 +5920,7 @@ def main() -> int:
                walk, fmt, wide, cpd_sec_per_iter=main_path["sec_per_iter"],
                sweep_phase_ms=main_path["phases"],
                phase12=_decomp_summary(decomp),
+               phase16=_ooc_summary(ooc),
                phase13=_balance_summary(bal),
                phase13_rows=_balance_rows(bal),
                phase14=_guard_summary(guard),

@@ -10,5 +10,8 @@ from splatt_tpu_torch.config import Options
 from splatt_tpu_torch.cpd import cpd_als
 from splatt_tpu_torch.io import load
 from splatt_tpu_torch.ops.mttkrp import mttkrp
+from splatt_tpu_torch.version import (__version__, version_major,
+                                      version_minor, version_patch)
 
-__all__ = ["load", "BlockedSparse", "cpd_als", "mttkrp", "Options"]
+__all__ = ["load", "BlockedSparse", "cpd_als", "mttkrp", "Options",
+           "__version__", "version_major", "version_minor", "version_patch"]

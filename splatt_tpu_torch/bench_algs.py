@@ -12,7 +12,9 @@ The algorithms keep the JAX package's names:
 - ``scatter``: the gather product and ``index_add_`` over the layouts'
   arrays;
 - ``ttbox``: one pass per rank column (:func:`mttkrp_ttbox`);
-- ``native``: the host C++ engine, not ported yet: always nan.
+- ``native``: the host C++ engine (``ops.mttkrp.run_native``) on a CPU
+  v1 layout where ``native_runnable`` holds; nan on a card and wherever
+  it does not run.
 
 A time is host seconds per call, fenced with ``torch.cuda.synchronize``
 on a card.  The bytes and flop models are the JAX package's arithmetic;
@@ -36,7 +38,8 @@ from splatt_tpu_torch.config import (BlockAlloc, Options, resolve_device,
 from splatt_tpu_torch.coo import SparseTensor
 from splatt_tpu_torch.cpd import init_factors
 from splatt_tpu_torch.ops.mttkrp import (_run_engine, mttkrp_blocked,
-                                         mttkrp_stream, mttkrp_ttbox)
+                                         mttkrp_stream, mttkrp_ttbox,
+                                         native_runnable, run_native)
 from splatt_tpu_torch.utils.env import host_fence
 
 ALGS = ("stream", "blocked", "blocked_pallas", "scatter", "ttbox",
@@ -69,7 +72,10 @@ def _runner(alg: str, bs, inds, vals, factors, mode: int, dim: int,
     if alg == "ttbox":
         return lambda: mttkrp_ttbox(inds, vals, factors, mode, dim)
     if alg == "native":
-        return None
+        layout = bs.layout_for(mode)
+        if dev.type != "cpu" or not native_runnable(layout, factors):
+            return None
+        return lambda: run_native(layout, factors, mode)
     if alg == "blocked_pallas" and dev.type != "cuda":
         return None
     layout = bs.layout_for(mode)

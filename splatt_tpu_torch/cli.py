@@ -9,8 +9,8 @@ cmd_convert.c, cmd_reorder.c, cmd_stats.c).
         [--nowrite] [--decomp medium|coarse|fine] [--grid IxJxK]
         [--comm all2all|point2point|async_ring] [--rowdist greedy|balanced]
         [-p PARTITION] [--ndev N] [--local-engine blocked|stream]
-        [--checkpoint FILE [--checkpoint-every N]] [--trace OUT_JSON]
-        [--autotune on|off]
+        [--scratch-dir DIR] [--checkpoint FILE [--checkpoint-every N]]
+        [--trace OUT_JSON] [--autotune on|off]
     python -m splatt_tpu_torch.cli tune T -r R [--reps N] [--force]
         [--alloc ...] [--f64] [-v] [--device cuda|cpu]
     python -m splatt_tpu_torch.cli bench T [-r R] [-a ALG]... [--reps N]
@@ -52,9 +52,16 @@ decomp=...`` line, with the JAX CLI's implications: ``--grid IxJxK``
 implies MEDIUM (the grid of its ranks, one factor per mode) and rejects
 the other decompositions; ``--comm``, ``--rowdist`` and ``-p`` imply FINE.
 ``--local-engine`` picks the per-rank MTTKRP (default: the blocked engine,
-except on the FINE ring patterns).  ``--json`` ring runs carry the
-``ring_overlap`` event, and every distributed run the
-``layout_imbalance`` event.
+except on the FINE ring patterns and for a memmapped tensor without a
+scratch directory); the driver's ``local_engine`` event names it, and
+whether its build ran out of core, as a ``per-rank engine:`` line under
+``Resilience events:``.
+``--scratch-dir DIR`` with ``--mmap`` builds out of core: the buckets and
+the per-rank sorted layouts go to memmaps under DIR in chunked passes, so
+the host holds a few chunks, not the tensor; it applies to distributed
+runs only.  ``--json`` ring runs carry the ``ring_overlap`` event, and
+every distributed run the ``layout_imbalance`` event.  ``convert T.tns
+bin OUT`` streams the text to ``.bin`` (``wrote bin (streamed)``).
 
 ``--checkpoint FILE`` writes an atomic checksummed ``.npz`` every
 ``--checkpoint-every`` iterations (default 10; the previous generation
@@ -172,6 +179,12 @@ def cmd_cpd(args) -> int:
             or args.rowdist is not None):
         out = _distributed(args, opts, tt)
     else:
+        if args.scratch_dir:
+            # never silently ignore an explicit out-of-core request
+            raise ValueError(
+                "--scratch-dir applies to distributed runs (--decomp/"
+                "--grid/...); the single-card blocked build "
+                "materializes its layouts in RAM")
         t0 = time.perf_counter()
         with timers.time("blocked_build"):
             # with autotune on, the layouts are built at the plan cache's
@@ -258,6 +271,7 @@ def _distributed(args, opts, tt):
                                partition=partition,
                                row_distribute=args.rowdist, mesh=mesh,
                                local_engine=args.local_engine,
+                               out_dir=args.scratch_dir,
                                measure_overlap=True if args.json else None,
                                checkpoint_path=args.checkpoint,
                                checkpoint_every=args.checkpoint_every)
@@ -427,11 +441,22 @@ def cmd_check(args) -> int:
 
 
 def cmd_convert(args) -> int:
-    """≙ splatt_convert_cmd (src/cmds/cmd_convert.c); ``bin`` loads the
-    whole tensor (no streamed conversion yet)."""
+    """≙ splatt_convert_cmd (src/cmds/cmd_convert.c).  A text tensor to
+    ``bin`` streams through the native converter (bounded memory, for
+    tensors larger than the host's); without its library, and for every
+    other target, the tensor is loaded whole."""
     from splatt_tpu_torch.convert import convert
     from splatt_tpu_torch.io import load
 
+    if args.type == "bin":
+        with open(args.tensor, "rb") as f:
+            is_binary = f.read(4) == b"SPTT"
+        if not is_binary:
+            from splatt_tpu_torch import native
+
+            if native.stream_to_bin(args.tensor, args.output):
+                print(f"wrote bin (streamed): {args.output}")
+                return 0
     tt = load(args.tensor)
     convert(tt, args.type, args.output, mode=args.mode)
     print(f"wrote {args.type}: {args.output}")
@@ -478,8 +503,12 @@ def cmd_stats(args) -> int:
 
 
 def build_parser() -> argparse.ArgumentParser:
+    from splatt_tpu_torch.version import __version__
+
     p = argparse.ArgumentParser(prog="splatt_tpu_torch",
                                 description="CPD-ALS on an NVIDIA GPU")
+    p.add_argument("-V", "--version", action="version",
+                   version=f"splatt_tpu_torch {__version__}")
     sub = p.add_subparsers(dest="cmd", required=True)
     c = sub.add_parser("cpd", help="CPD-ALS factorization")
     c.add_argument("tensor", help="coordinate tensor file (.tns/.bin)")
@@ -501,7 +530,12 @@ def build_parser() -> argparse.ArgumentParser:
     c.add_argument("--block", type=int, help="nnz per block")
     c.add_argument("--f64", action="store_true", help="double precision")
     c.add_argument("--mmap", action="store_true",
-                   help="memory-map a .bin tensor instead of reading it")
+                   help="memory-map a .bin tensor instead of reading it "
+                        "(no host copy of the tensor at load; pair with a "
+                        "distributed --decomp and --scratch-dir for a "
+                        "build that is out of core throughout; the "
+                        "single-card blocked build still holds its "
+                        "layouts in RAM)")
     c.add_argument("--nowrite", action="store_true",
                    help="skip writing factor files")
     c.add_argument("-s", "--stem", default="./", metavar="PATH",
@@ -550,7 +584,14 @@ def build_parser() -> argparse.ArgumentParser:
                    help="per-rank MTTKRP engine of a distributed run "
                         "(default: blocked, each rank's sorted layouts "
                         "through the single-card engine chain; the fine "
-                        "ring patterns take stream)")
+                        "ring patterns, and a memmapped tensor without "
+                        "--scratch-dir, take stream)")
+    c.add_argument("--scratch-dir", dest="scratch_dir", metavar="DIR",
+                   help="disk-backed scratch for a distributed run's "
+                        "buckets and per-rank layouts: with --mmap the "
+                        "whole build is out of core (host memory bounded "
+                        "by the chunk, not the tensor); the files stay "
+                        "after the run")
     c.add_argument("--checkpoint", metavar="FILE",
                    help="write an atomic checksummed .npz checkpoint (the "
                         "previous generation kept as FILE.bak) every "

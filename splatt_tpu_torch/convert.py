@@ -3,9 +3,9 @@
 Counterpart of ``splatt_tpu/convert.py``, writing the same files.  Targets
 mirror splatt_convert_type (src/convert.h:17-26): graph, fiber-CSR matrix
 (mode unfolding), fiber hypergraph, nnz hypergraph, binary coordinate,
-text coordinate.  ``bin`` loads the whole tensor and saves it; the JAX
-package's streamed text-to-binary path for tensors larger than the host's
-memory is not ported yet.
+text coordinate.  ``bin`` saves the loaded tensor; the ``convert`` verb
+streams a text file to ``bin`` through ``native.stream_to_bin`` instead,
+for tensors larger than the host's memory.
 """
 
 from __future__ import annotations

@@ -7,11 +7,11 @@
 // std::sort inside each slice on the remaining modes packed into one
 // unsigned 128-bit key (lexicographic compares when the packed span would
 // not fit), ties broken on the original position, so the permutation is
-// the stable one np.lexsort gives.  Only the sort is carried over; the
-// text parser and the host MTTKRP of that file are not used by the port.
+// the stable one np.lexsort gives.  The parser, the streamed converter and
+// the host MTTKRP of that file are in host_io.cpp.
 //
 // Plain C interface for ctypes (splatt_tpu_torch/native.py builds it with
-// g++ -O3 -shared -fPIC at first use):
+// host_io.cpp into one library with g++ -O3 -shared -fPIC at first use):
 //   splatt_sort_perm(inds, nnz, nmodes, dims, mode_order, perm) -> 0 on
 //   success; 1 on bad arguments, 2 on an index outside [0, dims[m]), 3
 //   when its buckets or keys cannot be allocated.

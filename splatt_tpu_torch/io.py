@@ -13,10 +13,15 @@ Counterpart of ``splatt_tpu/io.py``, byte for byte in the binary format:
   magic, :func:`save` by the extension; :func:`load_memmap` maps a
   ``.bin`` file without reading it.
 
+Text is parsed by the native parser (``native.parse_tns``) where its
+library builds; a malformed file is parsed again in Python for the error
+that names the line, and without the library the Python pass parses.  A
+tensor larger than the host's memory goes text to ``.bin`` through
+``native.stream_to_bin`` (the ``convert ... bin`` verb), then
+:func:`load_memmap` maps it.
+
 Also the writers and readers of dense matrices, vectors and permutation
-files.  The streamed text-to-binary conversion of tensors larger than the
-host's memory (the JAX package's ``native.stream_to_bin``) is not ported
-yet.
+files.
 """
 
 from __future__ import annotations
@@ -37,7 +42,27 @@ _BIN_VERSION = 1
 
 
 def _parse_text(path: str) -> Tuple[np.ndarray, np.ndarray]:
-    """Parse a coordinate text file into (inds (m, nnz) int64, vals f64)."""
+    """Parse a coordinate text file into (inds (m, nnz) int64, vals f64):
+    the native parser first; on its ValueError the Python pass runs for
+    the error naming the line."""
+    from splatt_tpu_torch import native
+
+    try:
+        parsed = native.parse_tns(path)
+    except ValueError:
+        with open(path, "rb") as f:
+            data = f.read()
+        first = next((ln for ln in data.split(b"\n")
+                      if ln.strip() and not ln.lstrip().startswith(b"#")),
+                     b"")
+        raise _diagnose_text(path, data, len(first.split())) from None
+    return parsed if parsed is not None else parse_text_python(path)
+
+
+def parse_text_python(path: str) -> Tuple[np.ndarray, np.ndarray]:
+    """The Python parse of :func:`_parse_text`: one vectorized pass over
+    the whole file, and on a malformed file the error naming the first
+    bad line and its byte offset."""
     with open(path, "rb") as f:
         data = f.read()
     body = [ln for ln in data.split(b"\n")

@@ -46,6 +46,14 @@ layout decoded to v1 first (prep decode, ``blocked.decode_to_v1``).
 v1 dataflow; an armed ``format.decode`` fault does the same for one call
 and leaves a ``format_fallback`` event.
 
+``impl="native"`` asks :func:`mttkrp` for the host C++ engine
+(``native.mttkrp``) instead of the chain, on CPU tensors only: it runs
+where :func:`native_runnable` holds (the JAX package's gate) and the chain
+runs otherwise; on a CUDA tensor it raises, never copying to the host.
+The JAX package picks that engine by default on a CPU; the port's CPU
+default stays the chain's plain versions, which hold the kernel engines'
+dataflow in the CPU tests.
+
 :func:`mttkrp_blocked` walks the chain, headed by the engine of an
 applicable autotuned plan (``tune.py``).  An engine's own failure (an armed
 fault, a launch the card refused, an out-of-memory) demotes it in the
@@ -664,8 +672,15 @@ class Plan(NamedTuple):
 
 
 def plan_mttkrp(X: BlockedSparse, factors: Sequence[torch.Tensor],
-                mode: int, path: Optional[str] = None) -> Plan:
-    """The dispatch decision :func:`mttkrp` will execute for this call."""
+                mode: int, path: Optional[str] = None,
+                impl: Optional[str] = None) -> Plan:
+    """The dispatch decision :func:`mttkrp` will execute for this call
+    (`impl` as :func:`mttkrp` takes it, raising as it does for a tensor
+    on a card)."""
+    if impl == "native":
+        _check_host([f.device for f in factors] + [X.device])
+        if native_runnable(X.layout_for(mode), factors, path):
+            return Plan("cpu", _choose_path_bs(X, mode), "native")
     path = path or _choose_path_bs(X, mode)
     return Plan(X.device.type, path,
                 engine_plan(X.layout_for(mode), factors, mode, path,
@@ -692,6 +707,56 @@ def describe_plan(X: BlockedSparse, factors: Sequence[torch.Tensor]) -> str:
 
 
 # -- path choice and the public entry ----------------------------------------
+
+
+def native_runnable(layout: ModeLayout, factors: Sequence[torch.Tensor],
+                    path: Optional[str] = None) -> bool:
+    """Exactly when an ``impl="native"`` call runs the host engine
+    (≙ splatt_tpu.ops.mttkrp._native_runnable): no forced `path`, a v1
+    layout without the balanced packing's mid-stream pads (the engine
+    reads the first ``nnz`` entries as the real ones), f32 or f64 values
+    with factors of the same dtype, at most ``native.MTTKRP_MAX_MODES``
+    modes, and the library available."""
+    from splatt_tpu_torch import native
+
+    if path is not None or layout.encoding != "v1":
+        return False
+    if layout.block_nnz is not None:
+        return False
+    vdt = layout.vals.dtype
+    if vdt not in (torch.float32, torch.float64):
+        return False
+    if any(f.dtype != vdt for f in factors):
+        return False
+    if layout.nmodes > native.MTTKRP_MAX_MODES:
+        return False
+    return native.available()
+
+
+def _check_host(devices) -> None:
+    """Raise unless every operand of a host-engine call lies on the CPU."""
+    on_card = [d for d in devices if d.type != "cpu"]
+    if on_card:
+        raise ValueError(f"impl='native' is the host engine: it takes CPU "
+                         f"tensors only, not {on_card[0]} (nothing is "
+                         f"copied to the host)")
+
+
+def run_native(layout: ModeLayout, factors: Sequence[torch.Tensor],
+               mode: int) -> Optional[torch.Tensor]:
+    """The host engine's MTTKRP of `mode` over a v1 layout on the CPU, in
+    the values' dtype (``native.mttkrp`` over the tensors' own memory),
+    or None when the library declines.  Raises ValueError for an operand
+    on a card."""
+    from splatt_tpu_torch import native
+
+    _check_host([layout.vals.device] + [f.device for f in factors])
+    dims = [int(f.shape[0]) for f in factors]
+    out = native.mttkrp(layout.inds.numpy(), layout.vals.numpy(),
+                        [f.detach().contiguous().numpy() for f in factors],
+                        mode, dims, sorted_by_mode=(mode == layout.mode),
+                        nnz=layout.nnz)
+    return None if out is None else torch.from_numpy(out)
 
 
 def choose_path(layout: ModeLayout, mode: int, opts: Options) -> str:
@@ -729,14 +794,29 @@ def _choose_path_bs(bs: BlockedSparse, mode: int) -> str:
 def mttkrp(X: Union[SparseTensor, BlockedSparse],
            factors: Sequence[torch.Tensor], mode: int,
            path: Optional[str] = None,
-           fallback: Optional[bool] = None) -> torch.Tensor:
+           fallback: Optional[bool] = None,
+           impl: Optional[str] = None) -> torch.Tensor:
     """Public MTTKRP (≙ splatt_mttkrp, include/splatt/api_kernels.h:98-119).
 
     A COO tensor takes the stream path on the factors' device; a
     :class:`BlockedSparse` takes :func:`_choose_path_bs`'s path unless
     `path` forces one, through :func:`mttkrp_blocked`'s engine chain,
     with ``X.opts.autotune`` deciding whether a cached plan heads it.
+    ``impl="native"`` runs the host C++ engine instead where
+    :func:`native_runnable` holds (the chain otherwise, as the JAX
+    package falls back), on CPU tensors only: it raises for a tensor on a
+    card.
     """
+    if impl not in (None, "native"):
+        raise ValueError(f"unknown impl {impl!r} (None or 'native')")
+    if impl == "native":
+        _check_host([f.device for f in factors]
+                    + ([X.device] if isinstance(X, BlockedSparse) else []))
+        if isinstance(X, BlockedSparse) and native_runnable(
+                X.layout_for(mode), factors, path):
+            out = run_native(X.layout_for(mode), factors, mode)
+            if out is not None:
+                return out
     if isinstance(X, SparseTensor):
         if path not in (None, "stream"):
             raise ValueError(

@@ -23,6 +23,7 @@ def distributed_cpd_als(tt, rank: int, opts: Optional[Options] = None,
                         partition: Optional[np.ndarray] = None,
                         mesh=None, row_distribute: Optional[str] = None,
                         local_engine: Optional[str] = None,
+                        out_dir: Optional[str] = None,
                         measure_overlap: Optional[bool] = None,
                         device=None, checkpoint_path: Optional[str] = None,
                         checkpoint_every: int = 10,
@@ -41,7 +42,12 @@ def distributed_cpd_als(tt, rank: int, opts: Optional[Options] = None,
       (:func:`sharded_cpd_als`).
 
     `local_engine` None lets each decomposition's CPD pick
-    (:func:`~splatt_tpu_torch.parallel.common.auto_local_engine`).
+    (:func:`~splatt_tpu_torch.parallel.common.auto_local_engine`), and
+    each records what it runs as a ``local_engine`` run-report event.
+    `out_dir` is the scratch directory of the out-of-core build: with a
+    memmapped tensor (``io.load_memmap``) every decomposition buckets and
+    sorts in chunked passes into memmaps under it and keeps the blocked
+    engine (≙ splatt_tpu/parallel/__init__.py:25-47).
     `checkpoint_path`, `checkpoint_every` and `resume` pass through to
     every decomposition (≙ splatt_tpu/parallel/__init__.py:21-46): the
     checkpoint is in the original row space and the single-card format,
@@ -56,19 +62,19 @@ def distributed_cpd_als(tt, rank: int, opts: Optional[Options] = None,
                              "layer fences already localize inputs)")
         return grid_cpd_als(tt, rank, grid=grid, mesh=mesh, opts=opts,
                             init=init, local_engine=local_engine,
-                            device=device, **ck)
+                            out_dir=out_dir, device=device, **ck)
     if opts.decomposition is Decomposition.COARSE:
         if row_distribute not in (None, "balanced"):
             raise ValueError("COARSE supports row_distribute='balanced' "
                              "(nnz-weighted fences); 'greedy' is FINE-only")
         return coarse_cpd_als(tt, rank, mesh=mesh, opts=opts, init=init,
-                              local_engine=local_engine,
+                              local_engine=local_engine, out_dir=out_dir,
                               row_distribute=row_distribute, device=device,
                               **ck)
     return sharded_cpd_als(tt, rank, mesh=mesh, opts=opts, init=init,
                            partition=partition,
                            row_distribute=row_distribute,
-                           local_engine=local_engine,
+                           local_engine=local_engine, out_dir=out_dir,
                            measure_overlap=measure_overlap, device=device,
                            **ck)
 

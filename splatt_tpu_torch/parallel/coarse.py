@@ -24,32 +24,48 @@ import torch
 from splatt_tpu_torch.config import (Options, acc_dtype, default_opts,
                                      resolve_dtype)
 from splatt_tpu_torch.kruskal import KruskalTensor
-from splatt_tpu_torch.parallel.common import (RankLayouts, allreduce,
+from splatt_tpu_torch.parallel.common import (STREAM_CHUNK, RankLayouts,
+                                              _subdir, allreduce,
                                               auto_local_engine,
                                               bucket_engine, bucket_scatter,
                                               build_bucket_layout, ceil_to,
                                               engine_fallback, fit_tail,
                                               is_memmapped, mode_update_tail,
                                               place_buckets,
+                                              record_local_engine,
                                               record_shard_imbalance,
-                                              run_distributed_als)
+                                              run_distributed_als,
+                                              streamed_bucket_scatter)
 from splatt_tpu_torch.parallel.mesh import make_mesh, single_axis_of
 from splatt_tpu_torch.parallel.sharded import gather_full, shard_factors
 
 
-def _bucket_by_mode(tt, mode: int, ndev: int, val_dtype):
-    """Bucket the nonzeros by the equal row fences of `mode`, in memory.
+def _bucket_by_mode(tt, mode: int, ndev: int, val_dtype,
+                    streamed: Optional[bool] = None,
+                    out_dir: Optional[str] = None,
+                    chunk: int = STREAM_CHUNK):
+    """Bucket the nonzeros by the equal row fences of `mode`.
 
     Returns (inds (nmodes, ndev, C) int32 with the mode-`mode` indices
     local to the fence, vals (ndev, C), block_rows, counts), the JAX
-    package's arrays.  A memmapped tensor needs its streamed build, which
-    is not ported: it raises."""
-    if is_memmapped(tt.inds):
-        raise NotImplementedError(
-            "a memmapped tensor needs the streamed coarse build, not "
-            "ported yet: ROADMAP.md queue A item 3")
+    package's arrays.  `streamed` (None: when the tensor's indices are
+    memmapped) buckets in chunked passes, with the buckets memmapped
+    under `out_dir` when given, so a tensor larger than the host's memory
+    builds its per-mode copies end to end."""
     dim_pad = ceil_to(max(tt.dims[mode], ndev), ndev)
     block = dim_pad // ndev
+    if streamed is None:
+        streamed = is_memmapped(tt.inds)
+    if streamed:
+        def postprocess(placed):
+            placed[mode] %= block
+            return placed
+
+        binds, bvals, _, counts = streamed_bucket_scatter(
+            tt.inds, tt.vals, lambda ic, s: ic[mode] // block, ndev,
+            val_dtype, chunk=chunk, out_dir=out_dir,
+            postprocess=postprocess)
+        return binds, bvals, block, counts
     owner = tt.inds[mode] // block
     binds, bvals, _, counts = bucket_scatter(tt.inds, tt.vals, owner, ndev,
                                              val_dtype)
@@ -58,14 +74,17 @@ def _bucket_by_mode(tt, mode: int, ndev: int, val_dtype):
 
 
 def coarse_rank_layouts(per_mode, opts: Options, mesh,
-                        dtype=torch.float32):
+                        dtype=torch.float32, out_dir: Optional[str] = None):
     """Each mode's sorted, fence-local layouts of its buckets
     (:func:`_bucket_by_mode`'s tuples), one per rank on its device: every
-    mode has its own, so every mode takes the sorted path."""
+    mode has its own, so every mode takes the sorted path.  Memmapped
+    buckets sort in chunked passes, mode m's layouts memmapped under
+    ``out_dir/mode<m>/blocked`` when `out_dir` is given."""
     out = []
     for m, (bi, bv, blk_rows, counts) in enumerate(per_mode):
-        host = build_bucket_layout(bi, bv, counts, m, blk_rows,
-                                   opts.nnz_block)
+        host = build_bucket_layout(
+            bi, bv, counts, m, blk_rows, opts.nnz_block,
+            out_dir=_subdir(_subdir(out_dir, f"mode{m}"), "blocked"))
         out.append(RankLayouts.place(host, counts,
                                      bucket_engine(host[4], opts), m,
                                      blk_rows, mesh, dtype))
@@ -128,6 +147,7 @@ def make_coarse_sweep(mesh, blocks, reg: float, cells=None,
 def coarse_cpd_als(tt, rank: int, mesh=None, opts: Optional[Options] = None,
                    init=None, axis: str = "d",
                    local_engine: Optional[str] = None,
+                   out_dir: Optional[str] = None,
                    row_distribute: Optional[str] = None,
                    device=None, checkpoint_path: Optional[str] = None,
                    checkpoint_every: int = 10,
@@ -142,7 +162,11 @@ def coarse_cpd_als(tt, rank: int, mesh=None, opts: Optional[Options] = None,
     :func:`auto_local_engine`) sorts each mode's buckets and runs the
     single-card blocked engine on every rank (≙ mttkrp_csf over each
     rank's per-mode tensor copy); "stream" keeps the gather product, the
-    oracle.  The factors and λ come back on the CPU.
+    oracle.  A memmapped tensor keeps the blocked engine when `out_dir`
+    is given: each mode's buckets and sorted layouts build in chunked
+    passes, memmapped under ``out_dir/mode<m>`` and
+    ``out_dir/mode<m>/blocked``; without it the stream engine runs.  The
+    factors and λ come back on the CPU.
     `checkpoint_path`, `checkpoint_every` and `resume` are
     :func:`run_distributed_als`'s.
     """
@@ -154,7 +178,7 @@ def coarse_cpd_als(tt, rank: int, mesh=None, opts: Optional[Options] = None,
     xnormsq = tt.normsq()
     dtype = resolve_dtype(opts)
     if local_engine is None:
-        local_engine = auto_local_engine(tt, None)
+        local_engine = auto_local_engine(tt, out_dir)
     if local_engine not in ("blocked", "stream"):
         raise ValueError(f"unknown local_engine {local_engine!r}")
 
@@ -177,8 +201,10 @@ def coarse_cpd_als(tt, rank: int, mesh=None, opts: Optional[Options] = None,
         raise ValueError(f"unknown row_distribute {row_distribute!r} "
                          f"(coarse supports 'balanced')")
 
+    record_local_engine(local_engine, tt, out_dir)
     # one bucketed copy per mode (≙ per-mode tensors + ALLMODE)
-    per_mode = [_bucket_by_mode(tt, m, ndev, tt.vals.dtype)
+    per_mode = [_bucket_by_mode(tt, m, ndev, tt.vals.dtype,
+                                out_dir=_subdir(out_dir, f"mode{m}"))
                 for m in range(nmodes)]
     blocks = tuple(b for (_, _, b, _) in per_mode)
     dims_pad = tuple(b * ndev for b in blocks)
@@ -187,7 +213,7 @@ def coarse_cpd_als(tt, rank: int, mesh=None, opts: Optional[Options] = None,
                                policy=row_distribute or "equal", mode=m)
     cells = inds = vals = None
     if local_engine == "blocked":
-        cells = coarse_rank_layouts(per_mode, opts, mesh, dtype)
+        cells = coarse_rank_layouts(per_mode, opts, mesh, dtype, out_dir)
     else:
         inds, vals = zip(*(place_buckets(bi, bv, mesh, dtype)
                            for bi, bv, _, _ in per_mode))

@@ -1,9 +1,16 @@
-"""Shared machinery of the distributed CPD (≙ splatt_tpu/parallel/common.py,
-in-memory).
+"""Shared machinery of the distributed CPD (≙ splatt_tpu/parallel/common.py).
 
 - :func:`bucket_scatter`: place nonzero n in bucket owner[n], pad the
   buckets to the largest (≙ the rearrange-to-owners steps of
   src/mpi/mpi_io.c).
+- The out-of-core builds (≙ the reference streaming equal-nnz chunks
+  from the root rank, src/mpi/mpi_io.c:587-648):
+  :func:`streamed_bucket_scatter` is :func:`bucket_scatter` in chunked
+  passes over a (memmapped) tensor, :func:`streamed_blocked_buckets` is
+  :func:`blocked_buckets` as a chunked counting sort, both with their
+  outputs memmapped under an ``out_dir``; :func:`upload` copies a
+  memmapped array to a device in chunks.  Host memory stays bounded by
+  the chunk, not the tensor.
 - The blocked per-rank engine's host half: :func:`blocked_buckets` sorts
   and blocks each bucket for one mode, :func:`build_bucket_layout` is its
   one dispatch point, :class:`RankLayouts` holds one layout per rank on
@@ -12,7 +19,8 @@ in-memory).
   ``fused_mttkrp_t`` on a sorted mode) over one rank's layout
   (≙ every MPI rank calling mttkrp_csf, src/mpi/mpi_cpd.c:714);
   :func:`bucket_engine`, :func:`alloc_build_modes` and
-  :func:`auto_local_engine` are its policies.
+  :func:`auto_local_engine` are its policies; each driver records the
+  engine it runs with :func:`record_local_engine`.
 - :func:`balanced_relabel`, :func:`relabel_tensor`: row relabelings of
   ``--rowdist balanced``; :func:`record_shard_imbalance` and
   :func:`imbalance_report`: the ``layout_imbalance`` event.
@@ -39,6 +47,8 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import mmap
+import os
 import time
 from typing import Callable, List, Optional, Sequence, Tuple
 
@@ -49,6 +59,10 @@ from splatt_tpu_torch.blocked import alloc_build_modes
 from splatt_tpu_torch.config import Options, Verbosity, acc_dtype
 from splatt_tpu_torch.kruskal import KruskalTensor, post_process
 from splatt_tpu_torch.utils.env import max_mean_ratio
+
+
+#: nonzeros per chunk of the streamed builds and of a memmapped upload
+STREAM_CHUNK = 1 << 22
 
 
 def ceil_to(x: int, mult: int) -> int:
@@ -151,13 +165,230 @@ def blocked_buckets(binds: np.ndarray, bvals: np.ndarray,
     return out_i, out_v, row_start, block, seg_width
 
 
+def _memmap_of(arr) -> Optional[np.memmap]:
+    """The np.memmap an array views (through its ``.base`` chain), or
+    None."""
+    while arr is not None and not isinstance(arr, np.memmap):
+        arr = getattr(arr, "base", None)
+    return arr
+
+
 def is_memmapped(arr) -> bool:
     """Whether an array is (a view of) an np.memmap."""
-    while arr is not None:
-        if isinstance(arr, np.memmap):
-            return True
-        arr = getattr(arr, "base", None)
-    return False
+    return _memmap_of(arr) is not None
+
+
+def _memmap_dir(arr) -> Optional[str]:
+    """The directory of the file backing a memmapped array, or None: where
+    derived layouts go when the caller names no ``out_dir``."""
+    fn = getattr(_memmap_of(arr), "filename", None)
+    return os.path.dirname(str(fn)) if fn else None
+
+
+def _drop_pages(*arrays) -> None:
+    """Flush every memmap backing these arrays and advise its pages away
+    (MADV_DONTNEED).  Touched file pages, dirty output pages above all,
+    stay resident and count toward the RSS until reclaimed; dropping them
+    after each chunk keeps a streamed build's peak RSS at the chunk, not
+    the tensor.  The pages fault in again from the file when read."""
+    for arr in arrays:
+        a = _memmap_of(arr)
+        if a is None:
+            continue
+        try:
+            a.flush()
+            a._mmap.madvise(mmap.MADV_DONTNEED)
+        except (AttributeError, ValueError, OSError):
+            pass  # no madvise on this platform, or no mmap behind it
+
+
+class _FlushWindow:
+    """The flush policy of the chunked writers into memmapped outputs:
+    flush and drop the outputs' pages once `budget` bytes were written
+    since the last flush.  A flush after every chunk is a writeback storm
+    (each covers the whole file); never flushing leaves the RSS growing
+    with the output.
+
+    The count is exact for clustered writes (the scatter's per-bucket
+    cursors, the sort's ascending positions) and an undercount for writes
+    spread thinly over many pages; there the kernel's own writeback
+    bounds the resident pages, which are always evictable."""
+
+    def __init__(self, *arrays, budget: int = 256 << 20) -> None:
+        self.arrays = arrays
+        self.budget = budget
+        self.dirty = 0
+
+    def wrote(self, nbytes: int) -> None:
+        self.dirty += nbytes
+        if self.dirty >= self.budget:
+            self.flush()
+
+    def flush(self) -> None:
+        if self.dirty > 0:
+            _drop_pages(*self.arrays)
+            self.dirty = 0
+
+
+def _subdir(out_dir: Optional[str], name: str) -> Optional[str]:
+    """``out_dir/name``, or None without an `out_dir`."""
+    return None if out_dir is None else os.path.join(out_dir, name)
+
+
+def _outputs(out_dir: Optional[str], names: Tuple[str, str], shapes,
+             dtypes) -> Tuple[np.ndarray, np.ndarray]:
+    """Two zeroed output arrays: ``.npy`` memmaps named `names` under
+    `out_dir` (created; ``w+`` makes sparse zero-filled files), else in
+    memory."""
+    if out_dir is None:
+        return tuple(np.zeros(sh, dtype=dt) for sh, dt in zip(shapes, dtypes))
+    os.makedirs(out_dir, exist_ok=True)
+    return tuple(np.lib.format.open_memmap(
+        os.path.join(out_dir, name), mode="w+", dtype=np.dtype(dt),
+        shape=sh) for name, sh, dt in zip(names, shapes, dtypes))
+
+
+def streamed_bucket_scatter(inds, vals, owner_fn, nbuckets: int, val_dtype,
+                            chunk: int = STREAM_CHUNK,
+                            out_dir: Optional[str] = None,
+                            postprocess=None,
+                            counts: Optional[np.ndarray] = None
+                            ) -> Tuple[np.ndarray, np.ndarray, int,
+                                       np.ndarray]:
+    """:func:`bucket_scatter` in two chunked passes over (possibly
+    memmapped) nonzeros, the same arrays (≙ the reference streaming
+    equal-nnz chunks from the root rank, mpi_simple_distribute,
+    src/mpi/mpi_io.c:587-648).
+
+    ``owner_fn(inds_chunk, start) -> (n,) bucket ids`` runs on each chunk
+    (in both passes: recomputing beats an O(nnz) owner array); `start` is
+    the chunk's first nonzero, for owners by position (equal-nnz fences,
+    a partition file).  ``postprocess(binds_chunk)`` maps each chunk's
+    int32 indices before they are placed (the fence-local indices of a
+    grid or COARSE build).  With `out_dir` the outputs are ``binds.npy``
+    and ``bvals.npy`` memmaps under it, and the host holds
+    O(chunk + nbuckets).  `counts`, each bucket's occupancy when the
+    caller has it (a grid build does, deciding its fences), skips the
+    counting pass.
+    """
+    from splatt_tpu_torch.blocked import check_int32_dims
+
+    nmodes, nnz = inds.shape
+    if counts is None:
+        counts = np.zeros(nbuckets, dtype=np.int64)
+        for s in range(0, nnz, chunk):
+            e = min(nnz, s + chunk)
+            own = np.asarray(owner_fn(np.asarray(inds[:, s:e]), s),
+                             dtype=np.int64)
+            if own.min(initial=0) < 0 or own.max(initial=0) >= nbuckets:
+                raise ValueError(f"owner ids must lie in [0, {nbuckets})")
+            counts += np.bincount(own, minlength=nbuckets)
+            _drop_pages(inds, vals)
+    C = max(int(counts.max(initial=0)), 1)
+    binds, bvals = _outputs(out_dir, ("binds.npy", "bvals.npy"),
+                            ((nmodes, nbuckets, C), (nbuckets, C)),
+                            (np.int32, val_dtype))
+    cursor = np.zeros(nbuckets, dtype=np.int64)
+    win = _FlushWindow(binds, bvals)
+    for s in range(0, nnz, chunk):
+        e = min(nnz, s + chunk)
+        ichunk = np.asarray(inds[:, s:e])
+        own = np.asarray(owner_fn(ichunk, s), dtype=np.int64)
+        order = stable_argsort(own)
+        own_s = own[order]
+        ccounts = np.bincount(own_s, minlength=nbuckets)
+        # each (sorted) nonzero's slot in its bucket
+        offs = np.zeros(nbuckets + 1, dtype=np.int64)
+        np.cumsum(ccounts, out=offs[1:])
+        slot = cursor[own_s] + (np.arange(own_s.size) - offs[own_s])
+        if ichunk.size and int(ichunk.max()) >= 2**31 - 1:
+            check_int32_dims([int(ichunk.max()) + 1])
+        placed = ichunk[:, order].astype(np.int32)
+        if postprocess is not None:
+            placed = postprocess(placed)
+        binds[:, own_s, slot] = placed
+        bvals[own_s, slot] = np.asarray(vals[s:e])[order]
+        cursor += ccounts
+        if out_dir is not None:
+            _drop_pages(inds, vals)     # clean input pages: no writeback
+            win.wrote((e - s) * (nmodes * 4 + bvals.dtype.itemsize))
+    if out_dir is not None:
+        win.flush()
+    return binds, bvals, C, counts
+
+
+def streamed_blocked_buckets(binds: np.ndarray, bvals: np.ndarray,
+                             counts: np.ndarray, mode: int, local_dim: int,
+                             block: int, out_dir: Optional[str] = None,
+                             chunk: int = STREAM_CHUNK
+                             ) -> Tuple[np.ndarray, np.ndarray, np.ndarray,
+                                        int, int]:
+    """:func:`blocked_buckets` with host memory bounded by the chunk, for
+    (memmapped) buckets too large to sort in memory: the piece that keeps
+    the blocked engine on an out-of-core tensor (the reference runs
+    mttkrp_csf per rank at any scale, src/mpi/mpi_cpd.c:714).
+
+    Per bucket, a two-pass counting sort on the mode's row (keys in
+    [0, local_dim)): pass 1 counts the keys chunk by chunk, pass 2 moves
+    each chunk to its final positions.  It is stable, so the permutation
+    is :func:`blocked_buckets`' stable argsort bit for bit.  With
+    `out_dir` the outputs are ``linds.npy`` and ``lvals.npy`` memmaps
+    under it; input pages are dropped after every chunk, output pages
+    through a :class:`_FlushWindow`.  Returns what
+    :func:`blocked_buckets` returns, sentinel-padded tails included.
+    """
+    nmodes, nbuckets, C = binds.shape
+    block = max(128, min(block, ceil_to(max(C, 1), 128)))
+    nnz_pad = max(block, ceil_to(C, block))
+    nb = nnz_pad // block
+    out_i, out_v = _outputs(out_dir, ("linds.npy", "lvals.npy"),
+                            ((nmodes, nbuckets, nnz_pad),
+                             (nbuckets, nnz_pad)), (np.int32, bvals.dtype))
+    row_start = np.zeros((nbuckets, nb), dtype=np.int32)
+    span = 0
+    win = _FlushWindow(out_i, out_v)
+    row_bytes = nmodes * 4 + out_v.dtype.itemsize
+    for b in range(nbuckets):
+        n = int(counts[b])
+        hist = np.zeros(local_dim, dtype=np.int64)
+        for s in range(0, n, chunk):
+            e = min(n, s + chunk)
+            hist += np.bincount(np.asarray(binds[mode, b, s:e]),
+                                minlength=local_dim)
+            _drop_pages(binds)
+        offs = np.zeros(local_dim + 1, dtype=np.int64)
+        np.cumsum(hist, out=offs[1:])
+        cursor = np.zeros(local_dim, dtype=np.int64)
+        for s in range(0, n, chunk):
+            e = min(n, s + chunk)
+            keys = np.asarray(binds[mode, b, s:e])
+            order = stable_argsort(keys)
+            ks = keys[order]
+            ccounts = np.bincount(ks, minlength=local_dim)
+            coffs = np.zeros(local_dim + 1, dtype=np.int64)
+            np.cumsum(ccounts, out=coffs[1:])
+            # the stable rank: the key's offset, the earlier chunks'
+            # entries of the key, the rank among the chunk's equal keys
+            pos = offs[ks] + cursor[ks] + (np.arange(ks.size) - coffs[ks])
+            for m in range(nmodes):
+                out_i[m, b, pos] = np.asarray(binds[m, b, s:e])[order]
+            out_v[b, pos] = np.asarray(bvals[b, s:e])[order]
+            cursor += ccounts
+            _drop_pages(binds, bvals)
+            win.wrote((e - s) * row_bytes)
+        for s in range(n, nnz_pad, chunk):       # the sentinel tail
+            e = min(nnz_pad, s + chunk)
+            out_i[mode, b, s:e] = local_dim
+            win.wrote((e - s) * 4)
+        firsts = np.asarray(out_i[mode, b, 0::block])
+        lasts = np.asarray(out_i[mode, b, block - 1::block])
+        row_start[b] = firsts.astype(np.int32)
+        span = max(span, int((lasts - firsts).max(initial=0)) + 1)
+        win.flush()
+    if not (nbuckets > 0 and counts.size and int(counts.max()) > 0):
+        span = 1
+    seg_width = ceil_to(min(span, local_dim if local_dim > 0 else 1), 8)
+    return out_i, out_v, row_start, block, seg_width
 
 
 def auto_local_engine(tt, out_dir: Optional[str]) -> str:
@@ -170,17 +401,33 @@ def auto_local_engine(tt, out_dir: Optional[str]) -> str:
             else "blocked")
 
 
+def record_local_engine(engine: str, tt, out_dir: Optional[str]) -> dict:
+    """Record the per-rank engine a distributed CPD runs as a
+    ``local_engine`` event, beside ``out_of_core``: the scratch directory
+    its build memmaps under, or None for an in-memory build (a tensor the
+    driver relabeled in memory included).  Call it with the tensor the
+    build reads: the streamed builds run exactly when that tensor is
+    memmapped."""
+    from splatt_tpu_torch import resilience
+
+    return resilience.run_report().add(
+        "local_engine", engine=engine,
+        out_of_core=(out_dir if out_dir is not None and is_memmapped(tt.inds)
+                     else None))
+
+
 def build_bucket_layout(binds: np.ndarray, bvals: np.ndarray,
                         counts: np.ndarray, mode: int, local_dim: int,
-                        block: int):
-    """:func:`blocked_buckets`, the one dispatch point of every
-    decomposition's per-rank layouts.  Memmapped buckets need the JAX
-    package's chunked counting sort, which is not ported: they raise."""
+                        block: int, out_dir: Optional[str] = None,
+                        chunk: int = STREAM_CHUNK):
+    """The one dispatch point of every decomposition's per-rank layouts:
+    :func:`streamed_blocked_buckets` (its outputs under `out_dir`) for
+    memmapped buckets, which exist exactly when the scatter ran with an
+    ``out_dir``; :func:`blocked_buckets` for buckets in memory."""
     if is_memmapped(binds):
-        raise NotImplementedError(
-            "memmapped buckets need the out-of-core layout build "
-            "(streamed_blocked_buckets), not ported yet: ROADMAP.md queue "
-            "A item 3")
+        return streamed_blocked_buckets(binds, bvals, counts, mode,
+                                        local_dim, block, out_dir=out_dir,
+                                        chunk=chunk)
     return blocked_buckets(binds, bvals, counts, mode, local_dim, block)
 
 
@@ -194,16 +441,37 @@ def bucket_engine(seg_width: int, opts: Options) -> str:
             else "sorted_scatter")
 
 
-def place_buckets(binds: np.ndarray, bvals: np.ndarray, mesh, dtype
+def upload(arr: np.ndarray, dev, dtype=None,
+           chunk: int = STREAM_CHUNK) -> torch.Tensor:
+    """`arr` as a tensor on `dev` (in `dtype`, default its own).  An array
+    in memory goes in one copy; a memmapped one goes into a tensor
+    allocated on `dev` in chunks of at most `chunk` entries along its
+    last axis, each chunk read into host memory (a copy: the map may be
+    read-only), copied, and its pages dropped, so the host never holds
+    more than a chunk of it."""
+    if not is_memmapped(arr):
+        return torch.from_numpy(np.ascontiguousarray(arr)).to(dev, dtype)
+    if dtype is None:
+        dtype = torch.from_numpy(np.empty(0, dtype=arr.dtype)).dtype
+    out = torch.empty(arr.shape, device=dev, dtype=dtype)
+    n = arr.shape[-1]
+    for s in range(0, n, chunk):
+        e = min(n, s + chunk)
+        out[..., s:e].copy_(torch.from_numpy(np.array(arr[..., s:e])))
+        _drop_pages(arr)
+    return out
+
+
+def place_buckets(binds: np.ndarray, bvals: np.ndarray, mesh, dtype,
+                  chunk: int = STREAM_CHUNK
                   ) -> Tuple[List[torch.Tensor], List[torch.Tensor]]:
     """Bucket r of ``(nmodes, nbuckets, C)`` indices and ``(nbuckets, C)``
-    values on rank r's device, the values in `dtype`."""
+    values on rank r's device, the values in `dtype` (memmapped buckets
+    in chunks, :func:`upload`)."""
     inds, vals = [], []
     for r, dev in enumerate(mesh.devices):
-        inds.append(torch.from_numpy(
-            np.ascontiguousarray(binds[:, r])).to(dev))
-        vals.append(torch.from_numpy(
-            np.ascontiguousarray(bvals[r])).to(dev, dtype))
+        inds.append(upload(binds[:, r], dev, chunk=chunk))
+        vals.append(upload(bvals[r], dev, dtype, chunk=chunk))
     return inds, vals
 
 
@@ -234,8 +502,7 @@ class RankLayouts:
         ranks' devices: bucket r to rank r, values in `dtype`."""
         i, v, rs, block, seg_width = built
         inds, vals = place_buckets(i, v, mesh, dtype)
-        starts = [torch.from_numpy(np.ascontiguousarray(rs[r])).to(dev)
-                  for r, dev in enumerate(mesh.devices)]
+        starts = [upload(rs[r], dev) for r, dev in enumerate(mesh.devices)]
         return RankLayouts(tuple(inds), tuple(vals), tuple(starts),
                            tuple(int(c) for c in counts), int(block),
                            int(seg_width), path, int(sort_mode),

@@ -34,7 +34,9 @@ import torch
 from splatt_tpu_torch.config import (Options, Verbosity, acc_dtype,
                                      default_opts, resolve_dtype)
 from splatt_tpu_torch.kruskal import KruskalTensor
-from splatt_tpu_torch.parallel.common import (RankLayouts, allreduce,
+from splatt_tpu_torch.parallel.common import (STREAM_CHUNK, RankLayouts,
+                                              _drop_pages, _memmap_dir,
+                                              _subdir, allreduce,
                                               alloc_build_modes,
                                               auto_local_engine,
                                               balanced_relabel,
@@ -46,8 +48,10 @@ from splatt_tpu_torch.parallel.common import (RankLayouts, allreduce,
                                               imbalance_report, is_memmapped,
                                               mode_update_tail, no_phase,
                                               place_buckets,
+                                              record_local_engine,
                                               record_shard_imbalance,
                                               run_distributed_als,
+                                              streamed_bucket_scatter,
                                               wrap_profiled_step)
 from splatt_tpu_torch.parallel.mesh import (GridMesh, auto_grid, make_mesh,
                                             make_grid_mesh)
@@ -83,21 +87,23 @@ class GridDecomp:
     @staticmethod
     def build(tt, grid: Optional[Tuple[int, ...]] = None,
               n_devices: Optional[int] = None, val_dtype=np.float32,
-              balance: Optional[bool] = False) -> "GridDecomp":
+              balance: Optional[bool] = False,
+              streamed: Optional[bool] = None,
+              out_dir: Optional[str] = None,
+              chunk: int = STREAM_CHUNK) -> "GridDecomp":
         """≙ p_rearrange_medium (src/mpi/mpi_io.c:451-473) as a host
-        bucketing, in memory.
+        bucketing.
 
         `grid` defaults to :func:`auto_grid` over `n_devices` (default:
         the default mesh's rank count).  `balance`: nnz-balance the row
         fences by relabeling rows; None = when the equal-fence fill is
         below 0.5 and the relabeling improves it.  Every cell is padded
         to the fullest, so the fill is the sweep's memory and compute
-        efficiency.  A memmapped tensor needs the JAX package's streamed
-        build, which is not ported: it raises."""
-        if is_memmapped(tt.inds):
-            raise NotImplementedError(
-                "a memmapped tensor needs the streamed grid build, not "
-                "ported yet: ROADMAP.md queue A item 3")
+        efficiency.  `streamed` (None: when the tensor's indices are
+        memmapped) builds in chunked passes (:meth:`_build_streamed`),
+        the host holding O(chunk + cells); with `out_dir` the cells are
+        memmaps under it, so a tensor larger than the host's memory
+        decomposes end to end."""
         nmodes = tt.nmodes
         if grid is None:
             ndev = n_devices if n_devices is not None else make_mesh().ndev
@@ -109,6 +115,12 @@ class GridDecomp:
         dims_pad = tuple(ceil_to(max(d, g), g) for d, g in zip(tt.dims, grid))
         block_rows = tuple(dp // g for dp, g in zip(dims_pad, grid))
         ncells = int(np.prod(grid))
+        if streamed is None:
+            streamed = is_memmapped(tt.inds)
+        if streamed:
+            return GridDecomp._build_streamed(
+                tt, grid, dims_pad, block_rows, ncells, val_dtype, balance,
+                out_dir, chunk)
 
         def cells_of(inds_rel):
             cell = np.zeros(tt.nnz, dtype=np.int64)
@@ -149,6 +161,74 @@ class GridDecomp:
             inds_local=binds.reshape((nmodes, *grid, cell_nnz)),
             vals=vals.reshape((*grid, cell_nnz)), nnz=tt.nnz,
             fill=tt.nnz / max(ncells * cell_nnz, 1), cell_counts=counts,
+            relabels=relabels)
+
+    @staticmethod
+    def _build_streamed(tt, grid, dims_pad, block_rows, ncells, val_dtype,
+                        balance, out_dir, chunk) -> "GridDecomp":
+        """:meth:`build` in chunked passes, the same decomposition: one
+        pass counts the cells (two more, a histogram and a recount, when
+        balancing is considered), one scatters
+        (:func:`streamed_bucket_scatter`); no O(nnz) array is made but
+        the cells themselves."""
+        nmodes = tt.nmodes
+        nnz = tt.nnz
+
+        def cells_of_chunk(ic, rl):
+            cell = np.zeros(ic.shape[1], dtype=np.int64)
+            for m in range(nmodes):
+                col = rl[m][ic[m]] if rl and rl[m] is not None else ic[m]
+                cell = cell * grid[m] + col // block_rows[m]
+            return cell
+
+        def counts_for(rl):
+            c = np.zeros(ncells, dtype=np.int64)
+            for s in range(0, nnz, chunk):
+                ic = np.asarray(tt.inds[:, s:min(nnz, s + chunk)])
+                c += np.bincount(cells_of_chunk(ic, rl), minlength=ncells)
+                _drop_pages(tt.inds)
+            return c
+
+        def fill_of(counts):
+            return (nnz / max(ncells * int(counts.max()), 1)
+                    if nnz else 1.0)
+
+        def hist_of(m):
+            h = np.zeros(tt.dims[m], dtype=np.int64)
+            for s in range(0, nnz, chunk):
+                h += np.bincount(np.asarray(tt.inds[m, s:min(nnz, s + chunk)]),
+                                 minlength=tt.dims[m])
+                _drop_pages(tt.inds)
+            return h
+
+        relabels = None
+        counts = counts_for(None)
+        fill0 = fill_of(counts)
+        if balance or (balance is None and fill0 < 0.5):
+            cand = [balanced_relabel(hist_of(m), grid[m], block_rows[m])
+                    if grid[m] > 1 else None for m in range(nmodes)]
+            counts_b = counts_for(cand)
+            if balance or fill_of(counts_b) > fill0:
+                relabels, counts = cand, counts_b
+
+        def postprocess(placed):
+            for m in range(nmodes):
+                rl = relabels[m] if relabels is not None else None
+                col = rl[placed[m]] if rl is not None else placed[m]
+                placed[m] = col % block_rows[m]
+            return placed
+
+        # the counts were taken deciding the fences: one more pass
+        binds, bvals, cell_nnz, counts = streamed_bucket_scatter(
+            tt.inds, tt.vals, lambda ic, s: cells_of_chunk(ic, relabels),
+            ncells, val_dtype, chunk=chunk, out_dir=out_dir,
+            postprocess=postprocess, counts=counts)
+        return GridDecomp(
+            grid=grid, dims_pad=dims_pad, block_rows=block_rows,
+            cell_nnz=cell_nnz,
+            inds_local=binds.reshape((nmodes, *grid, cell_nnz)),
+            vals=bvals.reshape((*grid, cell_nnz)), nnz=nnz,
+            fill=nnz / max(ncells * cell_nnz, 1), cell_counts=counts,
             relabels=relabels)
 
     def make_mesh(self, devices: Optional[Sequence] = None,
@@ -198,21 +278,39 @@ class GridDecomp:
         padded factor (for run_distributed_als)."""
         return None if self.relabels is None else list(self.relabels)
 
-    def build_cell_layouts(self, opts: Options) -> "CellLayouts":
+    def build_cell_layouts(self, opts: Options,
+                           out_dir: Optional[str] = None,
+                           chunk: int = STREAM_CHUNK) -> "CellLayouts":
         """Per-cell sorted and blocked layouts, so every rank runs the
         single-card blocked MTTKRP engine over its cell (≙ each rank
         building CSF over its local nonzeros, mpi_cpd.c:714).
         ``opts.block_alloc`` sets the layouts built, as on one card: a
-        mode without its own runs the ``scatter`` path on the first."""
+        mode without its own runs the ``scatter`` path on the first.
+
+        Memmapped cells (a streamed build with an ``out_dir``) sort in
+        chunked passes, mode m's layouts memmapped under
+        ``out_dir/cells_m<m>`` (default: beside the cells' own files)."""
         nmodes = self.nmodes
         binds = self.inds_local.reshape(nmodes, self.ncells, -1)
         bvals = self.vals.reshape(self.ncells, -1)
+        if out_dir is None and is_memmapped(binds):
+            out_dir = _memmap_dir(binds)
         build_modes = alloc_build_modes(list(self.block_rows), opts)
+        if out_dir is not None and opts.verbosity >= Verbosity.LOW:
+            # another sorted copy per build mode lands on disk: say where
+            # and how large before writing it
+            per_mode = (binds.size * binds.itemsize
+                        + bvals.size * bvals.itemsize)
+            print(f"  cell layouts: memmapped under {out_dir} "
+                  f"(cells_m<mode>/, ~{per_mode / 1e9:.2f} GB per build "
+                  f"mode x {len(build_modes)} mode(s)); not cleaned up "
+                  f"automatically")
         layouts = []
         for m in build_modes:
             i, v, rs, blk, S = build_bucket_layout(
                 binds, bvals, self.cell_counts, m, self.block_rows[m],
-                opts.nnz_block)
+                opts.nnz_block, chunk=chunk,
+                out_dir=_subdir(out_dir, f"cells_m{m}"))
             layouts.append(dict(
                 inds=i.reshape((nmodes, *self.grid, -1)),
                 vals=v.reshape((*self.grid, -1)),
@@ -333,6 +431,7 @@ def grid_cpd_als(tt, rank: int, grid: Optional[Tuple[int, ...]] = None,
                  mesh=None, opts: Optional[Options] = None, init=None,
                  relabel: Optional[str] = None,
                  local_engine: Optional[str] = None,
+                 out_dir: Optional[str] = None,
                  device=None, checkpoint_path: Optional[str] = None,
                  checkpoint_every: int = 10,
                  resume: bool = True) -> KruskalTensor:
@@ -344,7 +443,12 @@ def grid_cpd_als(tt, rank: int, grid: Optional[Tuple[int, ...]] = None,
     `local_engine`: "blocked" (the default, :func:`auto_local_engine`)
     runs the single-card blocked engine in every cell over per-cell
     sorted layouts (≙ mttkrp_csf per rank, mpi_cpd.c:714); "stream"
-    keeps the gather product, the oracle.  `relabel`: None balances the
+    keeps the gather product, the oracle.  A memmapped tensor keeps the
+    blocked engine when `out_dir` is given: the decomposition builds in
+    chunked passes into ``out_dir/scatter`` and the cell layouts by the
+    chunked counting sort into ``out_dir/cells_m<m>``, so the host's
+    memory stays bounded at any scale; without it the stream engine
+    runs.  `relabel`: None balances the
     fences when the equal fences fill poorly, "balanced" always (the
     nnz-balanced fences of :func:`balanced_relabel`); a
     ``reorder.PERM_TYPES`` entry ("random", "graph", "hgraph",
@@ -389,7 +493,8 @@ def grid_cpd_als(tt, rank: int, grid: Optional[Tuple[int, ...]] = None,
                 else make_mesh(device=device).devices)
         grid = auto_grid(len(pool), tt.dims)
     decomp = GridDecomp.build(tt, grid=grid, val_dtype=tt.vals.dtype,
-                              balance=balance)
+                              balance=balance,
+                              out_dir=_subdir(out_dir, "scatter"))
     mesh = mesh or decomp.make_mesh(devices=devices, device=device)
     xnormsq = tt.normsq()
 
@@ -410,18 +515,19 @@ def grid_cpd_als(tt, rank: int, grid: Optional[Tuple[int, ...]] = None,
             print(line)
 
     if local_engine is None:
-        local_engine = auto_local_engine(tt, None)
+        local_engine = auto_local_engine(tt, out_dir)
+    if local_engine not in ("blocked", "stream"):
+        raise ValueError(f"unknown local_engine {local_engine!r}")
+    record_local_engine(local_engine, tt, out_dir)
     cells = None
     if local_engine == "blocked":
         # the blocked sweep never reads the stream cells: no O(nnz) copy
         # of them goes to the ranks
-        cells = decomp.build_cell_layouts(opts).device_put(mesh, tt.nmodes,
-                                                           dtype)
+        cells = decomp.build_cell_layouts(opts, out_dir=out_dir).device_put(
+            mesh, tt.nmodes, dtype)
         inds = vals = None
-    elif local_engine == "stream":
-        inds, vals = decomp.device_put(mesh, dtype)
     else:
-        raise ValueError(f"unknown local_engine {local_engine!r}")
+        inds, vals = decomp.device_put(mesh, dtype)
     if init is None:
         from splatt_tpu_torch.cpd import init_factors
 

@@ -45,31 +45,61 @@ from splatt_tpu_torch.config import (CommPattern, Options, Verbosity,
                                      resolve_comm_pattern, resolve_dtype)
 from splatt_tpu_torch import trace
 from splatt_tpu_torch.kruskal import KruskalTensor
-from splatt_tpu_torch.parallel.common import (RankLayouts, allreduce,
+from splatt_tpu_torch.parallel.common import (STREAM_CHUNK, RankLayouts,
+                                              _subdir, allreduce,
                                               alloc_build_modes,
                                               bucket_engine, bucket_scatter,
                                               build_bucket_layout, ceil_to,
                                               comm_volume_report,
                                               dist_phase_report,
                                               engine_fallback, fit_tail,
-                                              imbalance_report,
+                                              imbalance_report, is_memmapped,
                                               mode_update_tail, no_phase,
                                               rank_layouts_by_mode,
                                               run_distributed_als,
-                                              wrap_profiled_step)
+                                              streamed_bucket_scatter,
+                                              upload, wrap_profiled_step)
 from splatt_tpu_torch.parallel.mesh import make_mesh, single_axis_of
 
 
 def shard_nnz_host(tt, ndev: int, val_dtype=np.float64,
-                   partition: Optional[np.ndarray] = None
+                   partition: Optional[np.ndarray] = None,
+                   streamed: Optional[bool] = None,
+                   out_dir: Optional[str] = None,
+                   chunk: int = STREAM_CHUNK
                    ) -> Tuple[np.ndarray, np.ndarray]:
     """The padded (nmodes, nnz_pad) int32 indices and (nnz_pad,) values
     of :func:`shard_nnz`, on the host: equal contiguous chunks, or
     nonzero n in bucket ``partition[n]`` with the buckets padded to the
-    largest.  Pads point at row 0 with value 0."""
+    largest.  Pads point at row 0 with value 0.
+
+    `streamed` (None: when the tensor's indices are memmapped) buckets in
+    chunked passes (:func:`streamed_bucket_scatter`), so the host holds
+    O(chunk); the partition may itself be a memmap.  With `out_dir` the
+    outputs are memmaps under it: a tensor larger than the host's memory
+    shards end to end (≙ src/mpi/mpi_io.c:587-648)."""
     from splatt_tpu_torch.blocked import check_int32_dims
 
     check_int32_dims(tt.dims)
+    if streamed is None:
+        streamed = is_memmapped(tt.inds)
+    if streamed:
+        if partition is None:
+            csize = max(ndev, ceil_to(tt.nnz, ndev)) // ndev
+
+            def owner_fn(ic, s):
+                return np.minimum(
+                    (s + np.arange(ic.shape[1], dtype=np.int64)) // csize,
+                    ndev - 1)
+        else:
+            def owner_fn(ic, s):
+                return np.asarray(partition[s:s + ic.shape[1]],
+                                  dtype=np.int64)
+
+        binds, bvals, _, _ = streamed_bucket_scatter(
+            tt.inds, tt.vals, owner_fn, ndev, val_dtype, chunk=chunk,
+            out_dir=out_dir)
+        return binds.reshape(tt.nmodes, -1), bvals.reshape(-1)
     if partition is None:
         nnz_pad = max(ndev, ceil_to(tt.nnz, ndev))
         inds = np.zeros((tt.nmodes, nnz_pad), dtype=np.int32)
@@ -84,26 +114,30 @@ def shard_nnz_host(tt, ndev: int, val_dtype=np.float64,
 
 
 def shard_nnz(tt, mesh, dtype=torch.float32,
-              partition: Optional[np.ndarray] = None
+              partition: Optional[np.ndarray] = None,
+              out_dir: Optional[str] = None
               ) -> Tuple[List[torch.Tensor], List[torch.Tensor]]:
     """Each rank's (nmodes, nnz_l) int32 indices and (nnz_l,) values in
     `dtype`, on its device (≙ mpi_simple_distribute, or p_rearrange_fine
-    with a user partition, src/mpi/mpi_io.c)."""
-    inds, vals = shard_nnz_host(tt, mesh.ndev, partition=partition)
+    with a user partition, src/mpi/mpi_io.c).  A memmapped tensor shards
+    in chunked passes, its shards memmapped under `out_dir` when given
+    (:func:`shard_nnz_host`), and goes to the ranks in chunks."""
+    inds, vals = shard_nnz_host(tt, mesh.ndev, val_dtype=tt.vals.dtype,
+                                partition=partition, out_dir=out_dir)
     per = inds.shape[1] // mesh.ndev
     out_i, out_v = [], []
     for d, dev in enumerate(mesh.devices):
         lo, hi = d * per, (d + 1) * per
-        out_i.append(torch.from_numpy(
-            np.ascontiguousarray(inds[:, lo:hi])).to(dev))
-        out_v.append(torch.from_numpy(vals[lo:hi]).to(dev, dtype))
+        out_i.append(upload(inds[:, lo:hi], dev))
+        out_v.append(upload(vals[lo:hi], dev, dtype))
     return out_i, out_v
 
 
 def shard_blocked_layouts(tt, mesh, opts: Options, dims_pad: Tuple[int, ...],
                           dtype=torch.float32,
-                          partition: Optional[np.ndarray] = None
-                          ) -> List[RankLayouts]:
+                          partition: Optional[np.ndarray] = None,
+                          out_dir: Optional[str] = None,
+                          chunk: int = STREAM_CHUNK) -> List[RankLayouts]:
     """Per-rank sorted and blocked layouts, so each rank runs the
     single-card blocked MTTKRP engine over its own nonzeros (≙ each MPI
     rank building CSF over its local nonzeros, mpi_cpd.c:714), built
@@ -114,18 +148,36 @@ def shard_blocked_layouts(tt, mesh, opts: Options, dims_pad: Tuple[int, ...],
 
     ``opts.block_alloc`` sets the layouts built, as on one card
     (:func:`alloc_build_modes`); a mode without its own shares the first
-    by reference on the ``scatter`` path.  Returns one
+    by reference on the ``scatter`` path.  A memmapped tensor builds in
+    chunked passes (the bucket scatter and the counting sort), with the
+    buckets under ``out_dir/shards`` and mode m's layouts under
+    ``out_dir/blocked_m<m>`` when `out_dir` is given.  Returns one
     :class:`RankLayouts` per mode."""
     ndev = mesh.ndev
     fence = max(ndev, ceil_to(tt.nnz, ndev)) // ndev
-    owner = (np.arange(tt.nnz, dtype=np.int64) // fence
-             if partition is None else np.asarray(partition, dtype=np.int64))
-    binds, bvals, _, counts = bucket_scatter(tt.inds, tt.vals, owner, ndev,
-                                             tt.vals.dtype)
+    if is_memmapped(tt.inds):
+        if partition is None:
+            def owner_fn(ic, s):
+                return np.arange(s, s + ic.shape[1], dtype=np.int64) // fence
+        else:
+            def owner_fn(ic, s):
+                return np.asarray(partition[s:s + ic.shape[1]],
+                                  dtype=np.int64)
+
+        binds, bvals, _, counts = streamed_bucket_scatter(
+            tt.inds, tt.vals, owner_fn, ndev, tt.vals.dtype, chunk=chunk,
+            out_dir=_subdir(out_dir, "shards"))
+    else:
+        owner = (np.arange(tt.nnz, dtype=np.int64) // fence
+                 if partition is None
+                 else np.asarray(partition, dtype=np.int64))
+        binds, bvals, _, counts = bucket_scatter(tt.inds, tt.vals, owner,
+                                                 ndev, tt.vals.dtype)
     built = {}
     for m in alloc_build_modes(dims_pad, opts):
         host = build_bucket_layout(binds, bvals, counts, m, dims_pad[m],
-                                   opts.nnz_block)
+                                   opts.nnz_block, chunk=chunk,
+                                   out_dir=_subdir(out_dir, f"blocked_m{m}"))
         built[m] = RankLayouts.place(host, counts,
                                      bucket_engine(host[4], opts), m,
                                      dims_pad[m], mesh, dtype)
@@ -590,6 +642,7 @@ def sharded_cpd_als(tt, rank: int, mesh=None,
                     partition: Optional[np.ndarray] = None,
                     row_distribute: Optional[str] = None,
                     local_engine: Optional[str] = None,
+                    out_dir: Optional[str] = None,
                     measure_overlap: Optional[bool] = None,
                     device=None, checkpoint_path: Optional[str] = None,
                     checkpoint_every: int = 10,
@@ -614,7 +667,11 @@ def sharded_cpd_als(tt, rank: int, mesh=None,
     single-card engine chain over each rank's sorted layouts
     (:func:`shard_blocked_layouts`, built once per run; the stream arrays
     are then never copied to the ranks); "stream" (the ring patterns'
-    default and only engine) the gather product per rank.
+    default and only engine) the gather product per rank.  A memmapped
+    tensor keeps the blocked engine when `out_dir` is given: the shards
+    and the per-rank sorts build in chunked passes, memmapped under
+    `out_dir`, so the host's memory stays bounded at any scale; without
+    it the stream engine runs (its shards streamed in memory).
 
     At ``Verbosity.HIGH`` outside the ring patterns the profiled sweep
     (:func:`make_sharded_profiled_sweep`) runs and the phase table is
@@ -624,6 +681,7 @@ def sharded_cpd_als(tt, rank: int, mesh=None,
     """
     from splatt_tpu_torch import resilience
     from splatt_tpu_torch.parallel.common import (auto_local_engine,
+                                                  record_local_engine,
                                                   record_shard_imbalance,
                                                   relabel_tensor)
 
@@ -666,14 +724,15 @@ def sharded_cpd_als(tt, rank: int, mesh=None,
     chain = comm_chain(comm, mesh)
     ring_family = chain[0] != "all2all"
     if local_engine is None:
-        local_engine = "stream" if ring_family else auto_local_engine(tt,
-                                                                      None)
+        local_engine = ("stream" if ring_family
+                        else auto_local_engine(tt, out_dir))
     elif local_engine == "blocked" and ring_family:
         raise ValueError(f"local_engine='blocked' is not supported with "
                          f"the {comm.value} (ring) comm pattern; use "
                          f"ALL2ALL or local_engine='stream'")
     if local_engine not in ("blocked", "stream"):
         raise ValueError(f"unknown local_engine {local_engine!r}")
+    record_local_engine(local_engine, tt, out_dir)
     if "async_ring" in chain and mesh.is_cuda:
         from splatt_tpu_torch.parallel.ring_kernels import prepare
 
@@ -683,10 +742,11 @@ def sharded_cpd_als(tt, rank: int, mesh=None,
         # the blocked sweep never reads the stream arrays: no O(nnz)
         # copy of them goes to the ranks
         cells = shard_blocked_layouts(tt, mesh, opts, dims_pad, dtype=dtype,
-                                      partition=partition)
+                                      partition=partition, out_dir=out_dir)
         inds = vals = None
     else:
-        inds, vals = shard_nnz(tt, mesh, dtype=dtype, partition=partition)
+        inds, vals = shard_nnz(tt, mesh, dtype=dtype, partition=partition,
+                               out_dir=out_dir)
     plans = None
     if "async_ring" in chain:
         # the ring kernels' id-sorted buckets of each mode's ids, shared

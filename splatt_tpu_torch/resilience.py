@@ -30,7 +30,7 @@ ALS drivers need).
   slicing) and ``reorder_fallback`` (a reorder degraded to identity
   order), ``layout_imbalance`` (the achieved balance of a built layout or
   of a distributed sharding), and the distributed path's
-  ``comm_fallback`` (a comm strategy degraded down its chain) and
+  ``local_engine`` (the per-rank engine a run takes), ``comm_fallback`` (a comm strategy degraded down its chain) and
   ``ring_overlap`` (a ring sweep's exchange time hidden under compute);
   the guarded drivers' ``health_nonfinite``, ``health_rollback``,
   ``health_degraded`` and ``checkpoint_recovery``, the watchdog's
@@ -278,6 +278,10 @@ class RunReport:
                              f": max/mean {worst} "
                              f"(seg_width {e.get('seg_width', '-')}, "
                              f"work x{e.get('work_amp', '-')}/nnz)")
+        for e in self.events("local_engine"):
+            lines.append(f"  per-rank engine: {e['engine']}"
+                         + (f", out of core under {e['out_of_core']}"
+                            if e.get("out_of_core") else ""))
         for e in self.events("comm_fallback"):
             lines.append(f"  comm engine {e['strategy']} degraded to "
                          f"{e['fallback_to']} ({e['failure_class']}: "
@@ -421,6 +425,8 @@ RUN_REPORT_EVENTS = {
     "reorder_fallback": "a reorder degraded to identity order",
     "layout_imbalance": "the achieved balance of a built layout or a "
                         "distributed sharding",
+    "local_engine": "the per-rank MTTKRP engine a distributed CPD runs "
+                    "and the scratch directory its build memmaps under",
     "comm_fallback": "a comm strategy degraded down its chain",
     "ring_overlap": "a ring sweep's exchange time hidden under compute",
     "trace_written": "a Chrome trace-event export was written, or "

@@ -414,9 +414,19 @@ def test_auto_local_engine_and_bucket_engine(tmp_path):
     assert common.auto_local_engine(tm, None) == "stream"
     assert common.auto_local_engine(tm, str(tmp_path)) == "blocked"
     assert jcommon.auto_local_engine(tm, None) == "stream"
-    with pytest.raises(NotImplementedError, match="queue A item 3"):
-        common.build_bucket_layout(mm[None], np.zeros((1, 1)),
-                                   np.zeros(1), 0, 4, 128)
+    # memmapped buckets take the streamed counting sort, bit for bit the
+    # in-memory build's layouts
+    binds, bvals, _, counts = common.bucket_scatter(
+        tt.inds, tt.vals, tt.inds[0] % 2, 2, np.float64)
+    mb = np.lib.format.open_memmap(str(tmp_path / "b.npy"), mode="w+",
+                                   dtype=np.int32, shape=binds.shape)
+    mb[:] = binds
+    got = common.build_bucket_layout(mb, bvals, counts, 1, tt.dims[1], 128,
+                                     chunk=97)
+    want = common.blocked_buckets(binds, bvals, counts, 1, tt.dims[1], 128)
+    for a, b in zip(got[:3], want[:3]):
+        np.testing.assert_array_equal(a, b)
+    assert got[3:] == want[3:]
     opts = _opts()
     assert common.bucket_engine(opts.onehot_cap, opts) == "sorted_onehot"
     assert common.bucket_engine(opts.onehot_cap + 8, opts) == \
@@ -494,8 +504,9 @@ def test_dispatch_medium_and_coarse(decomp):
 
 def test_unported_relabels_and_memmaps_raise(tmp_path):
     # a reorder.py relabel runs now (it raised until reorder.py was
-    # ported) and gives the JAX package's result; the memmapped buckets
-    # still raise
+    # ported) and gives the JAX package's result; so does a memmapped
+    # tensor (it raised until the streamed builds were ported), with the
+    # in-memory build's arrays
     jt, tt = _tensor()
     init = _init(tt.dims, rank=3)
     got = grid_cpd_als(tt, 3, grid=(2, 1, 1), opts=_opts(iters=1),
@@ -507,10 +518,14 @@ def test_unported_relabels_and_memmaps_raise(tmp_path):
     mm[:] = tt.inds
     tm = tcoo.SparseTensor(tt.inds, tt.vals, tt.dims)
     tm.inds = mm
-    with pytest.raises(NotImplementedError, match="queue A item 3"):
-        GridDecomp.build(tm, grid=(2, 1, 1))
-    with pytest.raises(NotImplementedError, match="queue A item 3"):
-        _bucket_by_mode(tm, 0, 2, np.float64)
+    got, want = (GridDecomp.build(tm, grid=(2, 1, 1)),
+                 GridDecomp.build(tt, grid=(2, 1, 1)))
+    np.testing.assert_array_equal(got.inds_local, want.inds_local)
+    np.testing.assert_array_equal(got.vals, want.vals)
+    np.testing.assert_array_equal(got.cell_counts, want.cell_counts)
+    for a, b in zip(_bucket_by_mode(tm, 0, 2, np.float64),
+                    _bucket_by_mode(tt, 0, 2, np.float64)):
+        np.testing.assert_array_equal(a, b)
 
 
 # -- faults ------------------------------------------------------------------

@@ -975,6 +975,75 @@ def test_cuda_blocked_decomposition_cpd(decomp):
     resilience.run_report().clear()
 
 
+@pytest.mark.gpu
+def test_cuda_out_of_core_grid_cpd(tmp_path):
+    """A memmapped .bin through grid_cpd_als with a scratch directory on
+    the card: the cells and their sorted layouts build in chunked passes
+    into memmaps under it and go to the card in chunks; fused_t serves
+    each sorted mode of each rank (sorted modes x ranks x iterations
+    launches, fallback off, no demotion), the fits within 1e-4 of the
+    in-memory run's, and the driver records the engine and the scratch
+    directory.  The host engine (impl="native") and its plan refuse the
+    card's tensors."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    import glob
+    import os
+
+    from splatt_tpu_torch import resilience
+    from splatt_tpu_torch.config import Options, Verbosity, default_opts
+    from splatt_tpu_torch.io import load_memmap, save
+    from splatt_tpu_torch.ops.mttkrp import mttkrp, plan_mttkrp
+    from splatt_tpu_torch.parallel import grid_cpd_als
+    from splatt_tpu_torch.parallel.common import (alloc_build_modes,
+                                                  is_memmapped)
+
+    rng = np.random.default_rng(23)
+    dims, rank, iters, nnz = (120, 90, 150), 16, 3, 20000
+    X = SparseTensor(np.stack([rng.integers(0, d, size=nnz) for d in dims]),
+                     rng.random(nnz) + 0.1, dims).deduplicate()
+    path = str(tmp_path / "x.bin")
+    save(X, path)
+    mm = load_memmap(path)
+    assert is_memmapped(mm.inds)
+    init = [rng.random((d, rank)) for d in dims]
+    grid = (2, 2, 1)
+
+    def run(tt, out_dir):
+        resilience.reset_demotions()
+        kernels.reset_launches()
+        out = grid_cpd_als(tt, rank, grid=grid, device="cuda", init=init,
+                           out_dir=out_dir,
+                           opts=Options(max_iterations=iters, tolerance=0.0,
+                                        verbosity=Verbosity.NONE,
+                                        engine_fallback=False))
+        torch.cuda.synchronize()
+        assert resilience.demotions() == []
+        return out, kernels.fused_mttkrp_t.launches
+
+    scratch = str(tmp_path / "scratch")
+    resilience.run_report().clear()
+    ooc, launches = run(mm, scratch)
+    (ev,) = resilience.run_report().events("local_engine")
+    assert (ev["engine"], ev["out_of_core"]) == ("blocked", scratch)
+    nsorted = len(alloc_build_modes([-(-d // g) for d, g in zip(dims, grid)],
+                                    default_opts()))
+    assert launches == nsorted * 4 * iters
+    assert glob.glob(os.path.join(scratch, "cells_m*", "linds.npy"))
+    ram, ram_launches = run(X, None)
+    assert ram_launches == launches
+    assert max(abs(a - b) for a, b in zip(ooc.fits, ram.fits)) <= 1e-4
+
+    from splatt_tpu_torch.blocked import BlockedSparse
+
+    bs = BlockedSparse.from_coo(X, Options(), device="cuda")
+    facs = [torch.rand(d, 4, device="cuda") for d in dims]
+    for call in (mttkrp, plan_mttkrp):
+        with pytest.raises(ValueError, match="CPU tensors only"):
+            call(bs, facs, 0, impl="native")
+    resilience.run_report().clear()
+
+
 def _balanced_tensor(rng, block):
     """Zipf-skewed modes and one slice of mode 0 holding three blocks'
     worth of nonzeros and more, so its balanced layout splits that fiber

@@ -284,6 +284,44 @@ Phases, each fatal on failure:
    without a decomposition exits non-zero.  ``--ooc`` runs the set-up,
    phase 3's tensor and phase 16, and prints ``fused_mttkrp_t``'s entry
    from it.
+17. the batched CPD and the warm update (``--batch`` runs the set-up and
+   this phase alone): 64 tenants of one shape regime (``m3:d10-10-10:
+   z18``: dims uniform in [520, 1000], 140k-250k uniform draws, values
+   uniform [0, 1), slot i from seed 17 + i), stacked by ``batch_compile``
+   (host build seconds, device bytes), rank 32, f32, 10 iterations,
+   tolerance 0, the health sentinel on (3 retries), fallback off.  Gates:
+   the batched MTTKRP of every mode on 4 lanes against ``mttkrp_stream``
+   of the slot (1e-4 of max|plain|); ``sym_eig`` over each mode's stack of
+   64 matrices, one launch, against its plain version (1e-5 of max|w|;
+   mode 0's whole stack, 4 lanes of the others) and bit for bit against
+   64 single launches, timed beside them, its bound and batched
+   ``torch.linalg.eigh``; ``cpd_als_batched`` with ``compiles`` 1, one
+   host sync per checked iteration (a 3-iteration run's less a
+   2-iteration run's), one ``sym_eig`` launch per mode per sweep, finite
+   fits, results cropped to the true dims, its ms per iteration and per
+   tensor, each phase of one sweep timed alone and frozen lanes bit-exact
+   through a sweep; the first 8 slots through the sequential ``cpd_als``
+   from the same seeds (factors and λ within 1e-3 of max|.|, fits within
+   1e-6, beside a control from another seed; its ms per tensor per
+   iteration beside); bf16 storage (factors bf16, each fit within 3% of
+   its f32 fit); the ``cpd.batch.sweep:nan:iter=2`` drill (slot 0 rolls back
+   alone, its events name slot 0 alone, neighbours within 1e-5 of
+   max|.| of the clean run, or within four times two clean runs'
+   difference where that is larger: the card's ``index_add_`` is atomic, so this is
+   a tolerance, not bit equality).  Then the update path on phase 6's
+   2M-nonzero tensor: a rank-16 base CPD of 20 iterations, a 1% delta
+   merged by concatenation and ``deduplicate``, ``refresh_touched_rows``
+   and 5 warm sweeps on ``BlockedSparse.compile`` of the merged tensor
+   (ALLMODE, tolerance 0, fallback off) with ``fused_mttkrp_t`` launched
+   3 + 15 times and no demotion, the refreshed factors within 1e-4 of
+   max|plain| of the same refresh on a CPU copy and their untouched rows
+   bit for bit the base model's, the warm fit within 1e-3 and within 25%
+   of a 20-iteration from-scratch refit's.
+   The drill also runs under ``torch.use_deterministic_algorithms``,
+   where each neighbour must equal the clean run's bit for bit; and the
+   host syncs of a checked iteration are the ``cudaStreamSynchronize``
+   calls ``torch.profiler`` records (1), printed beside its device-to-host
+   copies and the warn mode's count.
 
 The line before the last is the ``{"kernels": [...]}`` record (the nine
 TPU kernels' counterparts and ``sym_eig``); the last is
@@ -292,7 +330,9 @@ phases 1-3's set-up and phase 11 alone (for a call with several cards)
 and prints the two ring kernels' entries; ``--decomp`` runs the set-up
 and phase 12 alone and prints ``fused_mttkrp_t``'s entry from phase 12;
 ``--dense`` runs phases 1-2 and phase 10 alone and prints
-``fused_dense``'s; ``--balance`` runs the set-up and phase 13 and prints
+``fused_dense``'s; ``--batch`` runs phases 1-2 and phase 17 and prints
+``fused_mttkrp_t``'s entry on the update path's layouts and ``sym_eig``'s
+over the batch; ``--balance`` runs the set-up and phase 13 and prints
 ``fused_mttkrp_t``'s and ``fused_mttkrp_v2``'s entries from it.  The line
 ``[total]`` gives the script's seconds.  ``--gather`` runs the
 set-up, the 20M-nonzero layouts, phase 3, phase 6's ``fused_mttkrp_tg``
@@ -5464,6 +5504,588 @@ def _ooc_row(ooc: dict) -> dict:
         f"iterations", status=WALK_STATUS, phase16=_ooc_summary(ooc))
 
 
+# -- phase 17: the batched CPD and the warm update pre-pass --------------------
+
+#: phase 17's batch: the service layer's tenant mix at a fleet's size, K
+#: slots of one shape regime (m3:d10-10-10:z18): dims uniform in
+#: [BATCH_DIM_LO, BATCH_DIM_HI], BATCH_DRAWS uniform draws, values
+#: uniform [0, 1), slot i from seed BATCH_SEED + i
+BATCH_K = 64
+BATCH_DIM_LO, BATCH_DIM_HI = 520, 1000
+BATCH_DRAWS = (140_000, 250_000)
+BATCH_SEED = 17
+BATCH_RANK = 32
+BATCH_ITERS = 10
+BATCH_RETRIES = 3
+#: the lanes whose batched MTTKRP is held to mttkrp_stream of the slot
+BATCH_LANES = (0, 21, 42, 63)
+#: the slots run again through the sequential cpd_als
+BATCH_SEQ = 8
+#: the sequential cpd_als against the batch's slot (f32, another
+#: summation order): factors and λ within BATCH_SEQ_REL of max|seq|, fits
+#: within BATCH_SEQ_FIT_TOL (fits of this batch are ~4e-4, computed as
+#: 1 - ‖X - Z‖/‖X‖ in f32, so 1e-6 is ~16 of f32's steps near 1); the
+#: control is slot 0 from another seed (BATCH_SEQ_CONTROL_SEED), read
+#: beside the gate to show that it can fail
+BATCH_SEQ_REL = 1e-3
+BATCH_SEQ_FIT_TOL = 1e-6
+BATCH_SEQ_CONTROL_SEED = 1000
+#: bf16 storage against f32: each slot's fit within this share of its f32
+#: fit (≙ tests/test_batched.py's 0.03, taken relative here: the fits are
+#: ~4e-4, far below an absolute 0.03)
+BATCH_BF16_FIT_GAP = 0.03
+#: the NaN drill's neighbours against the clean run, relative to max|.|:
+#: on the card the atomic index_add_ sums in a run-dependent order, so
+#: two clean runs already differ, and on this batch (fits ~4e-4, a CPD
+#: of uniform noise) ten sweeps amplify that past 1e-5; the gate is the
+#: larger of this and four times two clean runs' difference (a drawn
+#: noise, not a bound), and the drill runs again under deterministic
+#: algorithms, where it is bit for bit
+BATCH_DRILL_TOL = 1e-5
+#: sym_eig over the stack against its plain version (phase 5's gate)
+BATCH_EIG_TOL = 1e-5
+#: the update path on phase 6's 2M-nonzero tensor (seed 5): the base CPD
+#: and the from-scratch refit take UPDATE_ITERS, the warm run
+#: UPDATE_SWEEPS (25% of them, docs/batched.md), rank UPDATE_RANK; the
+#: delta is UPDATE_DELTA of the tensor's nonzeros, new draws of the same
+#: generator (seed UPDATE_DELTA_SEED), merged by concatenation and
+#: deduplicate
+UPDATE_RANK = 16
+UPDATE_ITERS = 20
+UPDATE_SWEEPS = 5
+UPDATE_DELTA = 0.01
+UPDATE_DELTA_SEED = 99
+#: the warm fit against the refit's: within UPDATE_FIT_TOL (the doc's
+#: promise) and within UPDATE_FIT_REL of the refit's fit (the fits here
+#: are ~1.4e-5, a CPD of uniform noise, so the first cannot fail)
+UPDATE_FIT_TOL = 1e-3
+UPDATE_FIT_REL = 0.25
+#: the refreshed factors against refresh_touched_rows on a CPU copy of
+#: the same inputs (COO, f32), per mode, relative to max|plain|
+UPDATE_REFRESH_TOL = 1e-4
+
+
+def batch_tensors() -> list:
+    """Phase 17's K tenants (deduplicated, so every slot's nonzeros are
+    distinct coordinates)."""
+    from splatt_tpu_torch.coo import SparseTensor
+
+    out = []
+    for i in range(BATCH_K):
+        rng = np.random.default_rng(BATCH_SEED + i)
+        dims = tuple(int(d) for d in rng.integers(BATCH_DIM_LO,
+                                                  BATCH_DIM_HI + 1, 3))
+        n = int(rng.integers(BATCH_DRAWS[0], BATCH_DRAWS[1] + 1))
+        inds = np.stack([rng.integers(0, d, n) for d in dims])
+        out.append(SparseTensor(inds, rng.random(n), dims).deduplicate())
+    return out
+
+
+def batch_opts(**kw):
+    from splatt_tpu_torch import Options
+    from splatt_tpu_torch.config import Verbosity
+
+    return Options(**dict(dict(max_iterations=BATCH_ITERS, tolerance=0.0,
+                               random_seed=0, verbosity=Verbosity.NONE,
+                               engine_fallback=False), **kw))
+
+
+def batch_mttkrp_lanes(bb) -> list:
+    """The batched MTTKRP of each mode on random factors, timed, and the
+    lanes of BATCH_LANES held to mttkrp_stream of their slot."""
+    import torch
+
+    from splatt_tpu_torch.ops.mttkrp import (mttkrp_batched_stream,
+                                             mttkrp_stream)
+
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    F = [torch.rand((bb.k, d, BATCH_RANK), generator=gen, device="cuda")
+         for d in bb.dims]
+    rows = []
+    for m in range(bb.nmodes):
+        M = mttkrp_batched_stream(bb.inds, bb.vals, F, m, bb.dims[m])
+        worst = 0.0
+        for i in BATCH_LANES:
+            want = mttkrp_stream(bb.inds[i], bb.vals[i], [f[i] for f in F],
+                                 m, bb.dims[m])
+            rel = float((M[i] - want).abs().max() / want.abs().max())
+            worst = max(worst, rel)
+        ms = time_ms(lambda: mttkrp_batched_stream(
+            bb.inds, bb.vals, F, m, bb.dims[m]), reps=5)
+        row = dict(mode=m, lanes=list(BATCH_LANES), max_rel_err=worst,
+                   ms=ms, product_bytes=bb.k * bb.nnz_pad * BATCH_RANK * 4)
+        log(f"[batch] mttkrp_batched_stream {json.dumps(row)}")
+        if not worst <= KERNEL_TOL:
+            raise AssertionError(f"batched MTTKRP mode {m}: lane error "
+                                 f"{worst:.3e} > {KERNEL_TOL}")
+        rows.append(row)
+        del M
+    return rows
+
+
+def batch_sym_eig(bb) -> dict:
+    """sym_eig over the stack of each mode's normal-equations matrices
+    (random factors): one launch of K CTAs against its plain version
+    (w within BATCH_EIG_TOL of max|w| per slot) and against K single
+    launches (bit for bit), timed beside K single launches, the plain
+    version, the bound and batched torch.linalg.eigh (its host sync
+    included)."""
+    import torch
+
+    from splatt_tpu_torch.ops import linalg
+
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    F = [torch.rand((bb.k, d, BATCH_RANK), generator=gen, device="cuda")
+         for d in bb.dims]
+    grams = [linalg.gram(f) for f in F]
+    rows = []
+    for m in range(bb.nmodes):
+        A = linalg.form_normal_lhs(grams, m).contiguous()
+        before = linalg.sym_eig.launches
+        w, v, sweeps = linalg.sym_eig(A, return_sweeps=True)
+        if linalg.sym_eig.launches != before + 1:
+            raise AssertionError("the stack took more than one launch")
+        singles = [linalg.sym_eig(A[i], return_sweeps=True)
+                   for i in range(bb.k)]
+        # the plain version over the whole stack for mode 0 (its time is
+        # the row's plain_ms), over BATCH_LANES for the others
+        held = list(range(bb.k)) if m == 0 else list(BATCH_LANES)
+        t0 = time.perf_counter()
+        wp, vp, sp = linalg.sym_eig_plain(A[held].cpu())
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        torch.cuda.synchronize()
+        linalg.check_solver()
+        errs = [float((w[i].cpu() - wp[j]).abs().max())
+                for j, i in enumerate(held)]
+        rel = max(e / float(wp[j].abs().max()) for j, e in enumerate(errs))
+        same = all(torch.equal(w[i], s[0]) and torch.equal(v[i], s[1])
+                   and int(sweeps[i]) == int(torch.as_tensor(s[2]).sum())
+                   for i, s in enumerate(singles))
+        if not (rel <= BATCH_EIG_TOL and same):
+            raise AssertionError(f"batched sym_eig mode {m}: rel {rel:.3e}, "
+                                 f"equal to single launches: {same}")
+        sw = int(sweeps.sum())
+        n = BATCH_RANK + (BATCH_RANK & 1)
+        bound_ms, bound_by = least_ms(
+            bb.k * (2 * BATCH_RANK ** 2 + BATCH_RANK) * 4,
+            sw * (n - 1) * 9 * n * n)
+        row = dict(mode=m, k=bb.k, R=BATCH_RANK, max_rel_err=rel,
+                   max_abs_err=max(errs), plain_slots=len(held),
+                   sweeps_min=int(sweeps.min()), sweeps_max=int(sweeps.max()),
+                   ms=time_ms(lambda: linalg.sym_eig(A), reps=20, warmup=2),
+                   singles_ms=time_ms(lambda: [linalg.sym_eig(A[i])
+                                               for i in range(bb.k)],
+                                      reps=3),
+                   plain_ms=plain_ms if m == 0 else None,
+                   library_ms=time_ms(lambda: torch.linalg.eigh(A), reps=10,
+                                      warmup=2),
+                   bound_ms=bound_ms, bound_by=bound_by)
+        log(f"[batch] sym_eig stack {json.dumps(row)}")
+        rows.append(row)
+    return dict(rows=rows, plain_ms=rows[0]["plain_ms"],
+                **{k: sum(r[k] for r in rows) / len(rows)
+                   for k in ("ms", "singles_ms", "library_ms",
+                             "bound_ms")},
+                max_rel_err=max(r["max_rel_err"] for r in rows),
+                max_abs_err=max(r["max_abs_err"] for r in rows),
+                bound_by=rows[0]["bound_by"])
+
+
+def batch_sweep_phases(bb, res) -> dict:
+    """One batched sweep and its phases, each timed alone with CUDA
+    events on the run's final factors: the three batched MTTKRPs, the
+    three solves, normalize + Gram, the fit; and a frozen slot's lanes
+    bit for bit through a sweep whose other slots run."""
+    import torch
+
+    from splatt_tpu_torch import cpd as tcpd
+    from splatt_tpu_torch.ops import linalg
+    from splatt_tpu_torch.ops.mttkrp import mttkrp_batched_stream
+
+    factors = tcpd._initial_batch(bb, BATCH_RANK,
+                                  list(range(bb.k)), None)
+    grams = [linalg.gram(F) for F in factors]
+    lam = torch.ones((bb.k, BATCH_RANK), device="cuda")
+    sweep = tcpd._make_batched_sweep(bb, BATCH_RANK, bb.slot_frobsq(),
+                                     {"builds": 0})
+    reg = torch.zeros(bb.k, device="cuda")
+    active = torch.ones(bb.k, dtype=torch.bool, device="cuda")
+    frozen = active.clone()
+    frozen[1::2] = False
+    f2, g2, lam2, _, _ = sweep(factors, grams, lam, reg, frozen, False)
+    torch.cuda.synchronize()
+    exact = all(torch.equal(a[1::2], b[1::2]) for a, b in zip(f2, factors)) \
+        and all(torch.equal(a[1::2], b[1::2]) for a, b in zip(g2, grams)) \
+        and torch.equal(lam2[1::2], lam[1::2])
+    if not exact:
+        raise AssertionError("a frozen lane moved through a batched sweep")
+    M = [mttkrp_batched_stream(bb.inds, bb.vals, factors, m, bb.dims[m])
+         for m in range(bb.nmodes)]
+    lhs = [linalg.form_normal_lhs(grams, m) for m in range(bb.nmodes)]
+    U = [linalg.solve_normals(lhs[m], M[m]) for m in range(bb.nmodes)]
+
+    def norm_gram():
+        for u in U:
+            linalg.gram(linalg.normalize_columns(u, "max")[0])
+
+    def fit():
+        zz, inner = tcpd._zz_inner_batched(lam, grams, M[-1], factors[-1])
+        return 1.0 - torch.sqrt(torch.clamp(zz - 2.0 * inner, min=0.0))
+
+    parts = dict(
+        mttkrp=time_ms(lambda: [mttkrp_batched_stream(
+            bb.inds, bb.vals, factors, m, bb.dims[m])
+            for m in range(bb.nmodes)], reps=5),
+        solve=time_ms(lambda: [linalg.solve_normals(lhs[m], M[m])
+                               for m in range(bb.nmodes)], reps=10),
+        normalize_gram=time_ms(norm_gram, reps=10),
+        fit=time_ms(fit, reps=10),
+        sweep=time_ms(lambda: sweep(factors, grams, lam, reg, active, False),
+                      reps=5))
+    log(f"[batch] sweep phases, ms (CUDA events, one sweep over "
+        f"{bb.k} slots): {json.dumps(parts)}; frozen lanes bit-exact")
+    return parts
+
+
+def batch_cpd(bb, opts, **kw):
+    """cpd_als_batched on a built batch with the launch counters read
+    around it: (result, seconds, sym_eig launches, peak GiB)."""
+    import torch
+
+    from splatt_tpu_torch.cpd import cpd_als_batched
+    from splatt_tpu_torch.ops import linalg
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    linalg.sym_eig.launches = 0
+    t0 = time.perf_counter()
+    res = cpd_als_batched(bb, BATCH_RANK, opts, **kw)
+    torch.cuda.synchronize()
+    return (res, time.perf_counter() - t0, linalg.sym_eig.launches,
+            torch.cuda.max_memory_allocated() / 2 ** 30)
+
+
+def batch_syncs(bb) -> dict:
+    """Host syncs of one checked batched iteration, a 3-iteration run's
+    less a 2-iteration run's (set-up and result syncs cancel): the
+    cudaStreamSynchronize calls torch.profiler records on the host (the
+    gate), beside its device-to-host copies and the warnings of
+    set_sync_debug_mode("warn"), both of which have missed reads on this
+    card (PERF.md)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from splatt_tpu_torch.cpd import cpd_als_batched
+
+    def run(i):
+        return cpd_als_batched(bb, BATCH_RANK, batch_opts(max_iterations=i))
+
+    counts = []
+    for i in (2, 3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            run(i)
+        ev = {e.key: e.count for e in prof.key_averages()}
+        counts.append((ev.get("cudaStreamSynchronize", 0),
+                       sum(n for k, n in ev.items() if "DtoH" in k)))
+    warn = [count_syncs(lambda i=i: run(i)) for i in (2, 3)]
+    return dict(stream_syncs=counts[1][0] - counts[0][0],
+                dtoh_copies=counts[1][1] - counts[0][1],
+                warn_mode=warn[1] - warn[0])
+
+
+def _neighbour_rel(res, clean, k: int) -> float:
+    """The largest difference of slots 1..k-1 (factors and λ) between two
+    batched runs, relative to each tensor's max|.|."""
+    worst = 0.0
+    for i in range(1, k):
+        a, b = res.results[i], clean.results[i]
+        for x, y in list(zip(a.factors, b.factors)) + [(a.lam, b.lam)]:
+            worst = max(worst, float((x - y).abs().max() / y.abs().max()))
+    return worst
+
+
+def batch_drill(bb, clean) -> dict:
+    """The cpd.batch.sweep NaN drill: slot 0 rolls back alone and its
+    events name slot 0 alone.  On the default path, whose index_add_ is
+    atomic (an order that changes from run to run), every neighbour
+    within BATCH_DRILL_TOL of the clean run, beside two clean runs'
+    difference; under torch.use_deterministic_algorithms (index_add_ in a
+    fixed order), every neighbour bit for bit the clean run's."""
+    import torch
+
+    from splatt_tpu_torch import resilience
+    from splatt_tpu_torch.cpd import cpd_als_batched
+    from splatt_tpu_torch.utils import faults
+
+    def drilled():
+        with resilience.scope("batch-drill",
+                              health_retries=BATCH_RETRIES) as sc:
+            with faults.scoped("cpd.batch.sweep:nan:iter=2"):
+                res = cpd_als_batched(bb, BATCH_RANK, batch_opts())
+        return res, sorted({e.get("slot") for e in sc.report.events()
+                            if e["kind"].startswith("health_")})
+
+    res, slots = drilled()
+    again = cpd_als_batched(bb, BATCH_RANK, batch_opts())
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        det_clean = cpd_als_batched(bb, BATCH_RANK, batch_opts())
+        det, det_slots = drilled()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    exact = all(
+        all(torch.equal(x, y) for x, y in zip(a.factors, b.factors))
+        and torch.equal(a.lam, b.lam) and fa == fb
+        for a, b, fa, fb in list(zip(det.results, det_clean.results,
+                                     det.fits, det_clean.fits))[1:])
+    out = dict(rollbacks_slot0=res.rollbacks[0],
+               rollbacks_others=sum(res.rollbacks[1:]), event_slots=slots,
+               statuses=sorted(set(res.statuses)),
+               neighbour_rel=_neighbour_rel(res, clean, bb.k),
+               clean_twice_rel=_neighbour_rel(again, clean, bb.k),
+               deterministic_neighbours_exact=exact,
+               deterministic_rollbacks=det.rollbacks[0],
+               fit0=res.fits[0], clean_fit0=clean.fits[0],
+               compiles=res.compiles)
+    log(f"[batch] NaN drill cpd.batch.sweep:nan:iter=2: {json.dumps(out)} "
+        f"(default path: a tolerance, the card's index_add_ is atomic; "
+        f"deterministic algorithms: bit for bit)")
+    if not (res.rollbacks[0] >= 1 and sum(res.rollbacks[1:]) == 0
+            and slots == [0] == det_slots and exact
+            and out["neighbour_rel"] <= max(BATCH_DRILL_TOL,
+                                            4 * out["clean_twice_rel"])
+            and res.compiles == 1 and math.isfinite(res.fits[0])):
+        raise AssertionError(f"NaN drill: {out}")
+    return out
+
+
+def _slot_rel(a, b) -> float:
+    """The largest difference of two models (factors and λ), relative to
+    each of `b`'s tensors' max|.|."""
+    return max(float((x - y).abs().max() / y.abs().max())
+               for x, y in list(zip(a.factors, b.factors)) + [(a.lam, b.lam)])
+
+
+def batch_sequential(tensors, res) -> dict:
+    """The first BATCH_SEQ slots through the sequential cpd_als from the
+    same init (the slot's seed): factors and λ within BATCH_SEQ_REL of the
+    batch's slot, fits within BATCH_SEQ_FIT_TOL, and its steady seconds
+    per iteration; beside them the control, slot 0 from another seed."""
+    from splatt_tpu_torch import BlockedSparse, cpd_als
+
+    worst, worst_rel, secs = 0.0, 0.0, []
+    for i in range(BATCH_SEQ):
+        opts = batch_opts(random_seed=i)
+        bs = BlockedSparse.from_coo(tensors[i], opts)
+        out = cpd_als(bs, BATCH_RANK, opts)
+        # steady: iterations 2..10, host clock to each fit read
+        secs.append(sum(out.iter_seconds[1:]) / (len(out.iter_seconds) - 1))
+        worst = max(worst, abs(out.fit - res.fits[i]))
+        worst_rel = max(worst_rel, _slot_rel(res.results[i], out))
+    opts = batch_opts(random_seed=BATCH_SEQ_CONTROL_SEED)
+    ctl = cpd_als(BlockedSparse.from_coo(tensors[0], opts), BATCH_RANK, opts)
+    out = dict(worst_fit_dev=worst, worst_rel=worst_rel,
+               control_fit_dev=abs(ctl.fit - res.fits[0]),
+               control_rel=_slot_rel(res.results[0], ctl),
+               fit_tol=BATCH_SEQ_FIT_TOL, rel_tol=BATCH_SEQ_REL,
+               ms_per_tensor_iter=sum(secs) / len(secs) * 1e3)
+    log(f"[batch] sequential cpd_als of slots 0..{BATCH_SEQ - 1} from the "
+        f"batch's inits (control: slot 0 from seed "
+        f"{BATCH_SEQ_CONTROL_SEED}): {json.dumps(out)}")
+    if not (worst <= BATCH_SEQ_FIT_TOL and worst_rel <= BATCH_SEQ_REL):
+        raise AssertionError(f"sequential slots off: {out}")
+    return out
+
+
+def phase_update() -> dict:
+    """The warm update on phase 6's 2M-nonzero tensor: a base CPD, a
+    seeded delta merged in, refresh_touched_rows and UPDATE_SWEEPS warm
+    sweeps on BlockedSparse.compile of the merged tensor (ALLMODE, so
+    every mode runs fused_mttkrp_t on its own layout), fallback off, with
+    the launch counters read around it; against a from-scratch refit."""
+    import torch
+
+    from splatt_tpu_torch import BlockedSparse, Options, cpd_als, resilience
+    from splatt_tpu_torch.config import BlockAlloc, Verbosity
+    from splatt_tpu_torch.coo import SparseTensor
+    from splatt_tpu_torch.cpd import refresh_touched_rows, touched_rows
+    from splatt_tpu_torch.ops import kernels
+
+    # tolerance 0: on this tensor (fit ~1e-6 at rank 16) a tolerance
+    # stops every run after two sweeps, so the counts are fixed instead
+    def opts(iters):
+        return Options(block_alloc=BlockAlloc.ALLMODE, max_iterations=iters,
+                       tolerance=0.0, random_seed=7, reorder="identity",
+                       engine_fallback=False, verbosity=Verbosity.NONE)
+
+    tt = synthetic_tensor(NELL2, BIG_RANK_NNZ, seed=5)
+    delta = synthetic_tensor(NELL2, int(tt.nnz * UPDATE_DELTA),
+                             seed=UPDATE_DELTA_SEED)
+    merged = SparseTensor(np.concatenate([tt.inds, delta.inds], axis=1),
+                          np.concatenate([tt.vals, delta.vals]),
+                          tt.dims).deduplicate()
+    base = cpd_als(BlockedSparse.compile(tt, opts(UPDATE_ITERS),
+                                         rank=UPDATE_RANK),
+                   UPDATE_RANK, opts(UPDATE_ITERS))
+    bs = BlockedSparse.compile(merged, opts(UPDATE_SWEEPS),
+                               rank=UPDATE_RANK)
+    touched = touched_rows(delta, 3)
+    resilience.reset_demotions()
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    warm = refresh_touched_rows(bs, base.factors, touched)
+    torch.cuda.synchronize()
+    refresh_s = time.perf_counter() - t0
+    refresh_launches = kernels.fused_mttkrp_t.launches
+    # the same refresh on a CPU copy of the inputs (plain torch, COO)
+    plain = refresh_touched_rows(
+        SparseTensor(merged.inds, merged.vals.astype(np.float32),
+                     merged.dims),
+        [U.cpu() for U in base.factors], touched)
+    refresh_rel = max(float((w.cpu() - p).abs().max() / p.abs().max())
+                      for w, p in zip(warm, plain))
+    # the control: the base model, a refresh that committed nothing
+    control_rel = max(float((U.cpu() - p).abs().max() / p.abs().max())
+                      for U, p in zip(base.factors, plain))
+    untouched_exact = all(
+        torch.equal(w[idx], U[idx]) for w, U, idx in (
+            (w, U, torch.from_numpy(np.setdiff1d(
+                np.arange(U.shape[0]), touched[m])).to(U.device))
+            for m, (w, U) in enumerate(zip(warm, base.factors))))
+    up = cpd_als(bs, UPDATE_RANK, opts(UPDATE_SWEEPS), init=warm)
+    torch.cuda.synchronize()
+    launches = kernels.fused_mttkrp_t.launches
+    demotions = len(resilience.demotions())
+    warm_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    refit = cpd_als(bs, UPDATE_RANK, opts(UPDATE_ITERS))
+    refit_s = time.perf_counter() - t0
+    out = dict(nnz=tt.nnz, delta_nnz=delta.nnz, merged_nnz=merged.nnz,
+               touched_rows=[int(r.size) for r in touched.values()],
+               base_fit=base.fit, warm_fit=up.fit, warm_sweeps=len(up.fits),
+               refit_fit=refit.fit, refit_sweeps=len(refit.fits),
+               fit_dev=abs(up.fit - refit.fit),
+               fit_rel=abs(up.fit - refit.fit) / refit.fit,
+               refresh_rel=refresh_rel, refresh_control_rel=control_rel,
+               untouched_exact=untouched_exact,
+               refresh_launches=refresh_launches,
+               fused_mttkrp_t_launches=launches, demotions=demotions,
+               refresh_s=refresh_s, warm_s=warm_s, refit_s=refit_s)
+    log(f"[update] {json.dumps(out)}")
+    expect = bs.nmodes * (1 + UPDATE_SWEEPS)
+    if not (launches == expect and refresh_launches == bs.nmodes
+            and len(up.fits) == UPDATE_SWEEPS
+            and demotions == 0 and out["fit_dev"] <= UPDATE_FIT_TOL
+            and out["fit_rel"] <= UPDATE_FIT_REL
+            and refresh_rel <= UPDATE_REFRESH_TOL and untouched_exact):
+        raise AssertionError(f"update path: {out}, expected {expect} "
+                             f"fused_mttkrp_t launches")
+    out["layouts"] = bs
+    return out
+
+
+def phase_batch() -> dict:
+    """Phase 17: the batched CPD at a fleet's size and the warm update
+    pre-pass; every gate fatal."""
+    import torch
+
+    from splatt_tpu_torch.blocked import batch_compile
+    from splatt_tpu_torch.ops import linalg
+
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    tensors = batch_tensors()
+    gen_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    bb = batch_compile(tensors, batch_opts(), rank=BATCH_RANK)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    fac_bytes = bb.k * sum(bb.dims) * BATCH_RANK * 4
+    log(f"[batch] {bb!r}: {bb.k} slots, nnz {min(bb.slot_nnz)}-"
+        f"{max(bb.slot_nnz)}, generated in {gen_s:.2f} s")
+    log(f"[batch] host build {build_s:.2f} s; device bytes: inds "
+        f"{bb.inds.numel() * 4}, vals {bb.vals.numel() * 4}, factors "
+        f"{fac_bytes}, one batched MTTKRP's product "
+        f"{bb.k * bb.nnz_pad * BATCH_RANK * 4}")
+    lanes = batch_mttkrp_lanes(bb)
+    eig = batch_sym_eig(bb)
+    res, secs, eig_launches, peak = batch_cpd(bb, batch_opts())
+    half, secs_half, _, _ = batch_cpd(
+        bb, batch_opts(max_iterations=BATCH_ITERS // 2))
+    parts = batch_sweep_phases(bb, res)
+    # steady ms an iteration: the 10-iteration run's less the 5-iteration
+    # run's seconds (set-up, init and unstacking cancel)
+    ms_iter = (secs - secs_half) / (res.iterations - half.iterations) * 1e3
+    syncs = batch_syncs(bb)
+    log(f"[batch] host syncs per checked iteration: {json.dumps(syncs)}")
+    log(f"[batch] cpd_als_batched: {res.iterations} iterations in "
+        f"{secs:.3f} s, {ms_iter:.3f} ms per iteration, "
+        f"{ms_iter / bb.k:.4f} ms per tensor per iteration (the "
+        f"{BATCH_ITERS}-iteration call's seconds less the "
+        f"{BATCH_ITERS // 2}-iteration call's); compiles "
+        f"{res.compiles}; host syncs per checked iteration "
+        f"{syncs['stream_syncs']}; "
+        f"sym_eig launches {eig_launches} ({eig_launches / res.iterations:g}"
+        f" per sweep, {bb.nmodes} modes); peak device memory {peak:.2f} GiB")
+    log(f"[batch] fits min {min(res.fits):.5f} max {max(res.fits):.5f}; "
+        f"statuses {sorted(set(res.statuses))}")
+    if not (res.compiles == 1 and syncs["stream_syncs"] == 1
+            and eig_launches == bb.nmodes * res.iterations
+            and res.iterations == BATCH_ITERS
+            and all(math.isfinite(f) and 0 < f <= 1 for f in res.fits)
+            and res.results[5].dims == bb.slot_dims[5]):
+        raise AssertionError("batched CPD: compiles, syncs, launches or "
+                             "fits off")
+    seq = batch_sequential(tensors, res)
+    log(f"[batch] ms per tensor per iteration: batched "
+        f"{ms_iter / bb.k:.4f}, sequential {seq['ms_per_tensor_iter']:.4f}")
+    bb16 = batch_compile(tensors, batch_opts(val_storage="bf16"),
+                         rank=BATCH_RANK)
+    res16, secs16, _, _ = batch_cpd(bb16, batch_opts(val_storage="bf16"))
+    gap = max(abs(a - b) / b for a, b in zip(res16.fits, res.fits))
+    bf16_ok = all(f.dtype == torch.bfloat16 for kt in res16.results
+                  for f in kt.factors)
+    log(f"[batch] bf16 storage: factors bf16 {bf16_ok}, worst fit gap to "
+        f"f32 {gap:.3e} of the f32 fit (limit {BATCH_BF16_FIT_GAP}; the "
+        f"control, another init in f32: "
+        f"{seq['control_fit_dev'] / res.fits[0]:.3e}), "
+        f"{secs16 / res16.iterations * 1e3:.3f} ms per iteration")
+    if not (bf16_ok and gap <= BATCH_BF16_FIT_GAP):
+        raise AssertionError("bf16 batch off")
+    del bb16, res16
+    drill = batch_drill(bb, res)
+    del bb
+    torch.cuda.empty_cache()
+    upd = phase_update()
+    seconds = time.perf_counter() - t_phase
+    log(f"[batch] phase 17: {seconds:.1f} s")
+    return dict(build_s=build_s, ms_per_iter=ms_iter,
+                ms_per_tensor_iter=ms_iter / BATCH_K, compiles=res.compiles,
+                syncs_per_check=syncs, sym_eig_launches=eig_launches,
+                peak_gib=peak, sweep_phase_ms=parts, lanes=lanes,
+                sym_eig=eig, sequential=seq, bf16_fit_gap=gap, drill=drill,
+                update=upd, seconds=seconds)
+
+
+def _batch_summary(bt: dict) -> dict:
+    """Phase 17's figures for the kernels line."""
+    upd = {k: v for k, v in bt["update"].items() if k != "layouts"}
+    return dict({k: v for k, v in bt.items()
+                 if k not in ("update", "sym_eig", "lanes")},
+                update=upd, lanes_max_rel_err=max(
+                    r["max_rel_err"] for r in bt["lanes"]))
+
+
+def _batch_eig(bt: dict) -> dict:
+    """The batched sym_eig's figures for the eigensolver's entry."""
+    eig = bt["sym_eig"]
+    return dict(launches=bt["sym_eig_launches"], k=BATCH_K, R=BATCH_RANK,
+                **{k: eig[k] for k in ("ms", "singles_ms", "plain_ms",
+                                       "library_ms", "bound_ms", "bound_by",
+                                       "max_rel_err", "max_abs_err")})
+
+
 FUSED_SRC = "splatt_tpu_torch/csrc/fused_mttkrp.cu"
 PK = "splatt_tpu/ops/pallas_kernels.py"
 NOTE = ("ms/plain_ms/bound_ms: mean per launch over the 3 modes at rank "
@@ -5653,17 +6275,36 @@ def _dense_row(dense: dict, bf16: dict) -> dict:
         raised=dense["raised"], phase_seconds=dense["seconds"])
 
 
-def _eig_row(main_path: dict, big: dict, dense: dict) -> dict:
+EIG_SRC = "splatt_tpu_torch/csrc/sym_eig.cu"
+EIG_REPLACES = ("torch.linalg.eigh in the solve (splatt_tpu_torch/ops/"
+                "linalg.py solve_normals; its JAX counterpart "
+                "jnp.linalg.eigh, splatt_tpu/ops/linalg.py:78): a library "
+                "call, not a TPU kernel")
+
+
+def _batch_eig_row(bt: dict) -> dict:
+    """The eigensolver's entry from phase 17 alone (``--batch``): one
+    launch over the stack of 64 slots."""
+    b = _batch_eig(bt)
+    return dict(name="sym_eig", route="cuda", source=EIG_SRC,
+                replaces=EIG_REPLACES, launches=b.pop("launches"),
+                note=f"ms/bound_ms/library_ms: mean per launch over the 3 "
+                f"modes' stacks of {BATCH_K} normal-equations matrices, "
+                f"R = {BATCH_RANK}, f32, one launch of {BATCH_K} CTAs; "
+                f"plain_ms: sym_eig_plain over mode 0's stack; library: "
+                f"batched torch.linalg.eigh, its host sync included; "
+                f"singles_ms: {BATCH_K} one-matrix launches; launches: "
+                f"phase 17's batched CPD", **b)
+
+
+def _eig_row(main_path: dict, big: dict, dense: dict, bt: dict) -> dict:
     """The eigensolver's entry of the kernels line: phase 5's f32 rows
     (the main path's dtype), its launches on the main path, the f64 rows,
-    and the gate at rank 512."""
+    the gate at rank 512, and phase 17's launches over the batch."""
     rows = [r for r in main_path["sym_eig"] if r["dtype"] == "torch.float32"]
     f64 = [r for r in main_path["sym_eig"] if r["dtype"] == "torch.float64"]
     row = _record_row(
-        "sym_eig", "splatt_tpu_torch/csrc/sym_eig.cu",
-        "torch.linalg.eigh in the solve (splatt_tpu_torch/ops/linalg.py "
-        "solve_normals; its JAX counterpart jnp.linalg.eigh, "
-        "splatt_tpu/ops/linalg.py:78): a library call, not a TPU kernel",
+        "sym_eig", EIG_SRC, EIG_REPLACES,
         main_path["sym_eig_launches"], rows, "library_ms",
         note=f"ms/plain_ms/bound_ms/library_ms: mean per call over the 3 "
         f"modes' normal-equations matrices of phase 5's final factors, "
@@ -5681,7 +6322,7 @@ def _eig_row(main_path: dict, big: dict, dense: dict) -> dict:
         solve_ms=dict(main=main_path["phases"], dense=dense["cpd"][
             "sweep_phase_ms"], rank512=big["phases"]),
         gate_rank512=big["eig_gate"], scaling=main_path["sym_eig_scaling"],
-        crossover=main_path["solve_crossover"])
+        crossover=main_path["solve_crossover"], batched=_batch_eig(bt))
     row["max_rel_err"] = max(r["op_rel_err"] for r in rows)
     return row
 
@@ -5733,8 +6374,9 @@ def main() -> int:
     guard_only = "--guard" in sys.argv[1:]
     tune_only = "--tune" in sys.argv[1:]
     ooc_only = "--ooc" in sys.argv[1:]
+    batch_only = "--batch" in sys.argv[1:]
     phase_build(verbose=not (ranks or reduce or balance or guard_only
-                             or tune_only or ooc_only))
+                             or tune_only or ooc_only or batch_only))
     from splatt_tpu_torch import native
 
     # phase 13 fails without it; every earlier host build would sort with
@@ -5746,6 +6388,24 @@ def main() -> int:
         print(json.dumps({"kernels": [_dense_row(
             dense, _bf16_summary(dense["rows"]["bf16"]))],
             "power": dev["smi"]}))
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": dev["kind"], "count": dev["count"]}}))
+        return 0
+
+    if batch_only:
+        bt = phase_batch()
+        t_rows = phase_kernels(bt["update"]["layouts"], UPDATE_RANK)
+        print(json.dumps({"kernels": [_record_row(
+            "fused_mttkrp_t", FUSED_SRC, f"{PK}:355",
+            bt["update"]["fused_mttkrp_t_launches"],
+            [r for r in t_rows if r["contract"] == "sorted"], None,
+            note=f"ms/plain_ms/bound_ms: mean per launch over the 3 modes' "
+            f"sorted layouts of phase 17's merged update tensor (NELL-2 "
+            f"shape, 2M nonzeros and a 1% delta), rank {UPDATE_RANK}; "
+            f"launches: refresh_touched_rows and the warm cpd_als",
+            status=WALK_STATUS, phase17=_batch_summary(bt)),
+            _batch_eig_row(bt)], "power": dev["smi"]}))
+        log(f"[total] {time.perf_counter() - t_script:.1f} s")
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": dev["kind"], "count": dev["count"]}}))
         return 0
@@ -5911,6 +6571,8 @@ def main() -> int:
     ooc = phase_ooc(tt, RANK)
     bal = phase_balance(tt, layout_s, RANK)
     del tt
+    bt = phase_batch()
+    del bt["update"]["layouts"]
 
     def launches(label, kernel):
         return chain[label]["launches"][kernel]
@@ -5924,7 +6586,8 @@ def main() -> int:
                phase13=_balance_summary(bal),
                phase13_rows=_balance_rows(bal),
                phase14=_guard_summary(guard),
-               phase15=_tune_summary(tuned)),
+               phase15=_tune_summary(tuned),
+               phase17=_batch_summary(bt)),
         _tg_row(launches("fused_t faulted", "fused_mttkrp_tg"),
                 "phase 7, fused_t faulted", new_rows, bf16, big, big_rows),
         _rowmajor_row(launches(FUSED_CHAIN, "fused_mttkrp"),
@@ -5937,7 +6600,7 @@ def main() -> int:
                   dist, "2 x nmodes x iterations per card"),
         _ring_row("ring_reduce", "splatt_tpu/parallel/ring_kernels.py:260",
                   dist, "nmodes x iterations per card"),
-        _eig_row(main_path, big, dense),
+        _eig_row(main_path, big, dense, bt),
     ], "chain": chain, "yardsticks": yard, "power": dev["smi"]}
     print(json.dumps(record))
     log(f"[total] {time.perf_counter() - t_script:.1f} s")

@@ -1482,3 +1482,156 @@ class BlockedSparse:
         (≙ csf_frobsq, src/csf.c:828-851)."""
         v = self.layouts[0].vals.to("cpu", torch.float64)
         return float(torch.dot(v, v))
+
+
+# -- batched fleets (docs/batched.md) -----------------------------------------
+#
+# Many small tensors of one shape regime, each too small to fill the card
+# alone: K slots are padded to the regime's bucket shape and stacked on a
+# leading batch axis, so one sweep serves all of them (≙ splatt_tpu/
+# blocked.py:1729-1886).  Each slot keeps its own fit and health verdict.
+
+
+def bucket_dims(dims: Sequence[int]) -> Tuple[int, ...]:
+    """The regime's padded bucket shape: each mode padded to the power of
+    two just above its :func:`splatt_tpu_torch.tune.shape_regime` bucket
+    (``1 << bit_length``), so every tensor of one regime pads to the same
+    shape."""
+    return tuple(1 << int(d).bit_length() for d in dims)
+
+
+def bucket_nnz_pad(nnz: int, block: int) -> int:
+    """The regime's padded nonzero count: the nnz bucket (``1 <<
+    bit_length``) rounded up to whole blocks, shared by every slot of
+    every batch of the regime."""
+    return ceil_to(1 << int(max(nnz, 1)).bit_length(), block)
+
+
+@dataclasses.dataclass
+class BatchedBlocked:
+    """K same-regime tensors stacked into one batch (≙ splatt_tpu.blocked.
+    BatchedBlocked).
+
+    Each slot is built by :func:`build_layout` at one common
+    configuration: one sort mode, one block, v1 global int32 ids (per-slot
+    v2 widths would differ and could not stack), fixed packing, no dense
+    mode, one value-storage dtype (bf16 included: the factors follow it
+    and accumulate in f32 as in the single-tensor sweep).  Then it is
+    padded to the regime's bucket shape.  Pads are additive identities by
+    the layouts' sentinel policy: value 0, sorted-mode id the slot's true
+    ``dim`` (a padded row), 0 elsewhere.
+
+    inds: ``(K, nmodes, nnz_pad)`` int32 global ids; vals: ``(K,
+    nnz_pad)`` at the storage dtype; dims: the bucket (padded) dims;
+    slot_dims, slot_nnz: each slot's true dims and nonzero count.
+    """
+
+    inds: torch.Tensor
+    vals: torch.Tensor
+    dims: Tuple[int, ...] = ()
+    slot_dims: Tuple[Tuple[int, ...], ...] = ()
+    slot_nnz: Tuple[int, ...] = ()
+    sort_mode: int = 0
+    block: int = 4096
+    regime: str = ""
+    val_storage: str = "auto"
+
+    @property
+    def k(self) -> int:
+        return int(self.vals.shape[0])
+
+    @property
+    def nmodes(self) -> int:
+        return len(self.dims)
+
+    @property
+    def nnz_pad(self) -> int:
+        return int(self.vals.shape[1])
+
+    @property
+    def device(self) -> torch.device:
+        return self.vals.device
+
+    def to(self, device) -> "BatchedBlocked":
+        return dataclasses.replace(self, inds=self.inds.to(device),
+                                   vals=self.vals.to(device))
+
+    def slot_frobsq(self) -> np.ndarray:
+        """(K,) per-slot squared Frobenius norms, accumulated in f64 on
+        the host like :meth:`BlockedSparse.frobsq` (pads are zero)."""
+        v = self.vals.to("cpu", torch.float64).numpy()
+        return np.einsum("kz,kz->k", v, v)
+
+    def __repr__(self) -> str:
+        return (f"BatchedBlocked(k={self.k}, dims={self.dims}, "
+                f"nnz_pad={self.nnz_pad}, block={self.block}, "
+                f"sort_mode={self.sort_mode}, regime={self.regime!r}, "
+                f"val={str(self.vals.dtype).replace('torch.', '')})")
+
+
+def batch_compile(tensors: Sequence[SparseTensor],
+                  opts: Optional[Options] = None,
+                  rank: Optional[int] = None, device=None) -> BatchedBlocked:
+    """Stack K same-regime COO tensors into one :class:`BatchedBlocked`
+    (≙ splatt_tpu.blocked.batch_compile), built on the host and moved to
+    `device` (the card unless the caller names another) once.
+
+    Every slot must share one :func:`splatt_tpu_torch.tune.shape_regime`
+    and one mode count, else ValueError.  The sort mode is the smallest
+    bucket mode (ties to the lowest index).  The block is the autotuner's
+    batched plan (:func:`splatt_tpu_torch.tune.batched_block_for`, the
+    batch axis in the plan key), else ``opts.nnz_block``, clamped to the
+    largest slot's nonzeros padded to 128."""
+    from splatt_tpu_torch import tune as _tune
+
+    if not tensors:
+        raise ValueError("batch_compile needs at least one tensor")
+    opts = (opts or default_opts()).validate()
+    dev = resolve_device(device)
+    nmodes = tensors[0].nmodes
+    regime = _tune.shape_regime(tensors[0].dims, tensors[0].nnz)
+    for i, tt in enumerate(tensors):
+        if tt.nmodes != nmodes:
+            raise ValueError(
+                f"batch slot {i} has {tt.nmodes} modes, slot 0 has "
+                f"{nmodes} — a batch must be mode-count homogeneous")
+        r = _tune.shape_regime(tt.dims, tt.nnz)
+        if r != regime:
+            raise ValueError(
+                f"batch slot {i} is in shape regime {r}, slot 0 in "
+                f"{regime} — a batch must share one regime "
+                f"(docs/batched.md)")
+    dims_pad = bucket_dims(tensors[0].dims)
+    sort_mode = int(np.argmin(np.asarray(dims_pad)))
+    fmt = layout_format(opts)
+    compute = resolve_dtype(opts)
+    storage = resolve_storage_dtype(fmt.val, compute)
+    block = _tune.batched_block_for(
+        tensors[0].dims, tensors[0].nnz, sort_mode, rank, compute,
+        len(tensors), autotune=opts.autotune, device=dev)
+    if block is None:
+        block = opts.nnz_block
+    most = max(t.nnz for t in tensors)
+    block = max(128, min(int(block), ceil_to(most, 128)))
+    nnz_pad = bucket_nnz_pad(most, block)
+
+    inds = np.zeros((len(tensors), nmodes, nnz_pad), dtype=np.int32)
+    vals = torch.zeros((len(tensors), nnz_pad), dtype=storage)
+    for i, tt in enumerate(tensors):
+        lay = build_layout(tt, sort_mode, block=block, val_dtype=storage,
+                           mode_order=opts.mode_order,
+                           mode_order_custom=opts.mode_order_custom,
+                           device="cpu",
+                           fmt=LayoutFormat(idx="i32", val=fmt.val),
+                           packing="fixed", record_stats=False, dense=False)
+        n = lay.nnz_pad
+        inds[i, :, :n] = lay.inds.numpy()
+        # past the slot's own blocks the sentinel row is its true dim,
+        # which lies inside the bucket and collects only zeros
+        inds[i, sort_mode, n:] = tt.dims[sort_mode]
+        vals[i, :n] = lay.vals
+    return BatchedBlocked(
+        inds=torch.from_numpy(inds).to(dev), vals=vals.to(dev),
+        dims=dims_pad, slot_dims=tuple(tuple(t.dims) for t in tensors),
+        slot_nnz=tuple(t.nnz for t in tensors), sort_mode=sort_mode,
+        block=block, regime=regime, val_storage=fmt.val)

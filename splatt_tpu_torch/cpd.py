@@ -763,3 +763,425 @@ def _cpd_als_traced(X, rank: int, opts: Options, init, device,
     if perm is not None:
         out.factors = perm.undo_factors(out.factors)
     return out
+
+
+# -- the batched CPD (docs/batched.md) -----------------------------------------
+#
+# K small same-regime tensors decomposed as one stacked sweep
+# (≙ splatt_tpu/cpd.py:1025-1397).  Each slot keeps its own init seed, fit
+# trajectory, convergence stop and health verdict, as data on the batch
+# axis: one sweep closure, one launch of each kernel per mode, one host
+# read per checked iteration for all of them.
+
+
+@dataclasses.dataclass
+class BatchedCPD:
+    """Per-slot results and the batch's evidence (≙ splatt_tpu.cpd.
+    BatchedCPD): ``compiles`` counts builds of the one sweep closure (1,
+    rollbacks included), ``rollbacks`` each slot's health rollbacks."""
+
+    results: List[KruskalTensor]
+    statuses: List[str]            # "converged" | "degraded" per slot
+    fits: List[float]
+    iterations: int
+    compiles: int
+    rollbacks: List[int]
+    stopped: bool = False          # the stop hook interrupted the run
+
+    @property
+    def k(self) -> int:
+        return len(self.results)
+
+
+def _health_pack_batched(fit, capped, factors=None, lam=None
+                         ) -> torch.Tensor:
+    """The batch's check read as one ``(K, 2)`` or ``(K, nmodes + 4)``
+    tensor, one host copy: each slot's fit, whether its eigensolver hit
+    the sweep cap, then, with `factors` and `lam` (the sentinel on), its
+    finite flags, one per factor, then λ, then the fit (≙ splatt_tpu/
+    cpd.py:1056-1066).  One slot's NaN trips only its own row."""
+    cols = [fit, capped.to(fit.dtype)]
+    if factors is not None:
+        cols += [torch.isfinite(U).flatten(1).all(dim=1).to(fit.dtype)
+                 for U in factors]
+        cols.append(torch.isfinite(lam).all(dim=1).to(fit.dtype))
+        cols.append(torch.isfinite(fit).to(fit.dtype))
+    return torch.stack(cols, dim=1)
+
+
+def _zz_inner_batched(lam, grams, M, U_last):
+    """:func:`_zz_inner` of each slot: ``(K,)`` ⟨Z,Z⟩ and ⟨X,Z⟩."""
+    acc = acc_dtype(M.dtype)
+    had = lam[:, :, None] * lam[:, None, :]
+    for g in grams:
+        had = had * g
+    inner = torch.einsum("kdr,kdr,kr->k", M.to(acc), U_last.to(acc),
+                         lam.to(acc))
+    return had.to(acc).sum(dim=(1, 2)), inner
+
+
+def _make_batched_sweep(bb, rank: int, xnormsq, counter: dict) -> Callable:
+    """The one sweep of a batch (≙ splatt_tpu/cpd.py:1069-1151), as
+    ``sweep(factors, grams, λ, reg, active, first) -> (factors, grams, λ,
+    fit, capped)`` over stacked ``(K, ...)`` tensors; new lists out, the
+    inputs untouched.  Each mode: the batched stream MTTKRP, the batched
+    normal equations plus each slot's ``reg``, one batched solve (one
+    :func:`~splatt_tpu_torch.ops.linalg.sym_eig` launch for every slot on
+    a card), the norm (`first` picks the 2-norm), the Gram.  A frozen
+    slot (``active`` False) is re-selected with ``torch.where``, bit for
+    bit; ``capped`` flags the live slots whose eigensolver hit its cap.
+    Nothing waits on the host.  ``counter["builds"]`` counts the builds."""
+    from splatt_tpu_torch.ops.mttkrp import mttkrp_batched_stream
+
+    counter["builds"] += 1
+    nmodes, dims = bb.nmodes, bb.dims
+    inds, vals = bb.inds, bb.vals
+    dev = vals.device
+    fdt = fit_dtype()
+    xn_sq = torch.tensor(np.asarray(xnormsq, dtype=np.float64), dtype=fdt,
+                         device=dev)
+    xn = torch.tensor(np.sqrt(np.maximum(xnormsq, 1e-300)), dtype=fdt,
+                      device=dev)
+    # the Grams' dtype: the accumulator of the factors' (storage) dtype
+    eye = torch.eye(rank, dtype=acc_dtype(vals.dtype), device=dev)
+
+    def sweep(factors, grams, lam, reg, active, first: bool):
+        factors, grams = list(factors), list(grams)
+        keep2, keep3 = active[:, None], active[:, None, None]
+        capped = torch.zeros_like(active)
+        M = None
+        for m in range(nmodes):
+            M = mttkrp_batched_stream(inds, vals, factors, m, dims[m])
+            lhs = (form_normal_lhs(grams, m)
+                   + reg.to(eye.dtype)[:, None, None] * eye)
+            U, cap = solve_normals(lhs, M, return_capped=True)
+            capped = capped | cap
+            U, lam_m = normalize_columns(U, "2" if first else "max")
+            U = U.to(factors[m].dtype)
+            factors[m] = torch.where(keep3, U, factors[m])
+            grams[m] = torch.where(keep3, gram(factors[m]), grams[m])
+            lam = torch.where(keep2, lam_m.to(lam.dtype), lam)
+        # a frozen slot recomputes the same M from its frozen factors, so
+        # its fit is its committed one
+        znormsq, inner = _zz_inner_batched(lam, grams, M, factors[-1])
+        fit = 1.0 - torch.sqrt(torch.clamp(
+            xn_sq + znormsq.to(fdt) - 2.0 * inner.to(fdt), min=0.0)) / xn
+        return factors, grams, lam, fit, capped & active
+
+    return sweep
+
+
+def _host_to(a: np.ndarray, dtype, dev) -> torch.Tensor:
+    """A small host array on `dev` with no host sync: through pinned
+    memory on a card (a pageable copy would wait)."""
+    t = torch.from_numpy(np.array(a)).to(dtype)
+    if dev.type == "cuda":
+        return t.pin_memory().to(dev, non_blocking=True)
+    return t.to(dev)
+
+
+def cpd_als_batched(tensors, rank: int, opts: Optional[Options] = None,
+                    seeds: Optional[List[int]] = None, inits=None,
+                    stop: Optional[Callable[[], bool]] = None,
+                    device=None) -> BatchedCPD:
+    """Decompose K same-regime tensors as one stacked ALS
+    (≙ splatt_tpu.cpd.cpd_als_batched, docs/batched.md).
+
+    `tensors` is a list of COO tensors, stacked here by
+    :func:`~splatt_tpu_torch.blocked.batch_compile`, or a built
+    :class:`~splatt_tpu_torch.blocked.BatchedBlocked`; either runs on
+    `device` (the card unless the caller names another).  `seeds` gives
+    each slot its init seed (default ``opts.seed() + slot``): slot i
+    starts where :func:`cpd_als` with ``random_seed=seeds[i]`` starts.
+    `inits` gives per-slot factor lists at each slot's true dims instead
+    (numpy arrays or tensors).  `stop` is polled at check iterations.
+
+    Per slot: fits, convergence stops (a converged slot is frozen, bit
+    for bit, while its neighbours iterate) and results are its own.  The
+    health sentinel runs per slot: a non-finite slot rolls back alone to
+    its last-good state, with its regularization raised and its offending
+    factors redrawn from its seed, and an exhausted budget degrades only
+    that slot (status "degraded").  A finite slot whose eigensolver hit
+    its sweep cap raises :class:`SolverError` naming it.  ``compiles``
+    counts builds of the sweep closure: 1, rollbacks included."""
+    from splatt_tpu_torch.blocked import BatchedBlocked, batch_compile
+
+    opts = (opts or default_opts()).validate()
+    with trace.enabling(opts.trace):
+        k = (tensors.k if isinstance(tensors, BatchedBlocked)
+             else len(tensors))
+        with trace.span("cpd.batch", rank=int(rank), k=k,
+                        max_iterations=int(opts.max_iterations)):
+            if isinstance(tensors, BatchedBlocked):
+                dev = resolve_device(device)
+                bb = tensors if tensors.device == dev else tensors.to(dev)
+            else:
+                bb = batch_compile(list(tensors), opts, rank=rank,
+                                   device=device)
+            return _cpd_als_batched_traced(bb, rank, opts, seeds, inits,
+                                           stop)
+
+
+def _initial_batch(bb, rank: int, seeds, inits) -> List[torch.Tensor]:
+    """The stacked initial factors, each slot at its true dims and zero in
+    the bucket rows (zero rows stay zero through every sweep: a zero
+    MTTKRP row solves to a zero row and adds nothing to the Gram)."""
+    dtype = bb.vals.dtype
+    stage = acc_dtype(dtype)
+    factors = [torch.zeros((bb.k, d, rank), dtype=dtype) for d in bb.dims]
+    for i, dims in enumerate(bb.slot_dims):
+        if inits is None:
+            gen = torch.Generator().manual_seed(int(seeds[i]))
+            slot = init_factors(dims, rank, gen, dtype=dtype)
+        else:
+            slot = []
+            for m, d in enumerate(dims):
+                U = torch.as_tensor(inits[i][m])
+                if tuple(U.shape) != (d, rank):
+                    raise ValueError(
+                        f"init for slot {i} mode {m} has shape "
+                        f"{tuple(U.shape)}, want {(d, rank)}")
+                slot.append(U.to("cpu", stage).to(dtype))
+        for m, U in enumerate(slot):
+            factors[m][i, :dims[m]] = U
+    return [F.to(bb.device) for F in factors]
+
+
+def _cpd_als_batched_traced(bb, rank: int, opts: Options, seeds, inits,
+                            stop) -> BatchedCPD:
+    """:func:`cpd_als_batched` inside its ``cpd.batch`` span
+    (≙ splatt_tpu/cpd.py:1203-1397)."""
+    from splatt_tpu_torch.kruskal import unstack_batched
+    from splatt_tpu_torch.ops.linalg import (SYM_EIG_MAX_SWEEPS,
+                                             clear_solver_status)
+    from splatt_tpu_torch.utils import faults
+
+    K, nmodes, dev = bb.k, bb.nmodes, bb.device
+    fdt = fit_dtype()
+    if seeds is None:
+        base = opts.seed()
+        seeds = [base + i for i in range(K)]
+    if len(seeds) != K or (inits is not None and len(inits) != K):
+        raise ValueError(f"need one seed/init per slot (k={K})")
+    factors = _initial_batch(bb, rank, seeds, inits)
+    grams = [gram(F) for F in factors]
+    lam = torch.ones((K, rank), dtype=fdt, device=dev)
+
+    counter = {"builds": 0}
+    sweep = _make_batched_sweep(bb, rank, bb.slot_frobsq(), counter)
+    guard = health_retries()
+    reg = np.full(K, float(opts.regularization), dtype=np.float32)
+    active = np.ones(K, dtype=bool)
+    reg_dev, active_dev = _host_to(reg, fdt, dev), _host_to(active,
+                                                            torch.bool, dev)
+    degraded = np.zeros(K, dtype=bool)
+    attempts = np.zeros(K, dtype=np.int64)
+    fit_prev = np.zeros(K, dtype=np.float64)
+    fits = np.zeros(K, dtype=np.float64)
+    last_check_it = 0
+    stopped = False
+    # the last-good state of each slot lives on the device: the sweep
+    # never modifies its inputs, so the snapshot holds references, and a
+    # check moves only its healthy slots' lanes into it
+    snap = (list(factors), list(grams), lam) if guard > 0 else None
+
+    def restore_slot(i: int) -> None:
+        nonlocal lam
+        for m in range(nmodes):
+            factors[m] = factors[m].clone()
+            factors[m][i] = snap[0][m][i]
+            grams[m] = grams[m].clone()
+            grams[m][i] = snap[1][m][i]
+        lam = lam.clone()
+        lam[i] = snap[2][i]
+
+    kchk = opts.fit_check_every
+    # each slot's cap flags ORed over the sweeps since the last check (an
+    # unchecked sweep's cap is read with the next check's pack)
+    capped_acc = None
+    it = -1
+    for it in range(opts.max_iterations):
+        if not active.any():
+            break
+        it_span = trace.begin("cpd.batch.sweep", it=it + 1)
+        try:
+            f_new, g_new, lam_new, fit_dev, capped_dev = sweep(
+                factors, grams, lam, reg_dev, active_dev, it == 0)
+            capped_acc = (capped_dev if capped_acc is None
+                          else capped_acc | capped_dev)
+            # chaos hook: a poison-armed cpd.batch.sweep fault corrupts
+            # slot 0's last factor while the slot is live (a frozen
+            # slot's lanes are no longer the sweep's to corrupt)
+            if active[0]:
+                p = faults.poison("cpd.batch.sweep", 1.0)
+                if not np.isfinite(p):
+                    f_new[-1] = f_new[-1].clone()
+                    f_new[-1][:1] = f_new[-1][:1] * p
+            factors, grams, lam = list(f_new), list(g_new), lam_new
+            if not ((it + 1) % kchk == 0 or it + 1 == opts.max_iterations):
+                continue
+            # the fit, the cap flags and the sentinel's flags: one copy
+            with trace.span("cpd.fit_check", it=it + 1):
+                with trace.span("cpd.guard.health_pack"):
+                    pack = _health_pack_batched(
+                        fit_dev, capped_acc,
+                        *((factors, lam) if guard > 0 else ())
+                    ).cpu().numpy().astype(np.float64)
+            capped_acc = None
+            fitv = pack[:, 0]
+            # with the sentinel off every live slot counts as healthy and
+            # a NaN flows into its own result (guards are free when off)
+            flags = pack[:, 2:] if guard > 0 else np.ones((K, nmodes + 2))
+            finite = (flags.min(axis=1) > 0.5 if guard > 0
+                      else np.isfinite(fitv))
+            # each slot's cap flags since the last check decide, not the
+            # process's word; a slot whose outputs are non-finite is the
+            # sentinel's
+            clear_solver_status()
+            bad = np.flatnonzero(active & (pack[:, 1] > 0.5) & finite)
+            if bad.size:
+                raise SolverError(
+                    f"sym_eig: batch slot {int(bad[0])} did not converge "
+                    f"within {SYM_EIG_MAX_SWEEPS} sweeps")
+            if guard > 0:
+                for i in np.flatnonzero(active):
+                    if flags[i].min() > 0.5:
+                        continue
+                    offending = [m for m in range(nmodes)
+                                 if flags[i][m] <= 0.5]
+                    attempts[i] += 1
+                    resilience.run_report().add(
+                        "health_nonfinite", iteration=it + 1, slot=int(i),
+                        modes=offending,
+                        error="non-finite batched sweep outputs")
+                    if attempts[i] > guard:
+                        degraded[i] = True
+                        active[i] = False
+                        restore_slot(int(i))
+                        fits[i] = fit_prev[i]
+                        resilience.run_report().add(
+                            "health_degraded", iteration=it + 1,
+                            slot=int(i),
+                            action="slot frozen at its last-good "
+                                   "snapshot; batch neighbors continue")
+                        continue
+                    with trace.span("cpd.guard.rollback", it=it + 1,
+                                    slot=int(i), attempt=int(attempts[i])):
+                        restore_slot(int(i))
+                        reg[i] = ((opts.regularization
+                                   if opts.regularization > 0 else 1e-6)
+                                  * (10.0 ** attempts[i]))
+                        for m in offending:
+                            d = bb.slot_dims[i][m]
+                            U = torch.zeros_like(factors[m][i])
+                            U[:d] = _redraw((d, rank), U.dtype, dev,
+                                            int(seeds[i]), int(attempts[i]),
+                                            m)
+                            factors[m][i] = U
+                            grams[m][i] = gram(U)
+                    reg_dev = _host_to(reg, fdt, dev)
+                    resilience.run_report().add(
+                        "health_rollback", iteration=it + 1, slot=int(i),
+                        attempt=int(attempts[i]),
+                        regularization=float(reg[i]),
+                        rerandomized=offending)
+                    if opts.verbosity >= Verbosity.LOW:
+                        print(f"  batch slot {i}: non-finite at iteration "
+                              f"{it + 1}; rolled back alone (attempt "
+                              f"{int(attempts[i])}/{guard})")
+            window = max((it + 1) - last_check_it, 1)
+            last_check_it = it + 1
+            healthy = active & (flags.min(axis=1) > 0.5)
+            for i in np.flatnonzero(healthy):
+                fits[i] = fitv[i]
+                if it > 0 and abs(fitv[i] - fit_prev[i]) \
+                        < opts.tolerance * window:
+                    active[i] = False       # converged: frozen from here
+                fit_prev[i] = fitv[i]
+            if guard > 0 and healthy.any():
+                # only verified-finite slots move the snapshot
+                h = _host_to(healthy, torch.bool, dev)
+                snap = ([torch.where(h[:, None, None], F, S)
+                         for F, S in zip(factors, snap[0])],
+                        [torch.where(h[:, None, None], G, S)
+                         for G, S in zip(grams, snap[1])],
+                        torch.where(h[:, None], lam, snap[2]))
+            active_dev = _host_to(active, torch.bool, dev)
+            if opts.verbosity >= Verbosity.LOW:
+                print(f"  batch its = {it + 1:3d}  fit[0] = {fitv[0]:0.5f}"
+                      f"  done {K - int(active.sum())}/{K}")
+            if stop is not None and stop():
+                stopped = True
+                break
+        finally:
+            trace.end(it_span)
+
+    statuses = ["degraded" if degraded[i] else "converged"
+                for i in range(K)]
+    return BatchedCPD(
+        results=unstack_batched(factors, lam, fits, bb.slot_dims),
+        statuses=statuses, fits=[float(f) for f in fits],
+        iterations=it + 1, compiles=counter["builds"],
+        rollbacks=[int(a) for a in attempts], stopped=stopped)
+
+
+# -- the warm update pre-pass (docs/batched.md) --------------------------------
+
+
+def touched_rows(delta, nmodes: int) -> dict:
+    """Each mode's sorted unique row ids that a delta COO touches, the
+    rows :func:`refresh_touched_rows` re-solves (≙ splatt_tpu.cpd.
+    touched_rows)."""
+    return {m: np.unique(np.asarray(delta.inds[m])) for m in range(nmodes)}
+
+
+def refresh_touched_rows(X, factors, touched: dict,
+                         reg: float = 0.0) -> List[torch.Tensor]:
+    """The warm-update pre-pass (≙ splatt_tpu.cpd.refresh_touched_rows):
+    re-solve only the rows a delta touched, before warm-started sweeps.
+
+    Each touched mode runs the full MTTKRP, the port's :func:`mttkrp` (on
+    a card the engine chain, ``fused_mttkrp_t`` on a sorted mode), solves
+    the normal equations, normalizes by the max-norm into the warm
+    factors' column scale, and commits only the touched rows: every other
+    row keeps its value bit for bit.  `factors` are numpy arrays or
+    tensors, moved to X's device; X must be in the original row order (a
+    reordered :class:`BlockedSparse` raises ValueError).  Runs under the
+    ``cpd.update`` fault site, whose raised fault surfaces to the
+    caller."""
+    from splatt_tpu_torch.ops.linalg import (SYM_EIG_MAX_SWEEPS,
+                                             clear_solver_status)
+    from splatt_tpu_torch.utils import faults
+
+    faults.maybe_fail("cpd.update")
+    if getattr(X, "perm", None) is not None:
+        raise ValueError("refresh_touched_rows works in the original row "
+                         "order: build X with reorder='identity'")
+    dev = X.device if isinstance(X, BlockedSparse) else None
+    out = [torch.as_tensor(U) for U in factors]
+    if dev is not None:
+        out = [U.to(dev) for U in out]
+    with trace.span("cpd.update", modes=len(touched),
+                    rows=int(sum(np.size(r) for r in touched.values()))):
+        grams = [gram(U) for U in out]
+        capped = []
+        for m in sorted(touched):
+            rows = np.asarray(touched[m], dtype=np.int64)
+            if rows.size == 0:
+                continue
+            M = mttkrp(X, out, m)
+            U, cap = solve_normals(form_normal_lhs(grams, m, reg), M,
+                                   return_capped=True)
+            capped.append(cap)
+            U, _ = normalize_columns(U, "max")
+            idx = torch.from_numpy(rows).to(U.device)
+            out[m] = out[m].clone()
+            out[m][idx] = U[idx].to(out[m].dtype)
+            grams[m] = gram(out[m])
+        # its own solves' caps, read once here (one sync) and cleared from
+        # the process's word, so that no later run is blamed for them
+        if capped and bool(torch.stack(capped).any()):
+            clear_solver_status()
+            raise SolverError(f"sym_eig: a refresh solve did not converge "
+                              f"within {SYM_EIG_MAX_SWEEPS} sweeps")
+    return out

@@ -14,6 +14,13 @@
 //   V (R x R, row-major), column k the unit eigenvector of w[k]:
 //   A = V diag(w) V^T.
 //
+// A batch of K such matrices, stored one after another (K, R, R), is one
+// launch of K CTAs: CTA b reads the b-th matrix and writes the b-th w, V
+// and sweep count, and no CTA reads another's data, so a non-finite
+// matrix (whose CTA writes NaN) never moves its neighbours.  The batched
+// CPD (splatt_tpu_torch/cpd.py, cpd_als_batched) solves every slot's mode
+// with one launch.
+//
 // The algorithm: parallel cyclic Jacobi in one CTA, A and V in shared
 // memory.  R is padded to an even n with a zero row and column (a dummy
 // index that never rotates).  A sweep is n - 1 rounds of the round-robin
@@ -28,7 +35,9 @@
 // no pair is rotated (the test runs on the card).  A sweep cap stops a run
 // that does not converge: the kernel then writes 1 into a mapped host word
 // (status) that the host reads after the iteration's fit read, where the
-// run raises.  A non-finite input gives NaN (as eigh does) and no status.
+// run raises, and writes max_sweeps + 1 as its sweep count, so a batch's
+// caller tells which matrix hit the cap.  A non-finite input gives NaN (as
+// eigh does), a sweep count of 0 and no status.
 // The matrix is first scaled by a power of two that brings its largest
 // entry into [0.5, 1): exact, and no sum of squares can overflow.
 //
@@ -37,7 +46,7 @@
 // at R = 50, about 1.1 MFLOP, 2.2 us at one SM's share of the f32 FFMA
 // rate.  The kernel is bound by its 2 barriers per round, about 50 rounds
 // per sweep; a round in which no pair rotates skips its update and second
-// barrier.  One CTA is the point: the solve is a chain of small dependent
+// barrier.  One CTA per matrix is the point: the solve is a chain of small dependent
 // steps, and one SM runs it with no grid-wide synchronisation and no launch
 // per step.
 //
@@ -123,6 +132,12 @@ __global__ void sym_eig_kernel(const T* __restrict__ a, int R,
                                T* __restrict__ v_out, int* sweeps_out,
                                volatile int* status) {
   extern __shared__ __align__(16) unsigned char smem[];
+  // this CTA's matrix of the batch
+  const size_t slot = blockIdx.x;
+  a += slot * R * R;
+  v_out += slot * R * R;
+  w_out += slot * R;
+  if (sweeps_out) sweeps_out += slot;
   const int n = R + (R & 1);
   const int h = n >> 1;
   const int ld = n + 1;
@@ -192,6 +207,7 @@ __global__ void sym_eig_kernel(const T* __restrict__ a, int R,
         *status = 1;
         __threadfence_system();
       }
+      ++sweep;  // max_sweeps + 1: the cap was hit
       break;
     }
     for (int k = 0; k < m; ++k) {
@@ -287,15 +303,16 @@ __global__ void sym_eig_kernel(const T* __restrict__ a, int R,
 }
 
 template <class T>
-int launch(const void* a, int R, int max_sweeps, int threads, void* w,
-           void* v, void* sweeps, void* status, cudaStream_t stream) {
+int launch(const void* a, int R, int batch, int max_sweeps, int threads,
+           void* w, void* v, void* sweeps, void* status,
+           cudaStream_t stream) {
   const int n = R + (R & 1);
   const size_t bytes = smem_bytes<T>(n);
   cudaError_t err = cudaFuncSetAttribute(
       sym_eig_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)bytes);
   if (err != cudaSuccess) return (int)err;
-  sym_eig_kernel<T><<<1, threads, bytes, stream>>>(
+  sym_eig_kernel<T><<<batch, threads, bytes, stream>>>(
       static_cast<const T*>(a), R, max_sweeps, static_cast<T*>(w),
       static_cast<T*>(v), static_cast<int*>(sweeps),
       static_cast<volatile int*>(status));
@@ -306,22 +323,25 @@ int launch(const void* a, int R, int max_sweeps, int threads, void* w,
 
 extern "C" {
 
-// Returns the cudaError_t of the launch (0 on success), launches one CTA of
-// `threads` threads (a multiple of 32) on `stream`, does not synchronise
-// and allocates nothing.  `a` is the (R, R) input, f64 if `f64` else f32;
-// `w` (R,) and `v` (R, R) are outputs of the same dtype; `sweeps` (an int
-// on the card, or null) receives the sweeps run; `status` (the device
-// address of a mapped host int, or null) is set to 1 when `max_sweeps`
-// sweeps did not converge.
-int splatt_sym_eig(const void* a, int f64, int R, int max_sweeps,
+// Returns the cudaError_t of the launch (0 on success), launches `batch`
+// CTAs of `threads` threads (a multiple of 32) on `stream`, one per
+// matrix, does not synchronise and allocates nothing.  `a` is the
+// (batch, R, R) input, f64 if `f64` else f32; `w` (batch, R) and `v`
+// (batch, R, R) are outputs of the same dtype; `sweeps` (batch ints on the
+// card, or null) receives each matrix's sweeps run (max_sweeps + 1 where
+// it hit the cap); `status` (the device address of a mapped host int, or
+// null) is set to 1 when a matrix did not converge in `max_sweeps` sweeps.
+int splatt_sym_eig(const void* a, int f64, int R, int batch, int max_sweeps,
                    int threads, void* w, void* v, void* sweeps, void* status,
                    void* stream) {
-  if (R < 1 || max_sweeps < 0 || threads < 32 || threads % 32)
+  if (R < 1 || batch < 1 || max_sweeps < 0 || threads < 32 || threads % 32)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (f64)
-    return launch<double>(a, R, max_sweeps, threads, w, v, sweeps, status, s);
-  return launch<float>(a, R, max_sweeps, threads, w, v, sweeps, status, s);
+    return launch<double>(a, R, batch, max_sweeps, threads, w, v, sweeps,
+                          status, s);
+  return launch<float>(a, R, batch, max_sweeps, threads, w, v, sweeps,
+                       status, s);
 }
 
 // `bytes` of zeroed host memory mapped into every card's address space:

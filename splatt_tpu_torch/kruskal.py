@@ -54,14 +54,29 @@ class KruskalTensor:
                      os.path.join(directory, f"{stem}lambda.mat"))
 
 
+def unstack_batched(factors, lam, fits, dims_list) -> List[KruskalTensor]:
+    """Split stacked batched-ALS state into per-slot results
+    (≙ splatt_tpu/kruskal.py:115-129): `factors` is the per-mode list of
+    ``(K, dim_pad, R)`` stacks, `lam` the ``(K, R)`` λ, `fits` the
+    per-slot fits and `dims_list` each slot's true dims;
+    :func:`post_process` crops the bucket padding and folds the column
+    norms into λ, as every single-tensor driver does."""
+    return [post_process([F[i] for F in factors], lam[i], fits[i],
+                         dims=tuple(dims))
+            for i, dims in enumerate(dims_list)]
+
+
 def post_process(factors, lam, fit, fits=(), iter_seconds=(),
-                 fit_iters=()) -> KruskalTensor:
+                 fit_iters=(), dims=None) -> KruskalTensor:
     """Fold the remaining column norms into λ (≙ cpd_post_process,
-    src/cpd.c:391-411)."""
+    src/cpd.c:391-411), first cropping each factor to `dims` where given
+    (the batched CPD's bucket padding)."""
     from splatt_tpu_torch.ops.linalg import normalize_columns
 
     out = []
-    for U in factors:
+    for m, U in enumerate(factors):
+        if dims is not None:
+            U = U[:dims[m]]
         U, norms = normalize_columns(U, "2")
         lam = lam * norms
         out.append(U)

@@ -205,7 +205,8 @@ _ENTRIES = {
                                        _P, _LL, _I, _P]),
     "splatt_ring_enable_peer": ("ring.cu", [_I, _I]),
     "splatt_ring_alloc_host": ("ring.cu", [_LL, _P, _P]),
-    "splatt_sym_eig": ("sym_eig.cu", [_P, _I, _I, _I, _I, _P, _P, _P, _P]),
+    "splatt_sym_eig": ("sym_eig.cu", [_P, _I, _I, _I, _I, _I, _P, _P, _P,
+                                      _P, _P]),
     "splatt_sym_eig_alloc_host": ("sym_eig.cu", [_LL, _P, _P]),
 }
 

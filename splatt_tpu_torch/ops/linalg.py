@@ -10,6 +10,12 @@ TF32 is switched off for float32 matmuls so the normal equations keep full
 float32 precision.  bf16 operands are cast to f32 before any product (a
 bf16 ``torch.matmul`` returns bf16): Gram, solve and normalization
 accumulate in f32 (≙ splatt_tpu/ops/linalg.py:33-36, :74-83, :101-114).
+
+Each function also takes a stack of problems on a leading batch axis, the
+batched CPD's K slots (≙ the ``jax.vmap`` of splatt_tpu/cpd.py:1117-1133):
+``(K, R, R)`` matrices, ``(K, d, R)`` factors.  Every reduction is per
+slot (the eigenvalue cut, the SPD test, the norms), so one slot's
+non-finite input never changes a neighbour's result.
 """
 
 from __future__ import annotations
@@ -36,17 +42,18 @@ class SolverError(RuntimeError):
 
 
 def gram(U: torch.Tensor) -> torch.Tensor:
-    """UᵀU, accumulated in :func:`acc_dtype` (≙ mat_aTa)."""
+    """UᵀU, accumulated in :func:`acc_dtype` (≙ mat_aTa); a ``(K, d, R)``
+    stack gives ``(K, R, R)``."""
     A = U.to(acc_dtype(U.dtype))
-    return A.T @ A
+    return A.mT @ A
 
 
 def form_normal_lhs(grams: Sequence[torch.Tensor], mode: int,
                     regularization: float = 0.0) -> torch.Tensor:
-    """Hadamard product of all Grams except `mode`, + ρI (≙ p_form_gram)."""
-    rank = grams[0].shape[0]
-    out = torch.ones((rank, rank), dtype=grams[0].dtype,
-                     device=grams[0].device)
+    """Hadamard product of all Grams except `mode`, + ρI (≙ p_form_gram);
+    stacked ``(K, R, R)`` Grams give a stack."""
+    rank = grams[0].shape[-1]
+    out = torch.ones_like(grams[0])
     for m, g in enumerate(grams):
         if m != mode:
             out = out * g
@@ -116,14 +123,32 @@ def jacobi_round(n: int, k: int) -> Tuple[List[int], List[int]]:
     return ps, qs
 
 
-def sym_eig_plain(A: torch.Tensor, max_sweeps: int = SYM_EIG_MAX_SWEEPS
-                  ) -> Tuple[torch.Tensor, torch.Tensor, int]:
+def sym_eig_plain(A: torch.Tensor, max_sweeps: int = SYM_EIG_MAX_SWEEPS):
     """Plain PyTorch version of :func:`sym_eig`, the kernel's schedule
     transcribed: the padding to an even n, the power-of-two scale, the
     round-robin pair order, the skip threshold eps·‖A‖_F/n, the stop at
     off(A) ≤ eps·‖A‖_F and the sort.  Returns (w ascending, V, sweeps);
     a non-finite A gives NaN, and the sweep cap raises
-    :class:`SolverError`."""
+    :class:`SolverError`.  A ``(K, R, R)`` stack, as one launch of the
+    kernel takes it, gives ``(K, R)`` w, ``(K, R, R)`` V and a ``(K,)``
+    int32 tensor of sweeps, ``max_sweeps + 1`` where a matrix hit the cap
+    (the batch raises nothing: its caller reads each slot's count)."""
+    if A.dim() == 3:
+        parts = [_sym_eig_plain_one(a, max_sweeps) for a in A]
+        return (torch.stack([p[0] for p in parts]),
+                torch.stack([p[1] for p in parts]),
+                torch.tensor([p[2] for p in parts], dtype=torch.int32))
+    w, v, sweeps = _sym_eig_plain_one(A, max_sweeps)
+    if sweeps > max_sweeps:
+        raise SolverError(f"sym_eig: no convergence in {max_sweeps} "
+                          f"sweeps at R = {int(A.shape[0])}")
+    return w, v, sweeps
+
+
+def _sym_eig_plain_one(A: torch.Tensor, max_sweeps: int
+                       ) -> Tuple[torch.Tensor, torch.Tensor, int]:
+    """:func:`sym_eig_plain` of one matrix; ``max_sweeps + 1`` sweeps
+    where it hit the cap, whose (w, V) are then the last sweep's."""
     R = int(A.shape[0])
     dt, dev = A.dtype, A.device
     if not bool(torch.isfinite(A).all()):
@@ -149,8 +174,8 @@ def sym_eig_plain(A: torch.Tensor, max_sweeps: int = SYM_EIG_MAX_SWEEPS
         if bool((off * off).sum() <= tol_off * tol_off):
             break
         if sweeps == max_sweeps:
-            raise SolverError(f"sym_eig: no convergence in {max_sweeps} "
-                              f"sweeps at R = {R}")
+            sweeps += 1
+            break
         for k in range(n - 1):
             ps, qs = jacobi_round(n, k)
             P = torch.tensor(ps, device=dev)
@@ -213,49 +238,66 @@ def _status_word() -> int:
         return _STATUS[1]
 
 
-def check_solver() -> None:
-    """Raise :class:`SolverError` when a :func:`sym_eig` launch hit its
-    sweep cap.  The word lies in mapped host memory: reading it is no
-    CUDA call, so the caller reads it after a sync it already makes (the
-    iteration's fit read).  The word is cleared."""
+def clear_solver_status() -> bool:
+    """Whether a :func:`sym_eig` launch hit its sweep cap since the last
+    clear; the word is cleared.  The word lies in mapped host memory:
+    reading it is no CUDA call, so the caller reads it after a sync it
+    already makes (the iteration's fit read).  The batched CPD clears it
+    and reads each slot's sweep count instead, so that a cap hit by one
+    slot is told apart from its neighbours'."""
     if not _STATUS:
-        return
+        return False
     word = ctypes.c_int.from_address(_STATUS[0])
     if word.value == 0:
-        return
+        return False
     word.value = 0
-    raise SolverError(f"sym_eig: the Jacobi sweeps did not converge within "
-                      f"{SYM_EIG_MAX_SWEEPS} sweeps")
+    return True
+
+
+def check_solver() -> None:
+    """Raise :class:`SolverError` when a :func:`sym_eig` launch hit its
+    sweep cap (:func:`clear_solver_status`)."""
+    if clear_solver_status():
+        raise SolverError(f"sym_eig: the Jacobi sweeps did not converge "
+                          f"within {SYM_EIG_MAX_SWEEPS} sweeps")
 
 
 def sym_eig(A: torch.Tensor, return_sweeps: bool = False):
     """(w ascending, V) of the symmetric (R, R) `A`, ``A = V diag(w) Vᵀ``,
-    in A's dtype, as ``torch.linalg.eigh`` returns them.  CPU tensors take
-    :func:`sym_eig_plain`; CUDA tensors (f32 or f64, contiguous, within
+    in A's dtype, as ``torch.linalg.eigh`` returns them; a ``(K, R, R)``
+    stack gives ``(K, R)`` and ``(K, R, R)`` in one launch of K CTAs.  CPU
+    tensors take :func:`sym_eig_plain`; CUDA tensors (f32 or f64, within
     :func:`sym_eig_fits`) launch ``csrc/sym_eig.cu`` on the current stream
     with no sync, or raise.  A run that hits the sweep cap sets the status
     word that :func:`check_solver` reads.  With `return_sweeps`, a third
-    value: the sweeps run (an int32 tensor of one element on a card)."""
-    if A.dim() != 2 or A.shape[0] != A.shape[1] or A.shape[0] < 1:
-        raise ValueError(f"sym_eig takes a square matrix, got "
-                         f"{tuple(A.shape)}")
+    value: the sweeps run (on a card an int32 tensor of one element, or
+    of K for a stack, ``SYM_EIG_MAX_SWEEPS + 1`` where a matrix hit the
+    cap)."""
+    if (A.dim() not in (2, 3) or A.shape[-1] != A.shape[-2]
+            or A.shape[-1] < 1):
+        raise ValueError(f"sym_eig takes a square matrix or a stack of "
+                         f"them, got {tuple(A.shape)}")
     if A.device.type == "cpu":
         w, v, sweeps = sym_eig_plain(A)
         return (w, v, sweeps) if return_sweeps else (w, v)
-    R = int(A.shape[0])
+    R = int(A.shape[-1])
     if not sym_eig_fits(R, A.dtype):
         raise ValueError(f"sym_eig takes f32 up to R = 168 and f64 up to "
                          f"118, got {A.dtype} at R = {R}")
-    A = A.contiguous()
-    w = torch.empty(R, dtype=A.dtype, device=A.device)
-    v = torch.empty((R, R), dtype=A.dtype, device=A.device)
-    sweeps = (torch.empty(1, dtype=torch.int32, device=A.device)
+    batch = A.shape[:-2]
+    K = int(A.shape[0]) if A.dim() == 3 else 1
+    w = torch.empty((*batch, R), dtype=A.dtype, device=A.device)
+    v = torch.empty((*batch, R, R), dtype=A.dtype, device=A.device)
+    sweeps = (torch.empty(batch if A.dim() == 3 else (1,),
+                          dtype=torch.int32, device=A.device)
               if return_sweeps else None)
+    A = A.contiguous()
     status = _status_word()
     with torch.cuda.device(A.device):
         kernels._launch("splatt_sym_eig", A.data_ptr(),
-                        int(A.dtype == torch.float64), R, SYM_EIG_MAX_SWEEPS,
-                        sym_eig_threads(R), w.data_ptr(), v.data_ptr(),
+                        int(A.dtype == torch.float64), R, K,
+                        SYM_EIG_MAX_SWEEPS, sym_eig_threads(R), w.data_ptr(),
+                        v.data_ptr(),
                         None if sweeps is None else sweeps.data_ptr(),
                         status)
     sym_eig.launches += 1
@@ -265,43 +307,87 @@ def sym_eig(A: torch.Tensor, return_sweeps: bool = False):
 sym_eig.launches = 0
 
 
-def eigh(lhs: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+def eigh(lhs: torch.Tensor, return_capped: bool = False):
     """The solve's eigendecomposition: :func:`sym_eig` on a card within
     its static gate (:func:`solve_takes_sym_eig`), ``torch.linalg.eigh``
     on the CPU (no host sync to remove there) and above the gate.  Never
-    a fallback on failure: a failed build, load or launch raises."""
+    a fallback on failure: a failed build, load or launch raises.
+
+    A ``(K, R, R)`` stack is one :func:`sym_eig` launch; on the eigh route
+    its non-finite slots are decomposed as the identity and come back NaN
+    (eigh raises on a NaN matrix; the kernel writes NaN for one), so one
+    slot's NaN neither fails nor moves the batch.  With `return_capped`, a
+    third value: a bool tensor of the batch's shape, True where the
+    kernel hit its sweep cap (all False on the eigh route, which raises
+    instead)."""
     if lhs.device.type == "cuda" and solve_takes_sym_eig(
-            int(lhs.shape[0]), lhs.dtype):
-        return sym_eig(lhs)
-    return torch.linalg.eigh(lhs)
+            int(lhs.shape[-1]), lhs.dtype):
+        if not return_capped:
+            return sym_eig(lhs)
+        w, v, sweeps = sym_eig(lhs, return_sweeps=True)
+        return w, v, sweeps.reshape(lhs.shape[:-2]) > SYM_EIG_MAX_SWEEPS
+    if lhs.dim() == 3:
+        finite = torch.isfinite(lhs).flatten(1).all(dim=1)
+        eye = torch.eye(lhs.shape[-1], dtype=lhs.dtype, device=lhs.device)
+        w, v = torch.linalg.eigh(torch.where(finite[:, None, None], lhs,
+                                             eye))
+        nan = torch.full((), float("nan"), dtype=lhs.dtype,
+                         device=lhs.device)
+        w = torch.where(finite[:, None], w, nan)
+        v = torch.where(finite[:, None, None], v, nan)
+    else:
+        w, v = torch.linalg.eigh(lhs)
+    if not return_capped:
+        return w, v
+    return w, v, torch.zeros(lhs.shape[:-2], dtype=torch.bool,
+                             device=lhs.device)
 
 
-def pinv_parts(lhs: torch.Tensor):
+def pinv_parts(lhs: torch.Tensor, return_capped: bool = False):
     """(w, V, tol, w_inv) of the pseudo-inverse solve: eigenvalues below
-    √eps·max|w| are cut (≙ splatt_tpu/ops/linalg.py:60-84)."""
-    w, v = eigh(lhs)
-    tol = torch.finfo(lhs.dtype).eps ** 0.5 * w.abs().max()
-    w_inv = torch.where(w.abs() > tol, 1.0 / w, torch.zeros_like(w))
-    return w, v, tol, w_inv
+    √eps·max|w| are cut (≙ splatt_tpu/ops/linalg.py:60-84), the cut per
+    slot of a stack (tol has the batch's shape).  With `return_capped`,
+    :func:`eigh`'s cap flags last."""
+    w, v, *capped = eigh(lhs, return_capped=True) if return_capped \
+        else eigh(lhs)
+    tol = torch.finfo(lhs.dtype).eps ** 0.5 * w.abs().amax(dim=-1)
+    w_inv = torch.where(w.abs() > tol[..., None], 1.0 / w,
+                        torch.zeros_like(w))
+    return (w, v, tol, w_inv, *capped)
 
 
-def solve_normals(lhs: torch.Tensor, rhs: torch.Tensor) -> torch.Tensor:
+def solve_normals(lhs: torch.Tensor, rhs: torch.Tensor,
+                  return_capped: bool = False):
     """Solve ``X · lhs = rhs`` for X (≙ mat_solve_normals).
 
     Both a Cholesky solve and an eigh pseudo-inverse solve (eigenvalues
     below √eps·max|w| cut) are computed, and ``torch.where`` picks one on
     the SPD test: no Python branch, no exception on a matrix that is not
     SPD, and on a card no host sync (≙ splatt_tpu/ops/linalg.py:53-86).
+    A stack, ``(K, R, R)`` against ``(K, d, R)``, picks per slot.  With
+    `return_capped`, also the eigensolver's per-slot cap flags
+    (:func:`eigh`).
     """
     rhs = rhs.to(acc_dtype(rhs.dtype))
     L, info = torch.linalg.cholesky_ex(lhs)
-    x_chol = torch.cholesky_solve(rhs.T, L).T
+    if lhs.dim() == 2:
+        x_chol = torch.cholesky_solve(rhs.T, L).T
+    else:
+        # X L Lᵀ = rhs as two triangular solves (cuBLAS trsm on a card),
+        # where a stack's torch.cholesky_solve spends far more host time
+        x_chol = torch.linalg.solve_triangular(
+            L, torch.linalg.solve_triangular(L.mT, rhs, upper=True,
+                                             left=False),
+            upper=False, left=False)
 
-    w, v, tol, w_inv = pinv_parts(lhs)
-    x_pinv = (rhs @ (v * w_inv)) @ v.T
+    w, v, tol, w_inv, *capped = pinv_parts(lhs, return_capped)
+    x_pinv = (rhs @ (v * w_inv[..., None, :])) @ v.mT
 
-    spd = (info == 0) & (w.min() > tol) & torch.isfinite(x_chol).all()
-    return torch.where(spd, x_chol, x_pinv)
+    spd = ((info == 0) & (w.amin(dim=-1) > tol)
+           & torch.isfinite(x_chol).all(dim=(-2, -1)))
+    # contiguous: the kernels take the solved factor as their table
+    x = torch.where(spd[..., None, None], x_chol, x_pinv).contiguous()
+    return (x, *capped) if return_capped else x
 
 
 def normalize_columns(U: torch.Tensor, which: str = "2"):
@@ -309,14 +395,14 @@ def normalize_columns(U: torch.Tensor, which: str = "2"):
 
     "2": 2-norm (iteration 0).  "max": the signed column max floored at
     1, so an all-negative column gets λ = 1 (≙ p_mat_2norm/p_mat_maxnorm,
-    src/matrix.c:87-205).
+    src/matrix.c:87-205).  A ``(K, d, R)`` stack gives ``(K, R)`` λ.
     """
     if which == "2":
         A = U.to(acc_dtype(U.dtype))
-        lam = torch.sqrt((A * A).sum(dim=0))
+        lam = torch.sqrt((A * A).sum(dim=-2))
     elif which == "max":
-        lam = torch.clamp(U.max(dim=0).values, min=1.0)
+        lam = torch.clamp(U.max(dim=-2).values, min=1.0)
     else:
         raise ValueError(f"unknown norm {which!r}")
     safe = torch.where(lam > 0, lam, torch.ones_like(lam))
-    return U / safe.to(U.dtype), lam
+    return U / safe.to(U.dtype)[..., None, :], lam

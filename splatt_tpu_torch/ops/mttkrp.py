@@ -147,6 +147,38 @@ def mttkrp_stream(inds: torch.Tensor, vals: torch.Tensor,
     return out.index_add_(0, inds[mode].long(), prod.to(acc))
 
 
+def mttkrp_batched_stream(inds: torch.Tensor, vals: torch.Tensor,
+                          factors: Sequence[torch.Tensor], mode: int,
+                          dim: int) -> torch.Tensor:
+    """:func:`mttkrp_stream` of each slot of a stacked same-regime batch
+    (≙ splatt_tpu.ops.mttkrp.mttkrp_batched_stream, a vmapped segment sum
+    that the JAX package leaves to XLA; plain torch here, as the scatter
+    path is).  `inds` is ``(K, nmodes, nnz_pad)`` global int32 ids, `vals`
+    ``(K, nnz_pad)``, `factors` per-mode ``(K, dim_m, R)``; returns ``(K,
+    dim, R)`` in the accumulator dtype (f32 under bf16 storage).
+
+    The factors are flattened to ``(K·dim_m, R)`` and each slot's ids
+    offset by ``slot·dim_m``, so one gather per mode and one ``index_add_``
+    serve every slot, and no slot reads another's rows.  Ids are clamped
+    into the slot's bucket first, as the single-tensor gather clamps
+    them; pads carry value 0."""
+    K = int(vals.shape[0])
+    slots = torch.arange(K, device=vals.device, dtype=torch.int64)[:, None]
+    prod = vals.to(factors[0].dtype)[..., None]
+    for k, U in enumerate(factors):
+        if k != mode:
+            d = int(U.shape[1])
+            idx = inds[:, k].clamp(0, d - 1).long() + slots * d
+            prod = prod * U.reshape(K * d, -1).index_select(
+                0, idx.reshape(-1)).reshape(K, -1, U.shape[2])
+    acc = acc_dtype(prod.dtype)
+    out = torch.zeros((K * dim, prod.shape[2]), dtype=acc,
+                      device=prod.device)
+    rows = (inds[:, mode].long() + slots * dim).reshape(-1)
+    out.index_add_(0, rows, prod.reshape(-1, prod.shape[2]).to(acc))
+    return out.reshape(K, dim, -1)
+
+
 def mttkrp_ttbox(inds: torch.Tensor, vals: torch.Tensor,
                  factors: Sequence[torch.Tensor], mode: int,
                  dim: int) -> torch.Tensor:

@@ -73,6 +73,15 @@ SPANS = {
     "cpd.fit_check": "the fit's host fetch at a check iteration, the one "
                      "sync the enqueued work drains into",
     "cpd.checkpoint": "one atomic .npz checkpoint write",
+    "cpd.batch": "one cpd_als_batched run end to end, K same-regime "
+                 "tensors as one stacked sweep (attrs: rank, k, "
+                 "max_iterations)",
+    "cpd.batch.sweep": "one batched ALS iteration over every live slot, "
+                       "sweep dispatch through the per-slot commit "
+                       "(attrs: it)",
+    "cpd.update": "the warm-update pre-pass (refresh_touched_rows): the "
+                  "rows a delta touched re-solved before the warm sweeps "
+                  "(attrs: modes, rows)",
     "cpd.guard.health_pack": "numerical-health sentinel: building and "
                              "fetching the packed finite-check vector "
                              "(rides the fit-check sync)",

@@ -503,6 +503,30 @@ def tuned_blocks_for(tt, rank: int, dtype, device=None) -> Dict[int, int]:
             for m, p in tuned_build_for(tt, rank, dtype, device).items()}
 
 
+def batched_block_for(dims: Sequence[int], nnz: int, mode: int,
+                      rank: Optional[int], dtype, k: int,
+                      autotune: Optional[bool] = None,
+                      device=None) -> Optional[int]:
+    """The tuned ``nnz_block`` of a batched dispatch of `k` same-regime
+    tensors on `device` (≙ splatt_tpu.tune.batched_block_for), or None,
+    when the caller keeps the options' default.  The batch-axis plan key
+    comes first (a verdict measured under batching), then the
+    single-tensor plan of the same site (the batch multiplies the work
+    per block but not its shape).  Without a rank, or with autotune off,
+    None without reading the cache."""
+    if rank is None or not autotune_enabled(autotune):
+        return None
+    entry = _entry_get(plan_key(dims, nnz, mode, rank, dtype, batch=k),
+                       device)
+    if entry and "plan" in entry:
+        try:
+            return int(entry["plan"]["nnz_block"])
+        except (KeyError, TypeError, ValueError) as e:
+            _cache_io_error("load", e)
+    plan = cached_plan(dims, nnz, mode, rank, dtype, device=device)
+    return plan.nnz_block if plan is not None else None
+
+
 # -- measurement ---------------------------------------------------------------
 
 

@@ -88,6 +88,13 @@ SITES = {
                  "factor output with non-finite values, exercising "
                  "the numerical-health sentinel and its rollback "
                  "(cpd.py, parallel/common.py)",
+    "cpd.batch.sweep": "poisoned (not raised): corrupt slot 0's last "
+                       "factor of one batched sweep while the slot is "
+                       "live, the per-slot isolation drill: slot 0 must "
+                       "roll back alone (cpd.py cpd_als_batched)",
+    "cpd.update": "the warm-update pre-pass (cpd.py "
+                  "refresh_touched_rows); a raised fault surfaces to the "
+                  "caller, which repairs it with a full refit",
     "trace.export": "the Chrome trace-event JSON export "
                     "(trace.write_chrome_trace); a raised fault must "
                     "degrade classified to a trace_written ok=False "

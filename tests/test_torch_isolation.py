@@ -1,6 +1,7 @@
 """The port stands alone: no module of it loads JAX or the JAX package
-(each is imported in a fresh interpreter), and its entry points run on the
-card unless the caller asks for the CPU."""
+(each is imported in a fresh interpreter), and its entry points, the
+batched CPD's included, run on the card unless the caller asks for the
+CPU."""
 
 import subprocess
 import sys
@@ -9,9 +10,9 @@ import pytest
 import torch
 
 from splatt_tpu_torch import coo as tcoo
-from splatt_tpu_torch.blocked import BlockedSparse
+from splatt_tpu_torch.blocked import BlockedSparse, batch_compile
 from splatt_tpu_torch.config import Options
-from splatt_tpu_torch.cpd import cpd_als
+from splatt_tpu_torch.cpd import cpd_als, cpd_als_batched
 from tests import gen
 from tests.torch_fixtures import private_tune_cache  # noqa: F401
 
@@ -57,7 +58,9 @@ sys.exit(1 if bad else 0)
     "splatt_tpu_torch.trace", "splatt_tpu_torch.utils.timers",
     "splatt_tpu_torch.utils.durable", "splatt_tpu_torch.cpd",
     "splatt_tpu_torch.parallel.common", "splatt_tpu_torch.tune",
-    "splatt_tpu_torch.bench_algs", "splatt_tpu_torch.cli"])
+    "splatt_tpu_torch.bench_algs", "splatt_tpu_torch.cli",
+    "splatt_tpu_torch.blocked", "splatt_tpu_torch.kruskal",
+    "splatt_tpu_torch.ops.linalg", "splatt_tpu_torch.ops.mttkrp"])
 def test_each_observability_module_imports_alone_without_jax(module):
     """The slice's new and extended modules, each imported first in a
     fresh interpreter, pull in neither JAX nor the JAX package."""
@@ -76,3 +79,21 @@ def test_entry_points_need_a_card_unless_told_cpu():
     bs = BlockedSparse.from_coo(X, Options(), device="cpu")
     with pytest.raises(RuntimeError, match="device='cpu'"):
         cpd_als(bs, 2, Options(max_iterations=1))
+
+
+def test_batched_entry_points_need_a_card_unless_told_cpu():
+    """batch_compile and cpd_als_batched (a list of tensors, or a batch
+    built on the CPU) run on the card unless told to use the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the default device works")
+    tt = gen.fixture_tensor("small")
+    X = tcoo.SparseTensor(tt.inds, tt.vals, tt.dims)
+    opts = Options(max_iterations=1, autotune=False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        batch_compile([X, X], opts)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        cpd_als_batched([X, X], 2, opts)
+    bb = batch_compile([X, X], opts, device="cpu")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        cpd_als_batched(bb, 2, opts)
+    assert cpd_als_batched(bb, 2, opts, device="cpu").k == 2

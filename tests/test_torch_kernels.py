@@ -336,3 +336,18 @@ def test_reduction_wrappers_pass_the_walks_load_width(name, R, dtype,
                 assert out.shape == (width, R)
             assert out.dtype == torch.float32
     assert fn.launches == n == 4
+
+
+@pytest.mark.parametrize("name", sorted(kernels._ENTRIES))
+def test_every_c_entry_declares_each_argument(name):
+    """Each C entry's ctypes signature has one type per parameter of its
+    definition in csrc/, the stream included: an argument left undeclared
+    is passed as a C int, which truncates a pointer."""
+    import re
+
+    source, argtypes = kernels._ENTRIES[name]
+    text = (kernels.CSRC / source).read_text()
+    m = re.search(r"\bint\s+" + name + r"\(([^)]*)\)\s*\{", text)
+    assert m is not None, f"{name} is not defined in {source}"
+    params = [p for p in m.group(1).split(",") if p.strip()]
+    assert len(params) == len(argtypes), (name, params)

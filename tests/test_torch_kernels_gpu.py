@@ -750,6 +750,66 @@ def test_cuda_sym_eig_matches_plain_and_eigh():
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("R", [32, 50])
+def test_cuda_batched_sym_eig_matches_plain_and_single_launches(dtype, R):
+    """One launch of csrc/sym_eig.cu over a stack of 12 matrices (every
+    spectrum twice, one all-NaN slot, one zero slot) against
+    sym_eig_plain over the stack (w within 1e-5 / 1e-12 of max|w|, the
+    pseudo-inverse operator within 1e-4 / 1e-10) and against 12 single
+    launches: each CTA's w, V and sweeps equal the single launch's bit for
+    bit, the NaN slot gives NaN and 0 sweeps and sets no status.  Then the
+    batched solve: one launch per stack, each slot within 1e-6 / 1e-12 of
+    the one-matrix solve, no slot capped."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from splatt_tpu_torch.ops import linalg
+
+    w_tol, op_tol = {torch.float32: (1e-5, 1e-4),
+                     torch.float64: (1e-12, 1e-10)}[dtype]
+    mats = [spectrum(kind, R, seed=R + i)
+            for i, kind in enumerate(SPECTRA * 2)]
+    mats += [np.full((R, R), np.nan), np.zeros((R, R))]
+    A = torch.from_numpy(np.stack(mats)).to("cuda", dtype)
+    K, nan_slot = len(mats), len(mats) - 2
+    before = linalg.sym_eig.launches
+    w, v, sweeps = linalg.sym_eig(A, return_sweeps=True)
+    assert linalg.sym_eig.launches == before + 1
+    wp, vp, sp = linalg.sym_eig_plain(A)
+    singles = [linalg.sym_eig(A[i].contiguous(), return_sweeps=True)
+               for i in range(K)]
+    torch.cuda.synchronize()
+    linalg.check_solver()
+    assert w.shape == (K, R) and v.shape == (K, R, R)
+    assert sweeps.shape == (K,)
+    for i in range(K):
+        ws, vs, ss = singles[i]
+        assert torch.equal(torch.nan_to_num(w[i]), torch.nan_to_num(ws)), i
+        assert torch.equal(torch.nan_to_num(v[i]), torch.nan_to_num(vs)), i
+        assert int(sweeps[i]) == int(ss[0]), i
+        if i == nan_slot:
+            assert not bool(torch.isfinite(w[i]).any())
+            assert int(sweeps[i]) == 0
+            continue
+        assert 0 <= int(sweeps[i]) < linalg.SYM_EIG_MAX_SWEEPS
+        if float(wp[i].abs().max()) > 0:
+            assert _rel(w[i], wp[i]) <= w_tol, i
+            assert _rel(_pinv_op(w[i], v[i], dtype),
+                        _pinv_op(wp[i], vp[i], dtype)) <= op_tol, i
+    rhs = torch.rand((K, 7, R), dtype=dtype, device="cuda")
+    before = linalg.sym_eig.launches
+    x, capped = linalg.solve_normals(A, rhs, return_capped=True)
+    assert linalg.sym_eig.launches == before + 1
+    assert not bool(capped.any())
+    tol = 1e-6 if dtype == torch.float32 else 1e-12
+    for i in range(K):
+        if i == nan_slot:
+            continue
+        xs = linalg.solve_normals(A[i].contiguous(), rhs[i])
+        assert _rel(x[i], xs) <= tol, i
+
+
+@pytest.mark.gpu
 def test_cuda_solve_and_sweep_have_no_host_sync():
     """solve_normals, solve_normals_many and one cpd sweep run under
     torch.cuda.set_sync_debug_mode("error"): the eigensolver kernel took

@@ -36,15 +36,18 @@ from splatt_tpu_torch.ops.mttkrp import (mttkrp, mttkrp_stream,
                                          native_runnable, plan_mttkrp,
                                          run_native)
 from tests import gen
-from tests.torch_fixtures import private_tune_cache  # noqa: F401
+from tests.torch_fixtures import (private_jax_native,  # noqa: F401
+                                  private_tune_cache)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FIXTURES = ["small", "med", "small4", "med4", "med5"]
 
 
 @pytest.fixture
-def native_lib():
-    """Both packages' native libraries, built here; skips without g++."""
+def native_lib(private_jax_native):
+    """Both packages' native libraries, built here; skips without g++.
+    The JAX package's is a private build (tests/torch_fixtures.py), so no
+    load races another worker's in-place build of ``_native.so``."""
     if shutil.which("g++") is None:
         pytest.skip("no g++ on this host: the native runtime cannot build")
     assert native.available() and jnative.available()

@@ -322,6 +322,38 @@ Phases, each fatal on failure:
    host syncs of a checked iteration are the ``cudaStreamSynchronize``
    calls ``torch.profiler`` records (1), printed beside its device-to-host
    copies and the warn mode's count.
+18. the serve daemon on the card (``--serve`` runs phases 1-2 and this
+   phase alone), single replica, ``SPLATT_ENGINE_FALLBACK=0`` unless a
+   job's spec turns it on.  Phase 3's tensor as ``.bin`` (phase 16's file
+   when the whole script runs) filed as a cpd job (rank 50, 5
+   iterations, tolerance 0) on an in-process ``serve.Server``: the job
+   ends done at generation 1 with ``fused_mttkrp_t`` launched (modes
+   whose plan names fused_t) x 5 times, no demotion, its fit within 1e-4
+   of a direct ``cpd_als`` on the same compile from the same seed; its
+   seconds by part (load, compile, sweeps, commit), its ms per iteration
+   (the job's ``cpd.iter`` spans) beside phase 5's, and the journal's
+   fsynced append.  16 predict jobs of 4096 coordinates and a top-10 of
+   each mode in turn, filed and answered through the spool: bit for bit
+   ``reconstruct_entries``/``top_k_slice`` on the checkpoint's factors,
+   within 1e-4 of max|x̂| of an f64 reconstruction, ms per request and
+   the compute alone.  A cpd job on phase 6's 2M tensor (rank 16, 20
+   iterations) and an update with phase 17's 1% delta: the refresh and
+   5 warm sweeps launch ``fused_mttkrp_t`` (fused_t modes) x 6 times
+   with no demotion and no refit, the generation advances to 2, and a
+   predict after the commit answers at generation 2.  8 synthetic jobs
+   of phase 17's regime with ``batch_min`` 8: one batched CPD, each
+   member's fit within 1e-6 of its sequential ``cpd_als``.  Two jobs on
+   two workers at once, A with ``faults: engine.fused_t:runtime`` and
+   ``engine_fallback: true``: A carries the demotion and dispatched
+   fused_tg, B none and its fit within 1e-4 of its run alone (the
+   launches counted per job from the ``mttkrp.dispatch`` spans); a
+   ``sym_eig`` launch forced to its sweep cap in one thread's scope
+   raises there only while the other thread's CPD runs clean.  ``python
+   -m splatt_tpu_torch.cli serve DIR --once`` killed with SIGKILL once
+   its job's first checkpoint lands, run again: the journal has
+   ``resumed``, the job ends done with its fit within 1e-4 of an
+   uninterrupted run, and ``predict DIR --model ... --wait`` exits 0 with
+   ``served``.
 
 The line before the last is the ``{"kernels": [...]}`` record (the nine
 TPU kernels' counterparts and ``sym_eig``); the last is
@@ -332,7 +364,8 @@ and phase 12 alone and prints ``fused_mttkrp_t``'s entry from phase 12;
 ``--dense`` runs phases 1-2 and phase 10 alone and prints
 ``fused_dense``'s; ``--batch`` runs phases 1-2 and phase 17 and prints
 ``fused_mttkrp_t``'s entry on the update path's layouts and ``sym_eig``'s
-over the batch; ``--balance`` runs the set-up and phase 13 and prints
+over the batch; ``--serve`` runs phases 1-2 and phase 18 and prints
+``fused_mttkrp_t``'s entry with phase 18's launches; ``--balance`` runs the set-up and phase 13 and prints
 ``fused_mttkrp_t``'s and ``fused_mttkrp_v2``'s entries from it.  The line
 ``[total]`` gives the script's seconds.  ``--gather`` runs the
 set-up, the 20M-nonzero layouts, phase 3, phase 6's ``fused_mttkrp_tg``
@@ -361,7 +394,9 @@ parent).
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import inspect
 import json
 import math
 import os
@@ -2868,11 +2903,78 @@ def sweep_host_ms(step, factors, grams, mesh, tag: str) -> float:
     return host_ms
 
 
-def decomp_pieces(kind: str, tt, mesh, rank: int, init, grid=None) -> dict:
+class BuildSpy:
+    """Records the per-rank layouts a distributed CPD entry point builds:
+    for the block, the layout function of `kind` ("fine": ``sharded.
+    shard_blocked_layouts``; "coarse": ``coarse.coarse_rank_layouts``;
+    "medium": ``GridDecomp.build_cell_layouts`` and ``CellLayouts.
+    device_put``) is wrapped, and ``got`` holds its output, its mesh and
+    its seconds, so that phase 12's checks run on the layouts of the CPD
+    they check instead of a second host build."""
+
+    def __init__(self, kind: str):
+        self.kind = kind
+        self.got: dict = {}
+        self._saved: list = []
+
+    def _wrap(self, owner, name: str, make) -> None:
+        orig = getattr(owner, name)
+        self._saved.append((owner, name, orig))
+        setattr(owner, name, make(orig))
+
+    def __enter__(self):
+        from splatt_tpu_torch.parallel import coarse, grid, sharded
+
+        got = self.got
+
+        def timed(orig, record):
+            sig = inspect.signature(orig)
+
+            def spy(*a, **kw):
+                t0 = time.perf_counter()
+                out = orig(*a, **kw)
+                # by name, however the package's caller passed them
+                record(out, time.perf_counter() - t0,
+                       sig.bind(*a, **kw).arguments)
+                return out
+            return spy
+
+        if self.kind == "fine":
+            self._wrap(sharded, "shard_blocked_layouts", lambda o: timed(
+                o, lambda out, sec, arg: got.update(
+                    cells=out, mesh=arg["mesh"],
+                    dims_pad=tuple(arg["dims_pad"]), build_s=sec)))
+        elif self.kind == "coarse":
+            self._wrap(coarse, "coarse_rank_layouts", lambda o: timed(
+                o, lambda out, sec, arg: got.update(
+                    cells=out, mesh=arg["mesh"], build_s=sec,
+                    blocks=tuple(b for (_, _, b, _) in arg["per_mode"]))))
+        else:
+            self._wrap(grid.GridDecomp, "build_cell_layouts",
+                       lambda o: timed(o, lambda out, sec, arg:
+                                       got.update(decomp=arg["self"],
+                                                  build_s=sec)))
+            self._wrap(grid.CellLayouts, "device_put", lambda o: timed(
+                o, lambda out, sec, arg: got.update(
+                    cells=out, mesh=arg["mesh"],
+                    build_s=got.get("build_s", 0.0) + sec)))
+        return self
+
+    def __exit__(self, *exc):
+        for owner, name, orig in reversed(self._saved):
+            setattr(owner, name, orig)
+        self._saved.clear()
+        return False
+
+
+def decomp_pieces(kind: str, tt, mesh, rank: int, init, grid=None,
+                  built=None) -> dict:
     """The per-rank layouts, sharded factors and sweep of one
     decomposition, built from the package's pieces as its CPD entry
     point builds them (the host build timed), with a function giving
-    rank 0's tables for mode m."""
+    rank 0's tables for mode m.  With `built` (a :class:`BuildSpy`'s
+    ``got`` from the CPD entry point's run) the layouts are that run's,
+    and the seconds its build's."""
     import torch
 
     from splatt_tpu_torch import Options
@@ -2890,7 +2992,15 @@ def decomp_pieces(kind: str, tt, mesh, rank: int, init, grid=None) -> dict:
     opts = Options()
     ndev, nmodes = mesh.ndev, tt.nmodes
     t0 = time.perf_counter()
-    if kind == "medium":
+    if built is not None:
+        mesh, cells = built["mesh"], built["cells"]
+        if kind == "medium":
+            decomp = built["decomp"]
+        elif kind == "coarse":
+            blocks = built["blocks"]
+        else:
+            dims_pad = built["dims_pad"]
+    elif kind == "medium":
         decomp = GridDecomp.build(tt, grid=grid, val_dtype=tt.vals.dtype,
                                   balance=None)
         mesh = decomp.make_mesh(devices=mesh.devices)
@@ -2905,7 +3015,8 @@ def decomp_pieces(kind: str, tt, mesh, rank: int, init, grid=None) -> dict:
         dims_pad = tuple(ceil_to(d, ndev) for d in tt.dims)
         cells = shard_blocked_layouts(tt, mesh, opts, dims_pad)
     sync_mesh(mesh)
-    build_s = time.perf_counter() - t0
+    build_s = (time.perf_counter() - t0 if built is None
+               else built["build_s"])
     if kind == "medium":
         factors = decomp.shard_factors(init, mesh)
         groups = [mesh.groups([m]) for m in range(nmodes)]
@@ -2946,19 +3057,23 @@ def decomp_pieces(kind: str, tt, mesh, rank: int, init, grid=None) -> dict:
                 seg_width={m: cells[m].seg_width for m in sorted_modes},
                 nnz_pad={m: int(cells[m].vals[0].shape[0])
                          for m in sorted_modes})
+    info["layouts_of_the_cpd"] = built is not None
     log(f"[decomp] {kind}{'' if grid is None else ' grid ' + str(grid)}: "
-        f"per-rank layouts built on the host and copied in {build_s:.2f} s; "
+        f"per-rank layouts built on the host and copied in {build_s:.2f} s"
+        f"{' (by the CPD checked here)' if built is not None else ''}; "
         f"{json.dumps(info)}")
     return dict(mesh=mesh, cells=cells, step=step, factors=factors,
                 grams=grams, tables=tables, info=info)
 
 
-def check_decomp(kind: str, tt, mesh, rank: int, init, grid=None) -> dict:
+def check_decomp(kind: str, tt, mesh, rank: int, init, grid,
+                 built: dict) -> dict:
     """Rank 0's fused_mttkrp_t launch of each sorted mode against the
-    plain version, and one sweep under the sync check."""
+    plain version, and one sweep under the sync check, on the layouts the
+    CPD entry point built (`built`, from a :class:`BuildSpy`)."""
     import torch
 
-    p = decomp_pieces(kind, tt, mesh, rank, init, grid)
+    p = decomp_pieces(kind, tt, mesh, rank, init, grid, built)
     tag = kind if grid is None else f"{kind} {'x'.join(map(str, grid))}"
     rows = [rank_launch(p["cells"][m].layout(0), p["tables"](m), m, tag)
             for m in p["info"]["sorted_modes"]]
@@ -3007,12 +3122,10 @@ def phase_decomp(tt, rank: int, seed: int = DECOMP_SEED) -> dict:
     log(f"[decomp] single-card COO cpd fits {list(ref.fits)} "
         f"({time.perf_counter() - t0:.1f} s)")
 
-    # each decomposition's pieces: rank 0's launches and the sync check
-    checks = {"fine": check_decomp("fine", tt, mesh, rank, init),
-              "medium": check_decomp("medium", tt, mesh, rank, init, auto),
-              "medium_split": check_decomp("medium", tt, mesh, rank, init,
-                                           split),
-              "coarse": check_decomp("coarse", tt, mesh, rank, init)}
+    # each decomposition's checks (rank 0's launches against the plain
+    # version, the sync check of one sweep) run after its CPD, on the
+    # layouts that CPD built (BuildSpy): one host build each
+    checks = {}
 
     def nsorted(kind, grid=None):
         if kind == "coarse":
@@ -3025,19 +3138,21 @@ def phase_decomp(tt, rank: int, seed: int = DECOMP_SEED) -> dict:
                                      Options()))
 
     def run(label, decomp, want_launches, entry=distributed_cpd_als,
-            data=None, **kw):
+            data=None, check=None, **kw):
         x, ref_fits, ref_lam_ = data or (tt, ref.fits, ref_lam)
         resilience.reset_demotions()
         resilience.run_report().clear()
         sync_mesh(mesh)
         kernels.reset_launches()
+        spy = BuildSpy(check[0]) if check is not None else None
         t0 = time.perf_counter()
-        out = entry(
-            x, rank, opts=Options(max_iterations=iters, tolerance=0.0,
-                                   random_seed=0, decomposition=decomp,
-                                   comm_pattern=CommPattern.ALL2ALL,
-                                   engine_fallback=False),
-            init=init, mesh=mesh, **kw)
+        with spy or contextlib.nullcontext():
+            out = entry(
+                x, rank, opts=Options(max_iterations=iters, tolerance=0.0,
+                                       random_seed=0, decomposition=decomp,
+                                       comm_pattern=CommPattern.ALL2ALL,
+                                       engine_fallback=False),
+                init=init, mesh=mesh, **kw)
         sync_mesh(mesh)
         seconds = time.perf_counter() - t0
         launches = kernels.fused_mttkrp_t.launches
@@ -3067,6 +3182,14 @@ def phase_decomp(tt, rank: int, seed: int = DECOMP_SEED) -> dict:
             raise AssertionError(f"{label}: fused_mttkrp_t launched "
                                  f"{launches} times, expected "
                                  f"{want_launches}")
+        if check is not None:
+            kind, key, grid = check
+            if "cells" not in spy.got:
+                raise AssertionError(f"{label}: the {kind} layouts were not "
+                                     f"built through the spied function")
+            checks[key] = check_decomp(kind, tt, mesh, rank, init, grid,
+                                       spy.got)
+            del spy
         return row, out
 
     runs = {}
@@ -3075,7 +3198,8 @@ def phase_decomp(tt, rank: int, seed: int = DECOMP_SEED) -> dict:
                                       local_engine="stream")
     runs["fine"], blocked = run("fine all2all blocked (the default)",
                                 Decomposition.FINE,
-                                nsorted("fine") * nranks * iters)
+                                nsorted("fine") * nranks * iters,
+                                check=("fine", "fine", None))
     diff = max(abs(a - b) for a, b in zip(blocked.fits, stream.fits))
     lam_rel = float((blocked.lam - stream.lam).abs().max()
                     / stream.lam.abs().max())
@@ -3089,13 +3213,16 @@ def phase_decomp(tt, rank: int, seed: int = DECOMP_SEED) -> dict:
     del stream, blocked
     runs["medium"], _ = run(f"medium auto grid {auto}",
                             Decomposition.MEDIUM,
-                            nsorted("medium", auto) * nranks * iters)
+                            nsorted("medium", auto) * nranks * iters,
+                            check=("medium", "medium", auto))
     runs["medium_split"], _ = run(f"medium grid {split}",
                                   Decomposition.MEDIUM,
                                   nsorted("medium", split) * nranks * iters,
-                                  grid=split)
+                                  grid=split,
+                                  check=("medium", "medium_split", split))
     runs["coarse"], _ = run("coarse", Decomposition.COARSE,
-                            nsorted("coarse") * nranks * iters)
+                            nsorted("coarse") * nranks * iters,
+                            check=("coarse", "coarse", None))
     # the same split grid over a tensor relabeled by reorder.py's hgraph
     # strategy (equal fences), factors back in the original order; on
     # phase 6's 2M tensor of the same dims (the relabel's host time at
@@ -5397,8 +5524,10 @@ def ooc_cli_runs(binp: str, tmp: str, nranks: int, rank: int) -> dict:
     return out
 
 
-def phase_ooc(tt, rank: int) -> dict:
-    """Phase 16: the out-of-core route on the ranks of phase 12."""
+def phase_ooc(tt, rank: int, big=None) -> dict:
+    """Phase 16: the out-of-core route on the ranks of phase 12.  `big`
+    names where phase 3's tensor is written as ``.bin`` (phase 18 reads it
+    again; default a file of the phase's own scratch directory)."""
     import shutil
     import tempfile
 
@@ -5420,7 +5549,7 @@ def phase_ooc(tt, rank: int) -> dict:
         text = text_route(small, tmp)
         binp = os.path.join(tmp, "x.bin")
         del small
-        big = os.path.join(tmp, "nell2.bin")
+        big = big or os.path.join(tmp, "nell2.bin")
         t0 = time.perf_counter()
         save(tt, big)
         save_s = time.perf_counter() - t0
@@ -6086,6 +6215,651 @@ def _batch_eig(bt: dict) -> dict:
                                        "max_rel_err", "max_abs_err")})
 
 
+#: phase 18: the serve daemon on the card.  The full-width job is phase
+#: 5's CPD (rank 50, 5 iterations, tolerance 0) filed as a cpd job.  A
+#: served model (read back from its checkpoint) against its reference
+#: run: factors and λ within SERVE_REL of max|.| of the reference's, and
+#: the model's f64 fit (true_fit) within SERVE_FIT_REL of the
+#: reference's; the control, the same job from SERVE_CONTROL_SEED, must
+#: miss both limits.  On a CPD of noise another seed's f64 fit lies
+#: within 1e-4 of this one's, so the fit limit is far below that
+SERVE_REL = 1e-4
+SERVE_FIT_REL = 1e-5
+SERVE_CONTROL_SEED = 1000
+#: predict requests against the full-width model: coordinates each, and
+#: a top-k of each mode in turn
+SERVE_PREDICTS = 16
+SERVE_COORDS = 4096
+SERVE_TOPK = 10
+#: the served answers against an f64 numpy reconstruction, relative to
+#: max|x̂|
+SERVE_F64_TOL = 1e-4
+#: the coalesced batch: phase 17's regime, this many jobs, batch_min too
+SERVE_BATCH_K = 8
+#: the isolation drill's CPDs on the 2M tensor
+SERVE_ISO_ITERS = 10
+#: the crash drill: a long job on the 2M tensor, checkpointed every
+#: SERVE_CRASH_EVERY iterations, killed once its first checkpoint lands
+SERVE_CRASH_ITERS = 400
+SERVE_CRASH_EVERY = 25
+
+
+def _serve_result(srv, jid: str) -> dict:
+    res = srv.result(jid)
+    if res is None:
+        raise AssertionError(f"job {jid}: no result ({srv.status(jid)})")
+    return res
+
+
+def _checkpoint_model(path: str):
+    """A served model as the checkpoint holds it, on the card."""
+    from types import SimpleNamespace
+
+    from splatt_tpu_torch.cpd import load_checkpoint
+
+    factors, lam, _, fit = load_checkpoint(path)
+    return SimpleNamespace(factors=[f.cuda() for f in factors],
+                           lam=lam.cuda(), fit=fit)
+
+
+def serve_model_gate(what: str, tt, served, ref, control) -> dict:
+    """`served` against `ref` and the control against `ref` (each with
+    factors, λ and the sweeps' f32 fit): the largest difference relative
+    to max|.| of ref's, and the f64 fits' difference relative to ref's;
+    ``ok`` when the served model meets both limits and the control
+    misses both (phase_serve raises at its end unless every gate is)."""
+    fit_ref = true_fit(tt, ref.factors, ref.lam)
+    fit_srv = true_fit(tt, served.factors, served.lam)
+    fit_ctl = true_fit(tt, control.factors, control.lam)
+    out = dict(rel=_slot_rel(served, ref),
+               fit64_rel=abs(fit_srv - fit_ref) / abs(fit_ref),
+               control_rel=_slot_rel(control, ref),
+               control_fit64_rel=abs(fit_ctl - fit_ref) / abs(fit_ref),
+               fit64=fit_srv, ref_fit64=fit_ref, control_fit64=fit_ctl,
+               fit_dev=abs(served.fit - ref.fit), rel_tol=SERVE_REL,
+               fit_rel_tol=SERVE_FIT_REL)
+    out["ok"] = (out["rel"] <= SERVE_REL
+                 and out["fit64_rel"] <= SERVE_FIT_REL
+                 and out["control_rel"] > SERVE_REL
+                 and out["control_fit64_rel"] > SERVE_FIT_REL)
+    log(f"[serve] {what}: the served model against its reference "
+        f"(control: seed {SERVE_CONTROL_SEED}): {json.dumps(out)}")
+    return out
+
+
+def _fused_t_modes(bs, rank: int) -> list:
+    """The modes whose plan names fused_t on layouts `bs` at `rank`."""
+    from splatt_tpu_torch.ops.mttkrp import plan_mttkrp
+
+    factors = random_factors(bs, rank, 1)
+    return [m for m in range(bs.nmodes)
+            if plan_mttkrp(bs, factors, m).engine == "fused_t"]
+
+
+def _job_dispatches(jid: str) -> dict:
+    """engine -> count of the mttkrp.dispatch spans job `jid` recorded
+    (the launch counters are process-wide; the spans carry the job)."""
+    from splatt_tpu_torch import trace
+
+    out: dict = {}
+    for s in trace.spans("mttkrp.dispatch"):
+        if s.get("job") == jid:
+            eng = s["args"].get("engine")
+            out[eng] = out.get(eng, 0) + 1
+    return out
+
+
+@contextlib.contextmanager
+def _kept_compiles():
+    """Keep what ``BlockedSparse.compile`` returns inside the block (the
+    daemon's job builds its layouts there), so that the direct run takes
+    the job's own layouts instead of a second host build."""
+    from splatt_tpu_torch.blocked import BlockedSparse
+
+    raw = BlockedSparse.__dict__["compile"]
+    kept: list = []
+
+    def compile_(*a, **kw):
+        kept.append(raw.__func__(*a, **kw))
+        return kept[-1]
+
+    BlockedSparse.compile = staticmethod(compile_)
+    try:
+        yield kept
+    finally:
+        BlockedSparse.compile = raw
+
+
+def serve_full_width(tmp: str, tt, bin_path: str, main_ms) -> dict:
+    """The full-width cpd job (`tt`, written at `bin_path`) through an
+    in-process daemon on the card; the served model against a direct
+    cpd_als on the job's own layouts from the same seed."""
+    import torch
+
+    from splatt_tpu_torch import cpd_als, resilience, serve, trace
+    from splatt_tpu_torch.ops import kernels
+
+    srv = serve.Server(os.path.join(tmp, "spool"), workers=1)
+    spec = dict(id="nell2", tensor=bin_path, rank=RANK, iters=ITERS,
+                tol=0.0, seed=0, checkpoint_every=ITERS)
+    resilience.reset_demotions()
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    trace.reset()
+    trace.set_enabled(True)
+    t0 = time.perf_counter()
+    try:
+        with _kept_compiles() as kept:
+            srv.submit(spec)
+            summary = srv.run_once()
+    finally:
+        trace.set_enabled(None)
+    job_s = time.perf_counter() - t0
+    launches = kernels.fused_mttkrp_t.launches
+    res = _serve_result(srv, "nell2")
+    iters = sorted((s for s in trace.spans("cpd.iter")
+                    if s.get("job") == "nell2"),
+                   key=lambda s: s["args"]["it"])
+    steady_ms = sum(s["dur"] for s in iters[1:]) / max(len(iters) - 1, 1) \
+        * 1e3
+    dispatch = _job_dispatches("nell2")
+    trace.reset()
+    # the direct run: the job's own options and layouts
+    opts = srv._options(spec)
+    bs, = kept
+    fused = _fused_t_modes(bs, RANK)
+    direct = cpd_als(bs, RANK, opts, device="cuda")
+    control = cpd_als(bs, RANK, srv._options(
+        dict(spec, seed=SERVE_CONTROL_SEED)), device="cuda")
+    del bs, kept
+    torch.cuda.empty_cache()
+    gate = serve_model_gate("full-width job", tt, _checkpoint_model(
+        os.path.join(srv.ckpt_dir, "nell2.npz")), direct, control)
+    # the journal's fsynced append, on a journal of its own
+    jr = serve.Journal(os.path.join(tmp, "append.jsonl"))
+    t0 = time.perf_counter()
+    for i in range(50):
+        jr.append({"rec": "probe", "job": f"x{i}"})
+    append_ms = (time.perf_counter() - t0) / 50 * 1e3
+    out = dict(status=res["status"], fit=res["fit"], direct_fit=direct.fit,
+               fit_dev=abs(res["fit"] - direct.fit), model=gate,
+               model_gen=res.get("model_gen"), launches=launches,
+               expected_launches=len(fused) * ITERS, fused_t_modes=fused,
+               demotions=res["demotions"], dispatch=dispatch,
+               job_s=job_s, parts_s=srv.timings.get("nell2"),
+               ms_per_iter=steady_ms, main_path_ms_per_iter=main_ms,
+               journal_append_ms=append_ms,
+               counts=summary["counts"])
+    log(f"[serve] full-width job: {json.dumps(out)}")
+    if not (res["status"] == "converged" and summary["counts"] ==
+            {"done": 1} and res.get("model_gen") == 1
+            and fused and launches == len(fused) * ITERS
+            and not res["demotions"]):
+        raise AssertionError(f"phase 18, the full-width job: {out}")
+    return dict(out, srv=srv)
+
+
+def serve_predicts(srv) -> dict:
+    """SERVE_PREDICTS predict jobs against the full-width model, each
+    filed and answered through the spool; the answers against the
+    functions on factors read straight from the checkpoint (bit for
+    bit) and against an f64 reconstruction."""
+    from splatt_tpu_torch import predict, serve
+    from splatt_tpu_torch.cpd import load_checkpoint
+
+    factors, lam, _, _ = load_checkpoint(os.path.join(srv.ckpt_dir,
+                                                      "nell2.npz"))
+    F = [f.numpy() for f in factors]
+    L = lam.numpy()
+    F64 = [f.astype(np.float64) for f in F]
+    dims = [f.shape[0] for f in F]
+    rng = np.random.default_rng(23)
+    total_ms, compute_ms, worst, caches = [], [], 0.0, []
+    for i in range(SERVE_PREDICTS):
+        coords = np.stack([rng.integers(0, d, SERVE_COORDS) for d in dims],
+                          axis=1)
+        mode = i % len(dims)
+        fixed = {m: int(rng.integers(0, dims[m]))
+                 for m in range(len(dims)) if m != mode}
+        spec = {"id": f"q{i}", "kind": "predict", "model": "nell2",
+                "coords": coords.tolist(),
+                "top_k": {"mode": mode, "k": SERVE_TOPK,
+                          "fixed": {str(m): v for m, v in fixed.items()}}}
+        t0 = time.perf_counter()
+        serve.file_request(srv.root, spec)
+        srv.run_once()
+        res = _serve_result(srv, f"q{i}")
+        total_ms.append((time.perf_counter() - t0) * 1e3)
+        t0 = time.perf_counter()
+        want = predict.reconstruct_entries(F, L, coords)
+        idx, scores = predict.top_k_slice(F, L, fixed, mode, SERVE_TOPK)
+        compute_ms.append((time.perf_counter() - t0) * 1e3)
+        got = np.asarray(res.get("values"), dtype=np.float64)
+        exact = (res["status"] == "served" and res["gen"] == 1
+                 and np.array_equal(got, want.astype(np.float64))
+                 and res["top_k"]["indices"] == [int(j) for j in idx]
+                 and np.array_equal(np.asarray(res["top_k"]["scores"]),
+                                    scores.astype(np.float64)))
+        ref = np.ones((coords.shape[0], L.shape[0]))
+        for m, U in enumerate(F64):
+            ref = ref * U[coords[:, m]]
+        ref = ref @ L.astype(np.float64)
+        rel = float(np.abs(got - ref).max() / np.abs(ref).max())
+        worst = max(worst, rel)
+        caches.append(res.get("cache"))
+        if not exact or not rel <= SERVE_F64_TOL:
+            raise AssertionError(f"phase 18, predict q{i}: exact={exact}, "
+                                 f"f64 relative error {rel:.3e}")
+    out = dict(requests=SERVE_PREDICTS, coords=SERVE_COORDS, k=SERVE_TOPK,
+               ms_per_request=sum(total_ms) / len(total_ms),
+               ms_first=total_ms[0], compute_ms=sum(compute_ms)
+               / len(compute_ms), f64_rel_err=worst,
+               cache=dict((c, caches.count(c)) for c in set(caches)))
+    log(f"[serve] predicts: {json.dumps(out)}")
+    return out
+
+
+def serve_update(tmp: str, srv) -> dict:
+    """A cpd job on phase 6's 2M tensor, then an update with phase 17's
+    1% delta: refresh and warm sweeps on fused_mttkrp_t, no demotion, the
+    generation advanced, a predict after the commit at the new one."""
+    import torch
+
+    from splatt_tpu_torch import BlockedSparse, Options, resilience, serve
+    from splatt_tpu_torch.io import load, save
+    from splatt_tpu_torch.ops import kernels
+
+    small = synthetic_tensor(NELL2, BIG_RANK_NNZ, seed=5)
+    delta = synthetic_tensor(NELL2, int(small.nnz * UPDATE_DELTA),
+                             seed=UPDATE_DELTA_SEED)
+    small_bin = os.path.join(tmp, "nell2_2m.bin")
+    delta_bin = os.path.join(tmp, "delta.bin")
+    save(small, small_bin)
+    save(delta, delta_bin)
+    srv.submit(dict(id="base2m", tensor=small_bin, rank=UPDATE_RANK,
+                    iters=UPDATE_ITERS, tol=0.0, seed=7))
+    srv.run_once()
+    base = _serve_result(srv, "base2m")
+    resilience.reset_demotions()
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    srv.submit(dict(id="up", kind="update", base="base2m",
+                    delta_tensor=delta_bin, iters=UPDATE_SWEEPS))
+    srv.run_once()
+    up_s = time.perf_counter() - t0
+    launches = kernels.fused_mttkrp_t.launches
+    up = _serve_result(srv, "up")
+    merged = serve._merge_delta(load(small_bin), load(delta_bin))
+    bs = BlockedSparse.compile(merged, Options(reorder="identity"),
+                               device="cuda", rank=UPDATE_RANK)
+    fused = _fused_t_modes(bs, UPDATE_RANK)
+    del bs
+    serve.file_request(srv.root, {"id": "q_up", "kind": "predict",
+                                  "model": "base2m",
+                                  "coords": [[1, 2, 3], [4, 5, 6]]})
+    srv.run_once()
+    q = _serve_result(srv, "q_up")
+    expect = len(fused) * (1 + UPDATE_SWEEPS)
+    out = dict(base_fit=base["fit"], base_gen=base.get("model_gen"),
+               update=up.get("update"), status=up["status"], fit=up["fit"],
+               model_gen=up.get("model_gen"), launches=launches,
+               expected_launches=expect, demotions=up["demotions"],
+               update_s=up_s, parts_s=srv.timings.get("up"),
+               predict_gen=q.get("gen"), predict_status=q["status"])
+    log(f"[serve] update: {json.dumps(out)}")
+    if not (base.get("model_gen") == 1 and up["status"] == "converged"
+            and "refit" not in (up.get("update") or {})
+            and up.get("model_gen") == 2 and fused
+            and launches == expect and not up["demotions"]
+            and q["status"] == "served" and q.get("gen") == 2):
+        raise AssertionError(f"phase 18, the update: {out}")
+    return dict(out, small_bin=small_bin)
+
+
+def serve_batch(tmp: str) -> dict:
+    """SERVE_BATCH_K synthetic jobs of phase 17's regime with batch_min =
+    K: one batched CPD, each member's fit within BATCH_SEQ_FIT_TOL of its
+    sequential run, and the first job from SERVE_CONTROL_SEED outside it
+    (batch members commit no model, so only the fits are compared)."""
+    from splatt_tpu_torch import BlockedSparse, cpd_als, serve
+    from splatt_tpu_torch.chaos import synthetic_tensor as serve_tensor
+    from splatt_tpu_torch.config import Options, Verbosity
+
+    srv = serve.Server(os.path.join(tmp, "batch"), workers=1,
+                       batch_min=SERVE_BATCH_K)
+    rng = np.random.default_rng(BATCH_SEED)
+    specs = []
+    for i in range(SERVE_BATCH_K):
+        dims = [int(d) for d in rng.integers(BATCH_DIM_LO, BATCH_DIM_HI + 1,
+                                             3)]
+        nnz = int(rng.integers(BATCH_DRAWS[0], BATCH_DRAWS[1] + 1))
+        specs.append(dict(id=f"bt{i}", rank=BATCH_RANK, iters=BATCH_ITERS,
+                          tol=0.0, seed=i, tenant=f"t{i}",
+                          synthetic=dict(dims=dims, nnz=nnz,
+                                         seed=BATCH_SEED + i)))
+    for s in specs:
+        srv.submit(s)
+    t0 = time.perf_counter()
+    summary = srv.run_once()
+    batch_s = time.perf_counter() - t0
+    recs, _ = srv.journal.replay()
+    leaders = {r["job"]: r.get("batch") for r in recs
+               if r["rec"] == "started"}
+    worst, fits, control = 0.0, [], None
+    ks = set()
+    for s in specs:
+        res = _serve_result(srv, s["id"])
+        ks.add((res.get("batched") or {}).get("k"))
+        syn = s["synthetic"]
+        tt = serve_tensor(syn["dims"], syn["nnz"], syn["seed"])
+        opts = Options(random_seed=s["seed"], max_iterations=BATCH_ITERS,
+                       tolerance=0.0, verbosity=Verbosity.NONE)
+        seq = cpd_als(BlockedSparse.from_coo(tt, opts, device="cuda"),
+                      BATCH_RANK, opts, device="cuda")
+        worst = max(worst, abs(res["fit"] - seq.fit))
+        fits.append(res["fit"])
+        if s is specs[0]:
+            # the control: the first job from another seed
+            opts = dataclasses.replace(opts, random_seed=SERVE_CONTROL_SEED)
+            ctl = cpd_als(BlockedSparse.from_coo(tt, opts, device="cuda"),
+                          BATCH_RANK, opts, device="cuda")
+            control = abs(res["fit"] - ctl.fit)
+    out = dict(k=SERVE_BATCH_K, batch_s=batch_s, counts=summary["counts"],
+               batched_k=sorted(k for k in ks if k is not None),
+               leaders=sorted(set(leaders.values()), key=str),
+               fits=[min(fits), max(fits)], worst_fit_dev=worst,
+               control_fit_dev=control, fit_tol=BATCH_SEQ_FIT_TOL)
+    log(f"[serve] batch: {json.dumps(out)}")
+    if not (summary["counts"] == {"done": SERVE_BATCH_K}
+            and ks == {SERVE_BATCH_K} and set(leaders.values()) == {"bt0"}
+            and worst <= BATCH_SEQ_FIT_TOL < control):
+        raise AssertionError(f"phase 18, the batch: {out}")
+    return out
+
+
+def serve_isolation(tmp: str, small_bin: str) -> dict:
+    """Two jobs on two workers at once, job A with an engine.fused_t fault
+    and fallback on: A carries the demotion, B none and B's model is its
+    run alone's.  Then a sym_eig cap hit forced in one thread's scope
+    raises there only, while a neighbour's CPD finishes clean; and a cap
+    hit still queued when its scope ends never reaches the next one."""
+    import threading
+
+    import torch
+
+    from splatt_tpu_torch import (BlockedSparse, Options, cpd_als,
+                                  resilience, serve, trace)
+    from splatt_tpu_torch.config import Verbosity
+    from splatt_tpu_torch.io import load
+    from splatt_tpu_torch.ops import linalg
+
+    spec_b = dict(rank=UPDATE_RANK, iters=SERVE_ISO_ITERS, tol=0.0, seed=4,
+                  tensor=small_bin)
+    alone = serve.Server(os.path.join(tmp, "alone"), workers=1)
+    alone.submit(dict(spec_b, id="isoB"))
+    alone.run_once()
+    fit_alone = _serve_result(alone, "isoB")["fit"]
+    b_alone = _checkpoint_model(os.path.join(alone.ckpt_dir, "isoB.npz"))
+    srv = serve.Server(os.path.join(tmp, "iso"), workers=2)
+    srv.submit(dict(spec_b, id="isoA", seed=3,
+                    faults="engine.fused_t:runtime", engine_fallback=True))
+    srv.submit(dict(spec_b, id="isoB"))
+    trace.reset()
+    trace.set_enabled(True)
+    try:
+        summary = srv.run_once()
+    finally:
+        trace.set_enabled(None)
+    a, b = _serve_result(srv, "isoA"), _serve_result(srv, "isoB")
+    dispatch = {j: _job_dispatches(j) for j in ("isoA", "isoB")}
+    trace.reset()
+    tt = load(small_bin)
+    opts_b = srv._options(spec_b)
+    bs = BlockedSparse.compile(tt, opts_b, device="cuda", rank=UPDATE_RANK)
+    control = cpd_als(bs, UPDATE_RANK, srv._options(
+        dict(spec_b, seed=SERVE_CONTROL_SEED)), device="cuda")
+    gate = serve_model_gate("isolation, job B", tt, _checkpoint_model(
+        os.path.join(srv.ckpt_dir, "isoB.npz")), b_alone, control)
+    # the cap drill: thread A's forced cap against thread B's CPD
+    capped, done, cap = threading.Event(), threading.Event(), {}
+
+    def job_a():
+        with resilience.scope("capA"):
+            rng = np.random.default_rng(31)
+            X = rng.standard_normal((4 * UPDATE_RANK, UPDATE_RANK))
+            A = torch.from_numpy(X.T @ X).to("cuda", torch.float32)
+            linalg.sym_eig(A, max_sweeps=1)
+            torch.cuda.synchronize()
+            capped.set()
+            done.wait(300)
+            try:
+                linalg.check_solver()
+                cap["a"] = "no raise"
+            except linalg.SolverError:
+                cap["a"] = "raised"
+
+    def job_b():
+        with resilience.scope("capB"):
+            capped.wait(300)
+            try:
+                o = Options(max_iterations=SERVE_ISO_ITERS, tolerance=0.0,
+                            random_seed=4, engine_fallback=False,
+                            verbosity=Verbosity.NONE)
+                cap["b"] = cpd_als(bs, UPDATE_RANK, o, device="cuda").fit
+            except Exception as e:
+                cap["b"] = repr(e)
+            finally:
+                done.set()
+
+    threads = [threading.Thread(target=job_a), threading.Thread(target=job_b)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(600)
+    linalg.check_solver()
+    del bs
+    # a cap hit still queued behind a long kernel when its scope ends (a
+    # job that raised before its next sync): the next scope never reads it
+    rng = np.random.default_rng(32)
+    X = rng.standard_normal((4 * UPDATE_RANK, UPDATE_RANK))
+    A = torch.from_numpy(X.T @ X).to("cuda", torch.float32)
+    torch.cuda.synchronize()
+    with resilience.scope("lateA"):
+        word_a = linalg._WORD.get()
+        torch.cuda._sleep(200_000_000)
+        linalg.sym_eig(A, max_sweeps=1)
+    with resilience.scope("lateB"):
+        word_b = linalg._WORD.get()
+        early = linalg.clear_solver_status()
+        torch.cuda.synchronize()
+        late = linalg.clear_solver_status()
+    cap["queued"] = dict(same_word=word_a == word_b, early=early, late=late)
+    out = dict(counts=summary["counts"],
+               a_demotions=[d["engine"] for d in a["demotions"]],
+               b_demotions=b["demotions"], a_fit=a["fit"], b_fit=b["fit"],
+               b_fit_alone=fit_alone,
+               b_fit_dev=abs(b["fit"] - fit_alone), b_model=gate,
+               dispatch=dispatch,
+               a_faults=a.get("faults_fired"), cap=cap)
+    log(f"[serve] isolation: {json.dumps(out)}")
+    if not (summary["counts"] == {"done": 2}
+            and a["status"] == b["status"] == "converged"
+            and "fused_t" in out["a_demotions"] and not b["demotions"]
+            and dispatch["isoA"].get("fused_tg", 0) > 0
+            and dispatch["isoB"].get("fused_t", 0) > 0
+            and "fused_tg" not in dispatch["isoB"]
+            and cap.get("a") == "raised"
+            and isinstance(cap.get("b"), float)
+            and not any(cap["queued"].values())):
+        raise AssertionError(f"phase 18, isolation: {out}")
+    return out
+
+
+def serve_crash_resume(tmp: str, small_bin: str) -> dict:
+    """The cli's serve --once killed with SIGKILL once the job's first
+    checkpoint lands, then run again: the job resumes and ends done, its
+    model that of an uninterrupted run; then the predict verb with
+    --wait answered by a daemon on the same spool."""
+    import signal
+
+    from splatt_tpu_torch import BlockedSparse, cpd_als, serve
+    from splatt_tpu_torch.io import load
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    spool = os.path.join(tmp, "crash")
+    spec = dict(id="crash", tensor=small_bin, rank=UPDATE_RANK,
+                iters=SERVE_CRASH_ITERS, tol=0.0, seed=11,
+                checkpoint_every=SERVE_CRASH_EVERY)
+    serve.file_request(spool, spec)
+    env = dict(os.environ, PYTHONPATH=root)
+    cmd = [sys.executable, "-m", "splatt_tpu_torch.cli", "serve", spool,
+           "--once"]
+    ckpt = os.path.join(spool, "ckpt", "crash.npz")
+    t0 = time.perf_counter()
+    first = subprocess.Popen(cmd, cwd=root, env=env,
+                             stdout=subprocess.DEVNULL,
+                             stderr=subprocess.PIPE)
+    try:
+        while not os.path.exists(ckpt) and first.poll() is None \
+                and time.perf_counter() - t0 < 300:
+            time.sleep(0.002)
+        killed_at = time.perf_counter() - t0
+        alive = first.poll() is None
+        if alive:
+            os.kill(first.pid, signal.SIGKILL)
+    finally:
+        if first.poll() is None:
+            first.kill()
+        _, err = first.communicate(timeout=60)
+    if not alive or not os.path.exists(ckpt):
+        raise AssertionError(f"phase 18, crash: the first daemon ended "
+                             f"(rc {first.returncode}) before its job's "
+                             f"first checkpoint was killed: "
+                             f"{err.decode()[-400:]}")
+    kinds_killed = [r["rec"] for r in serve.Journal(os.path.join(
+        spool, "journal.jsonl")).replay()[0] if r.get("job") == "crash"]
+    t0 = time.perf_counter()
+    second = subprocess.run(cmd, cwd=root, env=env, capture_output=True,
+                            text=True, timeout=600)
+    resume_s = time.perf_counter() - t0
+    kinds = [r["rec"] for r in serve.Journal(os.path.join(
+        spool, "journal.jsonl")).replay()[0] if r.get("job") == "crash"]
+    res = serve.read_result(spool, "crash") or {}
+    srv = serve.Server(spool, workers=1)
+    opts = srv._options(spec)
+    # the predict verb, answered by a daemon on the spool; its process
+    # starts up while the reference runs
+    pred = subprocess.Popen(
+        [sys.executable, "-m", "splatt_tpu_torch.cli", "predict", spool,
+         "--model", "crash", "--id", "pq", "--coords", "0,1,2",
+         "--coords", "5,6,7", "--wait", "120"], cwd=root, env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    try:
+        tt = load(small_bin)
+        bs = BlockedSparse.compile(tt, opts, device="cuda",
+                                   rank=UPDATE_RANK)
+        direct = cpd_als(bs, UPDATE_RANK, opts, device="cuda")
+        control = cpd_als(bs, UPDATE_RANK, srv._options(
+            dict(spec, seed=SERVE_CONTROL_SEED)), device="cuda")
+        del bs
+        req = os.path.join(spool, "requests", "pq.json")
+        t1 = time.perf_counter()
+        while not os.path.exists(req) and pred.poll() is None \
+                and time.perf_counter() - t1 < 120:
+            time.sleep(0.01)
+        srv.run_once()
+        pout, perr = pred.communicate(timeout=180)
+    finally:
+        if pred.poll() is None:
+            pred.kill()
+            pred.communicate()
+    gate = serve_model_gate("crash and resume", tt, _checkpoint_model(
+        os.path.join(spool, "ckpt", "crash.npz")), direct, control)
+    answer = json.loads(pout.strip().splitlines()[-1]) if pout.strip() \
+        else {}
+    out = dict(killed_after_s=killed_at, journal_at_kill=kinds_killed,
+               journal=kinds, second_rc=second.returncode,
+               resume_s=resume_s, status=res.get("status"),
+               resumed=res.get("resumed"), fit=res.get("fit"),
+               uninterrupted_fit=direct.fit,
+               fit_dev=abs((res.get("fit") or 0.0) - direct.fit), model=gate,
+               predict_rc=pred.returncode,
+               predict_status=answer.get("status"),
+               predict_gen=answer.get("gen"))
+    log(f"[serve] crash and resume: {json.dumps(out)}")
+    if not (second.returncode == 0 and "resumed" in kinds
+            and kinds[-1] == "done" and "done" not in kinds_killed
+            and res.get("status") == "converged" and res.get("resumed")
+            and pred.returncode == 0
+            and answer.get("status") == "served"):
+        raise AssertionError(f"phase 18, crash and resume: {out}; "
+                             f"{second.stderr[-400:]} {perr[-400:]}")
+    return out
+
+
+def phase_serve(tt, bin_path=None, main_ms=None) -> dict:
+    """Phase 18: the serve daemon on the card, single replica, engine
+    fallback off unless a job's spec turns it on; every check fatal."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from splatt_tpu_torch.io import save
+
+    t_phase = time.perf_counter()
+    root = os.path.dirname(os.path.abspath(__file__))
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_serve_", dir=root)
+    saved = os.environ.get("SPLATT_ENGINE_FALLBACK")
+    os.environ["SPLATT_ENGINE_FALLBACK"] = "0"
+    try:
+        save_s = None
+        if bin_path is None or not os.path.exists(bin_path):
+            bin_path = os.path.join(tmp, "nell2.bin")
+            t0 = time.perf_counter()
+            save(tt, bin_path)
+            save_s = time.perf_counter() - t0
+        full = serve_full_width(tmp, tt, bin_path, main_ms)
+        srv = full.pop("srv")
+        pred = serve_predicts(srv)
+        upd = serve_update(tmp, srv)
+        del srv
+        torch.cuda.empty_cache()
+        bat = serve_batch(tmp)
+        iso = serve_isolation(tmp, upd["small_bin"])
+        crash = serve_crash_resume(tmp, upd.pop("small_bin"))
+        gates = {"full-width job": full["model"],
+                 "isolation, job B": iso["b_model"],
+                 "crash and resume": crash["model"]}
+        missed = {k: g for k, g in gates.items() if not g["ok"]}
+        if missed:
+            raise AssertionError(f"phase 18, the served models: {missed}")
+    finally:
+        if saved is None:
+            os.environ.pop("SPLATT_ENGINE_FALLBACK", None)
+        else:
+            os.environ["SPLATT_ENGINE_FALLBACK"] = saved
+        shutil.rmtree(tmp, ignore_errors=True)
+        torch.cuda.empty_cache()
+    seconds = time.perf_counter() - t_phase
+    log(f"[serve] phase 18 took {seconds:.1f} s")
+    return dict(full=full, predict=pred, update=upd, batch=bat,
+                isolation=iso, crash=crash, save_bin_s=save_s,
+                seconds=seconds)
+
+
+def _serve_summary(sv: dict) -> dict:
+    """Phase 18's figures for the kernels line (row 1)."""
+    f = sv["full"]
+    return dict(launches=f["launches"], update_launches=sv["update"][
+        "launches"], ms_per_iter=f["ms_per_iter"], parts_s=f["parts_s"],
+        journal_append_ms=f["journal_append_ms"],
+        predict_ms=sv["predict"]["ms_per_request"],
+        predict_compute_ms=sv["predict"]["compute_ms"],
+        seconds=sv["seconds"])
+
+
 FUSED_SRC = "splatt_tpu_torch/csrc/fused_mttkrp.cu"
 PK = "splatt_tpu/ops/pallas_kernels.py"
 NOTE = ("ms/plain_ms/bound_ms: mean per launch over the 3 modes at rank "
@@ -6375,8 +7149,10 @@ def main() -> int:
     tune_only = "--tune" in sys.argv[1:]
     ooc_only = "--ooc" in sys.argv[1:]
     batch_only = "--batch" in sys.argv[1:]
+    serve_only = "--serve" in sys.argv[1:]
     phase_build(verbose=not (ranks or reduce or balance or guard_only
-                             or tune_only or ooc_only or batch_only))
+                             or tune_only or ooc_only or batch_only
+                             or serve_only))
     from splatt_tpu_torch import native
 
     # phase 13 fails without it; every earlier host build would sort with
@@ -6388,6 +7164,24 @@ def main() -> int:
         print(json.dumps({"kernels": [_dense_row(
             dense, _bf16_summary(dense["rows"]["bf16"]))],
             "power": dev["smi"]}))
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": dev["kind"], "count": dev["count"]}}))
+        return 0
+
+    if serve_only:
+        sv = phase_serve(synthetic_tensor(NELL2, NNZ, seed=0))
+        small = synthetic_tensor(NELL2, BIG_RANK_NNZ, seed=5)
+        rows = phase_kernels(BlockedSparse.from_coo(
+            small, Options(block_alloc=BlockAlloc.ALLMODE)), UPDATE_RANK)
+        print(json.dumps({"kernels": [_record_row(
+            "fused_mttkrp_t", FUSED_SRC, f"{PK}:355", sv["full"]["launches"],
+            [r for r in rows if r["contract"] == "sorted"], None,
+            note=f"ms/plain_ms/bound_ms: mean per launch over the 3 modes' "
+            f"sorted layouts of phase 6's 2M tensor (NELL-2 shape), rank "
+            f"{UPDATE_RANK}; launches: phase 18's full-width cpd job",
+            status=WALK_STATUS, phase18=_serve_summary(sv))],
+            "power": dev["smi"]}))
+        log(f"[total] {time.perf_counter() - t_script:.1f} s")
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": dev["kind"], "count": dev["count"]}}))
         return 0
@@ -6568,11 +7362,15 @@ def main() -> int:
     bf16["fused_dense"] = _bf16_summary(dense["rows"]["bf16"])
     dist = phase_distributed(tt, RANK)
     decomp = phase_decomp(tt, RANK)
-    ooc = phase_ooc(tt, RANK)
+    # phase 16 writes phase 3's tensor as .bin where phase 18 reads it
+    serve_bin = os.path.join(cache_dir, "nell2.bin")
+    ooc = phase_ooc(tt, RANK, big=serve_bin)
     bal = phase_balance(tt, layout_s, RANK)
-    del tt
     bt = phase_batch()
     del bt["update"]["layouts"]
+    sv = phase_serve(tt, serve_bin, main_path["sec_per_iter"] * 1e3)
+    del tt
+    os.remove(serve_bin)
 
     def launches(label, kernel):
         return chain[label]["launches"][kernel]
@@ -6587,7 +7385,8 @@ def main() -> int:
                phase13_rows=_balance_rows(bal),
                phase14=_guard_summary(guard),
                phase15=_tune_summary(tuned),
-               phase17=_batch_summary(bt)),
+               phase17=_batch_summary(bt),
+               phase18=_serve_summary(sv)),
         _tg_row(launches("fused_t faulted", "fused_mttkrp_tg"),
                 "phase 7, fused_t faulted", new_rows, bf16, big, big_rows),
         _rowmajor_row(launches(FUSED_CHAIN, "fused_mttkrp"),

@@ -23,6 +23,14 @@ cmd_convert.c, cmd_reorder.c, cmd_stats.c).
     python -m splatt_tpu_torch.cli reorder T TYPE OUT [--seed S]
         [--write-perms]
     python -m splatt_tpu_torch.cli stats T [-p PARTITION]
+    python -m splatt_tpu_torch.cli serve DIR [--once] [--workers N]
+        [--queue-max N] [--poll S] [--job-deadline S] [--tenant-quota N]
+        [--batch-min N] [--json] [-v] [--device cuda|cpu]
+        [--trace OUT_JSON] | serve DIR --submit SPEC_JSON
+        | serve DIR --status JOB_ID
+    python -m splatt_tpu_torch.cli predict DIR --model JOB_ID
+        [--coords I,J,K]... [--top-k K --mode M --fix MODE=INDEX...]
+        [--id ID] [--tenant T] [--wait S]
 
 ``cpd`` prints the MTTKRP engine plan, one fit line per iteration and the
 resilience events of the run (engine demotions, transient retries, format,
@@ -92,6 +100,16 @@ algorithms per mode (``stream``, ``blocked``, ``blocked_pallas`` on a card
 only, ``scatter``, ``ttbox``; ``native`` prints ``--``) with the bytes
 model's GB/s, and ``--check`` holds each against ``stream`` (1e-10 in
 f64, 9e-3 in f32; exit 1 beyond it).
+
+``serve DIR`` runs the multi-tenant daemon (``serve.py``) on ``--device``
+over DIR's journal, spool and model store: ``--once`` drains the spool
+and the queue and exits (1 when a job failed outright, or when the card's
+context was lost), and the last line is ``{"jobs": {state: count},
+"pending": N}`` (``--json``: the whole summary).  ``predict DIR --model
+ID`` files a predict job and, with ``--wait S``, prints its result record
+(``"status": "served"``, ``values``, ``top_k``, ``gen``, ``sha``) and
+exits 0 when served.  ``--fleet``, ``--replica``, ``--lease`` and
+``--heartbeat`` exit 2: fleet mode is ROADMAP queue A item 15.2.
 
 ``check``, ``convert``, ``reorder`` and ``stats`` run on the host and
 write the JAX CLI's files and text: duplicates and empty slices (``--fix``
@@ -403,6 +421,98 @@ def cmd_trace(args) -> int:
     return 0
 
 
+def cmd_serve(args) -> int:
+    """``serve DIR``: the crash-resumable multi-tenant decomposition
+    daemon over DIR's journal and spool, on ``--device`` (≙ splatt_tpu/
+    cli.py:398-489, one replica).  ``--submit`` and ``--status`` are the
+    client side of the filed-request API and need no device."""
+    from splatt_tpu_torch import resilience, serve
+
+    if args.fleet or args.replica or args.lease is not None \
+            or args.heartbeat is not None:
+        print(f"splatt-serve: {serve.FLEET_TODO}", file=sys.stderr)
+        return 2
+    if args.submit:
+        with open(args.submit) as f:
+            spec = json.load(f)
+        jid = serve.file_request(args.dir, spec)
+        print(json.dumps({"job": jid, "filed": True}))
+        return 0
+    if args.status:
+        print(json.dumps(serve.read_status(args.dir, args.status)))
+        return 0
+    srv = serve.Server(args.dir, workers=args.workers,
+                       queue_max=args.queue_max, poll_s=args.poll,
+                       job_deadline_s=args.job_deadline,
+                       verbose=args.verbose > 0,
+                       tenant_quota=args.tenant_quota,
+                       batch_min=args.batch_min, device=args.device)
+    srv.install_signal_handlers()
+    summary = srv.run_once() if args.once else srv.serve_forever()
+    if args.once:
+        # the daemon loop's exit snapshot, which --once skips
+        srv.write_metrics_now()
+    lines = resilience.run_report().summary()
+    if lines and args.verbose > 0:
+        print("Resilience events:")
+        for line in lines:
+            print(line)
+    print(json.dumps(summary if args.json
+                     else {"jobs": summary["counts"],
+                           "pending": summary["pending"]}))
+    if srv.context_lost is not None:
+        print(f"splatt-serve: the card's context was lost "
+              f"({srv.context_lost}); the interrupted jobs resume when the "
+              f"daemon restarts", file=sys.stderr)
+        return 1
+    # --once is the batch entry: non-zero when an accepted job failed
+    # outright (degraded but terminal is a success of the guarded
+    # contract; interrupted jobs resume next start)
+    if args.once and summary["counts"].get(serve.FAILED):
+        return 1
+    return 0
+
+
+def cmd_predict(args) -> int:
+    """``predict DIR``: file one generation-fenced predict against a
+    committed model and, with ``--wait``, poll for the answer (≙
+    splatt_tpu/cli.py:625-666).  Speaks only the filed-request API, so a
+    daemon on any device answers it."""
+    from splatt_tpu_torch import serve
+
+    spec: dict = {"kind": "predict", "model": args.model}
+    if args.id:
+        spec["id"] = args.id
+    if args.tenant:
+        spec["tenant"] = args.tenant
+    if args.coords:
+        spec["coords"] = [[int(x) for x in c.split(",")]
+                          for c in args.coords]
+    if args.top_k:
+        fixed = {}
+        for kv in (args.fix or []):
+            m, _, i = kv.partition("=")
+            fixed[int(m)] = int(i)
+        spec["top_k"] = {"mode": args.mode, "k": args.top_k,
+                         "fixed": fixed}
+    jid = serve.file_request(args.dir, spec)
+    if not args.wait:
+        print(json.dumps({"job": jid, "filed": True}))
+        return 0
+    end = time.time() + float(args.wait)
+    while time.time() < end:
+        st = serve.read_status(args.dir, jid)
+        if st.get("state") in serve.TERMINAL:
+            out = st.get("result") or {"job": jid,
+                                       "state": st.get("state")}
+            print(json.dumps(out))
+            return 0 if out.get("status") == "served" else 1
+        time.sleep(0.2)
+    print(json.dumps({"job": jid, "state": "pending",
+                      "error": "timed out waiting for the answer"}))
+    return 1
+
+
 def _positive_int(text: str) -> int:
     v = int(text)
     if v < 1:
@@ -678,6 +788,91 @@ def build_parser() -> argparse.ArgumentParser:
     c.set_defaults(func=cmd_trace)
 
     from splatt_tpu_torch.convert import CONVERT_TYPES
+
+    c = sub.add_parser(
+        "serve", help="run the multi-tenant decomposition daemon",
+        epilog="A journal-backed job queue over DIR: clients drop job "
+               "specs into DIR/requests/ (or --submit them), the daemon "
+               "runs each job on --device under the guarded CPD with "
+               "per-job isolation, and results appear in "
+               "DIR/results/<id>.json.  A killed daemon replays its "
+               "journal on restart and resumes every accepted job from "
+               "its checkpoint; SIGTERM drains.  Fleet mode waits for "
+               "ROADMAP queue A item 15.2.")
+    c.add_argument("dir", help="serve state directory (journal, "
+                               "requests/, results/, ckpt/)")
+    c.add_argument("-v", "--verbose", action="count", default=0)
+    c.add_argument("--workers", type=_positive_int,
+                   help="concurrent job-supervisor threads (default: "
+                        "$SPLATT_SERVE_WORKERS)")
+    c.add_argument("--queue-max", type=int, dest="queue_max",
+                   help="bounded pending-queue depth; submissions past it "
+                        "are load-shed with a queue_full rejection "
+                        "(default: $SPLATT_SERVE_QUEUE_MAX; <= 0 "
+                        "unbounded)")
+    c.add_argument("--poll", type=float,
+                   help="seconds between request-spool scans (default: "
+                        "$SPLATT_SERVE_POLL_S)")
+    c.add_argument("--job-deadline", type=float, dest="job_deadline",
+                   help="default per-job deadline in seconds; a blown "
+                        "deadline fails the job TIMEOUT (default: "
+                        "$SPLATT_SERVE_JOB_DEADLINE_S; <= 0 off)")
+    c.add_argument("--once", action="store_true",
+                   help="process the spool and the queue to completion, "
+                        "then exit (non-zero when a job failed outright)")
+    c.add_argument("--fleet", action="store_true",
+                   help="fleet mode: not ported yet (exits non-zero)")
+    c.add_argument("--replica", metavar="ID",
+                   help="fleet: not ported yet (exits non-zero)")
+    c.add_argument("--lease", type=float, metavar="S",
+                   help="fleet: not ported yet (exits non-zero)")
+    c.add_argument("--heartbeat", type=float, metavar="S",
+                   help="fleet: not ported yet (exits non-zero)")
+    c.add_argument("--tenant-quota", type=int, dest="tenant_quota",
+                   help="admission control: max non-terminal jobs per "
+                        "tenant (default: $SPLATT_FLEET_TENANT_QUOTA; <= "
+                        "0 off)")
+    c.add_argument("--batch-min", type=int, dest="batch_min",
+                   help="dispatch >= this many queued same-regime jobs as "
+                        "one batched CPD (default: "
+                        "$SPLATT_SERVE_BATCH_MIN; <= 0 off)")
+    c.add_argument("--submit", metavar="SPEC_JSON",
+                   help="client mode: file this job-spec JSON into "
+                        "DIR/requests/ and exit")
+    c.add_argument("--status", metavar="JOB_ID",
+                   help="client mode: print the job's journal-derived "
+                        "state (and result, when terminal) as JSON")
+    c.add_argument("--json", action="store_true",
+                   help="print the full per-job state map on exit")
+    c.add_argument("--device", choices=["cuda", "cpu"], default="cuda")
+    c.add_argument("--trace", metavar="OUT_JSON",
+                   help="record the daemon's spans and export a Chrome "
+                        "trace-event JSON file on exit")
+    c.set_defaults(func=cmd_serve)
+
+    c = sub.add_parser(
+        "predict", help="query a served model: reconstruct entries / top-k",
+        epilog="Files a generation-fenced predict job into DIR's serve "
+               "spool: a daemon answers from an intact model generation "
+               "or refuses.  --coords reconstructs entries; --top-k scans "
+               "one mode with every other mode pinned by --fix.")
+    c.add_argument("dir", help="the serve spool directory")
+    c.add_argument("--model", required=True,
+                   help="the committed model's job id")
+    c.add_argument("--id", help="predict job id (default: generated)")
+    c.add_argument("--tenant", help="tenant label for quota accounting")
+    c.add_argument("--coords", action="append", metavar="I,J,K",
+                   help="an index tuple to reconstruct (repeatable)")
+    c.add_argument("--top-k", dest="top_k", type=int, metavar="K",
+                   help="return the K best indices along --mode")
+    c.add_argument("--mode", type=int, default=0,
+                   help="the scanned mode for --top-k (default 0)")
+    c.add_argument("--fix", action="append", metavar="MODE=INDEX",
+                   help="pin a non-scanned mode for --top-k (repeatable)")
+    c.add_argument("--wait", type=float, default=0.0, metavar="S",
+                   help="poll up to S seconds for the answer (default: "
+                        "file and exit; exit 0 on served)")
+    c.set_defaults(func=cmd_predict)
 
     c = sub.add_parser("check", help="check for duplicates/empty slices")
     c.add_argument("tensor", help="coordinate tensor file (.tns/.bin)")

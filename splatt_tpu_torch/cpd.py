@@ -434,6 +434,69 @@ def load_checkpoint_resilient(path: str,
     return None
 
 
+def factor_content_sha(factors, lam) -> str:
+    """Content sha over the factor matrices and λ alone, the identity a
+    model-generation stamp records (≙ splatt_tpu/cpd.py:490-500).
+    Narrower than the checkpoint checksum: two commits of bit-identical
+    factors get the same sha whatever their iteration count or fit,
+    which makes a re-commit idempotent at the generation fence.  Factors
+    go through :func:`_host_array`, so f32 and f64 factors hash the bytes
+    the JAX package hashes; bf16 ones are widened to f32 first (numpy has
+    no bfloat16), so a bf16 model's sha is the port's own."""
+    payload = {f"factor{m}": _host_array(U) for m, U in enumerate(factors)}
+    payload["lam"] = _host_array(lam)
+    return _checkpoint_digest(payload)
+
+
+def load_checkpoint_resilient_gen(path: str, stamp: Optional[dict],
+                                  bak_stamp: Optional[dict] = None,
+                                  expect_reorder: Optional[str] = None):
+    """The generation-fenced load (≙ splatt_tpu/cpd.py:503-546): the
+    newest checkpoint generation whose factor content verifies against a
+    generation stamp, or None.
+
+    `stamp` / `bak_stamp` are the parsed current and previous stamps
+    (``{"gen": int, "sha": str}``, read by predict.py).  The pairs are
+    tried newest first: (path, stamp), then (path.bak, stamp) for a
+    commit that advanced the checkpoint but died before the stamp, then
+    (path.bak, bak_stamp); each torn or mismatched pair is a classified
+    ``model_torn`` event.  Returns ``(factors, lam, it, fit, gen, sha)``
+    for the first intact pair (the factors and λ as CPU tensors, as
+    :func:`load_checkpoint` gives them), or None when nothing verifies:
+    a reader refuses rather than serve stale or torn factors."""
+    candidates = []
+    if stamp is not None:
+        candidates.append((path, stamp))
+        candidates.append((path + ".bak", stamp))
+    if bak_stamp is not None:
+        candidates.append((path + ".bak", bak_stamp))
+    for cpath, cstamp in candidates:
+        want = str(cstamp.get("sha") or "")
+        try:
+            gen = int(cstamp["gen"])
+        except (KeyError, TypeError, ValueError):
+            continue
+        if not want or not os.path.exists(cpath):
+            continue
+        try:
+            factors, lam, it, fit = load_checkpoint(
+                cpath, expect_reorder=expect_reorder)
+            got = factor_content_sha(factors, lam)
+            if got != want:
+                raise CheckpointError(
+                    f"checkpoint {cpath} factor content {got[:12]} does "
+                    f"not match generation {gen} stamp {want[:12]} "
+                    f"(torn commit or stale stamp)")
+            return factors, lam, it, fit, gen, want
+        except CheckpointError as e:
+            resilience.run_report().add(
+                "model_torn", path=cpath, piece="checkpoint-vs-stamp",
+                gen=gen,
+                failure_class=resilience.classify_failure(e).value,
+                error=str(e)[:200])
+    return None
+
+
 def cpd_als(X: Union[SparseTensor, BlockedSparse], rank: int,
             opts: Optional[Options] = None, init=None,
             device=None, checkpoint_path: Optional[str] = None,

@@ -53,6 +53,72 @@ class KruskalTensor:
         write_vector(np.asarray(self.lam.cpu()),
                      os.path.join(directory, f"{stem}lambda.mat"))
 
+    @staticmethod
+    def load(directory: str, nmodes: int, stem: str = "",
+             device=None) -> "KruskalTensor":
+        """Read the files :meth:`save` writes (≙ splatt_tpu/kruskal.py:
+        68-83) onto `device`, the card unless the caller names another.
+        The fit is not in the files: NaN marks it unknown rather than a
+        zero-fit model."""
+        from splatt_tpu_torch.config import resolve_device
+        from splatt_tpu_torch.io import read_matrix
+
+        device = resolve_device(device)
+        factors = [torch.from_numpy(np.ascontiguousarray(read_matrix(
+            os.path.join(directory, f"{stem}mode{m + 1}.mat")))).to(device)
+            for m in range(nmodes)]
+        lam = torch.from_numpy(np.ascontiguousarray(np.asarray(read_matrix(
+            os.path.join(directory, f"{stem}lambda.mat"))).ravel()))
+        return KruskalTensor(factors=factors, lam=lam.to(device),
+                             fit=float("nan"))
+
+    def _host(self):
+        from splatt_tpu_torch.cpd import _host_array
+
+        return [_host_array(U) for U in self.factors], _host_array(self.lam)
+
+    def to_dense(self) -> np.ndarray:
+        """The dense tensor, as a numpy array (small problems and tests;
+        ≙ splatt_tpu/kruskal.py:40-51, term by term in the same order)."""
+        factors, lam = self._host()
+        out = None
+        for r in range(self.rank):
+            vec = None
+            for f in factors:
+                col = f[:, r]
+                vec = col if vec is None else np.multiply.outer(vec, col)
+            out = lam[r] * vec if out is None else out + lam[r] * vec
+        return out
+
+    def reconstruct(self, coords) -> np.ndarray:
+        """Estimate entries at `coords` (``(B, nmodes)`` indices),
+        ``x̂ = Σ_r λ_r Π_m U_m[i_m, r]``, on the host
+        (:func:`predict.reconstruct_entries`)."""
+        from splatt_tpu_torch.predict import reconstruct_entries
+
+        factors, lam = self._host()
+        return reconstruct_entries(factors, lam, coords)
+
+    def top_k(self, fixed, mode: int, k: int):
+        """The k best ``(indices, scores)`` along `mode` with every other
+        mode fixed by ``fixed={mode: index}`` (:func:`predict.top_k_slice`)."""
+        from splatt_tpu_torch.predict import top_k_slice
+
+        factors, lam = self._host()
+        return top_k_slice(factors, lam, fixed, mode, k)
+
+    def normsq(self) -> torch.Tensor:
+        """⟨Z,Z⟩ = λᵀ (⊛_m UᵐᵀUᵐ) λ (≙ p_kruskal_norm, src/cpd.c:116-152), a
+        0-d tensor on the factors' device.  :func:`ops.linalg.gram` keeps
+        bf16 factors' Grams in f32, and the sum accumulates in
+        :func:`config.acc_dtype`."""
+        from splatt_tpu_torch.ops.linalg import gram
+
+        had = torch.outer(self.lam, self.lam)
+        for f in self.factors:
+            had = had * gram(f)
+        return had.sum(dtype=acc_dtype(had.dtype))
+
 
 def unstack_batched(factors, lam, fits, dims_list) -> List[KruskalTensor]:
     """Split stacked batched-ALS state into per-slot results

@@ -256,10 +256,22 @@ def _launch(name: str, *args) -> None:
         raise RuntimeError(f"{name}: CUDA error {err} at launch")
 
 
+_COUNT_LOCK = threading.Lock()
+
+
+def count_launch(wrapper) -> None:
+    """Add one to `wrapper`'s launch count, under a lock: the serve
+    daemon's worker threads launch the same kernels at once, and a bare
+    ``+= 1`` on a function attribute can lose a count between threads."""
+    with _COUNT_LOCK:
+        wrapper.launches += 1
+
+
 def reset_launches() -> None:
     """Set every wrapper's launch count to 0."""
-    for k in KERNELS:
-        k.launches = 0
+    with _COUNT_LOCK:
+        for k in KERNELS:
+            k.launches = 0
 
 
 # -- operand contracts -------------------------------------------------------
@@ -536,7 +548,7 @@ def fused_mttkrp_t(layout, factors: Sequence[torch.Tensor], mode: int,
     out = _fused_launch("splatt_fused_mttkrp_t", layout, factors, mode,
                         width, accumulate, R,
                         *_walk_chunks(factors, mode, R))
-    fused_mttkrp_t.launches += 1
+    count_launch(fused_mttkrp_t)
     return out
 
 
@@ -557,7 +569,7 @@ def fused_mttkrp_tg(layout, factors: Sequence[torch.Tensor], mode: int,
     _check_fused(layout, factors, mode, width, None)
     out = fused_tg_launch(layout, factors, mode, width, accumulate,
                           tg_rank_tile(int(factors[0].shape[1])))
-    fused_mttkrp_tg.launches += 1
+    count_launch(fused_mttkrp_tg)
     return out
 
 
@@ -594,7 +606,7 @@ def fused_mttkrp(layout, factors: Sequence[torch.Tensor], mode: int,
     out = _fused_launch("splatt_fused_mttkrp", layout, factors, mode,
                         width, accumulate, R, int(chunk),
                         *_walk_chunks(factors, mode, R))
-    fused_mttkrp.launches += 1
+    count_launch(fused_mttkrp)
     return out
 
 
@@ -645,7 +657,7 @@ def fused_mttkrp_v2(layout, factors: Sequence[torch.Tensor], mode: int,
                 _is_bf16(factors[0]), layout.nmodes, mode, nb, layout.block,
                 scols, R, width, int(accumulate), int(use_smem), nv, vec,
                 out.data_ptr())
-    fused_mttkrp_v2.launches += 1
+    count_launch(fused_mttkrp_v2)
     return out
 
 
@@ -740,7 +752,7 @@ def onehot_reduce_sorted(local: torch.Tensor, prod: torch.Tensor,
     _check_reduce(local, prod, seg_width)
     out = onehot_reduce_launch(local, prod, seg_width, False,
                                reduce_rank_tile(int(prod.shape[2])))
-    onehot_reduce_sorted.launches += 1
+    count_launch(onehot_reduce_sorted)
     return out
 
 
@@ -756,7 +768,7 @@ def onehot_reduce_full(local: torch.Tensor, prod: torch.Tensor,
     _check_reduce(local, prod, width)
     out = onehot_reduce_launch(local, prod, width, True,
                                reduce_rank_tile(int(prod.shape[2])))
-    onehot_reduce_full.launches += 1
+    count_launch(onehot_reduce_full)
     return out
 
 
@@ -927,7 +939,7 @@ def fused_dense(layout, factors: Sequence[torch.Tensor],
                 w.data_ptr(), u.data_ptr(), fac_bf16, rows, span,
                 inner_pad, R, t.n_tile, t.rank_tiles, t.row_blocks,
                 t.splits, out.data_ptr())
-    fused_dense.launches += 1
+    count_launch(fused_dense)
     return out
 
 

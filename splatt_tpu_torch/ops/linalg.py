@@ -20,9 +20,11 @@ non-finite input never changes a neighbour's result.
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import ctypes
 import threading
-from typing import List, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -221,58 +223,146 @@ def _sym_eig_plain_one(A: torch.Tensor, max_sweeps: int
 
 _LOCK = threading.Lock()
 _STATUS: List[int] = []        # [host address, device address]
+#: cap-flag words in the mapped host block: word 0 is the process's,
+#: outside any scope; each :func:`solver_scope` holds one of the rest
+SOLVER_WORDS = 1024
+_FREE_WORDS: List[int] = list(range(SOLVER_WORDS - 1, 0, -1))
+#: words whose scope ended while a launch under them may still be queued,
+#: oldest first, each with its launches' events (:func:`_note_launch`)
+_QUARANTINE: List[Tuple[int, list]] = []
+#: word -> {stream: event recorded after that stream's last launch}
+_PENDING: Dict[int, dict] = {}
+_WORD: contextvars.ContextVar = contextvars.ContextVar(
+    "splatt_torch_solver_word", default=0)
 
 
 def _status_word() -> int:
-    """The device address of the mapped host word the kernel sets when
-    it hits its sweep cap."""
+    """The device address of the calling scope's word in the mapped host
+    block, which the kernel sets when it hits its sweep cap."""
     with _LOCK:
         if not _STATUS:
             host, dev = ctypes.c_void_p(), ctypes.c_void_p()
             err = kernels.load_library()["splatt_sym_eig_alloc_host"](
-                64, ctypes.byref(host), ctypes.byref(dev))
+                4 * SOLVER_WORDS, ctypes.byref(host), ctypes.byref(dev))
             if err != 0:
                 raise RuntimeError(f"splatt_sym_eig_alloc_host: CUDA error "
                                    f"{err}")
             _STATUS[:] = [host.value, dev.value]
-        return _STATUS[1]
+        return _STATUS[1] + 4 * _WORD.get()
 
 
-def clear_solver_status() -> bool:
-    """Whether a :func:`sym_eig` launch hit its sweep cap since the last
-    clear; the word is cleared.  The word lies in mapped host memory:
-    reading it is no CUDA call, so the caller reads it after a sync it
-    already makes (the iteration's fit read).  The batched CPD clears it
-    and reads each slot's sweep count instead, so that a cap hit by one
-    slot is told apart from its neighbours'."""
+def _take_word(word: int) -> bool:
+    """Whether `word` is set; it is cleared."""
     if not _STATUS:
         return False
-    word = ctypes.c_int.from_address(_STATUS[0])
-    if word.value == 0:
+    flag = ctypes.c_int.from_address(_STATUS[0] + 4 * word)
+    if flag.value == 0:
         return False
-    word.value = 0
+    flag.value = 0
     return True
 
 
+def _note_launch(word: int, stream, event) -> None:
+    """Remember `event`, recorded on `stream` just after a launch that
+    writes `word`: the word is not handed to another scope before the
+    event has completed."""
+    if word:
+        with _LOCK:
+            _PENDING.setdefault(word, {})[stream] = event
+
+
+def _done(events: list) -> bool:
+    """Whether every launch before `events` has finished (False where the
+    card cannot say: a lost context keeps the word out of the pool)."""
+    try:
+        return all(e.query() for e in events)
+    except Exception:   # noqa: BLE001 - a sticky error: never reuse it
+        return False
+
+
+def _acquire_word() -> int:
+    """A cleared word no queued launch can still set: the oldest
+    quarantined word whose launches have finished, else a fresh one, else
+    the oldest quarantined word once its launches have finished.  Called
+    under ``_LOCK``."""
+    for i, (word, events) in enumerate(_QUARANTINE):
+        if _done(events):
+            del _QUARANTINE[i]
+            break
+    else:
+        if _FREE_WORDS:
+            word = _FREE_WORDS.pop()
+        elif _QUARANTINE:
+            word, events = _QUARANTINE.pop(0)
+            for e in events:
+                e.synchronize()
+        else:
+            raise RuntimeError(f"solver_scope: all {SOLVER_WORDS - 1} "
+                               f"cap-flag words are held")
+    _take_word(word)
+    return word
+
+
+@contextlib.contextmanager
+def solver_scope():
+    """Give the block a cap flag of its own: every :func:`sym_eig` launch
+    inside it sets this word, and :func:`check_solver` /
+    :func:`clear_solver_status` read only it, so jobs on threads of one
+    process (the serve daemon's workers) never raise, or clear, each
+    other's cap hits.  ``resilience.scope`` enters one.  When the block
+    ends, a word none of whose launches can still be queued is cleared
+    and returned to the pool; one that a launch may still set (a job
+    that raised before its next sync) is quarantined until the events
+    recorded after its launches have completed, and cleared as it is
+    handed out again, so a late write never reaches the next scope."""
+    with _LOCK:
+        word = _acquire_word()
+    token = _WORD.set(word)
+    try:
+        yield word
+    finally:
+        _WORD.reset(token)
+        with _LOCK:
+            events = list(_PENDING.pop(word, {}).values())
+            if _done(events):
+                _take_word(word)
+                _FREE_WORDS.append(word)
+            else:
+                _QUARANTINE.append((word, events))
+
+
+def clear_solver_status() -> bool:
+    """Whether a :func:`sym_eig` launch of the calling scope
+    (:func:`solver_scope`; the process's word outside one) hit its sweep
+    cap since the last clear; the word is cleared.  The word lies in
+    mapped host memory: reading it is no CUDA call, so the caller reads
+    it after a sync it already makes (the iteration's fit read).  The
+    batched CPD clears it and reads each slot's sweep count instead, so
+    that a cap hit by one slot is told apart from its neighbours'."""
+    return _take_word(_WORD.get())
+
+
 def check_solver() -> None:
-    """Raise :class:`SolverError` when a :func:`sym_eig` launch hit its
-    sweep cap (:func:`clear_solver_status`)."""
+    """Raise :class:`SolverError` when a :func:`sym_eig` launch of the
+    calling scope hit its sweep cap (:func:`clear_solver_status`)."""
     if clear_solver_status():
         raise SolverError(f"sym_eig: the Jacobi sweeps did not converge "
                           f"within {SYM_EIG_MAX_SWEEPS} sweeps")
 
 
-def sym_eig(A: torch.Tensor, return_sweeps: bool = False):
+def sym_eig(A: torch.Tensor, return_sweeps: bool = False,
+            max_sweeps: Optional[int] = None):
     """(w ascending, V) of the symmetric (R, R) `A`, ``A = V diag(w) Vᵀ``,
     in A's dtype, as ``torch.linalg.eigh`` returns them; a ``(K, R, R)``
     stack gives ``(K, R)`` and ``(K, R, R)`` in one launch of K CTAs.  CPU
     tensors take :func:`sym_eig_plain`; CUDA tensors (f32 or f64, within
     :func:`sym_eig_fits`) launch ``csrc/sym_eig.cu`` on the current stream
     with no sync, or raise.  A run that hits the sweep cap sets the status
-    word that :func:`check_solver` reads.  With `return_sweeps`, a third
-    value: the sweeps run (on a card an int32 tensor of one element, or
-    of K for a stack, ``SYM_EIG_MAX_SWEEPS + 1`` where a matrix hit the
-    cap)."""
+    word of the calling scope, which :func:`check_solver` reads;
+    `max_sweeps` lowers the cap for one call (a drill forcing a cap hit).
+    With `return_sweeps`, a third value: the sweeps run (on a card an
+    int32 tensor of one element, or of K for a stack, the cap + 1 where a
+    matrix hit the cap)."""
     if (A.dim() not in (2, 3) or A.shape[-1] != A.shape[-2]
             or A.shape[-1] < 1):
         raise ValueError(f"sym_eig takes a square matrix or a stack of "
@@ -294,13 +384,21 @@ def sym_eig(A: torch.Tensor, return_sweeps: bool = False):
     A = A.contiguous()
     status = _status_word()
     with torch.cuda.device(A.device):
+        stream = torch.cuda.current_stream()
         kernels._launch("splatt_sym_eig", A.data_ptr(),
                         int(A.dtype == torch.float64), R, K,
-                        SYM_EIG_MAX_SWEEPS, sym_eig_threads(R), w.data_ptr(),
+                        SYM_EIG_MAX_SWEEPS if max_sweeps is None
+                        else int(max_sweeps), sym_eig_threads(R),
+                        w.data_ptr(),
                         v.data_ptr(),
                         None if sweeps is None else sweeps.data_ptr(),
                         status)
-    sym_eig.launches += 1
+        word = _WORD.get()
+        if word:
+            event = torch.cuda.Event()
+            event.record(stream)
+            _note_launch(word, stream, event)
+    kernels.count_launch(sym_eig)
     return (w, v, sweeps) if return_sweeps else (w, v)
 
 

@@ -297,7 +297,9 @@ def _run(wrapper, entry: str, mesh, st: _RingState, ranks, block: int,
                                         f"launch (CUDA error {err})")
             raise RuntimeError(f"{entry}: CUDA error {err} at launch")
         launched.append(card)
-        wrapper.launches += 1
+        from splatt_tpu_torch.ops.kernels import count_launch
+
+        count_launch(wrapper)
 
 
 @dataclasses.dataclass(frozen=True)

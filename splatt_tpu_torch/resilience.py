@@ -354,16 +354,23 @@ def scope_health_retries() -> Optional[int]:
 @contextlib.contextmanager
 def scope(job_id: str, health_retries: Optional[int] = None,
           deadline_s: Optional[float] = None):
-    """Enter a fresh per-job scope: demotions, the last-attempt note and
-    every run-report event inside the block belong to `job_id` and are
-    isolated from the global scope and from sibling jobs.  A scope starts
-    empty.  `health_retries` / `deadline_s` override the sentinel budget
-    and the watchdog deadline for this job only."""
+    """Enter a fresh per-job scope: demotions, the last-attempt note,
+    every run-report event and the eigensolver's cap flag
+    (:func:`ops.linalg.solver_scope`) inside the block belong to
+    `job_id` and are isolated from the global scope and from sibling
+    jobs.  A scope starts empty.  `health_retries` / `deadline_s`
+    override the sentinel budget and the watchdog deadline for this job
+    only."""
+    from splatt_tpu_torch.ops.linalg import solver_scope
+
     st = ResilienceScope(job_id=str(job_id), health_retries=health_retries,
                          deadline_s=deadline_s)
     token = _SCOPE.set(st)
     try:
-        yield st
+        # the eigensolver's cap flag is the scope's own word too: a
+        # sibling job's cap hit never raises, or is cleared, here
+        with solver_scope():
+            yield st
     finally:
         _SCOPE.reset(token)
 
@@ -434,6 +441,44 @@ RUN_REPORT_EVENTS = {
     "metrics_snapshot": "the metrics registry was written as Prometheus "
                         "text (trace.write_metrics), or failed "
                         "classified",
+    "job_accepted": "the serve daemon journaled a job submission and "
+                    "queued it",
+    "job_resumed": "journal replay re-queued a non-terminal job, which "
+                   "resumes from its checkpoint",
+    "job_started": "a serve worker began running an accepted job",
+    "queue_full": "a bounded serve queue (the fit queue or the predict "
+                  "lane) load-shed a submission",
+    "quota_rejected": "admission control shed a submission: its tenant "
+                      "was at its quota of non-terminal jobs",
+    "job_degraded": "a supervised job finished degraded or failed, with "
+                    "its failure class",
+    "journal_torn": "journal replay skipped one unparseable record "
+                    "(crash debris)",
+    "journal_unknown_kind": "journal replay skipped a record whose kind "
+                            "this version does not know",
+    "batch_dispatched": "the serve daemon dispatched same-regime jobs as "
+                        "one batched CPD",
+    "batch_degraded": "a coalesced batch failed and degraded classified "
+                      "to per-tensor dispatch of its members",
+    "refit_scheduled": "an update job took the full-refit repair path "
+                       "(no model, periodic, health, or a failed warm "
+                       "path)",
+    "update_applied": "an update job committed its warm sweeps",
+    "model_generation_advanced": "a model commit advanced the model's "
+                                 "generation stamp",
+    "model_torn": "a model-store piece (a stamp, a checkpoint against its "
+                  "stamp, a model tensor) failed to verify and was "
+                  "skipped classified",
+    "predict_served": "a predict job answered from a fenced model "
+                      "generation",
+    "predict_degraded": "a predict job's cache lookup or fenced read "
+                        "failed classified (a refusal when nothing "
+                        "intact was left)",
+    "slo_burn": "an SLO's error budget burned at >= the alert multiple "
+                "on both windows (fleetobs.SloEvaluator)",
+    "cuda_context_lost": "a serve job met a sticky CUDA error: the daemon "
+                         "drains, and every job on the card is journaled "
+                         "interrupted for a fresh process to resume",
 }
 
 

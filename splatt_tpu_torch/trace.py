@@ -81,7 +81,16 @@ SPANS = {
                        "(attrs: it)",
     "cpd.update": "the warm-update pre-pass (refresh_touched_rows): the "
                   "rows a delta touched re-solved before the warm sweeps "
-                  "(attrs: modes, rows)",
+                  "(attrs: modes, rows); a serve update job opens one "
+                  "more around the pre-pass and its warm sweeps (attrs: "
+                  "job, base, delta_nnz)",
+    "serve.job": "one supervised serve job end to end (attrs: job, "
+                 "resumed, and the terminal status once journaled)",
+    "serve.batch": "one coalesced batch's batched CPD invocation (attrs: "
+                   "k, leader job id)",
+    "serve.predict": "one generation-fenced predict job: the hot-cache "
+                     "lookup (or the direct read) and the reconstruct or "
+                     "top-k scan (attrs: job, model, gen, cache)",
     "cpd.guard.health_pack": "numerical-health sentinel: building and "
                              "fetching the packed finite-check vector "
                              "(rides the fit-check sync)",
@@ -134,8 +143,43 @@ METRICS = {
                    "one per tuned mode"),
     "splatt_serve_queue_depth": (
         "gauge", "serve: pending jobs in the bounded queue"),
+    "splatt_serve_jobs_total": (
+        "counter", "serve: terminal jobs by status "
+                   "(converged/degraded/failed/rejected/served/refused)"),
     "splatt_job_seconds": (
         "histogram", "serve: per-job wall seconds accepted-to-terminal"),
+    "splatt_serve_queue_wait_seconds": (
+        "histogram", "serve: seconds a job waited accepted-to-started, "
+                     "the queue-wait SLO's histogram"),
+    "splatt_slo_burn_total": (
+        "counter", "SLO burn-rate alerts by slo name: the error budget "
+                   "burned at >= the alert multiple on both windows "
+                   "(fleetobs.SloEvaluator); counts burning evaluations"),
+    "splatt_serve_batches_total": (
+        "counter", "serve: coalesced batch dispatches by outcome "
+                   "(dispatched = ran as one batched CPD, degraded = fell "
+                   "back classified to per-tensor dispatch)"),
+    "splatt_serve_batch_jobs_total": (
+        "counter", "serve: jobs whose terminal commit rode a coalesced "
+                   "batch"),
+    "splatt_serve_updates_total": (
+        "counter", "serve: incremental update jobs by outcome (applied = "
+                   "warm sweeps committed, refit = the full-refit repair "
+                   "path ran)"),
+    "splatt_predict_latency_seconds": (
+        "histogram", "serve: predict-lane wall seconds accepted-to-served, "
+                     "the predict p99 latency SLO's histogram; the "
+                     "ms-scale buckets exist for this metric"),
+    "splatt_predict_requests_total": (
+        "counter", "serve: predict jobs by outcome (served = answered "
+                   "from a fenced generation, refused = no intact "
+                   "generation)"),
+    "splatt_predict_cache_total": (
+        "counter", "serve: hot-factor cache consults by outcome (hit/miss) "
+                   "keyed on (model, generation)"),
+    "splatt_predict_queue_depth": (
+        "gauge", "serve: pending predicts in the bounded low-latency "
+                 "lane"),
 }
 
 #: histogram bucket upper bounds (seconds); +Inf is implicit
@@ -492,6 +536,16 @@ def reset_metrics() -> None:
         _SAMPLES.clear()
 
 
+def samples() -> Dict[Tuple[str, Tuple[Tuple[str, str], ...]], object]:
+    """The raw registry samples, ``(name, label-key) -> value`` with
+    histogram states copied: what the SLO evaluator consumes
+    (fleetobs.py; ≙ splatt_tpu/trace.py:701)."""
+    with _MET_LOCK:
+        return {k: (dict(v, buckets=list(v["buckets"]))
+                    if isinstance(v, dict) else v)
+                for k, v in _SAMPLES.items()}
+
+
 def _event_metrics(kind: str, info: dict) -> None:
     """Event-kind -> metric mapping: every run-report event counts into
     ``splatt_events_total``; load-bearing kinds get their own series."""
@@ -510,6 +564,9 @@ def _event_metrics(kind: str, info: dict) -> None:
         metric_inc("splatt_health_rollbacks_total", **labels)
     elif kind == "health_degraded":
         metric_inc("splatt_health_degraded_total", **labels)
+    elif kind == "slo_burn":
+        metric_inc("splatt_slo_burn_total", slo=info.get("slo", "?"),
+                   replica=info.get("replica"), **labels)
 
 
 def _fmt_labels(lk: Tuple[Tuple[str, str], ...]) -> str:

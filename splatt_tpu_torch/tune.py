@@ -62,6 +62,8 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from splatt_tpu_torch.utils import lockcheck as _lockcheck
+
 #: the JAX package's plan schema generation: a cache written by another
 #: generation is re-tuned, not reinterpreted
 PLAN_CACHE_VERSION = 5
@@ -359,10 +361,11 @@ def _json_cache_update(path, mutate) -> None:
 
 #: in-process memo of resolved entries, (cache file, env key, entry key)
 #: -> entry dict | False (a miss).  Dispatch consults the cache on every
-#: MTTKRP call, so a warm lookup is one dict hit.  A plain lock guards it
-#: (the JAX package's lockcheck proxy comes with utils/lockcheck.py)
-_MEM_LOCK = threading.Lock()
-_MEM: dict = {}
+#: MTTKRP call, so a warm lookup is one dict hit.  Its lock guards every
+#: mutation; under SPLATT_LOCKCHECK both become ownership-asserting
+#: proxies (utils/lockcheck.py)
+_MEM_LOCK = _lockcheck.guard_lock(threading.Lock())
+_MEM: dict = _lockcheck.guard({}, _MEM_LOCK, "tune._MEM")
 _MISS = object()
 #: bumped by every reset and store, so a memo derived from this one (the
 #: dispatch's per-layout answer, ``ops/mttkrp._tuned_plan_for``) can tell

@@ -1,12 +1,20 @@
-"""Durable writes: atomic publish of a whole file
-(≙ splatt_tpu/utils/durable.py:48-122).
+"""Durable writes (≙ splatt_tpu/utils/durable.py): atomic publish of a
+whole file, and the journal's durable append.
 
 :func:`publish_file` / :func:`publish_bytes` / :func:`publish_text` /
 :func:`publish_json` write the full content to a same-directory temp
 file, ``fsync`` it, ``os.replace`` it onto the destination and fsync the
 parent directory.  A reader never sees a torn file, and a crash between
 the write and the rename leaves only debris.  The checkpoint writer
-(``cpd.py``) and the trace exporter (``trace.py``) publish through them.
+(``cpd.py``), the trace exporter (``trace.py``), the model store
+(``predict.py``) and the serve daemon's result files publish through them.
+
+:func:`append_line` appends one newline-terminated record and fsyncs it
+under an exclusive ``flock``, first healing a dead writer's torn tail (a
+final line with no newline), so crash debris never merges into the next
+record: the serve journal's protocol.  :func:`ring_append` is the
+bounded, unsynced append of a single-writer ring file.  Both leave the
+bytes the JAX package's helpers leave.
 
 The helpers raise on failure: the caller decides whether a failed write
 is fatal (a checkpoint) or degrades classified (a trace export).
@@ -17,6 +25,11 @@ from __future__ import annotations
 import json
 import os
 from typing import Optional
+
+try:
+    import fcntl as _fcntl
+except ImportError:  # non-POSIX: appends degrade to in-process safety
+    _fcntl = None
 
 
 def _fsync_dir(path: str) -> None:
@@ -93,3 +106,61 @@ def publish_json(path: str, obj, fsync: bool = True,
                                    sort_keys=sort_keys).encode(),
                   fsync=fsync)
 
+
+
+def append_line(path: str, data: bytes, heal_tail: bool = True,
+                fsync: bool = True, use_flock: bool = True) -> None:
+    """Durably append one newline-terminated record to `path`,
+    serialized across processes by an exclusive ``flock`` on the file
+    itself (≙ splatt_tpu/utils/durable.py:124-156).  With `heal_tail`, a
+    dead writer's partial final line is newline-terminated first;
+    otherwise the two lines would merge into one garbage line and this
+    record would be lost.  Threads sharing one appender serialize
+    themselves: the journal holds its own lock around this call."""
+    if not data.endswith(b"\n"):
+        data = data + b"\n"
+    with open(path, "ab") as f:
+        if _fcntl is not None and use_flock:
+            _fcntl.flock(f.fileno(), _fcntl.LOCK_EX)
+        fresh = f.tell() == 0
+        try:
+            if heal_tail and f.tell() > 0:
+                with open(path, "rb") as r:
+                    r.seek(-1, os.SEEK_END)
+                    if r.read(1) != b"\n":
+                        f.write(b"\n")
+            f.write(data)
+            f.flush()
+            if fsync:
+                os.fsync(f.fileno())
+        finally:
+            if _fcntl is not None and use_flock:
+                _fcntl.flock(f.fileno(), _fcntl.LOCK_UN)
+    if fsync and fresh:
+        # the first append created the file: fsync the directory entry
+        # too, or a crash can lose the whole journal
+        _fsync_dir(path)
+
+
+def ring_append(path: str, lines: list, max_bytes: int) -> int:
+    """Append a batch of newline-terminated records to `path` and, once
+    the file outgrows `max_bytes`, rotate it atomically to ``<path>.1``
+    (one previous generation kept), so the file stays bounded; returns
+    its size after the append (≙ splatt_tpu/utils/durable.py:159-184).
+
+    No fsync and no flock: a ring has one writer, and a write plus flush
+    reaches the page cache, which survives the writer being killed; only
+    a host power loss can eat the tail, and readers tolerate a torn
+    final line."""
+    path = str(path)
+    with open(path, "ab") as f:
+        for line in lines:
+            if not line.endswith(b"\n"):
+                line = line + b"\n"
+            f.write(line)
+        f.flush()
+        size = f.tell()
+    if size >= max_bytes:
+        os.replace(path, path + ".1")
+        size = 0
+    return size

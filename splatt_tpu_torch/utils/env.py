@@ -141,6 +141,116 @@ ENV_VARS = {
                           "degrades classified point2point -> all2all "
                           "on failure); an explicit "
                           "Options.comm_pattern / --comm wins"),
+    # the serve daemon (serve.py) and its predict lane (predict.py)
+    "SPLATT_SERVE_WORKERS": EnvVar(1, "serve: concurrent job-supervisor "
+                                   "threads; each job runs under its own "
+                                   "resilience scope, sharing the warm "
+                                   "plan cache"),
+    "SPLATT_SERVE_QUEUE_MAX": EnvVar(16, "serve: bounded pending-queue "
+                                     "depth; a submission past it is "
+                                     "load-shed with an explicit "
+                                     "queue_full rejection instead of "
+                                     "queueing unboundedly; <= 0 disables "
+                                     "the bound"),
+    "SPLATT_SERVE_POLL_S": EnvVar(0.5, "serve: seconds between filed-"
+                                  "request spool scans in the daemon "
+                                  "loop"),
+    "SPLATT_SERVE_JOB_DEADLINE_S": EnvVar(0.0, "serve: default per-job "
+                                          "deadline in seconds (a job "
+                                          "spec's deadline_s overrides, 0 "
+                                          "= explicit opt-out); a blown "
+                                          "job deadline classifies "
+                                          "TIMEOUT and the job is marked "
+                                          "failed, releasing its worker; "
+                                          "<= 0 disables"),
+    "SPLATT_SERVE_BATCH_MIN": EnvVar(0, "serve auto-coalescing: when the "
+                                     "queue holds >= this many batchable "
+                                     "jobs sharing one regime key, a "
+                                     "worker dispatches them as one "
+                                     "batched CPD (per-job journal "
+                                     "lineage, results and quotas kept; "
+                                     "a failure degrades classified to "
+                                     "per-tensor dispatch); <= 0 "
+                                     "disables"),
+    "SPLATT_UPDATE_SWEEPS": EnvVar(5, "update jobs: warm-started ALS "
+                                   "sweeps an incremental model update "
+                                   "runs when its spec gives no iters"),
+    "SPLATT_UPDATE_REFIT_EVERY": EnvVar(0, "update jobs: every Nth update "
+                                        "of one base model runs a from-"
+                                        "scratch refit of the merged "
+                                        "tensor instead of the warm path "
+                                        "(refit_scheduled event); <= 0 "
+                                        "disables the periodic cadence "
+                                        "(the health and failure repair "
+                                        "paths stay active)"),
+    "SPLATT_FLEET_TENANT_QUOTA": EnvVar(0, "serve admission control: max "
+                                        "non-terminal jobs per tenant; "
+                                        "past it submissions are shed "
+                                        "with a quota_rejected event; <= "
+                                        "0 disables"),
+    "SPLATT_PREDICT_QUEUE_MAX": EnvVar(64, "serve predict lane: bounded "
+                                       "pending-predict depth, separate "
+                                       "from the fit/update queue; a "
+                                       "predict past it is load-shed with "
+                                       "an explicit queue_full rejection "
+                                       "(<= 0 disables the bound)"),
+    "SPLATT_PREDICT_CACHE_MAX": EnvVar(8, "predict hot-factor cache: "
+                                       "(model, generation) entries kept "
+                                       "per daemon, LRU-evicted past the "
+                                       "bound; an update commit "
+                                       "invalidates by generation "
+                                       "advance, never deletion, so a "
+                                       "pinned in-flight predict still "
+                                       "finishes on its generation; <= 0 "
+                                       "disables the cache"),
+    "SPLATT_METRICS_PATH": EnvVar(None, "serve: when set, the metrics "
+                                  "registry (trace.METRICS) is "
+                                  "snapshotted to this file in "
+                                  "Prometheus text format on a cadence "
+                                  "(SPLATT_METRICS_INTERVAL_S) and at "
+                                  "daemon exit, by atomic replace"),
+    "SPLATT_METRICS_INTERVAL_S": EnvVar(30.0, "serve: seconds between "
+                                        "metrics snapshots to "
+                                        "SPLATT_METRICS_PATH; <= 0 "
+                                        "snapshots only at daemon exit"),
+    # the SLO layer of a daemon's metrics tick (fleetobs.py)
+    "SPLATT_SLO_QUEUE_WAIT_P95_S": EnvVar(30.0, "SLO objective: 95% of "
+                                          "jobs start within this many "
+                                          "seconds of acceptance (the "
+                                          "splatt_serve_queue_wait_"
+                                          "seconds histogram; the "
+                                          "threshold rounds up to a "
+                                          "bucket bound)"),
+    "SPLATT_SLO_JOB_WALL_P95_S": EnvVar(600.0, "SLO objective: 95% of "
+                                        "terminal jobs finish within this "
+                                        "many wall seconds (the "
+                                        "splatt_job_seconds histogram)"),
+    "SPLATT_SLO_AVAILABILITY": EnvVar(0.99, "SLO objective: the accepted "
+                                      "fraction of submissions, 1 - "
+                                      "(queue_full + quota_rejected) / "
+                                      "offered"),
+    "SPLATT_SLO_WINDOW_S": EnvVar(300.0, "SLO burn-rate short window in "
+                                  "seconds; the long window is "
+                                  "SPLATT_SLO_LONG_WINDOWS times this"),
+    "SPLATT_SLO_LONG_WINDOWS": EnvVar(12, "SLO burn-rate long window, as "
+                                      "a multiple of SPLATT_SLO_WINDOW_S"),
+    "SPLATT_SLO_BURN": EnvVar(2.0, "SLO alert threshold: emit slo_burn "
+                              "when the error-budget burn rate meets or "
+                              "exceeds this multiple on both windows"),
+    "SPLATT_SLO_PREDICT_P99_S": EnvVar(0.25, "SLO objective: 99% of "
+                                       "served predicts complete within "
+                                       "this many wall seconds accepted-"
+                                       "to-served (the splatt_predict_"
+                                       "latency_seconds histogram; the "
+                                       "threshold rounds up to a bucket "
+                                       "bound)"),
+    "SPLATT_LOCKCHECK": EnvVar("0", "runtime lock-ownership sanitizer "
+                               "(utils/lockcheck.py): the serve daemon's "
+                               "job table, queues and running set and "
+                               "the plan cache's memo are wrapped in "
+                               "proxies asserting that their owning lock "
+                               "is held by the mutating thread; off by "
+                               "default (no wrappers)"),
 }
 
 

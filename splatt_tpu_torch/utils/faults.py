@@ -1,6 +1,7 @@
 """Fault injection: the test hook points of the resilience layer
 (≙ splatt_tpu/utils/faults.py, cut to the engine, format, layout,
-reorder, comm, checkpoint, sweep and trace-export sites).
+reorder, comm, checkpoint, sweep, trace-export, serve, predict and
+model-store sites).
 
 Production call sites call :func:`maybe_fail` / :func:`poison` with a
 site name; tests (or an operator, via env var) arm faults against those
@@ -130,6 +131,38 @@ SITES = {
                           "(comm_fallback events); on a CUDA mesh the "
                           "async_ring chain is the kernel alone, so it "
                           "raises",
+    "serve.submit": "one job submission into the serve daemon's queue "
+                    "(serve.py); a raised fault rejects that submission, "
+                    "classified, and never kills the daemon",
+    "serve.journal_write": "one durable journal append (serve.py); a "
+                           "failure while journaling a submission rejects "
+                           "the job (durability cannot be promised), a "
+                           "failure on any later record degrades to "
+                           "warn-and-continue",
+    "serve.job_run": "the start of one supervised job (serve.py); a "
+                     "raising kind marks the job failed, 'slow' holds "
+                     "the job open (blowing a per-job deadline, or "
+                     "pinning it for a kill-and-restart drill)",
+    "serve.batch": "one coalesced batch dispatch (serve.py _run_batch); "
+                   "a raised fault degrades the batch classified to "
+                   "per-tensor dispatch of its members (batch_degraded "
+                   "event): every member still reaches its own terminal "
+                   "record",
+    "predict.read": "the direct generation-fenced model read of one "
+                    "predict (predict.py load_model_generation); a raised "
+                    "fault refuses that predict classified "
+                    "(predict_degraded event), never garbage",
+    "predict.cache": "one hot-factor cache lookup on the predict lane "
+                     "(predict.py HotFactorCache.get); a raised fault "
+                     "degrades that predict classified to the direct "
+                     "fenced read (predict_degraded event with a served "
+                     "answer)",
+    "model.generation": "the generation-stamp advance of one model commit "
+                        "(predict.py advance_generation, called by "
+                        "serve.py's fit and update commits); a raised "
+                        "fault aborts that commit classified: the stamp "
+                        "never advances, so readers keep serving the "
+                        "previous generation",
 }
 
 

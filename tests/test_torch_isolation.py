@@ -1,7 +1,7 @@
 """The port stands alone: no module of it loads JAX or the JAX package
 (each is imported in a fresh interpreter), and its entry points, the
-batched CPD's included, run on the card unless the caller asks for the
-CPU."""
+batched CPD's and the serve daemon's included, run on the card unless the
+caller asks for the CPU."""
 
 import subprocess
 import sys
@@ -28,7 +28,10 @@ if not {"splatt_tpu_torch.cli", "splatt_tpu_torch.ops.kernels",
         "splatt_tpu_torch.resilience", "splatt_tpu_torch.trace",
         "splatt_tpu_torch.utils.durable", "splatt_tpu_torch.utils.timers",
         "splatt_tpu_torch.utils.faults", "splatt_tpu_torch.tune",
-        "splatt_tpu_torch.bench_algs"} <= set(names):
+        "splatt_tpu_torch.bench_algs", "splatt_tpu_torch.serve",
+        "splatt_tpu_torch.predict", "splatt_tpu_torch.fleet",
+        "splatt_tpu_torch.fleetobs", "splatt_tpu_torch.chaos",
+        "splatt_tpu_torch.utils.lockcheck"} <= set(names):
     sys.exit(2)
 bad = sorted(m for m in sys.modules
              if m in ("jax", "jaxlib", "splatt_tpu")
@@ -60,7 +63,11 @@ sys.exit(1 if bad else 0)
     "splatt_tpu_torch.parallel.common", "splatt_tpu_torch.tune",
     "splatt_tpu_torch.bench_algs", "splatt_tpu_torch.cli",
     "splatt_tpu_torch.blocked", "splatt_tpu_torch.kruskal",
-    "splatt_tpu_torch.ops.linalg", "splatt_tpu_torch.ops.mttkrp"])
+    "splatt_tpu_torch.ops.linalg", "splatt_tpu_torch.ops.mttkrp",
+    "splatt_tpu_torch.serve", "splatt_tpu_torch.predict",
+    "splatt_tpu_torch.fleet", "splatt_tpu_torch.fleetobs",
+    "splatt_tpu_torch.chaos", "splatt_tpu_torch.utils.lockcheck",
+    "splatt_tpu_torch.utils.env", "splatt_tpu_torch.resilience"])
 def test_each_observability_module_imports_alone_without_jax(module):
     """The slice's new and extended modules, each imported first in a
     fresh interpreter, pull in neither JAX nor the JAX package."""
@@ -97,3 +104,29 @@ def test_batched_entry_points_need_a_card_unless_told_cpu():
     with pytest.raises(RuntimeError, match="device='cpu'"):
         cpd_als_batched(bb, 2, opts)
     assert cpd_als_batched(bb, 2, opts, device="cpu").k == 2
+
+
+def test_serve_entry_points_need_a_card_unless_told_cpu(tmp_path):
+    """serve.Server and the serve verb run on the card unless told to use
+    the CPU; the client side (file_request, read_status, predict without
+    --wait) needs no device."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the default device works")
+    from splatt_tpu_torch import cli, serve
+
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        serve.Server(str(tmp_path))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        cli.main(["serve", str(tmp_path), "--once"])
+    assert serve.Server(str(tmp_path), device="cpu").device.type == "cpu"
+    from splatt_tpu_torch.kruskal import KruskalTensor
+
+    KruskalTensor(factors=[torch.ones(2, 1)] * 3, lam=torch.ones(1),
+                  fit=0.5).save(str(tmp_path / "kt"))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        KruskalTensor.load(str(tmp_path / "kt"), 3)
+    assert KruskalTensor.load(str(tmp_path / "kt"), 3,
+                              device="cpu").dims == (2, 2, 2)
+    assert cli.main(["predict", str(tmp_path), "--model", "m",
+                     "--coords", "0,0,0"]) == 0
+    assert serve.read_status(str(tmp_path), "nosuch")["state"] is None

@@ -1409,3 +1409,102 @@ def test_cuda_dense_tensor_tunes_over_fused_dense(monkeypatch, tmp_path):
                                device="cuda", rank=8)
     for m, p in res.plans.items():
         assert (bs.layout_for(m).encoding == "dense") == (p.path == "dense")
+
+
+@pytest.mark.gpu
+def test_cuda_solver_cap_flag_stays_in_its_job(tmp_path):
+    """A sym_eig launch forced to hit its sweep cap in one thread's
+    resilience scope raises in that scope only: a neighbour's CPD on
+    another thread, run after the cap hit and before the check, reads its
+    own word at every fit check and finishes clean, and never clears the
+    capped job's word."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    import threading
+
+    from splatt_tpu_torch import resilience
+    from splatt_tpu_torch.blocked import BlockedSparse
+    from splatt_tpu_torch.config import Options, Verbosity
+    from splatt_tpu_torch.cpd import cpd_als
+    from splatt_tpu_torch.ops import linalg
+
+    capped, neighbour_done = threading.Event(), threading.Event()
+    out = {}
+
+    def job_a():
+        with resilience.scope("a"):
+            A = torch.from_numpy(spectrum("spd", 32, 3)).to("cuda",
+                                                            torch.float32)
+            linalg.sym_eig(A, max_sweeps=1)
+            torch.cuda.synchronize()
+            capped.set()
+            neighbour_done.wait(120)
+            try:
+                linalg.check_solver()
+                out["a"] = "no raise"
+            except linalg.SolverError:
+                out["a"] = "raised"
+            # read once, then clear
+            out["a_after"] = linalg.clear_solver_status()
+
+    def job_b():
+        with resilience.scope("b"):
+            capped.wait(120)
+            try:
+                rng = np.random.default_rng(4)
+                dims = (300, 200, 100)
+                X = SparseTensor(
+                    np.stack([rng.integers(0, d, 20000) for d in dims]),
+                    rng.random(20000), dims).deduplicate()
+                opts = Options(max_iterations=6, tolerance=0.0,
+                               random_seed=1, engine_fallback=False,
+                               verbosity=Verbosity.NONE)
+                bs = BlockedSparse.from_coo(X, opts, device="cuda")
+                launches = linalg.sym_eig.launches
+                res = cpd_als(bs, 16, opts, device="cuda")
+                out["b"] = (res.fit, linalg.sym_eig.launches - launches)
+            except Exception as e:   # noqa: BLE001 - reported below
+                out["b"] = e
+            finally:
+                neighbour_done.set()
+
+    threads = [threading.Thread(target=job_a), threading.Thread(target=job_b)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(300)
+    assert not isinstance(out["b"], Exception), out["b"]
+    fit, launches = out["b"]
+    assert np.isfinite(fit) and launches >= 3 * 6
+    assert out["a"] == "raised" and out["a_after"] is False
+    # the process's own word saw neither
+    linalg.check_solver()
+
+
+@pytest.mark.gpu
+def test_cuda_a_queued_cap_hit_stays_in_its_scope():
+    """A job that leaves its resilience scope while its capped sym_eig
+    launch is still queued behind a long kernel (a host-side raise before
+    its next sync): the next scope, entered at once on the same thread,
+    holds another word and never reads that cap hit, before or after the
+    card finishes the launch; once it has, the word comes back cleared."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from splatt_tpu_torch import resilience
+    from splatt_tpu_torch.ops import linalg
+
+    A = torch.from_numpy(spectrum("spd", 32, 3)).to("cuda", torch.float32)
+    torch.cuda.synchronize()
+    with resilience.scope("a"):
+        a = linalg._WORD.get()
+        torch.cuda._sleep(200_000_000)
+        linalg.sym_eig(A, max_sweeps=1)
+    with resilience.scope("b"):
+        b = linalg._WORD.get()
+        early = linalg.clear_solver_status()
+        torch.cuda.synchronize()
+        late = linalg.clear_solver_status()
+    assert b != a and not early and not late
+    with resilience.scope("c"):
+        linalg.check_solver()
+    linalg.check_solver()

@@ -151,7 +151,7 @@ Phases, each fatal on failure:
 13. the host build and the balanced layouts (``--balance`` runs the
    set-up, phase 5's host layout build and this phase alone): the native
    host sort (``csrc/host_sort.cpp``, which must build here) against
-   ``np.lexsort`` on mode 0's sort of phase 3's tensor, in turns, equal
+   ``np.lexsort`` on mode 0's sort of phase 6's 2M tensor, in turns, equal
    permutations, beside phase 5's host layout build and an earlier
    run's 59.3 s with ``np.lexsort``;
    then bench.py's amazon-like tensor (48212 x 17742 x 18051, zipf
@@ -214,7 +214,7 @@ Phases, each fatal on failure:
    within 1e-4.  The guarded run's Chrome trace summarized by the port's
    ``summarize_file``: 5 ``cpd.iter`` spans reconciling with the printed
    seconds per iteration, the guard share.  ``cpd_als`` at
-   ``Verbosity.HIGH`` (the profiled sweep), 3 iterations: the phase table
+   ``Verbosity.HIGH`` (the profiled sweep), 5 iterations: the phase table
    beside phase 5's phase times (CUDA events), the per-mode MTTKRP sum
    within 20% of the same MTTKRP calls timed in the same fenced bracket
    (host clock to the end of a synchronize, which holds each call's host
@@ -232,7 +232,7 @@ Phases, each fatal on failure:
 15. the autotuner, its plan cache and the bench verb (every phase before
    it reads a plan cache of this run's own, empty; phase 15 writes files
    of its own): ``tune()`` of phase 5's tensor and options over blocks
-   2048/4096/8192 x fixed/balanced x i32/auto (``TUNE_*``), one line per
+   4096/8192 x fixed/balanced x i32/auto (``TUNE_*``), one line per
    candidate (mode, engine, block, format, packing, the tuner's ms and
    the launches it made: its kernel 3 times, warm + 2), the winners, the
    cold tune's seconds by kind; a warm tune with 0 measurements and 3
@@ -249,10 +249,10 @@ Phases, each fatal on failure:
    their skew, mode 1's winner beside phase 13's turns (printed, not
    gated).  ``bench_mttkrp`` of stream, blocked, blocked_pallas, scatter
    and ttbox on phase 6's 2M tensor at R = 16 and 50 with the roofline
-   lines and ``crosscheck_mttkrp`` within the CLI's 9e-3; the bench verb
-   with ``--check``, then the tune verb on phase 3's tensor as ``.bin``
-   in another process on the phase's cache (0 measurements, 3 hits)
-   and ``cpd --autotune on --alloc allmode`` with a 3-mode
+   lines and ``crosscheck_mttkrp`` within the CLI's 9e-3; then three
+   processes at once: the bench verb with ``--check``, and on the phase's
+   cache the tune verb on phase 3's tensor as ``.bin`` (0 measurements,
+   3 hits) and ``cpd --autotune on --alloc allmode`` with a 3-mode
    ``tuned_plan``.  Drills on the 2M tensor: ``tuner.measure:runtime:*``
    (no plan, ``tuner_degraded`` on every mode), ``engine.fused_t:
    runtime:*`` (``tuner_negative`` for fused_t alone, every mode tuned),
@@ -353,7 +353,33 @@ Phases, each fatal on failure:
    its job's first checkpoint lands, run again: the journal has
    ``resumed``, the job ends done with its fit within 1e-4 of an
    uninterrupted run, and ``predict DIR --model ... --wait`` exits 0 with
-   ``served``.
+   ``served``;
+19. fleet mode on the card (``--fleet`` runs phases 1-2, phase 18's
+   reference run and this phase alone): ``python -m splatt_tpu_torch.cli
+   serve DIR --fleet`` replica processes, fallback off, lease
+   ``FLEET_LEASE_S``, each loading the kernels ``_build/`` holds (its
+   ``kernels loaded in`` line, nvcc 0 s).  (a) Two replicas; phase 18's
+   full-width job with a checkpoint every iteration; its claimant
+   SIGKILLed once the first checkpoint lands: the survivor journals
+   ``adopted`` and commits the job, whose model meets phase 18's gates
+   against phase 18's reference beside its control; a third replica joins
+   during the lease.  (b) Phase 18's crash job on phase 6's 2M tensor; its
+   owner SIGSTOPped once its first checkpoint lands, SIGCONTed once a
+   peer journals ``adopted``: the owner's ring shows its renew refused
+   (``lease_expired``, role owner), it journals no terminal record and
+   writes no result, the lineage audit is clean, the stamp verifies and
+   the model meets the gates against a direct run.  (c)-(d) Once every
+   replica has drained: each healthy replica's largest heartbeat gap
+   below the lease, no lease lost by a healthy replica; from the
+   adopter's ring, its ``serve.job`` span's launches (``fused_mttkrp_t``
+   = fused_t modes x the iterations after the kill, ``sym_eig`` 3 x
+   those) and dispatches, its load and compile seconds and iterations;
+   ``status`` agrees with the journal on every job; the aggregate counts
+   2 adoptions, the lease expiries and the dead victim; the victim's ring
+   holds its ``job_started`` and ends before the kill; the ``trace`` verb
+   merges the three rings.  (e) ``chaos --fleet --smoke --device cuda``,
+   started once (a) is done and run beside (b)-(d) over a spool of its
+   own, exits 0 (its report lines printed).
 
 The line before the last is the ``{"kernels": [...]}`` record (the nine
 TPU kernels' counterparts and ``sym_eig``); the last is
@@ -365,7 +391,9 @@ and phase 12 alone and prints ``fused_mttkrp_t``'s entry from phase 12;
 ``fused_dense``'s; ``--batch`` runs phases 1-2 and phase 17 and prints
 ``fused_mttkrp_t``'s entry on the update path's layouts and ``sym_eig``'s
 over the batch; ``--serve`` runs phases 1-2 and phase 18 and prints
-``fused_mttkrp_t``'s entry with phase 18's launches; ``--balance`` runs the set-up and phase 13 and prints
+``fused_mttkrp_t``'s entry with phase 18's launches; ``--fleet`` runs phases
+1-2 and phase 19 and prints ``fused_mttkrp_t``'s entry with the adopting
+replica's launches; ``--balance`` runs the set-up and phase 13 and prints
 ``fused_mttkrp_t``'s and ``fused_mttkrp_v2``'s entries from it.  The line
 ``[total]`` gives the script's seconds.  ``--gather`` runs the
 set-up, the 20M-nonzero layouts, phase 3, phase 6's ``fused_mttkrp_tg``
@@ -3327,10 +3355,9 @@ def synthetic_zipf(dims, nnz: int, seed: int = 0,
 
 
 def sort_turns(tt) -> dict:
-    """Mode 0's layout sort of phase 3's tensor by the native host sort
-    and by np.lexsort, in turns (native, lexsort, native: one lexsort of
-    20M nonzeros takes ~18 s): the permutations must be equal.  The
-    native sort must build here."""
+    """Mode 0's layout sort of `tt` by the native host sort and by
+    np.lexsort, in turns (native, lexsort, native): the permutations must
+    be equal.  The native sort must build here."""
     from splatt_tpu_torch import native
     from splatt_tpu_torch.blocked import secondary_order
 
@@ -3776,7 +3803,10 @@ def phase_balance(nell2, nell2_build_s: float, rank: int) -> dict:
             log(f"[balance] CHECK FAILED: {msg}")
             failures.append(msg)
 
-    sort = sort_turns(nell2)
+    # phase 6's 2M-nonzero tensor of the same shape: one np.lexsort of
+    # phase 3's 20M nonzeros takes 12-23 s, which the whole script cannot
+    # spare within the contract's time beside phase 19
+    sort = sort_turns(synthetic_tensor(NELL2, BIG_RANK_NNZ, seed=5))
     log(f"[balance] phase 5's host layout build (3 layouts, ALLMODE): "
         f"{nell2_build_s:.2f} s with the native sort; an earlier run "
         f"{LEXSORT_BUILD_S} s with np.lexsort")
@@ -3959,10 +3989,11 @@ GUARD_RETRIES = 2
 GUARD_NAN_ITER = 3
 #: phase 14's checkpoint/resume and deferred-check runs
 GUARD_ITERS = 6
-#: the profiled sweep's iterations and its per-mode MTTKRP tolerance
-#: against the same MTTKRP calls timed in the same fenced bracket,
-#: relative
-PROFILED_ITERS = 3
+#: the profiled sweep's iterations (each mode's bracket is one host-clock
+#: sample an iteration, so every iteration of the run) and its per-mode
+#: MTTKRP tolerance against the same MTTKRP calls timed in the same
+#: fenced bracket, relative
+PROFILED_ITERS = ITERS
 PROFILED_MTTKRP_TOL = 0.2
 #: the guarded fits against phase 5's, and the resumed/deferred fits
 #: against their uninterrupted/k = 1 twins
@@ -4547,10 +4578,12 @@ def _guard_summary(gd: dict) -> dict:
 
 #: phase 15's candidate matrix at full width, cut from the JAX package's
 #: (4 reorders x 5 blocks x 2 packings x 10 formats: 400 builds and
-#: re-encodes of 20M nonzeros per mode) to 6 builds per mode sharing one
-#: host sort; the value storage stays the compute dtype's, so the tuned
-#: CPD's fits compare with phase 5's
-TUNE_BLOCKS = (2048, 4096, 8192)
+#: re-encodes of 20M nonzeros per mode) to 4 builds and 4 v2 re-encodes
+#: per mode sharing one host sort, so that the whole script fits the
+#: contract's time; the `auto` format keeps the tuner's re-encode branch
+#: and its fused_v2 candidates on the card; the value storage stays the
+#: compute dtype's, so the tuned CPD's fits compare with phase 5's
+TUNE_BLOCKS = (4096, 8192)
 TUNE_PACKINGS = ("fixed", "balanced")
 TUNE_FORMATS = (("i32", "auto"), ("auto", "auto"))
 #: the skewed input's recipes (every block and packing)
@@ -4967,37 +5000,56 @@ def bench_and_cli(tt, tmp: str) -> dict:
     env = dict(os.environ)
     env.pop("SPLATT_FAULTS", None)
 
-    def cli(args, env=env):
-        t0 = time.perf_counter()
-        r = subprocess.run([sys.executable, "-m", "splatt_tpu_torch.cli",
-                            *args], capture_output=True, text=True,
-                           cwd=root, env=env, timeout=600)
+    def start(args, env=env):
+        return args, time.perf_counter(), subprocess.Popen(
+            [sys.executable, "-m", "splatt_tpu_torch.cli", *args],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+            cwd=root, env=env)
+
+    def finish(run):
+        args, t0, p = run
+        try:
+            out, err = p.communicate(timeout=600)
+        finally:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
         seconds = time.perf_counter() - t0
-        for line in r.stdout.splitlines():
+        for line in out.splitlines():
             log(f"[tune] cli {args[0]} | {line}")
-        if r.returncode != 0:
-            raise AssertionError(f"cli {args} failed ({r.returncode}): "
-                                 f"{r.stderr[-2000:]}")
-        return r.stdout, seconds
+        if p.returncode != 0:
+            raise AssertionError(f"cli {args} failed ({p.returncode}): "
+                                 f"{err[-2000:]}")
+        return out, seconds
+
+    def cli(args, env=env):
+        return finish(start(args, env))
 
     path = os.path.join(tmp, "small.bin")
     save(small, path)
-    _, out["cli_bench_s"] = cli(["bench", path, "-r", "16", "--reps", "2",
-                                 "--check"])
     big = os.path.join(tmp, "nell2.bin")
     save(tt, big)
-    # another process on 15.1's plan cache: the tune verb finds every
+    # other processes on 15.1's plan cache: the tune verb finds every
     # mode's plan (the plans survive a restart), and cpd builds and
-    # dispatches at them
+    # dispatches at them; the three processes run at once (tune and cpd
+    # only read the plans, bench reads the start-up cache)
     cenv = dict(env, SPLATT_TUNE_CACHE=os.path.join(tmp, "phase15.json"))
-    text, out["cli_tune_s"] = cli(["tune", big, "-r", str(RANK)], cenv)
-    if (f"tuned {tt.nmodes}/{tt.nmodes} modes (0 measurements, "
-            f"{tt.nmodes} cache hits") not in text:
-        raise AssertionError("the tune verb did not find 15.1's plans")
-    text, out["cli_cpd_s"] = cli(
+    bench_run = start(["bench", path, "-r", "16", "--reps", "2",
+                       "--check"])
+    tune_run = start(["tune", big, "-r", str(RANK)], cenv)
+    cpd_run = start(
         ["cpd", big, "-r", str(RANK), "-i", "3", "--tol", "0", "--seed",
          "0", "--alloc", "allmode", "--autotune", "on", "--json",
          "--nowrite", "--engine-fallback", "off"], cenv)
+    try:
+        _, out["cli_bench_s"] = finish(bench_run)
+        text, out["cli_tune_s"] = finish(tune_run)
+    finally:
+        cpd_text, out["cli_cpd_s"] = finish(cpd_run)
+    if (f"tuned {tt.nmodes}/{tt.nmodes} modes (0 measurements, "
+            f"{tt.nmodes} cache hits") not in text:
+        raise AssertionError("the tune verb did not find 15.1's plans")
+    text = cpd_text
     rec = json.loads(text.strip().splitlines()[-1])
     kinds = [e["kind"] for e in rec["events"]]
     tuned = [e for e in rec["events"] if e["kind"] == "tuned_plan"]
@@ -6296,6 +6348,28 @@ def _fused_t_modes(bs, rank: int) -> list:
             if plan_mttkrp(bs, factors, m).engine == "fused_t"]
 
 
+def serve_reference(srv, spec: dict, tt=None, bs=None,
+                    rank: int = RANK) -> dict:
+    """A served job's reference (phases 18 and 19): the job's own options
+    (`srv`'s) and layouts (`bs`, else compiled from `tt`), a direct
+    cpd_als from the spec's seed, the control from SERVE_CONTROL_SEED,
+    and the modes whose plan names fused_t."""
+    import torch
+
+    from splatt_tpu_torch import BlockedSparse, cpd_als
+
+    opts = srv._options(spec)
+    if bs is None:
+        bs = BlockedSparse.compile(tt, opts, device="cuda", rank=rank)
+    ref = dict(fused=_fused_t_modes(bs, rank),
+               direct=cpd_als(bs, rank, opts, device="cuda"),
+               control=cpd_als(bs, rank, srv._options(
+                   dict(spec, seed=SERVE_CONTROL_SEED)), device="cuda"))
+    del bs
+    torch.cuda.empty_cache()
+    return ref
+
+
 def _job_dispatches(jid: str) -> dict:
     """engine -> count of the mttkrp.dispatch spans job `jid` recorded
     (the launch counters are process-wide; the spans carry the job)."""
@@ -6336,7 +6410,7 @@ def serve_full_width(tmp: str, tt, bin_path: str, main_ms) -> dict:
     cpd_als on the job's own layouts from the same seed."""
     import torch
 
-    from splatt_tpu_torch import cpd_als, resilience, serve, trace
+    from splatt_tpu_torch import resilience, serve, trace
     from splatt_tpu_torch.ops import kernels
 
     srv = serve.Server(os.path.join(tmp, "spool"), workers=1)
@@ -6365,14 +6439,10 @@ def serve_full_width(tmp: str, tt, bin_path: str, main_ms) -> dict:
     dispatch = _job_dispatches("nell2")
     trace.reset()
     # the direct run: the job's own options and layouts
-    opts = srv._options(spec)
-    bs, = kept
-    fused = _fused_t_modes(bs, RANK)
-    direct = cpd_als(bs, RANK, opts, device="cuda")
-    control = cpd_als(bs, RANK, srv._options(
-        dict(spec, seed=SERVE_CONTROL_SEED)), device="cuda")
-    del bs, kept
-    torch.cuda.empty_cache()
+    bs, = kept  # the job compiled once
+    del bs
+    ref = serve_reference(srv, spec, bs=kept.pop())
+    direct, control, fused = ref["direct"], ref["control"], ref["fused"]
     gate = serve_model_gate("full-width job", tt, _checkpoint_model(
         os.path.join(srv.ckpt_dir, "nell2.npz")), direct, control)
     # the journal's fsynced append, on a journal of its own
@@ -6396,7 +6466,8 @@ def serve_full_width(tmp: str, tt, bin_path: str, main_ms) -> dict:
             and fused and launches == len(fused) * ITERS
             and not res["demotions"]):
         raise AssertionError(f"phase 18, the full-width job: {out}")
-    return dict(out, srv=srv)
+    # the reference phase 19 holds its failed-over job to
+    return dict(out, srv=srv, ref=ref)
 
 
 def serve_predicts(srv) -> dict:
@@ -6703,7 +6774,7 @@ def serve_crash_resume(tmp: str, small_bin: str) -> dict:
     --wait answered by a daemon on the same spool."""
     import signal
 
-    from splatt_tpu_torch import BlockedSparse, cpd_als, serve
+    from splatt_tpu_torch import serve
     from splatt_tpu_torch.io import load
 
     root = os.path.dirname(os.path.abspath(__file__))
@@ -6747,7 +6818,6 @@ def serve_crash_resume(tmp: str, small_bin: str) -> dict:
         spool, "journal.jsonl")).replay()[0] if r.get("job") == "crash"]
     res = serve.read_result(spool, "crash") or {}
     srv = serve.Server(spool, workers=1)
-    opts = srv._options(spec)
     # the predict verb, answered by a daemon on the spool; its process
     # starts up while the reference runs
     pred = subprocess.Popen(
@@ -6757,12 +6827,8 @@ def serve_crash_resume(tmp: str, small_bin: str) -> dict:
         stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
     try:
         tt = load(small_bin)
-        bs = BlockedSparse.compile(tt, opts, device="cuda",
-                                   rank=UPDATE_RANK)
-        direct = cpd_als(bs, UPDATE_RANK, opts, device="cuda")
-        control = cpd_als(bs, UPDATE_RANK, srv._options(
-            dict(spec, seed=SERVE_CONTROL_SEED)), device="cuda")
-        del bs
+        ref = serve_reference(srv, spec, tt=tt, rank=UPDATE_RANK)
+        direct, control = ref["direct"], ref["control"]
         req = os.path.join(spool, "requests", "pq.json")
         t1 = time.perf_counter()
         while not os.path.exists(req) and pred.poll() is None \
@@ -6822,6 +6888,7 @@ def phase_serve(tt, bin_path=None, main_ms=None) -> dict:
             save_s = time.perf_counter() - t0
         full = serve_full_width(tmp, tt, bin_path, main_ms)
         srv = full.pop("srv")
+        ref = full.pop("ref")
         pred = serve_predicts(srv)
         upd = serve_update(tmp, srv)
         del srv
@@ -6846,7 +6913,7 @@ def phase_serve(tt, bin_path=None, main_ms=None) -> dict:
     log(f"[serve] phase 18 took {seconds:.1f} s")
     return dict(full=full, predict=pred, update=upd, batch=bat,
                 isolation=iso, crash=crash, save_bin_s=save_s,
-                seconds=seconds)
+                seconds=seconds, ref=ref)
 
 
 def _serve_summary(sv: dict) -> dict:
@@ -6858,6 +6925,534 @@ def _serve_summary(sv: dict) -> dict:
         predict_ms=sv["predict"]["ms_per_request"],
         predict_compute_ms=sv["predict"]["compute_ms"],
         seconds=sv["seconds"])
+
+
+# -- phase 19: fleet mode on the card ------------------------------------------
+
+#: phase 19: `serve --fleet` replica processes sharing the card.  The lease
+#: (shorter than the default 10 s, which costs each drill 4 s more of
+#: waiting), the heartbeat its default third; the phase prints the
+#: largest heartbeat gap of every healthy replica beside it
+FLEET_LEASE_S = 6.0
+#: the full-width failover job: phase 18's spec, a checkpoint at every
+#: iteration (the claimant is killed once the first lands)
+FLEET_CKPT_EVERY = 1
+#: the zombie drill: phase 18's crash job on phase 6's 2M tensor (rank 16,
+#: SERVE_CRASH_ITERS iterations, a checkpoint every SERVE_CRASH_EVERY), its
+#: owner stopped once the first checkpoint lands
+FLEET_WAIT_S = 300.0
+
+
+def _fleet_env() -> dict:
+    """The replicas' environment: this checkout on the path, engine
+    fallback off, a flight ring flushed at every record, the default
+    lease, a metrics snapshot every second."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=root, SPLATT_ENGINE_FALLBACK="0",
+               SPLATT_FLIGHT_FLUSH="1", SPLATT_METRICS_INTERVAL_S="1.0",
+               SPLATT_SERVE_POLL_S="0.25",
+               SPLATT_FLEET_LEASE_S=str(FLEET_LEASE_S))
+    for name in ("SPLATT_FAULTS", "SPLATT_FLEET_HEARTBEAT_S",
+                 "SPLATT_FLEET_REPLICA", "SPLATT_METRICS_PATH",
+                 "SPLATT_TRACE", "SPLATT_FLIGHT"):
+        env.pop(name, None)
+    return env
+
+
+class _Fleet:
+    """The replica processes of one spool, their logs, and a thread that
+    reads their heartbeat files every 50 ms (each replica's distinct
+    heartbeat times, in order)."""
+
+    def __init__(self, tmp: str):
+        import threading
+
+        self.tmp = tmp
+        self.spool = os.path.join(tmp, "spool")
+        self.procs = {}
+        self.logs = {}
+        self.beats = {}
+        self.env = _fleet_env()
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._watch, daemon=True)
+        self._thread.start()
+
+    def _watch(self) -> None:
+        hb = os.path.join(self.spool, "fleet", "replicas")
+        while not self._stop.wait(0.05):
+            try:
+                names = os.listdir(hb)
+            except OSError:
+                continue
+            for name in names:
+                try:
+                    with open(os.path.join(hb, name)) as f:
+                        rec = json.load(f)
+                except (OSError, ValueError):
+                    continue
+                ts = self.beats.setdefault(rec["replica"], [])
+                if not ts or rec["ts"] != ts[-1]:
+                    ts.append(rec["ts"])
+
+    def spawn(self, rid: str) -> None:
+        root = os.path.dirname(os.path.abspath(__file__))
+        self.logs[rid] = os.path.join(self.tmp, f"{rid}.log")
+        with open(self.logs[rid], "w") as log_f:
+            self.procs[rid] = subprocess.Popen(
+                [sys.executable, "-m", "splatt_tpu_torch.cli", "serve",
+                 self.spool, "--fleet", "--replica", rid, "--workers", "1"],
+                cwd=root, env=self.env, stdout=log_f,
+                stderr=subprocess.STDOUT)
+
+    def log_tail(self, rid: str, n: int = 1500) -> str:
+        try:
+            with open(self.logs[rid]) as f:
+                return f.read()[-n:]
+        except OSError:
+            return ""
+
+    def kernel_load(self, rid: str) -> dict:
+        """The replica's ``kernels loaded in X s (nvcc Y s)`` line."""
+        m = re.search(r"kernels loaded in ([\d.]+) s \(nvcc ([\d.]+) s\)",
+                      self.log_tail(rid, 1 << 20))
+        return (dict(load_s=float(m.group(1)), nvcc_s=float(m.group(2)))
+                if m else {})
+
+    def journal(self) -> list:
+        from splatt_tpu_torch import serve
+
+        return serve.Journal(os.path.join(self.spool,
+                                          "journal.jsonl")).replay()[0]
+
+    def record(self, kind: str, jid: str):
+        """The journal's last `kind` record of job `jid`, or None."""
+        recs = [r for r in self.journal()
+                if r.get("rec") == kind and r.get("job") == jid]
+        return recs[-1] if recs else None
+
+    def wait(self, pred, what: str, timeout: float = FLEET_WAIT_S,
+             poll: float = 0.05):
+        end = time.time() + timeout
+        while time.time() < end:
+            got = pred()
+            if got:
+                return got
+            time.sleep(poll)
+        tails = "; ".join(f"{rid}: {self.log_tail(rid, 600)!r}"
+                          for rid in self.procs)
+        raise AssertionError(f"phase 19: timed out waiting for {what}; "
+                             f"replica logs: {tails}")
+
+    def ring(self, rid: str) -> list:
+        from splatt_tpu_torch import trace
+
+        return trace.load_flight(os.path.join(self.spool, "fleet", "flight",
+                                              f"{rid}.jsonl"))
+
+    def stop_all(self) -> dict:
+        """SIGTERM every live replica (a drain: the final snapshot, the
+        retirement, the ring flushed) and wait; returns exit codes."""
+        import signal
+
+        for p in self.procs.values():
+            if p.poll() is None:
+                os.kill(p.pid, signal.SIGCONT)
+                p.send_signal(signal.SIGTERM)
+        rcs = {}
+        for rid, p in self.procs.items():
+            try:
+                rcs[rid] = p.wait(timeout=120)
+            except subprocess.TimeoutExpired:
+                p.kill()
+                rcs[rid] = p.wait(timeout=60)
+        return rcs
+
+    def close(self) -> None:
+        import signal
+
+        self._stop.set()
+        self._thread.join(timeout=5)
+        for p in self.procs.values():
+            if p.poll() is None:
+                os.kill(p.pid, signal.SIGCONT)
+                p.kill()
+                p.wait(timeout=60)
+
+
+def _beat_gaps(ts: list, skip=()) -> float:
+    """The largest gap between consecutive heartbeat times, leaving out
+    the gaps that overlap a window of `skip` ((t0, t1) pairs)."""
+    gaps = [b - a for a, b in zip(ts, ts[1:])
+            if not any(a < t1 and b > t0 for t0, t1 in skip)]
+    return max(gaps) if gaps else 0.0
+
+
+def _ring_job(events: list, jid: str) -> dict:
+    """One job's evidence in a flight ring: its serve.job span (launches),
+    its mttkrp.dispatch spans by engine, its iterations' ms, and the
+    seconds from the job's start to the ALS loop (load and compile)."""
+    mine = [e for e in events if (e.get("args") or {}).get("job") == jid]
+    job = [e for e in mine if e["name"] == "serve.job" and e["ph"] == "X"]
+    als = [e for e in mine if e["name"] == "cpd.als" and e["ph"] == "X"]
+    its = sorted((e for e in mine if e["name"] == "cpd.iter"
+                  and e["ph"] == "X"), key=lambda e: e["ts"])
+    disp: dict = {}
+    for e in mine:
+        if e["name"] == "mttkrp.dispatch" and e["ph"] == "X":
+            eng = e["args"].get("engine")
+            disp[eng] = disp.get(eng, 0) + 1
+    out = dict(dispatch=disp, iterations=len(its),
+               iter_ms=[e["dur"] / 1e3 for e in its],
+               points=sorted({e["name"] for e in mine if e["ph"] == "i"}))
+    if job:
+        out["launches"] = job[-1]["args"].get("launches") or {}
+        out["job_s"] = job[-1]["dur"] / 1e6
+        if als:
+            out["load_compile_s"] = (als[-1]["ts"] - job[-1]["ts"]) / 1e6
+    return out
+
+
+def fleet_failover(fl: "_Fleet", tt, bin_path: str, ref: dict) -> dict:
+    """19 (a) and (c): the full-width job on a two-replica fleet, its
+    claimant SIGKILLed once the first checkpoint lands; the survivor
+    adopts it and commits; the committed model against phase 18's
+    reference.  Starts the third replica, for (b), during the lease."""
+    import signal
+
+    from splatt_tpu_torch import serve
+    from splatt_tpu_torch.cpd import load_checkpoint
+
+    t0 = time.time()
+    for rid in ("r0", "r1"):
+        fl.spawn(rid)
+    hb = os.path.join(fl.spool, "fleet", "replicas")
+    fl.wait(lambda: all(os.path.exists(os.path.join(hb, f"{r}.json"))
+                        for r in ("r0", "r1")), "two replicas' heartbeats")
+    startup_s = time.time() - t0
+    builds = {rid: fl.kernel_load(rid) for rid in ("r0", "r1")}
+    log(f"[fleet] two replicas up in {startup_s:.1f} s; kernels "
+        f"{json.dumps(builds)}; lease {FLEET_LEASE_S:g} s")
+    spec = dict(id="fw", tensor=bin_path, rank=RANK, iters=ITERS, tol=0.0,
+                seed=0, checkpoint_every=FLEET_CKPT_EVERY)
+    t_file = time.time()
+    serve.file_request(fl.spool, spec)
+    started = fl.wait(lambda: fl.record("started", "fw"),
+                      "the full-width job to start")
+    victim = started["replica"]
+    ckpt = os.path.join(fl.spool, "ckpt", "fw.npz")
+    fl.wait(lambda: os.path.exists(ckpt), "the first checkpoint",
+            poll=0.002)
+    os.kill(fl.procs[victim].pid, signal.SIGKILL)
+    t_kill = time.time()
+    fl.procs[victim].wait(timeout=60)
+    k = int(load_checkpoint(ckpt)[2])
+    log(f"[fleet] {victim} claimed fw and was SIGKILLed "
+        f"{t_kill - t_file:.2f} s after the filing, at its checkpoint of "
+        f"iteration {k}")
+    fl.spawn("r2")
+    done = fl.wait(lambda: fl.record("done", "fw"),
+                   "the adopter to commit fw")
+    adopted = fl.record("adopted", "fw")
+    adopter = done["replica"]
+    res = serve.read_result(fl.spool, "fw") or {}
+    gate = serve_model_gate("fleet failover", tt, _checkpoint_model(ckpt),
+                            ref["direct"], ref["control"])
+    out = dict(victim=victim, adopter=adopter, killed_at_iteration=k,
+               kill_after_filing_s=t_kill - t_file,
+               kill_to_adoption_s=(adopted["ts"] - t_kill
+                                   if adopted else None),
+               adoption_to_commit_s=(done["ts"] - adopted["ts"]
+                                     if adopted else None),
+               adopted_from=(adopted or {}).get("from_replica"),
+               status=res.get("status"), result_replica=res.get("replica"),
+               result_adopted_from=res.get("adopted_from"),
+               demotions=res.get("demotions"), model_gen=res.get("model_gen"),
+               model=gate, startup_s=startup_s, kernel_builds=builds,
+               t_kill=t_kill, t_adopted=(adopted or {}).get("ts"),
+               t_done=done["ts"], fused_t_modes=ref["fused"])
+    log(f"[fleet] failover: {json.dumps(out)}")
+    if not (adopted and adopted["from_replica"] == victim
+            and adopter != victim and res.get("status") == "converged"
+            and res.get("replica") == adopter
+            and res.get("adopted_from") == victim
+            and not res.get("demotions") and res.get("model_gen") == 1
+            and gate["ok"]):
+        raise AssertionError(f"phase 19, the failover: {out}")
+    return out
+
+
+def fleet_zombie(fl: "_Fleet", small_bin: str, small_tt) -> dict:
+    """19 (b): the 2M crash job; its owner SIGSTOPped once its first
+    checkpoint lands and SIGCONTed once a peer has adopted the job: the
+    owner journals nothing terminal, writes no result, and the committed
+    model is the adopter's (its stamp verifies, it meets phase 18's gates
+    against a direct run)."""
+    import signal
+
+    from splatt_tpu_torch import chaos, predict, serve
+
+    spec = dict(id="zb", tensor=small_bin, rank=UPDATE_RANK,
+                iters=SERVE_CRASH_ITERS, tol=0.0, seed=11,
+                checkpoint_every=SERVE_CRASH_EVERY)
+    serve.file_request(fl.spool, spec)
+    started = fl.wait(lambda: fl.record("started", "zb"),
+                      "the zombie drill's job to start")
+    owner = started["replica"]
+    ckpt = os.path.join(fl.spool, "ckpt", "zb.npz")
+    fl.wait(lambda: os.path.exists(ckpt), "the drill's first checkpoint",
+            poll=0.002)
+    os.kill(fl.procs[owner].pid, signal.SIGSTOP)
+    t_stop = time.time()
+    adopted = fl.wait(lambda: fl.record("adopted", "zb"),
+                      "a peer to adopt the stopped owner's job",
+                      timeout=FLEET_LEASE_S * 3 + 120)
+    os.kill(fl.procs[owner].pid, signal.SIGCONT)
+    t_cont = time.time()
+    # the direct run and its control, while the adopter runs the job
+    ref = serve_reference(serve.Server(os.path.join(fl.tmp, "zb_ref"),
+                                       workers=1), spec, tt=small_tt,
+                          rank=UPDATE_RANK)
+    direct, control = ref["direct"], ref["control"]
+    done = fl.wait(lambda: fl.record("done", "zb"),
+                   "the adopter to commit the drill's job")
+
+    def owner_fenced():
+        evs = [e for e in fl.ring(owner) if e["name"] == "lease_expired"
+               and (e.get("args") or {}).get("job") == "zb"
+               and (e.get("args") or {}).get("role") == "owner"]
+        return evs[-1] if evs else None
+
+    fenced = fl.wait(owner_fenced, "the woken owner's lease_expired",
+                     timeout=60)
+    recs = [r for r in fl.journal() if r.get("job") == "zb"]
+    res = serve.read_result(fl.spool, "zb") or {}
+    ckpt_dir = os.path.join(fl.spool, "ckpt")
+    model = predict.load_model_generation(ckpt_dir, "zb")
+    gate = serve_model_gate("zombie fence", small_tt,
+                            _checkpoint_model(os.path.join(ckpt_dir,
+                                                           "zb.npz")),
+                            direct, control)
+    lineage = chaos._fleet_lineage_violations(fl.journal())
+    owner_terminal = [r["rec"] for r in recs if r.get("replica") == owner
+                      and r["rec"] in serve.TERMINAL]
+    out = dict(owner=owner, adopter=adopted["replica"],
+               stopped_s=t_cont - t_stop,
+               stop_to_adoption_s=adopted["ts"] - t_stop,
+               fenced_after_cont_s=(fenced["ts"] / 1e6 - t_cont),
+               journal=[(r["rec"], r.get("replica")) for r in recs],
+               owner_terminal=owner_terminal, lineage=lineage,
+               result_replica=res.get("replica"), status=res.get("status"),
+               model_gen=(model or {}).get("gen"),
+               stamp_verifies=model is not None, model=gate,
+               t_stop=t_stop, t_cont=t_cont)
+    log(f"[fleet] zombie fence: {json.dumps(out)}")
+    if not (adopted["from_replica"] == owner and adopted["replica"] != owner
+            and not owner_terminal and not lineage
+            and done["replica"] == adopted["replica"]
+            and res.get("replica") == adopted["replica"]
+            and res.get("status") == "converged" and model is not None
+            and gate["ok"]):
+        raise AssertionError(f"phase 19, the zombie fence: {out}")
+    return out
+
+
+def fleet_observability(fl: "_Fleet", fo: dict, zb: dict) -> dict:
+    """19 (c) and (d), once every replica has drained: the heartbeat gaps
+    against the lease, no lease lost by a healthy replica, the adopter's
+    launches from its flight ring, status against the journal, the merged
+    aggregate, the victim's black box, the trace verb over the rings."""
+    import contextlib
+    import io
+
+    from splatt_tpu_torch import cli, fleetobs, trace
+
+    victim, adopter, owner = fo["victim"], fo["adopter"], zb["owner"]
+    gaps = {}
+    for rid, ts in sorted(fl.beats.items()):
+        skip = [(zb["t_stop"], zb["t_cont"])] if rid == owner else []
+        gaps[rid] = _beat_gaps(ts, skip)
+    job_gap = _beat_gaps([t for t in fl.beats.get(adopter, [])
+                          if fo["t_adopted"] - 5 <= t <= fo["t_done"] + 5])
+    healthy = {rid: g for rid, g in gaps.items() if rid != victim}
+    owner_losses = {}
+    for rid in fl.procs:
+        if rid == victim:
+            continue
+        evs = fl.ring(rid)
+        owner_losses[rid] = sorted(
+            (e.get("args") or {}).get("job") for e in evs
+            if e["name"] == "lease_expired"
+            and (e.get("args") or {}).get("role") == "owner")
+    unexpected = {rid: jobs for rid, jobs in owner_losses.items()
+                  if jobs and not (rid == owner and jobs == ["zb"])}
+    # the adopter's job from its own ring
+    ev = _ring_job(fl.ring(adopter), "fw")
+    its = ITERS - fo["killed_at_iteration"]
+    want_t = len(fo["fused_t_modes"]) * its
+    launches = ev.get("launches", {})
+    # status, in process through the verb, against the journal
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(["status", fl.spool, "--json"])
+    st = json.loads(buf.getvalue().strip().splitlines()[-1])
+    last = {}
+    for r in fl.journal():
+        if r.get("job") and r.get("rec"):
+            last[r["job"]] = r["rec"]
+    disagree = {j: (st["jobs"].get(j), s) for j, s in last.items()
+                if st["jobs"].get(j) != s}
+    agg = fleetobs.aggregate(fl.spool)
+    counts = dict(adoptions=agg.counter("splatt_fleet_adoptions_total"),
+                  lease_expired=agg.counter(
+                      "splatt_fleet_lease_expired_total"),
+                  dead=agg.samples.get(("splatt_fleet_replicas",
+                                        (("state", "dead"),)), 0.0))
+    box = fl.ring(victim)
+    box_started = [e for e in box if e["name"] == "job_started"
+                   and (e.get("args") or {}).get("job") == "fw"]
+    box_last_s = max(e["ts"] + e.get("dur", 0) for e in box) / 1e6
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        trc = cli.main(["trace", fl.spool, "--json"])
+    summ = json.loads(buf.getvalue().strip().splitlines()[-1])
+    rows = sorted(e["args"]["name"] for e in trace.merge_trace_files(
+        trace.expand_trace_paths([fl.spool])) if e.get("ph") == "M")
+    out = dict(lease_s=FLEET_LEASE_S, heartbeat_gap_max_s=gaps,
+               adopter_job_gap_s=job_gap, owner_lease_losses=owner_losses,
+               adopter=dict(ev, expected_fused_t=want_t,
+                            expected_sym_eig=3 * its,
+                            steady_iter_ms=(sum(ev["iter_ms"][1:])
+                                            / max(len(ev["iter_ms"]) - 1,
+                                                  1))),
+               status_rc=rc, status_disagrees=disagree,
+               status_counts=st["counts"], aggregate=counts,
+               victim_box=dict(events=len(box),
+                               job_started=len(box_started),
+                               last_event_before_kill_s=(fo["t_kill"]
+                                                         - box_last_s)),
+               trace_rc=trc, trace_fleet=summ.get("fleet"),
+               trace_rows=rows)
+    log(f"[fleet] observability: {json.dumps(out)}")
+    checks = {
+        "healthy heartbeat gaps inside the lease":
+            bool(healthy) and max(healthy.values()) < FLEET_LEASE_S,
+        "no healthy replica lost a lease": not unexpected,
+        "the adopter's fused_mttkrp_t launches":
+            launches.get("fused_mttkrp_t") == want_t
+            and ev["dispatch"].get("fused_t") == want_t,
+        "the adopter's sym_eig launches": launches.get("sym_eig") == 3 * its,
+        "status agrees with the journal": rc == 0 and not disagree,
+        "the aggregate counts the adoptions and expiries":
+            counts["adoptions"] >= 2 and counts["lease_expired"] >= 2
+            and counts["dead"] >= 1,
+        "the victim's black box": bool(box_started)
+            and box_last_s <= fo["t_kill"] + 1e-3,
+        "the trace verb merges the rings": trc == 0
+            and (summ.get("fleet") or {}).get("adoptions", 0) >= 2
+            and f"replica {victim}" in rows,
+    }
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"phase 19, observability: {failed}: {out}")
+    return out
+
+
+def start_chaos_smoke():
+    """19 (e): ``chaos --fleet --smoke`` on the card, in a process of its
+    own over a spool of its own; it runs beside (b)-(d), which time
+    nothing it could slow but the drill's waits."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    return time.perf_counter(), subprocess.Popen(
+        [sys.executable, "-m", "splatt_tpu_torch.cli", "chaos", "--fleet",
+         "--smoke", "--device", "cuda"], stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True, cwd=root, env=_fleet_env())
+
+
+def finish_chaos_smoke(run) -> dict:
+    """Wait for the soak (bounded): exit 0, its report lines printed."""
+    t0, p = run
+    try:
+        out, err = p.communicate(timeout=600)
+    finally:
+        if p.poll() is None:
+            p.kill()
+            p.communicate()
+    seconds = time.perf_counter() - t0
+    for line in out.splitlines():
+        log(f"[fleet] chaos | {line}")
+    if p.returncode != 0:
+        raise AssertionError(f"phase 19, chaos --fleet --smoke exited "
+                             f"{p.returncode}: {err[-2000:]}")
+    return dict(rc=p.returncode, seconds=seconds,
+                verdict=out.strip().splitlines()[-1])
+
+
+def phase_fleet(tt, bin_path=None, ref=None) -> dict:
+    """Phase 19: fleet mode on the card, replicas as processes sharing it,
+    engine fallback off; every check fatal."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from splatt_tpu_torch import serve
+    from splatt_tpu_torch.io import save
+
+    t_phase = time.perf_counter()
+    root = os.path.dirname(os.path.abspath(__file__))
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_fleet_", dir=root)
+    fl = _Fleet(tmp)
+    soak = None
+    try:
+        if bin_path is None or not os.path.exists(bin_path):
+            bin_path = os.path.join(tmp, "nell2.bin")
+            save(tt, bin_path)
+        if ref is None:
+            # phase 18's full-width reference, for --fleet alone
+            ref = serve_reference(
+                serve.Server(os.path.join(tmp, "ref_spool"), workers=1),
+                dict(id="ref", tensor=bin_path, rank=RANK, iters=ITERS,
+                     tol=0.0, seed=0), tt=tt)
+        small_tt = synthetic_tensor(NELL2, BIG_RANK_NNZ, seed=5)
+        small_bin = os.path.join(tmp, "nell2_2m.bin")
+        save(small_tt, small_bin)
+        fo = fleet_failover(fl, tt, bin_path, ref)
+        soak = start_chaos_smoke()
+        zb = fleet_zombie(fl, small_bin, small_tt)
+        rcs = fl.stop_all()
+        log(f"[fleet] replicas drained: exit codes {json.dumps(rcs)}")
+        obs = fleet_observability(fl, fo, zb)
+        smoke, soak = finish_chaos_smoke(soak), None
+    finally:
+        if soak is not None and soak[1].poll() is None:
+            soak[1].kill()
+            soak[1].communicate()
+        fl.close()
+        shutil.rmtree(tmp, ignore_errors=True)
+        torch.cuda.empty_cache()
+    seconds = time.perf_counter() - t_phase
+    log(f"[fleet] phase 19 took {seconds:.1f} s")
+    return dict(failover=fo, zombie=zb, observability=obs, chaos=smoke,
+                seconds=seconds)
+
+
+def _fleet_summary(fl: dict) -> dict:
+    """Phase 19's figures for the kernels line (rows 1 and sym_eig)."""
+    fo, ob = fl["failover"], fl["observability"]
+    ad = ob["adopter"]
+    return dict(adopter_launches=ad.get("launches"),
+                adopter_dispatch=ad["dispatch"],
+                killed_at_iteration=fo["killed_at_iteration"],
+                kill_to_adoption_s=fo["kill_to_adoption_s"],
+                adoption_to_commit_s=fo["adoption_to_commit_s"],
+                adopter_load_compile_s=ad.get("load_compile_s"),
+                adopter_iter_ms=ad["iter_ms"],
+                kernel_builds=fo["kernel_builds"],
+                heartbeat_gap_max_s=ob["heartbeat_gap_max_s"],
+                lease_s=ob["lease_s"], zombie=dict(
+                    stop_to_adoption_s=fl["zombie"]["stop_to_adoption_s"],
+                    fenced_after_cont_s=fl["zombie"]["fenced_after_cont_s"]),
+                chaos_s=fl["chaos"]["seconds"], seconds=fl["seconds"])
 
 
 FUSED_SRC = "splatt_tpu_torch/csrc/fused_mttkrp.cu"
@@ -7150,9 +7745,25 @@ def main() -> int:
     ooc_only = "--ooc" in sys.argv[1:]
     batch_only = "--batch" in sys.argv[1:]
     serve_only = "--serve" in sys.argv[1:]
-    phase_build(verbose=not (ranks or reduce or balance or guard_only
-                             or tune_only or ooc_only or batch_only
-                             or serve_only))
+    fleet_only = "--fleet" in sys.argv[1:]
+    import concurrent.futures
+
+    # nvcc runs in its own processes: phase 3's tensor (host numpy, no
+    # kernel) is made meanwhile, where the run needs it
+    pool = concurrent.futures.ThreadPoolExecutor(1)
+    building = pool.submit(phase_build, verbose=not (
+        ranks or reduce or balance or guard_only or tune_only or ooc_only
+        or batch_only or serve_only or fleet_only))
+    try:
+        tt = data_s = None
+        if not (batch_only or serve_only or fleet_only
+                or "--dense" in sys.argv[1:]):
+            t0 = time.perf_counter()
+            tt = synthetic_tensor(NELL2, NNZ, seed=0)
+            data_s = time.perf_counter() - t0
+        building.result()
+    finally:
+        pool.shutdown()
     from splatt_tpu_torch import native
 
     # phase 13 fails without it; every earlier host build would sort with
@@ -7186,6 +7797,25 @@ def main() -> int:
             "platform": "gpu", "kind": dev["kind"], "count": dev["count"]}}))
         return 0
 
+    if fleet_only:
+        fl = phase_fleet(synthetic_tensor(NELL2, NNZ, seed=0))
+        small = synthetic_tensor(NELL2, BIG_RANK_NNZ, seed=5)
+        rows = phase_kernels(BlockedSparse.from_coo(
+            small, Options(block_alloc=BlockAlloc.ALLMODE)), UPDATE_RANK)
+        print(json.dumps({"kernels": [_record_row(
+            "fused_mttkrp_t", FUSED_SRC, f"{PK}:355",
+            fl["observability"]["adopter"]["launches"]["fused_mttkrp_t"],
+            [r for r in rows if r["contract"] == "sorted"], None,
+            note=f"ms/plain_ms/bound_ms: mean per launch over the 3 modes' "
+            f"sorted layouts of phase 6's 2M tensor (NELL-2 shape), rank "
+            f"{UPDATE_RANK}; launches: phase 19's adopting replica, the "
+            f"full-width job after the kill", status=WALK_STATUS,
+            phase19=_fleet_summary(fl))], "power": dev["smi"]}))
+        log(f"[total] {time.perf_counter() - t_script:.1f} s")
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": dev["kind"], "count": dev["count"]}}))
+        return 0
+
     if batch_only:
         bt = phase_batch()
         t_rows = phase_kernels(bt["update"]["layouts"], UPDATE_RANK)
@@ -7204,10 +7834,8 @@ def main() -> int:
             "platform": "gpu", "kind": dev["kind"], "count": dev["count"]}}))
         return 0
 
-    t0 = time.perf_counter()
-    tt = synthetic_tensor(NELL2, NNZ, seed=0)
     log(f"[data] NELL-2-shaped {NELL2} nnz={tt.nnz}: generated in "
-        f"{time.perf_counter() - t0:.2f} s")
+        f"{data_s:.2f} s, beside the kernel build")
     if "--decomp" in sys.argv[1:]:
         decomp = phase_decomp(tt, RANK)
         rows = _decomp_summary(decomp)["rank0_rows"]
@@ -7369,6 +7997,7 @@ def main() -> int:
     bt = phase_batch()
     del bt["update"]["layouts"]
     sv = phase_serve(tt, serve_bin, main_path["sec_per_iter"] * 1e3)
+    fleet = phase_fleet(tt, serve_bin, sv.pop("ref"))
     del tt
     os.remove(serve_bin)
 
@@ -7386,7 +8015,8 @@ def main() -> int:
                phase14=_guard_summary(guard),
                phase15=_tune_summary(tuned),
                phase17=_batch_summary(bt),
-               phase18=_serve_summary(sv)),
+               phase18=_serve_summary(sv),
+               phase19=_fleet_summary(fleet)),
         _tg_row(launches("fused_t faulted", "fused_mttkrp_tg"),
                 "phase 7, fused_t faulted", new_rows, bf16, big, big_rows),
         _rowmajor_row(launches(FUSED_CHAIN, "fused_mttkrp"),
@@ -7399,7 +8029,11 @@ def main() -> int:
                   dist, "2 x nmodes x iterations per card"),
         _ring_row("ring_reduce", "splatt_tpu/parallel/ring_kernels.py:260",
                   dist, "nmodes x iterations per card"),
-        _eig_row(main_path, big, dense, bt),
+        dict(_eig_row(main_path, big, dense, bt), phase19=dict(
+            adopter_launches=fleet["observability"]["adopter"][
+                "launches"].get("sym_eig"),
+            expected=fleet["observability"]["adopter"][
+                "expected_sym_eig"])),
     ], "chain": chain, "yardsticks": yard, "power": dev["smi"]}
     print(json.dumps(record))
     log(f"[total] {time.perf_counter() - t_script:.1f} s")

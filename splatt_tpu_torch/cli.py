@@ -25,12 +25,19 @@ cmd_convert.c, cmd_reorder.c, cmd_stats.c).
     python -m splatt_tpu_torch.cli stats T [-p PARTITION]
     python -m splatt_tpu_torch.cli serve DIR [--once] [--workers N]
         [--queue-max N] [--poll S] [--job-deadline S] [--tenant-quota N]
-        [--batch-min N] [--json] [-v] [--device cuda|cpu]
+        [--batch-min N] [--fleet [--replica ID] [--lease S]
+        [--heartbeat S]] [--json] [-v] [--device cuda|cpu]
         [--trace OUT_JSON] | serve DIR --submit SPEC_JSON
         | serve DIR --status JOB_ID
+    python -m splatt_tpu_torch.cli status DIR [--json] [--metrics-out PROM]
+        [--watch] [--interval S]
+    python -m splatt_tpu_torch.cli top DIR [--once] [--json]
+        [--metrics-out PROM] [--interval S]
     python -m splatt_tpu_torch.cli predict DIR --model JOB_ID
         [--coords I,J,K]... [--top-k K --mode M --fix MODE=INDEX...]
         [--id ID] [--tenant T] [--wait S]
+    python -m splatt_tpu_torch.cli chaos --fleet [--smoke] [--replicas N]
+        [--seed S] [--json] [-v] [--device cuda|cpu]
 
 ``cpd`` prints the MTTKRP engine plan, one fit line per iteration and the
 resilience events of the run (engine demotions, transient retries, format,
@@ -82,7 +89,9 @@ budget and ``SPLATT_DEADLINE_S`` the watchdog of each engine's first
 launch.  ``--trace OUT_JSON`` records the run's spans and exports a
 Chrome trace-event file on exit, which the ``trace`` verb summarizes
 (top spans by self time, the iterations, the guard share; several files
-merge onto one timeline, ``--out`` writes the merge).  ``-v`` prints the
+merge onto one timeline, ``--out`` writes the merge; a flight-recorder
+``.jsonl`` ring, or a serve spool, whose ``fleet/flight/`` rings it reads,
+is an input too).  ``-v`` prints the
 timer report; ``-v -v`` runs the profiled sweep and adds its phase
 timers and a per-mode MTTKRP block (distributed runs print the phase
 table of their profiled sweep).
@@ -108,8 +117,22 @@ context was lost), and the last line is ``{"jobs": {state: count},
 "pending": N}`` (``--json``: the whole summary).  ``predict DIR --model
 ID`` files a predict job and, with ``--wait S``, prints its result record
 (``"status": "served"``, ``values``, ``top_k``, ``gen``, ``sha``) and
-exits 0 when served.  ``--fleet``, ``--replica``, ``--lease`` and
-``--heartbeat`` exit 2: fleet mode is ROADMAP queue A item 15.2.
+exits 0 when served.  ``serve --fleet`` runs the daemon as one replica of
+a fleet over DIR (``--replica`` its id, ``--lease`` and ``--heartbeat``
+its lease and renewal period): leases, heartbeats, adoption of a dead
+peer's jobs and affinity routing; it stamps its spans with the replica
+id, keeps a flight-recorder ring at ``DIR/fleet/flight/<replica>.jsonl``
+(``SPLATT_FLIGHT=0`` turns it off) and a metrics snapshot at
+``DIR/fleet/metrics/<replica>.prom``.  On a card a replica loads (or
+builds) the kernels before it serves and exits non-zero when it cannot.
+``status DIR`` and ``top DIR`` print the fleet dashboard from the spool
+alone (replicas and their leases, queue depths, tenants, running and
+recent jobs, adoptions, SLO verdicts; ``--metrics-out`` writes the merged
+fleet exposition).  ``chaos --fleet`` is the fleet soak (``chaos.py``):
+replica subprocesses on ``--device`` under multi-tenant load, one
+SIGKILLed mid-job, its jobs adopted; exit 0 when every invariant held.
+Its ``--serve`` and ``--ingest`` modes, and the plain soak, are ROADMAP
+queue A item 15.3 and exit 2.
 
 ``check``, ``convert``, ``reorder`` and ``stats`` run on the host and
 write the JAX CLI's files and text: duplicates and empty slices (``--fix``
@@ -400,7 +423,7 @@ def cmd_trace(args) -> int:
     files = trace.expand_trace_paths(args.file)
     if not files:
         raise ValueError(f"no trace files under {args.file}")
-    if len(files) == 1:
+    if len(files) == 1 and not files[0].endswith(".jsonl"):
         events = trace.load_trace(files[0])
     else:
         events = trace.merge_trace_files(files)
@@ -423,15 +446,12 @@ def cmd_trace(args) -> int:
 
 def cmd_serve(args) -> int:
     """``serve DIR``: the crash-resumable multi-tenant decomposition
-    daemon over DIR's journal and spool, on ``--device`` (≙ splatt_tpu/
-    cli.py:398-489, one replica).  ``--submit`` and ``--status`` are the
-    client side of the filed-request API and need no device."""
-    from splatt_tpu_torch import resilience, serve
+    daemon over DIR's journal and spool, on ``--device``, alone or as one
+    replica of a fleet (≙ splatt_tpu/cli.py:398-489).  ``--submit`` and
+    ``--status`` are the client side of the filed-request API and need no
+    device."""
+    from splatt_tpu_torch import resilience, serve, trace
 
-    if args.fleet or args.replica or args.lease is not None \
-            or args.heartbeat is not None:
-        print(f"splatt-serve: {serve.FLEET_TODO}", file=sys.stderr)
-        return 2
     if args.submit:
         with open(args.submit) as f:
             spec = json.load(f)
@@ -441,17 +461,35 @@ def cmd_serve(args) -> int:
     if args.status:
         print(json.dumps(serve.read_status(args.dir, args.status)))
         return 0
+    from splatt_tpu_torch.config import resolve_device
+
+    if resolve_device(args.device).type == "cuda":
+        _load_kernels()
     srv = serve.Server(args.dir, workers=args.workers,
                        queue_max=args.queue_max, poll_s=args.poll,
                        job_deadline_s=args.job_deadline,
                        verbose=args.verbose > 0,
+                       fleet=args.fleet, replica=args.replica,
+                       lease_s=args.lease, heartbeat_s=args.heartbeat,
                        tenant_quota=args.tenant_quota,
                        batch_min=args.batch_min, device=args.device)
+    if args.fleet:
+        _arm_fleet_observability(srv, args.dir)
     srv.install_signal_handlers()
-    summary = srv.run_once() if args.once else srv.serve_forever()
-    if args.once:
-        # the daemon loop's exit snapshot, which --once skips
-        srv.write_metrics_now()
+    try:
+        summary = srv.run_once() if args.once else srv.serve_forever()
+        if args.once:
+            # the daemon loop's exit snapshot, which --once skips; before
+            # the retirement below, so the exit aggregation still sees
+            # this replica's heartbeat
+            srv.write_metrics_now()
+    finally:
+        if args.fleet:
+            # retire the membership lease on the way out (peers route
+            # around this replica at once); the ring keeps everything
+            # recorded up to the exit
+            srv.shutdown()
+            trace.flight_flush()
     lines = resilience.run_report().summary()
     if lines and args.verbose > 0:
         print("Resilience events:")
@@ -471,6 +509,117 @@ def cmd_serve(args) -> int:
     if args.once and summary["counts"].get(serve.FAILED):
         return 1
     return 0
+
+
+def _load_kernels() -> None:
+    """Load (building only what ``_build/`` lacks) every kernel library
+    before a daemon on the card takes a job, and say how long it took: a
+    replica that cannot load its kernels exits here, before it claims a
+    job it could run only on plain versions."""
+    from splatt_tpu_torch.ops import kernels
+
+    t0 = time.perf_counter()
+    built = kernels.build()
+    kernels.load_library()
+    print(f"splatt-serve: kernels loaded in {time.perf_counter() - t0:.2f} "
+          f"s (nvcc {built['seconds']:.2f} s)", file=sys.stderr,
+          flush=True)
+
+
+def _arm_fleet_observability(srv, root: str) -> None:
+    """A fleet replica's observability (≙ splatt_tpu/cli.py:425-456):
+    every span and point stamped with the replica id, and the flight
+    recorder armed (span recording on and a bounded ring in the spool) so
+    that a SIGKILLed replica leaves a readable black box.  ``SPLATT_FLIGHT
+    =0`` keeps the ring off; an explicit ``SPLATT_TRACE=0`` wins over its
+    default, with a warning.  Done here, in the daemon's entry, so that a
+    library construction never flips process-wide tracing state."""
+    from splatt_tpu_torch import trace
+    from splatt_tpu_torch.utils.env import read_env
+
+    off = ("0", "off", "false", "no")
+    trace.set_replica(srv.fleet.replica)
+    flight = str(read_env("SPLATT_FLIGHT") or "auto").lower()
+    trace_off = str(read_env("SPLATT_TRACE") or "").lower() in off
+    if flight not in off and trace_off:
+        print("splatt-serve: flight recorder off: SPLATT_TRACE is "
+              "explicitly disabled (set SPLATT_FLIGHT=0 to silence this, "
+              "or drop SPLATT_TRACE=0 to arm the black box)",
+              file=sys.stderr)
+    elif flight not in off:
+        fdir = os.path.join(root, "fleet", "flight")
+        os.makedirs(fdir, exist_ok=True)
+        trace.set_enabled(True)
+        trace.set_flight(os.path.join(fdir, f"{srv.fleet.replica}.jsonl"))
+
+
+def cmd_status(args) -> int:
+    """``status DIR`` / ``top DIR``: the fleet dashboard, read only from
+    the shared spool (≙ splatt_tpu/cli.py:577-622): replicas with their
+    leases, queue depths, tenants, running jobs with their age, recent
+    terminal jobs, SLO verdicts.  ``--metrics-out`` writes the merged
+    fleet exposition; ``--watch`` refreshes (``top`` watches by
+    default)."""
+    from splatt_tpu_torch import fleetobs
+    from splatt_tpu_torch.utils.env import read_env_float
+
+    interval = float(args.interval if args.interval is not None
+                     else read_env_float("SPLATT_STATUS_WATCH_S"))
+
+    def once(clear: bool = False) -> None:
+        # one aggregation pass feeds the view and the exposition write
+        agg = fleetobs.aggregate(args.dir)
+        st = fleetobs.fleet_status(args.dir, agg=agg)
+        out = []
+        if args.metrics_out:
+            path = fleetobs.write_fleet_metrics(agg, args.metrics_out)
+            out.append(f"fleet metrics written to {path}")
+        if args.json:
+            out.append(json.dumps(st))
+        else:
+            out.extend(fleetobs.format_status(st))
+        if clear:
+            print("\x1b[2J\x1b[H", end="")
+        print("\n".join(out), flush=True)
+
+    if not args.watch or interval <= 0:
+        # an interval of 0 runs once even for `top`
+        once()
+        return 0
+    try:
+        while True:
+            once(clear=not args.json)
+            time.sleep(max(interval, 0.1))
+    except KeyboardInterrupt:
+        return 0
+
+
+#: the soak modes that wait for ROADMAP queue A item 15.3
+CHAOS_TODO = ("the {} soak is not ported yet (ROADMAP queue A item 15.3); "
+              "chaos --fleet runs the fleet soak")
+
+
+def cmd_chaos(args) -> int:
+    """``chaos --fleet``: the fleet's kill-and-failover soak
+    (≙ splatt_tpu/cli.py:263-283): exit 0 when every invariant held.  The
+    other soaks (``--serve``, ``--ingest`` and the plain guarded-ALS soak)
+    exit 2."""
+    from splatt_tpu_torch import chaos
+
+    if not args.fleet:
+        mode = ("serve" if args.serve else "ingest" if args.ingest
+                else "guarded-ALS")
+        print(f"splatt-chaos: {CHAOS_TODO.format(mode)}", file=sys.stderr)
+        return 2
+    res = chaos.run_fleet_chaos(seed=args.seed, smoke=args.smoke,
+                                replicas=args.replicas,
+                                verbose=args.verbose > 0,
+                                device=args.device)
+    for line in chaos.format_fleet_report(res):
+        print(line)
+    if args.json:
+        print(json.dumps(res.to_json()))
+    return 0 if res.ok else 1
 
 
 def cmd_predict(args) -> int:
@@ -777,8 +926,9 @@ def build_parser() -> argparse.ArgumentParser:
     c = sub.add_parser("trace", help="summarize (and merge) recorded span "
                                      "traces")
     c.add_argument("file", nargs="+",
-                   help="Chrome trace-event JSON file(s), or a directory "
-                        "holding them")
+                   help="Chrome trace-event JSON file(s), flight-recorder "
+                        ".jsonl rings, or a directory holding them (a "
+                        "serve spool: its fleet/flight/ rings too)")
     c.add_argument("--out", metavar="OUT_JSON",
                    help="also write the merged Chrome trace-event file")
     c.add_argument("--top", type=int, default=12, metavar="N",
@@ -797,8 +947,9 @@ def build_parser() -> argparse.ArgumentParser:
                "per-job isolation, and results appear in "
                "DIR/results/<id>.json.  A killed daemon replays its "
                "journal on restart and resumes every accepted job from "
-               "its checkpoint; SIGTERM drains.  Fleet mode waits for "
-               "ROADMAP queue A item 15.2.")
+               "its checkpoint; SIGTERM drains.  --fleet runs it as one "
+               "replica of N over DIR: leases, heartbeats, adoption of a "
+               "dead peer's jobs, cache-affinity routing.")
     c.add_argument("dir", help="serve state directory (journal, "
                                "requests/, results/, ckpt/)")
     c.add_argument("-v", "--verbose", action="count", default=0)
@@ -821,13 +972,19 @@ def build_parser() -> argparse.ArgumentParser:
                    help="process the spool and the queue to completion, "
                         "then exit (non-zero when a job failed outright)")
     c.add_argument("--fleet", action="store_true",
-                   help="fleet mode: not ported yet (exits non-zero)")
+                   help="fleet mode: run as one of N replicas over this "
+                        "DIR (job leases, heartbeats, dead-peer adoption, "
+                        "cache-affinity routing)")
     c.add_argument("--replica", metavar="ID",
-                   help="fleet: not ported yet (exits non-zero)")
+                   help="fleet: this replica's stable id (default: "
+                        "$SPLATT_FLEET_REPLICA, else a fresh pid+random "
+                        "id)")
     c.add_argument("--lease", type=float, metavar="S",
-                   help="fleet: not ported yet (exits non-zero)")
+                   help="fleet: lease in seconds, the failure-detection "
+                        "horizon (default: $SPLATT_FLEET_LEASE_S)")
     c.add_argument("--heartbeat", type=float, metavar="S",
-                   help="fleet: not ported yet (exits non-zero)")
+                   help="fleet: heartbeat and renewal period (default: "
+                        "$SPLATT_FLEET_HEARTBEAT_S, else lease/3)")
     c.add_argument("--tenant-quota", type=int, dest="tenant_quota",
                    help="admission control: max non-terminal jobs per "
                         "tenant (default: $SPLATT_FLEET_TENANT_QUOTA; <= "
@@ -849,6 +1006,62 @@ def build_parser() -> argparse.ArgumentParser:
                    help="record the daemon's spans and export a Chrome "
                         "trace-event JSON file on exit")
     c.set_defaults(func=cmd_serve)
+
+    for verb, watching in (("status", False), ("top", True)):
+        c = sub.add_parser(
+            verb,
+            help=("watch-mode textual fleet dashboard" if watching
+                  else "one-shot fleet status from the shared spool"),
+            epilog="Reads only the shared serve spool (journal, fleet/ "
+                   "heartbeats and leases, per-replica metrics "
+                   "snapshots, persisted SLO verdicts): it works on a "
+                   "live fleet, a draining one and a post-mortem alike.")
+        c.add_argument("dir", help="the serve spool directory")
+        c.add_argument("--json", action="store_true",
+                       help="print the machine-readable status object")
+        c.add_argument("--metrics-out", dest="metrics_out", metavar="PROM",
+                       help="also write the merged fleet Prometheus "
+                            "exposition to this file, atomically")
+        if watching:
+            c.add_argument("--once", dest="watch", action="store_false",
+                           help="one-shot instead of watching")
+        else:
+            c.add_argument("--watch", action="store_true",
+                           help="refresh continuously (the top default)")
+        c.add_argument("--interval", type=float, metavar="S",
+                       help="watch refresh seconds (default: "
+                            "$SPLATT_STATUS_WATCH_S)")
+        c.set_defaults(func=cmd_status, watch=watching)
+
+    c = sub.add_parser(
+        "chaos", help="the fleet's kill-and-failover soak",
+        epilog="--fleet starts N serve --fleet replica subprocesses over "
+               "one spool on --device, files multi-tenant load, SIGKILLs "
+               "the replica running a pinned job, restarts a "
+               "replacement, and checks that no accepted job is lost, the "
+               "journal's lineage is single-owner, adoptions are counted "
+               "in the metrics, traces and flight rings, and status "
+               "agrees with the journal.  Exit 0 iff every invariant "
+               "held.  --serve, --ingest and the plain soak are ROADMAP "
+               "queue A item 15.3 and exit 2.")
+    c.add_argument("-v", "--verbose", action="count", default=0)
+    c.add_argument("--fleet", action="store_true",
+                   help="soak a serve fleet")
+    c.add_argument("--serve", action="store_true",
+                   help="the serve-daemon soak: not ported yet (exits 2)")
+    c.add_argument("--ingest", action="store_true",
+                   help="the ingest soak: not ported yet (exits 2)")
+    c.add_argument("--smoke", action="store_true",
+                   help="the small, seconds-scale soak (2 replicas)")
+    c.add_argument("--replicas", type=int, default=None, metavar="N",
+                   help="fleet soak: replica count (default 2 with "
+                        "--smoke, else 3)")
+    c.add_argument("--seed", type=int, default=0)
+    c.add_argument("--json", action="store_true",
+                   help="also print the full result as JSON")
+    c.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
+                   help="where the replicas run their jobs")
+    c.set_defaults(func=cmd_chaos)
 
     c = sub.add_parser(
         "predict", help="query a served model: reconstruct entries / top-k",

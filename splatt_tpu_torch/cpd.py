@@ -32,6 +32,7 @@ import dataclasses
 import os
 import sys
 import time
+import uuid
 from typing import Callable, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
@@ -319,21 +320,30 @@ def _host_array(t) -> np.ndarray:
 
 
 def _save_checkpoint(path: str, factors, lam, it: int, fit: float,
-                     reorder: str = "identity") -> dict:
+                     reorder: str = "identity",
+                     fence: Optional[Callable[[], bool]] = None
+                     ) -> Optional[dict]:
     """Atomic checksummed ``.npz`` checkpoint (≙ splatt_tpu/cpd.py:352-395):
     the same fields, dtypes and digest as the JAX package's, so either
     package loads the other's files.  The previous generation is kept as
     ``<path>.bak``.  `reorder` stamps the row-label space of the factors
     (a reordered run checkpoints relabeled factors).  Returns the
     seconds of its parts (``copy_s`` to the host, ``sha_s``, ``write_s``
-    for ``np.savez``, ``publish_s`` for the fsync and renames)."""
+    for ``np.savez``, ``publish_s`` for the fsync and renames).
+
+    `fence`, when given, is called once the file is written and synced,
+    just before the renames: a False (a fleet replica's lease renewal
+    refused) removes the temporary file and returns None, so a writer
+    that lost its lease during the write publishes nothing."""
     from splatt_tpu_torch.utils import faults
     from splatt_tpu_torch.utils.durable import publish_file
 
     with trace.span("cpd.checkpoint", path=path, it=int(it)):
         faults.maybe_fail("checkpoint_write")
         t0 = time.perf_counter()
-        tmp = path + ".tmp.npz"
+        # a name of this writer's own: a stalled owner and its adopter
+        # may write one job's checkpoint at once
+        tmp = f"{path}.~{uuid.uuid4().hex[:12]}.tmp.npz"
         payload = {f"factor{m}": _host_array(U)
                    for m, U in enumerate(factors)}
         payload.update(nmodes=len(factors), it=int(it), fit=float(fit),
@@ -352,6 +362,15 @@ def _save_checkpoint(path: str, factors, lam, it: int, fit: float,
             with open(tmp, "r+b") as f:
                 f.truncate(max(size // 2, 1))
         t3 = time.perf_counter()
+        if fence is not None:
+            fd = os.open(tmp, os.O_RDONLY)
+            try:
+                os.fsync(fd)
+            finally:
+                os.close(fd)
+            if not fence():
+                os.unlink(tmp)
+                return None
         if os.path.exists(path):
             os.replace(path, path + ".bak")
         publish_file(tmp, path)
@@ -501,7 +520,9 @@ def cpd_als(X: Union[SparseTensor, BlockedSparse], rank: int,
             opts: Optional[Options] = None, init=None,
             device=None, checkpoint_path: Optional[str] = None,
             checkpoint_every: int = 10, resume: bool = True,
-            stop: Optional[Callable[[], bool]] = None) -> KruskalTensor:
+            stop: Optional[Callable[[], bool]] = None,
+            checkpoint_fence: Optional[Callable[[], bool]] = None
+            ) -> KruskalTensor:
     """Rank-`rank` CPD of X (≙ splatt_cpd_als, src/cpd.c:22-63).
 
     `X` is a :class:`BlockedSparse` (moved to `device` if it lies
@@ -527,6 +548,10 @@ def cpd_als(X: Union[SparseTensor, BlockedSparse], rank: int,
     existing checkpoint (or only its ``.bak``) is resumed from unless
     `resume` is False.  `stop` is polled at check iterations: when it
     returns True the run checkpoints what it just committed and returns.
+    `checkpoint_fence`, when given, is called after every checkpoint is
+    written and before it is published (:func:`_save_checkpoint`'s
+    `fence`), and a False skips the publish: a fleet replica whose job
+    lease was lost must not overwrite its adopter's checkpoint.
     ``opts.fit_check_every`` = k reads the fit (one host sync) every k
     iterations, at the last and wherever a checkpoint is due; the
     tolerance scales with the iterations since the last check.  The
@@ -539,15 +564,18 @@ def cpd_als(X: Union[SparseTensor, BlockedSparse], rank: int,
                         max_iterations=int(opts.max_iterations)):
             return _cpd_als_traced(X, rank, opts, init, device,
                                    checkpoint_path, checkpoint_every,
-                                   resume, stop)
+                                   resume, stop, checkpoint_fence)
 
 
 def _cpd_als_traced(X, rank: int, opts: Options, init, device,
                     checkpoint_path, checkpoint_every: int, resume: bool,
-                    stop) -> KruskalTensor:
+                    stop, checkpoint_fence=None) -> KruskalTensor:
     """:func:`cpd_als` inside its ``cpd.als`` root span
     (≙ splatt_tpu/cpd.py:592-1011)."""
     from splatt_tpu_torch.utils import faults
+
+    def save_checkpoint(*args, **kw) -> None:
+        _save_checkpoint(*args, fence=checkpoint_fence, **kw)
 
     dev = resolve_device(device)
     if isinstance(X, SparseTensor):
@@ -772,7 +800,7 @@ def _cpd_als_traced(X, rank: int, opts: Options, init, device,
                 if checkpoint_path is not None:
                     # the snapshot is the LAST HEALTHY check: a resume
                     # redoes the rolled-back window
-                    _save_checkpoint(checkpoint_path, factors, lam,
+                    save_checkpoint(checkpoint_path, factors, lam,
                                      last_check_it, fit_prev,
                                      reorder=reorder_label)
                     action += f"; checkpointed to {checkpoint_path}"
@@ -800,13 +828,13 @@ def _cpd_als_traced(X, rank: int, opts: Options, init, device,
                       f"  fit = {fitval:0.5f}"
                       f"  delta = {fitval - fit_prev:+0.4e}")
             if checkpoint_due:
-                _save_checkpoint(checkpoint_path, factors, lam, it + 1,
+                save_checkpoint(checkpoint_path, factors, lam, it + 1,
                                  fitval, reorder=reorder_label)
             if stop is not None and stop():
                 # cooperative interruption: the committed state is
                 # checkpointed, so a resume redoes nothing
                 if checkpoint_path is not None and not checkpoint_due:
-                    _save_checkpoint(checkpoint_path, factors, lam,
+                    save_checkpoint(checkpoint_path, factors, lam,
                                      it + 1, fitval, reorder=reorder_label)
                 fit_prev = fitval
                 break

@@ -292,6 +292,27 @@ class RunReport:
                          f"{e.get('exchange_s')}s exchange hidden under "
                          f"compute ({e.get('model_mb_per_device')}MB/dev "
                          f"modeled)")
+        for e in self.events("job_adopted"):
+            lines.append(f"  job {e.get('job')} ADOPTED by "
+                         f"{e.get('replica')} from dead peer "
+                         f"{e.get('from_replica')}")
+        for e in self.events("lease_expired"):
+            if e.get("role") == "owner":
+                lines.append(f"  job {e.get('job')}: lease expired under "
+                             f"{e.get('replica')}; abandoned uncommitted "
+                             f"(a peer may adopt)")
+        routed = self.events("affinity_routed")
+        if routed:
+            by_reason: Dict[str, int] = {}
+            for e in routed:
+                by_reason[e.get("reason", "?")] = \
+                    by_reason.get(e.get("reason", "?"), 0) + 1
+            lines.append("  affinity routing: " + ", ".join(
+                f"{k}x{v}" for k, v in sorted(by_reason.items())))
+        for e in self.events("flight_degraded"):
+            lines.append(f"  flight recorder {e.get('path')} DISARMED "
+                         f"({e.get('failure_class')}: "
+                         f"{str(e.get('error', ''))[:80]})")
         for e in self.events("trace_written"):
             if e.get("ok"):
                 lines.append(f"  trace written to {e.get('path')} "
@@ -371,6 +392,18 @@ def scope(job_id: str, health_retries: Optional[int] = None,
         # sibling job's cap hit never raises, or is cleared, here
         with solver_scope():
             yield st
+    finally:
+        _SCOPE.reset(token)
+
+
+@contextlib.contextmanager
+def unscoped():
+    """Run the block in the process-global scope, outside any job's: what
+    it reports belongs to the process (a fleet replica losing a job's
+    lease mid-run, whose job keeps no result to carry the event)."""
+    token = _SCOPE.set(None)
+    try:
+        yield
     finally:
         _SCOPE.reset(token)
 
@@ -476,6 +509,23 @@ RUN_REPORT_EVENTS = {
                         "intact was left)",
     "slo_burn": "an SLO's error budget burned at >= the alert multiple "
                 "on both windows (fleetobs.SloEvaluator)",
+    "job_adopted": "a fleet replica took over a dead peer's non-terminal "
+                   "job after its lease expired; the job resumes from its "
+                   "checkpoint on the adopter",
+    "lease_expired": "a job lease expired: role=owner, this replica's "
+                     "renew was refused and the running job was abandoned "
+                     "uncommitted; role=adopter, an expired lease was "
+                     "taken over",
+    "affinity_routed": "the fleet scheduler made a cache-affinity "
+                       "decision: a job run on this replica's warm caches "
+                       "(warm_local), left for a warm peer (deferred), or "
+                       "taken anyway at the deferral cap (load_tiebreak)",
+    "flight_degraded": "a flight-recorder ring flush failed: the recorder "
+                       "is disarmed for the rest of the process, the "
+                       "failure classified",
+    "crash_windows_exercised": "which durable-operation crash windows a "
+                               "chaos soak's kill landed in (chaos.py "
+                               "_crash_windows_exercised)",
     "cuda_context_lost": "a serve job met a sticky CUDA error: the daemon "
                          "drains, and every job on the card is journaled "
                          "interrupted for a fresh process to resume",

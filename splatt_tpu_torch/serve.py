@@ -1,5 +1,6 @@
-"""``serve``: a crash-resumable multi-tenant decomposition daemon, single
-replica (≙ splatt_tpu/serve.py without its fleet and ingest halves).
+"""``serve``: a crash-resumable multi-tenant decomposition daemon, alone
+or as one replica of a fleet (≙ splatt_tpu/serve.py without its ingest
+half).
 
 Many concurrent jobs share one card without one tenant's failures
 poisoning its neighbours:
@@ -68,11 +69,26 @@ The card
     job's result is committed the daemon synchronizes the card, so a
     committed result was read before any such error.
 
-Not here: fleet mode (``Server(fleet=True)``, leases, heartbeats,
-adoption, affinity routing) is ROADMAP queue A item 15.2 and raises
-:class:`NotImplementedError`; ``ingest`` jobs are item 15.3 and are
-rejected at the door.  A spec's ``use_pallas`` has no counterpart on a
-GPU: it is accepted and has no effect.
+Fleet mode
+    ``Server(root, fleet=True)`` (``serve --fleet``) runs this daemon as
+    one of N replicas over the same root: the journal becomes a
+    flock-serialized shared log every replica tails, job ownership a
+    lease (:mod:`splatt_tpu_torch.fleet`: claimed at dispatch, renewed by
+    a heartbeat thread, adopted by a live peer once a dead replica's lease
+    expires), the request spool multi-consumer (a claim is an atomic
+    rename), and scheduling cache-affinity routing: a job prefers the
+    replica whose plan cache and layouts are warm for its shape regime,
+    load breaking ties.  A terminal record, a result and every checkpoint
+    and model write are fenced by a lease renewal (a checkpoint's after
+    it is written, just before its rename): an owner whose lease expired
+    (a stopped process, a stalled host) abandons the job uncommitted.  The
+    replicas may share one card; each is a process with its own context,
+    and an adopter rebuilds the layouts and resumes from the checkpoint,
+    never from what the victim held on the card.
+
+Not here: ``ingest`` jobs are ROADMAP queue A item 15.3 and are rejected
+at the door.  A spec's ``use_pallas`` has no counterpart on a GPU: it is
+accepted and has no effect.
 
 A job spec is a JSON object::
 
@@ -104,9 +120,6 @@ import time
 import uuid
 from typing import Callable, Dict, List, Optional
 
-#: the message every fleet entry point refuses with
-FLEET_TODO = ("fleet mode (leases, heartbeats, adoption, affinity) is not "
-              "ported yet: ROADMAP queue A item 15.2")
 #: the reason an ingest job is rejected with
 INGEST_TODO = ("invalid: ingest jobs are not ported yet (ROADMAP queue A "
                "item 15.3)")
@@ -118,7 +131,7 @@ ACCEPTING = "accepting"
 ACCEPTED = "accepted"
 STARTED = "started"
 RESUMED = "resumed"
-ADOPTED = "adopted"    # a fleet replica's takeover; replayed, never written
+ADOPTED = "adopted"    # fleet: a live replica took over a dead peer's job
 INTERRUPTED = "interrupted"
 DONE = "done"          # terminal: converged, degraded or served
 FAILED = "failed"      # terminal: a classified error
@@ -138,6 +151,11 @@ KNOWN_KINDS = (ACCEPTED, STARTED, RESUMED, ADOPTED, INTERRUPTED,
 PRIORITIES = {"high": 0, "normal": 1, "low": 2}
 
 _ID_RE = re.compile(r"^[A-Za-z0-9][A-Za-z0-9._-]{0,63}$")
+
+#: how many scheduler passes a job warm on a peer replica may be left to
+#: that peer before this replica takes it anyway: affinity routes work,
+#: it never starves it
+AFFINITY_DEFER_MAX = 3
 
 #: cap on one coalesced batch: K slots stack K bucket-padded tensors on
 #: the card, so a flooded queue coalesces in bounded bites
@@ -166,10 +184,11 @@ class Journal:
     One write of a full line and an fsync per record, serialized across
     threads (a lock) and processes (the ``flock`` of
     :func:`splatt_tpu_torch.utils.durable.append_line`, which also heals
-    a torn tail before appending).  :meth:`replay` skips every
-    unparseable record with a classified ``journal_torn`` event: the
-    record it carried is re-derived (an unjournaled terminal record means
-    the job runs again, and its checkpoint makes that cheap)."""
+    a torn tail before appending): a fleet of replicas shares one
+    journal.  :meth:`replay` skips every unparseable record, final or
+    mid-file, with a classified ``journal_torn`` event: the record it
+    carried is re-derived (an unjournaled terminal record means the job
+    runs again, and its checkpoint makes that cheap)."""
 
     def __init__(self, path: str):
         self.path = str(path)
@@ -189,16 +208,39 @@ class Journal:
     def replay(self):
         """Parse every record -> (records, torn_line_count); a torn or
         garbled line, final or mid-file, is skipped with a
-        ``journal_torn`` event.  (The fleet's incremental tail read,
-        ``replay_new``, comes with fleet mode.)"""
+        ``journal_torn`` event."""
+        recs, torn, _ = self._parse(self._read(0),
+                                    partial_tail_is_torn=True)
+        return recs, torn
+
+    def replay_new(self, offset: int):
+        """The fleet's incremental tail read: parse the complete records
+        from byte `offset` on -> (records, torn, new_offset).  A final line
+        with no newline yet is a peer's append in progress, not debris: it
+        is left unconsumed (the offset stays before it) and read whole on a
+        later call."""
+        recs, torn, consumed = self._parse(self._read(offset),
+                                           partial_tail_is_torn=False)
+        return recs, torn, offset + consumed
+
+    def _read(self, offset: int) -> bytes:
         try:
             with open(self.path, "rb") as f:
-                data = f.read()
+                if offset:
+                    f.seek(offset)
+                return f.read()
         except FileNotFoundError:
-            return [], 0  # a fresh serve root: nothing journaled yet
+            return b""  # a fresh serve root: nothing journaled yet
+
+    def _parse(self, data: bytes, partial_tail_is_torn: bool):
         recs: List[dict] = []
         torn = 0
+        consumed = 0
         for raw in data.split(b"\n"):
+            complete = consumed + len(raw) < len(data)  # has its newline
+            if not complete and not partial_tail_is_torn:
+                break  # an append in progress: not ours to judge yet
+            consumed += len(raw) + (1 if complete else 0)
             if not raw.strip():
                 continue
             try:
@@ -210,7 +252,7 @@ class Journal:
                 self._report_torn(raw, e)
                 continue
             recs.append(rec)
-        return recs, torn
+        return recs, torn, consumed
 
     def _report_torn(self, raw: bytes, exc: Exception) -> None:
         """One skipped record -> a classified ``journal_torn`` event."""
@@ -226,22 +268,25 @@ class Journal:
 class Server:
     """The serve daemon: a bounded, journal-backed job queue and a small
     pool of worker threads, each job under its own resilience scope
-    (≙ splatt_tpu/serve.py:274-2469, one replica).
+    (≙ splatt_tpu/serve.py:274-2469).
 
     `device` is where the jobs run: the card by default (raising where
-    there is none), or ``"cpu"``.  ``fleet=True`` raises
-    :class:`NotImplementedError` (ROADMAP queue A item 15.2)."""
+    there is none), or ``"cpu"``.  ``fleet=True`` makes it one replica of
+    a fleet over `root` (`replica`, `lease_s`, `heartbeat_s` and
+    `affinity` default to the ``SPLATT_FLEET_*`` knobs)."""
 
     def __init__(self, root: str, workers: Optional[int] = None,
                  queue_max: Optional[int] = None,
                  poll_s: Optional[float] = None,
                  job_deadline_s: Optional[float] = None,
-                 verbose: bool = False, fleet: bool = False,
+                 verbose: bool = False,
+                 fleet: bool = False, replica: Optional[str] = None,
+                 lease_s: Optional[float] = None,
+                 heartbeat_s: Optional[float] = None,
                  tenant_quota: Optional[int] = None,
+                 affinity: Optional[bool] = None,
                  batch_min: Optional[int] = None,
                  device=None):
-        if fleet:
-            raise NotImplementedError(FLEET_TODO)
         from splatt_tpu_torch.config import resolve_device
         from splatt_tpu_torch.fleetobs import SloEvaluator
         from splatt_tpu_torch.predict import HotFactorCache
@@ -290,7 +335,9 @@ class Server:
         #: id -> {"spec": dict|None, "state": str, "status": str|None,
         #:        "resumed": bool, "tenant": str, "priority": str,
         #:        "seq": int, "regime": str|None, "t_accepted": float|None,
-        #:        "gen_pinned": int|None}
+        #:        "gen_pinned": int|None, and in fleet mode "owner" (the
+        #:        last journaled replica), "adopt_from", "adopted_from",
+        #:        "deferred": int}
         self._jobs: Dict[str, dict] = lockcheck.guard(
             {}, self._lock, "serve.Server._jobs")
         #: pending job ids; _next() picks by (priority, arrival seq)
@@ -317,10 +364,43 @@ class Server:
         #: job id -> {part: host seconds} of its load, build, sweeps and
         #: commit (cpd and update jobs)
         self.timings: Dict[str, dict] = {}
-        # the SLO layer rides the metrics cadence, over this daemon's own
-        # registry
-        self._slo = SloEvaluator()
+        # fleet membership: job ownership is a lease, routing prefers
+        # warm caches, dead peers' jobs are adopted
+        self.fleet = None
+        self._journal_offset = 0
+        self._hb_thread: Optional[threading.Thread] = None
+        if fleet:
+            from splatt_tpu_torch.fleet import FleetMember
+
+            self.fleet = FleetMember(self.root, replica=replica,
+                                     lease_s=lease_s,
+                                     heartbeat_s=heartbeat_s)
+            self.affinity = bool(affinity if affinity is not None
+                                 else str(read_env(
+                                     "SPLATT_FLEET_AFFINITY")).lower()
+                                 not in ("0", "off", "false", "no"))
+            # each replica snapshots into the shared spool by default,
+            # where the fleet aggregator finds it through the heartbeat.
+            # (The process-wide replica stamp on spans is the cli's to
+            # set: a library construction never flips global trace
+            # state.)
+            if not self.metrics_path:
+                mdir = os.path.join(self.root, "fleet", "metrics")
+                os.makedirs(mdir, exist_ok=True)
+                self.metrics_path = os.path.join(
+                    mdir, f"{self.fleet.replica}.prom")
+            self.fleet.metrics_path = self.metrics_path
+        else:
+            self.affinity = False
+        # the SLO layer rides the metrics cadence: a fleet replica
+        # evaluates over the merged fleet samples, a lone daemon over its
+        # own registry
+        self._slo = SloEvaluator(
+            replica=self.fleet.replica if self.fleet else None)
         self._replay()
+        if self.fleet is not None:
+            self.fleet.beat()
+            self._start_heartbeat()
 
     # -- crash recovery -----------------------------------------------------
 
@@ -329,8 +409,9 @@ class Server:
         """One fresh job-table entry (callers hold the server lock)."""
         j = {"spec": spec, "state": state, "status": None,
              "resumed": False, "tenant": "default", "priority": "normal",
-             "seq": self._seq, "regime": None, "t_accepted": None,
-             "gen_pinned": None}
+             "seq": self._seq, "owner": None, "adopt_from": None,
+             "adopted_from": None, "deferred": 0, "regime": None,
+             "t_accepted": None, "gen_pinned": None}
         self._seq += 1
         if spec is not None:
             self._fill_admission(j, spec)
@@ -340,7 +421,7 @@ class Server:
     def _fill_admission(j: dict, spec: dict) -> None:
         """The admission and routing fields of a job spec: the tenant
         (quota unit), the priority class and the shape-regime key (the
-        coalescing key)."""
+        affinity and coalescing key)."""
         from splatt_tpu_torch.fleet import job_regime
 
         j["tenant"] = str(spec.get("tenant") or "default")
@@ -350,7 +431,9 @@ class Server:
 
     def _apply_rec_locked(self, rec: dict) -> Optional[str]:
         """Fold one journal record into the job table (the last record per
-        job wins; callers hold the server lock).  Returns the job id."""
+        job wins: the flock-serialized journal is totally ordered across
+        fleet replicas too; callers hold the server lock).  Returns the
+        job id."""
         jid = rec.get("job")
         kind = rec.get("rec")
         if not jid or not kind:
@@ -382,19 +465,30 @@ class Server:
             j["state"] = kind
             if kind in (DONE, FAILED):
                 j["status"] = rec.get("status")
+        if rec.get("replica"):
+            j["owner"] = rec["replica"]
         return jid
 
     def _rec(self, kind: str, jid: str, **kw) -> dict:
-        """One journal record."""
-        return {"rec": kind, "job": jid, **kw}
+        """One journal record, stamped with this replica's id in fleet
+        mode (the lineage audit and the adoption scan key on it)."""
+        rec = {"rec": kind, "job": jid, **kw}
+        if self.fleet is not None:
+            rec["replica"] = self.fleet.replica
+        return rec
 
     def _replay(self) -> None:
         """Rebuild the queues from the journal: the last record per job
         wins, and every accepted but unfinished job is queued again
-        (``job_resumed``) to resume from its checkpoint."""
+        (``job_resumed``) to resume from its checkpoint.  In fleet mode a
+        job whose lease a live peer holds is only tracked: the peer owns
+        it, and the fleet scan takes it over if that peer dies."""
         from splatt_tpu_torch import resilience
 
-        recs, torn = self.journal.replay()
+        if self.fleet is not None:
+            recs, torn, self._journal_offset = self.journal.replay_new(0)
+        else:
+            recs, torn = self.journal.replay()
         if torn:
             self._log(f"journal: skipped {torn} torn line(s) "
                       f"(crash debris)")
@@ -407,6 +501,21 @@ class Server:
             for jid, j in self._jobs.items():
                 if j["state"] in TERMINAL or j["spec"] is None:
                     continue
+                if self.fleet is not None:
+                    me = self.fleet.replica
+                    lease = self.fleet.lease_of(jid)
+                    if lease is not None and not lease.expired() \
+                            and lease.replica != me:
+                        continue  # a live peer's; watched by _fleet_scan
+                    if lease is not None and lease.expired() \
+                            and lease.replica != me:
+                        j["adopt_from"] = lease.replica
+                    elif lease is None \
+                            and j.get("owner") not in (None, me) \
+                            and not self.fleet.replica_alive(j["owner"]):
+                        # accepted by a dead peer and never claimed:
+                        # taking it over is an adoption, audited as one
+                        j["adopt_from"] = j["owner"]
                 j["resumed"] = True
                 self._enqueue_locked(jid)
                 resumed.append((jid, j["state"]))
@@ -594,9 +703,13 @@ class Server:
         counts: Dict[str, int] = {}
         for s in jobs.values():
             counts[s] = counts.get(s, 0) + 1
-        return {"jobs": jobs, "counts": counts, "pending": pending,
-                "pending_predict": pending_predict,
-                "draining": self._draining.is_set()}
+        out = {"jobs": jobs, "counts": counts, "pending": pending,
+               "pending_predict": pending_predict,
+               "draining": self._draining.is_set()}
+        if self.fleet is not None:
+            out["replica"] = self.fleet.replica
+            out["held_leases"] = self.fleet.held()
+        return out
 
     # -- filed-request spool -------------------------------------------------
 
@@ -605,16 +718,33 @@ class Server:
         parsed, submitted and unlinked, journal first, so a crash between
         the journal and the unlink re-ingests a known id, which
         :meth:`submit` dedups.  A malformed or failing request is
-        quarantined as ``<name>.bad``."""
+        quarantined as ``<name>.bad``.
+
+        In fleet mode the spool has N consumers: a replica first claims a
+        request (an atomic rename to ``<name>.<replica>.claim``; exactly
+        one of N racing replicas wins), then reads it from the claim.  A
+        replica that dies between the claim and the journal leaves the
+        claim behind; :meth:`_reclaim_requests` returns a dead claimant's
+        files to the spool, so such a request is delayed, never lost."""
         from splatt_tpu_torch import resilience
 
         n = 0
+        if self.fleet is not None:
+            self._reclaim_requests()
         for name in sorted(os.listdir(self.requests_dir)):
             if not name.endswith(".json"):
                 continue
             path = os.path.join(self.requests_dir, name)
+            read_path = path
+            if self.fleet is not None:
+                claim = f"{path}.{self.fleet.replica}.claim"
+                try:
+                    os.replace(path, claim)
+                except OSError:
+                    continue  # a peer claimed this request first
+                read_path = claim
             try:
-                with open(path) as f:
+                with open(read_path) as f:
                     spec = json.load(f)
                 if not isinstance(spec, dict):
                     raise ValueError("job spec must be a JSON object")
@@ -628,15 +758,39 @@ class Server:
                           f"{resilience.failure_message(e)[:120]}); "
                           f"quarantined as {name}.bad", error=True)
                 try:
-                    os.replace(path, path + ".bad")
+                    os.replace(read_path, path + ".bad")
                 except OSError:
                     pass
                 continue
             try:
-                os.unlink(path)
+                os.unlink(read_path)
             except OSError:
                 pass  # re-ingested next scan; submit dedups
         return n
+
+    def _reclaim_requests(self) -> None:
+        """Return the ``<name>.json.<replica>.claim`` files of a dead
+        claimant (or of this replica's previous life) to the spool: the
+        claim guards against a double ingest, never against the ingest."""
+        try:
+            names = os.listdir(self.requests_dir)
+        except OSError:
+            return
+        for name in names:
+            if not name.endswith(".claim"):
+                continue
+            parts = name[:-len(".claim")].rsplit(".", 1)
+            if len(parts) != 2 or not parts[0].endswith(".json"):
+                continue
+            base, rid = parts
+            if rid != self.fleet.replica \
+                    and self.fleet.replica_alive(rid):
+                continue  # the claimant lives; it is mid-ingest
+            try:
+                os.replace(os.path.join(self.requests_dir, name),
+                           os.path.join(self.requests_dir, base))
+            except OSError:
+                pass
 
     # -- supervisor ----------------------------------------------------------
 
@@ -650,20 +804,87 @@ class Server:
                 self._jobs[jid].get("seq", 0)))
 
     def _next(self) -> Optional[str]:
-        """Pick the next job: the predict lane first (FIFO), then the
-        highest-priority, oldest job."""
+        """Pick (and in fleet mode lease-claim) the next job.
+
+        The predict lane goes first (FIFO), then the highest-priority,
+        oldest job.  In fleet mode cache affinity is the signal and load
+        the tiebreaker: a job whose regime is warm here is taken first; a
+        job warm only on a live, not busier peer is left to that peer for
+        up to AFFINITY_DEFER_MAX passes.  The pick becomes ours only once
+        its lease is acquired: a claim a peer won (or a claim fault)
+        drops the job here, and the fleet scan re-surfaces it."""
+        # the peer snapshot reads heartbeat files: outside the lock
+        peers = (self.fleet.peers()
+                 if self.fleet is not None and self.affinity else {})
+        while True:
+            routed = None  # (reason, jid, regime, peer), emitted below
+            with self._lock:
+                pick = None
+                if self._pqueue:
+                    # the predict lane: FIFO, no affinity, no deferral;
+                    # the lease claim below still applies
+                    pick = self._pqueue.pop(0)
+                    self._running.add(pick)
+                    self._pqueue_metric(len(self._pqueue))
+                order = self._order_locked() if pick is None else []
+                if pick is None and self.affinity \
+                        and self.fleet is not None:
+                    # any job warm here beats queue position
+                    for jid in order:
+                        reg = self._jobs[jid].get("regime")
+                        if reg and self.fleet.warm(reg):
+                            pick = jid
+                            routed = ("warm_local", jid, reg, None)
+                            break
+                for jid in order if pick is None else ():
+                    j = self._jobs[jid]
+                    reg = j.get("regime")
+                    if not self.affinity or self.fleet is None:
+                        pick = jid
+                        break
+                    peer = self.fleet.peer_warm(reg, peers)
+                    if peer is not None:
+                        if j["deferred"] < AFFINITY_DEFER_MAX \
+                                and int(peers[peer].get("active", 0)) \
+                                <= self.fleet.active_count() + 1:
+                            j["deferred"] += 1
+                            if j["deferred"] == 1:
+                                routed = ("deferred", jid, reg, peer)
+                            continue  # leave it for the warm peer
+                        routed = ("load_tiebreak", jid, reg, peer)
+                    pick = jid
+                    break
+                if pick is not None and pick in self._queue:
+                    self._queue.remove(pick)
+                    self._running.add(pick)
+                    self._queue_metric(len(self._queue))
+            if routed is not None:
+                self._route_event(*routed)
+            if pick is None or self.fleet is None:
+                return pick
+            if self._claim(pick):
+                return pick
+            # a peer won the lease, finished the job first, or the claim
+            # faulted: not ours; the fleet scan re-surfaces it if it goes
+            # unowned
+            with self._lock:
+                self._running.discard(pick)
+
+    def _terminal_after_claim(self, jid: str) -> bool:
+        """The post-claim journal re-check (fleet mode): tail the shared
+        journal and say whether `jid` is terminal now.  Called while
+        holding the job's lease, which makes the read authoritative: a
+        peer's terminal append happens under its lease, before its
+        release, and a zombie cannot add one later (its renew fails
+        against our generation)."""
         with self._lock:
-            pick = None
-            if self._pqueue:
-                pick = self._pqueue.pop(0)
-                self._running.add(pick)
-                self._pqueue_metric(len(self._pqueue))
-            elif self._queue:
-                pick = self._order_locked()[0]
-                self._queue.remove(pick)
-                self._running.add(pick)
-                self._queue_metric(len(self._queue))
-        return pick
+            recs, _torn, self._journal_offset = \
+                self.journal.replay_new(self._journal_offset)
+            for rec in recs:
+                done = self._apply_rec_locked(rec)
+                if done and self._jobs[done]["state"] in TERMINAL:
+                    self._unqueue_locked(done)
+            return self._jobs[jid]["state"] in TERMINAL
 
     # -- auto coalescing -----------------------------------------------------
 
@@ -700,7 +921,9 @@ class Server:
     def _next_batch(self) -> List[str]:
         """The next unit of work: ``[jid]``, or, when the queue holds >=
         ``batch_min`` batchable jobs sharing the picked job's key, up to
-        BATCH_MAX of them as one batch."""
+        BATCH_MAX of them as one batch.  In fleet mode every mate is
+        lease-claimed like a single pick: a mate a peer wins stays out of
+        the batch."""
         jid = self._next()
         if jid is None:
             return []
@@ -720,7 +943,90 @@ class Server:
                     self._running.add(q)
                 if mates:
                     self._queue_metric(len(self._queue))
-        return [jid] + mates
+        batch = [jid]
+        for q in mates:
+            if self.fleet is None or self._claim(q):
+                batch.append(q)
+                continue
+            with self._lock:
+                self._running.discard(q)
+        return batch
+
+    def _route_event(self, reason: str, jid: str, regime: str,
+                     peer: Optional[str]) -> None:
+        """One ``affinity_routed`` audit event."""
+        from splatt_tpu_torch import resilience
+
+        info = dict(job=jid, regime=regime, reason=reason,
+                    replica=self.fleet.replica)
+        if peer is not None:
+            info["to_replica"] = peer
+        resilience.run_report().add("affinity_routed", **info)
+
+    def _claim(self, jid: str) -> bool:
+        """Acquire the job's lease (fleet mode): the plain claim for an
+        unclaimed job, the audited ``fleet.adopt`` takeover for an expired
+        one; True when the job is ours to run.  A job a peer finished
+        before the claim is released and dropped, before anything is
+        journaled.  A takeover journals an ``adopted`` record and leaves
+        ``job_adopted`` and ``lease_expired`` evidence; any failure
+        degrades classified, never a dead worker."""
+        from splatt_tpu_torch import resilience, trace
+
+        me = self.fleet.replica
+        with self._lock:
+            adopt_from = self._jobs[jid].get("adopt_from")
+        try:
+            lease = self.fleet.lease_of(jid)
+            stale = (lease.replica if lease is not None
+                     and lease.expired() else None)
+            if stale is not None:
+                ok = self.fleet.adopt(jid)
+            else:
+                ok = self.fleet.acquire(jid)
+        except Exception as e:
+            cls = resilience.classify_failure(e)
+            self._log(f"job {jid}: lease claim degraded ({cls.value}: "
+                      f"{resilience.failure_message(e)[:120]}); "
+                      f"re-surfaced by the fleet scan", error=True)
+            return False
+        if not ok:
+            return False
+        if self._terminal_after_claim(jid):
+            # a peer finished this job between our queue scan and our
+            # claim: its terminal append happened under its lease, before
+            # its release, so the journal read made while we hold the
+            # lease is authoritative.  Checked before the adoption is
+            # journaled: an `adopted` record after the terminal one would
+            # read as a reopened job to every journal reader, and the
+            # job would run twice
+            self.fleet.release(jid)
+            self._log(f"job {jid}: finished by a peer before our claim; "
+                      f"dropped")
+            return False
+        victim = adopt_from or (stale if stale != me else None)
+        if victim:
+            resilience.run_report().add(
+                "job_adopted", job=jid, replica=me, from_replica=victim)
+            trace.metric_inc("splatt_fleet_adoptions_total")
+            if stale is not None and stale != me:
+                resilience.run_report().add(
+                    "lease_expired", job=jid, replica=stale,
+                    role="adopter")
+                trace.metric_inc("splatt_fleet_lease_expired_total",
+                                 role="adopter")
+            try:
+                self.journal.append(self._rec(ADOPTED, jid,
+                                              from_replica=victim))
+            except Exception as e:
+                # lineage only: the lease itself is the ownership record
+                self._warn_journal("adopt", jid, e)
+            self._log(f"job {jid}: adopted from {victim}")
+            with self._lock:
+                self._jobs[jid]["adopt_from"] = None
+                self._jobs[jid]["adopted_from"] = victim
+                self._jobs[jid]["resumed"] = True
+        return True
 
     @staticmethod
     def _queue_metric(depth: int) -> None:
@@ -743,17 +1049,26 @@ class Server:
         else:
             self._queue.append(jid)
 
+    def _unqueue_locked(self, jid: str) -> None:
+        """Drop one id from whichever lane holds it (callers hold the
+        server lock)."""
+        if jid in self._queue:
+            self._queue.remove(jid)
+        if jid in self._pqueue:
+            self._pqueue.remove(jid)
+
     def run_once(self) -> dict:
-        """Ingest the spool, then run every queued job to a terminal
+        """Ingest the spool (and in fleet mode sync the shared journal and
+        surface dead peers' jobs), then run every queued job to a terminal
         state (or until a drain) on `workers` threads.  Returns
-        :meth:`summary`."""
+        :meth:`summary`.  In fleet mode a pass may end with only jobs left
+        for a warm peer; further passes bump their deferral counts to the
+        steal, so ``--once`` still ends with every job dispatched."""
         from splatt_tpu_torch import resilience
 
         self.scan_requests()
-        with self._lock:
-            idle = not self._queue and not self._pqueue
-        if idle or self._draining.is_set():
-            return self.summary()
+        if self.fleet is not None:
+            self._fleet_scan()
 
         def loop():
             self._bind_device()
@@ -778,18 +1093,55 @@ class Server:
                                   f"({cls.value}: {msg})", error=True)
                         self._backstop_fail(jid, cls, msg)
                 finally:
-                    with self._lock:
-                        for jid in jids:
+                    for jid in jids:
+                        with self._lock:
                             self._running.discard(jid)
+                        if self.fleet is not None:
+                            try:
+                                # never leak a held lease past its job (a
+                                # heartbeat renewing a finished job)
+                                self.fleet.release(jid)
+                            except Exception as e:
+                                self._log(
+                                    f"job {jid}: lease release degraded "
+                                    f"({resilience.classify_failure(e).value}"
+                                    f": {e})", error=True)
 
-        threads = [threading.Thread(target=loop, daemon=True,
-                                    name=f"splatt-serve-w{i}")
-                   for i in range(max(self.workers, 1))]
-        for t in threads:
-            t.start()
-        for t in threads:
-            t.join()
+        while not self._draining.is_set():
+            with self._lock:
+                if not self._queue and not self._pqueue:
+                    break  # an idle daemon starts no threads
+            threads = [threading.Thread(target=loop, daemon=True,
+                                        name=f"splatt-serve-w{i}")
+                       for i in range(max(self.workers, 1))]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join()
+            if self.fleet is None:
+                break
         return self.summary()
+
+    def _renew_fence(self, jid: str) -> bool:
+        """The live-lease commit fence: True when this replica may commit
+        for `jid` now (journal a terminal record, publish a result, a
+        checkpoint or a model).  A lone daemon has no leases: always
+        True.  In fleet mode a renew refusal, or a lease that cannot be
+        verified, means a peer owns the job: the caller abandons it
+        uncommitted.  Callers renew after the costly part of a commit
+        (a checkpoint is written before its fence), just before it is
+        published."""
+        if self.fleet is None:
+            return True
+        from splatt_tpu_torch import resilience
+
+        # a refusal's lease_expired event is the replica's, not the job's
+        # (an abandoned job keeps no result to carry it)
+        with resilience.unscoped():
+            try:
+                return bool(self.fleet.renew(jid))
+            except Exception:
+                return False
 
     def _bind_device(self) -> None:
         """Make the daemon's card the calling worker thread's current
@@ -828,14 +1180,29 @@ class Server:
                       f"the jobs on the card are journaled interrupted "
                       f"and resume in a fresh process", error=True)
 
+    def _checkpoint_fence(self, jid: str) -> Optional[Callable[[], bool]]:
+        """The checkpoint-publish fence of job `jid` (:func:`cpd.cpd_als`'s
+        ``checkpoint_fence``): a lease renewal in fleet mode, between a
+        checkpoint's write and its rename; None for a lone daemon."""
+        if self.fleet is None:
+            return None
+        return lambda: self._renew_fence(jid)
+
     def _backstop_fail(self, jid: str, cls, msg: str) -> None:
         """Commit a supervisor-error FAILED verdict, unless the job is
-        already terminal (the error was post-commit cleanup)."""
+        already terminal (the error was post-commit cleanup) or, in fleet
+        mode, its lease is gone (a peer owns it: abandoned uncommitted)."""
         with self._lock:
             already = self._jobs[jid]["state"] in TERMINAL
         if already:
             self._log(f"job {jid}: already terminal; the supervisor "
                       f"error was post-commit cleanup", error=True)
+            return
+        if not self._renew_fence(jid):
+            with self._lock:
+                self._jobs[jid]["state"] = ACCEPTED
+            self._log(f"job {jid}: supervisor error without a live lease; "
+                      f"abandoned uncommitted", error=True)
             return
         self._write_result(jid, {"job": jid, "status": "failed",
                                  "failure_class": cls.value,
@@ -847,6 +1214,79 @@ class Server:
         with self._lock:
             self._jobs[jid]["state"] = FAILED
             self._jobs[jid]["status"] = "failed"
+
+    # -- fleet membership ----------------------------------------------------
+
+    def _start_heartbeat(self) -> None:
+        """The replica's liveness thread: publish the membership lease
+        and renew every held job lease each ``heartbeat_s``, so a running
+        job stays owned through sweeps of any length."""
+        def beat_loop():
+            while not self._draining.wait(self.fleet.heartbeat_s):
+                self.fleet.beat()
+
+        self._hb_thread = threading.Thread(
+            target=beat_loop, daemon=True, name="splatt-fleet-hb")
+        self._hb_thread.start()
+
+    def _fleet_scan(self) -> None:
+        """One fleet sync and adoption pass: fold the shared journal's new
+        records into the job table, then surface every non-terminal job
+        that is neither queued or running here nor validly leased
+        elsewhere.  A dead peer's jobs become local queue entries marked
+        ``adopt_from`` (claimed and audited by :meth:`_claim`); exactly
+        one of N scanning replicas wins the lease."""
+        me = self.fleet.replica
+        with self._lock:
+            recs, _torn, self._journal_offset = \
+                self.journal.replay_new(self._journal_offset)
+            for rec in recs:
+                jid = self._apply_rec_locked(rec)
+                if jid and self._jobs[jid]["state"] in TERMINAL:
+                    # a peer finished a job we still had queued
+                    self._unqueue_locked(jid)
+            candidates = [
+                jid for jid, j in self._jobs.items()
+                if j["state"] not in (*TERMINAL, ACCEPTING)
+                and j["spec"] is not None
+                and jid not in self._queue and jid not in self._pqueue
+                and jid not in self._running]
+        for jid in candidates:
+            lease = self.fleet.lease_of(jid)
+            if lease is not None and not lease.expired():
+                continue  # validly owned (a live peer's, or mid-claim)
+            with self._lock:
+                j = self._jobs.get(jid)
+                if (j is None or j["state"] in (*TERMINAL, ACCEPTING)
+                        or jid in self._queue or jid in self._pqueue
+                        or jid in self._running):
+                    continue
+                owner = (lease.replica if lease is not None
+                         else j.get("owner"))
+                steal = False
+                if lease is None and owner not in (None, me) \
+                        and self.fleet.replica_alive(owner):
+                    # its accepting replica lives and will claim it,
+                    # unless we are warm for its regime: the receiving
+                    # half of the peer's affinity deferral (the lease
+                    # claim settles the race)
+                    if not (self.affinity and j.get("regime")
+                            and self.fleet.warm(j["regime"])):
+                        continue
+                    steal = True
+                j["adopt_from"] = owner if not steal \
+                    and owner not in (None, me) else None
+                # resumed=True is safe for a job that never started: it
+                # finds no checkpoint and starts afresh
+                j["resumed"] = not steal or j["state"] != ACCEPTED
+                j["deferred"] = 0
+                self._enqueue_locked(jid)
+                self._queue_metric(len(self._queue))
+                self._pqueue_metric(len(self._pqueue))
+                adopt_from = j["adopt_from"]
+            if adopt_from:
+                self._log(f"job {jid}: dead-peer candidate (owner "
+                          f"{adopt_from}); queued for adoption")
 
     def serve_forever(self) -> dict:
         """The daemon loop: run the queue, poll the spool, repeat, until
@@ -884,15 +1324,38 @@ class Server:
         return ev
 
     def _slo_tick(self) -> None:
-        """Evaluate the SLO burn rates over this daemon's registry; a tick
-        that burns snapshots again, so the burn is in the file.  Any
+        """One aggregator tick.  A fleet replica merges the fleet's
+        snapshots into ``fleet/metrics.prom``, evaluates the SLO burn
+        rates over the merged samples (a peer's outage burns this
+        replica's alerts too) and persists its verdicts for ``status``; a
+        lone daemon evaluates over its own registry.  A tick that burns
+        snapshots again (and re-merges), so the burn is in the files.  Any
         failure degrades classified."""
-        from splatt_tpu_torch import resilience, trace
+        from splatt_tpu_torch import fleetobs, resilience, trace
 
         try:
-            res = self._slo.evaluate(trace.samples())
-            if any(s.get("burning") for s in res["slos"].values()):
-                trace.write_metrics(self.metrics_path)
+            if self.fleet is not None:
+                agg = fleetobs.aggregate(self.root)
+                # mirror the census into this member's registry; the
+                # aggregator itself stays a side-effect-free reader
+                for state in ("alive", "dead"):
+                    trace.metric_set(
+                        "splatt_fleet_replicas",
+                        float(agg.samples.get(
+                            ("splatt_fleet_replicas",
+                             (("state", state),)), 0.0)),
+                        state=state)
+                res = self._slo.evaluate(agg.samples)
+                self._slo.write_state(fleetobs.slo_state_path(
+                    self.root, self.fleet.replica))
+                if any(s.get("burning") for s in res["slos"].values()):
+                    trace.write_metrics(self.metrics_path)
+                    agg = fleetobs.aggregate(self.root)
+                fleetobs.write_fleet_metrics(agg)
+            else:
+                res = self._slo.evaluate(trace.samples())
+                if any(s.get("burning") for s in res["slos"].values()):
+                    trace.write_metrics(self.metrics_path)
         except Exception as e:
             cls = resilience.classify_failure(e)
             self._log(f"slo tick degraded ({cls.value}: "
@@ -907,9 +1370,15 @@ class Server:
         self._draining.set()
 
     def shutdown(self) -> None:
-        """:meth:`drain` (the fleet's retirement comes with fleet
-        mode)."""
+        """:meth:`drain`, then stop the heartbeat thread and retire the
+        membership lease, so peers route around this replica at once
+        instead of waiting out the lease."""
         self.drain()
+        if self._hb_thread is not None:
+            self._hb_thread.join(timeout=max(self.fleet.heartbeat_s * 4,
+                                             1.0))
+        if self.fleet is not None:
+            self.fleet.retire()
 
     def install_signal_handlers(self) -> None:
         """SIGTERM/SIGINT -> graceful drain (main thread only)."""
@@ -924,6 +1393,8 @@ class Server:
         with self._lock:
             j = self._jobs[jid]
             spec, resumed = j["spec"], j["resumed"]
+            regime = j.get("regime")
+            adopted_from = j.get("adopted_from")
             t_accepted = j.get("t_accepted")
             j["state"] = STARTED
         if journal_start:
@@ -942,8 +1413,27 @@ class Server:
                                      max(time.time() - float(t_accepted),
                                          0.0))
         self._log(f"job {jid}: started" + (" (resumed)" if resumed else ""))
-        with trace.span("serve.job", job=jid, resumed=resumed) as sp:
+        # in fleet mode the span carries the replica that ran the job and
+        # the adoption lineage (the trace verb's fleet summary and the
+        # merged trace's flow events key on them)
+        attrs = dict(job=jid, resumed=resumed)
+        if self.fleet is not None:
+            attrs["replica"] = self.fleet.replica
+            if adopted_from:
+                attrs["adopted_from"] = adopted_from
+        with trace.span("serve.job", **attrs) as sp:
+            launches0 = self._launch_counts()
             record, stopped = self._execute(jid, spec, resumed)
+            if launches0 is not None:
+                sp.set(launches=self._launch_counts(launches0))
+            if record is not None and not self._renew_fence(jid):
+                # the commit fence: a terminal record is journaled only
+                # under a live lease.  A stalled heartbeat (a stopped
+                # process, a busy host) can let the lease expire unseen by
+                # the cooperative poll; this renew catches it at the last
+                # gate, so a zombie never commits a job a peer adopted
+                stopped["lease"] = True
+                record = None
             if record is not None:
                 self._write_result(jid, record)
                 kind = FAILED if record["status"] == "failed" else DONE
@@ -960,6 +1450,15 @@ class Server:
                     sp.set(status=record["status"])
                 except Exception as e:
                     self._warn_journal("finish", jid, e)
+        if record is None and stopped.get("lease"):
+            # ownership moved on (the lease expired; maybe adopted):
+            # abandon without committing anything, no terminal record, no
+            # result; the current owner carries the job from here
+            with self._lock:
+                self._jobs[jid]["state"] = ACCEPTED
+            self._log(f"job {jid}: lease lost mid-run; abandoned "
+                      f"uncommitted (the adopter owns it now)", error=True)
+            return
         if record is None:
             # a drain or a lost card: not terminal.  A drained job has
             # checkpointed through the stop hook; either way the restart
@@ -970,6 +1469,9 @@ class Server:
                 self._warn_journal("interrupt", jid, e)
             with self._lock:
                 self._jobs[jid]["state"] = INTERRUPTED
+            if self.fleet is not None:
+                # released at once: any live replica may resume it
+                self.fleet.release(jid)
             self._log(f"job {jid}: interrupted "
                       + ("(the card's context was lost)"
                          if stopped.get("cuda") else
@@ -979,9 +1481,34 @@ class Server:
         with self._lock:
             self._jobs[jid]["state"] = kind
             self._jobs[jid]["status"] = record["status"]
+        if self.fleet is not None:
+            self.fleet.release(jid)
+            if kind == DONE:
+                # advertise the regime as warm: same-regime jobs route
+                # here and hit the plan cache warm.  A failed job proved
+                # nothing about the caches
+                self.fleet.add_regime(regime)
         self._log(f"job {jid}: {record['status']}"
                   + (f" fit={record['fit']:.5f}"
                      if record.get("fit") is not None else ""))
+
+    def _launch_counts(self, since: Optional[dict] = None
+                       ) -> Optional[dict]:
+        """Every kernel's launch count in this process (on a card; None on
+        the CPU), or with `since` the launches made after that reading:
+        what the ``serve.job`` span records of the job it wraps (counted
+        process-wide, so a neighbour's launches in that window count
+        too)."""
+        if self.device.type != "cuda":
+            return None
+        from splatt_tpu_torch.ops import kernels, linalg
+
+        now = {k.__name__: int(k.launches)
+               for k in (*kernels.KERNELS, linalg.sym_eig)}
+        if since is None:
+            return now
+        return {k: v - since.get(k, 0) for k, v in now.items()
+                if v - since.get(k, 0)}
 
     # -- one coalesced batch -------------------------------------------------
 
@@ -1056,17 +1583,30 @@ class Server:
                     self._warn_journal("interrupt", jid, e)
                 with self._lock:
                     self._jobs[jid]["state"] = INTERRUPTED
+                if self.fleet is not None:
+                    self.fleet.release(jid)
             self._log(f"batch [{lead} +{len(jids) - 1}]: interrupted; "
                       f"members resume next start")
             return
         for jid in jids:
-            self._commit_batch_member(jid, records[jid])
+            self._commit_batch_member(jid, records[jid], regime)
 
-    def _commit_batch_member(self, jid: str, record: dict) -> None:
+    def _commit_batch_member(self, jid: str, record: dict,
+                             regime: Optional[str] = None) -> None:
         """One member's terminal commit, its metrics recorded inside a
-        scope of its own, so the samples carry this member's job label."""
+        scope of its own, so the samples carry this member's job label.
+        The fences of :meth:`_run_job`'s tail: in fleet mode the terminal
+        record is journaled only under a live lease (a refusal abandons
+        this member uncommitted), and a done member advertises the
+        regime."""
         from splatt_tpu_torch import resilience, trace
 
+        if not self._renew_fence(jid):
+            with self._lock:
+                self._jobs[jid]["state"] = ACCEPTED
+            self._log(f"job {jid}: lease lost mid-batch; abandoned "
+                      f"uncommitted (the adopter owns it now)", error=True)
+            return
         with resilience.scope(jid):
             trace.metric_inc("splatt_serve_jobs_total",
                              status=record["status"])
@@ -1074,6 +1614,12 @@ class Server:
             trace.metric_observe("splatt_job_seconds",
                                  float(record["seconds"]))
             record["metrics"] = trace.metrics_snapshot(job=jid)
+        if self.fleet is not None:
+            record["replica"] = self.fleet.replica
+            with self._lock:
+                adopted_from = self._jobs[jid].get("adopted_from")
+            if adopted_from:
+                record["adopted_from"] = adopted_from
         self._write_result(jid, record)
         kind = FAILED if record["status"] == "failed" else DONE
         try:
@@ -1084,6 +1630,10 @@ class Server:
         with self._lock:
             self._jobs[jid]["state"] = kind
             self._jobs[jid]["status"] = record["status"]
+        if self.fleet is not None:
+            self.fleet.release(jid)
+            if kind == DONE:
+                self.fleet.add_regime(regime)
         self._log(f"job {jid}: {record['status']}"
                   + (f" fit={record['fit']:.5f}"
                      if record.get("fit") is not None else ""))
@@ -1148,13 +1698,16 @@ class Server:
     def _execute(self, jid: str, spec: dict, resumed: bool):
         """Run one job under its own resilience scope and fault schedule;
         returns ``(record, stopped)``: the result record, or None when a
-        drain interrupted the run (already checkpointed) or the card's
-        context was lost (``stopped["cuda"]``)."""
+        drain interrupted the run (already checkpointed), the job's lease
+        was lost (``stopped["lease"]``: abandon, committing nothing, the
+        adopter owns the job) or the card's context was lost
+        (``stopped["cuda"]``)."""
         from splatt_tpu_torch import resilience, trace
         from splatt_tpu_torch.utils import faults
 
         t0 = time.time()
-        stopped = {"drain": False, "deadline": False, "cuda": False}
+        stopped = {"drain": False, "deadline": False, "cuda": False,
+                   "lease": False}
 
         # an explicit deadline_s (0 included: a documented opt-out) beats
         # the server default
@@ -1170,6 +1723,11 @@ class Server:
             if deadline_end is not None \
                     and time.monotonic() > deadline_end:
                 stopped["deadline"] = True
+                return True
+            if self.fleet is not None and self.fleet.lost(jid):
+                # the heartbeat's renew was refused: ownership is gone,
+                # stop before committing anything further
+                stopped["lease"] = True
                 return True
             if self._draining.is_set():
                 stopped["drain"] = True
@@ -1213,12 +1771,13 @@ class Server:
                                 f"splatt deadline blown at "
                                 f"serve.job_run after {deadline_s:g}s "
                                 f"(cooperative job-deadline stop)")
-                        if not stopped["drain"] and predict_rec is None:
+                        if not (stopped["drain"] or stopped["lease"]) \
+                                and predict_rec is None:
                             # nothing is committed from a read a sticky
                             # error could have followed (a predict reads
                             # the host only)
                             self._device_fence()
-                if stopped["drain"]:
+                if stopped["drain"] or stopped["lease"]:
                     return None, stopped
                 if predict_rec is not None:
                     # "served"/"refused" is its own status class
@@ -1280,6 +1839,12 @@ class Server:
             trace.metric_observe("splatt_job_seconds",
                                  float(record["seconds"]))
             record["metrics"] = trace.metrics_snapshot(job=jid)
+            if self.fleet is not None:
+                record["replica"] = self.fleet.replica
+                with self._lock:
+                    adopted_from = self._jobs[jid].get("adopted_from")
+                if adopted_from:
+                    record["adopted_from"] = adopted_from
         return record, stopped
 
     def _options(self, spec: dict, **kw):
@@ -1329,19 +1894,24 @@ class Server:
         parts["compile_s"] = time.perf_counter() - t
         ckpt = os.path.join(self.ckpt_dir, f"{jid}.npz")
         t = time.perf_counter()
+        # in fleet mode every checkpoint is written first and renewed for
+        # just before its rename: an owner whose lease was lost during
+        # the write does not publish it over its adopter's
         out = cpd_als(bs, rank=rank, opts=opts, device=self.device,
                       checkpoint_path=ckpt,
                       checkpoint_every=int(spec.get("checkpoint_every", 5)),
-                      stop=stop)
+                      stop=stop, checkpoint_fence=self._checkpoint_fence(jid))
         parts["sweeps_s"] = time.perf_counter() - t
         gen = None
-        if not (stop is not None and stop()):
-            # the fit commit; a failed stamp advance (the
-            # model.generation fault site) raises, the commit aborts
-            # classified and readers keep the previous generation
-            t = time.perf_counter()
-            _save_checkpoint(ckpt, out.factors, out.lam, 0,
-                             float(out.fit))
+        t = time.perf_counter()
+        if not (stop is not None and stop()) and _save_checkpoint(
+                ckpt, out.factors, out.lam, 0, float(out.fit),
+                fence=self._checkpoint_fence(jid)) is not None \
+                and self._renew_fence(jid):
+            # the fit commit, each write renewed for just before it in
+            # fleet mode; a failed stamp advance (the model.generation
+            # fault site) raises, the commit aborts classified and readers
+            # keep the previous generation
             gen = advance_generation(self.ckpt_dir, jid, out.factors,
                                      out.lam)
             parts["commit_s"] = time.perf_counter() - t
@@ -1501,13 +2071,14 @@ class Server:
                 fit=float(out.fit))
             trace.metric_inc("splatt_serve_updates_total",
                              outcome="applied")
-        if not (stop is not None and stop()):
-            # the model store advances only for complete runs; the
-            # `applied` stamps make a re-run idempotent even across a
-            # crash between these writes and the terminal record
-            t = time.perf_counter()
-            _save_checkpoint(ckpt, out.factors, out.lam, 0,
-                             float(out.fit))
+        t = time.perf_counter()
+        if not (stop is not None and stop()) and _save_checkpoint(
+                ckpt, out.factors, out.lam, 0, float(out.fit),
+                fence=self._checkpoint_fence(jid)) is not None:
+            # the model store advances only for complete runs, each write
+            # renewed for just before it in fleet mode; the `applied`
+            # stamps make a re-run idempotent even across a crash between
+            # these writes and the terminal record
             if jid not in applied:
                 applied = list(applied) + [jid]
             _save_model_tensor(tpath, merged, applied)
@@ -1515,8 +2086,9 @@ class Server:
             # advance fails this update classified, the stamp never
             # moved, and readers verify the old stamp against the .bak
             # checkpoint, so the old generation keeps serving
-            info["model_gen"] = int(advance_generation(
-                self.ckpt_dir, base, out.factors, out.lam))
+            if self._renew_fence(jid):
+                info["model_gen"] = int(advance_generation(
+                    self.ckpt_dir, base, out.factors, out.lam))
             parts["commit_s"] = time.perf_counter() - t
         with self._lock:
             self.timings[jid] = parts

@@ -1,5 +1,5 @@
-"""Structured span tracing and a metrics registry
-(≙ splatt_tpu/trace.py, without the flight recorder).
+"""Structured span tracing, a metrics registry and the flight recorder
+(≙ splatt_tpu/trace.py).
 
 Span tree
     :func:`span` opens one named host-side span (a context manager);
@@ -31,15 +31,30 @@ Exporters
     time, the per-iteration breakdown, the guard share), and
     :func:`merge_trace_files` merges several exports onto one timeline.
 
+Flight recorder
+    :func:`set_flight` arms a bounded, incrementally appended ring of the
+    recent finished spans and point events (JSONL, rotated atomically to
+    ``<path>.1``), so a SIGKILLed fleet replica leaves a readable black
+    box: :func:`load_flight` reads it back.  A flush failure (the
+    ``trace.flight`` fault site) disarms the recorder with a classified
+    ``flight_degraded`` event and never fails the run.  Records reach the
+    ring at span end, from the host clock: the recorder adds no
+    synchronization with the card.
+
+Fleet merge
+    Every span and point is stamped with the replica id
+    (:func:`set_replica`), and :func:`merge_trace_files` merges many
+    replicas' Chrome exports and flight rings onto one timeline, with
+    flow events linking an adopted job's spans on the victim to its
+    continuation on the adopter.
+
 Overhead
     Spans are no-ops unless enabled (``SPLATT_TRACE`` /
     ``Options.trace`` / :func:`set_enabled`): one boolean check and a
     shared no-op handle.  Enabled spans never synchronise the card: they
     read ``perf_counter`` only (the NVTX push is a host call).
 
-Span names are a registry (:data:`SPANS`), as in the JAX package.  The
-flight recorder (``SPLATT_FLIGHT_*``) and its ``.jsonl`` rings come with
-the service daemons that turn them on.
+Span names are a registry (:data:`SPANS`), as in the JAX package.
 
 This module imports nothing heavy at import time; ``torch`` is touched
 lazily, only for the NVTX ranges.
@@ -85,7 +100,9 @@ SPANS = {
                   "more around the pre-pass and its warm sweeps (attrs: "
                   "job, base, delta_nnz)",
     "serve.job": "one supervised serve job end to end (attrs: job, "
-                 "resumed, and the terminal status once journaled)",
+                 "resumed, in fleet mode the replica and adopted_from, "
+                 "the terminal status once journaled, and on a card the "
+                 "kernel launches made while it ran)",
     "serve.batch": "one coalesced batch's batched CPD invocation (attrs: "
                    "k, leader job id)",
     "serve.predict": "one generation-fenced predict job: the hot-cache "
@@ -148,6 +165,18 @@ METRICS = {
                    "(converged/degraded/failed/rejected/served/refused)"),
     "splatt_job_seconds": (
         "histogram", "serve: per-job wall seconds accepted-to-terminal"),
+    "splatt_fleet_adoptions_total": (
+        "counter", "fleet: dead peers' jobs adopted by this replica "
+                   "(expired-lease takeovers)"),
+    "splatt_fleet_lease_expired_total": (
+        "counter", "fleet: job-lease expiries by role (owner: this "
+                   "replica's renew refused, job abandoned uncommitted; "
+                   "adopter: an expired lease was taken over)"),
+    "splatt_fleet_replicas": (
+        "gauge", "fleet: replica count by liveness state (alive = "
+                 "unexpired heartbeat, dead = present but expired), "
+                 "synthesized into every merged exposition; serve members "
+                 "mirror their last census into their own registry"),
     "splatt_serve_queue_wait_seconds": (
         "histogram", "serve: seconds a job waited accepted-to-started, "
                      "the queue-wait SLO's histogram"),
@@ -292,6 +321,30 @@ def _bound_locked(lst: List[dict], what: str) -> None:
 _STACK: contextvars.ContextVar = contextvars.ContextVar(
     "splatt_trace_stack", default=())
 
+#: the replica id stamped on every span and point record (fleet mode):
+#: None outside a fleet replica.  Set once per process by the serve
+#: entry point, before its threads start.
+_replica: Optional[str] = None
+
+#: flight-recorder state: empty = disarmed; armed it holds path,
+#: max_bytes, flush_every and buf, every key mutated under _LOCK.  buf
+#: accumulates raw span and point records; _flight_flush drains it.
+_FLIGHT: Dict[str, object] = {}
+#: serializes ring-file IO across flushing threads (taken only after
+#: _LOCK is released)
+_FLIGHT_IO_LOCK = threading.Lock()
+
+
+def set_replica(rid: Optional[str]) -> None:
+    """Stamp every later span and point record (and the Chrome export's
+    process row) with this replica id, what lets
+    :func:`merge_trace_files` render N replicas as one fleet timeline."""
+    global _replica
+    _replica = str(rid) if rid else None
+
+
+def replica() -> Optional[str]:
+    return _replica
 
 
 def _nvtx_push(name: str) -> bool:
@@ -354,7 +407,8 @@ class SpanHandle:
         job = attrs.pop("job", None) or _job()
         self.rec = {"name": name, "sid": next(_SIDS), "parent": None,
                     "t0": 0.0, "dur": None, "args": attrs,
-                    "tid": threading.get_ident(), "job": job}
+                    "tid": threading.get_ident(), "job": job,
+                    "replica": _replica}
         self._nvtx = False
 
     def set(self, **attrs):
@@ -383,10 +437,16 @@ class SpanHandle:
             # A): drop OUR sid wherever it sits; leaked children clean
             # themselves up on their own exit
             _STACK.set(tuple(s for s in stack if s != sid))
+        flush_now = False
         with _LOCK:
             _OPEN.pop(sid, None)
             _DONE.append(self.rec)
             _bound_locked(_DONE, "spans")
+            if _FLIGHT:
+                _FLIGHT["buf"].append(self.rec)
+                flush_now = len(_FLIGHT["buf"]) >= _FLIGHT["flush_every"]
+        if flush_now:
+            _flight_flush()
         return False
 
 
@@ -430,10 +490,16 @@ def point(kind: str, info: Optional[dict] = None) -> None:
     rec = {"name": kind, "t": time.perf_counter(),
            "parent": stack[-1] if stack else None,
            "tid": threading.get_ident(), "args": info,
-           "job": _job()}
+           "job": _job(), "replica": _replica}
+    flush_now = False
     with _LOCK:
         _POINTS.append(rec)
         _bound_locked(_POINTS, "points")
+        if _FLIGHT:
+            _FLIGHT["buf"].append(rec)
+            flush_now = len(_FLIGHT["buf"]) >= _FLIGHT["flush_every"]
+    if flush_now:
+        _flight_flush()
 
 
 def spans(name: Optional[str] = None) -> List[dict]:
@@ -687,6 +753,8 @@ def _span_event(rec: dict, pid: Optional[int] = None) -> dict:
         args["parent"] = rec["parent"]
     if rec["job"] is not None:
         args["job"] = rec["job"]
+    if rec.get("replica") is not None:
+        args["replica"] = rec["replica"]
     return {"name": rec["name"], "cat": "span", "ph": "X",
             "ts": _us(rec["t0"]),
             "dur": max(int((rec["dur"] or 0.0) * 1e6), 1),
@@ -701,6 +769,8 @@ def _point_event(rec: dict, pid: Optional[int] = None) -> dict:
         args["parent"] = rec["parent"]
     if rec.get("job") is not None:
         args.setdefault("job", rec["job"])
+    if rec.get("replica") is not None:
+        args["replica"] = rec["replica"]
     return {"name": rec["name"], "cat": "event", "ph": "i",
             "s": "t", "ts": _us(rec["t"]),
             "pid": pid if pid is not None else os.getpid(),
@@ -714,7 +784,8 @@ def chrome_events() -> List[dict]:
     one instant event (``ph: "i"``) per point event.  ``args`` carries
     the span attributes plus ``sid``/``parent`` so the summarizer (and
     perfetto queries) can rebuild the tree without guessing from
-    timestamps."""
+    timestamps.  With a :func:`set_replica` stamp, a ``process_name``
+    metadata row names the process row after the replica."""
     now = time.perf_counter()
     with _LOCK:
         done = list(_DONE)
@@ -726,6 +797,10 @@ def chrome_events() -> List[dict]:
     evs = [_span_event(rec, pid) for rec in done + still_open]
     evs += [_point_event(p, pid) for p in pts]
     evs.sort(key=lambda e: e["ts"])
+    if _replica is not None:
+        evs.insert(0, {"name": "process_name", "ph": "M", "ts": 0,
+                       "pid": pid,
+                       "args": {"name": f"replica {_replica}"}})
     return evs
 
 
@@ -764,6 +839,106 @@ def write_chrome_trace(path: str) -> dict:
         events=sum(1 for e in evs if e["ph"] == "i"), **extra)
 
 
+# -- the flight recorder ------------------------------------------------------
+#
+# The Chrome export exists only if the process lives to write it.  The
+# flight recorder is the black box: every finished span and point event is
+# also appended (buffered, as JSONL Chrome events on the shared wall-clock
+# anchor) to a bounded ring file that rotates atomically, so after a kill
+# the victim's timeline up to its last flush is readable.
+
+def set_flight(path: Optional[str], max_bytes: Optional[int] = None,
+               flush_every: Optional[int] = None) -> None:
+    """Arm (or with ``path=None`` disarm) the flight recorder.  Spans must
+    be enabled for records to exist; fleet-mode serve arms both (cli.py).
+    `max_bytes` bounds the ring file before rotation
+    (``SPLATT_FLIGHT_BYTES``); `flush_every` is the buffered-record flush
+    threshold (``SPLATT_FLIGHT_FLUSH``): a SIGKILL loses at most that many
+    trailing records."""
+    from splatt_tpu_torch.utils.env import read_env_int
+
+    if path:
+        mb = int(max_bytes if max_bytes is not None
+                 else read_env_int("SPLATT_FLIGHT_BYTES"))
+        fe = max(int(flush_every if flush_every is not None
+                     else read_env_int("SPLATT_FLIGHT_FLUSH")), 1)
+    with _LOCK:
+        _FLIGHT.clear()
+        if path:
+            _FLIGHT.update(path=str(path), max_bytes=mb,
+                           flush_every=fe, buf=[])
+
+
+def flight_path() -> Optional[str]:
+    with _LOCK:
+        return _FLIGHT.get("path") if _FLIGHT else None
+
+
+def flight_flush() -> None:
+    """Drain the buffered flight records to the ring file now (drain and
+    exit paths; a no-op while disarmed)."""
+    _flight_flush()
+
+
+def _flight_flush() -> None:
+    """One ring flush: drain the buffer under the recorder lock, write
+    outside it (ring IO serialized by its own lock).  Any failure (the
+    ``trace.flight`` fault site drills it) disarms the recorder and
+    degrades classified (``flight_degraded``)."""
+    from splatt_tpu_torch import resilience
+    from splatt_tpu_torch.utils import faults
+    from splatt_tpu_torch.utils.durable import ring_append
+
+    with _LOCK:
+        if not _FLIGHT or not _FLIGHT["buf"]:
+            return
+        recs = list(_FLIGHT["buf"])
+        _FLIGHT["buf"].clear()
+        path, max_bytes = _FLIGHT["path"], _FLIGHT["max_bytes"]
+    lines = [json.dumps(_span_event(r) if "t0" in r
+                        else _point_event(r)).encode() for r in recs]
+    try:
+        with _FLIGHT_IO_LOCK:
+            faults.maybe_fail("trace.flight")
+            ring_append(path, lines, max_bytes)
+    except Exception as e:
+        # disarm first: the report below flows through point(), which
+        # must find the recorder already off
+        set_flight(None)
+        cls = resilience.classify_failure(e)
+        resilience.run_report().add(
+            "flight_degraded", path=str(path), failure_class=cls.value,
+            error=resilience.failure_message(e)[:200])
+
+
+def load_flight(path: str) -> List[dict]:
+    """Read a flight ring (the rotated ``<path>.1`` generation first, then
+    the live file) back into Chrome trace events.  A torn final line (the
+    record a SIGKILL interrupted mid-append) is skipped: the black box is
+    read as the crash left it."""
+    out: List[dict] = []
+    found = False
+    for p in (path + ".1", path):
+        try:
+            with open(p, "rb") as f:
+                data = f.read()
+        except OSError:
+            continue
+        found = True
+        for raw in data.split(b"\n"):
+            if not raw.strip():
+                continue
+            try:
+                ev = json.loads(raw.decode(errors="replace"))
+            except ValueError:
+                continue  # torn or garbled line: crash debris
+            if isinstance(ev, dict) and ev.get("ph"):
+                out.append(ev)
+    if not found:
+        raise FileNotFoundError(f"no flight ring at {path} (or .1)")
+    return out
+
+
 # -- trace summarization (the `trace` verb) ---------------------------------
 
 def load_trace(path: str) -> List[dict]:
@@ -783,14 +958,29 @@ def load_trace(path: str) -> List[dict]:
 
 def expand_trace_paths(paths: List[str]) -> List[str]:
     """The verb's path resolution: files pass through, a directory
-    expands to its ``*.json`` Chrome traces (the flight recorder's
-    ``.jsonl`` rings come with the service daemons)."""
+    expands to its ``*.json`` Chrome traces and ``*.jsonl`` flight rings,
+    and a serve spool also to its ``fleet/flight/`` rings.  A ring is
+    named by its base path even when only the rotated ``.jsonl.1``
+    generation survives (a SIGKILL between rotation and the next flush
+    leaves exactly that); :func:`load_flight` reads what exists."""
     import glob as _glob
+
+    def rings_in(d: str) -> List[str]:
+        rings = set(_glob.glob(os.path.join(d, "*.jsonl")))
+        rings |= {q[:-len(".1")] for q in
+                  _glob.glob(os.path.join(d, "*.jsonl.1"))}
+        return sorted(rings)
 
     out: List[str] = []
     for p in paths:
         if os.path.isdir(p):
             out += sorted(_glob.glob(os.path.join(p, "*.json")))
+            out += rings_in(p)
+            flight = os.path.join(p, "fleet", "flight")
+            if os.path.isdir(flight):
+                out += rings_in(flight)
+        elif p.endswith(".jsonl.1"):
+            out.append(p[:-len(".1")])  # the ring's base names it
         else:
             out.append(p)
     return out
@@ -808,7 +998,8 @@ def _source_replica(events: List[dict]) -> Optional[str]:
 
 
 def merge_trace_files(paths: List[str]) -> List[dict]:
-    """Merge N Chrome exports into ONE timeline.  Every exporter stamps
+    """Merge N trace sources, Chrome exports (``.json``) and flight rings
+    (``.jsonl``), into ONE timeline.  Every exporter stamps
     timestamps through the shared wall-clock↔perf_counter anchor, so
     the merge is a sort, not a re-clock; each source gets its own
     process row (pid = source index, named by its replica id) so pid
@@ -819,7 +1010,8 @@ def merge_trace_files(paths: List[str]) -> List[dict]:
     merged: List[dict] = []
     pid_next = 1
     for path in expand_trace_paths(paths):
-        events = load_trace(path)
+        events = (load_flight(path) if path.endswith(".jsonl")
+                  else load_trace(path))
         if not any(e.get("ph") in ("X", "i") for e in events):
             continue  # e.g. a spool's journal.jsonl swept up by a
             #            directory expansion: no trace events, no row

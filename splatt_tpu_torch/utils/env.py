@@ -118,6 +118,25 @@ ENV_VARS = {
                                        "finished records the oldest "
                                        "are dropped (counted, reported "
                                        "on the trace_written event)"),
+    # the flight recorder (trace.py)
+    "SPLATT_FLIGHT": EnvVar("auto", "flight recorder, the bounded ring of "
+                            "recent spans and point events that survives "
+                            "a SIGKILL: auto = armed by fleet-mode serve "
+                            "at <root>/fleet/flight/<replica>.jsonl, off "
+                            "elsewhere; 0/off disables it in fleet mode "
+                            "too; 1/on keeps the fleet default"),
+    "SPLATT_FLIGHT_BYTES": EnvVar(1 << 20, "flight recorder: rotate the "
+                                  "ring file to <path>.1 once it "
+                                  "outgrows this many bytes (one "
+                                  "previous generation kept)"),
+    "SPLATT_FLIGHT_FLUSH": EnvVar(32, "flight recorder: buffered records "
+                                  "per ring-file flush; a SIGKILL loses "
+                                  "at most this many trailing records"),
+    # status / top (fleetobs.py)
+    "SPLATT_STATUS_JOBS": EnvVar(8, "status/top: how many recent terminal "
+                                 "jobs the dashboard lists"),
+    "SPLATT_STATUS_WATCH_S": EnvVar(2.0, "top / status --watch: seconds "
+                                    "between dashboard refreshes"),
     "SPLATT_AUTOTUNE": EnvVar("1", "MTTKRP dispatch consults the "
                               "autotuner's persisted plan cache "
                               "(tune.py) before the heuristic engine "
@@ -183,6 +202,26 @@ ENV_VARS = {
                                         "disables the periodic cadence "
                                         "(the health and failure repair "
                                         "paths stay active)"),
+    # fleet-mode serve (fleet.py)
+    "SPLATT_FLEET_REPLICA": EnvVar(None, "fleet: this replica's stable id "
+                                   "(file-name-safe); default is a fresh "
+                                   "pid+random id per process, so set it "
+                                   "when a restarted replica should keep "
+                                   "its identity"),
+    "SPLATT_FLEET_LEASE_S": EnvVar(10.0, "fleet: job and membership lease "
+                                   "in seconds, the failure-detection "
+                                   "horizon: a replica silent this long "
+                                   "is dead and live peers adopt its "
+                                   "non-terminal jobs"),
+    "SPLATT_FLEET_HEARTBEAT_S": EnvVar(0.0, "fleet: seconds between "
+                                       "heartbeat and lease-renewal "
+                                       "sweeps; <= 0 takes lease / 3"),
+    "SPLATT_FLEET_AFFINITY": EnvVar("1", "fleet: cache-affinity routing, "
+                                    "jobs prefer the replica whose plan "
+                                    "cache and layouts are warm for "
+                                    "their shape regime, load breaking "
+                                    "ties; 0/off/false/no = priority and "
+                                    "arrival order only"),
     "SPLATT_FLEET_TENANT_QUOTA": EnvVar(0, "serve admission control: max "
                                         "non-terminal jobs per tenant; "
                                         "past it submissions are shed "

@@ -101,6 +101,25 @@ SITES = {
                     "degrade classified to a trace_written ok=False "
                     "event: losing the trace must never lose the run "
                     "it observed",
+    "trace.flight": "one flight-recorder ring flush (trace.py "
+                    "_flight_flush); a raised fault disarms the recorder "
+                    "and degrades classified to a flight_degraded event: "
+                    "losing the black box must never lose the run it "
+                    "records",
+    "fleet.lease_acquire": "one atomic job-lease acquisition (fleet.py "
+                           "FleetMember.acquire, the flock + atomic-"
+                           "rename claim); a raised fault drops the claim "
+                           "classified, the job stays claimable and the "
+                           "fleet scan re-surfaces it",
+    "fleet.heartbeat": "one membership heartbeat and held-lease renewal "
+                       "sweep (fleet.py FleetMember.beat); a raised fault "
+                       "degrades classified: a missed beat makes the "
+                       "replica look dead sooner, and peers adopt its "
+                       "jobs after the lease",
+    "fleet.adopt": "one dead-peer job takeover (fleet.py "
+                   "FleetMember.adopt: an expired lease taken with a gen "
+                   "bump); a raised fault leaves the job for the next "
+                   "scan, classified",
     "format.encode": "the compact-format v2 encode of one blocked layout "
                      "(blocked.py build_layout/reencode_layout); a raised "
                      "fault degrades the build to the v1 int32 encoding "

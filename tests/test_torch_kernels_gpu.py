@@ -1508,3 +1508,50 @@ def test_cuda_a_queued_cap_hit_stays_in_its_scope():
     with resilience.scope("c"):
         linalg.check_solver()
     linalg.check_solver()
+
+
+@pytest.mark.gpu
+def test_cuda_fleet_adoption_launches_the_kernels(monkeypatch, tmp_path):
+    """Two fleet replicas in one process on the card: the first accepts a
+    job and stops before running it; once its lease would have expired the
+    second adopts the job, which launches fused_mttkrp_t and sym_eig on
+    the adopter's worker (engine fallback off), and the job's serve.job
+    span counts those launches."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    import time
+
+    from splatt_tpu_torch import serve, trace
+    from splatt_tpu_torch.ops import linalg
+
+    monkeypatch.setenv("SPLATT_ENGINE_FALLBACK", "0")
+    root = str(tmp_path / "spool")
+    spec = {"id": "adopt", "rank": 16, "iters": 5, "tol": 0.0, "seed": 0,
+            "synthetic": {"dims": [600, 400, 200], "nnz": 60000,
+                          "seed": 3}}
+    a = serve.Server(root, workers=1, fleet=True, replica="ra",
+                     lease_s=0.3)
+    a.submit(spec)
+    a.shutdown()
+    time.sleep(0.4)
+    kernels.reset_launches()
+    linalg.sym_eig.launches = 0
+    trace.set_enabled(True)
+    try:
+        b = serve.Server(root, workers=1, fleet=True, replica="rb",
+                         lease_s=30.0)
+        try:
+            assert b.run_once()["counts"] == {"done": 1}
+        finally:
+            b.shutdown()
+        span, = [s for s in trace.spans("serve.job") if s["job"] == "adopt"]
+    finally:
+        trace.set_enabled(None)
+        trace.reset()
+    res = serve.read_result(root, "adopt")
+    assert res["status"] == "converged" and res["demotions"] == []
+    assert res["replica"] == "rb" and res["adopted_from"] == "ra"
+    launches = span["args"]["launches"]
+    assert launches.get("fused_mttkrp_t", 0) > 0
+    assert launches["fused_mttkrp_t"] == kernels.fused_mttkrp_t.launches
+    assert launches.get("sym_eig", 0) == linalg.sym_eig.launches > 0

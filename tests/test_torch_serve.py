@@ -18,9 +18,11 @@
   the JAX package's state map, and the port runs the resumed jobs.
 - ``_merge_delta`` + ``_save_model_tensor`` give the JAX package's
   payload digest, and each package loads the other's model tensor.
-- ``Server(fleet=True)``, ``serve --fleet`` and ``kind: "ingest"`` refuse,
-  naming ROADMAP queue A items 15.2 and 15.3; a spec's ``use_pallas`` is
-  accepted and has no effect.
+- ``kind: "ingest"`` and the ``chaos`` soaks other than ``--fleet``
+  refuse, naming ROADMAP queue A item 15.3; ``serve --fleet --once`` runs
+  (fleet mode itself is held against the JAX package in
+  ``tests/test_torch_fleet.py``); a spec's ``use_pallas`` is accepted and
+  has no effect.
 - ``serve --once`` and ``predict --wait`` run on ``--device cpu`` and
   print the JAX CLI's JSON keys.
 
@@ -358,17 +360,47 @@ def test_port_replays_a_jax_journal(tmp_path):
 # -- what this slice leaves out ----------------------------------------------
 
 def test_fleet_and_ingest_refuse_naming_the_roadmap(tmp_path, capsys):
-    with pytest.raises(NotImplementedError, match="15.2"):
-        serve.Server(str(tmp_path), fleet=True, device="cpu")
-    for flag in (["--fleet"], ["--replica", "r1"], ["--lease", "3"],
-                 ["--heartbeat", "1"]):
-        assert cli.main(["serve", str(tmp_path), "--once", "--device",
-                         "cpu"] + flag) == 2
-        assert "15.2" in capsys.readouterr().err
+    """Ingest jobs and the non-fleet soaks are item 15.3; fleet mode
+    runs (test_serve_fleet_once_runs_a_job)."""
     srv = serve.Server(str(tmp_path), device="cpu")
     rep = srv.submit({"id": "ing", "kind": "ingest", "source": "x.csv"})
     assert rep["state"] == serve.REJECTED and "15.3" in rep["reason"]
     assert serve.read_result(str(tmp_path), "ing")["status"] == "rejected"
+    for flag in ([], ["--serve"], ["--ingest"]):
+        assert cli.main(["chaos", "--smoke", "--device", "cpu"] + flag) == 2
+        assert "15.3" in capsys.readouterr().err
+
+
+def test_serve_fleet_once_runs_a_job(tmp_path, capsys):
+    from splatt_tpu_torch import trace
+
+    root = str(tmp_path)
+    serve.file_request(root, _spec("f1"))
+    try:
+        # the fleet entry arms process-wide tracing, the replica stamp
+        # and the flight ring: undone here for the tests that follow
+        rc = cli.main(["serve", root, "--once", "--device", "cpu",
+                       "--fleet", "--replica", "r1", "--lease", "3",
+                       "--heartbeat", "1", "--json"])
+    finally:
+        trace.set_enabled(None)
+        trace.set_flight(None)
+        trace.set_replica(None)
+    assert rc == 0
+    summary = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert summary["counts"] == {"done": 1} and summary["replica"] == "r1"
+    assert summary["held_leases"] == []
+    res = serve.read_result(root, "f1")
+    assert res["status"] == "converged" and res["replica"] == "r1"
+    kinds = [(r["rec"], r.get("replica")) for r in _journal(root)]
+    assert kinds == [("accepted", "r1"), ("started", "r1"), ("done", "r1")]
+    # the replica retired on exit and left its flight ring and snapshot
+    fleet_dir = os.path.join(root, "fleet")
+    assert os.listdir(os.path.join(fleet_dir, "replicas")) == []
+    assert os.path.exists(os.path.join(fleet_dir, "flight", "r1.jsonl"))
+    assert os.path.exists(os.path.join(fleet_dir, "metrics", "r1.prom"))
+    assert any(e["name"] == "job_started" for e in trace.load_flight(
+        os.path.join(fleet_dir, "flight", "r1.jsonl")))
 
 
 def test_use_pallas_is_accepted_and_changes_nothing(tmp_path):

@@ -379,7 +379,30 @@ Phases, each fatal on failure:
    holds its ``job_started`` and ends before the kill; the ``trace`` verb
    merges the three rings.  (e) ``chaos --fleet --smoke --device cuda``,
    started once (a) is done and run beside (b)-(d) over a spool of its
-   own, exits 0 (its report lines printed).
+   own, exits 0 (its report lines printed);
+20. streaming ingest and the other soaks (``--ingest`` runs phases 1-2
+   and this phase alone).  (a) The live feed: phase 18's 2M cpd job
+   (rank 16, 20 iterations, seed 7) on an in-process ``serve.Server`` on
+   the card, one worker, fallback off; phase 17's 1% delta written as a
+   ``.tns`` stream with a malformed line before every 97th line, filed as
+   an ``ingest`` job with ``base``, the base's dims, chunks of 5000 and
+   ``update_every`` 2.  Gates: records = lines written, nnz = good
+   records, quarantined = malformed lines, the chunk journal's audit
+   clean; each chained update converged with no refit and no demotion,
+   its ``fused_mttkrp_t`` launches (its ``serve.job`` span) = its fused_t
+   modes x (1 refresh + 5 sweeps), the generation one higher per update,
+   its commit-to-commit lag observed; the final model within phase 18's
+   gates of the same chunk ranges re-assembled by
+   ``ingest.assemble_delta`` and applied in-process as ``update`` jobs,
+   beside a control from seed 1000 that misses them.  It prints the
+   records per second, each update's seconds by part and its lag.
+   (b)-(d), processes started beside (a): ``chaos --smoke --device cuda``
+   (``chaos.CARD_SCHEDULE``: every armed site fires, fused_t demotes to
+   a kernel engine, the comm drill on 4 virtual ranks raises the injected
+   failure), ``chaos --serve --smoke --device cuda`` (the daemon
+   SIGKILLed mid-job and restarted, no job lost, the NaN tenant
+   contained) and ``chaos --ingest --smoke`` (the SIGKILL and resume on
+   the card's host, its crash windows printed), each exiting 0.
 
 The line before the last is the ``{"kernels": [...]}`` record (the nine
 TPU kernels' counterparts and ``sym_eig``); the last is
@@ -393,7 +416,9 @@ and phase 12 alone and prints ``fused_mttkrp_t``'s entry from phase 12;
 over the batch; ``--serve`` runs phases 1-2 and phase 18 and prints
 ``fused_mttkrp_t``'s entry with phase 18's launches; ``--fleet`` runs phases
 1-2 and phase 19 and prints ``fused_mttkrp_t``'s entry with the adopting
-replica's launches; ``--balance`` runs the set-up and phase 13 and prints
+replica's launches; ``--ingest`` runs phases 1-2 and phase 20 and prints
+``fused_mttkrp_t``'s entry with the chained updates' launches;
+``--balance`` runs the set-up and phase 13 and prints
 ``fused_mttkrp_t``'s and ``fused_mttkrp_v2``'s entries from it.  The line
 ``[total]`` gives the script's seconds.  ``--gather`` runs the
 set-up, the 20M-nonzero layouts, phase 3, phase 6's ``fused_mttkrp_tg``
@@ -7455,6 +7480,299 @@ def _fleet_summary(fl: dict) -> dict:
                 chaos_s=fl["chaos"]["seconds"], seconds=fl["seconds"])
 
 
+# -- phase 20: streaming ingest and the other soaks on the card ---------------
+
+#: phase 20 (a): the live feed's chunk size and update interval, and a
+#: malformed line written before every INGEST_BAD_EVERY-th line of the
+#: stream; the feed is phase 17's 1% delta of phase 6's 2M tensor
+INGEST_CHUNK = 5000
+INGEST_UPDATE_EVERY = 2
+INGEST_BAD_EVERY = 97
+#: phase 20 (b)-(d): the soaks' bounded wait
+SOAK_WAIT_S = 600.0
+#: (b)-(d): name -> the chaos verb's flags
+SOAKS = {"chaos": ["--device", "cuda"],
+         "chaos --serve": ["--serve", "--device", "cuda"],
+         "chaos --ingest": ["--ingest"]}
+
+
+def start_soaks() -> dict:
+    """20 (b)-(d): ``chaos --smoke`` and ``chaos --serve --smoke`` on the
+    card and ``chaos --ingest --smoke`` on its host, each a process of its
+    own beside (a), each waited for (bounded) by a thread of its own, so
+    that its seconds are its own.  They run with the default engine
+    fallback: the plain soak's fused_t fault must demote to fused_tg."""
+    import threading
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=root)
+    for name in ("SPLATT_ENGINE_FALLBACK", "SPLATT_FAULTS", "SPLATT_TRACE",
+                 "SPLATT_CHAOS_SCHEDULE"):
+        env.pop(name, None)
+
+    def wait(run: dict) -> None:
+        try:
+            run["out"], run["err"] = run["p"].communicate(timeout=SOAK_WAIT_S)
+        except subprocess.TimeoutExpired:
+            run["p"].kill()
+            run["out"], run["err"] = run["p"].communicate()
+        run["seconds"] = time.perf_counter() - run["t0"]
+
+    runs = {}
+    for name, flags in SOAKS.items():
+        run = dict(t0=time.perf_counter(), p=subprocess.Popen(
+            [sys.executable, "-m", "splatt_tpu_torch.cli", "chaos",
+             "--smoke", "--json"] + flags, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True, cwd=root, env=env))
+        run["thread"] = threading.Thread(target=wait, args=(run,),
+                                         daemon=True)
+        run["thread"].start()
+        runs[name] = run
+    return runs
+
+
+def stop_soaks(runs: dict) -> None:
+    for run in runs.values():
+        if run["p"].poll() is None:
+            run["p"].kill()
+        run["thread"].join(timeout=30)
+
+
+def finish_soaks(runs: dict) -> dict:
+    """Wait for each soak: exit 0, its report lines and result printed.
+    The plain soak on the card must have fired every armed site, demoted
+    fused_t to another kernel engine and seen the comm drill raise the
+    injected failure (chaos.run_chaos checks each; a violation exits 1)."""
+    out = {}
+    for name, run in runs.items():
+        run["thread"].join(timeout=SOAK_WAIT_S + 30)
+        p = run["p"]
+        lines = (run.get("out") or "").strip().splitlines()
+        for line in lines[:-1]:
+            log(f"[ingest] {name} | {line}")
+        if p.returncode != 0 or not lines:
+            raise AssertionError(f"phase 20, {name} --smoke exited "
+                                 f"{p.returncode}: {lines[-20:]} "
+                                 f"{(run.get('err') or '')[-1500:]}")
+        res = json.loads(lines[-1])
+        res.pop("events", None)
+        out[name] = dict(rc=p.returncode, seconds=run["seconds"], result=res)
+        log(f"[ingest] {name} --smoke: exit 0 in {run['seconds']:.1f} s; "
+            f"{json.dumps(res)}")
+    plain = out["chaos"]["result"]
+    if not (plain.get("drill") or {}).get("raised") \
+            or plain.get("device", "").split(":")[0] != "cuda":
+        raise AssertionError(f"phase 20, chaos --smoke on the card: {plain}")
+    return out
+
+
+def write_feed(path: str, delta) -> tuple:
+    """The live feed: `delta`'s records as .tns text (0-based indices, the
+    values as exact decimals), a malformed line before every
+    INGEST_BAD_EVERY-th line; returns (good, bad) records written."""
+    good = bad = 0
+    with open(path, "w") as f:
+        f.write("# phase 20 live feed\n")
+        for i in range(delta.nnz):
+            if (good + bad) % INGEST_BAD_EVERY == INGEST_BAD_EVERY - 1:
+                f.write("malformed\n")
+                bad += 1
+            f.write(" ".join(str(int(delta.inds[m, i]))
+                             for m in range(delta.nmodes))
+                    + f" {float(delta.vals[i])!r}\n")
+            good += 1
+    return good, bad
+
+
+def ingest_reference(tmp: str, small_bin: str, dest: str, dims) -> dict:
+    """The feed's chain of deltas applied in-process: the ingest's
+    journaled chunk ranges re-assembled from its segments
+    (``ingest.assemble_delta``), submitted as ``kind: update`` jobs against
+    a base from the feed's seed (the reference) and from SERVE_CONTROL_SEED
+    (the control), on a Server of their own."""
+    from splatt_tpu_torch import ingest, serve
+
+    srv = serve.Server(os.path.join(tmp, "ref_spool"), workers=1,
+                       device="cuda")
+    for jid, seed in (("ref", 7), ("ctl", SERVE_CONTROL_SEED)):
+        srv.submit(dict(id=jid, tensor=small_bin, rank=UPDATE_RANK,
+                        iters=UPDATE_ITERS, tol=0.0, seed=seed))
+    srv.run_once()
+    intents, _ = serve.Journal(os.path.join(
+        dest, "deltas", "updates.jsonl")).replay()
+    spans = [(int(r["lo"]), int(r["hi"])) for r in intents
+             if r.get("rec") == "update_intent"]
+    for lo, hi in spans:
+        dpath = os.path.join(tmp, f"ref-{lo}-{hi}.bin")
+        ingest.assemble_delta(dest, lo, hi, tuple(dims), dpath)
+        for base in ("ref", "ctl"):
+            srv.submit(dict(id=f"{base}-{lo}-{hi}", kind="update",
+                            base=base, delta_tensor=dpath,
+                            iters=UPDATE_SWEEPS))
+        srv.run_once()
+    bad = {j: s for j, s in srv.summary()["jobs"].items() if s != "done"}
+    if bad:
+        raise AssertionError(f"phase 20, the reference chain: {bad}")
+    return dict(spans=spans,
+                ref=_checkpoint_model(os.path.join(srv.ckpt_dir, "ref.npz")),
+                control=_checkpoint_model(os.path.join(srv.ckpt_dir,
+                                                       "ctl.npz")))
+
+
+def ingest_feed(tmp: str) -> dict:
+    """20 (a): an ``ingest`` job on an in-process daemon on the card (one
+    worker, engine fallback off) feeding the cpd job of phase 6's 2M
+    tensor, as phase 18's update builds it: exactly-once accounting
+    against the generator, each chained update's fused_mttkrp_t launches
+    = its sorted modes x (1 refresh + its sweeps) with no demotion, one
+    generation per update, and the final model held to the same chain of
+    deltas applied in-process beside a control that misses."""
+    import torch
+
+    from splatt_tpu_torch import ingest, resilience, serve, trace
+    from splatt_tpu_torch.io import save
+
+    small = synthetic_tensor(NELL2, BIG_RANK_NNZ, seed=5)
+    delta = synthetic_tensor(NELL2, int(small.nnz * UPDATE_DELTA),
+                             seed=UPDATE_DELTA_SEED)
+    small_bin = os.path.join(tmp, "nell2_2m.bin")
+    save(small, small_bin)
+    src = os.path.join(tmp, "feed.tns")
+    good, bad = write_feed(src, delta)
+    srv = serve.Server(os.path.join(tmp, "spool"), workers=1, device="cuda")
+    srv.submit(dict(id="base2m", tensor=small_bin, rank=UPDATE_RANK,
+                    iters=UPDATE_ITERS, tol=0.0, seed=7))
+    srv.run_once()
+    base = _serve_result(srv, "base2m")
+    resilience.reset_demotions()
+    trace.reset()
+    trace.set_enabled(True)
+    try:
+        with _kept_compiles() as kept:
+            t0 = time.perf_counter()
+            srv.submit(dict(id="feed", kind="ingest", source=src,
+                            base="base2m", dims=list(small.dims),
+                            chunk_records=INGEST_CHUNK,
+                            update_every=INGEST_UPDATE_EVERY, format="tns"))
+            srv.run_once()
+            feed_s = time.perf_counter() - t0
+        job_launches = {s["job"]: (s["args"] or {}).get("launches") or {}
+                        for s in trace.spans("serve.job")}
+    finally:
+        trace.set_enabled(None)
+    res = _serve_result(srv, "feed")
+    info = res["ingest"]
+    dest = info["dest"]
+    audit = ingest.audit_journal(dest)
+    ups = []
+    merged_nnz = small.nnz
+    for k, uid in enumerate(res["updates"]):
+        ur = _serve_result(srv, uid)
+        u = ur.get("update") or {}
+        merged_nnz += int(u.get("delta_nnz", 0))
+        bs = [b for b in kept if int(b.nnz) == merged_nnz]
+        fused = _fused_t_modes(bs[0], UPDATE_RANK) if bs else []
+        sweeps = int(u.get("sweeps", -1))
+        got = job_launches.get(uid, {})
+        ups.append(dict(
+            job=uid, status=ur["status"], model_gen=ur.get("model_gen"),
+            expected_gen=2 + k, delta_nnz=u.get("delta_nnz"),
+            refit=u.get("refit"), sweeps=sweeps, fused_t_modes=fused,
+            launches=got.get("fused_mttkrp_t", 0),
+            expected_launches=len(fused) * (1 + sweeps),
+            sym_eig_launches=got.get("sym_eig", 0),
+            expected_sym_eig=len(small.dims) * (1 + sweeps),
+            demotions=ur["demotions"], lag_s=u.get("ingest_lag_s"),
+            parts_s=srv.timings.get(uid), seconds=ur.get("seconds")))
+    del kept
+    torch.cuda.empty_cache()
+    account = dict(records=info["records"], want_records=good + bad,
+                   nnz=info["nnz"], want_nnz=good,
+                   quarantined=info["quarantined"], want_quarantined=bad,
+                   chunks=info["chunks"], audit_ok=audit["ok"],
+                   audit_violations=audit["violations"],
+                   records_per_sec=info["records_per_sec"])
+    log(f"[ingest] feed: {json.dumps(account)}; {feed_s:.2f} s from submit "
+        f"to the last update's commit")
+    for u in ups:
+        log(f"[ingest] update {json.dumps(u)}")
+    ref = ingest_reference(tmp, small_bin, dest, small.dims)
+    tt, _ = serve._load_model_tensor(os.path.join(srv.ckpt_dir,
+                                                  "base2m.model.npz"))
+    gate = serve_model_gate("the ingest-fed model", tt, _checkpoint_model(
+        os.path.join(srv.ckpt_dir, "base2m.npz")), ref["ref"],
+        ref["control"])
+    spans = [(int(u["job"].split("-up-")[1].split("-")[0]),
+              int(u["job"].split("-")[-1])) for u in ups]
+    ok = (res["status"] == "converged" and base.get("model_gen") == 1
+          and account["records"] == good + bad and account["nnz"] == good
+          and account["quarantined"] == bad and audit["ok"]
+          and len(ups) >= 2 and spans == ref["spans"] and gate["ok"]
+          and all(u["status"] == "converged" and not u["refit"]
+                  and u["fused_t_modes"] and not u["demotions"]
+                  and u["launches"] == u["expected_launches"]
+                  and u["model_gen"] == u["expected_gen"]
+                  and u["lag_s"] is not None for u in ups))
+    out = dict(account=account, updates=ups, feed_s=feed_s, gate=gate,
+               spans=spans, base_gen=base.get("model_gen"),
+               status=res["status"])
+    if not ok:
+        raise AssertionError(f"phase 20, the live feed: {json.dumps(out)}")
+    return out
+
+
+def phase_ingest() -> dict:
+    """Phase 20: streaming ingest on the card's daemon beside the three
+    soaks; every check fatal."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    t_phase = time.perf_counter()
+    root = os.path.dirname(os.path.abspath(__file__))
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ingest_", dir=root)
+    runs = start_soaks()
+    saved = {k: os.environ.get(k) for k in ("SPLATT_ENGINE_FALLBACK",
+                                            "SPLATT_UPDATE_SWEEPS")}
+    os.environ["SPLATT_ENGINE_FALLBACK"] = "0"
+    os.environ["SPLATT_UPDATE_SWEEPS"] = str(UPDATE_SWEEPS)
+    try:
+        feed = ingest_feed(tmp)
+        soaks, runs = finish_soaks(runs), {}
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        stop_soaks(runs)
+        shutil.rmtree(tmp, ignore_errors=True)
+        torch.cuda.empty_cache()
+    seconds = time.perf_counter() - t_phase
+    log(f"[ingest] phase 20 took {seconds:.1f} s")
+    return dict(feed=feed, soaks=soaks, seconds=seconds)
+
+
+def _ingest_summary(ig: dict) -> dict:
+    """Phase 20's figures for the kernels line (rows 1 and sym_eig)."""
+    f = ig["feed"]
+    return dict(update_launches=[u["launches"] for u in f["updates"]],
+                expected=[u["expected_launches"] for u in f["updates"]],
+                sym_eig_launches=[u["sym_eig_launches"]
+                                  for u in f["updates"]],
+                expected_sym_eig=[u["expected_sym_eig"]
+                                  for u in f["updates"]],
+                update_parts_s=[u["parts_s"] for u in f["updates"]],
+                update_lag_s=[u["lag_s"] for u in f["updates"]],
+                records_per_sec=f["account"]["records_per_sec"],
+                gate=dict(rel=f["gate"]["rel"],
+                          fit64_rel=f["gate"]["fit64_rel"],
+                          control_rel=f["gate"]["control_rel"]),
+                soak_s={k: v["seconds"] for k, v in ig["soaks"].items()},
+                seconds=ig["seconds"])
+
+
 FUSED_SRC = "splatt_tpu_torch/csrc/fused_mttkrp.cu"
 PK = "splatt_tpu/ops/pallas_kernels.py"
 NOTE = ("ms/plain_ms/bound_ms: mean per launch over the 3 modes at rank "
@@ -7746,6 +8064,7 @@ def main() -> int:
     batch_only = "--batch" in sys.argv[1:]
     serve_only = "--serve" in sys.argv[1:]
     fleet_only = "--fleet" in sys.argv[1:]
+    ingest_only = "--ingest" in sys.argv[1:]
     import concurrent.futures
 
     # nvcc runs in its own processes: phase 3's tensor (host numpy, no
@@ -7753,10 +8072,10 @@ def main() -> int:
     pool = concurrent.futures.ThreadPoolExecutor(1)
     building = pool.submit(phase_build, verbose=not (
         ranks or reduce or balance or guard_only or tune_only or ooc_only
-        or batch_only or serve_only or fleet_only))
+        or batch_only or serve_only or fleet_only or ingest_only))
     try:
         tt = data_s = None
-        if not (batch_only or serve_only or fleet_only
+        if not (batch_only or serve_only or fleet_only or ingest_only
                 or "--dense" in sys.argv[1:]):
             t0 = time.perf_counter()
             tt = synthetic_tensor(NELL2, NNZ, seed=0)
@@ -7811,6 +8130,25 @@ def main() -> int:
             f"{UPDATE_RANK}; launches: phase 19's adopting replica, the "
             f"full-width job after the kill", status=WALK_STATUS,
             phase19=_fleet_summary(fl))], "power": dev["smi"]}))
+        log(f"[total] {time.perf_counter() - t_script:.1f} s")
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": dev["kind"], "count": dev["count"]}}))
+        return 0
+
+    if ingest_only:
+        ig = phase_ingest()
+        small = synthetic_tensor(NELL2, BIG_RANK_NNZ, seed=5)
+        rows = phase_kernels(BlockedSparse.from_coo(
+            small, Options(block_alloc=BlockAlloc.ALLMODE)), UPDATE_RANK)
+        print(json.dumps({"kernels": [_record_row(
+            "fused_mttkrp_t", FUSED_SRC, f"{PK}:355",
+            sum(u["launches"] for u in ig["feed"]["updates"]),
+            [r for r in rows if r["contract"] == "sorted"], None,
+            note=f"ms/plain_ms/bound_ms: mean per launch over the 3 modes' "
+            f"sorted layouts of phase 6's 2M tensor (NELL-2 shape), rank "
+            f"{UPDATE_RANK}; launches: phase 20's ingest-chained updates",
+            status=WALK_STATUS, phase20=_ingest_summary(ig))],
+            "power": dev["smi"]}))
         log(f"[total] {time.perf_counter() - t_script:.1f} s")
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": dev["kind"], "count": dev["count"]}}))
@@ -8000,6 +8338,7 @@ def main() -> int:
     fleet = phase_fleet(tt, serve_bin, sv.pop("ref"))
     del tt
     os.remove(serve_bin)
+    ing = _ingest_summary(phase_ingest())
 
     def launches(label, kernel):
         return chain[label]["launches"][kernel]
@@ -8016,7 +8355,8 @@ def main() -> int:
                phase15=_tune_summary(tuned),
                phase17=_batch_summary(bt),
                phase18=_serve_summary(sv),
-               phase19=_fleet_summary(fleet)),
+               phase19=_fleet_summary(fleet),
+               phase20=ing),
         _tg_row(launches("fused_t faulted", "fused_mttkrp_tg"),
                 "phase 7, fused_t faulted", new_rows, bf16, big, big_rows),
         _rowmajor_row(launches(FUSED_CHAIN, "fused_mttkrp"),
@@ -8033,7 +8373,9 @@ def main() -> int:
             adopter_launches=fleet["observability"]["adopter"][
                 "launches"].get("sym_eig"),
             expected=fleet["observability"]["adopter"][
-                "expected_sym_eig"])),
+                "expected_sym_eig"]), phase20=dict(
+            update_launches=ing["sym_eig_launches"],
+            expected=ing["expected_sym_eig"])),
     ], "chain": chain, "yardsticks": yard, "power": dev["smi"]}
     print(json.dumps(record))
     log(f"[total] {time.perf_counter() - t_script:.1f} s")

@@ -1,9 +1,26 @@
-"""The fleet's kill-and-failover soak and the serve daemon's seeded
-workloads (≙ splatt_tpu/chaos.py:105-118, :390-455 and :618-1329).
+"""The chaos soaks and the serve daemon's seeded workloads
+(≙ splatt_tpu/chaos.py, apart from ``run_bench_gate``).
 
 :func:`synthetic_tensor` builds the tensor of a job spec's
 ``{"synthetic": {dims, nnz, seed}}`` workload and of an update's
 ``{"delta": ...}``.
+
+:func:`run_chaos` (``chaos``) runs a small seeded CPD under a declarative
+fault schedule and checks the guarded-execution invariant: converged or
+gracefully degraded, nothing escaped, every fired fault left its
+run-report evidence, every event kind declared.  On a CPU tensor it runs
+the JAX package's schedule and invariant unchanged.  On the card it runs
+:data:`CARD_SCHEDULE`, since a CUDA chain holds only kernel engines and a
+CUDA mesh's ``ASYNC_RING`` has no fallback: every armed site must fire,
+the kernel engine's failure must demote it to another kernel engine, and
+the comm drill must raise the injected failure (a drill that completes
+would be a hidden fallback).
+
+:func:`run_serve_chaos` (``chaos --serve``) SIGKILLs a ``serve`` daemon
+subprocess mid-job and restarts it: no accepted job lost, the NaN tenant
+contained.  :func:`run_ingest_chaos` (``chaos --ingest``) SIGKILLs an
+``ingest`` subprocess mid-stream and audits the resumed run's chunk
+journal for exactly-once accounting.
 
 :func:`run_fleet_chaos` (``chaos --fleet``) drives a real fleet of ``serve
 --fleet`` replica subprocesses over one spool under multi-tenant load,
@@ -14,10 +31,9 @@ lost, a single-owner lineage for every job, the pinned job adopted and
 its warm plan-cache hits kept, tenants isolated, the kill visible in the
 fleet aggregate (adoption, lease expiry, an SLO burn that recovers) and
 in the victim's flight ring, the generation-fenced predicts never stale.
-The replicas run on the card unless the soak is asked for the CPU.
 
-The guarded-ALS, serve-daemon and ingest soaks are ROADMAP queue A item
-15.3.
+The daemons run on the card unless a soak is asked for the CPU; the
+ingest soak is host code.
 """
 
 from __future__ import annotations
@@ -43,6 +59,364 @@ def synthetic_tensor(dims, nnz: int, seed: int):
     vals = rng.random(nnz) + 0.1
     return SparseTensor(inds, vals, dims).deduplicate() \
                                          .remove_empty_slices()
+
+
+#: the JAX package's default schedule: a NaN poisoning at a fixed
+#: iteration (sentinel + rollback), a slow tuner measurement under the
+#: deadline watchdog (TIMEOUT), a transient failure at the terminal
+#: ``xla`` engine (retry with backoff), and a ring-exchange failure in the
+#: distributed comm drill (degrading down the CPU mesh's comm chain).
+#: Deterministic: every trigger is count- or iteration-keyed.
+DEFAULT_SCHEDULE = ("cpd.sweep:nan:iter=2,"
+                    "tuner.measure:slow:delay=1.5,"
+                    "engine.xla:internal:1,"
+                    "comm.ring_exchange:runtime:1")
+
+#: the default schedule on the card: a CUDA chain has no ``xla`` engine,
+#: so the engine leg arms the first kernel engine of the smoke tensor's
+#: sorted modes, ``fused_t``, with a failure that demotes it (to
+#: ``fused_tg``); the comm leg's ring exchange raises on a CUDA mesh,
+#: whose ``ASYNC_RING`` is ``("async_ring",)`` alone.  On the card
+#: :func:`run_chaos` arms the ``engine.*`` legs after its tuner leg, so the
+#: engine fault fires at the CPD's first ``fused_t`` dispatch and not in a
+#: tuner measurement (where it would leave ``tuner_negative`` and demote
+#: nothing).
+CARD_SCHEDULE = ("cpd.sweep:nan:iter=2,"
+                 "tuner.measure:slow:delay=1.5,"
+                 "engine.fused_t:runtime:1,"
+                 "comm.ring_exchange:runtime:1")
+
+#: expected run-report evidence per fired fault kind: at least one of
+#: these event kinds must appear when a fault of that kind fired
+#: (≙ splatt_tpu.chaos._EVIDENCE; ``probe_downgrade`` has no counterpart)
+_EVIDENCE = {
+    "nan": ("health_nonfinite", "health_rollback", "health_degraded"),
+    "inf": ("health_nonfinite", "health_rollback", "health_degraded"),
+    "slow": ("deadline_blown",),
+    "http500": ("transient_retry", "engine_demotion", "tuner_negative",
+                "comm_fallback"),
+    "internal": ("transient_retry", "engine_demotion", "tuner_negative",
+                 "comm_fallback"),
+    "unavailable": ("transient_retry", "engine_demotion",
+                    "tuner_negative", "comm_fallback"),
+    "timeout": ("transient_retry", "engine_demotion", "tuner_negative",
+                "comm_fallback"),
+    "oom": ("engine_demotion", "tuner_negative", "comm_fallback"),
+    "mosaic": ("engine_demotion", "tuner_negative", "comm_fallback"),
+    "runtime": ("engine_demotion", "tuner_negative",
+                "checkpoint_recovery", "comm_fallback"),
+}
+
+#: the MTTKRP kernel wrapper each kernel engine launches
+_ENGINE_KERNEL = {"fused_t": "fused_mttkrp_t", "fused_tg": "fused_mttkrp_tg",
+                  "fused": "fused_mttkrp", "fused_v2": "fused_mttkrp_v2",
+                  "fused_dense": "fused_dense"}
+
+
+@dataclasses.dataclass
+class ChaosResult:
+    """One chaos run's verdict and its evidence."""
+
+    verdict: str                  # "converged" | "degraded" | "violated"
+    fit: Optional[float]
+    finite: bool
+    fired: Dict[str, int]         # site -> how often its fault fired
+    events: List[dict]            # the full run report
+    violations: List[str]         # invariant breaches (empty = pass)
+    error: Optional[str] = None   # the escaped exception, if any
+    schedule: str = ""            # the resolved schedule that ran
+    device: str = "cpu"
+    #: the comm drill: whether it raised, the error and its class
+    drill: Optional[dict] = None
+    #: kernel launches of the run on the card, by wrapper
+    launches: Dict[str, int] = dataclasses.field(default_factory=dict)
+
+    @property
+    def ok(self) -> bool:
+        return not self.violations
+
+    def to_json(self) -> dict:
+        return dict(verdict=self.verdict, fit=self.fit,
+                    finite=self.finite, fired=self.fired,
+                    violations=self.violations, error=self.error,
+                    schedule=self.schedule, device=self.device,
+                    drill=self.drill, launches=self.launches,
+                    events=[{k: v for k, v in e.items() if k != "ts"}
+                            for e in self.events])
+
+
+def _kernel_launches() -> Dict[str, int]:
+    """Every kernel wrapper's launch count."""
+    from splatt_tpu_torch.ops import kernels, linalg
+    from splatt_tpu_torch.parallel import ring_kernels
+
+    return {k.__name__: int(k.launches) for k in
+            kernels.KERNELS + ring_kernels.RING_KERNELS + (linalg.sym_eig,)}
+
+
+def _reset_kernel_launches() -> None:
+    from splatt_tpu_torch.ops import kernels, linalg
+    from splatt_tpu_torch.parallel import ring_kernels
+
+    kernels.reset_launches()
+    ring_kernels.reset_launches()
+    linalg.sym_eig.launches = 0
+
+
+def run_chaos(schedule: Optional[str] = None, seed: int = 0,
+              dims=(40, 32, 24), nnz: int = 3000, rank: int = 4,
+              iters: int = 8, deadline_s: float = 0.5,
+              tune_first: bool = True, smoke: bool = False,
+              verbose: bool = False,
+              trace_path: Optional[str] = None,
+              device: str = "cuda") -> ChaosResult:
+    """Run one seeded CPD soak under a chaos schedule on `device` and check
+    the guarded-execution invariant (≙ splatt_tpu/chaos.py:121-302).
+
+    Owns process-global resilience state (faults, demotions, the run
+    report, the deadline override): it resets that state on entry and
+    disarms on exit.  With `trace_path` span recording is on for the run,
+    the recorder is exported there, and the invariant gains two legs: the
+    export succeeded, and every fired fault's evidence is also a point
+    event on the trace.
+
+    On a CPU tensor the schedule (default :data:`DEFAULT_SCHEDULE`) and
+    the invariant are the JAX package's: the comm drill's fault degrades
+    down the CPU mesh's comm chain and the drill converges.  On the card
+    the default is :data:`CARD_SCHEDULE`, the drill runs on a mesh of 4
+    virtual ranks sharing the card, and the invariant adds: every armed
+    site fired; a fired ``engine.*`` fault demoted its engine and the CPD
+    went on to launch another kernel engine; and the drill raised the
+    injected failure, recorded as its evidence, since a drill that
+    completed would be a hidden fallback."""
+    import tempfile
+
+    import torch
+
+    from splatt_tpu_torch import resilience, trace, tune
+    from splatt_tpu_torch.blocked import BlockedSparse
+    from splatt_tpu_torch.config import (CommPattern, Options, Verbosity,
+                                         resolve_device)
+    from splatt_tpu_torch.cpd import cpd_als
+    from splatt_tpu_torch.parallel.mesh import make_mesh
+    from splatt_tpu_torch.parallel.sharded import sharded_cpd_als
+    from splatt_tpu_torch.utils import faults
+    from splatt_tpu_torch.utils.env import read_env
+
+    dev = resolve_device(device)
+    on_card = dev.type == "cuda"
+    if schedule is None:
+        schedule = str(read_env("SPLATT_CHAOS_SCHEDULE") or "") \
+            or (CARD_SCHEDULE if on_card else DEFAULT_SCHEDULE)
+    if smoke:
+        dims, nnz, rank, iters = (20, 16, 12), 1200, 3, 6
+    specs = faults.parse_schedule(schedule)
+
+    faults.reset()
+    resilience.reset_demotions()
+    resilience.run_report().clear()
+    if trace_path:
+        trace.reset()
+        trace.set_enabled(True)
+    # 0 = explicit disable (beats an exported SPLATT_DEADLINE_S)
+    resilience.set_deadline(deadline_s if deadline_s > 0 else 0.0)
+    # on the card the engine legs wait for the CPD (CARD_SCHEDULE)
+    late = {site: spec for site, spec in specs.items()
+            if on_card and site.startswith("engine.")}
+    for site, spec in specs.items():
+        if site not in late:
+            faults.arm(site, spec)
+
+    tt = synthetic_tensor(dims, nnz, seed)
+    opts = Options(random_seed=seed, max_iterations=iters,
+                   verbosity=Verbosity.LOW if verbose else Verbosity.NONE,
+                   autotune=False)     # plans measured live, not cached
+    error = None
+    fit = None
+    finite = False
+    out = None
+    drill = None
+    launches: Dict[str, int] = {}
+    try:
+        with tempfile.TemporaryDirectory(prefix="splatt-chaos-") as td:
+            # a throwaway plan cache: plans measured under injected faults
+            # never leak into the real cache
+            tune.set_cache_path(f"{td}/tune_cache.json")
+            if tune_first and "tuner.measure" in specs:
+                # the tuner leg: measurements run under the deadline
+                # watchdog and must degrade, not crash
+                tune.tune(tt, rank=rank, opts=opts, blocks=(512,),
+                          scan_targets=(1 << 21,), reps=1, device=dev)
+            for site, spec in late.items():
+                faults.arm(site, spec)
+            if on_card:
+                torch.cuda.synchronize(dev)
+                _reset_kernel_launches()
+            bs = BlockedSparse.from_coo(tt, opts, device=dev)
+            out = cpd_als(bs, rank=rank, opts=opts, device=dev)
+            if on_card:
+                torch.cuda.synchronize(dev)
+                launches = _kernel_launches()
+            if "comm.ring_exchange" in specs:
+                # the distributed comm drill: a small FINE async-ring CPD
+                # under the armed ring-exchange fault
+                dopts = Options(random_seed=seed, max_iterations=3,
+                                verbosity=opts.verbosity, autotune=False,
+                                comm_pattern=CommPattern.ASYNC_RING)
+                if on_card:
+                    try:
+                        sharded_cpd_als(tt, rank=rank,
+                                        mesh=make_mesh(4, device=dev),
+                                        opts=dopts, measure_overlap=False)
+                        drill = {"raised": False}
+                    except Exception as e:  # the drill's evidence
+                        if resilience.sticky_cuda_error(e):
+                            raise
+                        drill = {"raised": True,
+                                 "failure_class":
+                                     resilience.classify_failure(e).value,
+                                 "error": resilience.failure_message(e)[
+                                     :200]}
+                    torch.cuda.synchronize(dev)
+                    launches.update(
+                        {k: v for k, v in _kernel_launches().items()
+                         if k.startswith("ring_")})
+                else:
+                    dout = sharded_cpd_als(tt, rank=rank, opts=dopts,
+                                           measure_overlap=False,
+                                           device=dev)
+                    if not all(bool(torch.isfinite(U).all())
+                               for U in dout.factors):
+                        raise RuntimeError(
+                            "comm drill produced non-finite factors")
+                    drill = {"raised": False}
+        fit = float(out.fit)
+        finite = bool(all(bool(torch.isfinite(U).all())
+                          for U in out.factors)
+                      and bool(torch.isfinite(out.lam).all()))
+    except Exception as e:  # the invariant is "nothing escapes"
+        error = (f"{resilience.classify_failure(e).value}: "
+                 f"{resilience.failure_message(e)[:300]}")
+    finally:
+        fired = faults.fired()
+        faults.reset()
+        resilience.set_deadline(None)
+        tune.set_cache_path(None)
+        trace_ev = None
+        trace_points: List[dict] = []
+        if trace_path:
+            trace_points = trace.points()
+            trace_ev = trace.write_chrome_trace(trace_path)
+            trace.set_enabled(None)
+
+    report = resilience.run_report()
+    events = report.events()
+    degraded = bool(report.events("health_degraded"))
+
+    violations: List[str] = []
+    if error is not None:
+        violations.append(f"unhandled exception escaped the guarded "
+                          f"drivers: {error}")
+    if trace_path:
+        if not (trace_ev and trace_ev.get("ok")):
+            violations.append(
+                f"trace export to {trace_path} failed: "
+                f"{(trace_ev or {}).get('failure_class')}: "
+                f"{(trace_ev or {}).get('error')}")
+        else:
+            try:
+                exported = trace.load_trace(trace_path)
+                if not any(e.get("ph") == "X" for e in exported):
+                    violations.append(
+                        f"exported trace {trace_path} holds no spans — "
+                        f"the soak ran with recording on")
+            except (OSError, ValueError) as e:
+                violations.append(
+                    f"exported trace {trace_path} is not loadable "
+                    f"Chrome trace-event JSON: {e}")
+        point_kinds = {p["name"] for p in trace_points}
+        for site, spec in specs.items():
+            if fired.get(site, 0) == 0:
+                continue
+            want = _EVIDENCE.get(spec.kind, ())
+            if want and not point_kinds & set(want):
+                violations.append(
+                    f"fault {site}:{spec.kind} fired but none of its "
+                    f"evidence events {list(want)} reached the trace as "
+                    f"point events — the event-on-span wiring is broken")
+    for site, spec in specs.items():
+        if fired.get(site, 0) == 0:
+            continue
+        want = _EVIDENCE.get(spec.kind, ())
+        if site == "comm.ring_exchange" and on_card:
+            # on the card the drill's raise is its evidence (below)
+            continue
+        if want and not any(report.events(kind) for kind in want):
+            violations.append(
+                f"fault {site}:{spec.kind} fired {fired[site]}x but left "
+                f"none of the expected run-report events {list(want)} — "
+                f"silent degradation")
+    if on_card:
+        violations += _card_violations(specs, fired, report, launches,
+                                       drill, error)
+    undeclared = sorted({e["kind"] for e in events}
+                        - set(resilience.RUN_REPORT_EVENTS))
+    if undeclared:
+        violations.append(f"run report contains undeclared event kinds "
+                          f"{undeclared}")
+    if error is None and not finite and not degraded:
+        violations.append("final factors are non-finite and the run did "
+                          "not report a health_degraded verdict")
+
+    verdict = ("violated" if violations
+               else "degraded" if degraded else "converged")
+    return ChaosResult(verdict=verdict, fit=fit, finite=finite,
+                       fired=dict(fired), events=events,
+                       violations=violations, error=error,
+                       schedule=schedule, device=str(dev), drill=drill,
+                       launches=launches)
+
+
+def _card_violations(specs, fired: Dict[str, int], report,
+                     launches: Dict[str, int], drill: Optional[dict],
+                     error: Optional[str]) -> List[str]:
+    """The legs the card adds to the invariant (see :func:`run_chaos`)."""
+    from splatt_tpu_torch.utils import faults
+
+    out: List[str] = []
+    if error is not None:
+        return out  # the escape is already the violation
+    for site in specs:
+        if fired.get(site, 0) == 0:
+            out.append(f"armed site {site} never fired on the card — its "
+                       f"leg of the invariant is vacuous")
+    for site, spec in specs.items():
+        if not site.startswith("engine.") or not fired.get(site) \
+                or spec.kind not in faults.RAISING_KINDS:
+            continue
+        engine = site[len("engine."):]
+        if not any(e.get("engine") == engine
+                   for e in report.events("engine_demotion")):
+            out.append(f"fault {site} fired but {engine} was not demoted")
+        others = sum(n for name, n in launches.items()
+                     if name in _ENGINE_KERNEL.values()
+                     and name != _ENGINE_KERNEL.get(engine))
+        if not others:
+            out.append(f"{engine} was demoted but no other kernel engine "
+                       f"launched: the CPD did not go on to a kernel "
+                       f"engine (launches {launches})")
+    if "comm.ring_exchange" in specs:
+        if drill is None:
+            out.append("the comm drill did not run")
+        elif not drill.get("raised"):
+            out.append("the comm drill completed under its armed "
+                       "ring-exchange fault: a CUDA mesh's ASYNC_RING has "
+                       "no fallback, so a completed drill is a hidden "
+                       "fallback")
+        elif "injected" not in str(drill.get("error")):
+            out.append(f"the comm drill raised something other than the "
+                       f"injected fault: {drill.get('error')}")
+    return out
 
 
 def _crash_windows_exercised(root: str) -> List[str]:
@@ -293,11 +667,7 @@ def run_fleet_chaos(seed: int = 0, smoke: bool = True,
     tmp = tempfile.mkdtemp(prefix="splatt-fleet-chaos-")
     jpath = os.path.join(tmp, "journal.jsonl")
     # the replicas import this package from where it lies
-    pkg_root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-    base_env = dict(os.environ)
-    base_env["PYTHONPATH"] = os.pathsep.join(
-        [pkg_root] + [p for p in base_env.get("PYTHONPATH", "").split(
-            os.pathsep) if p])
+    base_env = _child_env()
     # a shared warm plan cache (the point of the fleet), but a throwaway
     # one; short leases so the failover fits a smoke budget.  The
     # observability plane runs at soak scale too: sub-second metrics,
@@ -817,4 +1187,507 @@ def format_fleet_report(res: FleetChaosResult) -> List[str]:
     if res.spool:
         lines.append(f"  spool kept for the post-mortem: {res.spool}")
     lines.append(f"fleet chaos verdict: {res.verdict.upper()}")
+    return lines
+
+
+def format_report(res: ChaosResult) -> List[str]:
+    """Human-readable chaos verdict lines for the CLI."""
+    from splatt_tpu_torch import resilience
+
+    lines = [f"chaos schedule: {res.schedule} (on {res.device})",
+             "faults fired: " + (", ".join(
+                 f"{s}x{n}" for s, n in sorted(res.fired.items()) if n)
+                 or "(none)")]
+    lines += ["run report:"] + (resilience.run_report().summary()
+                                or ["  (no resilience events)"])
+    if res.drill is not None and res.drill.get("raised"):
+        lines.append(f"comm drill raised ({res.drill.get('failure_class')}: "
+                     f"{str(res.drill.get('error'))[:120]})")
+    if res.launches:
+        lines.append("kernel launches: " + ", ".join(
+            f"{k}={n}" for k, n in sorted(res.launches.items()) if n))
+    if res.fit is not None:
+        lines.append(f"final fit: {res.fit:0.5f} "
+                     f"({'finite' if res.finite else 'NON-FINITE'})")
+    for v in res.violations:
+        lines.append(f"INVARIANT VIOLATED: {v}")
+    lines.append(f"chaos verdict: {res.verdict.upper()}")
+    return lines
+
+
+def _child_env() -> Dict[str, str]:
+    """The environment of a soak's subprocess: this one's, with this
+    package's root first on PYTHONPATH, so the child imports the code
+    that spawned it."""
+    pkg_root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [pkg_root] + [p for p in env.get("PYTHONPATH", "").split(
+            os.pathsep) if p])
+    return env
+
+
+def _stop(proc, timeout: float = 10.0) -> None:
+    """Stop a child: SIGKILL unless it already exited, then reap it."""
+    import subprocess
+
+    if proc is None:
+        return
+    if proc.poll() is None:
+        proc.kill()
+    try:
+        proc.wait(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        pass
+
+
+# -- the serve daemon's kill-and-restart soak --------------------------------
+
+
+@dataclasses.dataclass
+class ServeChaosResult:
+    """One serve kill-and-restart soak's verdict and evidence."""
+
+    verdict: str                  # "survived" | "violated"
+    jobs: Dict[str, str]          # job id -> terminal status
+    killed_mid_queue: bool        # the SIGKILL landed before drain
+    resumed: List[str]            # jobs the restart re-enqueued
+    violations: List[str]         # invariant breaches (empty = pass)
+    error: Optional[str] = None
+    #: which durable-operation crash windows the SIGKILL landed in
+    #: (:func:`_crash_windows_exercised`)
+    crash_windows: List[str] = dataclasses.field(default_factory=list)
+
+    @property
+    def ok(self) -> bool:
+        return not self.violations
+
+    def to_json(self) -> dict:
+        return dataclasses.asdict(self)
+
+
+def run_serve_chaos(seed: int = 0, smoke: bool = True,
+                    verbose: bool = False,
+                    device: str = "cuda") -> ServeChaosResult:
+    """Kill-and-restart soak of the serve daemon
+    (≙ splatt_tpu/chaos.py:457-630), ``serve --device <device>``
+    subprocesses.
+
+    Files three jobs, one NaN-poisoned (sentinel + rollback) and pinned
+    open by a slow fault so the SIGKILL lands mid-job, and two clean
+    neighbours; starts the daemon, SIGKILLs it, restarts it with
+    ``--once`` and checks:
+
+    1. every accepted job reached a terminal state (none lost);
+    2. the journal replays cleanly and shows a resume lineage;
+    3. the NaN job's result carries the health evidence and demoted
+       nothing;
+    4. the clean jobs' results carry no health events and no demotions,
+       and converged: the poisoned tenant stayed contained.
+
+    Every wait is bounded and each daemon is stopped in a ``finally``."""
+    import shutil
+    import subprocess
+    import sys
+    import tempfile
+    import time
+
+    from splatt_tpu_torch import resilience, serve
+
+    dims, nnz, rank, iters = (20, 16, 12), 1200, 3, 6
+    if not smoke:
+        dims, nnz, rank, iters = (40, 32, 24), 3000, 4, 10
+    syn = {"dims": list(dims), "nnz": nnz, "seed": seed}
+    violations: List[str] = []
+    jobs: Dict[str, str] = {}
+    resumed: List[str] = []
+    crash_windows: List[str] = []
+    killed_mid_queue = False
+    error = None
+    tmp = tempfile.mkdtemp(prefix="splatt-serve-chaos-")
+    env = _child_env()
+    # a throwaway plan cache: plans the soak's jobs measure never leak
+    # into the real one
+    env["SPLATT_TUNE_CACHE"] = os.path.join(tmp, "tune_cache.json")
+    proc = None
+    try:
+        # the NaN job's id sorts first in the spool's filename order, so
+        # with one worker it is the job the slow fault pins open
+        nan_id = "chaos-0-nan"
+        nan_job = {"id": nan_id, "rank": rank, "iters": iters,
+                   "synthetic": syn, "health_retries": 2,
+                   "faults": "serve.job_run:slow:delay=4,"
+                             "cpd.sweep:nan:iter=2"}
+        clean = [{"id": f"chaos-clean{i}", "rank": rank, "iters": iters,
+                  "synthetic": dict(syn, seed=seed + 1 + i)}
+                 for i in range(2)]
+        for spec in [nan_job] + clean:
+            serve.file_request(tmp, spec)
+        cmd = [sys.executable, "-m", "splatt_tpu_torch.cli", "serve", tmp,
+               "--once", "--workers", "1", "--device", device]
+        jpath = os.path.join(tmp, "journal.jsonl")
+        proc = subprocess.Popen(cmd, env=env, stdout=subprocess.DEVNULL,
+                                stderr=subprocess.DEVNULL)
+        deadline = time.time() + 180
+        started = False
+        while time.time() < deadline and proc.poll() is None:
+            started = any(
+                r.get("rec") == "started" and r.get("job") == nan_id
+                for r in serve.Journal(jpath).replay()[0])
+            if started:
+                break
+            time.sleep(0.1)
+        if started and proc.poll() is None:
+            time.sleep(0.5)  # well inside the 4 s slow-fault window
+            proc.kill()      # SIGKILL: no drain, no cleanup
+            killed_mid_queue = True
+        else:
+            violations.append(
+                "daemon finished (or died) before the kill — the soak did "
+                "not exercise a mid-queue restart")
+        proc.wait(timeout=60)
+
+        # the post-mortem, before the restart heals anything
+        crash_windows = _crash_windows_exercised(tmp)
+        resilience.run_report().add(
+            "crash_windows_exercised", soak="serve",
+            windows=",".join(crash_windows))
+
+        restart = subprocess.run(cmd + ["--json"], env=env,
+                                 capture_output=True, text=True,
+                                 timeout=600)
+        if restart.returncode != 0:
+            violations.append(
+                f"restarted daemon exited nonzero ({restart.returncode}): "
+                f"{restart.stderr[-300:]}")
+
+        recs, _torn = serve.Journal(jpath).replay()
+        accepted = {r["job"] for r in recs if r.get("rec") == "accepted"}
+        resumed = sorted({r["job"] for r in recs
+                          if r.get("rec") == "resumed"})
+        if killed_mid_queue and not resumed:
+            violations.append("kill landed mid-queue but the restart "
+                              "resumed nothing — journal replay broken")
+        for jid in sorted(accepted):
+            res = serve.read_result(tmp, jid)
+            states = [r.get("rec") for r in recs if r.get("job") == jid]
+            if not any(s in serve.TERMINAL for s in states):
+                violations.append(f"accepted job {jid} never reached a "
+                                  f"terminal state — a job was LOST")
+                jobs[jid] = "lost"
+                continue
+            if res is None:
+                violations.append(f"job {jid} is terminal but published "
+                                  f"no result record")
+                jobs[jid] = "no-result"
+                continue
+            jobs[jid] = res["status"]
+            kinds = {e["kind"] for e in res.get("events", [])}
+            if jid == nan_id:
+                if res["status"] == "converged" \
+                        and not kinds & {"health_rollback",
+                                         "health_degraded"}:
+                    violations.append(
+                        "the NaN job converged with no health evidence — "
+                        "the injected fault was silently lost")
+                if res.get("demotions"):
+                    violations.append(
+                        "the NaN job demoted engines — numerical failures "
+                        "must roll back, never demote")
+            else:
+                if kinds & {"health_nonfinite", "health_rollback",
+                            "health_degraded"}:
+                    violations.append(
+                        f"clean job {jid} carries health events — the NaN "
+                        f"tenant leaked into a neighbour")
+                if res.get("demotions"):
+                    violations.append(
+                        f"clean job {jid} carries engine demotions "
+                        f"{res['demotions']} — cross-job poisoning")
+                if res["status"] != "converged":
+                    violations.append(
+                        f"clean job {jid} finished {res['status']!r} "
+                        f"instead of converging")
+    except Exception as e:  # the harness itself must not crash the CLI
+        error = (f"{resilience.classify_failure(e).value}: "
+                 f"{resilience.failure_message(e)[:300]}")
+        violations.append(f"serve-chaos harness error: {error}")
+    finally:
+        _stop(proc)
+        if not violations:
+            shutil.rmtree(tmp, ignore_errors=True)
+    verdict = "violated" if violations else "survived"
+    return ServeChaosResult(verdict=verdict, jobs=jobs,
+                            killed_mid_queue=killed_mid_queue,
+                            resumed=resumed, violations=violations,
+                            error=error, crash_windows=crash_windows)
+
+
+def format_serve_report(res: ServeChaosResult) -> List[str]:
+    """Human-readable serve-soak verdict lines for the CLI."""
+    lines = [f"serve chaos: SIGKILL mid-queue "
+             f"{'landed' if res.killed_mid_queue else 'MISSED'}; "
+             f"resumed after restart: "
+             f"{', '.join(res.resumed) or '(none)'}"]
+    for jid, status in sorted(res.jobs.items()):
+        lines.append(f"  job {jid}: {status}")
+    for v in res.violations:
+        lines.append(f"INVARIANT VIOLATED: {v}")
+    lines.append(f"serve chaos verdict: {res.verdict.upper()}")
+    return lines
+
+
+# -- the ingest kill-and-resume soak -----------------------------------------
+
+
+@dataclasses.dataclass
+class IngestChaosResult:
+    """One ingest kill-and-resume soak's verdict and evidence."""
+
+    verdict: str                  # "survived" | "violated"
+    killed_mid_stream: bool       # the SIGKILL landed before finalize
+    watermark_at_kill: int        # journal watermark at the post-mortem
+    chunks: int                   # chunks committed end to end
+    nnz: int                      # nonzeros in the finalized tensor
+    quarantined: int              # records quarantined end to end
+    resumed: bool                 # the restart reported a journal resume
+    violations: List[str]         # invariant breaches (empty = pass)
+    error: Optional[str] = None
+    #: which durable-operation crash windows the SIGKILL landed in
+    #: (:func:`_ingest_crash_windows`)
+    crash_windows: List[str] = dataclasses.field(default_factory=list)
+
+    @property
+    def ok(self) -> bool:
+        return not self.violations
+
+    def to_json(self) -> dict:
+        return dataclasses.asdict(self)
+
+
+def _ingest_crash_windows(dest: str) -> List[str]:
+    """Classify the ingest directory's post-kill state into the
+    durable-operation crash windows the kill evidently landed in (the JAX
+    package's window ids for the chunk-commit protocol).  Conservative:
+    only unambiguous debris counts."""
+    import json
+
+    windows = set()
+    jpath = os.path.join(dest, "journal.jsonl")
+    try:
+        with open(jpath, "rb") as f:
+            data = f.read()
+    except OSError:
+        data = b""
+    if data:
+        if not data.endswith(b"\n"):
+            windows.add("journal.append.torn")
+        for ln in data.split(b"\n"):
+            if not ln.strip():
+                continue
+            try:
+                kind = json.loads(ln).get("rec")
+            except ValueError:
+                continue
+            if kind:
+                windows.add(f"journal.append[{kind}]")
+    for dirpath, _dirs, names in os.walk(dest):
+        base = os.path.basename(dirpath)
+        for name in names:
+            if ".tmp" not in name and ".build" not in name:
+                continue
+            if base == "seg":
+                windows.add("ingest.seg.publish")
+            elif base == "vocab":
+                windows.add("ingest.vocab.publish")
+            elif "tensor.bin" in name:
+                windows.add("ingest.bin.publish")
+    return sorted(windows)
+
+
+def run_ingest_chaos(seed: int = 0, smoke: bool = True,
+                     verbose: bool = False) -> IngestChaosResult:
+    """Kill-and-resume soak of streaming ingest
+    (≙ splatt_tpu/chaos.py:1419-1607); host code, so it takes no device.
+
+    Generates a seeded record stream (string keys in mode 0, so the vocab
+    store is in the blast radius, and a malformed record every 23rd line,
+    so the quarantine sidecar is too), then:
+
+    1. runs an ``ingest`` subprocess with a slow fault at
+       ``ingest.commit``, so each chunk commit dawdles and the kill
+       window is deterministic;
+    2. SIGKILLs it once the journal shows >= 2 committed chunks;
+    3. audits the surviving journal alone (:func:`ingest.audit_journal`);
+    4. restarts the same command unfaulted and checks that it resumes from
+       the watermark and converges;
+    5. checks exactly-once accounting against the generator: records =
+       lines written, nnz = good records, quarantined = malformed
+       records, and ``tensor.bin`` loads with that nnz.
+
+    Every wait is bounded and the child is stopped in a ``finally``."""
+    import json
+    import shutil
+    import subprocess
+    import sys
+    import tempfile
+    import time
+
+    from splatt_tpu_torch import ingest, resilience
+    from splatt_tpu_torch import io as _io
+
+    chunk_records = 120 if smoke else 1000
+    nchunks_target = 12 if smoke else 40
+    violations: List[str] = []
+    crash_windows: List[str] = []
+    killed = False
+    watermark_at_kill = -1
+    resumed = False
+    chunks = nnz = quarantined = 0
+    error = None
+    tmp = tempfile.mkdtemp(prefix="splatt-ingest-chaos-")
+    src = os.path.join(tmp, "stream.tns")
+    dest = os.path.join(tmp, "ingest")
+
+    # seeded ground truth: every 23rd line malformed (bad arity), the rest
+    # "u<k> <i> <j> <val>"
+    rng = np.random.default_rng(seed)
+    total = chunk_records * nchunks_target
+    good = bad = 0
+    with open(src, "w") as f:
+        f.write("# ingest soak stream\n")
+        for n in range(total):
+            if n and n % 23 == 0:
+                f.write("malformed\n")
+                bad += 1
+            else:
+                f.write(f"u{rng.integers(0, 500)} "
+                        f"{rng.integers(0, 64)} {rng.integers(0, 48)} "
+                        f"{rng.random() + 0.1:.6f}\n")
+                good += 1
+
+    cmd = [sys.executable, "-m", "splatt_tpu_torch.cli", "ingest", src,
+           dest, "--format", "tns", "--chunk", str(chunk_records), "--json"]
+    env = _child_env()
+    env["SPLATT_FAULTS"] = "ingest.commit:slow:delay=0.25:*"
+    proc = None
+    try:
+        proc = subprocess.Popen(cmd, env=env, stdout=subprocess.DEVNULL,
+                                stderr=subprocess.DEVNULL)
+        deadline = time.time() + 180
+        while time.time() < deadline and proc.poll() is None:
+            recs, _torn = ingest.replay_journal(dest)
+            if sum(1 for r in recs
+                   if r.get("rec") == ingest.REC_CHUNK) >= 2:
+                break
+            time.sleep(0.05)
+        if proc.poll() is None:
+            proc.kill()      # SIGKILL: no drain, no cleanup
+            killed = True
+        else:
+            violations.append(
+                "ingest finished (or died) before the kill — the soak did "
+                "not exercise a mid-stream resume")
+        proc.wait(timeout=60)
+
+        # the post-mortem, before the restart heals anything
+        crash_windows = _ingest_crash_windows(dest)
+        resilience.run_report().add(
+            "crash_windows_exercised", soak="ingest",
+            windows=",".join(crash_windows))
+        aud = ingest.audit_journal(dest)
+        watermark_at_kill = aud["watermark"]
+        if not aud["ok"]:
+            violations.append(
+                f"journal audit after the SIGKILL found "
+                f"{len(aud['violations'])} exactly-once violation(s): "
+                f"{'; '.join(aud['violations'][:3])}")
+
+        # the resume leg: the same command, faults disarmed
+        env.pop("SPLATT_FAULTS", None)
+        restart = subprocess.run(cmd, env=env, capture_output=True,
+                                 text=True, timeout=600)
+        if restart.returncode != 0:
+            violations.append(
+                f"restarted ingest exited nonzero ({restart.returncode}): "
+                f"{restart.stdout[-300:]}")
+        summary = None
+        for line in reversed(restart.stdout.splitlines()):
+            if line.startswith("{"):
+                try:
+                    summary = json.loads(line)
+                    break
+                except json.JSONDecodeError:
+                    continue
+        if summary is None:
+            violations.append("restarted ingest printed no JSON summary — "
+                              "accounting unauditable")
+        else:
+            resumed = bool(summary.get("resumed"))
+            chunks = int(summary.get("chunks") or 0)
+            nnz = int(summary.get("nnz") or 0)
+            quarantined = int(summary.get("quarantined") or 0)
+            if summary.get("status") != "converged":
+                violations.append(
+                    f"restarted ingest finished {summary.get('status')!r} "
+                    f"instead of converging")
+            if killed and watermark_at_kill >= 0 and not resumed:
+                violations.append(
+                    "the kill landed mid-stream but the restart did not "
+                    "resume from the journal watermark")
+            for name, got, want in (
+                    ("records", summary.get("records"), good + bad),
+                    ("nnz", nnz, good),
+                    ("quarantined", quarantined, bad)):
+                if got != want:
+                    violations.append(
+                        f"end-to-end {name} accounted {got}, ground truth "
+                        f"is {want} — records were LOST or DUPLICATED "
+                        f"across the kill")
+
+        aud2 = ingest.audit_journal(dest)
+        if not aud2["ok"]:
+            violations.append(
+                f"final journal audit found violations: "
+                f"{'; '.join(aud2['violations'][:3])}")
+        elif not aud2["finalized"]:
+            violations.append("the journal carries no finalize record "
+                              "after a converged run")
+        try:
+            tt = _io.load_memmap(os.path.join(dest, "tensor.bin"))
+            if tt.nnz != good:
+                violations.append(f"finalized tensor holds {tt.nnz} nnz, "
+                                  f"ground truth is {good}")
+        except (OSError, ValueError) as e:
+            violations.append(f"finalized tensor.bin unloadable: {e}")
+    except Exception as e:  # the harness itself must not crash the CLI
+        error = (f"{resilience.classify_failure(e).value}: "
+                 f"{resilience.failure_message(e)[:300]}")
+        violations.append(f"ingest-chaos harness error: {error}")
+    finally:
+        _stop(proc)
+        if not violations:
+            shutil.rmtree(tmp, ignore_errors=True)
+    verdict = "violated" if violations else "survived"
+    return IngestChaosResult(verdict=verdict, killed_mid_stream=killed,
+                             watermark_at_kill=watermark_at_kill,
+                             chunks=chunks, nnz=nnz,
+                             quarantined=quarantined, resumed=resumed,
+                             violations=violations, error=error,
+                             crash_windows=crash_windows)
+
+
+def format_ingest_report(res: IngestChaosResult) -> List[str]:
+    """Human-readable ingest-soak verdict lines for the CLI."""
+    lines = [f"ingest chaos: SIGKILL mid-stream "
+             f"{'landed' if res.killed_mid_stream else 'MISSED'} at "
+             f"watermark {res.watermark_at_kill}; resume "
+             f"{'replayed the journal' if res.resumed else 'MISSING'}",
+             f"  end-to-end: {res.chunks} chunk(s), {res.nnz} nnz, "
+             f"{res.quarantined} quarantined",
+             f"  crash windows exercised: "
+             f"{', '.join(res.crash_windows) or '(none)'}"]
+    for v in res.violations:
+        lines.append(f"INVARIANT VIOLATED: {v}")
+    lines.append(f"ingest chaos verdict: {res.verdict.upper()}")
     return lines

@@ -36,8 +36,13 @@ cmd_convert.c, cmd_reorder.c, cmd_stats.c).
     python -m splatt_tpu_torch.cli predict DIR --model JOB_ID
         [--coords I,J,K]... [--top-k K --mode M --fix MODE=INDEX...]
         [--id ID] [--tenant T] [--wait S]
-    python -m splatt_tpu_torch.cli chaos --fleet [--smoke] [--replicas N]
-        [--seed S] [--json] [-v] [--device cuda|cpu]
+    python -m splatt_tpu_torch.cli chaos [--schedule SPEC] [--smoke]
+        [-r RANK] [-i ITERS] [--deadline S] [--trace OUT_JSON]
+        [--serve | --ingest | --fleet [--replicas N]] [--seed S] [--json]
+        [-v] [--device cuda|cpu]
+    python -m splatt_tpu_torch.cli ingest SOURCE DEST
+        [--format auto|tns|csv|jsonl] [--chunk N] [--dims IxJxK]
+        [--quarantine-max N] [--quarantine-rate X] [--json]
 
 ``cpd`` prints the MTTKRP engine plan, one fit line per iteration and the
 resilience events of the run (engine demotions, transient retries, format,
@@ -128,11 +133,16 @@ builds) the kernels before it serves and exits non-zero when it cannot.
 ``status DIR`` and ``top DIR`` print the fleet dashboard from the spool
 alone (replicas and their leases, queue depths, tenants, running and
 recent jobs, adoptions, SLO verdicts; ``--metrics-out`` writes the merged
-fleet exposition).  ``chaos --fleet`` is the fleet soak (``chaos.py``):
-replica subprocesses on ``--device`` under multi-tenant load, one
-SIGKILLed mid-job, its jobs adopted; exit 0 when every invariant held.
-Its ``--serve`` and ``--ingest`` modes, and the plain soak, are ROADMAP
-queue A item 15.3 and exit 2.
+fleet exposition).  ``chaos`` runs the soaks of ``chaos.py`` and exits 0
+when every invariant held: plain, a seeded CPD on ``--device`` under a
+fault schedule (on the card ``chaos.CARD_SCHEDULE``); ``--serve``, a
+``serve`` daemon SIGKILLed mid-job and restarted; ``--ingest``, an
+``ingest`` run SIGKILLed mid-stream and resumed; ``--fleet``, replica
+subprocesses under multi-tenant load, one SIGKILLed mid-job, its jobs
+adopted.  ``--bench-gate`` waits for the port's benchmark and exits 2.
+``ingest`` streams a record file into DEST under the exactly-once chunk
+journal (``ingest.py``); a re-run resumes from the watermark.  An
+``ingest`` job on ``serve`` does the same and chains update jobs.
 
 ``check``, ``convert``, ``reorder`` and ``stats`` run on the host and
 write the JAX CLI's files and text: duplicates and empty slices (``--fix``
@@ -594,32 +604,103 @@ def cmd_status(args) -> int:
         return 0
 
 
-#: the soak modes that wait for ROADMAP queue A item 15.3
-CHAOS_TODO = ("the {} soak is not ported yet (ROADMAP queue A item 15.3); "
-              "chaos --fleet runs the fleet soak")
+#: what ``chaos --bench-gate`` answers: the gate drives a benchmark the
+#: port does not have yet
+BENCH_GATE_TODO = ("--bench-gate drives the benchmark of the port, which "
+                   "the port's first benchmark PR adds (ROADMAP); no gate "
+                   "ran")
 
 
 def cmd_chaos(args) -> int:
-    """``chaos --fleet``: the fleet's kill-and-failover soak
-    (≙ splatt_tpu/cli.py:263-283): exit 0 when every invariant held.  The
-    other soaks (``--serve``, ``--ingest`` and the plain guarded-ALS soak)
-    exit 2."""
+    """The chaos soaks (≙ splatt_tpu/cli.py:263-343): plain (a seeded CPD
+    on ``--device`` under a fault schedule), ``--serve``, ``--ingest`` and
+    ``--fleet``.  Exit 0 when the soak's invariant held."""
     from splatt_tpu_torch import chaos
 
-    if not args.fleet:
-        mode = ("serve" if args.serve else "ingest" if args.ingest
-                else "guarded-ALS")
-        print(f"splatt-chaos: {CHAOS_TODO.format(mode)}", file=sys.stderr)
+    if args.bench_gate:
+        print(f"splatt-chaos: {BENCH_GATE_TODO}", file=sys.stderr)
         return 2
-    res = chaos.run_fleet_chaos(seed=args.seed, smoke=args.smoke,
-                                replicas=args.replicas,
-                                verbose=args.verbose > 0,
-                                device=args.device)
-    for line in chaos.format_fleet_report(res):
+    if args.fleet:
+        res = chaos.run_fleet_chaos(seed=args.seed, smoke=args.smoke,
+                                    replicas=args.replicas,
+                                    verbose=args.verbose > 0,
+                                    device=args.device)
+        lines = chaos.format_fleet_report(res)
+    elif args.serve:
+        res = chaos.run_serve_chaos(seed=args.seed, smoke=args.smoke,
+                                    verbose=args.verbose > 0,
+                                    device=args.device)
+        lines = chaos.format_serve_report(res)
+    elif args.ingest:
+        # host code: the ingest soak takes no device
+        res = chaos.run_ingest_chaos(seed=args.seed, smoke=args.smoke,
+                                     verbose=args.verbose > 0)
+        lines = chaos.format_ingest_report(res)
+    else:
+        # the schedule resolves in run_chaos (--schedule, else
+        # $SPLATT_CHAOS_SCHEDULE, else the device's default)
+        res = chaos.run_chaos(schedule=args.schedule, seed=args.seed,
+                              rank=args.rank, iters=args.iters,
+                              deadline_s=args.deadline, smoke=args.smoke,
+                              verbose=args.verbose > 0,
+                              trace_path=args.trace, device=args.device)
+        lines = chaos.format_report(res)
+    for line in lines:
         print(line)
     if args.json:
         print(json.dumps(res.to_json()))
     return 0 if res.ok else 1
+
+
+def cmd_ingest(args) -> int:
+    """``ingest``: stream a record file (.tns / CSV / JSONL) into a COO
+    tensor under the exactly-once chunk journal (≙ splatt_tpu/cli.py:
+    345-395).  Re-running the same SOURCE into the same DEST resumes from
+    the journal watermark.  Exit 0 on a finalized run, 1 when the
+    quarantine budget degraded it or nothing could be committed, 2 on a
+    bad ``--dims``.  Host code: it takes no device."""
+    from splatt_tpu_torch import ingest, resilience
+
+    dims = None
+    if args.dims:
+        try:
+            dims = tuple(int(d) for d in args.dims.lower().split("x"))
+        except ValueError:
+            print(f"splatt ingest: bad --dims {args.dims!r} (want IxJxK)",
+                  flush=True)
+            return 2
+    try:
+        summary = ingest.ingest_stream(
+            args.source, args.dest, fmt=args.format,
+            chunk_records=args.chunk, dims=dims,
+            quarantine_max=args.quarantine_max,
+            quarantine_rate=args.quarantine_rate)
+    except (OSError, ValueError) as e:
+        cls = resilience.classify_failure(e)
+        print(f"splatt ingest: FAILED ({cls.value}): "
+              f"{resilience.failure_message(e)[:200]}", flush=True)
+        if args.json:
+            print(json.dumps({"status": "failed",
+                              "failure_class": cls.value,
+                              "error": str(e)[:200]}))
+        return 1
+    verb = "resumed and " if summary["resumed"] else ""
+    print(f"splatt ingest: {verb}{summary['status']} — "
+          f"{summary['chunks']} chunk(s), {summary['nnz']} nnz from "
+          f"{summary['records']} record(s) "
+          f"({summary['quarantined']} quarantined) at "
+          f"{summary['records_per_sec']} rec/s")
+    if summary.get("tensor"):
+        print(f"splatt ingest: tensor at {summary['tensor']} "
+              f"(dims {'x'.join(str(d) for d in summary['dims'])})")
+    lines = resilience.run_report().summary()
+    if lines:
+        print("Resilience events:")
+        for line in lines:
+            print(line)
+    if args.json:
+        print(json.dumps(summary))
+    return 0 if summary["status"] == "converged" else 1
 
 
 def cmd_predict(args) -> int:
@@ -1034,34 +1115,95 @@ def build_parser() -> argparse.ArgumentParser:
         c.set_defaults(func=cmd_status, watch=watching)
 
     c = sub.add_parser(
-        "chaos", help="the fleet's kill-and-failover soak",
-        epilog="--fleet starts N serve --fleet replica subprocesses over "
-               "one spool on --device, files multi-tenant load, SIGKILLs "
-               "the replica running a pinned job, restarts a "
-               "replacement, and checks that no accepted job is lost, the "
-               "journal's lineage is single-owner, adoptions are counted "
-               "in the metrics, traces and flight rings, and status "
-               "agrees with the journal.  Exit 0 iff every invariant "
-               "held.  --serve, --ingest and the plain soak are ROADMAP "
-               "queue A item 15.3 and exit 2.")
+        "chaos", help="chaos soaks: the guarded CPD, serve, ingest, fleet",
+        epilog="Plain: a small seeded CPD on --device under a fault "
+               "schedule (the SPLATT_FAULTS grammar plus iter=k / "
+               "p=x:seed=N / after=t), checked to converge or degrade "
+               "gracefully with nothing escaping and every fired fault "
+               "leaving its run-report evidence; on the card the default "
+               "schedule arms kernel engines and the comm drill must "
+               "raise.  --serve SIGKILLs a serve daemon mid-job and "
+               "restarts it; --ingest SIGKILLs an ingest run mid-stream "
+               "and audits the resumed journal; --fleet starts N serve "
+               "--fleet replicas over one spool, SIGKILLs the one running "
+               "a pinned job and audits the failover.  Exit 0 iff every "
+               "invariant held.  --bench-gate exits 2: the port's "
+               "benchmark does not exist yet.")
     c.add_argument("-v", "--verbose", action="count", default=0)
+    c.add_argument("--schedule", metavar="SPEC",
+                   help="fault schedule (default: $SPLATT_CHAOS_SCHEDULE, "
+                        "else the device's default recipe)")
+    c.add_argument("--smoke", action="store_true",
+                   help="the small, seconds-scale soak")
+    c.add_argument("--bench-gate", action="store_true",
+                   help="the bench regression gate: waits for the port's "
+                        "benchmark (exits 2)")
     c.add_argument("--fleet", action="store_true",
                    help="soak a serve fleet")
     c.add_argument("--serve", action="store_true",
-                   help="the serve-daemon soak: not ported yet (exits 2)")
+                   help="soak the serve daemon: SIGKILL it mid-job, "
+                        "restart, no accepted job lost")
     c.add_argument("--ingest", action="store_true",
-                   help="the ingest soak: not ported yet (exits 2)")
-    c.add_argument("--smoke", action="store_true",
-                   help="the small, seconds-scale soak (2 replicas)")
+                   help="soak streaming ingest: SIGKILL it mid-stream, "
+                        "resume, audit the chunk journal")
     c.add_argument("--replicas", type=int, default=None, metavar="N",
                    help="fleet soak: replica count (default 2 with "
                         "--smoke, else 3)")
     c.add_argument("--seed", type=int, default=0)
+    c.add_argument("-r", "--rank", type=int, default=4)
+    c.add_argument("-i", "--iters", type=int, default=8)
+    c.add_argument("--deadline", type=float, default=0.5, metavar="S",
+                   help="watchdog budget of the plain soak (seconds; the "
+                        "slow fault kind blows it on purpose)")
+    c.add_argument("--trace", metavar="OUT_JSON",
+                   help="plain soak: record spans, export them to "
+                        "OUT_JSON, and check that every fired fault's "
+                        "evidence is a point event on the trace")
     c.add_argument("--json", action="store_true",
                    help="also print the full result as JSON")
     c.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
-                   help="where the replicas run their jobs")
+                   help="where the soak's CPDs and daemons run (the "
+                        "ingest soak is host code)")
     c.set_defaults(func=cmd_chaos)
+
+    c = sub.add_parser(
+        "ingest", help="stream a raw record file into a COO tensor",
+        epilog="Chunked, crash-resumable ingest: SOURCE is cut into chunks "
+               "of --chunk records; each chunk parses (malformed records "
+               "quarantined to DEST/quarantine.jsonl with classified "
+               "events), vocab-maps string keys, publishes its segment "
+               "atomically and journals last, so a SIGKILL at any point "
+               "resumes from DEST/journal.jsonl with no record lost or "
+               "duplicated.  A finalized run writes DEST/tensor.bin in the "
+               "binary layout (cpd DEST/tensor.bin --mmap ...).")
+    c.add_argument("source", help="record stream: .tns text, CSV, or JSONL "
+                                  "arrays [i0, ..., val]")
+    c.add_argument("dest", help="ingest state directory (journal, seg/, "
+                                "vocab/, quarantine sidecar, tensor.bin)")
+    c.add_argument("--format", choices=["auto", "tns", "csv", "jsonl"],
+                   default="auto",
+                   help="record format (default: by file extension)")
+    c.add_argument("--chunk", type=_positive_int, metavar="N",
+                   help="records per chunk commit (default: "
+                        "$SPLATT_INGEST_CHUNK; a resume must match the "
+                        "journal's value)")
+    c.add_argument("--dims", metavar="IxJxK",
+                   help="declared mode sizes: out-of-range indices "
+                        "quarantine as bad_index instead of growing the "
+                        "tensor")
+    c.add_argument("--quarantine-max", type=int, dest="quarantine_max",
+                   metavar="N",
+                   help="bad-record budget (default: "
+                        "$SPLATT_INGEST_QUARANTINE_MAX); past it the run "
+                        "degrades classified")
+    c.add_argument("--quarantine-rate", type=float, dest="quarantine_rate",
+                   metavar="X",
+                   help="largest quarantined/parsed ratio (default: "
+                        "$SPLATT_INGEST_QUARANTINE_RATE)")
+    c.add_argument("--json", action="store_true",
+                   help="also print the run summary as JSON")
+    c.add_argument("-v", "--verbose", action="count", default=0)
+    c.set_defaults(func=cmd_ingest)
 
     c = sub.add_parser(
         "predict", help="query a served model: reconstruct entries / top-k",

@@ -322,6 +322,38 @@ class RunReport:
                 lines.append(f"  trace export {e.get('path')} degraded "
                              f"({e.get('failure_class')}: "
                              f"{str(e.get('error', ''))[:80]})")
+        quarantined = self.events("record_quarantined")
+        if quarantined:
+            by_cls: Dict[str, int] = {}
+            for e in quarantined:
+                k = e.get("quarantine_class", "?")
+                by_cls[k] = by_cls.get(k, 0) + 1
+            first = quarantined[0]
+            lines.append(f"  ingest quarantined {len(quarantined)} "
+                         f"record(s): " + ", ".join(
+                             f"{k}x{v}" for k, v in sorted(by_cls.items()))
+                         + f" (first at line {first.get('line')}, "
+                         f"offset {first.get('offset')})")
+        advanced = self.events("watermark_advanced")
+        if advanced:
+            last = advanced[-1]
+            lines.append(f"  ingest committed {len(advanced)} chunk(s) "
+                         f"this run (watermark {last.get('chunk')}, total "
+                         f"nnz {last.get('total_nnz')})")
+        for e in self.events("ingest_resumed"):
+            lines.append(f"  ingest RESUMED from watermark "
+                         f"{e.get('watermark')} ({e.get('chunks')} "
+                         f"committed chunk(s) replayed from the journal, "
+                         f"offset {e.get('offset')})")
+        for e in self.events("ingest_degraded"):
+            lines.append(f"  INGEST DEGRADED: quarantine budget tripped at "
+                         f"watermark {e.get('watermark')} "
+                         f"({e.get('quarantined')} quarantined; "
+                         f"{str(e.get('error', ''))[:80]})")
+        for e in self.events("vocab_stats"):
+            lines.append(f"  ingest vocab: modes [{e.get('vocab_modes')}] "
+                         f"vocab-mapped, cardinalities "
+                         f"{e.get('cardinalities')}")
         return lines
 
 
@@ -529,6 +561,28 @@ RUN_REPORT_EVENTS = {
     "cuda_context_lost": "a serve job met a sticky CUDA error: the daemon "
                          "drains, and every job on the card is journaled "
                          "interrupted for a fresh process to resume",
+    "record_quarantined": "streaming ingest quarantined one malformed "
+                          "record to the sidecar (ingest.py parse_chunk): "
+                          "the chunk ordinal, source line, byte offset "
+                          "and class (bad_arity, bad_token, bad_index or "
+                          "nonfinite_value)",
+    "watermark_advanced": "one ingest chunk passed its journal-append "
+                          "fence (ingest.py IngestState.advance, after the "
+                          "durable append): the chunk ordinal, its nnz, "
+                          "records and quarantined counts and the resume "
+                          "byte offset",
+    "ingest_resumed": "an ingest run opened against a non-empty chunk "
+                      "journal and resumed from its watermark (ingest.py "
+                      "IngestState._replay): the watermark, the skipped "
+                      "chunks and the resume offset",
+    "ingest_degraded": "the quarantine budget tripped (count over "
+                       "SPLATT_INGEST_QUARANTINE_MAX or rate over "
+                       "SPLATT_INGEST_QUARANTINE_RATE) and the run stopped "
+                       "classified with its committed watermark intact "
+                       "(ingest.py ingest_stream)",
+    "vocab_stats": "ingest finalize's vocabulary report (ingest.py "
+                   "IngestState.finalize): which modes are vocab-mapped "
+                   "and each mode's final cardinality",
 }
 
 

@@ -1,6 +1,6 @@
 """``serve``: a crash-resumable multi-tenant decomposition daemon, alone
-or as one replica of a fleet (≙ splatt_tpu/serve.py without its ingest
-half).
+or as one replica of a fleet, with streaming-ingest jobs that feed a
+served model (≙ splatt_tpu/serve.py).
 
 Many concurrent jobs share one card without one tenant's failures
 poisoning its neighbours:
@@ -86,9 +86,15 @@ Fleet mode
     and an adopter rebuilds the layouts and resumes from the checkpoint,
     never from what the victim held on the card.
 
-Not here: ``ingest`` jobs are ROADMAP queue A item 15.3 and are rejected
-at the door.  A spec's ``use_pallas`` has no counterpart on a GPU: it is
-accepted and has no effect.
+Streaming ingest
+    An ``ingest`` job streams a record file into ``<root>/ingest/<id>/``
+    under ingest.py's exactly-once chunk journal and, when it names a
+    ``base`` model, submits one ``update`` job per watermark interval
+    against it (``_run_ingest``).  The updates run on the daemon's card
+    like any other update.
+
+A spec's ``use_pallas`` has no counterpart on a GPU: it is accepted and
+has no effect.
 
 A job spec is a JSON object::
 
@@ -107,6 +113,10 @@ A job spec is a JSON object::
     {"id": "p1", "kind": "predict", "model": "j1",
      "coords": [[0, 1, 2]], "top_k": {"mode": 0, "k": 5,
                                       "fixed": {"1": 3, "2": 4}}}
+
+    {"id": "in1", "kind": "ingest", "source": "/path/to/stream.tns",
+     "base": "j1", "dims": [40, 32, 24], "update_every": 2,
+     "chunk_records": 5000, "format": "auto"}
 """
 
 from __future__ import annotations
@@ -119,10 +129,6 @@ import threading
 import time
 import uuid
 from typing import Callable, Dict, List, Optional
-
-#: the reason an ingest job is rejected with
-INGEST_TODO = ("invalid: ingest jobs are not ported yet (ROADMAP queue A "
-               "item 15.3)")
 
 # journal record kinds (the `rec` field of each JSONL line)
 #: in-memory-only reservation state while the accept append fsyncs
@@ -161,7 +167,7 @@ AFFINITY_DEFER_MAX = 3
 #: the card, so a flooded queue coalesces in bounded bites
 BATCH_MAX = 32
 
-#: job kinds a spec may declare; "ingest" is known and rejected
+#: job kinds a spec may declare
 JOB_KINDS = ("cpd", "update", "predict", "ingest")
 
 
@@ -544,7 +550,7 @@ class Server:
         The submitter hears "accepted" only after the journal append
         succeeded: a submission the journal cannot record is rejected.
         An unknown ``kind`` or ``priority``, a spec missing its workload,
-        a bad fault schedule or an ``ingest`` job is invalid; a tenant at
+        or a bad fault schedule is invalid; a tenant at
         its quota is shed (``quota_rejected``), and a full queue
         load-sheds (``queue_full``).  Re-submitting a known id is
         idempotent, except after a rejection."""
@@ -567,8 +573,6 @@ class Server:
             if kind not in JOB_KINDS:
                 reason = (f"invalid: unknown kind {kind!r} (want one "
                           f"of {sorted(JOB_KINDS)})")
-            elif kind == "ingest":
-                reason = INGEST_TODO
             elif kind == "update" and not spec.get("base"):
                 reason = "invalid: update job needs 'base': <job id>"
             elif kind == "update" and not (spec.get("delta")
@@ -587,6 +591,15 @@ class Server:
                 reason = ("invalid: predict job needs 'coords': "
                           "[[i0, i1, ...], ...] and/or 'top_k': "
                           "{fixed, mode, k}")
+            elif kind == "ingest" and not spec.get("source"):
+                reason = ("invalid: ingest job needs 'source': "
+                          "<record stream path>")
+            elif kind == "ingest" and spec.get("base") \
+                    and not spec.get("dims"):
+                reason = ("invalid: ingest job chaining updates "
+                          "against 'base' needs 'dims' (the base "
+                          "model's mode sizes — deltas must not grow "
+                          "past the checkpointed factors)")
             elif prio is not None and str(prio) not in PRIORITIES:
                 reason = (f"invalid: unknown priority {prio!r} (want "
                           f"one of {sorted(PRIORITIES)})")
@@ -1749,6 +1762,7 @@ class Server:
                         faults.maybe_fail("serve.job_run")
                         update_info = None
                         predict_rec = None
+                        ingest_rec = None
                         model_gen = None
                         tune_info = None
                         job_kind = str(spec.get("kind") or "cpd")
@@ -1757,6 +1771,10 @@ class Server:
                                 jid, spec, _stop_or_deadline)
                         elif job_kind == "predict":
                             predict_rec = self._run_predict(jid, spec)
+                            out = None
+                        elif job_kind == "ingest":
+                            ingest_rec = self._run_ingest(
+                                jid, spec, _stop_or_deadline)
                             out = None
                         else:
                             out, tune_info, model_gen = self._run_cpd(
@@ -1772,16 +1790,22 @@ class Server:
                                 f"serve.job_run after {deadline_s:g}s "
                                 f"(cooperative job-deadline stop)")
                         if not (stopped["drain"] or stopped["lease"]) \
-                                and predict_rec is None:
+                                and predict_rec is None \
+                                and ingest_rec is None:
                             # nothing is committed from a read a sticky
-                            # error could have followed (a predict reads
-                            # the host only)
+                            # error could have followed (a predict and an
+                            # ingest touch the host only)
                             self._device_fence()
                 if stopped["drain"] or stopped["lease"]:
                     return None, stopped
                 if predict_rec is not None:
                     # "served"/"refused" is its own status class
                     record.update(predict_rec)
+                elif ingest_rec is not None:
+                    # "converged" on a finalized stream, "degraded" when
+                    # the quarantine budget tripped: committed chunks
+                    # survive either way
+                    record.update(ingest_rec)
                 else:
                     degraded = bool(sc.report.events("health_degraded"))
                     if degraded:
@@ -2089,6 +2113,15 @@ class Server:
             if self._renew_fence(jid):
                 info["model_gen"] = int(advance_generation(
                     self.ckpt_dir, base, out.factors, out.lam))
+                if spec.get("ingest_committed_ts"):
+                    # an ingest-chained update: the source chunk's journal
+                    # commit to this model commit is the live feed's
+                    # freshness
+                    lag = max(time.time()
+                              - float(spec["ingest_committed_ts"]), 0.0)
+                    trace.metric_observe(
+                        "splatt_ingest_update_lag_seconds", lag)
+                    info["ingest_lag_s"] = round(lag, 3)
             parts["commit_s"] = time.perf_counter() - t
         with self._lock:
             self.timings[jid] = parts
@@ -2184,6 +2217,130 @@ class Server:
                     max(time.time() - float(t_accepted), 0.0))
             sp.set(status="served", gen=gen, cache=cache_outcome)
         return rec
+
+    # -- one streaming-ingest job --------------------------------------------
+
+    def _run_ingest(self, jid: str, spec: dict, stop) -> dict:
+        """The ``ingest`` job body (≙ splatt_tpu/serve.py:2298-2430):
+        stream ``spec['source']`` into ``<root>/ingest/<jid>/`` under the
+        exactly-once chunk journal (ingest.py) and, when the spec names a
+        ``base`` model, emit one ``update`` job per watermark interval
+        (``update_every`` / SPLATT_INGEST_UPDATE_EVERY committed chunks).
+        Each carries its chunk's journal-commit time, so the model commit
+        observes the update lag (``splatt_ingest_update_lag_seconds``).
+
+        Emission is durable in its own right: each interval lands in
+        ``deltas/updates.jsonl`` in fence order.  The delta file publishes
+        atomically under a range-keyed name (a published delta is never
+        overwritten), the intent is journaled, and only then is the job
+        submitted under the deterministic id ``<jid>-up-<lo>-<hi>``.  A
+        killed or lease-stopped ingest job re-runs whole: the chunk
+        journal's replay makes the chunks exactly-once, and the updates
+        journal's replay re-derives the chunk range already fed to
+        updates.  The re-run never re-spans those chunks, re-assembles a
+        journaled delta that went missing, and re-submits every journaled
+        intent (the job table dedups known ids), so the update chain
+        neither drops nor double-applies records across a crash.  The
+        updates run on this daemon's card, as any submitted update does."""
+        from splatt_tpu_torch import ingest as ingest_mod
+        from splatt_tpu_torch.io import _bin_header
+        from splatt_tpu_torch.utils.env import read_env_int
+
+        source = str(spec["source"])
+        dest = str(spec.get("dest")
+                   or os.path.join(self.root, "ingest", jid))
+        base = spec.get("base")
+        update_every = int(spec.get("update_every")
+                           or read_env_int("SPLATT_INGEST_UPDATE_EVERY"))
+        dims = (tuple(int(d) for d in spec["dims"])
+                if spec.get("dims") else None)
+        updates: list = []
+        ujournal = Journal(os.path.join(dest, "deltas", "updates.jsonl"))
+        covered = {"hi": -1}
+
+        def _submit_update(intent: dict) -> None:
+            res = self.submit({
+                "kind": "update", "base": str(base),
+                "delta_tensor": str(intent["delta"]),
+                "id": str(intent["id"]),
+                "tenant": spec.get("tenant"),
+                "ingest_committed_ts":
+                    float(intent.get("ingest_committed_ts") or 0.0)})
+            state = res.get("state") or ("queued" if res.get("job")
+                                         else REJECTED)
+            if res.get("job") and state != REJECTED:
+                if res["job"] not in updates:
+                    updates.append(res["job"])
+            else:
+                self._log(f"job {jid}: watermark update for chunks "
+                          f"[{intent['lo']}, {intent['hi']}] not accepted "
+                          f"({res}); the delta file and its journaled "
+                          f"intent remain for the next re-run to retry",
+                          error=True)
+
+        if base:
+            # re-run recovery from durable state, before any new interval
+            # fires: the journaled intents say which chunks earlier runs
+            # fed to updates, a missing delta re-assembles from the
+            # committed segments, and every intent re-submits (dedup by
+            # id)
+            intents, _torn = ujournal.replay()
+            for it in intents:
+                if it.get("rec") != "update_intent":
+                    continue
+                covered["hi"] = max(covered["hi"], int(it["hi"]))
+                if not int(it.get("nnz") or 0):
+                    continue
+                if not os.path.exists(str(it["delta"])):
+                    ingest_mod.assemble_delta(
+                        dest, int(it["lo"]), int(it["hi"]),
+                        tuple(it.get("dims") or dims), str(it["delta"]))
+                _submit_update(it)
+
+        def on_watermark(st, rec):
+            if not base:
+                return
+            n = int(rec["n"])
+            if n - covered["hi"] < max(update_every, 1):
+                return
+            lo = covered["hi"] + 1
+            dpath = os.path.join(dest, "deltas", f"up-{lo:08d}-{n:08d}.bin")
+            os.makedirs(os.path.dirname(dpath), exist_ok=True)
+            ddims = tuple(int(d) for d in (dims or st.final_dims()))
+            if os.path.exists(dpath):
+                # a crashed attempt already published this exact range
+                # (publish is atomic, so the file is whole): reuse it
+                nnz = int(_bin_header(dpath)[4])
+            else:
+                delta = ingest_mod.assemble_delta(dest, lo, n, ddims, dpath)
+                nnz = int(delta.nnz)
+            intent = {"rec": "update_intent", "lo": lo, "hi": n,
+                      "id": f"{jid}-up-{lo}-{n}", "delta": dpath,
+                      "nnz": nnz, "dims": [int(d) for d in ddims],
+                      "ingest_committed_ts": float(rec.get("ts") or 0.0)}
+            # the emission fence: the intent journals before the submit,
+            # so a crash in between re-submits by id on the next run
+            # instead of re-deriving an overlapping range; an append
+            # failure aborts the job rather than risk a double-applied
+            # interval
+            ujournal.append(intent)
+            covered["hi"] = n
+            if nnz:
+                _submit_update(intent)
+
+        summary = ingest_mod.ingest_stream(
+            source, dest, fmt=str(spec.get("format") or "auto"),
+            chunk_records=(int(spec["chunk_records"])
+                           if spec.get("chunk_records") else None),
+            dims=dims, stop=stop, on_watermark=on_watermark)
+        return {
+            "status": summary["status"],
+            "ingest": {k: summary[k] for k in
+                       ("dest", "format", "chunks", "watermark", "records",
+                        "nnz", "quarantined", "resumed", "stopped", "dims",
+                        "tensor", "records_per_sec", "error")},
+            "updates": updates,
+        }
 
     # -- plumbing ------------------------------------------------------------
 

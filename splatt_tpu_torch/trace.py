@@ -108,6 +108,12 @@ SPANS = {
     "serve.predict": "one generation-fenced predict job: the hot-cache "
                      "lookup (or the direct read) and the reconstruct or "
                      "top-k scan (attrs: job, model, gen, cache)",
+    "ingest.run": "one streaming-ingest run end to end: the resume-aware "
+                  "open through finalize (attrs: source, resumed, status, "
+                  "chunks, nnz)",
+    "ingest.chunk": "one exactly-once chunk commit: parse and quarantine "
+                    "through the journal-append watermark fence (attrs: "
+                    "n, nnz, quarantined)",
     "cpd.guard.health_pack": "numerical-health sentinel: building and "
                              "fetching the packed finite-check vector "
                              "(rides the fit-check sync)",
@@ -209,6 +215,22 @@ METRICS = {
     "splatt_predict_queue_depth": (
         "gauge", "serve: pending predicts in the bounded low-latency "
                  "lane"),
+    "splatt_ingest_records_total": (
+        "counter", "ingest: stream records by outcome (committed = landed "
+                   "under a journaled chunk, quarantined = malformed, "
+                   "appended to the sidecar with a record_quarantined "
+                   "event)"),
+    "splatt_ingest_chunks_total": (
+        "counter", "ingest: chunk commits by outcome (committed = journal "
+                   "fence appended this run, skipped = already journaled "
+                   "and replayed from the watermark on resume)"),
+    "splatt_ingest_watermark": (
+        "gauge", "ingest: highest contiguously committed chunk ordinal, "
+                 "the crash-resume point; -1 until the first commit"),
+    "splatt_ingest_update_lag_seconds": (
+        "histogram", "serve: seconds from a chunk's journal commit to the "
+                     "model-store commit of the update job it fed "
+                     "(serve.py _run_update on ingest-chained specs)"),
 }
 
 #: histogram bucket upper bounds (seconds); +Inf is implicit

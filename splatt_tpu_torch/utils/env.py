@@ -105,6 +105,10 @@ ENV_VARS = {
                                 "blown deadline classifies TIMEOUT and "
                                 "demotes per shape like an out-of-"
                                 "memory; <= 0 disables"),
+    "SPLATT_CHAOS_SCHEDULE": EnvVar("", "default fault schedule of the "
+                                    "`chaos` soak verb when no --schedule "
+                                    "flag is given; same grammar as "
+                                    "SPLATT_FAULTS"),
     "SPLATT_TRACE": EnvVar(None, "1/on/true/yes enables structured "
                            "span recording (trace.py): host-side spans "
                            "(cpd -> sweep -> guard, dispatch, comm) "
@@ -290,6 +294,34 @@ ENV_VARS = {
                                "proxies asserting that their owning lock "
                                "is held by the mutating thread; off by "
                                "default (no wrappers)"),
+    # -- streaming ingest (ingest.py) --
+    "SPLATT_INGEST_CHUNK": EnvVar(5000, "ingest.py: records per chunk "
+                                  "commit, the exactly-once watermark "
+                                  "grain; a resume must reuse the "
+                                  "journal's value or ingest refuses"),
+    "SPLATT_INGEST_INFLIGHT": EnvVar(4, "ingest.py: depth of the bounded "
+                                     "reader-to-committer queue (the "
+                                     "backpressure knob); the reader "
+                                     "blocks rather than buffering the "
+                                     "stream"),
+    "SPLATT_INGEST_QUARANTINE_MAX": EnvVar(1000, "ingest.py: quarantined-"
+                                           "record budget per run; past "
+                                           "it the run degrades classified "
+                                           "(ingest_degraded) instead of "
+                                           "shipping a corrupt tensor; 0 "
+                                           "disables the count half of "
+                                           "the budget"),
+    "SPLATT_INGEST_QUARANTINE_RATE": EnvVar(0.5, "ingest.py: the largest "
+                                            "quarantined/parsed ratio "
+                                            "(checked once >= 200 records "
+                                            "were seen) before the run "
+                                            "degrades classified; 0 "
+                                            "disables the rate half of "
+                                            "the budget"),
+    "SPLATT_INGEST_UPDATE_EVERY": EnvVar(1, "serve.py ingest jobs: emit "
+                                         "one update job per this many "
+                                         "committed chunks (the watermark "
+                                         "interval of the live feed)"),
 }
 
 

@@ -182,6 +182,22 @@ SITES = {
                         "fault aborts that commit classified: the stamp "
                         "never advances, so readers keep serving the "
                         "previous generation",
+    "ingest.read": "one chunk read from the raw record stream (ingest.py "
+                   "IngestState.read_chunks); a raised fault aborts the "
+                   "run classified with every committed chunk intact: a "
+                   "re-run resumes from the journal watermark and re-reads "
+                   "from the recorded byte offset, losing and duplicating "
+                   "nothing",
+    "ingest.vocab": "the vocab-delta publish of one chunk commit "
+                    "(ingest.py IngestState.publish_vocab); a raised fault "
+                    "aborts that chunk before its journal append, so the "
+                    "watermark never moves and the vocab never lands "
+                    "ahead of or behind the data",
+    "ingest.commit": "the journal-append watermark fence of one chunk "
+                     "commit (ingest.py IngestState.append_journal); a "
+                     "raised fault leaves published segment/vocab debris "
+                     "but no journal record, and the chunk re-commits "
+                     "bit-identically on resume",
 }
 
 

@@ -10,7 +10,9 @@ hits, a single-owner lineage, tenant isolation, the kill visible in the
 fleet aggregate and in the victim's flight ring, the predicts never
 stale and the shredded model refused.  Every wait inside the soak is
 bounded and every replica is stopped before its audit.  The CLI's other
-soak modes exit 2, naming ROADMAP queue A item 15.3.
+soak modes dispatch to their soaks (stubbed here; the soaks themselves
+are tested in ``tests/test_torch_chaos.py``), and ``--bench-gate`` exits
+2, naming the port's benchmark PR.
 """
 
 import pytest
@@ -39,35 +41,47 @@ def soak(tmp_path_factory):
         return chaos.run_fleet_chaos(smoke=True, device="cpu")
 
 
+def _evidence(res) -> str:
+    """What a failed check prints: every job's status, the soak's
+    violations, its adoptions, affinity and observability counts, so a
+    failure names its cause."""
+    return (f"jobs={dict(sorted(res.jobs.items()))} "
+            f"violations={res.violations} victim={res.victim} "
+            f"adopted={res.adopted} affinity={res.affinity} "
+            f"observability={res.observability} error={res.error}")
+
+
 def test_fleet_chaos_smoke_kill_and_failover(soak):
     res = soak
-    assert res.ok, res.violations
-    assert res.verdict == "survived" and res.spool is None
-    assert res.victim is not None        # the kill landed
-    assert "fleet-1-pin" in res.adopted  # and forced an adoption
+    why = _evidence(res)
+    assert res.ok, why
+    assert res.verdict == "survived" and res.spool is None, why
+    assert res.victim is not None, why        # the kill landed
+    assert "fleet-1-pin" in res.adopted, why  # and forced an adoption
     assert set(res.jobs) == {"fleet-0-warm", "fleet-1-pin",
                              "fleet-2-nan", "fleet-3-clean",
                              "fleet-4-base", "fleet-5-up",
                              "fleet-b0", "fleet-b1", "fleet-b2",
                              "fleet-p0", "fleet-p1", "fleet-p2",
-                             "fleet-p3"}
+                             "fleet-p3"}, why
     assert all(s in ("converged", "degraded")
-               for j, s in res.jobs.items() if not j.startswith("fleet-p"))
+               for j, s in res.jobs.items()
+               if not j.startswith("fleet-p")), why
     assert all(s in ("served", "refused")
-               for j, s in res.jobs.items() if j.startswith("fleet-p"))
-    assert res.observability["predicts_served"] >= 1
-    assert res.jobs["fleet-p3"] == "refused"
-    assert "batched_jobs" in res.observability
+               for j, s in res.jobs.items() if j.startswith("fleet-p")), why
+    assert res.observability["predicts_served"] >= 1, why
+    assert res.jobs["fleet-p3"] == "refused", why
+    assert "batched_jobs" in res.observability, why
     aff = res.affinity["fleet-1-pin"]
-    assert aff["cache_hits"] and not aff["measured"]
-    assert aff["adopted_from"] == res.victim
+    assert aff["cache_hits"] and not aff["measured"], why
+    assert aff["adopted_from"] == res.victim, why
     ob = res.observability
-    assert ob["adoptions"] >= 1 and ob["lease_expired"] >= 1
-    assert ob["slo_burns"] >= 1
-    assert ob["replicas_dead"] >= 1
-    assert ob["flight_events"] >= 1
+    assert ob["adoptions"] >= 1 and ob["lease_expired"] >= 1, why
+    assert ob["slo_burns"] >= 1, why
+    assert ob["replicas_dead"] >= 1, why
+    assert ob["flight_events"] >= 1, why
     rec = res.to_json()
-    assert rec["verdict"] == "survived" and not rec["violations"]
+    assert rec["verdict"] == "survived" and not rec["violations"], why
 
 
 def test_fleet_chaos_report_lines(soak):
@@ -99,7 +113,48 @@ def test_lineage_and_staleness_audits_catch_violations():
     assert chaos._fleet_lineage_violations(clean) == []
 
 
-@pytest.mark.parametrize("flag", [[], ["--serve"], ["--ingest"]])
-def test_the_other_soaks_exit_2_naming_the_roadmap(capsys, flag):
-    assert cli.main(["chaos", "--smoke", "--device", "cpu"] + flag) == 2
-    assert "15.3" in capsys.readouterr().err
+class _Stub:
+    """What a stubbed soak returns: an ok result the CLI can print."""
+
+    ok = True
+
+    def to_json(self):
+        return {"verdict": "stub"}
+
+
+@pytest.mark.parametrize("flag,soak,report", [
+    ([], "run_chaos", "format_report"),
+    (["--serve"], "run_serve_chaos", "format_serve_report"),
+    (["--ingest"], "run_ingest_chaos", "format_ingest_report")])
+def test_the_other_soaks_exit_2_naming_the_roadmap(monkeypatch, capsys, flag,
+                                                   soak, report):
+    """Each mode of the chaos verb dispatches to its own soak, passing the
+    device to the soaks that take one (≙ tests/test_chaos.py:272)."""
+    calls = []
+
+    def stub(**kw):
+        calls.append(kw)
+        return _Stub()
+
+    for name in ("run_chaos", "run_serve_chaos", "run_ingest_chaos",
+                 "run_fleet_chaos"):
+        monkeypatch.setattr(chaos, name, stub if name == soak else None)
+    monkeypatch.setattr(chaos, report, lambda res: [f"{soak} report"])
+    args = cli.build_parser().parse_args(
+        ["chaos", "--smoke", "--device", "cpu"] + flag)
+    assert args.smoke and args.serve == (flag == ["--serve"])
+    assert args.ingest == (flag == ["--ingest"])
+    assert cli.main(["chaos", "--smoke", "--device", "cpu", "--json"]
+                    + flag) == 0
+    out = capsys.readouterr().out.splitlines()
+    assert out == [f"{soak} report", '{"verdict": "stub"}']
+    assert len(calls) == 1 and calls[0]["smoke"] is True
+    if soak != "run_ingest_chaos":
+        assert calls[0]["device"] == "cpu"
+
+
+def test_chaos_bench_gate_exits_2_naming_the_benchmark_pr(capsys):
+    assert cli.main(["chaos", "--smoke", "--bench-gate", "--device",
+                     "cpu"]) == 2
+    err = capsys.readouterr().err
+    assert "benchmark PR" in err and "no gate ran" in err

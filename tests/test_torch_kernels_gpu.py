@@ -1555,3 +1555,31 @@ def test_cuda_fleet_adoption_launches_the_kernels(monkeypatch, tmp_path):
     assert launches.get("fused_mttkrp_t", 0) > 0
     assert launches["fused_mttkrp_t"] == kernels.fused_mttkrp_t.launches
     assert launches.get("sym_eig", 0) == linalg.sym_eig.launches > 0
+
+
+@pytest.mark.gpu
+def test_cuda_chaos_card_schedule_demotes_to_a_kernel_and_the_drill_raises():
+    """The plain chaos soak on the card under its default schedule
+    (chaos.CARD_SCHEDULE): every armed site fires, the fused_t fault
+    demotes fused_t and the CPD goes on to launch fused_mttkrp_tg, and the
+    comm drill on 4 virtual ranks of the card raises the injected
+    failure, caught and recorded as the drill's evidence."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from splatt_tpu_torch import chaos, resilience
+    from splatt_tpu_torch.utils import faults
+
+    try:
+        res = chaos.run_chaos(smoke=True, device="cuda")
+    finally:
+        faults.reset()
+        resilience.reset_demotions()
+    assert res.ok, res.violations
+    assert res.schedule == chaos.CARD_SCHEDULE
+    assert all(res.fired.get(site) for site in faults.parse_schedule(
+        chaos.CARD_SCHEDULE)), res.fired
+    assert any(e["kind"] == "engine_demotion" and e.get("engine") == "fused_t"
+               for e in res.events)
+    assert res.launches.get("fused_mttkrp_tg", 0) > 0, res.launches
+    assert res.drill["raised"] and "injected" in res.drill["error"]
+    assert res.finite and res.verdict in ("converged", "degraded")

@@ -18,9 +18,11 @@
   the JAX package's state map, and the port runs the resumed jobs.
 - ``_merge_delta`` + ``_save_model_tensor`` give the JAX package's
   payload digest, and each package loads the other's model tensor.
-- ``kind: "ingest"`` and the ``chaos`` soaks other than ``--fleet``
-  refuse, naming ROADMAP queue A item 15.3; ``serve --fleet --once`` runs
-  (fleet mode itself is held against the JAX package in
+- ``kind: "ingest"`` runs, and a spec missing its source, or chaining a
+  base without dims, is rejected with the JAX package's reasons (the
+  ingest jobs are held against the JAX package in
+  ``tests/test_torch_ingest.py``); ``serve --fleet --once`` runs (fleet
+  mode itself is held against the JAX package in
   ``tests/test_torch_fleet.py``); a spec's ``use_pallas`` is accepted and
   has no effect.
 - ``serve --once`` and ``predict --wait`` run on ``--device cpu`` and
@@ -357,18 +359,39 @@ def test_port_replays_a_jax_journal(tmp_path):
     jre.shutdown()
 
 
-# -- what this slice leaves out ----------------------------------------------
+# -- ingest jobs and fleet mode ----------------------------------------------
 
-def test_fleet_and_ingest_refuse_naming_the_roadmap(tmp_path, capsys):
-    """Ingest jobs and the non-fleet soaks are item 15.3; fleet mode
-    runs (test_serve_fleet_once_runs_a_job)."""
-    srv = serve.Server(str(tmp_path), device="cpu")
-    rep = srv.submit({"id": "ing", "kind": "ingest", "source": "x.csv"})
-    assert rep["state"] == serve.REJECTED and "15.3" in rep["reason"]
-    assert serve.read_result(str(tmp_path), "ing")["status"] == "rejected"
-    for flag in ([], ["--serve"], ["--ingest"]):
-        assert cli.main(["chaos", "--smoke", "--device", "cpu"] + flag) == 2
-        assert "15.3" in capsys.readouterr().err
+def test_fleet_and_ingest_refuse_naming_the_roadmap(tmp_path):
+    """An ingest job runs; an ingest spec without a source, or with a base
+    but no dims, is rejected with the JAX package's reasons (fleet mode:
+    test_serve_fleet_once_runs_a_job)."""
+    src = str(tmp_path / "s.tns")
+    with open(src, "w") as f:
+        f.write("0 1 2 1.5\n1 0 2 2.5\nbad\n2 2 1 0.5\n")
+    reasons = {}
+    for mod in (serve, jserve):
+        root = str(tmp_path / mod.__name__)
+        srv = _server(mod, root, workers=1)
+        rep = srv.submit({"id": "ing", "kind": "ingest", "source": src,
+                          "chunk_records": 2})
+        assert rep["state"] == mod.ACCEPTED
+        srv.run_once()
+        res = mod.read_result(root, "ing")
+        assert res["status"] == "converged"
+        assert {k: res["ingest"][k] for k in ("chunks", "records", "nnz",
+                                              "quarantined", "dims")} == {
+            "chunks": 2, "records": 4, "nnz": 3, "quarantined": 1,
+            "dims": [3, 3, 3]}
+        bad = [srv.submit({"id": "nosrc", "kind": "ingest"}),
+               srv.submit({"id": "nodims", "kind": "ingest",
+                           "source": src, "base": "m"})]
+        assert [r["state"] for r in bad] == [mod.REJECTED] * 2
+        reasons[mod.__name__] = [r["reason"] for r in bad]
+        assert mod.read_result(root, "nosrc")["status"] == "rejected"
+        srv.shutdown()
+    assert reasons["splatt_tpu_torch.serve"] == reasons["splatt_tpu.serve"]
+    assert "needs 'source'" in reasons["splatt_tpu.serve"][0]
+    assert "needs 'dims'" in reasons["splatt_tpu.serve"][1]
 
 
 def test_serve_fleet_once_runs_a_job(tmp_path, capsys):
